@@ -1,0 +1,35 @@
+"""Weight carry-over from numpy arrays (for example the JAX package's).
+
+The port keeps the JAX package's layouts (NHWC activations, HWIO conv
+weights, ``(C,)`` per-channel vectors), so carrying weights over is a dtype
+and device move, with shape checks.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(params: Mapping[str, np.ndarray],
+                      device: torch.device | str,
+                      *, like: Mapping[str, torch.Tensor] | None = None,
+                      dtype: torch.dtype = torch.float32
+                      ) -> dict[str, torch.Tensor]:
+    """``params`` as contiguous ``dtype`` tensors on ``device``.
+
+    With ``like`` (for example the port's own parameters of the same
+    network), the key sets must be equal and every shape must match."""
+    if like is not None and set(params) != set(like):
+        raise ValueError(f"parameter names differ: only in params "
+                         f"{sorted(set(params) - set(like))}, only in like "
+                         f"{sorted(set(like) - set(params))}")
+    out: dict[str, torch.Tensor] = {}
+    for name, value in params.items():
+        arr = np.asarray(value)
+        if like is not None and tuple(arr.shape) != tuple(like[name].shape):
+            raise ValueError(f"{name!r}: shape {tuple(arr.shape)} != "
+                             f"{tuple(like[name].shape)}")
+        out[name] = torch.tensor(arr, dtype=dtype, device=device)
+    return out

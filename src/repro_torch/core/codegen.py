@@ -1,0 +1,118 @@
+"""Code Generator — paper compile-phase step 5.
+
+Turns a :class:`~repro_torch.core.collapse.CollapsePlan` into an executor.
+Sequences run serially, communicating through materialised boundary values
+(paper §4.2); within a sequence the configured mode decides the schedule:
+
+* ``brainslug`` — the hand-written depth-first kernels (one launch per
+  sequence; see :mod:`repro_torch.kernels.fused_stack.ops`);
+* ``xla``       — the eager interpreter;
+* ``barrier``   — per-op materialisation (the paper's framework baseline).
+
+Executors are cached on the program's structural signature, plan shapes and
+tile geometry (the paper generates code once per equivalent stack).  The
+cache is LRU-bounded (``OptimizeConfig.code_cache_size``); ``clear_cache()``
+resets the dispatch counters alongside.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Mapping
+
+import torch
+
+from repro_torch.core import collapse as collapse_mod
+from repro_torch.kernels.fused_stack import ops as fused_ops
+
+Executor = Callable[[Mapping[str, torch.Tensor], Mapping[str, torch.Tensor]],
+                    dict[str, torch.Tensor]]
+
+#: LRU over compiled executors.
+_CODE_CACHE: "OrderedDict[tuple, Executor]" = OrderedDict()
+_CACHE_LIMIT = 256
+_LIMIT_PINNED = False          # an explicit set_cache_limit() wins over
+#                                per-config floors until the next one
+
+
+def set_cache_limit(n: int) -> None:
+    """Bound both executor caches (this module's and the fused executable
+    cache behind it) to ``n`` entries.  An explicit call pins the limit:
+    later config-driven sizing will not undo it."""
+    global _CACHE_LIMIT, _LIMIT_PINNED
+    if n < 1:
+        raise ValueError(f"cache limit must be >= 1, got {n}")
+    _CACHE_LIMIT = n
+    _LIMIT_PINNED = True
+    while len(_CODE_CACHE) > _CACHE_LIMIT:
+        _CODE_CACHE.popitem(last=False)
+    fused_ops.set_cache_limit(n)
+
+
+def _raise_cache_limit_to(n: int) -> None:
+    """Config-driven sizing only ever raises the process-wide bound (a
+    smaller config must not evict another live net's executors) and never
+    overrides a pinned limit."""
+    global _CACHE_LIMIT
+    if _LIMIT_PINNED or n <= _CACHE_LIMIT:
+        return
+    _CACHE_LIMIT = n
+    fused_ops.set_cache_limit(n)
+
+
+def _cache_get(key: tuple):
+    hit = _CODE_CACHE.get(key)
+    if hit is not None:
+        _CODE_CACHE.move_to_end(key)
+    return hit
+
+
+def _cache_put(key: tuple, value) -> None:
+    _CODE_CACHE[key] = value
+    _CODE_CACHE.move_to_end(key)
+    while len(_CODE_CACHE) > _CACHE_LIMIT:
+        _CODE_CACHE.popitem(last=False)
+
+
+def compile_plan(plan: collapse_mod.CollapsePlan, *, mode: str = "xla",
+                 cache_size: int | None = None) -> Executor:
+    """Compile a collapse plan into ``executor(inputs, params) -> outputs``."""
+    if cache_size is not None:
+        _raise_cache_limit_to(cache_size)
+    key = (plan.program.signature(), mode, plan.input_shapes,
+           tuple((s.tile_rows, s.tile_out_h, s.tile_out_w)
+                 for s in plan.sequences))
+    cached = _cache_get(key)
+    if cached is not None:
+        return cached
+
+    subprograms = [plan.subprogram(i) for i in range(len(plan.sequences))]
+    if mode == "brainslug":
+        # Generate once: one executable per sequence, shared by equivalent
+        # sequences across stacks.
+        for sub, seq in zip(subprograms, plan.sequences):
+            fused_ops.get_executable(
+                sub, tile_rows=seq.tile_rows or 256,
+                tile_out_h=seq.tile_out_h or 8,
+                tile_out_w=seq.tile_out_w or 8)
+
+    def run_body(inputs: Mapping[str, torch.Tensor],
+                 params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        env = dict(inputs)
+        for sub, seq in zip(subprograms, plan.sequences):
+            out = fused_ops.fused_stack_apply(
+                sub, {k: env[k] for k in sub.inputs}, params, mode=mode,
+                tile_rows=seq.tile_rows or 256,
+                tile_out_h=seq.tile_out_h or 8,
+                tile_out_w=seq.tile_out_w or 8)
+            env.update(out)
+        return {v: env[v] for v in plan.program.outputs}
+
+    _cache_put(key, run_body)
+    return run_body
+
+
+def clear_cache() -> None:
+    """Drop every compiled executor and zero the dispatch counters."""
+    _CODE_CACHE.clear()
+    fused_ops.clear_executable_cache()
+    fused_ops.STATS.reset()

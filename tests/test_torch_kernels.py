@@ -1,0 +1,685 @@
+"""The port's fused-stack kernel modules against the JAX package's Pallas
+kernels (run in interpret mode), on the CPU.
+
+* nhwc geometry (``_plan_levels``/``plan_geometry``) equals the JAX
+  kernel's for strided, padded and multi-pool chains;
+* the plain versions (what a CPU tensor runs) agree with
+  ``fused_nhwc_call``/``fused_rows_call`` at 1e-5;
+* the CUDA kernel's algorithm is held to the same reference through
+  ``_run_descriptor``, a line-by-line transliteration of
+  ``csrc/fused_nhwc.cu`` over the descriptor the wrapper builds;
+* the generated Triton source parses, names the expected ops, and, run
+  against ``_fake_triton`` (numpy standing in for ``triton.language``),
+  computes what the JAX kernel computes.
+
+The kernels themselves run only on the card (``chip_smoke.py``)."""
+from __future__ import annotations
+
+import ast
+import math
+import sys
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ir as jir
+from repro.kernels.fused_stack import nhwc as jnhwc
+from repro.kernels.fused_stack import rows as jrows
+from repro.layers import stacks as jstacks
+from repro_torch.core import ir as tir
+from repro_torch.kernels.fused_stack import nhwc as tnhwc
+from repro_torch.kernels.fused_stack import ops as tops
+from repro_torch.kernels.fused_stack import rows as trows
+from repro_torch.layers import stacks as tstacks
+
+TOL = 1e-5
+
+
+def _randn(rng, shape, scale=1.0):
+    return np.asarray(scale * rng.standard_normal(shape), np.float32)
+
+
+def _pool(m, name, vin, vout, fn="max", window=(3, 3), stride=(1, 1),
+          padding=(1, 1)):
+    return m.OpNode(m.OpKind.POOL2D, name, (vin,), vout, fn=fn,
+                    attrs={"window": window, "stride": stride,
+                           "padding": padding})
+
+
+# ---------------------------------------------------------------------------
+# nhwc cases: (make(ir_module) -> program, input shape, tile, extras shapes)
+# ---------------------------------------------------------------------------
+
+def _block_chain(m, n=3, **pool):
+    ops, v = [], "x"
+    for i in range(n):
+        ops += [_pool(m, f"p{i}", v, f"pp{i}", **pool),
+                m.OpNode(m.OpKind.AFFINE, f"bn{i}", (f"pp{i}",), f"b{i}",
+                         params=(f"s{i}", f"o{i}")),
+                m.OpNode(m.OpKind.EW_UNARY, f"r{i}", (f"b{i}",), f"v{i}",
+                         fn="relu")]
+        v = f"v{i}"
+    return m.StackProgram(name="chain", inputs=("x",), outputs=(v,),
+                          ops=tuple(ops), layout="nhwc")
+
+
+def _avg_pad(m):
+    return m.StackProgram(name="avg", inputs=("x",), outputs=("y",),
+                          layout="nhwc", ops=(_pool(m, "p", "x", "y", "avg"),))
+
+
+def _strided(m):
+    return m.StackProgram(name="strided", inputs=("x",), outputs=("y",),
+                          layout="nhwc", ops=(
+        _pool(m, "p0", "x", "a", "max", (3, 3), (2, 2), (1, 1)),
+        m.OpNode(m.OpKind.EW_UNARY, "t", ("a",), "b", fn="tanh"),
+        _pool(m, "p1", "b", "y", "avg", (2, 2), (2, 2), (0, 0))))
+
+
+def _extra(m):
+    return m.StackProgram(name="extra", inputs=("x", "cb"), outputs=("y",),
+                          layout="nhwc", ops=(
+        m.OpNode(m.OpKind.EW_BINARY, "add", ("x", "cb"), "a", fn="add"),
+        m.OpNode(m.OpKind.EW_BINARY, "mul", ("cb", "a"), "b", fn="mul"),
+        _pool(m, "p", "b", "y", "max", (2, 2), (2, 2), (0, 0))))
+
+
+_ALL_UNARY = ("tanh", "sigmoid", "relu", "relu6", "squared_relu", "gelu",
+              "gelu_exact", "silu", "exp", "abs", "square", "identity",
+              "neg", "softplus")
+
+
+def _all_unary(m):
+    ops, v = [], "x"
+    for i, fn in enumerate(_ALL_UNARY):
+        ops.append(m.OpNode(m.OpKind.EW_UNARY, f"u{i}", (v,), f"u{i}", fn=fn))
+        v = f"u{i}"
+    ops.append(_pool(m, "p", v, "y", "max", (3, 3), (2, 2), (1, 1)))
+    return m.StackProgram(name="unary", inputs=("x",), outputs=("y",),
+                          ops=tuple(ops), layout="nhwc")
+
+
+def _swish_twice(m):
+    """A value read twice within one level: mul(x, sigmoid(x)), and
+    binary ops between two slots."""
+    return m.StackProgram(name="swish", inputs=("x",), outputs=("y",),
+                          layout="nhwc", ops=(
+        m.OpNode(m.OpKind.EW_UNARY, "s", ("x",), "s", fn="sigmoid"),
+        m.OpNode(m.OpKind.EW_BINARY, "m", ("x", "s"), "a", fn="mul"),
+        m.OpNode(m.OpKind.EW_BINARY, "d", ("a", "s"), "b", fn="div"),
+        m.OpNode(m.OpKind.EW_BINARY, "mx", ("b", "x"), "c", fn="max"),
+        _pool(m, "p", "c", "y")))
+
+
+def _row_ops(m):
+    return m.StackProgram(name="rowops", inputs=("x",), outputs=("y",),
+                          layout="nhwc", ops=(
+        m.OpNode(m.OpKind.ROW_NORM, "ln", ("x",), "a", params=("g", "b"),
+                 attrs={"norm": "layer", "eps": 1e-5}),
+        _pool(m, "p", "a", "c", "max", (2, 2), (2, 2), (0, 0)),
+        m.OpNode(m.OpKind.ROW_NORM, "rms", ("c",), "d", params=("g",),
+                 attrs={"norm": "rms", "eps": 1e-6}),
+        m.OpNode(m.OpKind.ROW_SOFTMAX, "sm", ("d",), "y")))
+
+
+NHWC_CASES = {
+    # name: (make, x shape, tile, extras shapes)
+    "block3": (_block_chain, (2, 13, 11, 8), 4, {}),
+    "block2_wide_c": (lambda m: _block_chain(m, 2), (1, 10, 9, 48), 8, {}),
+    "avg_pad": (_avg_pad, (1, 5, 5, 8), 4, {}),
+    "strided": (_strided, (2, 17, 13, 4), 2, {}),
+    "extra": (_extra, (1, 9, 10, 8), 2, {"cb": (1, 1, 1, 8)}),
+    "all_unary": (_all_unary, (1, 9, 7, 4), 4, {}),
+    "swish": (_swish_twice, (2, 7, 6, 3), 4, {}),
+    "row_ops": (_row_ops, (1, 8, 10, 16), 2, {}),
+}
+
+
+def _nhwc_inputs(name):
+    make, shape, tile, extra_shapes = NHWC_CASES[name]
+    rng = np.random.default_rng(sorted(NHWC_CASES).index(name))
+    x = _randn(rng, shape, 2.0)
+    jprog = make(jir)
+    c = shape[-1]
+    params = {p: _randn(rng, (c,), 0.3) + (1.0 if p[0] in "sg" else 0.0)
+              for p in jprog.param_names}
+    extras = {k: _randn(rng, s) for k, s in extra_shapes.items()}
+    return make, x, params, extras, tile
+
+
+def _jax_kernel(make, x, params, extras, tile):
+    return np.asarray(jnhwc.fused_nhwc_call(
+        make(jir), jnp.asarray(x), {k: jnp.asarray(v) for k, v in params.items()},
+        extras={k: jnp.asarray(v) for k, v in extras.items()},
+        tile_out_h=tile, tile_out_w=tile, interpret=True))
+
+
+# -- the CUDA kernel, transliterated ----------------------------------------
+
+def _names(ids):
+    return {i: name for name, i in ids.items()}
+
+
+def _run_descriptor(program, x, params, extras, tile):
+    """``csrc/fused_nhwc.cu`` in Python, element for element, over the
+    descriptor :func:`repro_torch.kernels.fused_stack.nhwc.fused_nhwc`
+    would pass: load, element-wise runs, pools, row passes, guarded store."""
+    xt = torch.from_numpy(x)
+    names = list(program.inputs[1:]) + list(program.param_names)
+    vals = {**extras, **params}
+    vecs = [torch.from_numpy(vals[n]).reshape(-1) for n in names]
+    strides = tuple(int(v.numel() != 1) for v in vecs)
+    _, blob = tnhwc._template(program, x.shape,
+                              tuple(sorted((k, v.shape)
+                                           for k, v in extras.items())),
+                              strides, tile, tile)
+    d = tnhwc.NhwcDesc.from_buffer_copy(blob)
+    N, H, W, C = x.shape
+    cb = d.cb
+    out = torch.full((N, d.OH, d.OW, C), float("nan"))
+    unary_name = _names(tnhwc.UNARY_IDS)
+    binary_name = _names(tnhwc.BINARY_IDS)
+
+    def vec(idx, cg):
+        if d.vec_stride[idx] == 0:
+            return vecs[idx][0].expand(cg.shape)
+        return torch.where(cg < C, vecs[idx][cg.clamp(max=C - 1)], 0.0)
+
+    for n in range(N):
+        for ti in range(d.tiles_h):
+            for tj in range(d.tiles_w):
+                for cblk in range(d.n_cb):
+                    c0 = cblk * cb
+                    smem = torch.zeros(d.n_slots, d.slot_elems)
+
+                    def operand(src, idx, e, cg):
+                        return smem[idx, e] if src == tnhwc.SRC_SLOT else \
+                            vec(idx, cg)
+
+                    L = d.levels[0]
+                    gh = ti * d.th * L.mul_h - L.off_h
+                    gw = tj * d.tw * L.mul_w - L.off_w
+                    e = torch.arange(L.eh * L.ew * cb)
+                    c, p = e % cb, e // cb
+                    h, w, cg = gh + p // L.ew, gw + p % L.ew, c0 + c
+                    ok = (h >= 0) & (h < H) & (w >= 0) & (w < W) & (cg < C)
+                    smem[d.in_slot, e] = torch.where(ok, xt[
+                        n, h.clamp(0, H - 1), w.clamp(0, W - 1),
+                        cg.clamp(max=C - 1)], 0.0)
+                    level, k = 0, 0
+                    while k < d.n_ops:
+                        op = d.ops[k]
+                        L = d.levels[level]
+                        if op.kind == tnhwc.K_POOL:
+                            Lo = d.levels[level + 1]
+                            gh = ti * d.th * L.mul_h - L.off_h
+                            gw = tj * d.tw * L.mul_w - L.off_w
+                            e = torch.arange(Lo.eh * Lo.ew * cb)
+                            c, p = e % cb, e // cb
+                            oi, oj = p // Lo.ew, p % Lo.ew
+                            neutral = -np.finfo(np.float32).max \
+                                if op.fn == 0 else 0.0
+                            acc = None
+                            for di in range(op.kh):
+                                for dj in range(op.kw):
+                                    hi, wj = oi * op.sh + di, oj * op.sw + dj
+                                    ok = ((gh + hi >= 0) & (gh + hi < L.ih)
+                                          & (gw + wj >= 0) & (gw + wj < L.iw))
+                                    v = torch.where(
+                                        ok, smem[op.a_idx,
+                                                 (hi * L.ew + wj) * cb + c],
+                                        neutral)
+                                    acc = v if acc is None else (
+                                        torch.maximum(acc, v) if op.fn == 0
+                                        else acc + v)
+                            if op.fn == 1:
+                                acc = acc / float(op.kh * op.kw)
+                            smem[op.out, e] = acc
+                            level += 1
+                            k += 1
+                        elif op.kind in (tnhwc.K_NORM, tnhwc.K_SOFTMAX):
+                            n_pos = L.eh * L.ew
+                            xv = smem[op.a_idx, :n_pos * cb].view(n_pos, cb)
+                            if op.kind == tnhwc.K_SOFTMAX:
+                                y = torch.softmax(xv, dim=-1)
+                            else:
+                                mu = (xv.mean(-1, keepdim=True)
+                                      if op.norm == 1 else 0.0)
+                                var = torch.square(xv - mu).mean(-1,
+                                                                 keepdim=True)
+                                y = (xv - mu) * torch.rsqrt(var + op.eps)
+                                cc = torch.arange(cb)
+                                if op.b_idx >= 0:
+                                    y = y * vec(op.b_idx, cc)
+                                if op.c_idx >= 0:
+                                    y = y + vec(op.c_idx, cc)
+                            smem[op.out, :n_pos * cb] = y.reshape(-1)
+                            k += 1
+                        else:
+                            last = k
+                            while last < d.n_ops and \
+                                    d.ops[last].kind <= tnhwc.K_AFFINE:
+                                last += 1
+                            e = torch.arange(L.eh * L.ew * cb)
+                            cg = c0 + e % cb
+                            for q in range(k, last):
+                                o = d.ops[q]
+                                a = operand(o.a_src, o.a_idx, e, cg)
+                                if o.kind == tnhwc.K_UNARY:
+                                    r = tir.UNARY_FNS[unary_name[o.fn]](a)
+                                elif o.kind == tnhwc.K_BINARY:
+                                    r = tir.BINARY_FNS[binary_name[o.fn]](
+                                        a, operand(o.b_src, o.b_idx, e, cg))
+                                else:
+                                    r = a * vec(o.b_idx, cg) + vec(o.c_idx,
+                                                                   cg)
+                                smem[o.out, e] = r
+                            k = last
+                    e = torch.arange(d.th * d.tw * cb)
+                    c, p = e % cb, e // cb
+                    oh, ow = ti * d.th + p // d.tw, tj * d.tw + p % d.tw
+                    cg = c0 + c
+                    ok = (oh < d.OH) & (ow < d.OW) & (cg < C)
+                    out[n, oh[ok], ow[ok], cg[ok]] = smem[d.out_slot, e[ok]]
+    return out.numpy()
+
+
+@pytest.mark.parametrize("name", sorted(NHWC_CASES))
+def test_nhwc_kernel_paths_match_jax_kernel(name):
+    """Plain version and the descriptor transliteration of the CUDA kernel,
+    each against the Pallas kernel in interpret mode."""
+    make, x, params, extras, tile = _nhwc_inputs(name)
+    want = _jax_kernel(make, x, params, extras, tile)
+    tprog = make(tir)
+    plain = tnhwc.fused_nhwc(
+        tprog, torch.from_numpy(x),
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        extras={k: torch.from_numpy(v) for k, v in extras.items()},
+        tile_out_h=tile, tile_out_w=tile)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=TOL, atol=TOL)
+    kernel = _run_descriptor(tprog, x, params, extras, tile)
+    np.testing.assert_allclose(kernel, want, rtol=TOL, atol=TOL)
+
+
+def test_nhwc_channel_blocking_splits_wide_chains():
+    make, x, params, extras, tile = _nhwc_inputs("block2_wide_c")
+    _, blob = tnhwc._template(make(tir), x.shape, (), (1,) * 4, tile, tile)
+    d = tnhwc.NhwcDesc.from_buffer_copy(blob)
+    assert d.cb == 32 and d.n_cb == 2         # 48 channels: 32 + a tail
+    assert d.n_slots * d.slot_elems * 4 <= tnhwc.SMEM_TARGET
+    _, blob = tnhwc._template(_row_ops(tir), (1, 8, 10, 16), (), (1, 1), 2, 2)
+    assert tnhwc.NhwcDesc.from_buffer_copy(blob).cb == 16   # rows need all C
+
+
+def test_nhwc_masks_garbage_halo_to_neutral():
+    """An affine of the zero-filled halo divides by zero (inf / NaN); the
+    pool's select must keep it out of the result."""
+    def make(m):
+        return m.StackProgram(name="g", inputs=("x",), outputs=("y",),
+                              layout="nhwc", ops=(
+            m.OpNode(m.OpKind.EW_BINARY, "d", ("x",), "a", fn="div",
+                     params=("z",)),
+            m.OpNode(m.OpKind.EW_UNARY, "l", ("a",), "b", fn="exp"),
+            _pool(m, "p", "b", "y", "max", (3, 3), (1, 1), (1, 1))))
+
+    rng = np.random.default_rng(7)
+    x = np.abs(_randn(rng, (1, 6, 5, 4))) + 1.0
+    params = {"z": np.array([1.0, 2.0, 4.0, 8.0], np.float32)}
+    want = _jax_kernel(make, x, params, {}, 4)
+    got = _run_descriptor(make(tir), x, params, {}, 4)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("name", ["block3", "strided", "extra", "row_ops"])
+@pytest.mark.parametrize("tile", [1, 3, 8])
+def test_nhwc_geometry_matches_jax(name, tile):
+    make, shape, _, extra_shapes = NHWC_CASES[name]
+    xj = jnp.zeros(shape, jnp.float32)
+    ej = {k: jnp.zeros(s) for k, s in extra_shapes.items()}
+    levels, grid, _, left, out_hw, pad, thw = jnhwc.plan_geometry(
+        make(jir), xj, ej, tile, tile)
+    geo = tnhwc.plan_geometry(make(tir), shape, extra_shapes, tile, tile)
+    assert [tuple(vars(lv).values()) for lv in levels] == [
+        tuple(vars(lv).values()) for lv in geo.levels]
+    assert (grid, out_hw, pad, thw) == (geo.grid, geo.out_hw, geo.grid_pad,
+                                        geo.tile)
+    assert left == (geo.levels[0].off_h, geo.levels[0].off_w)
+    jl = jnhwc._plan_levels(make(jir).ops, 2, 3, [(9, 9)] * (len(
+        make(jir).ops) + 1))
+    tl_ = tnhwc._plan_levels(make(tir).ops, 2, 3, [(9, 9)] * (len(
+        make(tir).ops) + 1))
+    assert [vars(a) for a in jl] == [vars(b) for b in tl_]
+
+
+def test_tile_valid_matches_jax():
+    lv = tnhwc._Level(5, 6, 4, 4, 1, 1, 1, 1)
+    jlv = jnhwc._Level(5, 6, 4, 4, 1, 1, 1, 1)
+    for origin in ((-1, -1), (0, 2), (2, -3)):
+        np.testing.assert_array_equal(
+            tnhwc.tile_valid((5, 6), origin, lv).numpy(),
+            np.asarray(jnhwc.tile_valid((5, 6), origin, jlv)))
+    assert tnhwc.pool_neutral(torch.float32, "max") == float(
+        np.finfo(np.float32).min)
+
+
+def test_descriptor_limits_raise_named_errors():
+    long = tir.StackProgram(name="long", inputs=("x",), outputs=("v32",),
+                            layout="nhwc", ops=tuple(
+        tir.OpNode(tir.OpKind.EW_UNARY, f"u{i}",
+                   ("x" if i == 0 else f"v{i}",), f"v{i + 1}", fn="relu")
+        for i in range(32)))
+    tnhwc.compile_chain(long)                         # exactly MAX_OPS
+    longer = tir.StackProgram(name="longer", inputs=("x",), outputs=("v33",),
+                              layout="nhwc", ops=long.ops + (tir.OpNode(
+                                  tir.OpKind.EW_UNARY, "u32", ("v32",),
+                                  "v33", fn="relu"),))
+    with pytest.raises(tnhwc.DescriptorError, match="MAX_OPS"):
+        tnhwc.compile_chain(longer)
+    cross = tir.StackProgram(name="cross", inputs=("x",), outputs=("y",),
+                             layout="nhwc", ops=(
+        _pool(tir, "p", "x", "a"),
+        tir.OpNode(tir.OpKind.EW_BINARY, "add", ("a", "x"), "y", fn="add")))
+    with pytest.raises(tnhwc.DescriptorError, match="level"):
+        tnhwc.compile_chain(cross)
+
+
+def test_descriptor_reuses_slots():
+    chain = tnhwc.compile_chain(_block_chain(tir, 6))
+    assert chain.n_slots == 2 and chain.n_pools == 6 and not chain.rowred
+    assert tnhwc.compile_chain(_swish_twice(tir)).n_slots == 3
+
+
+# ---------------------------------------------------------------------------
+# rows
+# ---------------------------------------------------------------------------
+
+def _rows_all_fns(m):
+    ops, v = [], "x"
+    for i, fn in enumerate(_ALL_UNARY):
+        ops.append(m.OpNode(m.OpKind.EW_UNARY, f"u{i}", (v,), f"u{i}", fn=fn))
+        v = f"u{i}"
+    for i, fn in enumerate(("add", "sub", "mul", "div", "max", "min")):
+        ops.append(m.OpNode(m.OpKind.EW_BINARY, f"b{i}", (v, "z"), f"b{i}",
+                            fn=fn))
+        v = f"b{i}"
+    ops.append(m.OpNode(m.OpKind.EW_BINARY, "bp", (v,), "bp", fn="mul",
+                        params=("k",)))
+    ops.append(m.OpNode(m.OpKind.AFFINE, "aff", ("bp",), "y",
+                        params=("s", "o")))
+    return m.StackProgram(name="allfns", inputs=("x", "z"),
+                          outputs=("y", "u4"), ops=tuple(ops))
+
+
+def _rows_norms(m):
+    return m.StackProgram(name="norms", inputs=("x",), outputs=("y", "l"),
+                          ops=(
+        m.OpNode(m.OpKind.ROW_NORM, "l", ("x",), "l", params=("s", "o"),
+                 attrs={"norm": "layer", "eps": 1e-5}),
+        m.OpNode(m.OpKind.ROW_NORM, "r", ("l",), "r",
+                 attrs={"norm": "rms", "eps": 1e-6}),
+        m.OpNode(m.OpKind.ROW_SOFTMAX, "sm", ("r",), "y")))
+
+
+def _rows_scalar(m):
+    """Width-1 operands: a (rows, 1) input and a scalar parameter."""
+    return m.StackProgram(name="scalar", inputs=("x", "g"), outputs=("y",),
+                          ops=(
+        m.OpNode(m.OpKind.EW_BINARY, "m", ("x", "g"), "a", fn="mul"),
+        m.OpNode(m.OpKind.EW_BINARY, "t", ("a",), "y", fn="add",
+                 params=("t",))))
+
+
+ROWS_CASES = {
+    # name: (make, {input: shape}, {param: shape}, tile_rows)
+    "addnorm_rms": (lambda m: (jstacks if m is jir else tstacks)
+                    .addnorm_program("rms", 1e-6, False),
+                    {"x": (3, 7, 40), "res": (3, 7, 40)}, {"scale": (40,)}, 8),
+    "addnorm_layer_bias": (lambda m: (jstacks if m is jir else tstacks)
+                           .addnorm_program("layer", 1e-5, True),
+                           {"x": (13, 96), "res": (13, 96)},
+                           {"scale": (96,), "bias": (96,)}, 4),
+    "glu_silu": (lambda m: (jstacks if m is jir else tstacks)
+                 .glu_program("silu"), {"gate": (2, 5, 72), "up": (2, 5, 72)},
+                 {}, 8),
+    "all_fns": (_rows_all_fns, {"x": (9, 24), "z": (9, 24)},
+                {"k": (24,), "s": (24,), "o": (24,)}, 8),
+    "norms_softmax": (_rows_norms, {"x": (11, 33)},
+                      {"s": (33,), "o": (33,)}, 8),
+    "scalar": (_rows_scalar, {"x": (6, 16), "g": (6, 1)}, {"t": ()}, 4),
+}
+
+
+def _rows_inputs(name):
+    make, in_shapes, p_shapes, tile = ROWS_CASES[name]
+    rng = np.random.default_rng(50 + sorted(ROWS_CASES).index(name))
+    inputs = {k: _randn(rng, s, 1.5) for k, s in in_shapes.items()}
+    if "z" in inputs:            # divisor away from zero
+        inputs["z"] = np.where(np.abs(inputs["z"]) < 0.5, 1.0,
+                               inputs["z"]).astype(np.float32)
+    params = {k: _randn(rng, s) for k, s in p_shapes.items()}
+    return make, inputs, params, tile
+
+
+def _jax_rows(make, inputs, params, tile):
+    out = jrows.fused_rows_call(
+        make(jir), {k: jnp.asarray(v) for k, v in inputs.items()},
+        {k: jnp.asarray(v) for k, v in params.items()}, tile_rows=tile,
+        interpret=True)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+class _Ptr:
+    """A pointer of the fake Triton: an array and an offset."""
+
+    def __init__(self, buf, off=0):
+        self.buf, self.off = buf, off
+
+    def __add__(self, off):
+        return _Ptr(self.buf, self.off + off)
+
+
+def _fake_triton():
+    """numpy in the place of ``triton`` / ``triton.language``: enough of
+    the language for the generated kernels, with Triton's semantics
+    (masked loads return ``other``, masked stores are dropped, block
+    broadcasting, NaN-propagating max/min on request)."""
+    tl = types.ModuleType("triton.language")
+    tl.constexpr = object
+    tl.int64 = np.int64
+    tl.PropagateNan = types.SimpleNamespace(ALL="all", NONE="none")
+    state = {"pid": 0}
+    tl.program_id = lambda axis: state["pid"]
+    tl.arange = lambda a, b: np.arange(a, b)
+
+    def load(ptr, mask=None, other=0.0):
+        off = np.asarray(ptr.off)
+        if mask is None:
+            return np.float32(ptr.buf[off])
+        mask = np.broadcast_to(mask, np.broadcast_shapes(off.shape,
+                                                         np.shape(mask)))
+        off = np.broadcast_to(off, mask.shape)
+        safe = np.where(mask, off, 0)
+        return np.where(mask, ptr.buf[safe], np.float32(other)).astype(
+            np.float32)
+
+    def store(ptr, val, mask=None):
+        off = np.asarray(ptr.off)
+        val = np.broadcast_to(np.asarray(val, np.float32), off.shape)
+        mask = np.broadcast_to(mask, off.shape)
+        ptr.buf[off[mask]] = val[mask]
+
+    def nanmax(a, b, propagate_nan="none"):
+        return (np.maximum if propagate_nan == "all" else np.fmax)(a, b)
+
+    def nanmin(a, b, propagate_nan="none"):
+        return (np.minimum if propagate_nan == "all" else np.fmin)(a, b)
+
+    tl.load, tl.store = load, store
+    tl.maximum, tl.minimum = nanmax, nanmin
+    tl.where = lambda c, a, b: np.where(c, a, b).astype(np.float32)
+    tl.sum = lambda x, axis: np.sum(x, axis=axis, dtype=np.float32)
+    tl.max = lambda x, axis: np.max(x, axis=axis)
+    tl.exp = lambda x: np.exp(x).astype(np.float32)
+    tl.abs = np.abs
+    tl.sigmoid = lambda x: (1.0 / (1.0 + np.exp(-x))).astype(np.float32)
+
+    def div_rn(a, b):
+        with np.errstate(divide="ignore", invalid="ignore"):  # masked lanes
+            return np.float32(a) / np.float32(b)
+
+    tl.div_rn = div_rn
+    libdevice = types.ModuleType("triton.language.extra.libdevice")
+    libdevice.tanh = np.tanh
+    libdevice.erf = lambda x: torch.erf(torch.from_numpy(
+        np.asarray(x, np.float32))).numpy()
+    libdevice.log1p = np.log1p
+    libdevice.rsqrt = lambda x: (1.0 / np.sqrt(x)).astype(np.float32)
+    extra = types.ModuleType("triton.language.extra")
+    extra.libdevice = libdevice
+    tl.extra = extra
+    triton = types.ModuleType("triton")
+    triton.jit = lambda fn: fn
+    triton.language = tl
+    modules = {"triton": triton, "triton.language": tl,
+               "triton.language.extra": extra,
+               "triton.language.extra.libdevice": libdevice}
+    return modules, state
+
+
+def _np_int64(x):
+    return np.asarray(x).astype(np.int64)
+
+
+def _run_generated(program, inputs, params, tile, monkeypatch):
+    """Execute :func:`rows.emit_source` for ``program`` on the fake Triton,
+    program id by program id, as ``rows.fused_rows`` would launch it."""
+    modules, state = _fake_triton()
+    for k, v in modules.items():
+        monkeypatch.setitem(sys.modules, k, v)
+    arrays = [inputs[n] for n in program.inputs]
+    lead = arrays[0].shape[:-1]
+    rows = math.prod(lead)
+    in_w = {n: a.shape[-1] for n, a in zip(program.inputs, arrays)}
+    p_w = {p: int(np.asarray(params[p]).size) for p in program.param_names}
+    feat = max(list(in_w.values()) + list(p_w.values()))
+    src = trows.emit_source(program, in_w, p_w, feat)
+    # numpy arrays have no .to(); the generated code casts with it
+    src = src.replace("rows.to(tl.int64)", "_np_int64(rows)")
+    ns = {"_np_int64": _np_int64}
+    exec(compile(src, "<generated>", "exec"), ns)
+    widths = trows.value_widths(program, in_w, p_w)
+    outs = [np.full(rows * widths[v], np.nan, np.float32)
+            for v in program.outputs]
+    block_f, r_sub, _ = trows.launch_config(feat, tile)
+    args = ([_Ptr(a.reshape(-1)) for a in arrays]
+            + [_Ptr(np.asarray(params[p], np.float32).reshape(-1))
+               for p in program.param_names]
+            + [_Ptr(o) for o in outs])
+    for pid in range(-(-rows // tile)):
+        state["pid"] = pid
+        ns["fused_rows_kernel"](*args, rows, F=feat, TILE_R=tile, R_SUB=r_sub,
+                                BLOCK_F=block_f)
+    return {v: o.reshape(*lead, widths[v])
+            for v, o in zip(program.outputs, outs)}
+
+
+@pytest.mark.parametrize("name", sorted(ROWS_CASES))
+def test_rows_paths_match_jax_kernel(name, monkeypatch):
+    """Plain version and the generated Triton source (on the fake Triton),
+    each against the Pallas kernel in interpret mode."""
+    make, inputs, params, tile = _rows_inputs(name)
+    want = _jax_rows(make, inputs, params, tile)
+    tprog = make(tir)
+    plain = trows.fused_rows(
+        tprog, {k: torch.from_numpy(v) for k, v in inputs.items()},
+        {k: torch.from_numpy(v) for k, v in params.items()}, tile_rows=tile)
+    gen = _run_generated(tprog, inputs, params, tile, monkeypatch)
+    # the numpy stand-in sums rows in another order than XLA: 1e-4
+    # relative on the norms and softmax, as chip_smoke.py holds the kernel
+    tol = 1e-4 if "norm" in name or "softmax" in name else TOL
+    for k in want:
+        np.testing.assert_allclose(plain[k].numpy(), want[k], rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(gen[k], want[k], rtol=tol, atol=TOL)
+
+
+@pytest.mark.parametrize("name", sorted(ROWS_CASES))
+def test_rows_emitter_source(name):
+    """The generated source parses, defines the kernel, and carries one
+    statement block per op naming it."""
+    make, inputs, params, _ = _rows_inputs(name)
+    prog = make(tir)
+    in_w = {k: v.shape[-1] for k, v in inputs.items()}
+    p_w = {k: int(np.asarray(v).size) for k, v in params.items()}
+    src = trows.emit_source(prog, in_w, p_w, max(in_w.values()))
+    tree = ast.parse(src)
+    fn, = [n for n in tree.body if isinstance(n, ast.FunctionDef)]
+    assert fn.name == "fused_rows_kernel"
+    for op in prog.ops:
+        assert f"# {op.name}: {op.kind.value}" in src
+    assert src.count("tl.store(") == len(prog.outputs)
+    assert src.count("tl.load(in") == len(prog.inputs)
+
+
+def test_rows_emitter_masks_lanes_for_reductions():
+    src = trows.emit_source(_rows_norms(tir), {"x": 33}, {"s": 33, "o": 33},
+                            33)
+    assert "tl.where(cmask, v0, 0.0)" in src                    # sum over F
+    assert "tl.where(cmask, v0 - v1_m, 0.0)" in src             # re-zeroed
+    assert "-float('inf')" in src                               # softmax max
+    assert "/ 33.0" in src                                      # real F
+
+
+@pytest.mark.parametrize("features,tile,want", [
+    (4096, 4, (4096, 2, 16)), (11008, 1, (16384, 1, 16)),
+    (64, 256, (64, 128, 16)), (40, 8, (64, 8, 4))])
+def test_rows_launch_config(features, tile, want):
+    assert trows.launch_config(features, tile) == want
+
+
+def test_dispatch_on_cpu_records_reference():
+    prog = tstacks.glu_program("silu")
+    g = torch.randn(4, 8, generator=torch.Generator().manual_seed(0))
+    before = tops.STATS.snapshot()
+    out = tops.fused_stack_apply(prog, {"gate": g, "up": g}, {},
+                                 mode="brainslug")
+    delta = tops.STATS.delta(before)
+    assert delta["fwd_reference"] == 1 and delta["fwd_generated"] == 0
+    torch.testing.assert_close(out["y"], torch.nn.functional.silu(g) * g)
+    assert tops.is_broadcast_operand(torch.zeros(1, 1, 1, 4))
+    assert not tops.is_broadcast_operand(torch.zeros(1, 2, 1, 4))
+    assert not tops.is_broadcast_operand(torch.zeros(()))
+
+
+@pytest.mark.parametrize("graph,shape", [
+    ("block_net8", (8, 56, 56, 32)),
+    ("vgg16", (2, 224, 224, 3)),
+])
+def test_descriptor_builds_for_main_path_stacks(graph, shape):
+    """Every stack the main paths hand the kernel fits its descriptor."""
+    from repro_torch.core import analyzer, collapse, resource
+    from repro_torch.models import cnn
+    g, _ = (cnn.block_net(8, channels=32, device="cpu") if graph == "block_net8"
+            else cnn.vgg_net((64, 128, 256, 512, 512), device="cpu"))
+    x_shape = shape
+    for seg in analyzer.analyze(g, keep=frozenset({g.output})):
+        if not seg.is_stack:
+            if seg.op.kind == tir.OpKind.CONV2D:
+                x_shape = x_shape[:3] + (seg.op.attrs["kernel_shape"][-1],)
+            continue
+        plan = collapse.collapse(seg.stack, {seg.stack.inputs[0]: x_shape},
+                                 resource.H100)
+        for i, seq in enumerate(plan.sequences):
+            sub = plan.subprogram(i)
+            _, blob = tnhwc._template(sub, x_shape, (), (1,) * len(
+                sub.param_names), seq.tile_out_h, seq.tile_out_w)
+            d = tnhwc.NhwcDesc.from_buffer_copy(blob)
+            assert d.n_levels == 1 + sum(op.kind == tir.OpKind.POOL2D
+                                         for op in sub.ops)
+            assert d.n_slots * d.slot_elems * 4 <= tnhwc.SMEM_TARGET
+        x_shape = tir.infer_shapes(seg.stack, {seg.stack.inputs[0]: x_shape})[
+            seg.stack.outputs[0]]
