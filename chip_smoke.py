@@ -21,7 +21,20 @@ Phases, one line each (plus tables):
    beside the plain version, a library call where one computes the same
    function, and the bound; a traced forward per mode gives the device
    time by kernel group and the idle share;
-6. the ``kernels`` JSON line, the card line, and the ``ok`` line last.
+6. the forward kernels' agreement;
+7. the nhwc backward CUDA kernel against its plain version
+   (``autodiff.program_vjp`` on whole tensors): phase 2's cases, VGG-16's
+   five stages at batch 32 and ``block_net(8, 32)`` at (32, 56, 56, 32),
+   with their training tiles; two runs must give equal bits;
+8. the rows backward Triton kernel against its plain version at
+   deepseek-7b widths, the same way;
+9. the training paths: three SGD steps through ``optimize_graph`` of the
+   VGG-16 widths and through ``optimize_stack`` of the LM row chains, with
+   ``differentiable=True``, ``brainslug`` against ``barrier`` (gradients
+   and losses); dispatch and launch counters per step;
+10. per-backward-kernel times (as phase 5), the training step in turns per
+   mode, and a traced step per mode;
+then the ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
 when any phase fails.
@@ -46,6 +59,17 @@ NHWC_TOL = dict(atol=1e-5, rtol=1e-5)
 ROWS_TOL = dict(atol=1e-5, rtol=1e-5)
 ROWS_NORM_TOL = dict(atol=1e-5, rtol=1e-4)
 PATH_TOL = dict(atol=1e-4, rtol=1e-4)
+# Backward kernels against their plain versions.  An input cotangent holds
+# element by element; a parameter or broadcast-extra gradient is a sum over
+# every position (1.6 M for VGG stage 1) taken in another order, so its atol
+# is BWD_TOL's rtol times its largest entry (the training check's rule).
+BWD_TOL = dict(atol=1e-5, rtol=1e-4)
+BLOCK_INPUT = (32, 56, 56, 32)                  # block_net(8, 32)
+# Training: step-1 gradients within rtol 1e-4 and atol 1e-4 * max|g| per
+# parameter; losses within 1e-4 relative.
+TRAIN_RTOL = 1e-4
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-3
 
 
 class PhaseError(RuntimeError):
@@ -75,7 +99,9 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.dev = torch.device("cuda")
-        self.err = {"fused_nhwc": 0.0, "fused_rows": 0.0}
+        self.err = {"fused_nhwc": 0.0, "fused_rows": 0.0,
+                    "fused_nhwc_bwd": 0.0, "fused_rows_bwd": 0.0}
+        self.vgg_stages: list = []      # (stack, input) of phase 5
         self.kernels: dict[str, dict] = {}
 
     # -- helpers ------------------------------------------------------------
@@ -130,9 +156,13 @@ class Smoke:
         self.phase3_rows()
         self.phase4_paths()
         self.phase5_timing()
+        self.phase7_nhwc_bwd()
+        self.phase8_rows_bwd()
+        self.phase9_train()
+        self.phase10_bwd_timing()
         print(f"[total] {time.perf_counter() - t0:.1f} s")
-        print(json.dumps({"kernels": [self.kernels[k] for k in
-                                      ("fused_nhwc", "fused_rows")]}))
+        print(json.dumps({"kernels": [self.kernels[k] for k in (
+            "fused_nhwc", "fused_rows", "fused_nhwc_bwd", "fused_rows_bwd")]}))
         print(self.smi)
         torch = self.torch
         print(json.dumps({"ok": True, "device": {
@@ -159,22 +189,25 @@ class Smoke:
 
     def phase1_build(self):
         from repro_torch.kernels import _build
-        from repro_torch.kernels.fused_stack import nhwc
+        from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd
         t = time.perf_counter()
-        procs = [(src, _build.start_build(src)) for src in (nhwc.SOURCE,)]
+        procs = [(src, _build.start_build(src))
+                 for src in (nhwc.SOURCE, nhwc_bwd.SOURCE)]
         try:
             libs = [_build.finish_build(src, p) for src, p in procs]
         except _build.BuildError as e:
             raise PhaseError(str(e)) from e
         nhwc._library()
+        nhwc_bwd._library()
         import triton
         print(f"[1 build] nvcc {', '.join(p.name for p in libs)} in "
               f"{time.perf_counter() - t:.1f} s; triton {triton.__version__} "
               f"compiles each rows signature at its first launch")
 
-    def phase2_nhwc(self):
+    def nhwc_cases(self):
+        """(name, program, input shape, tile, extra shapes or "block") of
+        phase 2, and the block_net parameters."""
         from repro_torch.core import analyzer, collapse, ir, resource
-        from repro_torch.kernels.fused_stack import nhwc, ref
         from repro_torch.models import cnn
         K = ir.OpKind
 
@@ -233,18 +266,27 @@ class Smoke:
         for i, seq in enumerate(plan.sequences):
             cases.append((f"block_net8_seq{i}", plan.subprogram(i),
                           (8, 56, 56, 32), seq.tile_out_h, "block"))
+        return cases, bparams
+
+    def nhwc_operands(self, program, shape, extra_shapes, bparams, k):
+        """Seeded ``(x, params, extras)`` of nhwc case ``k``."""
+        x = self.randn(shape, 100 + k, 2.0)
+        c = shape[-1]
+        if extra_shapes == "block":
+            return x, bparams, {}
+        params = {p: self.randn((c,), 200 + j, 0.3)
+                  + (1.0 if p == "s" else 0.0)
+                  for j, p in enumerate(program.param_names)}
+        extras = {e: self.randn(s, 300) for e, s in extra_shapes.items()}
+        return x, params, extras
+
+    def phase2_nhwc(self):
+        from repro_torch.kernels.fused_stack import nhwc, ref
+        cases, bparams = self.nhwc_cases()
         worst = 0.0
         for k, (name, program, shape, tile, extra_shapes) in enumerate(cases):
-            x = self.randn(shape, 100 + k, 2.0)
-            c = shape[-1]
-            if extra_shapes == "block":
-                params, extras = bparams, {}
-            else:
-                params = {p: self.randn((c,), 200 + j, 0.3)
-                          + (1.0 if p == "s" else 0.0)
-                          for j, p in enumerate(program.param_names)}
-                extras = {e: self.randn(s, 300) for e, s in
-                          extra_shapes.items()}
+            x, params, extras = self.nhwc_operands(program, shape,
+                                                   extra_shapes, bparams, k)
             got = nhwc.fused_nhwc(program, x, params, extras=extras,
                                   tile_out_h=tile, tile_out_w=tile)
             want = ref.fused_stack_ref(program, {program.inputs[0]: x,
@@ -281,6 +323,17 @@ class Smoke:
         softmax = ir.StackProgram(name="softmax", inputs=("x",),
                                   outputs=("y",), ops=(
             ir.OpNode(K.ROW_SOFTMAX, "sm", ("x",), "y"),))
+        # F-separable with width-1 operands, walked in F chunks by the
+        # backward, whose width-1 gradients sum over the chunks
+        scalar_chunks = ir.StackProgram(
+            name="scalar_chunks", inputs=("x", "r"), outputs=("y", "u"),
+            ops=(ir.OpNode(K.EW_BINARY, "k", ("x",), "a", fn="mul",
+                           params=("k",)),
+                 ir.OpNode(K.EW_BINARY, "t", ("r",), "u", fn="mul",
+                           params=("t",)),
+                 ir.OpNode(K.EW_BINARY, "b", ("a", "u"), "b", fn="add"),
+                 ir.OpNode(K.AFFINE, "aff", ("b",), "y",
+                           params=("s", "o"))))
         d, f = ROWS + (D_MODEL,), ROWS + (D_FF,)
         ragged = (ROWS[0] * ROWS[1] - 3, D_MODEL)
         vec = (D_MODEL,)
@@ -303,6 +356,8 @@ class Smoke:
              {"x": d, "res": d}, {"scale": vec}, ROWS_NORM_TOL),
             ("glu_silu", stacks.glu_program("silu"), {"gate": f, "up": f},
              {}, ROWS_TOL),
+            ("scalar_chunks", scalar_chunks, {"x": f, "r": ROWS + (1,)},
+             {"k": (), "t": (1,), "s": (D_FF,), "o": (D_FF,)}, ROWS_TOL),
         ]
 
     def rows_inputs(self, name, in_shapes, p_shapes, seed):
@@ -451,19 +506,32 @@ class Smoke:
             return self.cuda_ms(fn), "events"
         return sum(t1 - t0 for _, t0, t1 in spans) / reps / 1e3, "device"
 
-    def trace(self, fn) -> str:
+    def trace(self, fn, expect=None) -> str:
         """Device time of one call by kernel group, the share of the traced
         window in which no kernel ran, and the largest kernels outside the
-        named groups."""
+        named groups.  ``expect`` maps a kernel name fragment to the launches
+        one call makes; a trace that holds fewer is reported as incomplete
+        and its split is not given."""
         spans = self.device_spans(fn)
         if not spans:
             return "not measured (the profiler recorded no device events)"
+        for frag, n in (expect or {}).items():
+            seen = sum(frag in name for name, _, _ in spans)
+            if seen != n:
+                return (f"incomplete: the trace holds {seen} of the {n} "
+                        f"{frag} launches the call made ({len(spans)} "
+                        f"kernels); its split is not used")
         groups: dict[str, float] = {}
         other: dict[str, float] = {}
         for name, t0, t1 in spans:
             low = name.lower()
-            g = ("fused_nhwc" if "fused_nhwc" in low else "fused_rows"
-                 if "fused_rows" in low else "conv" if any(
+            g = ("fused_nhwc_bwd" if any(k in low for k in (
+                     "nhwc_bwd", "nhwc_overlap_add", "nhwc_reduce"))
+                 else "fused_nhwc" if "fused_nhwc" in low
+                 else "fused_rows_bwd" if any(k in low for k in (
+                     "fused_rows_bwd", "reduce_partials"))
+                 else "fused_rows" if "fused_rows" in low
+                 else "conv" if any(
                      k in low for k in ("conv", "cudnn", "xmma", "implicit",
                                         "fft", "_complex"))
                  else "gemm" if "gemm" in low else "other")
@@ -483,10 +551,13 @@ class Smoke:
                 f"window (idle {100 * (1 - busy / window):.1f}%); by kernel "
                 f"group: {parts}; {len(spans)} kernels; largest other: {top}")
 
-    def bound(self, program, in_bytes, out_bytes, out_elems, in_elems):
+    def bound(self, program, in_bytes, out_bytes, out_elems, in_elems,
+              op_factor=1):
         """Least time: bytes moved once over HBM, or the chain's float32
         operations over the float32 peak, whichever is larger (the H100
-        spec's SXM5 datasheet rates)."""
+        spec's SXM5 datasheet rates).  ``op_factor`` 3 counts a backward:
+        the recompute, and about twice the forward's operations for the
+        reverse sweep."""
         from repro_torch.core import ir
         from repro_torch.core.resource import H100
         ops = 0
@@ -501,7 +572,7 @@ class Smoke:
             else:
                 ops += in_elems
         t_bytes = (in_bytes + out_bytes) / H100.hbm_bandwidth * 1e3
-        t_ops = ops / H100.peak_flops_f32 * 1e3
+        t_ops = op_factor * ops / H100.peak_flops_f32 * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
 
@@ -516,6 +587,7 @@ class Smoke:
             return sum(t.numel() * t.element_size() for t in ts)
 
         graph, params = cnn.vgg_net(VGG16_STAGES, device=self.dev)
+        self.vgg_params = params
         x = self.randn(VGG_INPUT, 7)
         segments = analyzer.analyze(graph, keep=frozenset({graph.output}))
         env = {graph.input: x}
@@ -526,6 +598,7 @@ class Smoke:
                     env[seg.op.output] = ir.apply_op(seg.op, env, params)
                     continue
                 xs = env[seg.stack.inputs[0]]
+                self.vgg_stages.append((seg.stack, xs))
                 plan = collapse.collapse(seg.stack,
                                          {seg.stack.inputs[0]: tuple(xs.shape)},
                                          resource.H100)
@@ -621,6 +694,471 @@ class Smoke:
             "shape": f"norm_program rms {ROWS} x {D_MODEL}"}
         print(f"[6 kernels] fused_nhwc max|d|={self.err['fused_nhwc']:.3e}  "
               f"fused_rows max|d|={self.err['fused_rows']:.3e}")
+
+    # -- the training slice ---------------------------------------------------
+    def check_bwd(self, kernel, what, got, want, reduced):
+        """Gradients ``got`` against ``want`` (name -> tensor) within
+        BWD_TOL; names in ``reduced`` are sums over every position, whose
+        atol scales with their largest entry.  Returns a summary: the
+        largest |d| of the input cotangents, and of the reduced gradients
+        with its share of their largest entry."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        worst = 0.0
+        cot, red, red_rel = 0.0, 0.0, 0.0
+        for k, w in want.items():
+            g = got[k]
+            if g.shape != w.shape:
+                raise PhaseError(f"{kernel} {what}: {k} shape "
+                                 f"{tuple(g.shape)} != {tuple(w.shape)}")
+            if not bool(torch.isfinite(g).all()):
+                raise PhaseError(f"{kernel} {what}: non-finite {k}")
+            if not w.numel():
+                continue
+            d = (g - w).abs()
+            atol = BWD_TOL["atol"]
+            if k in reduced:
+                atol = max(atol, BWD_TOL["rtol"] * float(w.abs().max()))
+            err = float(d.max())
+            worst = max(worst, err)
+            if k in reduced:
+                red = max(red, err)
+                red_rel = max(red_rel, err / max(float(w.abs().max()), 1e-30))
+            else:
+                cot = max(cot, err)
+            if not bool((d <= atol + BWD_TOL["rtol"] * w.abs()).all()):
+                raise PhaseError(f"{kernel} {what}: {k} max|d|={err:.3e} "
+                                 f"outside atol {atol:.1e} rtol "
+                                 f"{BWD_TOL['rtol']}")
+        self.err[kernel] = max(self.err[kernel], worst)
+        return (f"{cot:.1e}" + (f"/{red:.1e} ({red_rel:.1e} of max)"
+                                if reduced else ""))
+
+    def same_bits(self, kernel, what, a, b):
+        for k in a:
+            if not self.torch.equal(a[k], b[k]):
+                raise PhaseError(f"{kernel} {what}: two runs differ in {k}")
+
+    def nhwc_bwd_grads(self, program, x, params, extras, g, tile):
+        from repro_torch.kernels.fused_stack import nhwc_bwd
+        dx, dext, dpar = nhwc_bwd.fused_nhwc_bwd(
+            program, x, extras, params, g, tile_out_h=tile[0],
+            tile_out_w=tile[1])
+        return {"dx": dx, **{f"d{k}": v for k, v in {**dext, **dpar}.items()}}
+
+    def nhwc_bwd_items(self):
+        """(name, program, x, params, extras, tile) of phase 7: phase 2's
+        cases, exact ties, VGG-16's stages on phase 5's stage inputs and
+        block_net(8, 32), the last two with their training tiles."""
+        torch = self.torch
+        from repro_torch.core import analyzer, collapse, resource
+        from repro_torch.models import cnn
+        cases, bparams = self.nhwc_cases()
+        items = []
+        for k, (name, program, shape, tile, extra_shapes) in enumerate(cases):
+            x, params, extras = self.nhwc_operands(program, shape,
+                                                   extra_shapes, bparams, k)
+            items.append((name, program, x, params, extras, (tile, tile)))
+        name, program, shape, tile, _ = cases[0]
+        x, params, _ = self.nhwc_operands(program, shape, {}, bparams, 0)
+        items.append(("max_pool_ties", program, torch.round(x), params, {},
+                      (tile, tile)))
+        items += self.vgg_bwd_items()
+        graph, bp = cnn.block_net(8, channels=32, device=self.dev)
+        seg, = analyzer.analyze(graph, keep=frozenset({graph.output}))
+        plan = collapse.collapse(seg.stack, {"x": BLOCK_INPUT}, resource.H100,
+                                 differentiable=True)
+        x = self.randn(BLOCK_INPUT, 150, 2.0)
+        for i, seq in enumerate(plan.sequences):
+            items.append((f"block_net8_train_seq{i}", plan.subprogram(i), x,
+                          bp, {}, (seq.tile_out_h, seq.tile_out_w)))
+        return items
+
+    def vgg_bwd_items(self):
+        """Phase 7's items of VGG-16's five stages (one sequence each) on
+        phase 5's stage inputs, with their training tiles."""
+        from repro_torch.core import collapse, resource
+        items = []
+        for i, (stack, xs) in enumerate(self.vgg_stages):
+            plan = collapse.collapse(stack, {stack.inputs[0]: tuple(xs.shape)},
+                                     resource.H100, differentiable=True)
+            for j, seq in enumerate(plan.sequences):
+                items.append((f"vgg16_stage{i + 1}", plan.subprogram(j), xs,
+                              self.vgg_params, {},
+                              (seq.tile_out_h, seq.tile_out_w)))
+        return items
+
+    def phase7_nhwc_bwd(self):
+        from repro_torch.core import ir
+        from repro_torch.kernels.fused_stack import nhwc_bwd
+        t = time.perf_counter()
+        lines = []
+        for k, (name, program, x, params, extras, tile) in enumerate(
+                self.nhwc_bwd_items()):
+            shapes = {program.inputs[0]: tuple(x.shape),
+                      **{e: tuple(v.shape) for e, v in extras.items()}}
+            out = ir.infer_shapes(program, shapes)[program.outputs[0]]
+            g = self.randn(out, 1000 + k)
+            got = self.nhwc_bwd_grads(program, x, params, extras, g, tile)
+            again = self.nhwc_bwd_grads(program, x, params, extras, g, tile)
+            dx, dext, dpar = nhwc_bwd.fused_nhwc_bwd_ref(program, x, extras,
+                                                         params, g)
+            want = {"dx": dx,
+                    **{f"d{n}": v for n, v in {**dext, **dpar}.items()}}
+            err = self.check_bwd("fused_nhwc_bwd", name, got, want,
+                                 reduced=set(want) - {"dx"})
+            self.same_bits("fused_nhwc_bwd", name, got, again)
+            lines.append(f"{name}[{tile[0]}x{tile[1]}]={err}")
+        print(f"[7 nhwc_bwd] {len(lines)} cases agree with the plain version "
+              f"(tol {BWD_TOL}, reduced gradients atol rtol*max; max|d| of "
+              f"dx / of the reduced gradients) and two runs give equal bits: "
+              f"{' '.join(lines)}; "
+              f"{time.perf_counter() - t:.1f} s")
+
+    def rows_cotangents(self, program, inputs, params, seed):
+        from repro_torch.kernels.fused_stack import ref
+        out = ref.fused_stack_ref(program, inputs, params)
+        return {v: self.randn(tuple(out[v].shape), seed + i)
+                for i, v in enumerate(program.outputs)}
+
+    def rows_bwd_grads(self, program, inputs, params, cot, tile):
+        from repro_torch.kernels.fused_stack import rows_bwd
+        dins, dpar = rows_bwd.fused_rows_bwd(program, inputs, params, cot,
+                                             tile_rows=tile)
+        return {f"d{k}": v for k, v in {**dins, **dpar}.items()}
+
+    def train_tile(self, name, program, in_shapes):
+        """The training plan's row tile.  ``every_fn_affine`` is a test
+        chain, not a program of the slice: its 26 live values exceed the
+        training budget at any tile (26 x 2048 x 4 B for one row), so it
+        runs at one row per tile."""
+        from repro_torch.core import collapse, resource
+        if name == "every_fn_affine":
+            return 1
+        plan = collapse.collapse(program, in_shapes, resource.H100,
+                                 differentiable=True)
+        return plan.sequences[0].tile_rows
+
+    def phase8_rows_bwd(self):
+        from repro_torch.kernels.fused_stack import rows_bwd
+        t = time.perf_counter()
+        lines = []
+        for k, (name, program, in_shapes, p_shapes, _) in enumerate(
+                self.rows_cases()):
+            inputs, params = self.rows_inputs(name, in_shapes, p_shapes,
+                                              400 + 100 * k)
+            tile = self.train_tile(name, program, in_shapes)
+            cot = self.rows_cotangents(program, inputs, params, 2000 + 10 * k)
+            got = self.rows_bwd_grads(program, inputs, params, cot, tile)
+            again = self.rows_bwd_grads(program, inputs, params, cot, tile)
+            dins, dpar = rows_bwd.fused_rows_bwd_ref(program, inputs, params,
+                                                     cot)
+            want = {f"d{n}": v for n, v in {**dins, **dpar}.items()}
+            # parameter gradients and width-1 input cotangents are sums
+            # over rows or over F
+            reduced = {f"d{p}" for p in program.param_names} | {
+                f"d{n}" for n, v in inputs.items() if v.shape[-1] == 1}
+            err = self.check_bwd("fused_rows_bwd", name, got, want,
+                                 reduced=reduced)
+            self.same_bits("fused_rows_bwd", name, got, again)
+            lines.append(f"{name}[rows {tile}]={err}")
+        print(f"[8 rows_bwd] {len(lines)} cases at {ROWS} x {D_MODEL}/{D_FF} "
+              f"agree with the plain version (tol {BWD_TOL}, reduced "
+              f"gradients (parameters, width-1 inputs) atol rtol*max; max|d| "
+              f"of the input cotangents / of the reduced gradients) and two "
+              f"runs give equal bits: "
+              f"{' '.join(lines)}; Triton compiles included: "
+              f"{time.perf_counter() - t:.1f} s")
+
+    def launch_counts(self):
+        from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd, rows, \
+            rows_bwd
+        return {"fused_nhwc": nhwc.fused_nhwc.launches,
+                "fused_rows": rows.fused_rows.launches,
+                "fused_nhwc_bwd": nhwc_bwd.fused_nhwc_bwd.launches,
+                "fused_rows_bwd": rows_bwd.fused_rows_bwd.launches}
+
+    def zero_counts(self):
+        from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd, ops, \
+            rows, rows_bwd
+        ops.STATS.reset()
+        nhwc.fused_nhwc.launches = rows.fused_rows.launches = 0
+        nhwc_bwd.fused_nhwc_bwd.launches = rows_bwd.fused_rows_bwd.launches = 0
+
+    def sgd(self, net, leaves, loss_fn):
+        """TRAIN_STEPS plain SGD steps of ``loss_fn(net(leaves))`` over every
+        leaf.  Returns the losses, the step-1 gradients, and the dispatch
+        and launch counts of each step."""
+        torch = self.torch
+        from repro_torch.kernels.fused_stack import ops
+        leaves = {k: v.detach().clone() for k, v in leaves.items()}
+        losses, first, per_step = [], None, []
+        for _ in range(TRAIN_STEPS):
+            before, l0 = ops.STATS.snapshot(), self.launch_counts()
+            with torch.enable_grad():
+                req = {k: v.requires_grad_() for k, v in leaves.items()}
+                loss = loss_fn(net(req))
+                grads = torch.autograd.grad(loss, list(req.values()))
+            with torch.no_grad():
+                leaves = {k: v - TRAIN_LR * g
+                          for (k, v), g in zip(req.items(), grads)}
+            torch.cuda.synchronize()
+            l1 = self.launch_counts()
+            per_step.append((ops.STATS.delta(before),
+                             {k: l1[k] - l0[k] for k in l1}))
+            losses.append(float(loss.detach()))
+            if first is None:
+                first = dict(zip(req, grads))
+        return losses, first, per_step
+
+    def compare_training(self, what, runs, n_seq, bwd_kernel):
+        """``runs[mode] = (losses, step-1 grads, per-step counts)``:
+        brainslug against barrier, and brainslug's counters per step."""
+        torch = self.torch
+        (lb, gb, steps), (lr_, gr, _) = runs["brainslug"], runs["barrier"]
+        worst = 0.0
+        for k, w in gr.items():
+            d = (gb[k] - w).abs()
+            scale = float(w.abs().max())
+            worst = max(worst, float(d.max()) / max(scale, 1e-30))
+            if not bool(torch.isfinite(gb[k]).all()) or not bool(
+                    (d <= TRAIN_RTOL * (w.abs() + scale)).all()):
+                raise PhaseError(f"{what}: step-1 gradient of {k} max|d| "
+                                 f"{float(d.max()):.3e} (max|g| {scale:.3e})")
+        for a, b in zip(lb, lr_):
+            if not math.isfinite(a) or abs(a - b) > TRAIN_RTOL * abs(b):
+                raise PhaseError(f"{what}: losses {lb} vs barrier {lr_}")
+        for i, (stats, launches) in enumerate(steps):
+            if stats["bwd_generated"] != n_seq or stats["bwd_reference"] \
+                    or stats["fwd_generated"] != n_seq \
+                    or stats["fwd_reference"] or launches[bwd_kernel] != n_seq:
+                raise PhaseError(f"{what} step {i + 1}: counters {stats}, "
+                                 f"launches {launches}, {n_seq} sequences")
+        return worst
+
+    def phase9_train(self):
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.core import api
+        from repro_torch.models import cnn
+        t = time.perf_counter()
+        graph, params = cnn.vgg_net(VGG16_STAGES, device=self.dev)
+        x = self.randn(VGG_INPUT, 7)
+        labels = torch.randint(0, 10, (VGG_INPUT[0],), device=self.dev,
+                               generator=torch.Generator(
+                                   device=self.dev).manual_seed(8))
+        nets = {m: api.optimize_graph(graph, VGG_INPUT, api.OptimizeConfig(
+            mode=m, differentiable=True)) for m in ("brainslug", "barrier")}
+        runs = {}
+        for m in ("barrier", "brainslug"):
+            self.zero_counts()
+            runs[m] = self.sgd(lambda p, m=m: nets[m](x, p), params,
+                               lambda y: F.cross_entropy(y, labels))
+            total = self.launch_counts()
+        n_seq = nets["brainslug"].n_sequences
+        worst = self.compare_training("VGG training", runs, n_seq,
+                                      "fused_nhwc_bwd")
+        self.train_launches = {"fused_nhwc_bwd": total["fused_nhwc_bwd"]}
+        print(f"[9a main path: training, optimize_graph VGG-16 widths "
+              f"{VGG_INPUT}, differentiable=True, {TRAIN_STEPS} SGD steps lr "
+              f"{TRAIN_LR}] losses brainslug {runs['brainslug'][0]} barrier "
+              f"{runs['barrier'][0]}; step-1 gradients max|d|/max|g| = "
+              f"{worst:.3e} (tol rtol {TRAIN_RTOL}, atol {TRAIN_RTOL}*max|g|);"
+              f" counters per step {[s for s, _ in runs['brainslug'][2]]}; "
+              f"launches over the run {total}")
+        print(nets["brainslug"].explain())
+        self.train_nets, self.train_data = nets, (x, labels, params)
+
+        cases = {c[0]: c for c in self.rows_cases()}
+        lines, total_rows = [], 0
+        for k, name in enumerate(("rms", "addnorm_rms", "glu_silu")):
+            _, program, in_shapes, p_shapes, _ = cases[name]
+            inputs, p = self.rows_inputs(name, in_shapes, p_shapes,
+                                         900 + 100 * k)
+            target = self.rows_cotangents(program, inputs, p, 3000 + 10 * k)
+            rows_n = math.prod(in_shapes[program.inputs[0]][:-1])
+            exes = {m: api.optimize_stack(program, in_shapes,
+                                          api.OptimizeConfig(
+                                              mode=m, differentiable=True))
+                    for m in ("brainslug", "barrier")}
+
+            def loss_fn(out, program=program, target=target, rows_n=rows_n):
+                return sum(0.5 * torch.square(out[v] - target[v]).sum()
+                           / rows_n for v in program.outputs)
+
+            runs = {}
+            for m in ("barrier", "brainslug"):
+                self.zero_counts()
+                runs[m] = self.sgd(
+                    lambda L, m=m, program=program: exes[m](
+                        {n: L[n] for n in program.inputs},
+                        {q: L[q] for q in program.param_names}),
+                    {**inputs, **p}, loss_fn)
+                launches = self.launch_counts()
+            worst = self.compare_training(f"LM {name} training", runs, 1,
+                                          "fused_rows_bwd")
+            total_rows += launches["fused_rows_bwd"]
+            lines.append(f"{name}: losses {runs['brainslug'][0]} (barrier "
+                         f"{runs['barrier'][0]}), step-1 max|d|/max|g| "
+                         f"{worst:.2e}, counters per step "
+                         f"{runs['brainslug'][2][0][0]}, launches "
+                         f"{launches}")
+        self.train_launches["fused_rows_bwd"] = total_rows
+        print(f"[9b main path: training, optimize_stack LM row chains at "
+              f"{ROWS} x {D_MODEL}/{D_FF}, differentiable=True, "
+              f"{TRAIN_STEPS} SGD steps] " + "; ".join(lines) +
+              f" ({time.perf_counter() - t:.1f} s for 9a and 9b)")
+
+    def phase10_bwd_timing(self):
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.core import ir
+        from repro_torch.kernels.fused_stack import nhwc_bwd, rows_bwd
+
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        entries = []
+        for k, (name, program, xs, params, _, tile) in enumerate(
+                self.vgg_bwd_items()):
+            out = ir.infer_shapes(program, {program.inputs[0]:
+                                            tuple(xs.shape)})
+            g = self.randn(out[program.outputs[0]], 1100 + k)
+            run = lambda: nhwc_bwd.fused_nhwc_bwd(  # noqa: E731
+                program, xs, {}, params, g, tile_out_h=tile[0],
+                tile_out_w=tile[1])
+            dx, _, dp = run()
+            k_ms, k_how = self.device_ms(run)
+            k_call = self.cuda_ms(run)
+            p_ms, _ = self.device_ms(lambda: nhwc_bwd.fused_nhwc_bwd_ref(
+                program, xs, {}, params, g))
+            pv = [params[q] for q in program.param_names]
+            b_ms, b_by = self.bound(program, nbytes([xs, g] + pv),
+                                    nbytes([dx] + list(dp.values())),
+                                    g.numel(), xs.numel(), op_factor=3)
+            entries.append((name, tuple(xs.shape), tile, k_ms, k_how, k_call,
+                            p_ms, b_ms, b_by))
+        print(f"[10 nhwc_bwd] per launch on the training path's shapes "
+              f"(VGG-16 stages, batch {VGG_INPUT[0]}, training tiles); device "
+              f"time (profiler, mean of 20 calls) and per call (CUDA events "
+              f"around 20 back-to-back calls, median of 5); bound: x and g "
+              f"read, dx written once:")
+        for name, si, tile, k_ms, k_how, k_call, p_ms, b_ms, b_by in entries:
+            print(f"  {name} {si} tile {tile[0]}x{tile[1]}: kernel "
+                  f"{k_ms:.4f} ms {k_how} ({k_call:.4f} per call)  plain "
+                  f"{p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
+                  f"kernel/bound {k_ms / b_ms:.2f}  library none")
+        name, si, tile, k_ms, _, _, p_ms, b_ms, b_by = entries[0]
+        self.kernels["fused_nhwc_bwd"] = {
+            "name": "fused_nhwc_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_stack/csrc/"
+                      "fused_nhwc_bwd.cu",
+            "replaces": "src/repro/kernels/fused_stack/nhwc_bwd.py:168",
+            "launches": self.train_launches["fused_nhwc_bwd"],
+            "max_abs_err": self.err["fused_nhwc_bwd"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": f"{name} {si} tile {tile}"}
+
+        def lib_grad(fn, names):
+            """Autograd of one PyTorch call: the backward alone, timed."""
+            def make(inputs, params, cot):
+                leaves = {n: t.detach().requires_grad_() for n, t in
+                          {**inputs, **params}.items()}
+                with torch.enable_grad():
+                    y = fn(leaves)
+                wrt = [leaves[n] for n in names]
+                g = next(iter(cot.values()))
+                return lambda: torch.autograd.grad(y, wrt, g,
+                                                   retain_graph=True)
+            return make
+
+        library = {
+            "rms": lib_grad(lambda L: F.rms_norm(L["x"], (D_MODEL,),
+                                                 L["scale"], 1e-6),
+                            ("x", "scale")),
+            "layer": lib_grad(lambda L: F.layer_norm(L["x"], (D_MODEL,),
+                                                     L["scale"], None, 1e-5),
+                              ("x", "scale")),
+            "layer_bias": lib_grad(lambda L: F.layer_norm(
+                L["x"], (D_MODEL,), L["scale"], L["bias"], 1e-5),
+                ("x", "scale", "bias")),
+            "softmax": lib_grad(lambda L: F.softmax(L["x"], dim=-1), ("x",)),
+        }
+        print("[10 rows_bwd] per launch at deepseek-7b widths with the "
+              "training tiles; device time and per call as above; library: "
+              "autograd of one PyTorch call, the backward alone; bound: "
+              "inputs and cotangents read, input cotangents written once:")
+        rows_entries = {}
+        for k, (name, program, in_shapes, p_shapes, _) in enumerate(
+                self.rows_cases()):
+            if name in ("ragged_rows", "scalar_chunks"):
+                continue
+            inputs, params = self.rows_inputs(name, in_shapes, p_shapes,
+                                              400 + 100 * k)
+            tile = self.train_tile(name, program, in_shapes)
+            cot = self.rows_cotangents(program, inputs, params, 2000 + 10 * k)
+            run = lambda: rows_bwd.fused_rows_bwd(  # noqa: E731
+                program, inputs, params, cot, tile_rows=tile)
+            dins, dpar = run()
+            k_ms, k_how = self.device_ms(run)
+            k_call = self.cuda_ms(run)
+            p_ms, _ = self.device_ms(lambda: rows_bwd.fused_rows_bwd_ref(
+                program, inputs, params, cot))
+            lib = library.get(name)
+            l_ms = (self.device_ms(lib(inputs, params, cot))[0] if lib
+                    else None)
+            first = next(iter(inputs.values()))
+            b_ms, b_by = self.bound(
+                program, nbytes([*inputs.values(), *params.values(),
+                                 *cot.values()]),
+                nbytes([*dins.values(), *dpar.values()]), first.numel(),
+                first.numel(), op_factor=3)
+            rows_entries[name] = (k_ms, p_ms, l_ms, b_ms, b_by, tile)
+            lib_s = f"{l_ms:.4f} ms" if l_ms is not None else "none"
+            print(f"  {name} rows={math.prod(in_shapes[program.inputs[0]][:-1])}"
+                  f" F={in_shapes[program.inputs[0]][-1]} tile_rows={tile}: "
+                  f"kernel {k_ms:.4f} ms {k_how} ({k_call:.4f} per call)  "
+                  f"plain {p_ms:.4f} ms  library {lib_s}"
+                  f"  bound {b_ms:.4f} ms ({b_by})  kernel/bound "
+                  f"{k_ms / b_ms:.2f}")
+        k_ms, p_ms, l_ms, b_ms, b_by, tile = rows_entries["rms"]
+        self.kernels["fused_rows_bwd"] = {
+            "name": "fused_rows_bwd", "route": "triton",
+            "source": "src/repro_torch/kernels/fused_stack/rows_bwd.py",
+            "replaces": "src/repro/kernels/fused_stack/rows_bwd.py:109",
+            "launches": self.train_launches["fused_rows_bwd"],
+            "max_abs_err": self.err["fused_rows_bwd"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms,
+            "shape": f"norm_program rms {ROWS} x {D_MODEL} tile {tile}"}
+
+        nets = self.train_nets
+        x, labels, params = self.train_data
+
+        def step(m):
+            with torch.enable_grad():
+                req = {k: v.detach().requires_grad_()
+                       for k, v in params.items()}
+                loss = F.cross_entropy(nets[m](x, req), labels)
+                grads = torch.autograd.grad(loss, list(req.values()))
+            with torch.no_grad():
+                return [v - TRAIN_LR * g for v, g in zip(req.values(), grads)]
+
+        ms = [(m, self.cuda_ms(lambda m=m: step(m), reps=1, groups=10))
+              for m in ("barrier", "brainslug", "brainslug", "barrier")]
+        print(f"[10 train step] VGG-16 widths {VGG_INPUT}: forward + "
+              f"backward + SGD update, median of 10 steps (CUDA events), in "
+              f"turns: " + "  ".join(f"{m}={v:.3f} ms" for m, v in ms))
+        n_seq = nets["brainslug"].n_sequences
+        expect = {"brainslug": {"fused_nhwc_kernel": n_seq,
+                                "fused_nhwc_bwd_kernel": n_seq},
+                  "barrier": {}}
+        for m in ("barrier", "brainslug"):
+            print(f"[10 trace train step {m}] "
+                  + self.trace(lambda m=m: step(m), expect[m]))
+        print(f"[10 kernels] fused_nhwc_bwd max|d|="
+              f"{self.err['fused_nhwc_bwd']:.3e}  fused_rows_bwd max|d|="
+              f"{self.err['fused_rows_bwd']:.3e}")
 
 
 if __name__ == "__main__":

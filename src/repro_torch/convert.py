@@ -1,4 +1,5 @@
-"""Weight carry-over from numpy arrays (for example the JAX package's).
+"""Weight carry-over from numpy arrays (for example the JAX package's), and
+gradients back to numpy under the same names.
 
 The port keeps the JAX package's layouts (NHWC activations, HWIO conv
 weights, ``(C,)`` per-channel vectors), so carrying weights over is a dtype
@@ -32,4 +33,25 @@ def params_from_numpy(params: Mapping[str, np.ndarray],
             raise ValueError(f"{name!r}: shape {tuple(arr.shape)} != "
                              f"{tuple(like[name].shape)}")
         out[name] = torch.tensor(arr, dtype=dtype, device=device)
+    return out
+
+
+def grads_to_numpy(grads: Mapping[str, torch.Tensor],
+                   *, like: Mapping[str, object] | None = None
+                   ) -> dict[str, np.ndarray]:
+    """The port's gradients (a dict of tensors, keyed by parameter name) as
+    float32 numpy arrays under the same names, the JAX package's, so two
+    gradient dicts compare name by name.  With ``like`` (for example the
+    JAX parameters), the key sets and shapes must match."""
+    if like is not None and set(grads) != set(like):
+        raise ValueError(f"gradient names differ: only in grads "
+                         f"{sorted(set(grads) - set(like))}, only in like "
+                         f"{sorted(set(like) - set(grads))}")
+    out: dict[str, np.ndarray] = {}
+    for name, g in grads.items():
+        arr = g.detach().to("cpu", torch.float32).numpy()
+        if like is not None and tuple(arr.shape) != tuple(np.shape(like[name])):
+            raise ValueError(f"{name!r}: shape {tuple(arr.shape)} != "
+                             f"{tuple(np.shape(like[name]))}")
+        out[name] = arr
     return out

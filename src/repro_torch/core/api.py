@@ -40,6 +40,10 @@ class OptimizeConfig:
     code_cache_size: int = 256
     # Where the tensors live: "cuda" (the default) or an explicit "cpu".
     torch_device: str = "cuda"
+    # Size collapse plans for training: the generated backward holds the
+    # recomputed forward and live cotangents in shared memory, so
+    # differentiable plans get smaller tiles and earlier sequence splits.
+    differentiable: bool = False
 
     def __post_init__(self) -> None:
         if self.mode not in MODES:
@@ -53,6 +57,9 @@ class OptimizeConfig:
             raise ValueError(
                 f"code_cache_size must be a positive int, got "
                 f"{self.code_cache_size!r}")
+        if not isinstance(self.differentiable, bool):
+            raise ValueError(f"differentiable must be a bool, got "
+                             f"{self.differentiable!r}")
         if torch.device(self.torch_device).type not in ("cuda", "cpu"):
             raise ValueError(f"torch_device must be cuda or cpu, got "
                              f"{self.torch_device!r}")
@@ -88,6 +95,8 @@ class StackCoverage:
     n_sequences: int
     hbm_breadth_bytes: int      # breadth-first traffic of this stack
     hbm_depth_bytes: int        # planned depth-first traffic
+    tiles: tuple[str, ...] = ()     # per sequence: "rows 4" or "8x8"
+    differentiable: bool = False    # tiles sized for forward + backward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,7 +129,9 @@ class CoverageReport:
                 f"  stack {s.name:28s} ops={s.n_ops:3d} "
                 f"seqs={s.n_sequences}  HBM "
                 f"{s.hbm_breadth_bytes / 2**20:8.2f} MiB -> "
-                f"{s.hbm_depth_bytes / 2**20:8.2f} MiB  ({ratio:.2f}x)")
+                f"{s.hbm_depth_bytes / 2**20:8.2f} MiB  ({ratio:.2f}x)  "
+                f"tiles [{', '.join(s.tiles)}]"
+                f"{' fwd+bwd' if s.differentiable else ''}")
         return "\n".join(lines)
 
 
@@ -150,7 +161,11 @@ def coverage_report(segments, plans: Mapping[int, collapse.CollapsePlan],
                 name=seg.stack.name, n_ops=len(seg.stack.ops),
                 kinds=tuple(op.kind.value for op in seg.stack.ops),
                 n_sequences=len(plan.sequences),
-                hbm_breadth_bytes=bf, hbm_depth_bytes=df))
+                hbm_breadth_bytes=bf, hbm_depth_bytes=df,
+                tiles=tuple(f"rows {q.tile_rows}" if q.tile_rows else
+                            f"{q.tile_out_h}x{q.tile_out_w}"
+                            for q in plan.sequences),
+                differentiable=plan.differentiable))
         elif seg.op.kind in BACKBONE_KINDS:
             n_backbone += 1
         else:
@@ -231,7 +246,8 @@ def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
         in_shapes = {v: tuple(shapes[v]) for v in seg.stack.inputs}
         plans[idx] = collapse.collapse(
             seg.stack, in_shapes, config.device, itemsize=config.itemsize,
-            max_steps_per_sequence=config.max_steps_per_sequence)
+            max_steps_per_sequence=config.max_steps_per_sequence,
+            differentiable=config.differentiable)
         executors[idx] = codegen.compile_plan(
             plans[idx], mode=config.mode, cache_size=config.code_cache_size)
     return executors, plans
@@ -264,7 +280,8 @@ def optimize_stack(program: ir.StackProgram,
     resolve_device(config)
     plan = collapse.collapse(
         program, input_shapes, config.device, itemsize=config.itemsize,
-        max_steps_per_sequence=config.max_steps_per_sequence)
+        max_steps_per_sequence=config.max_steps_per_sequence,
+        differentiable=config.differentiable)
     return codegen.compile_plan(plan, mode=config.mode,
                                 cache_size=config.code_cache_size)
 

@@ -4,8 +4,9 @@ Turns a :class:`~repro_torch.core.collapse.CollapsePlan` into an executor.
 Sequences run serially, communicating through materialised boundary values
 (paper §4.2); within a sequence the configured mode decides the schedule:
 
-* ``brainslug`` — the hand-written depth-first kernels (one launch per
-  sequence; see :mod:`repro_torch.kernels.fused_stack.ops`);
+* ``brainslug`` — the hand-written depth-first kernels (one forward and
+  one backward launch per sequence; see
+  :mod:`repro_torch.kernels.fused_stack.ops`);
 * ``xla``       — the eager interpreter;
 * ``barrier``   — per-op materialisation (the paper's framework baseline).
 
@@ -80,20 +81,27 @@ def compile_plan(plan: collapse_mod.CollapsePlan, *, mode: str = "xla",
         _raise_cache_limit_to(cache_size)
     key = (plan.program.signature(), mode, plan.input_shapes,
            tuple((s.tile_rows, s.tile_out_h, s.tile_out_w)
-                 for s in plan.sequences))
+                 for s in plan.sequences),
+           plan.device.f_chunk, plan.differentiable)
     cached = _cache_get(key)
     if cached is not None:
         return cached
 
     subprograms = [plan.subprogram(i) for i in range(len(plan.sequences))]
+
+    def geometry(seq: collapse_mod.SequencePlan) -> dict:
+        """The executable's tiles, feature chunk and intent, from the plan."""
+        return dict(tile_rows=seq.tile_rows or 256,
+                    tile_out_h=seq.tile_out_h or 8,
+                    tile_out_w=seq.tile_out_w or 8,
+                    f_chunk=plan.device.f_chunk,
+                    differentiable=plan.differentiable)
+
     if mode == "brainslug":
-        # Generate once: one executable per sequence, shared by equivalent
-        # sequences across stacks.
+        # Generate once: one forward + backward executable per sequence,
+        # shared by equivalent sequences across stacks.
         for sub, seq in zip(subprograms, plan.sequences):
-            fused_ops.get_executable(
-                sub, tile_rows=seq.tile_rows or 256,
-                tile_out_h=seq.tile_out_h or 8,
-                tile_out_w=seq.tile_out_w or 8)
+            fused_ops.get_executable(sub, **geometry(seq))
 
     def run_body(inputs: Mapping[str, torch.Tensor],
                  params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -101,9 +109,7 @@ def compile_plan(plan: collapse_mod.CollapsePlan, *, mode: str = "xla",
         for sub, seq in zip(subprograms, plan.sequences):
             out = fused_ops.fused_stack_apply(
                 sub, {k: env[k] for k in sub.inputs}, params, mode=mode,
-                tile_rows=seq.tile_rows or 256,
-                tile_out_h=seq.tile_out_h or 8,
-                tile_out_w=seq.tile_out_w or 8)
+                **geometry(seq))
             env.update(out)
         return {v: env[v] for v in plan.program.outputs}
 

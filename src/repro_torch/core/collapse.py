@@ -45,6 +45,8 @@ class CollapsePlan:
     # code-cache key.
     input_shapes: tuple = ()
     itemsize: int = 4
+    # Sized for training: the joint forward + backward working set.
+    differentiable: bool = False
 
     def subprogram(self, i: int) -> ir.StackProgram:
         """Sequence ``i`` as a standalone StackProgram (its inputs are the
@@ -96,33 +98,47 @@ def collapse(program: ir.StackProgram,
              device: resource.DeviceSpec = resource.H100,
              *,
              itemsize: int = 4,
-             max_steps_per_sequence: int | None = None) -> CollapsePlan:
+             max_steps_per_sequence: int | None = None,
+             differentiable: bool = False) -> CollapsePlan:
     """Collapse ``program`` into sequences sized for ``device``.
     ``max_steps_per_sequence`` is the paper's Fig. 10 strategy knob
-    (1 step / 5 steps / unrestricted)."""
+    (1 step / 5 steps / unrestricted).
+
+    ``differentiable=True`` sizes sequences against the joint forward +
+    backward working set (the backward recomputes the chain on the resident
+    tile with cotangents live beside it): smaller ``tile_rows`` or
+    ``tile_out_h/w`` and earlier splits, one geometry for both kernels."""
     steps = build_steps(program)
     if program.layout == "rows":
         seqs = _pack_rows(program, steps, input_shapes, device, itemsize,
-                          max_steps_per_sequence)
+                          max_steps_per_sequence, differentiable)
     else:
         seqs = _pack_nhwc(program, steps, input_shapes, device, itemsize,
-                          max_steps_per_sequence)
+                          max_steps_per_sequence, differentiable)
     return CollapsePlan(
         program=program, sequences=tuple(seqs), device=device,
         input_shapes=tuple(sorted((k, tuple(v))
                                   for k, v in input_shapes.items())),
-        itemsize=itemsize)
+        itemsize=itemsize, differentiable=differentiable)
 
 
 def _pack_rows(program: ir.StackProgram, steps: list[Step],
                input_shapes: Mapping[str, tuple[int, ...]],
                device: resource.DeviceSpec, itemsize: int,
-               max_steps: int | None) -> list[SequencePlan]:
+               max_steps: int | None,
+               differentiable: bool = False) -> list[SequencePlan]:
     """rows layout: norms are row-local, so the working set never grows with
     stacking — one sequence almost always suffices; the row-tile extent is
-    chosen to fill the budget."""
+    chosen to fill the budget (the joint one when ``differentiable``)."""
     features = max((input_shapes[v][-1] if v in input_shapes else 0)
                    for v in program.inputs)
+
+    def one_row_bytes(sub: ir.StackProgram) -> int:
+        n_live = (resource.max_live_values_bwd(sub) if differentiable
+                  else resource.max_live_values(sub))
+        f = resource.planned_features(sub, features, device, differentiable)
+        return resource.rows_tile_bytes(n_live, device.sublane, f, itemsize,
+                                        device)
 
     def needed_after(si: int) -> set[str]:
         """Values consumed by steps from index ``si`` on, or escaping the
@@ -142,7 +158,8 @@ def _pack_rows(program: ir.StackProgram, steps: list[Step],
             return
         sub = _resource_view(program, tuple(op for s in pending
                                             for op in s.ops), later)
-        rows = resource.pick_row_tile(sub, features, itemsize, device)
+        rows = resource.pick_row_tile(sub, features, itemsize, device,
+                                      differentiable=differentiable)
         seqs.append(SequencePlan(steps=tuple(pending), tile_rows=rows))
         pending = []
 
@@ -151,9 +168,7 @@ def _pack_rows(program: ir.StackProgram, steps: list[Step],
         sub = _resource_view(program, tuple(op for s in pending
                                             for op in s.ops),
                              needed_after(si + 1))
-        too_big = resource.rows_tile_bytes(
-            resource.max_live_values(sub), device.sublane, features,
-            itemsize, device) > device.resource_limit
+        too_big = one_row_bytes(sub) > device.resource_limit
         over_steps = max_steps is not None and len(pending) > max_steps
         if too_big or over_steps:
             pending.pop()
@@ -188,21 +203,25 @@ def _resource_view(program: ir.StackProgram,
 def _pack_nhwc(program: ir.StackProgram, steps: list[Step],
                input_shapes: Mapping[str, tuple[int, ...]],
                device: resource.DeviceSpec, itemsize: int,
-               max_steps: int | None) -> list[SequencePlan]:
+               max_steps: int | None,
+               differentiable: bool = False) -> list[SequencePlan]:
     """nhwc layout (Listing 1 part 4): keep a candidate sequence, and when
     its receptive-field-grown working set exceeds the limit, close it and
     start a new one.  The output patch shrinks if even a single step
-    overflows the budget."""
+    overflows the budget.  ``differentiable`` plans against the joint
+    working set (every halo level live through the reverse sweep)."""
+
+    def fits(run: list[tuple[ir.OpNode, ...]], h: int, w: int) -> bool:
+        return resource.fits(run, h, w, channels, itemsize, device,
+                             differentiable=differentiable)
+
     shape = next(iter(input_shapes.values()))
     channels = shape[-1]
     out_h = out_w = 8          # output patch per tile
-    while out_h > 1 and not all(
-            resource.fits([s.ops], out_h, out_w, channels, itemsize, device)
-            for s in steps):
+    while out_h > 1 and not all(fits([s.ops], out_h, out_w) for s in steps):
         out_h //= 2
         out_w //= 2
-    if not all(resource.fits([s.ops], out_h, out_w, channels, itemsize,
-                             device) for s in steps):
+    if not all(fits([s.ops], out_h, out_w) for s in steps):
         raise resource.ResourceError(
             f"{program.name}: single step exceeds device budget at 1x1 tile")
 
@@ -211,9 +230,7 @@ def _pack_nhwc(program: ir.StackProgram, steps: list[Step],
     for step in steps:
         pending.append(step)
         over_steps = max_steps is not None and len(pending) > max_steps
-        if over_steps or not resource.fits(
-                [s.ops for s in pending], out_h, out_w, channels, itemsize,
-                device):
+        if over_steps or not fits([s.ops for s in pending], out_h, out_w):
             pending.pop()                      # sequence.remove(step)
             if not pending:
                 raise resource.ResourceError(

@@ -30,7 +30,12 @@ class DeviceSpec:
     ``budget_fraction`` the slice of it the collapser plans against.
     ``lane`` is the trailing-dimension granule tiles are rounded up to and
     ``sublane`` the row granule.  The rates (bytes/s, float32 FLOP/s) give
-    kernel bounds; 0 means "not a real device"."""
+    kernel bounds; 0 means "not a real device".
+
+    ``f_chunk`` (port only; 0 = none) is the feature chunk the generated
+    rows backward walks an *F-separable* chain in (see
+    :func:`planned_features`).  Specs without it plan exactly as the JAX
+    package does."""
 
     name: str
     fast_bytes: int
@@ -39,6 +44,7 @@ class DeviceSpec:
     sublane: int
     hbm_bandwidth: float = 0.0
     peak_flops_f32: float = 0.0
+    f_chunk: int = 0
 
     @property
     def resource_limit(self) -> int:
@@ -59,9 +65,17 @@ TINY_DEVICE = DeviceSpec(name="tiny", fast_bytes=64 * 1024,
 #: CUDA thread block has no row granule; ``lane=32``: one warp.  Rates are
 #: datasheet figures for the SXM5 part at its 700 W limit (HBM3 3.35 TB/s,
 #: 67 TFLOP/s float32 without tensor cores), not measurements.
+#:
+#: Training (``differentiable=True``) sizes against the joint forward +
+#: backward working set, 6 live buffers for the glu: 6 x 11008 x 4 B =
+#: 264,192 B for one row, above the 145,280 B budget and above the
+#: 232,448 B a CTA can have at all.  The glu has no op that reduces over F,
+#: so its backward walks F in chunks of ``f_chunk`` = 2048 features (the
+#: rows analogue of the nhwc kernel's channel blocks) and the planner
+#: counts the chunk: 6 x 2048 x 4 B = 49,152 B a row, 2 rows a tile.
 H100 = DeviceSpec(name="h100_sxm", fast_bytes=232_448, budget_fraction=0.625,
                   lane=32, sublane=1, hbm_bandwidth=3.35e12,
-                  peak_flops_f32=67e12)
+                  peak_flops_f32=67e12, f_chunk=2048)
 
 
 def round_up(x: int, m: int) -> int:
@@ -98,16 +112,63 @@ def max_live_values(program: ir.StackProgram) -> int:
     return max(peak, 1)
 
 
+def max_live_values_bwd(program: ir.StackProgram) -> int:
+    """Peak live tile buffers of the generated depth-first backward: every
+    forward value (inputs and op outputs) stays live for the recompute, and
+    on top of it the reverse sweep's cotangents, each born when its last
+    consumer is transposed and dead once its producer is."""
+    n_fwd = len(program.inputs) + len(program.ops)
+    live: set[str] = set(program.outputs)
+    peak = len(live)
+    for op in reversed(program.ops):
+        live.discard(op.output)
+        live.update(op.inputs)
+        peak = max(peak, len(live))
+    return n_fwd + max(peak, 1)
+
+
+def f_separable(program: ir.StackProgram) -> bool:
+    """True when no op reduces over the trailing axis (no ``ROW_NORM`` /
+    ``ROW_SOFTMAX``): every feature column is computed on its own, so the
+    chain can run in feature chunks."""
+    return not any(op.kind in (ir.OpKind.ROW_NORM, ir.OpKind.ROW_SOFTMAX)
+                   for op in program.ops)
+
+
+def feature_block(program: ir.StackProgram, features: int,
+                  f_chunk: int) -> int:
+    """Features of a row the rows backward kernel holds at a time: one
+    ``f_chunk`` of an F-separable chain, else all of ``features``.  The
+    planner (:func:`planned_features`) and the kernel both ask this."""
+    if f_chunk and f_separable(program):
+        return min(features, f_chunk)
+    return features
+
+
+def planned_features(program: ir.StackProgram, features: int,
+                     spec: DeviceSpec, differentiable: bool) -> int:
+    """The feature width a row tile is sized for: what the backward holds
+    (:func:`feature_block` at ``spec.f_chunk``) when ``differentiable``,
+    else the forward's whole row."""
+    if differentiable:
+        return feature_block(program, features, spec.f_chunk)
+    return features
+
+
 class ResourceError(RuntimeError):
     pass
 
 
 def pick_row_tile(program: ir.StackProgram, features: int, itemsize: int,
-                  spec: DeviceSpec) -> int:
+                  spec: DeviceSpec, *, differentiable: bool = False) -> int:
     """The largest ``sublane * 2**k`` row tile (at most 4096 rows) whose
     live buffers fit the budget (paper: "if the cache size limit is not
-    reached, we increase the size")."""
-    n_live = max_live_values(program)
+    reached, we increase the size").  ``differentiable`` sizes against the
+    joint forward + backward working set, so one geometry serves both
+    kernels."""
+    n_live = (max_live_values_bwd(program) if differentiable
+              else max_live_values(program))
+    features = planned_features(program, features, spec, differentiable)
     budget = spec.resource_limit
     rows = spec.sublane
     while True:
@@ -173,10 +234,55 @@ def sequence_bytes(fps: list[StepFootprint]) -> int:
     return max(fp.bytes_in + fp.bytes_out for fp in fps)
 
 
+def sequence_bwd_bytes(fps: list[StepFootprint]) -> int:
+    """Joint forward + backward working set of the generated nhwc backward:
+    the recompute keeps every level's buffer live through the reverse sweep,
+    and the sweep holds the cotangent pair of the step it transposes."""
+    recompute = sum(fp.bytes_in for fp in fps) + fps[-1].bytes_out
+    cot_live = max(fp.bytes_in + fp.bytes_out for fp in fps)
+    return recompute + cot_live
+
+
 def fits(steps: list[tuple[ir.OpNode, ...]], out_h: int, out_w: int,
-         channels: int, itemsize: int, spec: DeviceSpec) -> bool:
+         channels: int, itemsize: int, spec: DeviceSpec,
+         *, differentiable: bool = False) -> bool:
     fps = sequence_footprint(steps, out_h, out_w, channels, itemsize, spec)
-    return sequence_bytes(fps) <= spec.resource_limit
+    need = sequence_bwd_bytes(fps) if differentiable else sequence_bytes(fps)
+    return need <= spec.resource_limit
+
+
+def plan_vmem_bytes(plan, *, itemsize: int,
+                    differentiable: bool = False) -> list[int]:
+    """Every sequence's fast-memory working set, recomputed from a finished
+    plan's committed tile geometry (the independent budget check).  ``plan``
+    is duck-typed (``program``, ``sequences``, ``device``, ``input_shapes``,
+    ``subprogram``): this module must not import the collapser."""
+    program = plan.program
+    device = plan.device
+    in_shapes = {k: tuple(v) for k, v in plan.input_shapes}
+    needs: list[int] = []
+    if program.layout == "rows":
+        features = max((in_shapes[v][-1] if v in in_shapes else 0)
+                       for v in program.inputs)
+        for i, seq in enumerate(plan.sequences):
+            sub = plan.subprogram(i)
+            n_live = (max_live_values_bwd(sub) if differentiable
+                      else max_live_values(sub))
+            tile = seq.tile_rows or 256
+            f = planned_features(sub, features, device, differentiable)
+            needs.append(rows_tile_bytes(n_live, tile, f, itemsize, device))
+    else:
+        shapes = ir.infer_shapes(program, in_shapes)
+        for i, seq in enumerate(plan.sequences):
+            sub = plan.subprogram(i)
+            _, oh, ow, c = shapes[sub.outputs[0]]
+            th = min(seq.tile_out_h or 8, oh)
+            tw = min(seq.tile_out_w or 8, ow)
+            fps = sequence_footprint([s.ops for s in seq.steps], th, tw, c,
+                                     itemsize, device)
+            needs.append(sequence_bwd_bytes(fps) if differentiable
+                         else sequence_bytes(fps))
+    return needs
 
 
 # ---------------------------------------------------------------------------

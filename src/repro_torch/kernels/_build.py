@@ -1,6 +1,7 @@
 """Building the port's kernels from the sources in the tree, at first use.
 
-* CUDA C++ sources (``csrc/*.cu``) are compiled by ``nvcc`` into a shared
+* CUDA C++ sources (``csrc/*.cu``, with the ``csrc/*.cuh`` headers they
+  include) are compiled by ``nvcc`` into a shared
   library with a plain C interface, for ``sm_90a``, and bound with
   ``ctypes``.  No PyTorch header is included, so one build takes seconds.
   The library's file name carries a hash of the source and the flags, so an
@@ -55,8 +56,11 @@ def nvcc() -> str:
 
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` lives: keyed on a hash of the
-    source text and the compiler flags."""
-    digest = hashlib.sha256(source.read_bytes()
+    source text, the headers beside it (``*.cuh``) and the compiler
+    flags."""
+    text = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    digest = hashlib.sha256(text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / "kernels" / f"{source.stem}-{digest}.so"
 

@@ -217,14 +217,17 @@ class Chain:
     rowred: bool
 
 
-def compile_chain(program: ir.StackProgram) -> Chain:
+def compile_chain(program: ir.StackProgram, *, keep_values: bool = False,
+                  max_slots: int = MAX_SLOTS) -> Chain:
     """Assign every value a shared-memory slot and every operand a source.
 
     Values are planned on the linear level model of the Pallas kernel: the
     chain is at level ``l`` after ``l`` pools, every spatial operand of an
     op must live at the current level, and the output at the last one.
     A slot is freed after its value's last read; element-wise and row ops
-    may write over an operand that dies with them, a pool never does."""
+    may write over an operand that dies with them, a pool never does.
+    ``keep_values`` (the backward's recompute) gives every value a slot of
+    its own for the whole chain, with up to ``max_slots`` slots."""
     if len(program.outputs) != 1:
         raise DescriptorError(f"{program.name}: the nhwc kernel writes one "
                               f"output, got {program.outputs}")
@@ -261,16 +264,18 @@ def compile_chain(program: ir.StackProgram) -> Chain:
         return SRC_SLOT, slot_of[v]
 
     def release(i: int, op: ir.OpNode) -> None:
+        if keep_values:
+            return
         for v in set(op.inputs):
             if v in slot_of and last_use.get(v, -1) <= i:
                 busy.discard(slot_of[v])
 
     def allocate() -> int:
         nonlocal n_slots
-        s = next(k for k in range(MAX_SLOTS + 1) if k not in busy)
-        if s >= MAX_SLOTS:
+        s = next(k for k in range(max_slots + 1) if k not in busy)
+        if s >= max_slots:
             raise DescriptorError(f"{program.name}: more than "
-                                  f"MAX_SLOTS={MAX_SLOTS} live values")
+                                  f"{max_slots} live values")
         busy.add(s)
         n_slots = max(n_slots, s + 1)
         return s
@@ -324,7 +329,7 @@ def compile_chain(program: ir.StackProgram) -> Chain:
             row["out"] = allocate()
         slot_of[op.output] = row["out"]
         level_of[op.output] = level
-        if last_use.get(op.output, -1) <= i:
+        if last_use.get(op.output, -1) <= i and not keep_values:
             busy.discard(row["out"])      # never read: free at once
         rows.append(row)
 
@@ -339,22 +344,26 @@ def compile_chain(program: ir.StackProgram) -> Chain:
                  rowred=any(r["kind"] in (K_NORM, K_SOFTMAX) for r in rows))
 
 
-def channel_block(chain: Chain, level0_elems: int, channels: int) -> int:
+def channel_block(n_slots: int, rowred: bool, level0_elems: int,
+                  channels: int, fixed_bytes: int = 0) -> int:
     """Channels one CTA carries: all of C when the chain reduces over C,
     else the largest power of two (or C itself) whose slots stay under
     :data:`SMEM_TARGET`, growing past it up to :data:`SMEM_MAX` only when a
-    single channel does not fit."""
-    per_channel = chain.n_slots * level0_elems * 4
-    if chain.rowred or per_channel * channels <= SMEM_TARGET:
+    single channel does not fit.  ``fixed_bytes`` is shared memory the CTA
+    needs besides the slots."""
+    per_channel = n_slots * level0_elems * 4
+    target = SMEM_TARGET - fixed_bytes
+    if rowred or per_channel * channels <= target:
         cb = channels
     else:
         cb = 1
-        while cb * 2 <= channels and per_channel * cb * 2 <= SMEM_TARGET:
+        while cb * 2 <= channels and per_channel * cb * 2 <= target:
             cb *= 2
-    if per_channel * cb > SMEM_MAX:
+    if per_channel * cb + fixed_bytes > SMEM_MAX:
         raise DescriptorError(
-            f"{per_channel * cb} B of shared memory for {chain.n_slots} slots "
-            f"of {level0_elems} positions x {cb} channels exceed {SMEM_MAX} B")
+            f"{per_channel * cb + fixed_bytes} B of shared memory for "
+            f"{n_slots} slots of {level0_elems} positions x {cb} channels "
+            f"exceed {SMEM_MAX} B")
     return cb
 
 
@@ -376,6 +385,22 @@ def _template(program: ir.StackProgram, x_shape: tuple[int, ...],
         _TEMPLATES.move_to_end(key)
         return hit
     chain = compile_chain(program)
+    d = build_desc(program, chain, x_shape, extra_shapes, vec_strides,
+                   tile_out_h, tile_out_w)
+    hit = _TEMPLATES[key] = (chain, bytes(d))
+    while len(_TEMPLATES) > _TEMPLATE_LIMIT:
+        _TEMPLATES.popitem(last=False)
+    return hit
+
+
+def build_desc(program: ir.StackProgram, chain: Chain,
+               x_shape: tuple[int, ...],
+               extra_shapes: tuple[tuple[str, tuple[int, ...]], ...],
+               vec_strides: tuple[int, ...], tile_out_h: int,
+               tile_out_w: int, fixed_bytes: int = 0) -> NhwcDesc:
+    """The descriptor of ``chain`` on one call shape, without its vector
+    pointers.  ``fixed_bytes``: shared memory the kernel needs besides the
+    slots (the backward's gradient accumulators)."""
     geo = plan_geometry(program, x_shape, dict(extra_shapes), tile_out_h,
                         tile_out_w)
     # geometry levels are per op; the kernel wants one per pool boundary
@@ -385,7 +410,7 @@ def _template(program: ir.StackProgram, x_shape: tuple[int, ...],
     n, h, w, c = x_shape
     (oh, ow), (th, tw) = geo.out_hw, geo.tile
     e0 = lv[0].extent_h * lv[0].extent_w
-    cb = channel_block(chain, e0, c)
+    cb = channel_block(chain.n_slots, chain.rowred, e0, c, fixed_bytes)
     d = NhwcDesc()
     for i, s in enumerate(vec_strides):
         d.vec_stride[i] = s
@@ -401,10 +426,7 @@ def _template(program: ir.StackProgram, x_shape: tuple[int, ...],
                                 L.mul_h, L.off_h, L.mul_w, L.off_w)
     for i, row in enumerate(chain.ops):
         d.ops[i] = OpDesc(**row)
-    hit = _TEMPLATES[key] = (chain, bytes(d))
-    while len(_TEMPLATES) > _TEMPLATE_LIMIT:
-        _TEMPLATES.popitem(last=False)
-    return hit
+    return d
 
 
 def _vec_operand(name: str, v: torch.Tensor, channels: int) -> torch.Tensor:

@@ -1,16 +1,19 @@
-"""Dispatch of one collapsed Sequence to its fused kernel.
+"""Dispatch of one collapsed Sequence to its fused kernels.
 
 ``fused_stack_apply`` runs one Sequence in one of three modes:
 
 * ``brainslug`` — the hand-written depth-first kernels: CUDA
-  (:mod:`.nhwc`) for pooling chains, Triton (:mod:`.rows`) for row chains.
-  On CPU tensors (an explicit CPU request) it runs their plain version and
-  records ``fwd_reference``, so a CPU run never counts as kernel coverage.
-  nhwc stacks whose extra inputs are spatially extended (not broadcast side
-  operands) run the plain version on the card too and record
-  ``fwd_reference``, as the JAX package does.  The forward only: a
-  ``brainslug`` executable refuses inputs that require grad (the generated
-  backward kernels are Slice B of the port).
+  (:mod:`.nhwc`, :mod:`.nhwc_bwd`) for pooling chains, Triton (:mod:`.rows`,
+  :mod:`.rows_bwd`) for row chains.  Each executable is a
+  ``torch.autograd.Function``: the forward runs the forward kernel and saves
+  the inputs and parameters (not intermediates), the backward runs the
+  backward kernel, which recomputes the chain on the resident tile.  On CPU
+  tensors (an explicit CPU request) both run their plain versions and record
+  ``*_reference``, so a CPU run never counts as kernel coverage.  Where the
+  JAX package itself takes its reference path, so does the port, and counts
+  it: nhwc stacks whose extra inputs are spatially extended run the plain
+  forward and differentiate it with autograd, and so does the backward of a
+  program with an op outside ``autodiff.supports``.
 * ``xla``     — the eager interpreter (PyTorch runs one kernel per op).
 * ``barrier`` — the interpreter with every op output materialised (the
   paper's breadth-first baseline).
@@ -18,7 +21,7 @@
 Both non-brainslug modes differentiate natively through autograd.
 Executables are built once per structural signature + tile geometry and
 cached (paper: "If there are multiple equivalent stacks, BRAINSLUG only
-generates the code once").
+generates the code once"); one entry holds the forward and the backward.
 """
 from __future__ import annotations
 
@@ -28,8 +31,9 @@ from typing import Callable, Mapping
 
 import torch
 
-from repro_torch.core import ir
-from repro_torch.kernels.fused_stack import nhwc, ref, rows
+from repro_torch.core import autodiff, ir, resource
+from repro_torch.kernels.fused_stack import (nhwc, nhwc_bwd, ref, rows,
+                                              rows_bwd)
 
 MODES = ("brainslug", "xla", "barrier")
 
@@ -82,13 +86,16 @@ def is_broadcast_operand(a: torch.Tensor) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class FusedExecutable:
-    """The generated forward of one Sequence (brainslug mode)."""
+    """The generated forward + backward pair of one Sequence (brainslug
+    mode)."""
 
     program: ir.StackProgram
     tile_rows: int
     tile_out_h: int
     tile_out_w: int
     call: Callable[..., tuple[torch.Tensor, ...]]   # (in_list, p_list) -> outs
+    generated_bwd: bool                             # depth-first backward?
+    f_chunk: int            # the plan's device's (resource.feature_block)
 
 
 #: LRU over generated executables, bounded so a long-lived process that
@@ -107,15 +114,20 @@ def set_cache_limit(n: int) -> None:
 
 
 def get_executable(program: ir.StackProgram, *, tile_rows: int = 256,
-                   tile_out_h: int = 8, tile_out_w: int = 8
-                   ) -> FusedExecutable:
+                   tile_out_h: int = 8, tile_out_w: int = 8,
+                   f_chunk: int = resource.H100.f_chunk,
+                   differentiable: bool = False) -> FusedExecutable:
     """Build (or fetch) the cached executable for ``program`` at the given
-    tile geometry, keyed on the structural signature so equivalent stacks
-    share one."""
-    key = (program.signature(), tile_rows, tile_out_h, tile_out_w)
+    tile geometry and feature chunk, keyed on the structural signature so
+    equivalent stacks share one.  ``differentiable`` (a plan sized for
+    training) also plans the nhwc backward's slots now, so a sequence the
+    backward descriptor cannot hold fails here, not mid-backward."""
+    key = (program.signature(), tile_rows, tile_out_h, tile_out_w, f_chunk,
+           differentiable)
     exe = _EXEC_CACHE.get(key)
     if exe is None:
-        exe = _build_executable(program, tile_rows, tile_out_h, tile_out_w)
+        exe = _build_executable(program, tile_rows, tile_out_h, tile_out_w,
+                                f_chunk, differentiable)
         _EXEC_CACHE[key] = exe
     _EXEC_CACHE.move_to_end(key)
     while len(_EXEC_CACHE) > _CACHE_LIMIT:
@@ -127,50 +139,97 @@ def clear_executable_cache() -> None:
     _EXEC_CACHE.clear()
 
 
-def _refuse_grad(program: ir.StackProgram, tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{program.name}: a brainslug executable runs the forward only; "
-            f"the generated backward kernels are Slice B of the port.  Call "
-            f"it under torch.no_grad(), or use mode='xla'/'barrier' to "
-            f"differentiate")
-
-
 def _build_executable(program: ir.StackProgram, tile_rows: int,
-                      tile_out_h: int, tile_out_w: int) -> FusedExecutable:
+                      tile_out_h: int, tile_out_w: int, f_chunk: int,
+                      differentiable: bool) -> FusedExecutable:
     names = tuple(program.inputs)
     pnames = tuple(program.param_names)
+    n_in = len(names)
     is_nhwc = program.layout == "nhwc"
+    generated_bwd = autodiff.supports(program) and (
+        not is_nhwc or len(program.outputs) == 1)
+    if differentiable and generated_bwd and is_nhwc:
+        nhwc_bwd.compile_bwd_chain(program)
 
-    def generated(in_list) -> bool:
-        """Can this call run the kernel?  Only on the card, and for nhwc
-        only when the extra inputs are broadcast side operands."""
-        if not in_list[0].is_cuda:
-            return False
+    def kernel_path(in_list) -> bool:
+        """Can this call run the generated kernels?  For nhwc only when the
+        extra inputs are broadcast side operands (else the JAX package's
+        reference path).  On CPU tensors the wrappers run their plain
+        versions."""
         return not is_nhwc or (len(program.outputs) == 1 and all(
             is_broadcast_operand(a) for a in in_list[1:]))
 
-    def call(in_list, p_list):
-        _refuse_grad(program, (*in_list, *p_list))
+    def forward(in_list, p_list) -> tuple[torch.Tensor, ...]:
         inputs = dict(zip(names, in_list))
         params = dict(zip(pnames, p_list))
-        if not generated(in_list):
+        if not kernel_path(in_list):
             STATS.record("fwd_reference")
             out = ref.fused_stack_ref(program, inputs, params)
             return tuple(out[v] for v in program.outputs)
-        STATS.record("fwd_generated")
+        STATS.record("fwd_generated" if in_list[0].is_cuda
+                     else "fwd_reference")
         if is_nhwc:
-            y = nhwc.fused_nhwc(
+            return (nhwc.fused_nhwc(
                 program, in_list[0], params,
                 extras=dict(zip(names[1:], in_list[1:])),
-                tile_out_h=tile_out_h, tile_out_w=tile_out_w)
-            return (y,)
+                tile_out_h=tile_out_h, tile_out_w=tile_out_w),)
         out = rows.fused_rows(program, inputs, params, tile_rows=tile_rows)
         return tuple(out[v] for v in program.outputs)
 
+    def backward(in_list, p_list, gs) -> tuple[torch.Tensor | None, ...]:
+        if generated_bwd and kernel_path(in_list):
+            STATS.record("bwd_generated" if in_list[0].is_cuda
+                         else "bwd_reference")
+            params = dict(zip(pnames, p_list))
+            if is_nhwc:
+                dx, dextras, dparams = nhwc_bwd.fused_nhwc_bwd(
+                    program, in_list[0], dict(zip(names[1:], in_list[1:])),
+                    params, gs[0], tile_out_h=tile_out_h,
+                    tile_out_w=tile_out_w)
+                dins = {names[0]: dx, **dextras}
+            else:
+                dins, dparams = rows_bwd.fused_rows_bwd(
+                    program, dict(zip(names, in_list)), params,
+                    dict(zip(program.outputs, gs)), tile_rows=tile_rows,
+                    f_chunk=f_chunk)
+            return (tuple(dins[n] for n in names)
+                    + tuple(dparams[p] for p in pnames))
+        # the JAX package's reference VJP: autograd of the plain version
+        STATS.record("bwd_reference")
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(t.is_floating_point())
+                      for t in (*in_list, *p_list)]
+            out = ref.fused_stack_ref(program, dict(zip(names, leaves[:n_in])),
+                                      dict(zip(pnames, leaves[n_in:])))
+            outs = [out[v] for v in program.outputs]
+            wrt = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(outs, wrt, gs,
+                                             allow_unused=True))
+        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+    class Fused(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *tensors):
+            outs = forward(tensors[:n_in], tensors[n_in:])
+            ctx.save_for_backward(*tensors)
+            ctx.out_like = [(o.shape, o.dtype, o.device) for o in outs]
+            return outs
+
+        @staticmethod
+        def backward(ctx, *gs):
+            tensors = ctx.saved_tensors
+            gs = [torch.zeros(shape, dtype=dtype, device=device) if g is None
+                  else g.contiguous()       # None: an output no loss reads
+                  for g, (shape, dtype, device) in zip(gs, ctx.out_like)]
+            return backward(tensors[:n_in], tensors[n_in:], gs)
+
+    def call(in_list, p_list):
+        return Fused.apply(*in_list, *p_list)
+
     return FusedExecutable(program=program, tile_rows=tile_rows,
                            tile_out_h=tile_out_h, tile_out_w=tile_out_w,
-                           call=call)
+                           call=call, generated_bwd=generated_bwd,
+                           f_chunk=f_chunk)
 
 
 def fused_stack_apply(program: ir.StackProgram,
@@ -180,7 +239,10 @@ def fused_stack_apply(program: ir.StackProgram,
                       mode: str = "xla",
                       tile_rows: int = 256,
                       tile_out_h: int = 8,
-                      tile_out_w: int = 8) -> dict[str, torch.Tensor]:
+                      tile_out_w: int = 8,
+                      f_chunk: int = resource.H100.f_chunk,
+                      differentiable: bool = False
+                      ) -> dict[str, torch.Tensor]:
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "barrier":
@@ -188,7 +250,8 @@ def fused_stack_apply(program: ir.StackProgram,
     if mode == "xla":
         return ref.fused_stack_ref(program, inputs, params)
     exe = get_executable(program, tile_rows=tile_rows, tile_out_h=tile_out_h,
-                         tile_out_w=tile_out_w)
+                         tile_out_w=tile_out_w, f_chunk=f_chunk,
+                         differentiable=differentiable)
     in_list = tuple(inputs[n] for n in program.inputs)
     p_list = tuple(params[p] for p in program.param_names)
     return dict(zip(program.outputs, exe.call(in_list, p_list)))

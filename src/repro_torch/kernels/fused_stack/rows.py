@@ -109,32 +109,56 @@ def emit_source(program: ir.StackProgram, in_widths: Mapping[str, int],
         "    cols = tl.arange(0, BLOCK_F)[None, :]",
         "    cmask = cols < F",
     ]
-    for i, p in enumerate(program.param_names):
-        if param_widths[p] == 1:
-            lines.append(f"    {pvar[p]} = tl.load(par{i})")
-        else:
-            lines.append(f"    {pvar[p]} = tl.load(par{i} + cols, mask=cmask,"
-                         f" other=0.0)")
+    lines += ["    " + ln for ln in param_lines(program, pvar, param_widths)]
     lines += [
         "    for r0 in range(row_start, row_start + TILE_R, R_SUB):",
         "        rows = (r0 + tl.arange(0, R_SUB))[:, None]",
         "        rmask = rows < row_end",
         "        r64 = rows.to(tl.int64)",
     ]
+    body = [f"{var[v]} = {load(f'in{i}', widths[v])}"
+            for i, v in enumerate(program.inputs)]
+    body += op_lines(program, var, pvar, widths)
+    for i, v in enumerate(program.outputs):
+        if widths[v] == 1:
+            body.append(f"tl.store(out{i} + r64, {var[v]}, mask=rmask)")
+        else:
+            body.append(f"tl.store(out{i} + r64 * F + cols, {var[v]}, "
+                        f"mask=rmask & cmask)")
+    lines += ["        " + b for b in body]
+    return "\n".join(lines) + "\n"
+
+
+def load(ptr: str, w: int) -> str:
+    """A masked load of the current sub-block of rows (width 1 or F)."""
+    if w == 1:
+        return f"tl.load({ptr} + r64, mask=rmask, other=0.0)"
+    return f"tl.load({ptr} + r64 * F + cols, mask=rmask & cmask, other=0.0)"
+
+
+def zeroed(x: str, w: int) -> str:
+    """``x`` with the lanes past F set to 0 (before a sum over F)."""
+    return x if w == 1 else f"tl.where(cmask, {x}, 0.0)"
+
+
+def param_lines(program: ir.StackProgram, pvar: Mapping[str, str],
+                param_widths: Mapping[str, int]) -> list[str]:
+    """Loads of the parameters at the current columns."""
+    lines = []
+    for i, p in enumerate(program.param_names):
+        if param_widths[p] == 1:
+            lines.append(f"{pvar[p]} = tl.load(par{i})")
+        else:
+            lines.append(f"{pvar[p]} = tl.load(par{i} + cols, mask=cmask, "
+                         f"other=0.0)")
+    return lines
+
+
+def op_lines(program: ir.StackProgram, var: Mapping[str, str],
+             pvar: Mapping[str, str], widths: Mapping[str, int]) -> list[str]:
+    """One statement group per op: the chain's forward on the loaded
+    sub-block.  Shared by the forward kernel and the backward's recompute."""
     body: list[str] = []
-
-    def ld(ptr: str, w: int) -> str:
-        if w == 1:
-            return f"tl.load({ptr} + r64, mask=rmask, other=0.0)"
-        return (f"tl.load({ptr} + r64 * F + cols, mask=rmask & cmask, "
-                f"other=0.0)")
-
-    for i, v in enumerate(program.inputs):
-        body.append(f"{var[v]} = {ld(f'in{i}', widths[v])}")
-
-    def zeroed(x: str, w: int) -> str:
-        return x if w == 1 else f"tl.where(cmask, {x}, 0.0)"
-
     for op in program.ops:
         out = var[op.output]
         x = var[op.inputs[0]]
@@ -180,14 +204,7 @@ def emit_source(program: ir.StackProgram, in_widths: Mapping[str, int],
         else:
             raise ValueError(f"{program.name}: op kind {op.kind} is not a "
                              f"rows stack op")
-    for i, v in enumerate(program.outputs):
-        if widths[v] == 1:
-            body.append(f"tl.store(out{i} + r64, {var[v]}, mask=rmask)")
-        else:
-            body.append(f"tl.store(out{i} + r64 * F + cols, {var[v]}, "
-                        f"mask=rmask & cmask)")
-    lines += ["        " + b for b in body]
-    return "\n".join(lines) + "\n"
+    return body
 
 
 def _next_pow2(n: int) -> int:

@@ -1,7 +1,7 @@
 """The slice as a whole: ``optimize_graph``/``optimize_stack`` of the port
 against the JAX package's, on the CPU, in all three modes, with weights
-carried over by ``params_from_numpy``; the device and gradient guards; and
-the package boundary (no ``jax``, no ``repro`` import under
+carried over by ``params_from_numpy``; the device guards; gradients in
+every mode; and the package boundary (no ``jax``, no ``repro`` import under
 ``src/repro_torch/`` or in ``chip_smoke.py``)."""
 from __future__ import annotations
 
@@ -132,19 +132,54 @@ def test_cuda_request_without_gpu_raises(monkeypatch):
 
 
 def test_brainslug_refuses_grad_and_other_modes_differentiate():
+    """brainslug differentiates too now (its CPU backward is the plain
+    version, counted as ``bwd_reference``), with the same gradient as the
+    two interpreter modes."""
     graph, params = tcnn.block_net(2, channels=4, device="cpu")
     x = torch.randn(1, 6, 6, 4, requires_grad=True)
-    net = tapi.optimize_graph(graph, tuple(x.shape), tapi.OptimizeConfig(
-        mode="brainslug", torch_device="cpu"))
-    with pytest.raises(NotImplementedError, match="Slice B"):
-        net(x, params)
+    grads = {}
+    for mode in MODES:
+        net = tapi.optimize_graph(graph, tuple(x.shape), tapi.OptimizeConfig(
+            mode=mode, torch_device="cpu"))
+        before = tops.STATS.snapshot()
+        (grads[mode],) = torch.autograd.grad(net(x, params).sum(), x)
+        delta = tops.STATS.delta(before)
+        assert torch.isfinite(grads[mode]).all()
+        assert delta["bwd_reference"] == (net.n_sequences
+                                          if mode == "brainslug" else 0)
+        assert delta["bwd_generated"] == 0
     with torch.no_grad():
         assert net(x, params).shape == (1, 6, 6, 4)
     for mode in ("xla", "barrier"):
-        y = tapi.optimize_graph(graph, tuple(x.shape), tapi.OptimizeConfig(
-            mode=mode, torch_device="cpu"))(x, params)
-        (gx,) = torch.autograd.grad(y.sum(), x)
-        assert torch.isfinite(gx).all()
+        torch.testing.assert_close(grads["brainslug"], grads[mode],
+                                   rtol=TOL, atol=TOL)
+
+
+def test_training_plan_checks_backward_slots_when_built(monkeypatch):
+    """A plan sized for training builds its executables with the nhwc
+    backward's slot plan, so a chain the backward cannot hold raises when
+    compiled, not mid-backward; a forward-only plan does not ask.  Every
+    executable carries its plan's device's feature chunk."""
+    from collections import OrderedDict
+
+    from repro_torch.core import resource as tresource
+    from repro_torch.kernels.fused_stack import nhwc as tnhwc
+    from repro_torch.kernels.fused_stack import nhwc_bwd as tnhwc_bwd
+    graph, _ = tcnn.block_net(2, channels=4, device="cpu")
+    tcodegen.clear_cache()
+    monkeypatch.setattr(tnhwc_bwd, "_CHAINS", OrderedDict())
+    monkeypatch.setattr(tnhwc_bwd, "BWD_MAX_SLOTS", 3)
+    for differentiable in (False, True):
+        cfg = tapi.OptimizeConfig(mode="brainslug", torch_device="cpu",
+                                  differentiable=differentiable)
+        if differentiable:
+            with pytest.raises(tnhwc.DescriptorError, match="more than 3"):
+                tapi.optimize_graph(graph, (1, 6, 6, 4), cfg)
+        else:
+            tapi.optimize_graph(graph, (1, 6, 6, 4), cfg)
+    assert {e.f_chunk for e in tops._EXEC_CACHE.values()} == {
+        tresource.H100.f_chunk}
+    tcodegen.clear_cache()
 
 
 def test_device_mismatch_and_bad_config_raise():

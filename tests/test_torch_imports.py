@@ -1,0 +1,36 @@
+"""The port's import hygiene, at run time: in a fresh interpreter, importing
+every module of ``repro_torch`` loads no ``jax*`` module and nothing of the
+JAX package (``repro`` / ``repro.*``)."""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_modules_import_neither_jax_nor_repro():
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          check=True)
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "repro_torch.kernels.fused_stack.rows_bwd" in result["modules"]
+    assert "repro_torch.kernels.fused_stack.nhwc_bwd" in result["modules"]
+    assert "repro_torch.core.autodiff" in result["modules"]
+    assert result["bad"] == []

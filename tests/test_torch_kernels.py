@@ -163,6 +163,101 @@ def _names(ids):
     return {i: name for name, i in ids.items()}
 
 
+def _vec_fn(d, vecs, C):
+    """``vec()`` of the .cu file: a vector operand at channels ``cg``."""
+    def vec(idx, cg):
+        if d.vec_stride[idx] == 0:
+            return vecs[idx][0].expand(cg.shape)
+        return torch.where(cg < C, vecs[idx][cg.clamp(max=C - 1)], 0.0)
+    return vec
+
+
+def _tile_forward(d, vec, xt, n, ti, tj, c0):
+    """``load_patch`` + ``run_chain`` of ``csrc/fused_nhwc.cuh`` for one
+    work item: the shared-memory slots after the recompute."""
+    _, H, W, C = xt.shape
+    cb = d.cb
+    unary_name = _names(tnhwc.UNARY_IDS)
+    binary_name = _names(tnhwc.BINARY_IDS)
+    smem = torch.zeros(d.n_slots, d.slot_elems)
+
+    def operand(src, idx, e, cg):
+        return smem[idx, e] if src == tnhwc.SRC_SLOT else vec(idx, cg)
+
+    L = d.levels[0]
+    gh = ti * d.th * L.mul_h - L.off_h
+    gw = tj * d.tw * L.mul_w - L.off_w
+    e = torch.arange(L.eh * L.ew * cb)
+    c, p = e % cb, e // cb
+    h, w, cg = gh + p // L.ew, gw + p % L.ew, c0 + c
+    ok = (h >= 0) & (h < H) & (w >= 0) & (w < W) & (cg < C)
+    smem[d.in_slot, e] = torch.where(ok, xt[
+        n, h.clamp(0, H - 1), w.clamp(0, W - 1), cg.clamp(max=C - 1)], 0.0)
+    level, k = 0, 0
+    while k < d.n_ops:
+        op = d.ops[k]
+        L = d.levels[level]
+        if op.kind == tnhwc.K_POOL:
+            Lo = d.levels[level + 1]
+            gh = ti * d.th * L.mul_h - L.off_h
+            gw = tj * d.tw * L.mul_w - L.off_w
+            e = torch.arange(Lo.eh * Lo.ew * cb)
+            c, p = e % cb, e // cb
+            oi, oj = p // Lo.ew, p % Lo.ew
+            neutral = -np.finfo(np.float32).max if op.fn == 0 else 0.0
+            acc = None
+            for di in range(op.kh):
+                for dj in range(op.kw):
+                    hi, wj = oi * op.sh + di, oj * op.sw + dj
+                    ok = ((gh + hi >= 0) & (gh + hi < L.ih)
+                          & (gw + wj >= 0) & (gw + wj < L.iw))
+                    v = torch.where(
+                        ok, smem[op.a_idx, (hi * L.ew + wj) * cb + c],
+                        neutral)
+                    acc = v if acc is None else (
+                        torch.maximum(acc, v) if op.fn == 0 else acc + v)
+            if op.fn == 1:
+                acc = acc / float(op.kh * op.kw)
+            smem[op.out, e] = acc
+            level += 1
+            k += 1
+        elif op.kind in (tnhwc.K_NORM, tnhwc.K_SOFTMAX):
+            n_pos = L.eh * L.ew
+            xv = smem[op.a_idx, :n_pos * cb].view(n_pos, cb)
+            if op.kind == tnhwc.K_SOFTMAX:
+                y = torch.softmax(xv, dim=-1)
+            else:
+                mu = xv.mean(-1, keepdim=True) if op.norm == 1 else 0.0
+                var = torch.square(xv - mu).mean(-1, keepdim=True)
+                y = (xv - mu) * torch.rsqrt(var + op.eps)
+                cc = torch.arange(cb)
+                if op.b_idx >= 0:
+                    y = y * vec(op.b_idx, cc)
+                if op.c_idx >= 0:
+                    y = y + vec(op.c_idx, cc)
+            smem[op.out, :n_pos * cb] = y.reshape(-1)
+            k += 1
+        else:
+            last = k
+            while last < d.n_ops and d.ops[last].kind <= tnhwc.K_AFFINE:
+                last += 1
+            e = torch.arange(L.eh * L.ew * cb)
+            cg = c0 + e % cb
+            for q in range(k, last):
+                o = d.ops[q]
+                a = operand(o.a_src, o.a_idx, e, cg)
+                if o.kind == tnhwc.K_UNARY:
+                    r = tir.UNARY_FNS[unary_name[o.fn]](a)
+                elif o.kind == tnhwc.K_BINARY:
+                    r = tir.BINARY_FNS[binary_name[o.fn]](
+                        a, operand(o.b_src, o.b_idx, e, cg))
+                else:
+                    r = a * vec(o.b_idx, cg) + vec(o.c_idx, cg)
+                smem[o.out, e] = r
+            k = last
+    return smem
+
+
 def _run_descriptor(program, x, params, extras, tile):
     """``csrc/fused_nhwc.cu`` in Python, element for element, over the
     descriptor :func:`repro_torch.kernels.fused_stack.nhwc.fused_nhwc`
@@ -180,104 +275,13 @@ def _run_descriptor(program, x, params, extras, tile):
     N, H, W, C = x.shape
     cb = d.cb
     out = torch.full((N, d.OH, d.OW, C), float("nan"))
-    unary_name = _names(tnhwc.UNARY_IDS)
-    binary_name = _names(tnhwc.BINARY_IDS)
-
-    def vec(idx, cg):
-        if d.vec_stride[idx] == 0:
-            return vecs[idx][0].expand(cg.shape)
-        return torch.where(cg < C, vecs[idx][cg.clamp(max=C - 1)], 0.0)
-
+    vec = _vec_fn(d, vecs, C)
     for n in range(N):
         for ti in range(d.tiles_h):
             for tj in range(d.tiles_w):
                 for cblk in range(d.n_cb):
                     c0 = cblk * cb
-                    smem = torch.zeros(d.n_slots, d.slot_elems)
-
-                    def operand(src, idx, e, cg):
-                        return smem[idx, e] if src == tnhwc.SRC_SLOT else \
-                            vec(idx, cg)
-
-                    L = d.levels[0]
-                    gh = ti * d.th * L.mul_h - L.off_h
-                    gw = tj * d.tw * L.mul_w - L.off_w
-                    e = torch.arange(L.eh * L.ew * cb)
-                    c, p = e % cb, e // cb
-                    h, w, cg = gh + p // L.ew, gw + p % L.ew, c0 + c
-                    ok = (h >= 0) & (h < H) & (w >= 0) & (w < W) & (cg < C)
-                    smem[d.in_slot, e] = torch.where(ok, xt[
-                        n, h.clamp(0, H - 1), w.clamp(0, W - 1),
-                        cg.clamp(max=C - 1)], 0.0)
-                    level, k = 0, 0
-                    while k < d.n_ops:
-                        op = d.ops[k]
-                        L = d.levels[level]
-                        if op.kind == tnhwc.K_POOL:
-                            Lo = d.levels[level + 1]
-                            gh = ti * d.th * L.mul_h - L.off_h
-                            gw = tj * d.tw * L.mul_w - L.off_w
-                            e = torch.arange(Lo.eh * Lo.ew * cb)
-                            c, p = e % cb, e // cb
-                            oi, oj = p // Lo.ew, p % Lo.ew
-                            neutral = -np.finfo(np.float32).max \
-                                if op.fn == 0 else 0.0
-                            acc = None
-                            for di in range(op.kh):
-                                for dj in range(op.kw):
-                                    hi, wj = oi * op.sh + di, oj * op.sw + dj
-                                    ok = ((gh + hi >= 0) & (gh + hi < L.ih)
-                                          & (gw + wj >= 0) & (gw + wj < L.iw))
-                                    v = torch.where(
-                                        ok, smem[op.a_idx,
-                                                 (hi * L.ew + wj) * cb + c],
-                                        neutral)
-                                    acc = v if acc is None else (
-                                        torch.maximum(acc, v) if op.fn == 0
-                                        else acc + v)
-                            if op.fn == 1:
-                                acc = acc / float(op.kh * op.kw)
-                            smem[op.out, e] = acc
-                            level += 1
-                            k += 1
-                        elif op.kind in (tnhwc.K_NORM, tnhwc.K_SOFTMAX):
-                            n_pos = L.eh * L.ew
-                            xv = smem[op.a_idx, :n_pos * cb].view(n_pos, cb)
-                            if op.kind == tnhwc.K_SOFTMAX:
-                                y = torch.softmax(xv, dim=-1)
-                            else:
-                                mu = (xv.mean(-1, keepdim=True)
-                                      if op.norm == 1 else 0.0)
-                                var = torch.square(xv - mu).mean(-1,
-                                                                 keepdim=True)
-                                y = (xv - mu) * torch.rsqrt(var + op.eps)
-                                cc = torch.arange(cb)
-                                if op.b_idx >= 0:
-                                    y = y * vec(op.b_idx, cc)
-                                if op.c_idx >= 0:
-                                    y = y + vec(op.c_idx, cc)
-                            smem[op.out, :n_pos * cb] = y.reshape(-1)
-                            k += 1
-                        else:
-                            last = k
-                            while last < d.n_ops and \
-                                    d.ops[last].kind <= tnhwc.K_AFFINE:
-                                last += 1
-                            e = torch.arange(L.eh * L.ew * cb)
-                            cg = c0 + e % cb
-                            for q in range(k, last):
-                                o = d.ops[q]
-                                a = operand(o.a_src, o.a_idx, e, cg)
-                                if o.kind == tnhwc.K_UNARY:
-                                    r = tir.UNARY_FNS[unary_name[o.fn]](a)
-                                elif o.kind == tnhwc.K_BINARY:
-                                    r = tir.BINARY_FNS[binary_name[o.fn]](
-                                        a, operand(o.b_src, o.b_idx, e, cg))
-                                else:
-                                    r = a * vec(o.b_idx, cg) + vec(o.c_idx,
-                                                                   cg)
-                                smem[o.out, e] = r
-                            k = last
+                    smem = _tile_forward(d, vec, xt, n, ti, tj, c0)
                     e = torch.arange(d.th * d.tw * cb)
                     c, p = e % cb, e // cb
                     oh, ow = ti * d.th + p // d.tw, tj * d.tw + p % d.tw
@@ -490,6 +494,8 @@ def _fake_triton():
     tl = types.ModuleType("triton.language")
     tl.constexpr = object
     tl.int64 = np.int64
+    tl.float32 = np.float32
+    tl.zeros = lambda shape, dtype: np.zeros(shape, dtype)
     tl.PropagateNan = types.SimpleNamespace(ALL="all", NONE="none")
     state = {"pid": 0}
     tl.program_id = lambda axis: state["pid"]
@@ -509,6 +515,8 @@ def _fake_triton():
     def store(ptr, val, mask=None):
         off = np.asarray(ptr.off)
         val = np.broadcast_to(np.asarray(val, np.float32), off.shape)
+        if mask is None:
+            mask = True
         mask = np.broadcast_to(mask, off.shape)
         ptr.buf[off[mask]] = val[mask]
 

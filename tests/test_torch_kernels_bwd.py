@@ -1,0 +1,612 @@
+"""The port's backward kernels against the JAX package's Pallas backward
+kernels (run in interpret mode), on the CPU.
+
+* rows: the generated Triton source of ``rows_bwd.emit_bwd_source``, run
+  on the numpy stand-in for ``triton.language`` of
+  ``tests/test_torch_kernels.py``, program by program as the persistent
+  launch runs it, then the partial-sum reduction;
+* nhwc: ``_run_bwd_descriptor``, a transliteration of
+  ``csrc/fused_nhwc_bwd.cu`` over the descriptor the wrapper builds
+  (persistent CTAs, the reverse sweep, the overlap-add or direct ``dx``
+  write, and the two-pass parameter reduction);
+* both plain versions (what a CPU tensor runs).
+
+Both are held to ``fused_rows_bwd_call`` / ``fused_nhwc_bwd_call`` with
+``interpret=True``.  The kernels themselves run only on the card
+(``chip_smoke.py``)."""
+from __future__ import annotations
+
+import math
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ir as jir
+from repro.kernels.fused_stack import nhwc_bwd as jnhwc_bwd
+from repro.kernels.fused_stack import rows_bwd as jrows_bwd
+from repro_torch.core import autodiff as tad
+from repro_torch.core import ir as tir
+from repro_torch.core import resource as tresource
+from repro_torch.kernels.fused_stack import nhwc as tnhwc
+from repro_torch.kernels.fused_stack import nhwc_bwd as tnhwc_bwd
+from repro_torch.kernels.fused_stack import rows as trows
+from repro_torch.kernels.fused_stack import rows_bwd as trows_bwd
+
+from test_torch_kernels import (NHWC_CASES, _fake_triton, _np_int64, _Ptr,
+                                _randn, _rows_inputs, _tile_forward,
+                                _vec_fn)
+
+TOL = 1e-5
+# the stand-ins sum rows, windows and tiles in another order than XLA
+RTOL_SUM = 1e-4
+
+
+def _assert_close(got, want, what, rtol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol,
+                               atol=TOL, err_msg=what)
+
+
+# ---------------------------------------------------------------------------
+# rows
+# ---------------------------------------------------------------------------
+
+BWD_ROWS_CASES = {
+    # name: (forward case, tile_rows, programs of the persistent launch)
+    "all_fns": ("all_fns", 4, 2),
+    "norms_softmax": ("norms_softmax", 4, 3),
+    "addnorm_rms": ("addnorm_rms", 8, 2),
+    "addnorm_layer_bias": ("addnorm_layer_bias", 4, 3),
+    "glu_silu": ("glu_silu", 4, 2),
+    "scalar": ("scalar", 4, 2),
+}
+
+
+def _rows_cotangents(program, inputs, params, seed):
+    """Seeded cotangents of every program output, at the output's width."""
+    rng = np.random.default_rng(seed)
+    in_w = {k: v.shape[-1] for k, v in inputs.items()}
+    p_w = {k: int(np.asarray(v).size) for k, v in params.items()}
+    widths = trows.value_widths(program, in_w, p_w)
+    lead = next(iter(inputs.values())).shape[:-1]
+    return {v: _randn(rng, lead + (widths[v],)) for v in program.outputs}
+
+
+def _jax_rows_bwd(make, inputs, params, gs, tile):
+    dins, dps = jrows_bwd.fused_rows_bwd_call(
+        make(jir), {k: jnp.asarray(v) for k, v in inputs.items()},
+        {k: jnp.asarray(v) for k, v in params.items()},
+        {k: jnp.asarray(v) for k, v in gs.items()}, tile_rows=tile,
+        interpret=True)
+    return ({k: np.asarray(v) for k, v in dins.items()},
+            {k: np.asarray(v) for k, v in dps.items()})
+
+
+def _run_generated_bwd(program, inputs, params, gs, tile, n_prog,
+                       monkeypatch, f_chunk=tresource.H100.f_chunk):
+    """Execute ``emit_bwd_source`` on the fake Triton: every program of the
+    persistent launch, then the reduction of the partials."""
+    modules, state = _fake_triton()
+    modules["triton.language"].debug_barrier = lambda: None
+    for k, v in modules.items():
+        monkeypatch.setitem(sys.modules, k, v)
+    arrays = [inputs[n] for n in program.inputs]
+    lead = arrays[0].shape[:-1]
+    n_rows = math.prod(lead)
+    in_w = {n: a.shape[-1] for n, a in zip(program.inputs, arrays)}
+    p_w = {p: int(np.asarray(params[p]).size) for p in program.param_names}
+    feat = max(list(in_w.values()) + list(p_w.values()))
+    f_block = tresource.feature_block(program, feat, f_chunk)
+    src = trows_bwd.emit_bwd_source(program, in_w, p_w, feat, f_block)
+    src = src.replace("rows.to(tl.int64)", "_np_int64(rows)")
+    ns = {"_np_int64": _np_int64}
+    exec(compile(src, "<generated>", "exec"), ns)
+    dins = [np.full(n_rows * in_w[n], np.nan, np.float32)
+            for n in program.inputs]
+    pw = sum(p_w.values())
+    partial = np.full(n_prog * max(pw, 1), np.nan, np.float32)
+    block_f, r_sub, _ = trows_bwd.launch_config(f_block, tile)
+    args = ([_Ptr(a.reshape(-1)) for a in arrays]
+            + [_Ptr(np.asarray(params[p], np.float32).reshape(-1))
+               for p in program.param_names]
+            + [_Ptr(np.asarray(gs[v], np.float32).reshape(-1))
+               for v in program.outputs]
+            + [_Ptr(d) for d in dins] + [_Ptr(partial)])
+    n_tiles = -(-n_rows // tile)
+    for pid in range(n_prog):
+        state["pid"] = pid
+        ns["fused_rows_bwd_kernel"](*args, n_rows, n_tiles, n_prog, F=feat,
+                                    TILE_R=tile, R_SUB=r_sub, BLOCK_F=block_f,
+                                    P_W=pw)
+    total = np.full(max(pw, 1), np.nan, np.float32)
+    for pid in range(-(-pw // 8)):
+        state["pid"] = pid
+        ns["reduce_partials_kernel"](_Ptr(partial), _Ptr(total), n_prog, pw,
+                                     BLOCK=8)
+    dparams, off = {}, 0
+    for p in program.param_names:
+        dparams[p] = total[off: off + p_w[p]].reshape(np.shape(params[p]))
+        off += p_w[p]
+    return ({n: d.reshape(*lead, in_w[n])
+             for n, d in zip(program.inputs, dins)}, dparams)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_ROWS_CASES))
+def test_rows_bwd_paths_match_jax_kernel(name, monkeypatch):
+    """Plain version and the generated Triton source (fake Triton), each
+    against the Pallas backward in interpret mode: a tail tile, F not a
+    power of two, more tiles than programs."""
+    case, tile, n_prog = BWD_ROWS_CASES[name]
+    make, inputs, params, _ = _rows_inputs(case)
+    tprog = make(tir)
+    gs = _rows_cotangents(tprog, inputs, params, 70)
+    want_in, want_p = _jax_rows_bwd(make, inputs, params, gs, tile)
+    plain_in, plain_p = trows_bwd.fused_rows_bwd(
+        tprog, {k: torch.from_numpy(v) for k, v in inputs.items()},
+        {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()},
+        {k: torch.from_numpy(v) for k, v in gs.items()}, tile_rows=tile)
+    gen_in, gen_p = _run_generated_bwd(tprog, inputs, params, gs, tile,
+                                       n_prog, monkeypatch)
+    for k in want_in:
+        _assert_close(plain_in[k].numpy(), want_in[k], f"plain d{k}")
+        _assert_close(gen_in[k], want_in[k], f"generated d{k}", RTOL_SUM)
+    for k in want_p:
+        _assert_close(plain_p[k].numpy(), want_p[k], f"plain d{k}", RTOL_SUM)
+        _assert_close(gen_p[k], want_p[k], f"generated d{k}", RTOL_SUM)
+
+
+def test_rows_bwd_walks_f_in_chunks(monkeypatch):
+    """The glu is F-separable: with a 32-feature chunk the kernel walks 72
+    features in three chunks (the last one ragged) and still matches."""
+    make, inputs, params, _ = _rows_inputs("glu_silu")
+    tprog = make(tir)
+    assert tresource.feature_block(tprog, 72, 32) == 32
+    assert trows_bwd.launch_config(32, 4)[0] == 32
+    gs = _rows_cotangents(tprog, inputs, params, 71)
+    want_in, _ = _jax_rows_bwd(make, inputs, params, gs, 8)
+    gen_in, _ = _run_generated_bwd(tprog, inputs, params, gs, 4, 3,
+                                   monkeypatch, f_chunk=32)
+    for k in want_in:
+        _assert_close(gen_in[k], want_in[k], f"generated d{k}")
+
+
+def _chunk_scalar(m):
+    """An F-separable chain with width-1 operands: a scalar parameter on
+    the F-wide path, and a (rows, 1) input scaled by a (1,) parameter into
+    a width-1 value that is both an output and added to the F-wide path."""
+    K = m.OpKind
+    return m.StackProgram(name="chunk_scalar", inputs=("x", "r"),
+                          outputs=("y", "u"), ops=(
+        m.OpNode(K.EW_BINARY, "k", ("x",), "a", fn="mul", params=("k",)),
+        m.OpNode(K.EW_BINARY, "t", ("r",), "u", fn="mul", params=("t",)),
+        m.OpNode(K.EW_BINARY, "b", ("a", "u"), "b", fn="add"),
+        m.OpNode(K.AFFINE, "f", ("b",), "y", params=("s", "o"))))
+
+
+@pytest.mark.parametrize("f_chunk", [32, 0])
+def test_rows_bwd_chunks_width1_operands(f_chunk, monkeypatch):
+    """Width-1 parameters, inputs and outputs of an F-separable chain walked
+    in 32-feature chunks (72 features: three chunks, the last ragged) or
+    whole: each chunk's partial gradients add up to the Pallas backward's,
+    the width-1 output's cotangent enters once."""
+    rng = np.random.default_rng(73)
+    inputs = {"x": _randn(rng, (7, 72)), "r": _randn(rng, (7, 1))}
+    params = {"k": _randn(rng, ()), "t": _randn(rng, (1,)),
+              "s": _randn(rng, (72,)), "o": _randn(rng, (72,))}
+    tprog = _chunk_scalar(tir)
+    assert tresource.feature_block(tprog, 72, f_chunk) == (f_chunk or 72)
+    gs = _rows_cotangents(tprog, inputs, params, 74)
+    want_in, want_p = _jax_rows_bwd(_chunk_scalar, inputs, params, gs, 4)
+    gen_in, gen_p = _run_generated_bwd(tprog, inputs, params, gs, 4, 3,
+                                       monkeypatch, f_chunk=f_chunk)
+    for k in want_in:
+        _assert_close(gen_in[k], want_in[k], f"generated d{k}", RTOL_SUM)
+    for k in want_p:
+        _assert_close(gen_p[k], want_p[k], f"generated d{k}", RTOL_SUM)
+
+
+def test_rows_bwd_keeps_padded_rows_out_of_param_grads(monkeypatch):
+    """Rows past the end recompute 0 / 0 (a div by a zero input); the row
+    mask must keep that NaN out of the parameter sums."""
+    def make(m):
+        return m.StackProgram(name="pad", inputs=("x", "z"), outputs=("y",),
+                              ops=(
+            m.OpNode(m.OpKind.EW_BINARY, "d", ("x", "z"), "a", fn="div"),
+            m.OpNode(m.OpKind.AFFINE, "f", ("a",), "y", params=("s", "o"))))
+
+    rng = np.random.default_rng(5)
+    inputs = {"x": _randn(rng, (7, 24)),
+              "z": np.abs(_randn(rng, (7, 24))) + 1.0}
+    params = {"s": _randn(rng, (24,)), "o": _randn(rng, (24,))}
+    tprog = make(tir)
+    gs = _rows_cotangents(tprog, inputs, params, 72)
+    _, want_p = _jax_rows_bwd(make, inputs, params, gs, 4)
+    _, gen_p = _run_generated_bwd(tprog, inputs, params, gs, 4, 2,
+                                  monkeypatch)
+    for k in want_p:
+        assert np.isfinite(gen_p[k]).all()
+        _assert_close(gen_p[k], want_p[k], f"d{k}", RTOL_SUM)
+
+
+def test_rows_bwd_chunk_is_the_planner_chunk():
+    """The kernel holds what the training planner counts: one predicate
+    (``resource.feature_block``) at the plan's device's chunk."""
+    from repro_torch.layers import stacks as tstacks
+    glu = tstacks.glu_program("silu")
+    norm = tstacks.norm_program("rms", 1e-6, False)
+    for prog, feat, held in ((glu, 11008, 2048), (norm, 4096, 4096)):
+        block = tresource.feature_block(prog, feat, tresource.H100.f_chunk)
+        assert block == held == tresource.planned_features(
+            prog, feat, tresource.H100, True)
+    assert tresource.feature_block(glu, 11008,
+                                   tresource.TINY_DEVICE.f_chunk) == 11008
+    assert trows_bwd.launch_config(2048, 2) == (2048, 2, 16)
+    assert trows_bwd.launch_config(4096, 2) == (4096, 1, 16)
+    assert trows_bwd.n_programs(4096, 132) == 528
+    assert trows_bwd.n_programs(5, 132) == 5
+
+
+# ---------------------------------------------------------------------------
+# nhwc
+# ---------------------------------------------------------------------------
+
+def _stride2_11x13(m):
+    """A stride that does not tile 11 x 13, padded borders, then a stride-1
+    pool whose halos overlap."""
+    ops = []
+    v = "x"
+    for i, stride in enumerate(((2, 2), (1, 1))):
+        ops += [m.OpNode(m.OpKind.POOL2D, f"p{i}", (v,), f"q{i}", fn="max",
+                         attrs={"window": (3, 3), "stride": stride,
+                                "padding": (1, 1)}),
+                m.OpNode(m.OpKind.AFFINE, f"bn{i}", (f"q{i}",), f"b{i}",
+                         params=(f"s{i}", f"o{i}")),
+                m.OpNode(m.OpKind.EW_UNARY, f"r{i}", (f"b{i}",), f"v{i}",
+                         fn="relu")]
+        v = f"v{i}"
+    return m.StackProgram(name="s2", inputs=("x",), outputs=(v,),
+                          ops=tuple(ops), layout="nhwc")
+
+
+def _avg_then_max(m):
+    return m.StackProgram(name="avgmax", inputs=("x",), outputs=("y",),
+                          layout="nhwc", ops=(
+        m.OpNode(m.OpKind.POOL2D, "a", ("x",), "a", fn="avg",
+                 attrs={"window": (3, 3), "stride": (1, 1),
+                        "padding": (1, 1)}),
+        m.OpNode(m.OpKind.POOL2D, "m", ("a",), "y", fn="max",
+                 attrs={"window": (2, 2), "stride": (2, 2),
+                        "padding": (0, 0)})))
+
+
+BWD_NHWC_CASES = {
+    # name: (make, x shape, tile, extras shapes, planted ties)
+    **{k: (make, shape, tile, extra, False)
+       for k, (make, shape, tile, extra) in NHWC_CASES.items()},
+    "stride2_11x13": (_stride2_11x13, (2, 11, 13, 8), 2, {}, False),
+    "ties": (_stride2_11x13, (1, 11, 13, 4), 4, {}, True),
+    "avg_then_max": (_avg_then_max, (1, 9, 10, 4), 2, {}, False),
+}
+
+
+def _nhwc_bwd_inputs(name):
+    make, shape, tile, extra_shapes, ties = BWD_NHWC_CASES[name]
+    rng = np.random.default_rng(100 + sorted(BWD_NHWC_CASES).index(name))
+    x = _randn(rng, shape, 2.0)
+    if ties:                       # integer grid: every window has ties
+        x = np.round(x).astype(np.float32)
+    jprog = make(jir)
+    c = shape[-1]
+    params = {p: _randn(rng, (c,), 0.3) + (1.0 if p[0] in "sg" else 0.0)
+              for p in jprog.param_names}
+    extras = {k: _randn(rng, s) for k, s in extra_shapes.items()}
+    shapes = jir.infer_shapes(jprog, {"x": shape, **extra_shapes})
+    g = _randn(rng, shapes[jprog.outputs[0]])
+    return make, x, params, extras, g, tile
+
+
+def _jax_nhwc_bwd(make, x, params, extras, g, tile):
+    dx, dex, dps = jnhwc_bwd.fused_nhwc_bwd_call(
+        make(jir), jnp.asarray(x), {k: jnp.asarray(v) for k, v in extras.items()},
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(g),
+        tile_out_h=tile, tile_out_w=tile, interpret=True)
+    return (np.asarray(dx), {k: np.asarray(v) for k, v in dex.items()},
+            {k: np.asarray(v) for k, v in dps.items()})
+
+
+def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
+    """``csrc/fused_nhwc_bwd.cu`` in Python over the descriptor
+    :func:`nhwc_bwd.fused_nhwc_bwd` passes: ``programs`` persistent CTAs,
+    the recompute (``_tile_forward``), the reverse sweep pass by pass, the
+    direct or patch write of dx, the overlap-add and the reduction."""
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    names = list(program.inputs[1:]) + list(program.param_names)
+    vals = {**extras, **params}
+    vecs = [torch.from_numpy(np.asarray(vals[n], np.float32)).reshape(-1)
+            for n in names]
+    strides = tuple(int(v.numel() != 1) for v in vecs)
+    blob = tnhwc_bwd.bwd_template(
+        program, x.shape, tuple(sorted((k, v.shape) for k, v in
+                                       extras.items())), strides, tile, tile)
+    b = tnhwc_bwd.NhwcBwdDesc.from_buffer_copy(blob)
+    d = b.f
+    N, H, W, C = x.shape
+    cb = d.cb
+    vec = _vec_fn(d, vecs, C)
+    unary = {i: n for n, i in tnhwc.UNARY_IDS.items()}
+    binary = {i: n for n, i in tnhwc.BINARY_IDS.items()}
+    L0 = d.levels[0]
+    # NaN where the direct write must reach every element unzeroed
+    dx = torch.full((N, H, W, C), float("nan")) if tnhwc_bwd.direct_covers(
+        b) else torch.zeros(N, H, W, C)
+    patches = torch.full((N, d.tiles_h, d.tiles_w, L0.eh * L0.ew, C),
+                         float("nan"))
+    programs = min(programs, b.work)
+    partials = torch.zeros(programs, b.n_vecs * C)
+
+    def valid(L, gh, gw, p):
+        h, w = gh + p // L.ew, gw + p % L.ew
+        return (h >= 0) & (h < L.ih) & (w >= 0) & (w < L.iw)
+
+    def put(smem, slot, e, v, acc):
+        smem[slot, e] = smem[slot, e] + v if acc else v
+
+    for blk in range(programs):
+        acc = torch.zeros(b.n_vecs * C)
+        for w in range(blk, b.work, programs):
+            cblk, t = w % d.n_cb, w // d.n_cb
+            tj, t = t % d.tiles_w, t // d.tiles_w
+            ti, n = t % d.tiles_h, t // d.tiles_h
+            c0 = cblk * cb
+            smem = _tile_forward(d, vec, xt, n, ti, tj, c0)
+
+            def operand(src, idx, e, cg):
+                return smem[idx, e] if src == tnhwc.SRC_SLOT else vec(idx, cg)
+
+            e = torch.arange(d.th * d.tw * cb)
+            c, p = e % cb, e // cb
+            oh, ow, cg = ti * d.th + p // d.tw, tj * d.tw + p % d.tw, c0 + c
+            ok = (oh < d.OH) & (ow < d.OW) & (cg < C)
+            smem[b.g_slot, e] = torch.where(ok, gt[
+                n, oh.clamp(max=d.OH - 1), ow.clamp(max=d.OW - 1),
+                cg.clamp(max=C - 1)], 0.0)
+            for k in reversed(range(d.n_ops)):
+                op, bo = d.ops[k], b.bops[k]
+                if bo.g < 0:
+                    continue
+                pool = op.kind == tnhwc.K_POOL
+                Li = d.levels[bo.level]
+                Lo = d.levels[bo.level + int(pool)]
+                ghi, gwi = (ti * d.th * Li.mul_h - Li.off_h,
+                            tj * d.tw * Li.mul_w - Li.off_w)
+                gho, gwo = (ti * d.th * Lo.mul_h - Lo.off_h,
+                            tj * d.tw * Lo.mul_w - Lo.off_w)
+                e = torch.arange(Lo.eh * Lo.ew * cb)
+                smem[bo.g, e] = torch.where(valid(Lo, gho, gwo, e // cb),
+                                            smem[bo.g, e], 0.0)
+                G = smem[bo.g]
+                if pool:
+                    eo = torch.arange(Lo.eh * Lo.ew * cb)
+                    co, po = eo % cb, eo // cb
+                    oi, oj = po // Lo.ew, po % Lo.ew
+                    if op.fn == 0:              # phase A: first max offset
+                        y = smem[op.out, eo]
+                        code = torch.full(eo.shape, -1.0)
+                        for di in range(op.kh):
+                            for dj in range(op.kw):
+                                hi, wj = oi * op.sh + di, oj * op.sw + dj
+                                okv = ((ghi + hi >= 0) & (ghi + hi < Li.ih)
+                                       & (gwi + wj >= 0) & (gwi + wj < Li.iw))
+                                v = torch.where(okv, smem[
+                                    op.a_idx, (hi * Li.ew + wj) * cb + co],
+                                    -np.finfo(np.float32).max)
+                                code = torch.where((code < 0) & (v == y),
+                                                   float(di * op.kw + dj),
+                                                   code)
+                        smem[op.out, eo] = code
+                    ei = torch.arange(Li.eh * Li.ew * cb)
+                    ci, pi = ei % cb, ei // cb
+                    hi, wj = pi // Li.ew, pi % Li.ew
+                    s = torch.zeros(ei.shape)
+                    for di in range(op.kh):
+                        for dj in range(op.kw):
+                            th_, tw_ = hi - di, wj - dj
+                            okh = (th_ >= 0) & (th_ % op.sh == 0) & (
+                                th_ // op.sh < Lo.eh)
+                            okw = (tw_ >= 0) & (tw_ % op.sw == 0) & (
+                                tw_ // op.sw < Lo.ew)
+                            o = ((th_ // op.sh).clamp(0, Lo.eh - 1) * Lo.ew
+                                 + (tw_ // op.sw).clamp(0, Lo.ew - 1)) * cb + ci
+                            if op.fn == 0:
+                                take = okh & okw & (smem[op.out, o]
+                                                    == float(di * op.kw + dj))
+                                s = s + torch.where(take, G[o], 0.0)
+                            else:
+                                s = s + torch.where(okh & okw, G[o] / float(
+                                    op.kh * op.kw), 0.0)
+                    put(smem, bo.da, ei, torch.where(
+                        valid(Li, ghi, gwi, pi), s, 0.0), bo.da_acc)
+                elif op.kind in (tnhwc.K_NORM, tnhwc.K_SOFTMAX):
+                    n_pos = Li.eh * Li.ew
+                    gv = G[:n_pos * cb].view(n_pos, cb)
+                    sl = slice(0, n_pos * cb)
+                    if op.kind == tnhwc.K_SOFTMAX:
+                        yv = smem[op.out, sl].view(n_pos, cb)
+                        dot = (gv * yv).sum(-1, keepdim=True)
+                        dxv = yv * (gv - dot)
+                    else:
+                        xv = smem[op.a_idx, sl].view(n_pos, cb)
+                        mu = xv.mean(-1, keepdim=True) if op.norm == 1 else 0.0
+                        var = torch.square(xv - mu).mean(-1, keepdim=True)
+                        r = torch.rsqrt(var + op.eps)
+                        xh = (xv - mu) * r
+                        cc = torch.arange(cb)
+                        gy = gv * vec(op.b_idx, cc) if op.b_idx >= 0 else gv
+                        if op.b_idx >= 0:
+                            okp = valid(Li, ghi, gwi, torch.arange(n_pos))
+                            smem[b.scratch, sl] = torch.where(
+                                okp[:, None], gv * xh, 0.0).reshape(-1)
+                        if op.norm == 0:
+                            m1 = (gy * xv).mean(-1, keepdim=True)
+                            dxv = r * gy - xv * (r * r * r) * m1
+                        else:
+                            m1 = gy.mean(-1, keepdim=True)
+                            m2 = (gy * xh).mean(-1, keepdim=True)
+                            dxv = r * (gy - m1 - xh * m2)
+                    put(smem, bo.da, torch.arange(n_pos * cb),
+                        dxv.reshape(-1), bo.da_acc)
+                else:
+                    e = torch.arange(Li.eh * Li.ew * cb)
+                    cg = c0 + e % cb
+                    gv = G[e]
+                    a = operand(op.a_src, op.a_idx, e, cg)
+                    db = torch.zeros_like(a)
+                    if op.kind == tnhwc.K_UNARY:
+                        fn = unary[op.fn]
+                        da = gv * tad._UNARY_DERIVS[fn](a, tir.UNARY_FNS[fn](a))
+                    elif op.kind == tnhwc.K_BINARY:
+                        bv = operand(op.b_src, op.b_idx, e, cg)
+                        da, db = tad._binary_vjp(binary[op.fn], a, bv, gv)
+                    else:
+                        da = gv * vec(op.b_idx, cg)
+                    if bo.da >= 0:
+                        put(smem, bo.da, e, da + db if bo.same else da,
+                            bo.da_acc)
+                    if bo.db >= 0:
+                        put(smem, bo.db, e, db, bo.db_acc)
+                # vector_bwd: valid positions of the output level, per channel
+                n_pos = Lo.eh * Lo.ew
+                okp = valid(Lo, gho, gwo, torch.arange(n_pos))[:, None]
+                cgs = c0 + torch.arange(cb)
+                e2 = (torch.arange(n_pos)[:, None] * cb
+                      + torch.arange(cb)[None, :])
+                live = cgs < C
+
+                def add(idx, contrib):
+                    s = torch.where(okp, contrib, 0.0).sum(0)
+                    acc[idx * C + cgs[live]] += s[live]
+
+                if op.kind == tnhwc.K_BINARY and tnhwc.SRC_VEC in (
+                        op.a_src, op.b_src):
+                    av = operand(op.a_src, op.a_idx, e2, cgs.expand_as(e2))
+                    bv = operand(op.b_src, op.b_idx, e2, cgs.expand_as(e2))
+                    da, db = tad._binary_vjp(binary[op.fn], av, bv, G[e2])
+                    a_vec = op.a_src == tnhwc.SRC_VEC
+                    add(op.a_idx if a_vec else op.b_idx, da if a_vec else db)
+                elif op.kind == tnhwc.K_AFFINE:
+                    add(op.b_idx, G[e2] * smem[op.a_idx, e2])
+                    add(op.c_idx, G[e2])
+                elif op.kind == tnhwc.K_NORM and op.b_idx >= 0:
+                    add(op.b_idx, smem[b.scratch, e2])
+                    if op.c_idx >= 0:
+                        add(op.c_idx, G[e2])
+            # the primary input's cotangent
+            e = torch.arange(L0.eh * L0.ew * cb)
+            c, p = e % cb, e // cb
+            cg = c0 + c
+            v = smem[b.dx_slot, e] if b.dx_slot >= 0 else torch.zeros(e.shape)
+            if b.patches:
+                patches[n, ti, tj, p[cg < C], cg[cg < C]] = v[cg < C]
+            else:
+                gh, gw = (ti * d.th * L0.mul_h - L0.off_h,
+                          tj * d.tw * L0.mul_w - L0.off_w)
+                h, w_ = gh + p // L0.ew, gw + p % L0.ew
+                ok = (h >= 0) & (h < H) & (w_ >= 0) & (w_ < W) & (cg < C)
+                dx[n, h[ok], w_[ok], cg[ok]] = v[ok]
+        partials[blk] = acc
+    if b.patches:                      # overlap-add, row-major tile order
+        for ti in range(d.tiles_h):
+            for tj in range(d.tiles_w):
+                gh = ti * d.th * L0.mul_h - L0.off_h
+                gw = tj * d.tw * L0.mul_w - L0.off_w
+                pt = patches[:, ti, tj].view(N, L0.eh, L0.ew, C)
+                h0, h1 = max(gh, 0), min(gh + L0.eh, H)
+                w0, w1 = max(gw, 0), min(gw + L0.ew, W)
+                dx[:, h0:h1, w0:w1] += pt[:, h0 - gh: h1 - gh,
+                                          w0 - gw: w1 - gw]
+    total = partials.sum(0).view(b.n_vecs, C) if b.n_vecs else None
+    grads = {}
+    for i, name in enumerate(names):
+        grad = total[i] if strides[i] else total[i].sum().reshape(1)
+        grads[name] = grad.reshape(np.shape(vals[name])).numpy()
+    return (dx.numpy(), {k: grads[k] for k in program.inputs[1:]},
+            {k: grads[k] for k in program.param_names})
+
+
+@pytest.mark.parametrize("name", sorted(BWD_NHWC_CASES))
+def test_nhwc_bwd_paths_match_jax_kernel(name):
+    """Plain version and the transliteration of ``fused_nhwc_bwd.cu``, each
+    against the Pallas backward in interpret mode."""
+    make, x, params, extras, g, tile = _nhwc_bwd_inputs(name)
+    want_dx, want_dex, want_dp = _jax_nhwc_bwd(make, x, params, extras, g,
+                                               tile)
+    tprog = make(tir)
+    plain = tnhwc_bwd.fused_nhwc_bwd(
+        tprog, torch.from_numpy(x),
+        {k: torch.from_numpy(v) for k, v in extras.items()},
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        torch.from_numpy(g), tile_out_h=tile, tile_out_w=tile)
+    kernel = _run_bwd_descriptor(tprog, x, params, extras, g, tile)
+    for got, how in ((tuple(t.numpy() if torch.is_tensor(t) else
+                            {k: v.numpy() for k, v in t.items()}
+                            for t in plain), "plain"), (kernel, "kernel")):
+        gdx, gdex, gdp = got
+        _assert_close(gdx, want_dx, f"{how} dx", RTOL_SUM)
+        for k in want_dex:
+            _assert_close(gdex[k], want_dex[k], f"{how} d{k}", RTOL_SUM)
+        for k in want_dp:
+            _assert_close(gdp[k], want_dp[k], f"{how} d{k}", RTOL_SUM)
+
+
+def test_nhwc_bwd_ties_route_whole():
+    """Planted ties: the first maximal window position takes the whole
+    cotangent, so with g = 1 every dx entry is an integer count."""
+    make, x, params, extras, _, tile = _nhwc_bwd_inputs("ties")
+    pool = make(tir).ops[0]
+    prog = tir.StackProgram(name="mp", inputs=("x",), outputs=(pool.output,),
+                            layout="nhwc", ops=(pool,))
+    y_shape = tir.infer_shapes(prog, {"x": x.shape})[pool.output]
+    dx, _, _ = _run_bwd_descriptor(prog, x, {}, {}, np.ones(y_shape,
+                                                           np.float32), tile)
+    assert np.all(dx == np.round(dx)) and dx.sum() == np.prod(y_shape)
+
+
+@pytest.mark.parametrize("graph,shape", [
+    ("block_net8", (32, 56, 56, 32)),
+    ("vgg16", (32, 224, 224, 3)),
+])
+def test_bwd_descriptor_builds_for_main_path_stacks(graph, shape):
+    """Every differentiable sequence of the main paths fits the backward's
+    descriptor and shared memory (VGG-16's five, block_net(8)'s three)."""
+    from repro_torch.core import analyzer, collapse
+    from repro_torch.models import cnn
+    g, _ = (cnn.block_net(8, channels=32, device="cpu") if graph == "block_net8"
+            else cnn.vgg_net((64, 128, 256, 512, 512), device="cpu"))
+    x_shape, n_seq = shape, 0
+    for seg in analyzer.analyze(g, keep=frozenset({g.output})):
+        if not seg.is_stack:
+            if seg.op.kind == tir.OpKind.CONV2D:
+                x_shape = x_shape[:3] + (seg.op.attrs["kernel_shape"][-1],)
+            continue
+        plan = collapse.collapse(seg.stack, {seg.stack.inputs[0]: x_shape},
+                                 tresource.H100, differentiable=True)
+        for i, seq in enumerate(plan.sequences):
+            sub = plan.subprogram(i)
+            sub_shape = tir.infer_shapes(seg.stack, {seg.stack.inputs[0]:
+                                                     x_shape})[sub.inputs[0]]
+            blob = tnhwc_bwd.bwd_template(sub, sub_shape, (), (1,) * len(
+                sub.param_names), seq.tile_out_h, seq.tile_out_w)
+            b = tnhwc_bwd.NhwcBwdDesc.from_buffer_copy(blob)
+            smem = (b.f.n_slots * b.f.slot_elems + b.n_vecs * b.f.C) * 4
+            assert smem <= tnhwc.SMEM_TARGET
+            assert b.f.n_slots <= tnhwc_bwd.BWD_MAX_SLOTS
+            # VGG's 2x2/s2 pools: halos do not overlap, dx is written
+            # directly and whole, with no zero fill first
+            assert b.patches == (graph == "block_net8")
+            assert tnhwc_bwd.direct_covers(b) == (graph == "vgg16")
+            n_seq += 1
+        x_shape = tir.infer_shapes(seg.stack, {seg.stack.inputs[0]: x_shape})[
+            seg.stack.outputs[0]]
+    assert n_seq == (3 if graph == "block_net8" else 5)
