@@ -71,6 +71,27 @@ TRAIN_RTOL = 1e-4
 TRAIN_STEPS = 3
 TRAIN_LR = 1e-3
 
+# The LM serving slice (phases 11-13): deepseek-7b at full width.
+KERNELS = ("fused_nhwc", "fused_rows", "fused_nhwc_bwd", "fused_rows_bwd",
+           "rmsnorm", "swiglu", "flash_attention", "flash_decode")
+# Kernel against plain version, per dtype.  float32: the same arithmetic
+# summed in another order.  bfloat16: the two may round one output apart
+# (one bf16 step is 2^-8 relative), so atol/rtol 1e-2.
+LM_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+          "bfloat16": dict(atol=1e-2, rtol=1e-2)}
+PREFILL = (1, 2048)
+SERVE = dict(batch=4, prompt_len=64, new_tokens=32)
+# brainslug against barrier on the served path, as max|d logits| over
+# max|logits| per step.  float32 (4 layers): the same products summed in
+# another order, 1e-4.  bfloat16 (30 layers): the modes round at other
+# places (barrier rounds the normalised value before the scale multiply and
+# the attention output of a full-score softmax; the kernels once), each a
+# relative 2^-8 = 3.9e-3 step, carried through 30 residual layers: 5e-2.
+PATH_F32_REL = 1e-4
+PATH_BF16_REL = 5e-2
+PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core rate (datasheet)
+SPIN_KERNELS = 16       # sacrificial launches at the start of a trace
+
 
 class PhaseError(RuntimeError):
     pass
@@ -99,8 +120,7 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.dev = torch.device("cuda")
-        self.err = {"fused_nhwc": 0.0, "fused_rows": 0.0,
-                    "fused_nhwc_bwd": 0.0, "fused_rows_bwd": 0.0}
+        self.err = {k: 0.0 for k in KERNELS}
         self.vgg_stages: list = []      # (stack, input) of phase 5
         self.kernels: dict[str, dict] = {}
 
@@ -160,9 +180,11 @@ class Smoke:
         self.phase8_rows_bwd()
         self.phase9_train()
         self.phase10_bwd_timing()
+        self.phase11_lm_kernels()
+        self.phase12_serving()
+        self.phase13_lm_timing()
         print(f"[total] {time.perf_counter() - t0:.1f} s")
-        print(json.dumps({"kernels": [self.kernels[k] for k in (
-            "fused_nhwc", "fused_rows", "fused_nhwc_bwd", "fused_rows_bwd")]}))
+        print(json.dumps({"kernels": [self.kernels[k] for k in KERNELS]}))
         print(self.smi)
         torch = self.torch
         print(json.dumps({"ok": True, "device": {
@@ -189,20 +211,22 @@ class Smoke:
 
     def phase1_build(self):
         from repro_torch.kernels import _build
+        from repro_torch.kernels.attention import decode, flash
         from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd
         t = time.perf_counter()
-        procs = [(src, _build.start_build(src))
-                 for src in (nhwc.SOURCE, nhwc_bwd.SOURCE)]
+        procs = [(src, _build.start_build(src)) for src in (
+            nhwc.SOURCE, nhwc_bwd.SOURCE, flash.SOURCE, decode.SOURCE)]
         try:
             libs = [_build.finish_build(src, p) for src, p in procs]
         except _build.BuildError as e:
             raise PhaseError(str(e)) from e
-        nhwc._library()
-        nhwc_bwd._library()
+        for mod in (nhwc, nhwc_bwd, flash, decode):
+            mod._library()
         import triton
         print(f"[1 build] nvcc {', '.join(p.name for p in libs)} in "
-              f"{time.perf_counter() - t:.1f} s; triton {triton.__version__} "
-              f"compiles each rows signature at its first launch")
+              f"parallel, {time.perf_counter() - t:.1f} s; triton "
+              f"{triton.__version__} compiles each rows signature and the "
+              f"rmsnorm / swiglu kernels at their first launch")
 
     def nhwc_cases(self):
         """(name, program, input shape, tile, extra shapes or "block") of
@@ -247,6 +271,10 @@ class Smoke:
                 ir.OpNode(K.EW_BINARY, "mul", ("e", "a"), "m", fn="mul"),
                 pool("p", "m", "y", "max", (2, 2), (2, 2), (0, 0))],
                 inputs=("x", "e")), (8, 28, 28, 64), 8, {"e": (1, 1, 1, 64)}),
+            ("extra_only_op", prog("extra_only", [
+                ir.OpNode(K.EW_BINARY, "t", ("e", "e"), "t", fn="mul"),
+                ir.OpNode(K.EW_BINARY, "y", ("x", "t"), "y", fn="add")],
+                inputs=("x", "e")), (8, 56, 56, 64), 8, {"e": (1, 1, 1, 64)}),
             ("every_unary_fn", prog("unary", chain + [
                 pool("p", chain[-1].output, "y", "max", (3, 3), (2, 2),
                      (1, 1))]), (4, 28, 28, 32), 4, {}),
@@ -479,7 +507,11 @@ class Smoke:
     def device_spans(self, fn, reps=1):
         """(kernel name, start us, end us) of every device kernel ``reps``
         calls of ``fn`` launch, from a torch.profiler trace (after one
-        untraced call); empty when the profiler records no device events."""
+        untraced call); empty when the profiler records no device events.
+        The profiler loses the first few device events of a session (on
+        an H100 under torch 2.11: 5 of 20 launches, 1 of a prefill's 61
+        rmsnorm launches), so the session opens with spin kernels that
+        absorb the loss and are left out of the spans."""
         torch = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -488,12 +520,16 @@ class Smoke:
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
+                for _ in range(SPIN_KERNELS):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
         return sorted(((e.name, e.time_range.start, e.time_range.end)
                        for e in prof.events()
-                       if e.device_type == DeviceType.CUDA),
+                       if e.device_type == DeviceType.CUDA
+                       and "spin_kernel" not in e.name),
                       key=lambda s: s[1])
 
     def device_ms(self, fn, reps=20):
@@ -506,12 +542,13 @@ class Smoke:
             return self.cuda_ms(fn), "events"
         return sum(t1 - t0 for _, t0, t1 in spans) / reps / 1e3, "device"
 
-    def trace(self, fn, expect=None) -> str:
+    def trace(self, fn, expect=None, classify=None) -> str:
         """Device time of one call by kernel group, the share of the traced
         window in which no kernel ran, and the largest kernels outside the
         named groups.  ``expect`` maps a kernel name fragment to the launches
         one call makes; a trace that holds fewer is reported as incomplete
-        and its split is not given."""
+        and its split is not given.  ``classify`` maps a lower-case kernel
+        name to its group (default: the CNN groups)."""
         spans = self.device_spans(fn)
         if not spans:
             return "not measured (the profiler recorded no device events)"
@@ -525,7 +562,8 @@ class Smoke:
         other: dict[str, float] = {}
         for name, t0, t1 in spans:
             low = name.lower()
-            g = ("fused_nhwc_bwd" if any(k in low for k in (
+            g = (classify(low) if classify is not None
+                 else "fused_nhwc_bwd" if any(k in low for k in (
                      "nhwc_bwd", "nhwc_overlap_add", "nhwc_reduce"))
                  else "fused_nhwc" if "fused_nhwc" in low
                  else "fused_rows_bwd" if any(k in low for k in (
@@ -1159,6 +1197,454 @@ class Smoke:
         print(f"[10 kernels] fused_nhwc_bwd max|d|="
               f"{self.err['fused_nhwc_bwd']:.3e}  fused_rows_bwd max|d|="
               f"{self.err['fused_rows_bwd']:.3e}")
+
+
+    # -- the LM serving slice -------------------------------------------------
+    def lm_check(self, kernel, what, got, want):
+        """A new kernel's output against its plain version, at LM_TOL of
+        the output's dtype; max|d| in float32."""
+        tol = LM_TOL[str(want.dtype).split(".")[-1]]
+        return self.check(kernel, what, {"out": got.float()},
+                          {"out": want.float()}, tol)
+
+    def lm_counters(self, zero=False):
+        """Launch counts of the four LM kernels and the kernel / plain
+        dispatch counts of their wrappers (``zero`` sets them to 0)."""
+        from repro_torch.kernels.attention import decode, flash
+        from repro_torch.kernels.attention import ops as aops
+        from repro_torch.kernels.rmsnorm import ops as rops
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.kernels.swiglu import ops as sops
+        from repro_torch.kernels.swiglu import swiglu
+        fns = {"rmsnorm": rmsnorm.rmsnorm_fwd, "swiglu": swiglu.swiglu_fwd,
+               "flash_attention": flash.flash_attention_fwd,
+               "flash_decode": decode.flash_decode}
+        if zero:
+            for fn in fns.values():
+                fn.launches = 0
+            for st in (aops.STATS, rops.STATS, sops.STATS):
+                st.reset()
+        out = {k: fn.launches for k, fn in fns.items()}
+        out.update({f"rmsnorm_{k}": v for k, v in rops.STATS.counts.items()})
+        out.update({f"swiglu_{k}": v for k, v in sops.STATS.counts.items()})
+        out.update(aops.STATS.snapshot())
+        return out
+
+    def expect_counters(self, what, got, launches):
+        """Every LM dispatch of the run on a kernel: the launches as
+        ``launches`` says, no plain dispatch."""
+        want = {**launches,
+                "rmsnorm_kernel": launches["rmsnorm"], "rmsnorm_plain": 0,
+                "swiglu_kernel": launches["swiglu"], "swiglu_plain": 0,
+                "decode_kernel": launches["flash_decode"], "decode_plain": 0,
+                "decode_ref": 0}
+        if got != want:
+            raise PhaseError(f"{what}: counters {got}, expected {want}")
+
+    def phase11_lm_kernels(self):
+        torch = self.torch
+        from repro_torch.kernels.attention import decode, flash
+        from repro_torch.kernels.rmsnorm import ref as rref
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.kernels.swiglu import ref as sref
+        from repro_torch.kernels.swiglu import swiglu
+        t = time.perf_counter()
+        worst: dict[str, float] = {}
+
+        def note(kernel, err):
+            worst[kernel] = max(worst.get(kernel, 0.0), err)
+
+        for dt in (torch.bfloat16, torch.float32):
+            x = self.randn(ROWS + (D_MODEL,), 1300).to(dt)
+            r = self.randn(ROWS + (D_MODEL,), 1301).to(dt)
+            sc = (1.0 + 0.1 * self.randn((D_MODEL,), 1302)).to(dt)
+            for res in (r, None):
+                (y, h), (yw, hw) = (rmsnorm.rmsnorm_fwd(x, sc, res),
+                                    rref.rmsnorm_ref(x, sc, res))
+                what = f"{dt} {'with' if res is not None else 'no'} residual"
+                note("rmsnorm", self.lm_check("rmsnorm", what, y, yw))
+                note("rmsnorm", self.lm_check("rmsnorm", what + " h", h, hw))
+            g = self.randn(ROWS + (D_FF,), 1310).to(dt)
+            u = self.randn(ROWS + (D_FF,), 1311).to(dt)
+            for act in ("silu", "gelu", "squared_relu"):
+                note("swiglu", self.lm_check(
+                    "swiglu", f"{dt} {act}", swiglu.swiglu_fwd(g, u, act=act),
+                    sref.swiglu_ref(g, u, act=act)))
+            for (b, h_, kv, s_), causals in (((1, 32, 32, 2048), (True,)),
+                                             ((1, 40, 8, 1000),
+                                              (True, False))):
+                q = self.randn((b, h_, s_, 128), 1320).to(dt)
+                k = self.randn((b, kv, s_, 128), 1321).to(dt)
+                v = self.randn((b, kv, s_, 128), 1322).to(dt)
+                for causal in causals:
+                    note("flash_attention", self.lm_check(
+                        "flash_attention", f"{dt} {(b, h_, kv, s_)} causal="
+                        f"{causal}", flash.flash_attention_fwd(
+                            q, k, v, causal=causal),
+                        flash.flash_attention_plain(q, k, v, causal=causal)))
+            b, h_, s_ = 8, 32, 8192
+            lens = torch.tensor([0, 1, 17, 513, 4000, 8191, 8192, 8192],
+                                dtype=torch.int32, device=self.dev)
+            q = self.randn((b, h_, 1, 128), 1330).to(dt)
+            for kv_dt in ((dt, torch.float32) if dt == torch.bfloat16
+                          else (dt,)):
+                k = self.randn((b, h_, s_, 128), 1331).to(kv_dt)
+                v = self.randn((b, h_, s_, 128), 1332).to(kv_dt)
+                got = decode.flash_decode(q, k, v, lens)
+                note("flash_decode", self.lm_check(
+                    "flash_decode", f"q {dt} cache {kv_dt}", got,
+                    decode.flash_decode_plain(q, k, v, lens)))
+                if not bool((got[0] == 0).all()):
+                    raise PhaseError("flash_decode: a length-0 slot is not "
+                                     "exactly zero")
+        print(f"[11 lm kernels] against their plain versions in bf16 and "
+              f"float32 (tol {LM_TOL}), TF32 off: rmsnorm and swiglu at "
+              f"{ROWS} x {D_MODEL} / {D_FF} (with and without residual; "
+              f"silu, gelu, squared_relu), flash attention at (1, 32, 2048, "
+              f"128) causal and qwen2.5-14b's 40/8 heads at 1000, flash "
+              f"decode at (8, 32, 8192, 128) with lengths 0, ragged and "
+              f"full (a bf16 and a float32 cache under a bf16 query; length "
+              f"0 exactly zero); max|d| "
+              + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
+              + f"; {time.perf_counter() - t:.1f} s")
+
+    def relative(self, got, want):
+        want = want.float()
+        return float((got.float() - want).abs().max()
+                     / want.abs().max().clamp_min(1e-30))
+
+    def teacher_forced(self, servers, prompts, tokens):
+        """Per step, max|d logits| / max|logits| of ``servers["brainslug"]``
+        against ``servers["barrier"]``, both fed ``tokens`` (barrier's
+        generations): the prefill's last logits, then each decode step."""
+        torch = self.torch
+        from repro_torch.models import lm
+        with torch.inference_mode():
+            state = {m: list(s.prefill(prompts)) for m, s in servers.items()}
+            errs = [self.relative(state["brainslug"][1],
+                                  state["barrier"][1])]
+            for i in range(tokens.shape[1] - 1):
+                tok = torch.as_tensor(tokens[:, i:i + 1], dtype=torch.int64,
+                                      device=self.dev)
+                for m, s in servers.items():
+                    lo, state[m][0] = lm.decode_step(s.params, state[m][0],
+                                                     tok, s.cfg, s.rt)
+                    state[m][1] = lo[:, 0]
+                errs.append(self.relative(state["brainslug"][1],
+                                          state["barrier"][1]))
+        return errs
+
+    def serve_pair(self, cfg, params, prompts):
+        """Greedy generations of both modes (barrier first), the counters
+        of brainslug's run, and brainslug's ServeStats."""
+        torch = self.torch
+        from repro_torch.launch import serve
+        servers = {m: serve.Server(serve.ServeConfig(
+            arch=cfg.name, reduced=False, mode=m,
+            max_len=SERVE["prompt_len"] + SERVE["new_tokens"] + 1, **SERVE),
+            params=params, cfg=cfg) for m in ("barrier", "brainslug")}
+        gens = {"barrier": servers["barrier"].generate(prompts)}
+        torch.cuda.synchronize()
+        self.lm_counters(zero=True)
+        gens["brainslug"] = servers["brainslug"].generate(prompts)
+        torch.cuda.synchronize()
+        return servers, gens, self.lm_counters()
+
+    def phase12_serving(self):
+        torch = self.torch
+        import dataclasses
+
+        import numpy as np
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        cfg = get_config("deepseek-7b")
+        L = cfg.n_layers
+        t = time.perf_counter()
+        params = lm.init(0, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        print(f"[12 model] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+              f"vocab {cfg.vocab_size}, {cfg.dtype}: "
+              f"{base.param_count(params) / 1e9:.3f} B random parameters "
+              f"(seed 0) on the card in {time.perf_counter() - t:.1f} s")
+        self.lm_model = (cfg, params)
+        self.lm_launches = {}
+
+        # 12a: lm.prefill over (1, 2048) tokens
+        g = torch.Generator(device=self.dev).manual_seed(1400)
+        tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=g,
+                               device=self.dev)
+        self.lm_tokens = tokens
+        with torch.inference_mode():
+            want = lm.prefill(params, {"tokens": tokens}, cfg,
+                              RuntimeConfig(mode="barrier"))
+            torch.cuda.synchronize()
+            self.lm_counters(zero=True)
+            got = lm.prefill(params, {"tokens": tokens}, cfg,
+                             RuntimeConfig(mode="brainslug"))
+            torch.cuda.synchronize()
+            counts = self.lm_counters()
+        self.expect_counters("prefill", counts, {
+            "rmsnorm": 2 * L + 1, "swiglu": L, "flash_attention": L,
+            "flash_decode": 0})
+        self.lm_launches["flash_attention"] = counts["flash_attention"]
+        if tuple(got.shape) != (1, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(got).all()):
+            raise PhaseError(f"prefill logits {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+        rel = self.relative(got, want)
+        if not rel <= PATH_BF16_REL:
+            raise PhaseError(f"prefill brainslug vs barrier: max|d|/max = "
+                             f"{rel:.3e} > {PATH_BF16_REL}")
+        print(f"[12a lm.prefill {PREFILL} bf16] brainslug vs barrier last-"
+              f"position logits: max|d|/max|logits| = {rel:.3e} (tol "
+              f"{PATH_BF16_REL}), argmax equal "
+              f"{bool(got.argmax() == want.argmax())}; counters {counts}")
+
+        # 12b: Server.generate, 4 requests, greedy
+        prompts = np.random.default_rng(1401).integers(
+            0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
+        ).astype(np.int32)
+        t = time.perf_counter()
+        servers, gens, counts = self.serve_pair(cfg, params, prompts)
+        steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
+        self.expect_counters("serving", counts, {
+            "rmsnorm": steps * (2 * L + 1), "swiglu": steps * L,
+            "flash_attention": 0, "flash_decode": steps * L})
+        for k in ("rmsnorm", "swiglu", "flash_decode"):
+            self.lm_launches[k] = counts[k]
+        errs = self.teacher_forced(servers, prompts, gens["barrier"])
+        agree = float((gens["brainslug"] == gens["barrier"]).mean())
+        stats = servers["brainslug"].last_stats
+        if not max(errs) <= PATH_BF16_REL:
+            raise PhaseError(f"serving bf16: teacher-forced logits "
+                             f"max|d|/max {max(errs):.3e} > {PATH_BF16_REL}")
+        print(f"[12b Server.generate bf16] {SERVE['batch']} requests, prompt "
+              f"{SERVE['prompt_len']}, {SERVE['new_tokens']} new tokens, "
+              f"greedy: token agreement brainslug vs barrier {agree:.4f}; "
+              f"logits teacher-forced on barrier's tokens, max|d|/max per "
+              f"step: worst {max(errs):.3e}, median "
+              f"{statistics.median(errs):.3e} (tol {PATH_BF16_REL}); "
+              f"brainslug ServeStats generated {stats.generated_tokens}, "
+              f"dispatches {stats.step_dispatches}, wall "
+              f"{stats.wall_s:.3f} s; counters {counts}; "
+              f"{time.perf_counter() - t:.1f} s")
+
+        # 12c: float32, the same widths at 4 layers
+        cfg32 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+        p32 = lm.init(1, cfg32, device=self.dev)
+        servers, gens, counts = self.serve_pair(cfg32, p32, prompts)
+        self.expect_counters("serving f32", counts, {
+            "rmsnorm": steps * 9, "swiglu": steps * 4,
+            "flash_attention": 0, "flash_decode": steps * 4})
+        if not np.array_equal(gens["brainslug"], gens["barrier"]):
+            raise PhaseError("serving f32: brainslug's tokens differ from "
+                             "barrier's")
+        errs = self.teacher_forced(servers, prompts, gens["barrier"])
+        if not max(errs) <= PATH_F32_REL:
+            raise PhaseError(f"serving f32: logits max|d|/max "
+                             f"{max(errs):.3e} > {PATH_F32_REL}")
+        print(f"[12c Server.generate float32, 4 layers] identical tokens; "
+              f"logits max|d|/max per step worst {max(errs):.3e} (tol "
+              f"{PATH_F32_REL}); counters {counts}")
+        del servers, p32
+        torch.cuda.empty_cache()
+
+    def kernel_ms(self, fn, frag, reps=20):
+        """Mean device duration of the launches whose name holds ``frag`` in
+        a profiler trace of ``reps`` calls, and how many launches the trace
+        held.  A mean over the launches held, so an event the profiler
+        loses does not bias it."""
+        durs = [t1 - t0 for name, t0, t1 in self.device_spans(fn, reps)
+                if frag in name.lower()]
+        if not durs:
+            raise PhaseError(f"the profiler recorded no {frag} launch")
+        return sum(durs) / len(durs) / 1e3, len(durs)
+
+    def complete_trace(self, fn, expect, tries=3):
+        """:meth:`trace` with the LM groups, retried while the profiler
+        loses launches; the last try is reported either way."""
+        for _ in range(tries):
+            out = self.trace(fn, expect, classify=self.lm_group)
+            if not out.startswith("incomplete"):
+                return out
+        return out
+
+    def lm_group(self, low):
+        for frag, group in (("rmsnorm_kernel", "rmsnorm"),
+                            ("swiglu_kernel", "swiglu"),
+                            ("flash_fwd_kernel", "flash_attention"),
+                            ("flash_decode_kernel", "flash_decode")):
+            if frag in low:
+                return group
+        if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            return "matmul"
+        return "other"
+
+    def phase13_lm_timing(self):
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.core.resource import H100
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.kernels.attention import decode, flash
+        from repro_torch.kernels.rmsnorm import ref as rref
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.kernels.swiglu import ref as sref
+        from repro_torch.kernels.swiglu import swiglu
+        from repro_torch.models import lm
+        bf = torch.bfloat16
+
+        def nbytes(*ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        def bound(n_bytes, n_ops, peak):
+            tb, to = n_bytes / H100.hbm_bandwidth * 1e3, n_ops / peak * 1e3
+            return (tb, "bytes") if tb >= to else (to, "operations")
+
+        x = self.randn(ROWS + (D_MODEL,), 1500).to(bf)
+        r = self.randn(ROWS + (D_MODEL,), 1501).to(bf)
+        sc = (1.0 + 0.1 * self.randn((D_MODEL,), 1502)).to(bf)
+        gt = self.randn(ROWS + (D_FF,), 1503).to(bf)
+        up = self.randn(ROWS + (D_FF,), 1504).to(bf)
+        S = 4096
+        q = self.randn((1, 32, S, 128), 1510).to(bf)
+        k = self.randn((1, 32, S, 128), 1511).to(bf)
+        v = self.randn((1, 32, S, 128), 1512).to(bf)
+        B, Sd = 8, 32768
+        qd = self.randn((B, 32, 1, 128), 1520).to(bf)
+        kd = self.randn((B, 32, Sd, 128), 1521).to(bf)
+        vd = self.randn((B, 32, Sd, 128), 1522).to(bf)
+        g = torch.Generator(device=self.dev).manual_seed(1523)
+        lens = torch.randint(Sd // 2, Sd + 1, (B,), generator=g,
+                             device=self.dev, dtype=torch.int32)
+        mask = (torch.arange(Sd, device=self.dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        valid_keys = int(lens.sum())
+        pairs = S * (S + 1) // 2                      # causal (q, k) pairs
+        y_rms = torch.empty_like(x)
+        cases = [
+            ("rmsnorm", f"{ROWS} x {D_MODEL} bf16, no residual",
+             lambda: rmsnorm.rmsnorm_fwd(x, sc),
+             lambda: rref.rmsnorm_ref(x, sc),
+             lambda: F.rms_norm(x, (D_MODEL,), sc, 1e-6),
+             bound(nbytes(x, sc, y_rms), 4 * x.numel(), H100.peak_flops_f32)),
+            ("rmsnorm+residual", f"{ROWS} x {D_MODEL} bf16",
+             lambda: rmsnorm.rmsnorm_fwd(x, sc, r),
+             lambda: rref.rmsnorm_ref(x, sc, r), None,
+             bound(nbytes(x, r, sc, x, x), 5 * x.numel(),
+                   H100.peak_flops_f32)),
+            ("swiglu", f"{ROWS} x {D_FF} bf16 silu",
+             lambda: swiglu.swiglu_fwd(gt, up),
+             lambda: sref.swiglu_ref(gt, up), None,
+             bound(nbytes(gt, up, gt), 6 * gt.numel(), H100.peak_flops_f32)),
+            ("flash_attention", f"(1, 32, {S}, 128) bf16 causal",
+             lambda: flash.flash_attention_fwd(q, k, v, causal=True),
+             lambda: flash.flash_attention_plain(q, k, v, causal=True),
+             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                    enable_gqa=True),
+             bound(nbytes(q, k, v, q), 4 * 128 * 32 * pairs, PEAK_BF16)),
+            ("flash_decode", f"({B}, 32, {Sd}, 128) bf16, lengths "
+             f"{lens.tolist()}",
+             lambda: decode.flash_decode(qd, kd, vd, lens),
+             lambda: decode.flash_decode_plain(qd, kd, vd, lens),
+             lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                    attn_mask=mask,
+                                                    enable_gqa=True),
+             bound(nbytes(qd, qd) + 2 * valid_keys * 32 * 128 * 2,
+                   4 * 128 * 32 * valid_keys, PEAK_BF16)),
+        ]
+        print("[13 lm kernels] per launch: the kernel's device time (profiler, "
+              "mean over its launches in a trace of 20 calls, with the count "
+              "the trace held) and per call (CUDA events around 20 "
+              "back-to-back calls, median of 5); the plain version (3 x 3 "
+              "calls) and the library call per call (events); bound: each "
+              "input read once, each output written once, or the operations "
+              "at the type's peak:")
+        frags = {"rmsnorm": "rmsnorm_kernel",
+                 "rmsnorm+residual": "rmsnorm_kernel",
+                 "swiglu": "swiglu_kernel",
+                 "flash_attention": "flash_fwd_kernel",
+                 "flash_decode": "flash_decode_kernel"}
+        rows = {}
+        with torch.inference_mode():
+            for name, shape, run, plain, lib, (b_ms, b_by) in cases:
+                k_ms, n_held = self.kernel_ms(run, frags[name])
+                k_call = self.cuda_ms(run)
+                p_ms = self.cuda_ms(plain, reps=3, groups=3, warmup=1)
+                l_ms = self.cuda_ms(lib) if lib else None
+                rows[name] = (k_ms, p_ms, l_ms, b_ms, b_by, shape)
+                lib_s = f"{l_ms:.4f} ms" if l_ms is not None else "none"
+                print(f"  {name} {shape}: kernel {k_ms:.4f} ms device "
+                      f"({n_held} of 20 launches held; {k_call:.4f} per "
+                      f"call)  plain {p_ms:.4f} ms  library {lib_s}  bound "
+                      f"{b_ms:.4f} ms ({b_by})  kernel/bound "
+                      f"{k_ms / b_ms:.2f}")
+        sources = {
+            "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/"
+                        "rmsnorm.py", "src/repro/kernels/rmsnorm/rmsnorm.py:33"),
+            "swiglu": ("triton", "src/repro_torch/kernels/swiglu/swiglu.py",
+                       "src/repro/kernels/swiglu/swiglu.py:29"),
+            "flash_attention": ("cuda", "src/repro_torch/kernels/attention/"
+                                "csrc/flash_attention.cu",
+                                "src/repro/kernels/attention/flash.py:70"),
+            "flash_decode": ("cuda", "src/repro_torch/kernels/attention/"
+                             "csrc/flash_decode.cu",
+                             "src/repro/kernels/attention/decode.py:182"),
+        }
+        for name, (route, src, rep) in sources.items():
+            k_ms, p_ms, l_ms, b_ms, b_by, shape = rows[name]
+            self.kernels[name] = {
+                "name": name, "route": route, "source": src, "replaces": rep,
+                "launches": self.lm_launches[name],
+                "max_abs_err": self.err[name], "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+                "shape": shape}
+        del q, k, v, qd, kd, vd, mask
+
+        # the path: prefill and one decode step, per mode, in turns
+        cfg, params = self.lm_model
+        rts = {m: RuntimeConfig(mode=m) for m in ("barrier", "brainslug")}
+        tokens = self.lm_tokens
+        with torch.inference_mode():
+            cache = lm.init_decode_cache(cfg, SERVE["batch"], 97,
+                                         dtype=torch.float32, device=self.dev)
+        tok = tokens[:, :SERVE["batch"]].reshape(SERVE["batch"], 1)
+        pos = SERVE["prompt_len"]
+
+        def prefill(m):
+            return lm.prefill(params, {"tokens": tokens}, cfg, rts[m])
+
+        def step(m):
+            cache["blocks"]["sub0"].length.fill_(pos)
+            return lm.decode_step(params, cache, tok, cfg, rts[m])
+
+        with torch.inference_mode():
+            pre = [(m, self.cuda_ms(lambda m=m: prefill(m), reps=1, groups=5))
+                   for m in ("barrier", "brainslug", "brainslug", "barrier")]
+            dec = [(m, self.cuda_ms(lambda m=m: step(m), reps=1, groups=20))
+                   for m in ("barrier", "brainslug", "brainslug", "barrier")]
+        print(f"[13 path] deepseek-7b bf16, 30 layers: lm.prefill {PREFILL}, "
+              f"median of 5 (CUDA events), in turns: "
+              + "  ".join(f"{m}={v:.3f} ms" for m, v in pre))
+        print(f"[13 path] one decode step at batch {SERVE['batch']}, position "
+              f"{pos} (float32 cache as Server builds it), median of 20, in "
+              f"turns: " + "  ".join(f"{m}={v:.3f} ms" for m, v in dec))
+        L = cfg.n_layers
+        expect = {"prefill": {"flash_fwd_kernel": L, "rmsnorm_kernel": 2 * L + 1,
+                              "swiglu_kernel": L},
+                  "decode step": {"flash_decode_kernel": L,
+                                  "rmsnorm_kernel": 2 * L + 1,
+                                  "swiglu_kernel": L}}
+        with torch.inference_mode():
+            for what, fn in (("prefill", prefill), ("decode step", step)):
+                for m in ("barrier", "brainslug"):
+                    print(f"[13 trace {what} {m}] " + self.complete_trace(
+                        lambda m=m: fn(m),
+                        expect[what] if m == "brainslug" else None))
+        print("[13 kernels] " + "  ".join(
+            f"{k} max|d|={self.err[k]:.3e}" for k in sources))
 
 
 if __name__ == "__main__":

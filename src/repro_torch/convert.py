@@ -2,8 +2,9 @@
 gradients back to numpy under the same names.
 
 The port keeps the JAX package's layouts (NHWC activations, HWIO conv
-weights, ``(C,)`` per-channel vectors), so carrying weights over is a dtype
-and device move, with shape checks.
+weights, ``(C,)`` per-channel vectors, the LM's nested parameter tree with
+layer-stacked blocks), so carrying weights over is a dtype and device move,
+with shape checks.
 """
 from __future__ import annotations
 
@@ -54,4 +55,25 @@ def grads_to_numpy(grads: Mapping[str, torch.Tensor],
             raise ValueError(f"{name!r}: shape {tuple(arr.shape)} != "
                              f"{tuple(np.shape(like[name]))}")
         out[name] = arr
+    return out
+
+
+def lm_params_from_numpy(tree: Mapping[str, object],
+                         device: torch.device | str) -> dict:
+    """A nested LM parameter tree of numpy arrays (the JAX package's, with
+    its stacked ``blocks/sub0/...`` layout) as tensors on ``device`` under
+    the same names and shapes.  bfloat16 leaves (``ml_dtypes.bfloat16`` in
+    numpy) go through float32, which holds every bf16 value exactly, then
+    to ``torch.bfloat16``; float32 and integer leaves keep their dtype."""
+    out: dict = {}
+    for name, value in tree.items():
+        if isinstance(value, Mapping):
+            out[name] = lm_params_from_numpy(value, device)
+            continue
+        arr = np.asarray(value)
+        if arr.dtype.name == "bfloat16":
+            out[name] = torch.from_numpy(arr.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        else:
+            out[name] = torch.tensor(arr, device=device)     # a copy
     return out

@@ -1,0 +1,131 @@
+"""Flash decode (one new query position against a dense KV cache): the CUDA
+kernel and its plain version.
+
+Replaces ``repro/kernels/attention/decode.py:flash_decode`` (the Pallas
+kernel).  The kernel is ``csrc/flash_decode.cu`` (one CTA per slot and
+query head, 16 partial online-softmax states merged at the end; its note
+gives the bound and the design).  The plain version,
+:func:`flash_decode_plain`, is the Pallas kernel's algorithm on whole
+tensors: ``block_k`` cache tiles, float32 running state, keys at positions
+``>= lengths[b]`` masked with the finite ``NEG_INF``, and exact zeros for a
+slot with ``lengths == 0``.
+
+Both read K and V in whatever float dtype the cache holds and round each
+element to the query's dtype first (the layer's ``cache.astype(q.dtype)``):
+the kernel does it in registers, so a float32 cache is never copied.
+``paged_flash_decode`` comes with the serving engine.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
+NEG_INF = -1e30
+HEAD_DIM = 128
+DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lengths: torch.Tensor, *, scale: float | None = None,
+                       block_k: int = 512) -> torch.Tensor:
+    """q: (B, H, 1, D); k, v: (B, G, S, D); lengths: (B,) int."""
+    b, h, one, d = q.shape
+    g, s = k.shape[1], k.shape[2]
+    rep = h // g
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    block_k = min(block_k, s)
+    qg = q.reshape(b, g, rep, one, d).float()
+    lens = lengths.to(device=q.device, dtype=torch.int64)
+    m = torch.full((b, g, rep, one, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, g, rep, one, d), device=q.device)
+    for k0 in range(0, s, block_k):
+        kb = k[:, :, k0:k0 + block_k].to(q.dtype).float()
+        vb = v[:, :, k0:k0 + block_k].to(q.dtype).float()
+        sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, kb) * scale
+        k_idx = torch.arange(k0, k0 + kb.shape[2], device=q.device)
+        sc = torch.where(k_idx < lens[:, None, None, None, None], sc,
+                         NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bgrqk,bgkd->bgrqd", p, vb)
+        m = m_new
+    # m never left its NEG_INF seed <=> every key was masked (length 0)
+    acc = torch.where(m > NEG_INF * 0.5, acc, 0.0)
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, h, one, d).to(q.dtype)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 lengths: torch.Tensor, *, scale: float | None = None,
+                 block_k: int = 512) -> torch.Tensor:
+    """q: (B, H, 1, D); k, v: (B, G, S, D); lengths: (B,) int.
+
+    ``block_k`` is the plain version's tile (the Pallas kernel's); the CUDA
+    kernel walks keys in its own order.  Lengths are clamped to [0, S]."""
+    b, h, one, d = q.shape
+    if one != 1 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
+            or k.shape[3] != d or tuple(lengths.shape) != (b,):
+        raise ValueError(f"flash decode: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, lengths "
+                         f"{tuple(lengths.shape)}")
+    g, s = k.shape[1], k.shape[2]
+    if h % g:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {g}")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, lengths, scale=scale,
+                                  block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash decode takes cpu or cuda tensors, got "
+                         f"{q.device}")
+    if q.dtype not in DTYPE_IDS or v.dtype != k.dtype or k.dtype not in (
+            q.dtype, torch.float32):
+        raise TypeError(f"flash decode: q must be float32 or bfloat16 and "
+                        f"k/v q's dtype or float32, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if any(t.device != q.device for t in (k, v, lengths)):
+        raise ValueError("flash decode: q, k, v, lengths on different "
+                         "devices")
+    if d != HEAD_DIM:
+        raise ValueError(f"flash decode: head dim {d} != {HEAD_DIM}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    o = torch.empty_like(q)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+            o.data_ptr(), b, h, g, s, d, float(scale), DTYPE_IDS[q.dtype],
+            DTYPE_IDS[k.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode launch failed: "
+                           f"{lib.flash_decode_error(err).decode()}")
+    flash_decode.launches += 1
+    return o
+
+
+flash_decode.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library(SOURCE)
+    if not getattr(lib, "_bound", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.flash_decode.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                     ctypes.c_float, i, i, p]
+        lib.flash_decode.restype = i
+        lib.flash_decode_error.argtypes = [i]
+        lib.flash_decode_error.restype = ctypes.c_char_p
+        lib._bound = True
+    return lib

@@ -146,42 +146,54 @@ __device__ void pointwise_bwd(const NhwcBwdDesc& b, float* smem,
 }
 
 // Gradients of op k's vector operands (params, broadcast extras): one
-// thread per channel sums the level's valid positions in order.
+// thread per channel sums the level's valid positions in order.  Either
+// operand of an element-wise op may be a vector, both may (``e * e``).
 __device__ void vector_bwd(const NhwcBwdDesc& b, float* smem, float* acc,
                            const OpDesc& op, const BwdOpDesc& bo,
                            const LevelDesc& L, int gh, int gw, int c0) {
   const NhwcDesc& d = b.f;
   const int cb = d.cb, n_pos = L.eh * L.ew;
   const float* G = smem + bo.g * d.slot_elems;
+  const bool a_vec = op.a_src == SRC_VEC;
   for (int c = threadIdx.x; c < cb; c += THREADS) {
     const int cg = c0 + c;
     if (cg >= d.C) continue;
-    if (op.kind == K_BINARY) {
-      const bool a_vec = op.a_src == SRC_VEC;
-      if (!a_vec && op.b_src != SRC_VEC) continue;
-      float s = 0.f;
+    if (op.kind == K_UNARY || op.kind == K_BINARY) {
+      const bool b_vec = op.kind == K_BINARY && op.b_src == SRC_VEC;
+      float sa = 0.f, sb = 0.f;
       for (int p = 0; p < n_pos; ++p) {
         if (!pos_valid(L, gh, gw, p)) continue;
         const int e = p * cb + c;
-        float da, db;
-        binary_vjp(op.fn, operand(d, smem, op.a_src, op.a_idx, e, cg),
-                   operand(d, smem, op.b_src, op.b_idx, e, cg), G[e], da, db);
-        s += a_vec ? da : db;
+        const float a = operand(d, smem, op.a_src, op.a_idx, e, cg);
+        float da, db = 0.f;
+        if (op.kind == K_UNARY)
+          da = G[e] * unary_deriv(op.fn, a);
+        else
+          binary_vjp(op.fn, a, operand(d, smem, op.b_src, op.b_idx, e, cg),
+                     G[e], da, db);
+        sa += da;
+        sb += db;
       }
-      acc[(a_vec ? op.a_idx : op.b_idx) * d.C + cg] += s;
+      if (a_vec) acc[op.a_idx * d.C + cg] += sa;
+      if (b_vec) acc[op.b_idx * d.C + cg] += sb;
     } else if (op.kind == K_AFFINE || op.kind == K_NORM) {
-      const float* X = smem + op.a_idx * d.slot_elems;
       const float* S = op.kind == K_NORM && b.scratch >= 0
                            ? smem + b.scratch * d.slot_elems : nullptr;
-      float s_scale = 0.f, s_bias = 0.f;
+      float s_scale = 0.f, s_bias = 0.f, s_a = 0.f;
       for (int p = 0; p < n_pos; ++p) {
         if (!pos_valid(L, gh, gw, p)) continue;
         const int e = p * cb + c;
-        s_scale += op.kind == K_AFFINE ? G[e] * X[e] : (S ? S[e] : 0.f);
+        if (op.kind == K_AFFINE) {
+          s_scale += G[e] * operand(d, smem, op.a_src, op.a_idx, e, cg);
+          s_a += G[e] * vec(d, op.b_idx, cg);
+        } else {
+          s_scale += S ? S[e] : 0.f;
+        }
         s_bias += G[e];
       }
       if (op.b_idx >= 0) acc[op.b_idx * d.C + cg] += s_scale;
       if (op.c_idx >= 0) acc[op.c_idx * d.C + cg] += s_bias;
+      if (op.kind == K_AFFINE && a_vec) acc[op.a_idx * d.C + cg] += s_a;
     }
   }
 }
@@ -379,7 +391,8 @@ fused_nhwc_bwd_kernel(const __grid_constant__ NhwcBwdDesc b,
         pointwise_bwd(b, smem, op, bo, Li.eh * Li.ew * cb, c0);
       }
       __syncthreads();
-      if ((op.kind == K_BINARY &&
+      if ((op.kind == K_UNARY && op.a_src == SRC_VEC) ||
+          (op.kind == K_BINARY &&
            (op.a_src == SRC_VEC || op.b_src == SRC_VEC)) ||
           op.kind == K_AFFINE || (op.kind == K_NORM && op.b_idx >= 0)) {
         vector_bwd(b, smem, acc, op, bo, Lo, gho, gwo, c0);

@@ -283,10 +283,9 @@ def compile_chain(program: ir.StackProgram, *, keep_values: bool = False,
     for i, op in enumerate(program.ops):
         row = dict(kind=0, fn=0, out=0, a_src=0, a_idx=0, b_src=0, b_idx=-1,
                    c_idx=-1, kh=0, kw=0, sh=0, sw=0, norm=0, eps=0.0)
+        # an op may read broadcast operands only (``t = e * e``): its slot
+        # then holds the broadcast value at every position of the level
         srcs = [operand(v) for v in op.inputs]
-        if all(src == SRC_VEC for src, _ in srcs):
-            raise DescriptorError(f"{program.name}: op {op.name!r} reads no "
-                                  f"spatial value")
         row["a_src"], row["a_idx"] = srcs[0]
         pvecs = [vec_of[p] for p in op.params]
         if op.kind == ir.OpKind.EW_UNARY:

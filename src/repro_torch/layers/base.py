@@ -1,0 +1,77 @@
+"""Parameter substrate: nested dicts of tensors, initialised with the JAX
+package's scales (``repro/layers/base.py:boxed``).
+
+``normal`` draws ``randn(shape) * scale`` in the parameter dtype with
+``scale = 1 / sqrt(shape[0])`` unless given, as ``boxed`` does.  Draws come
+from a ``torch.Generator`` on the parameters' device, so a seed gives the
+same weights on one device type, not the JAX package's weights (carry
+those over with :func:`repro_torch.convert.lm_params_from_numpy`).
+Logical axes (the JAX package's sharding annotations) wait for the
+multi-device slice.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+Tree = Any
+
+
+def device(name: str | torch.device) -> torch.device:
+    """``name`` as a device; ``cuda`` without a GPU is an error, never a
+    quiet move to the CPU."""
+    dev = torch.device(name)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {name!r}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} asked for, but no CUDA device "
+                           f"is available; ask for 'cpu' to run the plain "
+                           f"versions on the CPU")
+    return dev
+
+
+def generator(seed: int, dev: torch.device) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def normal(g: torch.Generator, shape: tuple[int, ...], *,
+           fan_in: int | None = None, scale: float | None = None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``randn(shape) * scale`` in ``dtype``; ``scale`` defaults to
+    ``1 / sqrt(fan_in)``, and ``fan_in`` to ``shape[0]`` (``boxed``'s
+    rule; a layer-stacked leaf passes its per-layer first dim)."""
+    if scale is None:
+        scale = 1.0 / ((fan_in if fan_in is not None else shape[0]) ** 0.5)
+    x = torch.randn(shape, generator=g, dtype=dtype, device=g.device)
+    return x * torch.tensor(scale, dtype=dtype, device=g.device)
+
+
+def tree_map(fn: Callable[[torch.Tensor], Any], tree: Tree) -> Tree:
+    """``fn`` over every tensor leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree: Tree) -> list[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def stack_layer_trees(trees: list[Tree]) -> Tree:
+    """Stack per-layer trees along a new leading layer axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_layer_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def cast_tree(tree: Tree, dtype: torch.dtype) -> Tree:
+    return tree_map(lambda a: a.to(dtype) if a.is_floating_point() else a,
+                    tree)
+
+
+def param_count(tree: Tree) -> int:
+    return sum(a.numel() for a in tree_leaves(tree))

@@ -1,16 +1,27 @@
-"""BrainSlug stack programs of the LM blocks.
+"""BrainSlug stack integration for the LM blocks.
 
 Each block's non-matmul chain is declared once as a
-:class:`~repro_torch.core.ir.StackProgram` and run through
-:func:`repro_torch.core.api.optimize_stack`.  Only the program constructors are
-ported so far; the dispatchers of ``repro.layers.stacks``, which route
-recognised idioms to the rmsnorm/swiglu kernels, wait for those kernels.
+:class:`~repro_torch.core.ir.StackProgram` and executed through the
+BrainSlug dispatcher.  The mode (``RuntimeConfig.mode``) selects the
+schedule, with the JAX package's routing:
+
+* ``brainslug`` — the dedicated kernels where an idiom is recognised
+  (residual + rms norm without bias: the rmsnorm kernel; a GLU gate with
+  silu, gelu or squared_relu: the swiglu kernel), the generated fused-stack
+  kernel otherwise (which takes float32 only);
+* ``xla``       — the eager interpreter;
+* ``barrier``   — the interpreter with every op output materialised.
 """
 from __future__ import annotations
 
 import functools
 
+import torch
+
 from repro_torch.core import ir
+from repro_torch.kernels.fused_stack import ops as fused_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.swiglu import ops as swiglu_ops
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,3 +66,51 @@ def act_program(act: str) -> ir.StackProgram:
     return ir.StackProgram(
         name=f"act_{act}", inputs=("x",), outputs=("y",), layout="rows",
         ops=(ir.OpNode(ir.OpKind.EW_UNARY, "act", ("x",), "y", fn=act),))
+
+
+# ---------------------------------------------------------------------------
+# Dispatchers.  In 'brainslug' mode the recognised idioms go to their
+# dedicated kernels; everything else goes through the generic fused kernel.
+# ---------------------------------------------------------------------------
+
+def add_norm(x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor,
+             bias: torch.Tensor | None, *, norm: str = "rms",
+             eps: float = 1e-6, mode: str = "xla"
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused residual add + norm.  Returns (normed, new_residual)."""
+    if mode == "brainslug" and norm == "rms" and bias is None:
+        return rms_ops.rmsnorm(x, scale, residual, eps)
+    params = {"scale": scale}
+    if bias is not None:
+        params["bias"] = bias
+    out = fused_ops.fused_stack_apply(
+        addnorm_program(norm, eps, bias is not None),
+        {"x": x, "res": residual}, params, mode=mode)
+    return out["y"], out["h"]
+
+
+def apply_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor | None = None, *, norm: str = "rms",
+               eps: float = 1e-6, mode: str = "xla") -> torch.Tensor:
+    if mode == "brainslug" and norm == "rms" and bias is None:
+        return rms_ops.rmsnorm(x, scale, None, eps)[0]
+    params = {"scale": scale}
+    if bias is not None:
+        params["bias"] = bias
+    return fused_ops.fused_stack_apply(
+        norm_program(norm, eps, bias is not None), {"x": x}, params,
+        mode=mode)["y"]
+
+
+def glu(gate: torch.Tensor, up: torch.Tensor, *, act: str = "silu",
+        mode: str = "xla") -> torch.Tensor:
+    if mode == "brainslug" and act in swiglu_ops.ACTS:
+        return swiglu_ops.swiglu(gate, up, act)
+    return fused_ops.fused_stack_apply(
+        glu_program(act), {"gate": gate, "up": up}, {}, mode=mode)["y"]
+
+
+def activation(x: torch.Tensor, *, act: str, mode: str = "xla"
+               ) -> torch.Tensor:
+    return fused_ops.fused_stack_apply(act_program(act), {"x": x}, {},
+                                       mode=mode)["y"]

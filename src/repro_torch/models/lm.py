@@ -1,0 +1,248 @@
+"""Language-model assembly, ported from ``repro/models/lm.py`` for the dense
+family (attention + MLP blocks): embedding, a stack of blocks over the
+layer-stacked parameters, fused BrainSlug norm and activation chains, the
+final norm and the vocab head; prefill and decode.
+
+* Parameters are the JAX package's nested tree, ``blocks/sub0/...`` leaves
+  carrying a leading layer axis; ``jax.lax.scan`` over that axis becomes a
+  loop over it.
+* The residual stream uses a (resid, pending) carry so every residual add
+  fuses with the next norm.
+* Decode caches are stacked along the same layer axis and updated in place.
+
+MoE, Mamba (SSM, hybrid) and the audio / vision frontends raise and name
+the slice of the port that brings them.  Entry points run on ``cuda``
+unless the caller asks for the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, RuntimeConfig
+from repro_torch.layers import attention, base, dense, stacks
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# ---------------------------------------------------------------------------
+# Layer plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    superblock: tuple[str, ...]     # kinds within one super-block
+    n_super: int
+    tail: tuple[str, ...]           # remainder (hybrid only)
+
+    @property
+    def uses_shared_attn(self) -> bool:
+        return "shared_attn" in self.superblock or "shared_attn" in self.tail
+
+
+def layer_plan(cfg: ModelConfig) -> LayerPlan:
+    if cfg.family == "ssm":
+        return LayerPlan(("mamba",), cfg.n_layers, ())
+    if cfg.family == "hybrid":
+        q = cfg.attn_layer_period
+        n_super = cfg.n_layers // q
+        tail = ("mamba",) * (cfg.n_layers % q)
+        return LayerPlan(("mamba",) * (q - 1) + ("shared_attn",),
+                         n_super, tail)
+    if cfg.n_experts:
+        p = cfg.moe_layer_period
+        if cfg.n_layers % p:
+            raise ValueError(f"{cfg.name}: n_layers % moe_layer_period != 0")
+        return LayerPlan(("attn_dense",) * (p - 1) + ("attn_moe",),
+                         cfg.n_layers // p, ())
+    return LayerPlan(("attn_dense",), cfg.n_layers, ())
+
+
+def _check_ported(cfg: ModelConfig) -> LayerPlan:
+    """The plan of a config this slice runs: dense blocks, token inputs."""
+    plan = layer_plan(cfg)
+    kinds = set(plan.superblock) | set(plan.tail)
+    if "mamba" in kinds:
+        raise NotImplementedError(f"{cfg.name}: Mamba layers come with the "
+                                  f"SSM slice of the port")
+    if "attn_moe" in kinds:
+        raise NotImplementedError(f"{cfg.name}: MoE layers come with the "
+                                  f"MoE slice of the port")
+    if cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
+                                  f"comes with the multimodal slice of the "
+                                  f"port")
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init(seed: int, cfg: ModelConfig, *,
+         device: str | torch.device = "cuda") -> dict:
+    """Random parameters from ``seed`` with the JAX package's tree, shapes
+    and scales (not its values: carry those over with
+    :func:`repro_torch.convert.lm_params_from_numpy`)."""
+    plan = _check_ported(cfg)
+    dev = base.device(device)
+    dtype = DTYPES[cfg.dtype]
+    g = base.generator(seed, dev)
+    L = plan.n_super
+    tree: dict[str, Any] = {
+        "embed": base.normal(g, (cfg.vocab_size, cfg.d_model),
+                             scale=0.02 if cfg.tie_embeddings else None,
+                             dtype=dtype)}
+    if not cfg.tie_embeddings:
+        tree["out_head"] = base.normal(g, (cfg.d_model, cfg.vocab_size),
+                                       dtype=dtype)
+    tree["final_norm"] = dense.norm_init(cfg, None, dtype, dev)
+    tree["blocks"] = {"sub0": {
+        "norm1": dense.norm_init(cfg, L, dtype, dev),
+        "attn": attention.init(g, cfg, L, dtype),
+        "norm2": dense.norm_init(cfg, L, dtype, dev),
+        "mlp": dense.init(g, cfg, L, dtype),
+    }}
+    return tree
+
+
+def _layer(tree: Any, i: int) -> Any:
+    return base.tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _apply_sub(p: dict, resid: torch.Tensor, pending: torch.Tensor,
+               cfg: ModelConfig, rt: RuntimeConfig
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    norm_kw = dict(norm=cfg.norm, mode=rt.mode)
+    h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
+                                p["norm1"].get("bias"), **norm_kw)
+    attn_out = attention.apply(p["attn"], h1, cfg, rt)
+    h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
+                                p["norm2"].get("bias"), **norm_kw)
+    return resid, dense.apply(p["mlp"], h2, cfg, rt)
+
+
+def embed_inputs(params: dict, batch: dict, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    _check_ported(cfg)
+    x = params["embed"][batch["tokens"]]
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _final_norm(params: dict, h: torch.Tensor, cfg: ModelConfig,
+                rt: RuntimeConfig) -> torch.Tensor:
+    return stacks.apply_norm(h, params["final_norm"]["scale"],
+                             params["final_norm"].get("bias"),
+                             norm=cfg.norm, mode=rt.mode)
+
+
+def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
+           ) -> tuple[torch.Tensor, dict]:
+    """Backbone only: returns (final-normed hidden states, aux)."""
+    plan = _check_ported(cfg)
+    x = embed_inputs(params, batch, cfg)
+    resid, pending = x, torch.zeros_like(x)
+    blocks = params["blocks"]["sub0"]
+    for i in range(plan.n_super):
+        resid, pending = _apply_sub(_layer(blocks, i), resid, pending, cfg,
+                                    rt)
+    h = _final_norm(params, resid + pending, cfg, rt)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return h, {"router_aux_loss": zero, "drop_fraction": zero}
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
+            ) -> tuple[torch.Tensor, dict]:
+    """Returns (logits, aux)."""
+    h, aux = hidden(params, batch, cfg, rt)
+    return _logits(params, h, cfg), aux
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
+            ) -> torch.Tensor:
+    """Inference prefill: the backbone over the full prompt, logits of the
+    last position only."""
+    h, _ = hidden(params, batch, cfg, rt)
+    return _logits(params, h[:, -1:], cfg)
+
+
+def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["out_head"]
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      dtype: torch.dtype = torch.bfloat16, *,
+                      kv_layout: str = "dense",
+                      device: str | torch.device = "cuda") -> dict:
+    """Decode cache for every layer, stacked along the layer axis:
+    ``{"blocks": {"sub0": KVCache}}`` with k/v ``(L, B, G, max_len, hd)``.
+    Only the dense layout is ported; the paged one comes with the serving
+    engine."""
+    plan = _check_ported(cfg)
+    if kv_layout != "dense":
+        raise NotImplementedError(
+            f"kv_layout {kv_layout!r}: the paged layout comes with the "
+            f"continuous-batching engine slice of the port")
+    return {"blocks": {"sub0": attention.init_cache(
+        cfg, batch, max_len, dtype, n_layers=plan.n_super,
+        dev=base.device(device))}}
+
+
+def reset_slots(cache: dict, mask: torch.Tensor) -> dict:
+    """Zero the decode state (K/V contents and length) of the batch slots
+    where ``mask`` is True, in place; every leaf is layer-stacked, so batch
+    is axis 1."""
+    c = cache["blocks"]["sub0"]
+    for leaf in (c.k, c.v, c.length):
+        m = mask.reshape((1, -1) + (1,) * (leaf.dim() - 2))
+        leaf.masked_fill_(m, 0)
+    return cache
+
+
+def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
+                cfg: ModelConfig, rt: RuntimeConfig,
+                active: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, dict]:
+    """One serving step: tokens_t (B, 1) -> (logits (B, 1, V), cache).
+
+    ``active`` is an optional (B,) bool slot mask: inactive slots compute
+    but their cache state is frozen.  The cache is updated in place and
+    returned."""
+    plan = _check_ported(cfg)
+    x = params["embed"][tokens_t]
+    if cfg.tie_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    norm_kw = dict(norm=cfg.norm, mode=rt.mode)
+    c = cache["blocks"]["sub0"]
+    blocks = params["blocks"]["sub0"]
+    resid, pending = x, torch.zeros_like(x)
+    for i in range(plan.n_super):
+        p = _layer(blocks, i)
+        layer_cache = attention.KVCache(k=c.k[i], v=c.v[i],
+                                        length=c.length[i])
+        h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
+                                    p["norm1"].get("bias"), **norm_kw)
+        attn_out, _ = attention.decode(p["attn"], h1, layer_cache, cfg, rt,
+                                       active=active)
+        h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
+                                    p["norm2"].get("bias"), **norm_kw)
+        pending = dense.apply(p["mlp"], h2, cfg, rt)
+    h = _final_norm(params, resid + pending, cfg, rt)
+    return _logits(params, h, cfg), cache

@@ -33,4 +33,11 @@ def test_port_modules_import_neither_jax_nor_repro():
     assert "repro_torch.kernels.fused_stack.rows_bwd" in result["modules"]
     assert "repro_torch.kernels.fused_stack.nhwc_bwd" in result["modules"]
     assert "repro_torch.core.autodiff" in result["modules"]
+    for name in ("configs", "configs.base", "configs.deepseek_7b",
+                 "kernels.rmsnorm.rmsnorm", "kernels.swiglu.swiglu",
+                 "kernels.attention.flash", "kernels.attention.decode",
+                 "kernels.attention.ops", "layers.base", "layers.dense",
+                 "layers.attention", "models.lm", "core.scheduler",
+                 "launch.serve"):
+        assert f"repro_torch.{name}" in result["modules"]
     assert result["bad"] == []

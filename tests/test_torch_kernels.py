@@ -87,6 +87,14 @@ def _extra(m):
         _pool(m, "p", "b", "y", "max", (2, 2), (2, 2), (0, 0))))
 
 
+def _extra_only_op(m):
+    """y = x + e * e: the op e * e reads broadcast operands only."""
+    return m.StackProgram(name="extra_only", inputs=("x", "e"),
+                          outputs=("y",), layout="nhwc", ops=(
+        m.OpNode(m.OpKind.EW_BINARY, "t", ("e", "e"), "t", fn="mul"),
+        m.OpNode(m.OpKind.EW_BINARY, "y", ("x", "t"), "y", fn="add")))
+
+
 _ALL_UNARY = ("tanh", "sigmoid", "relu", "relu6", "squared_relu", "gelu",
               "gelu_exact", "silu", "exp", "abs", "square", "identity",
               "neg", "softplus")
@@ -132,6 +140,7 @@ NHWC_CASES = {
     "avg_pad": (_avg_pad, (1, 5, 5, 8), 4, {}),
     "strided": (_strided, (2, 17, 13, 4), 2, {}),
     "extra": (_extra, (1, 9, 10, 8), 2, {"cb": (1, 1, 1, 8)}),
+    "extra_only_op": (_extra_only_op, (2, 8, 8, 4), 4, {"e": (1, 1, 1, 4)}),
     "all_unary": (_all_unary, (1, 9, 7, 4), 4, {}),
     "swish": (_swish_twice, (2, 7, 6, 3), 4, {}),
     "row_ops": (_row_ops, (1, 8, 10, 16), 2, {}),

@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -488,16 +489,31 @@ def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
                     s = torch.where(okp, contrib, 0.0).sum(0)
                     acc[idx * C + cgs[live]] += s[live]
 
-                if op.kind == tnhwc.K_BINARY and tnhwc.SRC_VEC in (
-                        op.a_src, op.b_src):
-                    av = operand(op.a_src, op.a_idx, e2, cgs.expand_as(e2))
-                    bv = operand(op.b_src, op.b_idx, e2, cgs.expand_as(e2))
-                    da, db = tad._binary_vjp(binary[op.fn], av, bv, G[e2])
-                    a_vec = op.a_src == tnhwc.SRC_VEC
-                    add(op.a_idx if a_vec else op.b_idx, da if a_vec else db)
+                a_vec = op.a_src == tnhwc.SRC_VEC
+                b_vec = (op.kind == tnhwc.K_BINARY
+                         and op.b_src == tnhwc.SRC_VEC)
+                cg2 = cgs.expand_as(e2)
+                if op.kind in (tnhwc.K_UNARY, tnhwc.K_BINARY) and (
+                        a_vec or b_vec):
+                    av = operand(op.a_src, op.a_idx, e2, cg2)
+                    if op.kind == tnhwc.K_UNARY:
+                        fn = unary[op.fn]
+                        da = G[e2] * tad._UNARY_DERIVS[fn](
+                            av, tir.UNARY_FNS[fn](av))
+                    else:
+                        bv = operand(op.b_src, op.b_idx, e2, cg2)
+                        da, db = tad._binary_vjp(binary[op.fn], av, bv,
+                                                 G[e2])
+                    if a_vec:
+                        add(op.a_idx, da)
+                    if b_vec:
+                        add(op.b_idx, db)
                 elif op.kind == tnhwc.K_AFFINE:
-                    add(op.b_idx, G[e2] * smem[op.a_idx, e2])
+                    add(op.b_idx, G[e2] * operand(op.a_src, op.a_idx, e2,
+                                                  cg2))
                     add(op.c_idx, G[e2])
+                    if a_vec:
+                        add(op.a_idx, G[e2] * vec(op.b_idx, cg2))
                 elif op.kind == tnhwc.K_NORM and op.b_idx >= 0:
                     add(op.b_idx, smem[b.scratch, e2])
                     if op.c_idx >= 0:
@@ -610,3 +626,52 @@ def test_bwd_descriptor_builds_for_main_path_stacks(graph, shape):
         x_shape = tir.infer_shapes(seg.stack, {seg.stack.inputs[0]: x_shape})[
             seg.stack.outputs[0]]
     assert n_seq == (3 if graph == "block_net8" else 5)
+
+
+def test_broadcast_only_op_trains_through_both_packages():
+    """y = x + e * e at (2, 8, 8, 4): the op e * e reads only the broadcast
+    extra.  The JAX package runs it through both generated Pallas kernels;
+    the port's dispatch takes the kernel path (on the CPU, the kernels'
+    plain versions), and the transliterated CUDA descriptors, forward and
+    ``dx``/``de`` equal to it."""
+    from repro.kernels.fused_stack import ops as jops
+    from repro_torch.kernels.fused_stack import ops as tops
+    from test_torch_kernels import _extra_only_op
+    rng = np.random.default_rng(13)
+    x = _randn(rng, (2, 8, 8, 4))
+    e = _randn(rng, (1, 1, 1, 4))
+    g = _randn(rng, (2, 8, 8, 4))
+    jprog, tprog = _extra_only_op(jir), _extra_only_op(tir)
+
+    def jloss(x_, e_):
+        y = jops.fused_stack_apply(jprog, {"x": x_, "e": e_}, {},
+                                   mode="brainslug", interpret=True)["y"]
+        return jnp.sum(y * g), y
+
+    before = jops.STATS.snapshot()
+    (_, jy), (jdx, jde) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                             has_aux=True)(jnp.asarray(x),
+                                                           jnp.asarray(e))
+    assert {k: v for k, v in jops.STATS.delta(before).items() if v} == {
+        "fwd_generated": 1, "bwd_generated": 1}
+    np.testing.assert_allclose(np.asarray(jde), (2 * e * g.sum(
+        (0, 1, 2), keepdims=True)), rtol=1e-5, atol=1e-5)
+
+    tx = torch.from_numpy(x).requires_grad_()
+    te = torch.from_numpy(e).requires_grad_()
+    tbefore = tops.STATS.snapshot()
+    ty = tops.fused_stack_apply(tprog, {"x": tx, "e": te}, {},
+                                mode="brainslug", differentiable=True)["y"]
+    tdx, tde = torch.autograd.grad(ty, (tx, te), torch.from_numpy(g))
+    assert {k: v for k, v in tops.STATS.delta(tbefore).items() if v} == {
+        "fwd_reference": 1, "bwd_reference": 1}
+    _assert_close(ty.detach().numpy(), np.asarray(jy), "y")
+    _assert_close(tdx.numpy(), np.asarray(jdx), "dx")
+    _assert_close(tde.numpy(), np.asarray(jde), "de", RTOL_SUM)
+    # the CUDA kernels' descriptors, transliterated, at the training tile
+    from test_torch_kernels import _run_descriptor
+    _assert_close(_run_descriptor(tprog, x, {}, {"e": e}, 4), np.asarray(jy),
+                  "kernel y")
+    kdx, kde, _ = _run_bwd_descriptor(tprog, x, {}, {"e": e}, g, 4)
+    _assert_close(kdx, np.asarray(jdx), "kernel dx")
+    _assert_close(kde["e"], np.asarray(jde), "kernel de", RTOL_SUM)
