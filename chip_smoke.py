@@ -34,6 +34,22 @@ Phases, one line each (plus tables):
    and losses); dispatch and launch counters per step;
 10. per-backward-kernel times (as phase 5), the training step in turns per
    mode, and a traced step per mode;
+11-13. the LM serving slice: the rmsnorm, swiglu, flash-attention and
+   flash-decode kernels against their plain versions, deepseek-7b at full
+   width through ``lm.prefill`` and ``Server.generate``, and their times;
+14. the paged flash-decode CUDA kernel against its plain version at (8,
+   32, ragged lengths up to 32768, 128), block size 16, through a shuffled
+   table with sentinel tails, GQA 40/8, q in bf16 and float32 over pools
+   in q's dtype and in float32; bit for bit against the dense kernel on
+   the gathered view;
+15. the continuous-batching engine (``Server.engine(kv_layout="paged")
+   .run``) over a ragged, prefix-sharing queue of 12 requests at full
+   width, paged ``brainslug`` against paged ``barrier`` and dense
+   ``brainslug`` (counters per model evaluation, no ``kv.*`` finding, the
+   free list whole), and a float32 4-layer run with identical tokens;
+16. the paged kernel's time beside its bound, its plain version and the
+   dense kernel on the gathered view; the engine runs' wall time,
+   tokens/s, TTFT and ``ServeStats``; a traced decode-only tick per mode;
 then the ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
@@ -48,6 +64,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -73,7 +91,8 @@ TRAIN_LR = 1e-3
 
 # The LM serving slice (phases 11-13): deepseek-7b at full width.
 KERNELS = ("fused_nhwc", "fused_rows", "fused_nhwc_bwd", "fused_rows_bwd",
-           "rmsnorm", "swiglu", "flash_attention", "flash_decode")
+           "rmsnorm", "swiglu", "flash_attention", "flash_decode",
+           "paged_flash_decode")
 # Kernel against plain version, per dtype.  float32: the same arithmetic
 # summed in another order.  bfloat16: the two may round one output apart
 # (one bf16 step is 2^-8 relative), so atol/rtol 1e-2.
@@ -91,6 +110,12 @@ PATH_F32_REL = 1e-4
 PATH_BF16_REL = 5e-2
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core rate (datasheet)
 SPIN_KERNELS = 16       # sacrificial launches at the start of a trace
+# The engine slice (phases 14-16).
+PAGED = dict(batch=8, heads=32, max_len=32768, block=16)
+ENGINE = dict(slots=4, max_len=256, prefill_chunk=8, kv_block_size=16,
+              kv_num_blocks=32)
+ENGINE_RUNS = (("paged", "brainslug"), ("paged", "barrier"),
+               ("dense", "brainslug"))
 
 
 class PhaseError(RuntimeError):
@@ -120,7 +145,7 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.dev = torch.device("cuda")
-        self.err = {k: 0.0 for k in KERNELS}
+        self.err = {k: 0.0 for k in KERNELS + ("fused_rows_bf16",)}
         self.vgg_stages: list = []      # (stack, input) of phase 5
         self.kernels: dict[str, dict] = {}
 
@@ -183,6 +208,9 @@ class Smoke:
         self.phase11_lm_kernels()
         self.phase12_serving()
         self.phase13_lm_timing()
+        self.phase14_paged_kernel()
+        self.phase15_engine()
+        self.phase16_engine_timing()
         print(f"[total] {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"kernels": [self.kernels[k] for k in KERNELS]}))
         print(self.smi)
@@ -215,13 +243,15 @@ class Smoke:
         from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd
         t = time.perf_counter()
         procs = [(src, _build.start_build(src)) for src in (
-            nhwc.SOURCE, nhwc_bwd.SOURCE, flash.SOURCE, decode.SOURCE)]
+            nhwc.SOURCE, nhwc_bwd.SOURCE, flash.SOURCE, decode.SOURCE,
+            decode.PAGED_SOURCE)]
         try:
             libs = [_build.finish_build(src, p) for src, p in procs]
         except _build.BuildError as e:
             raise PhaseError(str(e)) from e
         for mod in (nhwc, nhwc_bwd, flash, decode):
             mod._library()
+        decode._library(decode.PAGED_SOURCE)
         import triton
         print(f"[1 build] nvcc {', '.join(p.name for p in libs)} in "
               f"parallel, {time.perf_counter() - t:.1f} s; triton "
@@ -417,6 +447,64 @@ class Smoke:
         print(f"[3 rows] {len(lines)} cases through optimize_stack agree with "
               f"the plain version ({' '.join(lines)}); first launches "
               f"(Triton compiles) included: {time.perf_counter() - t:.1f} s")
+        self.phase3_rows_bf16()
+
+    def rows_bf16_cases(self):
+        """(name, program, input shapes, param shapes) of the bf16 chains:
+        a layer norm with bias, a residual add + rms norm, a gelu gate, at
+        deepseek-7b widths, inputs and parameters in bfloat16."""
+        from repro_torch.layers import stacks
+        d, f = ROWS + (D_MODEL,), ROWS + (D_FF,)
+        vec = (D_MODEL,)
+        return [
+            ("layer_bias", stacks.norm_program("layer", 1e-5, True),
+             {"x": d}, {"scale": vec, "bias": vec}),
+            ("addnorm_rms", stacks.addnorm_program("rms", 1e-6, False),
+             {"x": d, "res": d}, {"scale": vec}),
+            ("glu_gelu", stacks.glu_program("gelu"), {"gate": f, "up": f},
+             {}),
+        ]
+
+    def phase3_rows_bf16(self):
+        """The rows kernel on bf16 chains against its plain version at
+        LM_TOL's bf16 tolerance: each output in the interpreter's dtype,
+        rounded where the interpreter rounds."""
+        torch = self.torch
+        from repro_torch.core import collapse, resource
+        from repro_torch.kernels.fused_stack import ref, rows
+        self.rows_bf16 = {}
+        lines = []
+        for k, (name, program, in_shapes, p_shapes) in enumerate(
+                self.rows_bf16_cases()):
+            inputs, _ = self.rows_inputs(name, in_shapes, {},
+                                         3000 + 100 * k)
+            inputs = {n: v.to(torch.bfloat16) for n, v in inputs.items()}
+            # norm parameters as an LM holds them (scale near 1, bias near
+            # 0), as phase 11 draws them: a scale of ~4 would multiply a
+            # one-step flip of the rounded normalised value (the float32
+            # sums of mean and variance run in another order) into four
+            # steps of a bias-cancelled output, past the one-step tolerance
+            params = {n: ((1.0 if n == "scale" else 0.0) + 0.1 * self.randn(
+                shp, 3050 + 100 * k + j)).to(torch.bfloat16)
+                for j, (n, shp) in enumerate(p_shapes.items())}
+            tile = collapse.collapse(program, in_shapes,
+                                     resource.H100).sequences[0].tile_rows
+            got = rows.fused_rows(program, inputs, params, tile_rows=tile)
+            want = ref.fused_stack_ref(program, inputs, params)
+            worst = 0.0
+            for v in want:
+                if got[v].dtype != want[v].dtype:
+                    raise PhaseError(f"fused_rows bf16 {name}: output {v} is "
+                                     f"{got[v].dtype}, the interpreter's "
+                                     f"{want[v].dtype}")
+                worst = max(worst, self.lm_check("fused_rows_bf16",
+                                                 f"{name} {v}", got[v],
+                                                 want[v]))
+            self.rows_bf16[name] = (program, inputs, params, tile, got)
+            lines.append(f"{name}={worst:.1e}")
+        print(f"[3 rows bf16] {len(lines)} bf16 chains at deepseek-7b widths "
+              f"against the plain version, outputs in bf16 (tol "
+              f"{LM_TOL['bfloat16']}): {' '.join(lines)}")
 
     def phase4_paths(self):
         torch = self.torch
@@ -1218,7 +1306,8 @@ class Smoke:
         from repro_torch.kernels.swiglu import swiglu
         fns = {"rmsnorm": rmsnorm.rmsnorm_fwd, "swiglu": swiglu.swiglu_fwd,
                "flash_attention": flash.flash_attention_fwd,
-               "flash_decode": decode.flash_decode}
+               "flash_decode": decode.flash_decode,
+               "paged_flash_decode": decode.paged_flash_decode}
         if zero:
             for fn in fns.values():
                 fn.launches = 0
@@ -1233,11 +1322,14 @@ class Smoke:
     def expect_counters(self, what, got, launches):
         """Every LM dispatch of the run on a kernel: the launches as
         ``launches`` says, no plain dispatch."""
+        launches = {"paged_flash_decode": 0, **launches}
         want = {**launches,
                 "rmsnorm_kernel": launches["rmsnorm"], "rmsnorm_plain": 0,
                 "swiglu_kernel": launches["swiglu"], "swiglu_plain": 0,
                 "decode_kernel": launches["flash_decode"], "decode_plain": 0,
-                "decode_ref": 0}
+                "decode_ref": 0,
+                "paged_decode_kernel": launches["paged_flash_decode"],
+                "paged_decode_plain": 0, "paged_decode_ref": 0}
         if got != want:
             raise PhaseError(f"{what}: counters {got}, expected {want}")
 
@@ -1476,6 +1568,8 @@ class Smoke:
         for frag, group in (("rmsnorm_kernel", "rmsnorm"),
                             ("swiglu_kernel", "swiglu"),
                             ("flash_fwd_kernel", "flash_attention"),
+                            ("paged_flash_decode_kernel",
+                             "paged_flash_decode"),
                             ("flash_decode_kernel", "flash_decode")):
             if frag in low:
                 return group
@@ -1645,6 +1739,405 @@ class Smoke:
                         expect[what] if m == "brainslug" else None))
         print("[13 kernels] " + "  ".join(
             f"{k} max|d|={self.err[k]:.3e}" for k in sources))
+
+
+    # -- the engine slice -----------------------------------------------------
+    def paged_operands(self, dt, pool_dt, heads, kv_heads, seed):
+        """Phase 14's operands: q, pools, a table that is a random
+        permutation of the pool with the sentinel id N past each slot's
+        blocks, and ragged lengths (one 0, one full)."""
+        torch = self.torch
+        b, bs, s_max = PAGED["batch"], PAGED["block"], PAGED["max_len"]
+        mb = s_max // bs
+        lens = torch.tensor([0, 1, 17, 513, 4000, 8191, 20000, s_max],
+                            dtype=torch.int32, device=self.dev)[:b].clamp(
+                                max=s_max)
+        n = int(((lens + bs - 1) // bs).sum()) + 8
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        perm = torch.randperm(n, generator=g, device=self.dev)
+        table = torch.full((b, mb), n, dtype=torch.int32, device=self.dev)
+        at = 0
+        for i, ln in enumerate(lens.tolist()):
+            used = -(-ln // bs)
+            table[i, :used] = perm[at:at + used].int()
+            at += used
+        q = self.randn((b, heads, 1, 128), seed + 1).to(dt)
+        kp = self.randn((n, kv_heads, bs, 128), seed + 2).to(pool_dt)
+        vp = self.randn((n, kv_heads, bs, 128), seed + 3).to(pool_dt)
+        return q, kp, vp, table, lens
+
+    def phase14_paged_kernel(self):
+        torch = self.torch
+        from repro_torch.kernels.attention import decode, ref
+        t = time.perf_counter()
+        lines = []
+        for dt, pool_dt, heads, kv_heads in (
+                (torch.bfloat16, torch.bfloat16, 32, 32),
+                (torch.bfloat16, torch.float32, 32, 32),
+                (torch.float32, torch.float32, 32, 32),
+                (torch.bfloat16, torch.float32, 40, 8)):
+            q, kp, vp, table, lens = self.paged_operands(
+                dt, pool_dt, heads, kv_heads, 1700)
+            got = decode.paged_flash_decode(q, kp, vp, table, lens)
+            err = self.lm_check("paged_flash_decode",
+                                f"q {dt} pool {pool_dt} {heads}/{kv_heads}",
+                                got, decode.paged_flash_decode_plain(
+                                    q, kp, vp, table, lens))
+            if not bool((got[0] == 0).all()):
+                raise PhaseError("paged_flash_decode: a length-0 slot is not "
+                                 "exactly zero")
+            clipped = table.clamp(0, kp.shape[0] - 1)
+            dense = decode.flash_decode(q, ref.gather_paged(kp, clipped),
+                                        ref.gather_paged(vp, clipped), lens)
+            torch.cuda.synchronize()
+            if not torch.equal(got, dense):
+                raise PhaseError(
+                    f"paged_flash_decode q {dt} pool {pool_dt}: differs from "
+                    f"flash_decode on the gathered view (max|d| "
+                    f"{float((got.float() - dense.float()).abs().max()):.3e})")
+            lines.append(f"q {str(dt)[6:]} pool {str(pool_dt)[6:]} "
+                         f"{heads}/{kv_heads} heads: max|d| {err:.2e}")
+            del kp, vp, dense
+        torch.cuda.empty_cache()
+        print(f"[14 paged kernel] paged_flash_decode against its plain version "
+              f"(tol {LM_TOL}) at ({PAGED['batch']}, heads, lengths "
+              f"{lens.tolist()}, 128), block {PAGED['block']}, a shuffled "
+              f"table with sentinel tails: " + "; ".join(lines)
+              + "; length 0 exactly zero; bit for bit equal to flash_decode "
+              f"on the gathered view; {time.perf_counter() - t:.1f} s")
+
+    def engine_queue(self, vocab):
+        """12 requests from numpy seed 0: eight share a 64-token prefix with
+        0-40-token tails, four have unrelated 16-96-token prompts;
+        max_new_tokens 16-48, one 0, one sampled at temperature 0.8."""
+        from repro_torch.launch.engine import Request
+        rng = np.random.default_rng(0)
+        common = rng.integers(1, vocab, 64).tolist()
+        reqs = []
+        for i in range(12):
+            if i % 3 == 2:
+                prompt = rng.integers(1, vocab,
+                                      int(rng.integers(16, 97))).tolist()
+            else:
+                prompt = common + rng.integers(
+                    1, vocab, int(rng.integers(0, 41))).tolist()
+            reqs.append(Request(
+                request_id=i, prompt=prompt,
+                max_new_tokens=0 if i == 5 else int(rng.integers(16, 49)),
+                temperature=0.8 if i == 7 else 0.0))
+        return reqs
+
+    def engine_run(self, cfg, params, layout, mode, reqs, verify="strict"):
+        """One ``Engine.run`` through ``Server.engine``; returns (engine,
+        completions, launch counters of the run, wall seconds)."""
+        torch = self.torch
+        from repro_torch.launch import serve
+        sc = serve.ServeConfig(arch=cfg.name, reduced=False, mode=mode,
+                               batch=ENGINE["slots"],
+                               max_len=ENGINE["max_len"],
+                               torch_device=self.dev.type)
+        eng = serve.Server(sc, params=params, cfg=cfg).engine(
+            slots=ENGINE["slots"], prefill_chunk=ENGINE["prefill_chunk"],
+            kv_layout=layout, kv_block_size=ENGINE["kv_block_size"],
+            kv_num_blocks=ENGINE["kv_num_blocks"], verify_mode=verify)
+        torch.cuda.synchronize()
+        self.lm_counters(zero=True)
+        t = time.perf_counter()
+        comps = eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = self.lm_counters()
+        if any(c.status != "ok" for c in comps):
+            raise PhaseError(f"engine {layout} {mode}: statuses "
+                             f"{[c.status for c in comps]}")
+        for r, c in zip(reqs, comps):
+            if len(c.tokens) != r.max_new_tokens:
+                raise PhaseError(f"engine {layout} {mode}: request "
+                                 f"{r.request_id} got {len(c.tokens)} of "
+                                 f"{r.max_new_tokens} tokens")
+        alloc = eng.last_allocator
+        if alloc is not None and (alloc.n_free != alloc.num_blocks
+                                  or alloc.stored):
+            raise PhaseError(f"engine {layout} {mode}: {alloc.in_use} blocks "
+                             f"still in use after the run")
+        return eng, comps, counts, wall
+
+    @staticmethod
+    def evaluations(stats):
+        """Model evaluations of a run: every lane of every evaluation is
+        one slot-unit of prefill, decode or idle work."""
+        return (stats.prefill_tokens + stats.decode_slot_steps
+                + stats.idle_slot_steps) // stats.n_slots
+
+    def forced_logits(self, cfg, params, mode, seqs, starts):
+        """Teacher forcing through the paged layout: ``seqs`` (token lists)
+        rolled through ``lm.decode_step`` position by position in one
+        batch, each slot on its own blocks; per position, the float32
+        logits of the slots whose position lies in [start - 1, len - 1)
+        (the positions whose logits chose a generated token)."""
+        torch = self.torch
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.models import lm
+        bs = ENGINE["kv_block_size"]
+        b, longest = len(seqs), max(len(x) for x in seqs)
+        mb = -(-longest // bs)
+        rt = RuntimeConfig(mode=mode, kv_layout="paged", kv_block_size=bs)
+        out = []
+        with torch.inference_mode():
+            cache = lm.init_decode_cache(
+                cfg, b, longest, dtype=torch.float32, kv_layout="paged",
+                kv_num_blocks=b * mb, kv_block_size=bs, device=self.dev)
+            table = torch.arange(b * mb, dtype=torch.int32,
+                                 device=self.dev).reshape(b, mb)
+            toks = torch.zeros((b, longest), dtype=torch.int64,
+                               device=self.dev)
+            for i, x in enumerate(seqs):
+                toks[i, :len(x)] = torch.tensor(x, device=self.dev)
+            lens = [len(x) for x in seqs]
+            for t in range(longest - 1):
+                active = torch.tensor([t < n for n in lens], device=self.dev)
+                logits, cache = lm.decode_step(params, cache,
+                                               toks[:, t:t + 1], cfg, rt,
+                                               active, block_tables=table)
+                keep = [i for i in range(b) if starts[i] - 1 <= t < lens[i] - 1]
+                if keep:
+                    out.append(logits[keep, 0].float())
+        return out
+
+    def phase15_engine(self):
+        torch = self.torch
+        import dataclasses
+        from repro_torch.models import lm
+        cfg, params = self.lm_model
+        L = cfg.n_layers
+        reqs = self.engine_queue(cfg.vocab_size)
+        t = time.perf_counter()
+        self.engine_results = {}
+        for layout, mode in ENGINE_RUNS:
+            eng, comps, counts, wall = self.engine_run(cfg, params, layout,
+                                                       mode, reqs)
+            self.engine_results[(layout, mode)] = (eng, comps, wall)
+            if mode != "brainslug":
+                continue
+            e = self.evaluations(eng.last_stats)
+            paged = layout == "paged"
+            self.expect_counters(f"engine {layout} {mode}", counts, {
+                "rmsnorm": (2 * L + 1) * e, "swiglu": L * e,
+                "flash_attention": 0, "flash_decode": 0 if paged else L * e,
+                "paged_flash_decode": L * e if paged else 0})
+            if paged:
+                self.lm_launches["paged_flash_decode"] = counts[
+                    "paged_flash_decode"]
+                per_eval = {k: counts[k] / e for k in (
+                    "paged_flash_decode", "rmsnorm", "swiglu")}
+        greedy = [i for i, r in enumerate(reqs) if r.temperature <= 0.0]
+        pb = self.engine_results[("paged", "brainslug")][1]
+        db = self.engine_results[("dense", "brainslug")][1]
+        pr = self.engine_results[("paged", "barrier")][1]
+        for i in greedy:
+            if not np.array_equal(pb[i].tokens, db[i].tokens):
+                raise PhaseError(f"engine: paged and dense brainslug differ on "
+                                 f"greedy request {i}")
+        sampled_same = all(np.array_equal(pb[i].tokens, db[i].tokens)
+                           for i in range(len(reqs)))
+        n_tok = sum(len(pr[i].tokens) for i in greedy)
+        agree = sum(int((pb[i].tokens == pr[i].tokens).sum())
+                    for i in greedy) / max(n_tok, 1)
+        # teacher-forced logits on barrier's tokens, four greedy requests
+        pick = [i for i in greedy if reqs[i].max_new_tokens > 0][:4]
+        seqs = [list(reqs[i].prompt) + pr[i].tokens.tolist() for i in pick]
+        starts = [len(reqs[i].prompt) for i in pick]
+        forced = {m: self.forced_logits(cfg, params, m, seqs, starts)
+                  for m in ("brainslug", "barrier")}
+        errs = [self.relative(a, b) for a, b in zip(forced["brainslug"],
+                                                   forced["barrier"])]
+        if not max(errs) <= PATH_BF16_REL:
+            raise PhaseError(f"engine bf16: teacher-forced logits max|d|/max "
+                             f"{max(errs):.3e} > {PATH_BF16_REL}")
+        st = self.engine_results[("paged", "brainslug")][0].last_stats
+        print(f"[15 engine] {cfg.name} {cfg.dtype}, {L} layers, Engine(slots "
+              f"{ENGINE['slots']}, max_len {ENGINE['max_len']}, prefill_chunk "
+              f"{ENGINE['prefill_chunk']}, paged blocks {ENGINE['kv_num_blocks']}"
+              f" x {ENGINE['kv_block_size']}, verify strict), 12 requests "
+              f"(8 share a 64-token prefix; one max_new_tokens 0, one "
+              f"temperature 0.8): every request completed in all three runs "
+              f"({', '.join(f'{l} {m}' for l, m in ENGINE_RUNS)}), no kv.* "
+              f"finding, the free list whole after each; paged brainslug per "
+              f"model evaluation: "
+              + " ".join(f"{k} {v:g}" for k, v in per_eval.items())
+              + f", plain and ref 0 ({self.evaluations(st)} evaluations); "
+              f"paged == dense brainslug greedy tokens: identical (sampled "
+              f"request too: {sampled_same}); vs paged barrier token "
+              f"agreement {agree:.4f}, teacher-forced logits max|d|/max worst "
+              f"{max(errs):.3e}, median {statistics.median(errs):.3e} (tol "
+              f"{PATH_BF16_REL}); prefix hits {st.prefix_hit_tokens} tokens, "
+              f"cow forks {st.cow_forks}, peak blocks {st.blocks_in_use}; "
+              f"{time.perf_counter() - t:.1f} s")
+
+        # float32 at 4 layers: identical greedy tokens everywhere
+        cfg32 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+        p32 = lm.init(1, cfg32, device=self.dev)
+        toks = {}
+        for layout, mode in ENGINE_RUNS:
+            _, comps, _, _ = self.engine_run(cfg32, p32, layout, mode, reqs)
+            toks[(layout, mode)] = comps
+        base = toks[ENGINE_RUNS[0]]
+        for run, comps in toks.items():
+            for i in greedy:
+                if not np.array_equal(comps[i].tokens, base[i].tokens):
+                    raise PhaseError(f"engine f32: {run} differs from "
+                                     f"{ENGINE_RUNS[0]} on request {i}")
+        # against the static Server on four equal-length prompts
+        from repro_torch.launch import serve
+        from repro_torch.launch.engine import Request
+        four = [list(reqs[i].prompt[:16]) for i in (2, 5, 8, 11)]
+        new = 16
+        static = serve.Server(serve.ServeConfig(
+            arch=cfg32.name, reduced=False, mode="brainslug", batch=4,
+            prompt_len=16, new_tokens=new, max_len=ENGINE["max_len"],
+            torch_device=self.dev.type),
+            params=p32, cfg=cfg32)
+        want = static.generate(np.asarray(four, np.int32))
+        _, comps, _, _ = self.engine_run(
+            cfg32, p32, "paged", "brainslug",
+            [Request(request_id=i, prompt=x, max_new_tokens=new)
+             for i, x in enumerate(four)])
+        for i, c in enumerate(comps):
+            if not np.array_equal(c.tokens, want[i]):
+                raise PhaseError(f"engine f32 vs static Server: request {i} "
+                                 f"differs")
+        print(f"[15 engine float32, 4 layers] identical greedy tokens in the "
+              f"three runs; the paged brainslug engine equals the static "
+              f"Server.generate on 4 prompts of 16 tokens x {new} new")
+        del p32, static
+        torch.cuda.empty_cache()
+
+    def phase16_engine_timing(self):
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.core.resource import H100
+        from repro_torch.kernels.attention import decode, ref
+        bf = torch.bfloat16
+        heads = PAGED["heads"]
+        q, kp, vp, table, lens = self.paged_operands(bf, bf, heads, heads,
+                                                     1700)
+        q32, kp32, vp32, _, _ = self.paged_operands(bf, torch.float32, heads,
+                                                    heads, 1700)
+        clipped = table.clamp(0, kp.shape[0] - 1)
+        kd, vd = ref.gather_paged(kp, clipped), ref.gather_paged(vp, clipped)
+        s_max = kd.shape[2]
+        mask = (torch.arange(s_max, device=self.dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        valid = int(lens.sum())
+        used = int(((lens + PAGED["block"] - 1) // PAGED["block"]).sum())
+        n_bytes = (2 * q.numel() * 2 + 2 * valid * heads * 128 * 2
+                   + used * 4 + lens.numel() * 4)
+        t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
+        t_ops = 4 * 128 * heads * valid / PEAK_BF16 * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (
+            t_ops, "operations")
+        with torch.inference_mode():
+            run = lambda: decode.paged_flash_decode(q, kp, vp, table, lens)  # noqa: E731
+            k_ms, n_held = self.kernel_ms(run, "paged_flash_decode_kernel")
+            k_call = self.cuda_ms(run)
+            k32_ms, _ = self.kernel_ms(
+                lambda: decode.paged_flash_decode(q32, kp32, vp32, table,
+                                                  lens),
+                "paged_flash_decode_kernel")
+            d_ms, _ = self.kernel_ms(
+                lambda: decode.flash_decode(q, kd, vd, lens),
+                "flash_decode_kernel")
+            p_ms = self.cuda_ms(lambda: decode.paged_flash_decode_plain(
+                q, kp, vp, table, lens), reps=1, groups=3, warmup=1)
+            sdpa_ms = self.cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kd, vd, attn_mask=mask))
+        shape = (f"({PAGED['batch']}, {heads}, lengths {lens.tolist()}, 128) "
+                 f"bf16, block {PAGED['block']}")
+        print(f"[16 paged kernel] {shape}: kernel {k_ms:.4f} ms device "
+              f"({n_held} of 20 launches held; {k_call:.4f} per call); over "
+              f"a float32 pool {k32_ms:.4f} ms; dense flash_decode on the "
+              f"gathered view {d_ms:.4f} ms (paging costs "
+              f"{100 * (k_ms / d_ms - 1):+.1f}%); plain {p_ms:.4f} ms; "
+              f"library none (SDPA on the gathered view, a note: "
+              f"{sdpa_ms:.4f} ms); bound {b_ms:.4f} ms ({b_by}), kernel/bound "
+              f"{k_ms / b_ms:.2f}")
+        self.kernels["paged_flash_decode"] = {
+            "name": "paged_flash_decode", "route": "cuda",
+            "source": "src/repro_torch/kernels/attention/csrc/"
+                      "paged_flash_decode.cu",
+            "replaces": "src/repro/kernels/attention/decode.py:116",
+            "launches": self.lm_launches["paged_flash_decode"],
+            "max_abs_err": self.err["paged_flash_decode"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": shape}
+        del q, kp, vp, q32, kp32, vp32, kd, vd, mask
+        torch.cuda.empty_cache()
+
+        # the bf16 rows chains of phase 3: device time beside the plain
+        # version and the bound
+        for name, (program, inputs, params, tile, out) in \
+                self.rows_bf16.items():
+            from repro_torch.kernels.fused_stack import ref as fref
+            from repro_torch.kernels.fused_stack import rows
+            nb = sum(t.numel() * t.element_size() for t in
+                     [*inputs.values(), *params.values(), *out.values()])
+            r_ms, _ = self.device_ms(lambda: rows.fused_rows(
+                program, inputs, params, tile_rows=tile))
+            rp_ms, _ = self.device_ms(lambda: fref.fused_stack_ref(
+                program, inputs, params))
+            rb_ms = nb / H100.hbm_bandwidth * 1e3
+            print(f"[16 rows bf16] {name} {ROWS} x "
+                  f"{next(iter(inputs.values())).shape[-1]} tile_rows={tile}: "
+                  f"kernel {r_ms:.4f} ms device, plain {rp_ms:.4f} ms, bound "
+                  f"{rb_ms:.4f} ms (bytes), kernel/bound {r_ms / rb_ms:.2f}")
+
+        # the engine's runs of phase 15
+        for (layout, mode), (eng, comps, wall) in self.engine_results.items():
+            st = eng.last_stats
+            print(f"[16 engine {layout} {mode}] wall {wall:.3f} s, "
+                  f"{st.generated_tokens} tokens ({st.generated_tokens / wall:.2f}"
+                  f" tok/s), TTFT p50 {st.ttft_p50_ms:.1f} ms p99 "
+                  f"{st.ttft_p99_ms:.1f} ms, latency p50 "
+                  f"{st.p50_latency_ms:.1f} ms p99 {st.p99_latency_ms:.1f} ms; "
+                  f"ServeStats {json.dumps(st.as_dict())}")
+
+        # one decode-only tick per run: four slots decoding at position 100
+        cfg, params = self.lm_model
+        L = cfg.n_layers
+        bs = ENGINE["kv_block_size"]
+        slots = ENGINE["slots"]
+        per = ENGINE["kv_num_blocks"] // slots
+        tables = np.arange(slots * per, dtype=np.int32).reshape(slots, per)
+        tables = np.pad(tables, ((0, 0), (0, ENGINE["max_len"] // bs - per)))
+        tokens = np.zeros((slots, ENGINE["prefill_chunk"]), np.int32)
+        tokens[:, 0] = np.arange(1, slots + 1)
+        ones = np.ones(slots, np.int32)
+        for layout, mode in ENGINE_RUNS:
+            eng = self.engine_results[(layout, mode)][0]
+            cache = eng._new_cache()
+            paged = layout == "paged"
+
+            def tick(eng=eng, cache=cache, paged=paged):
+                with torch.inference_mode():
+                    cache["blocks"]["sub0"].length.fill_(100)
+                    return eng._step(cache, tables if paged else None,
+                                     tokens, ones, np.arange(slots),
+                                     np.zeros(slots, np.int32),
+                                     np.zeros(slots, np.float32), 0)
+
+            ms = self.cuda_ms(tick, reps=1, groups=10)
+            expect = None
+            if mode == "brainslug":
+                expect = {"rmsnorm_kernel": 2 * L + 1, "swiglu_kernel": L,
+                          ("paged_flash_decode_kernel" if paged
+                           else "flash_decode_kernel"): L}
+            print(f"[16 trace decode tick {layout} {mode}] {ms:.3f} ms a tick "
+                  f"(median of 10, CUDA events); "
+                  + self.complete_trace(tick, expect))
+            del cache
+        print("[16 kernels] paged_flash_decode max|d|="
+              f"{self.err['paged_flash_decode']:.3e}  fused_rows bf16 max|d|="
+              f"{self.err['fused_rows_bf16']:.3e}")
 
 
 if __name__ == "__main__":

@@ -153,9 +153,13 @@ class RuntimeConfig:
     of the JAX package's ``RuntimeConfig`` that the ported serving path
     reads, with the same defaults."""
     mode: str = "xla"                  # 'brainslug' | 'xla' | 'barrier'
-    # 'dense' — every batch slot reserves max_len contiguous KV columns.
-    # The paged layout comes with the continuous-batching engine.
-    kv_layout: str = "dense"
+    # --- serving KV-cache layout ------------------------------------------
+    # 'dense'  — every batch slot reserves max_len contiguous KV columns
+    # 'paged'  — a fixed pool of kv_block_size-token blocks addressed
+    #            through per-slot block tables (prefix sharing + COW); the
+    #            continuous-batching engine allocates blocks on demand
+    kv_layout: str = "dense"           # 'dense' | 'paged'
+    kv_block_size: int = 16            # tokens per KV block (paged layout)
     decode_block_k: int = 512
     attn_block_q: int = 128
     attn_block_k: int = 128
@@ -168,10 +172,12 @@ class RuntimeConfig:
         if self.mode not in ("brainslug", "xla", "barrier"):
             raise ValueError(f"mode must be brainslug, xla or barrier, got "
                              f"{self.mode!r}")
-        if self.kv_layout != "dense":
-            raise NotImplementedError(
-                f"kv_layout {self.kv_layout!r}: only 'dense' is ported; the "
-                f"paged layout comes with the serving engine")
+        if self.kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_layout {self.kv_layout!r}; "
+                             f"allowed: 'dense' | 'paged'")
+        if self.kv_block_size < 1:
+            raise ValueError(f"kv_block_size must be >= 1, got "
+                             f"{self.kv_block_size}")
 
 
 def _count_params(cfg: ModelConfig, active_only: bool) -> int:

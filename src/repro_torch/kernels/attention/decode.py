@@ -1,5 +1,6 @@
-"""Flash decode (one new query position against a dense KV cache): the CUDA
-kernel and its plain version.
+"""Flash decode (one new query position against a dense KV cache, or
+against a block-mapped pool through a block table): the CUDA kernels and
+their plain versions.
 
 Replaces ``repro/kernels/attention/decode.py:flash_decode`` (the Pallas
 kernel).  The kernel is ``csrc/flash_decode.cu`` (one CTA per slot and
@@ -13,7 +14,14 @@ slot with ``lengths == 0``.
 Both read K and V in whatever float dtype the cache holds and round each
 element to the query's dtype first (the layer's ``cache.astype(q.dtype)``):
 the kernel does it in registers, so a float32 cache is never copied.
-``paged_flash_decode`` comes with the serving engine.
+
+``paged_flash_decode`` replaces
+``repro/kernels/attention/decode.py:paged_flash_decode``.  Its kernel is
+``csrc/paged_flash_decode.cu``: the dense kernel's design and arithmetic,
+with key rows addressed through the slot's table row, loaded into shared
+memory and clamped to ``[0, N-1]``.  Its plain version,
+:func:`paged_flash_decode_plain`, walks tiles of one pool block each, as
+the Pallas grid does.
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
+PAGED_SOURCE = (Path(__file__).resolve().parent / "csrc"
+                / "paged_flash_decode.cu")
 NEG_INF = -1e30
 HEAD_DIM = 128
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
@@ -118,14 +128,134 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_decode.launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library(SOURCE)
+def paged_flash_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor, table: torch.Tensor,
+                             lengths: torch.Tensor, *,
+                             scale: float | None = None) -> torch.Tensor:
+    """q: (B, H, 1, D); k_pool, v_pool: (N, G, bs, D); table: (B, MB) int;
+    lengths: (B,) int.
+
+    The Pallas kernel's algorithm on whole tensors: tile ``j`` is pool
+    block ``table[:, j]`` (clipped to ``[0, N-1]``), masked at logical
+    position ``j*bs + lane``, float32 running state, exact zeros for a slot
+    whose ``m`` never left its seed.  Tiles past every slot's length add
+    exactly nothing (``exp(-1e30 - m) = 0``), so the walk stops after the
+    last one a slot needs."""
+    b, h, one, d = q.shape
+    n, g, bs, _ = k_pool.shape
+    rep = h // g
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    tbl = table.to(device=q.device, dtype=torch.int64).clamp(0, n - 1)
+    lens = lengths.to(device=q.device, dtype=torch.int64)
+    n_tiles = min(tbl.shape[1], -(-int(lens.max()) // bs)) if b else 0
+    qg = q.reshape(b, g, rep, one, d).float()
+    m = torch.full((b, g, rep, one, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, g, rep, one, d), device=q.device)
+    lane = torch.arange(bs, device=q.device)
+    for j in range(n_tiles):
+        kb = k_pool[tbl[:, j]].to(q.dtype).float()          # (B, G, bs, D)
+        vb = v_pool[tbl[:, j]].to(q.dtype).float()
+        sc = torch.einsum("bgrqd,bgkd->bgrqk", qg, kb) * scale
+        sc = torch.where(j * bs + lane < lens[:, None, None, None, None], sc,
+                         NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bgrqk,bgkd->bgrqd", p, vb)
+        m = m_new
+    acc = torch.where(m > NEG_INF * 0.5, acc, 0.0)
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.reshape(b, h, one, d).to(q.dtype)
+
+
+def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, table: torch.Tensor,
+                       lengths: torch.Tensor, *, scale: float | None = None
+                       ) -> torch.Tensor:
+    """q: (B, H, 1, D); k_pool, v_pool: (N, G, bs, D); table: (B, MB) int;
+    lengths: (B,) int.
+
+    Table entries are clamped to ``[0, N-1]`` (a sentinel tail entry reads
+    nothing out of bounds); keys at logical positions ``>= lengths[b]`` are
+    masked.  The pools are read where they lie: on the card they must be
+    contiguous (a layer's view of a layer-stacked pool is), and they are
+    never copied or cast."""
+    b, h, one, d = q.shape
+    if one != 1 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
+            or k_pool.shape[3] != d or table.dim() != 2 \
+            or table.shape[0] != b or tuple(lengths.shape) != (b,):
+        raise ValueError(f"paged flash decode: q {tuple(q.shape)}, pools "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}, "
+                         f"table {tuple(table.shape)}, lengths "
+                         f"{tuple(lengths.shape)}")
+    n, g, bs, _ = k_pool.shape
+    mb = table.shape[1]
+    if h % g:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {g}")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if q.device.type == "cpu":
+        return paged_flash_decode_plain(q, k_pool, v_pool, table, lengths,
+                                        scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged flash decode takes cpu or cuda tensors, got "
+                         f"{q.device}")
+    if q.dtype not in DTYPE_IDS or v_pool.dtype != k_pool.dtype \
+            or k_pool.dtype not in (q.dtype, torch.float32):
+        raise TypeError(f"paged flash decode: q must be float32 or bfloat16 "
+                        f"and the pools q's dtype or float32, got {q.dtype}, "
+                        f"{k_pool.dtype}, {v_pool.dtype}")
+    if any(t.device != q.device for t in (k_pool, v_pool, table, lengths)):
+        raise ValueError("paged flash decode: q, pools, table, lengths on "
+                         "different devices")
+    if d != HEAD_DIM:
+        raise ValueError(f"paged flash decode: head dim {d} != {HEAD_DIM}")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("paged flash decode: the pools must be contiguous "
+                         "(a copy of a pool per call is what this kernel "
+                         "avoids)")
+    q = q.contiguous()
+    tbl = table.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    o = torch.empty_like(q)
+    lib = _library(PAGED_SOURCE)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_flash_decode(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tbl.data_ptr(), lens.data_ptr(), o.data_ptr(), b, h, n, g, bs,
+            mb, d, float(scale), DTYPE_IDS[q.dtype], DTYPE_IDS[k_pool.dtype],
+            stream)
+    if err != 0:
+        raise RuntimeError(f"paged_flash_decode launch failed: "
+                           f"{lib.paged_flash_decode_error(err).decode()}")
+    paged_flash_decode.launches += 1
+    return o
+
+
+paged_flash_decode.launches = 0
+
+
+#: The C entry point of each source's library and its ctypes argtypes.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ENTRY = {
+    SOURCE: ("flash_decode", [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]),
+    PAGED_SOURCE: ("paged_flash_decode",
+                   [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]),
+}
+
+
+def _library(source: Path = SOURCE) -> ctypes.CDLL:
+    """The built library of ``source`` with its entry point and the
+    matching ``<entry>_error`` bound."""
+    lib = _build.load_library(source)
     if not getattr(lib, "_bound", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                     ctypes.c_float, i, i, p]
-        lib.flash_decode.restype = i
-        lib.flash_decode_error.argtypes = [i]
-        lib.flash_decode_error.restype = ctypes.c_char_p
+        name, argtypes = _ENTRY[source]
+        fn, err = getattr(lib, name), getattr(lib, f"{name}_error")
+        fn.argtypes, fn.restype = argtypes, _I
+        err.argtypes, err.restype = [_I], ctypes.c_char_p
         lib._bound = True
     return lib

@@ -6,7 +6,8 @@ The JAX oracle multiplies native-dtype operands with float32 accumulation
 result to bf16, so here the operands are cast to float32 first (the
 products are exact, the sums float32).  The empty-softmax convention is
 kept: a row with ``lengths == 0`` attends over zero keys and outputs exact
-zeros.  ``gather_paged``/``paged_decode_ref`` come with the serving engine.
+zeros.  ``gather_paged``/``paged_decode_ref`` are the paged layout's
+oracles: gather the table view, then the ordinary masked decode.
 """
 from __future__ import annotations
 
@@ -49,4 +50,28 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lengths: torch.Tensor, *, scale: float | None = None
                ) -> torch.Tensor:
+    return attention_ref(q, k, v, causal=False, scale=scale, lengths=lengths)
+
+
+def gather_paged(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The per-slot view of a paged KV pool.
+
+    pool: (N, G, bs, D) physical blocks; table: (B, MB) int block ids.
+    Returns (B, G, MB*bs, D): position ``p`` of slot ``b`` reads
+    ``pool[table[b, p // bs], :, p % bs]``.  Unmapped table entries point
+    at whatever block id the host left there; their columns sit past the
+    slot's length and are masked by the caller."""
+    g = pool[table.long()]                      # (B, MB, G, bs, D)
+    b, mb, gh, bs, d = g.shape
+    return g.transpose(1, 2).reshape(b, gh, mb * bs, d)
+
+
+def paged_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, table: torch.Tensor,
+                     lengths: torch.Tensor, *, scale: float | None = None
+                     ) -> torch.Tensor:
+    """Decode oracle over a block-mapped pool, with the same empty-softmax
+    convention (``lengths == 0`` rows are exact zeros)."""
+    k = gather_paged(k_pool, table)
+    v = gather_paged(v_pool, table)
     return attention_ref(q, k, v, causal=False, scale=scale, lengths=lengths)

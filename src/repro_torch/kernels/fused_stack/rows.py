@@ -19,6 +19,18 @@ Lanes past F: 0 in every sum (and re-zeroed after ``x - mu``), ``-inf``
 before the softmax max; means divide by the real F.  Divisions
 of one tensor by another are round-to-nearest (``tl.div_rn``), as in the
 JAX reference; divisions by a constant use ``/``.
+
+Inputs and parameters may be float32 or bfloat16, as the Pallas kernel
+takes them.  Arithmetic runs in float32 registers; wherever the torch
+interpreter's value is bfloat16 (:func:`value_dtypes`: each op's output,
+and inside an ``AFFINE`` or ``ROW_NORM`` the steps PyTorch rounds
+separately), the source rounds it to the nearest bfloat16 (ties to even)
+and keeps it in float32, so the kernel rounds where
+:func:`repro_torch.core.ir.run_program` does.  The rounding works on the
+bits (``round_bf16``): written as a float cast pair, a bf16 multiply and
+the add after it came out of the compiler rounded once, where the
+interpreter rounds twice (no float pass can narrow an integer rounding).
+Each output has the interpreter's dtype.
 """
 from __future__ import annotations
 
@@ -67,6 +79,46 @@ _BINARY = {
 }
 
 
+#: The dtypes a rows kernel takes, and their Triton names.
+DTYPES = {torch.float32: "tl.float32", torch.bfloat16: "tl.bfloat16"}
+
+
+def value_dtypes(program: ir.StackProgram,
+                 in_dtypes: Mapping[str, torch.dtype],
+                 params: Mapping[str, torch.Tensor]
+                 ) -> dict[str, tuple[torch.dtype, ...]]:
+    """The dtype the torch interpreter gives after each rounding step of
+    every op: ``(x * s, out)`` for an ``AFFINE``, ``(normed[, scaled][,
+    biased])`` for a ``ROW_NORM``, ``(out,)`` for the rest.  Found by
+    running the interpreter's steps on meta tensors (PyTorch's promotion,
+    0-dim parameters included); the port's stand-in for the JAX kernel's
+    ``_infer_outputs``."""
+    def meta(dtype, shape=(1, 1)):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    env = {v: meta(dt) for v, dt in in_dtypes.items()}
+    ps = {p: meta(params[p].dtype, tuple(params[p].shape))
+          for p in program.param_names}
+    steps: dict[str, tuple[torch.dtype, ...]] = {}
+    for op in program.ops:
+        x = env[op.inputs[0]]
+        if op.kind == ir.OpKind.AFFINE:
+            s, c = (ps[p] for p in op.params)
+            chain = [x * s]
+            chain.append(chain[0] + c)
+        elif op.kind == ir.OpKind.ROW_NORM:
+            chain = [meta(x.dtype)]
+            if op.params:
+                chain.append(chain[-1] * ps[op.params[0]])
+            if len(op.params) > 1:
+                chain.append(chain[-1] + ps[op.params[1]])
+        else:
+            chain = [ir.apply_op(op, env, ps)]
+        steps[op.output] = tuple(t.dtype for t in chain)
+        env[op.output] = meta(chain[-1].dtype)
+    return steps
+
+
 def value_widths(program: ir.StackProgram, in_widths: Mapping[str, int],
                  param_widths: Mapping[str, int]) -> dict[str, int]:
     """Trailing width of every value (1 or F): the port's stand-in for the
@@ -80,12 +132,21 @@ def value_widths(program: ir.StackProgram, in_widths: Mapping[str, int],
 
 
 def emit_source(program: ir.StackProgram, in_widths: Mapping[str, int],
-                param_widths: Mapping[str, int], features: int) -> str:
+                param_widths: Mapping[str, int], features: int,
+                dtypes: Mapping[str, torch.dtype] | None = None,
+                steps: Mapping[str, tuple[torch.dtype, ...]] | None = None
+                ) -> str:
     """The Triton source of ``program``'s kernel: one statement per op.
 
     ``in_widths``/``param_widths`` give each input's and parameter's trailing
-    width, each 1 or ``features``.  Row pointers are int64."""
+    width, each 1 or ``features``.  ``dtypes`` gives each input's and
+    parameter's dtype and ``steps`` each op's rounding steps
+    (:func:`value_dtypes`); without them everything is float32.  Row
+    pointers are int64."""
     widths = value_widths(program, in_widths, param_widths)
+    dtypes = dict(dtypes or {})
+    out_dt = {v: dtypes.get(v, torch.float32) for v in program.inputs}
+    out_dt.update({v: st[-1] for v, st in (steps or {}).items()})
     var = {v: f"v{i}" for i, v in enumerate(
         list(program.inputs) + [op.output for op in program.ops])}
     pvar = {p: f"p{i}" for i, p in enumerate(program.param_names)}
@@ -98,6 +159,11 @@ def emit_source(program: ir.StackProgram, in_widths: Mapping[str, int],
         "from triton.language.extra import libdevice",
         "",
         "",
+    ]
+    if any(dt != torch.float32 for st in (steps or {}).values()
+           for dt in st):
+        lines += [ROUND_BF16, ""]
+    lines += [
         f"# generated from stack {program.name!r}",
         "@triton.jit",
         f"def fused_rows_kernel({', '.join(args)}, n_rows, F: tl.constexpr,",
@@ -109,31 +175,61 @@ def emit_source(program: ir.StackProgram, in_widths: Mapping[str, int],
         "    cols = tl.arange(0, BLOCK_F)[None, :]",
         "    cmask = cols < F",
     ]
-    lines += ["    " + ln for ln in param_lines(program, pvar, param_widths)]
+    lines += ["    " + ln for ln in param_lines(program, pvar, param_widths,
+                                                  dtypes)]
     lines += [
         "    for r0 in range(row_start, row_start + TILE_R, R_SUB):",
         "        rows = (r0 + tl.arange(0, R_SUB))[:, None]",
         "        rmask = rows < row_end",
         "        r64 = rows.to(tl.int64)",
     ]
-    body = [f"{var[v]} = {load(f'in{i}', widths[v])}"
+    body = [f"{var[v]} = {load(f'in{i}', widths[v], out_dt[v])}"
             for i, v in enumerate(program.inputs)]
-    body += op_lines(program, var, pvar, widths)
+    body += op_lines(program, var, pvar, widths, steps)
     for i, v in enumerate(program.outputs):
+        dt = out_dt.get(v, torch.float32)
+        val = (var[v] if dt == torch.float32
+               else f"tl.cast({var[v]}, {DTYPES[dt]})")
         if widths[v] == 1:
-            body.append(f"tl.store(out{i} + r64, {var[v]}, mask=rmask)")
+            body.append(f"tl.store(out{i} + r64, {val}, mask=rmask)")
         else:
-            body.append(f"tl.store(out{i} + r64 * F + cols, {var[v]}, "
+            body.append(f"tl.store(out{i} + r64 * F + cols, {val}, "
                         f"mask=rmask & cmask)")
     lines += ["        " + b for b in body]
     return "\n".join(lines) + "\n"
 
 
-def load(ptr: str, w: int) -> str:
-    """A masked load of the current sub-block of rows (width 1 or F)."""
+def load(ptr: str, w: int, dtype: torch.dtype = torch.float32) -> str:
+    """A masked load of the current sub-block of rows (width 1 or F),
+    widened to float32."""
     if w == 1:
-        return f"tl.load({ptr} + r64, mask=rmask, other=0.0)"
-    return f"tl.load({ptr} + r64 * F + cols, mask=rmask & cmask, other=0.0)"
+        x = f"tl.load({ptr} + r64, mask=rmask, other=0.0)"
+    else:
+        x = f"tl.load({ptr} + r64 * F + cols, mask=rmask & cmask, other=0.0)"
+    return widened(x, dtype)
+
+
+def widened(x: str, dtype: torch.dtype) -> str:
+    return x if dtype == torch.float32 else f"tl.cast({x}, tl.float32)"
+
+
+def rounded(v: str, dtype: torch.dtype) -> list[str]:
+    """The statement that rounds ``v`` to ``dtype`` (none for float32)."""
+    if dtype == torch.float32:
+        return []
+    return [f"{v} = round_bf16({v})"]
+
+
+#: Round-to-nearest-even of a float32 block to bfloat16, kept in float32,
+#: on the bits: add half an ulp of bf16 (less one, plus the kept lowest
+#: bit for ties to even) and clear the 16 low bits; NaN stays NaN.
+ROUND_BF16 = """\
+@triton.jit
+def round_bf16(x):
+    u = tl.cast(x, tl.uint32, bitcast=True)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return tl.where(x != x, x, tl.cast(u, tl.float32, bitcast=True))
+"""
 
 
 def zeroed(x: str, w: int) -> str:
@@ -142,27 +238,35 @@ def zeroed(x: str, w: int) -> str:
 
 
 def param_lines(program: ir.StackProgram, pvar: Mapping[str, str],
-                param_widths: Mapping[str, int]) -> list[str]:
-    """Loads of the parameters at the current columns."""
+                param_widths: Mapping[str, int],
+                dtypes: Mapping[str, torch.dtype] | None = None) -> list[str]:
+    """Loads of the parameters at the current columns, widened to
+    float32."""
     lines = []
     for i, p in enumerate(program.param_names):
+        dt = (dtypes or {}).get(p, torch.float32)
         if param_widths[p] == 1:
-            lines.append(f"{pvar[p]} = tl.load(par{i})")
+            x = f"tl.load(par{i})"
         else:
-            lines.append(f"{pvar[p]} = tl.load(par{i} + cols, mask=cmask, "
-                         f"other=0.0)")
+            x = f"tl.load(par{i} + cols, mask=cmask, other=0.0)"
+        lines.append(f"{pvar[p]} = {widened(x, dt)}")
     return lines
 
 
 def op_lines(program: ir.StackProgram, var: Mapping[str, str],
-             pvar: Mapping[str, str], widths: Mapping[str, int]) -> list[str]:
+             pvar: Mapping[str, str], widths: Mapping[str, int],
+             steps: Mapping[str, tuple[torch.dtype, ...]] | None = None
+             ) -> list[str]:
     """One statement group per op: the chain's forward on the loaded
-    sub-block.  Shared by the forward kernel and the backward's recompute."""
+    sub-block, rounded after each step whose ``steps`` dtype is not float32
+    (:func:`value_dtypes`; none given: all float32).  Shared by the forward
+    kernel and the backward's recompute."""
     body: list[str] = []
     for op in program.ops:
         out = var[op.output]
         x = var[op.inputs[0]]
         wx = widths[op.inputs[0]]
+        st = (steps or {}).get(op.output)
         body.append(f"# {op.name}: {op.kind.value} {op.fn or ''}".rstrip())
         if op.kind == ir.OpKind.EW_UNARY:
             body.append(f"{out} = {_UNARY[op.fn].format(x=x)}")
@@ -171,7 +275,12 @@ def op_lines(program: ir.StackProgram, var: Mapping[str, str],
             body.append(f"{out} = {_BINARY[op.fn].format(a=x, b=b)}")
         elif op.kind == ir.OpKind.AFFINE:
             s, c = (pvar[p] for p in op.params)
-            body.append(f"{out} = {x} * {s} + {c}")
+            if st is None or st == (torch.float32, torch.float32):
+                body.append(f"{out} = {x} * {s} + {c}")
+            else:
+                body.append(f"{out} = {x} * {s}")
+                body += rounded(out, st[0])
+                body.append(f"{out} = {out} + {c}")
         elif op.kind == ir.OpKind.ROW_NORM:
             eps = float(op.attrs.get("eps", 1e-6))
             n = float(wx)
@@ -190,8 +299,12 @@ def op_lines(program: ir.StackProgram, var: Mapping[str, str],
                             f"{eps!r})")
             else:
                 raise ValueError(f"unknown norm kind {kind!r}")
+            if st is not None and op.params:
+                body += rounded(out, st[0])
             if op.params:
                 body.append(f"{out} = {out} * {pvar[op.params[0]]}")
+                if st is not None and len(op.params) > 1:
+                    body += rounded(out, st[1])
             if len(op.params) > 1:
                 body.append(f"{out} = {out} + {pvar[op.params[1]]}")
         elif op.kind == ir.OpKind.ROW_SOFTMAX:
@@ -204,6 +317,8 @@ def op_lines(program: ir.StackProgram, var: Mapping[str, str],
         else:
             raise ValueError(f"{program.name}: op kind {op.kind} is not a "
                              f"rows stack op")
+        if st is not None:
+            body += rounded(out, st[-1])
     return body
 
 
@@ -228,12 +343,17 @@ _KERNEL_LIMIT = 256
 
 
 def _kernel(program: ir.StackProgram, in_widths: dict[str, int],
-            param_widths: dict[str, int], features: int):
+            param_widths: dict[str, int], features: int,
+            dtypes: dict[str, torch.dtype],
+            steps: dict[str, tuple[torch.dtype, ...]]):
     key = (program.signature(), tuple(sorted(in_widths.items())),
-           tuple(sorted(param_widths.items())), features)
+           tuple(sorted(param_widths.items())), features,
+           tuple(sorted((k, str(v)) for k, v in dtypes.items())),
+           tuple(sorted((k, str(v)) for k, v in steps.items())))
     fn = _KERNELS.get(key)
     if fn is None:
-        src = emit_source(program, in_widths, param_widths, features)
+        src = emit_source(program, in_widths, param_widths, features, dtypes,
+                          steps)
         fn = _build.import_generated("fused_rows", src).fused_rows_kernel
         _KERNELS[key] = fn
     _KERNELS.move_to_end(key)
@@ -276,8 +396,10 @@ def fused_rows(program: ir.StackProgram,
     """Run a rows-layout sequence as one fused Triton kernel launch.
 
     Every input shares one leading shape ``(..., F_i)``, flattened to rows;
-    each trailing width and each parameter size is 1 or F.  A CPU tensor
-    runs the plain version; a CUDA tensor launches the kernel or raises."""
+    each trailing width and each parameter size is 1 or F.  Inputs and
+    parameters are float32 or bfloat16; each output has the dtype the
+    interpreter gives it.  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernel or raises."""
     device = inputs[program.inputs[0]].device
     if device.type == "cpu":
         return ref.fused_stack_ref(program, inputs, params)
@@ -286,9 +408,16 @@ def fused_rows(program: ir.StackProgram,
     operands = [*((n, inputs[n]) for n in program.inputs),
                 *((p, params[p]) for p in program.param_names)]
     for name, t in operands:
-        if t.device != device or t.dtype != torch.float32:
-            raise TypeError(f"{program.name}: {name!r} must be float32 on "
-                            f"{device}, got {t.dtype} on {t.device}")
+        if t.device != device or t.dtype not in DTYPES:
+            raise TypeError(f"{program.name}: {name!r} must be float32 or "
+                            f"bfloat16 on {device}, got {t.dtype} on "
+                            f"{t.device}")
+    dtypes = {name: t.dtype for name, t in operands}
+    steps = value_dtypes(program, {n: inputs[n].dtype for n in program.inputs},
+                         params)
+    for v, st in steps.items():
+        if any(dt not in DTYPES for dt in st):
+            raise TypeError(f"{program.name}: value {v!r} would be {st[-1]}")
     flat, lead, rows = flatten_rows(program.name, list(program.inputs), inputs)
     pflat = prep_params(program, params)
     in_widths = {n: a.shape[-1] for n, a in zip(program.inputs, flat)}
@@ -299,9 +428,12 @@ def fused_rows(program: ir.StackProgram,
             raise ValueError(f"{program.name}: {name!r} has width {w}, "
                              f"neither 1 nor {features}")
     widths = value_widths(program, in_widths, param_widths)
-    outs = [torch.empty((rows, widths[v]), device=device, dtype=torch.float32)
+    out_dt = {**{n: inputs[n].dtype for n in program.inputs},
+              **{v: st[-1] for v, st in steps.items()}}
+    outs = [torch.empty((rows, widths[v]), device=device, dtype=out_dt[v])
             for v in program.outputs]
-    kernel = _kernel(program, in_widths, param_widths, features)
+    kernel = _kernel(program, in_widths, param_widths, features, dtypes,
+                     steps)
     block_f, r_sub, num_warps = launch_config(features, tile_rows)
     grid = (-(-rows // tile_rows),)
     with torch.cuda.device(device):

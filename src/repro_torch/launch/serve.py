@@ -13,8 +13,8 @@ only greedy decoding is comparable with the JAX driver.
 Dispatch accounting: ``STATS`` counts ``prefill`` / ``decode`` dispatches,
 ``decode_slot_steps`` and ``generated_tokens``; ``Server.last_stats`` is a
 per-run :class:`~repro_torch.core.scheduler.ServeStats`.
-The continuous-batching engine (``Server.engine``) comes with the engine
-slice of the port.
+``Server.engine`` builds the continuous-batching
+:class:`~repro_torch.launch.engine.Engine` over the same parameters.
 
 Usage (full width on the card; ``--reduced`` for the small config,
 ``--device cpu`` for the plain versions on the CPU):
@@ -36,6 +36,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
 from repro_torch.core.scheduler import ServeStats
 from repro_torch.kernels.fused_stack.ops import DispatchStats
+from repro_torch.launch import engine as engine_mod
 from repro_torch.layers import base
 from repro_torch.models import lm
 
@@ -86,10 +87,36 @@ class Server:
         self.last_dispatch: dict[str, int] | None = None
         self._n_calls = 0
 
-    def engine(self, **kwargs):
-        raise NotImplementedError(
-            "Server.engine: the continuous-batching engine comes with the "
-            "engine slice of the port")
+    def engine(self, *, slots: int | None = None, prefill_chunk: int = 8,
+               seed: int | None = None, kv_layout: str | None = None,
+               kv_block_size: int | None = None,
+               kv_num_blocks: int | None = None,
+               prefix_sharing: bool = True,
+               verify_mode: str = "warn") -> engine_mod.Engine:
+        """A continuous-batching :class:`~repro_torch.launch.engine.Engine`
+        over this server's parameters and config, on its device
+        (``slots`` defaults to the static batch width; the cache budget is
+        the same ``max_len``).
+
+        ``kv_layout``/``kv_block_size`` override the runtime config's KV
+        layout for this engine (``"paged"`` swaps the dense per-slot
+        reservation for the block pool); the other knobs pass through.
+        The JAX signature's ``mesh``/``serve_partition`` come with the
+        multi-device slice."""
+        rt = self.rt
+        if kv_layout is not None or kv_block_size is not None:
+            rt = dataclasses.replace(
+                rt,
+                kv_layout=rt.kv_layout if kv_layout is None else kv_layout,
+                kv_block_size=(rt.kv_block_size if kv_block_size is None
+                               else kv_block_size))
+        return engine_mod.Engine(
+            self.cfg, self.params, rt,
+            slots=self.sc.batch if slots is None else slots,
+            max_len=self.sc.max_len, prefill_chunk=prefill_chunk,
+            seed=self.sc.seed if seed is None else seed,
+            kv_num_blocks=kv_num_blocks, prefix_sharing=prefix_sharing,
+            verify_mode=verify_mode)
 
     def _decode(self, cache: dict, tokens_t: torch.Tensor
                 ) -> tuple[torch.Tensor, dict]:

@@ -18,8 +18,9 @@ bf16 tensors rounds its result to bf16).
 Decode writes the new K/V into the cache **in place**, one position per
 active slot (the JAX package's where-select over the whole cache gives the
 same values, as a full copy per layer per step when run eagerly), and
-returns the same cache object.  The paged cache comes with the serving
-engine.
+returns the same cache object.  The paged cache (:class:`PagedKVCache`)
+writes one ``(G, hd)`` row per active slot into a shared pool of blocks,
+through the block table the serving engine threads into each dispatch.
 """
 from __future__ import annotations
 
@@ -198,27 +199,112 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                            device=dev))
 
 
+@dataclasses.dataclass
 class PagedKVCache:
-    """The block-mapped KV cache of the JAX package; not ported yet."""
+    """Block-mapped KV state: a fixed pool of ``block_size``-token physical
+    blocks shared by every slot, addressed through a per-dispatch block
+    table.  The table is not cache state: it changes only at host events
+    (admission, on-demand append, copy-on-write fork), so the engine passes
+    it into each dispatch.  Like :class:`KVCache`, the model's cache stacks
+    the layers on a leading axis: pools ``(L, N, G, bs, hd)``, length
+    ``(L, B)``; one layer's view drops it."""
+    k_pool: torch.Tensor     # (N, G, block_size, hd) physical blocks
+    v_pool: torch.Tensor
+    length: torch.Tensor     # (B,) int32 logical positions per slot
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "PagedKVCache: the paged KV layout comes with the "
-            "continuous-batching engine slice of the port")
+
+def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
+                     block_size: int, dtype: torch.dtype = torch.bfloat16, *,
+                     n_layers: int, dev: torch.device) -> PagedKVCache:
+    """Zeroed pools of ``n_layers`` layers, stacked on a leading layer
+    axis: ``(L, num_blocks, G, block_size, hd)``, length ``(L, B)``.  One
+    block id addresses the same pool row in every layer, so one block
+    table serves the whole model."""
+    g, hd = cfg.n_kv_heads, cfg.head_dim
+    shape = (n_layers, num_blocks, g, block_size, hd)
+    return PagedKVCache(
+        k_pool=torch.zeros(shape, dtype=dtype, device=dev),
+        v_pool=torch.zeros(shape, dtype=dtype, device=dev),
+        length=torch.zeros((n_layers, batch), dtype=torch.int32,
+                           device=dev))
 
 
-def decode(params: dict, x_t: torch.Tensor, cache: KVCache,
-           cfg: ModelConfig, rt: RuntimeConfig, *,
-           active: torch.Tensor | None = None
-           ) -> tuple[torch.Tensor, KVCache]:
+def _decode_paged(params: dict, x_t: torch.Tensor, cache: PagedKVCache,
+                  cfg: ModelConfig, rt: RuntimeConfig, table: torch.Tensor,
+                  active: torch.Tensor | None
+                  ) -> tuple[torch.Tensor, PagedKVCache]:
+    b = x_t.shape[0]
+    h, hd = cfg.n_heads, cfg.head_dim
+    n, _, bs, _ = cache.k_pool.shape
+    mb = table.shape[1]
+    q, k_new, v_new = _project(params, x_t, cfg)          # (B,*,1,hd)
+    pos = cache.length.long()                              # (B,)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k_new = rope(k_new, pos[:, None], cfg.rope_theta)
+
+    # Write through the table, in place: position `pos` of an active slot
+    # lands in physical block table[b, pos // bs] at offset pos % bs.  The
+    # host maps (and copy-on-write forks) every block a dispatch writes
+    # before it runs, so the target is private.  Inactive slots, and
+    # targets outside the table or the pool, write nothing (the JAX
+    # scatter's mode="drop"): every slot's row is rewritten with its old
+    # contents unless an active slot writes that same row, so duplicate
+    # indices all carry one value and no device-to-host read is needed.
+    col = pos // bs
+    phys = table.long().gather(1, col.clamp(max=mb - 1)[:, None])[:, 0]
+    write = (col < mb) & (phys >= 0) & (phys < n)
+    if active is not None:
+        write = write & active
+    phys = phys.clamp(0, n - 1)
+    off = pos % bs
+    addr = phys * bs + off
+    same = (addr[:, None] == addr[None, :]) & write[None, :]   # (B, B)
+    src = same.int().argmax(dim=1)              # the slot writing b's row
+    hit = same.any(dim=1)[:, None, None]
+    for pool, new in ((cache.k_pool, k_new), (cache.v_pool, v_new)):
+        old = pool[phys, :, off]                             # (B, G, hd)
+        pool[phys, :, off] = torch.where(
+            hit, new[:, :, 0].to(pool.dtype)[src], old)
+    adv = (torch.ones_like(cache.length) if active is None
+           else active.to(cache.length.dtype))
+    cache.length.add_(adv)
+    lengths = cache.length
+    if rt.mode == "brainslug":
+        # the pool is read where it lies, float32 or not: no cast copy
+        o = attn_ops.paged_flash_decode(q, cache.k_pool, cache.v_pool, table,
+                                        lengths)
+    else:
+        attn_ops.STATS.record("paged_decode_ref")
+        # the JAX layer's pool.astype(q.dtype), taken on the gathered view
+        o = attn_ref.attention_ref(
+            q, attn_ref.gather_paged(cache.k_pool, table).to(q.dtype),
+            attn_ref.gather_paged(cache.v_pool, table).to(q.dtype),
+            causal=False, lengths=lengths)
+    o = o.transpose(1, 2).reshape(b, 1, h * hd)
+    return o @ params["wo"], cache
+
+
+def decode(params: dict, x_t: torch.Tensor,
+           cache: KVCache | PagedKVCache, cfg: ModelConfig,
+           rt: RuntimeConfig, *, active: torch.Tensor | None = None,
+           block_table: torch.Tensor | None = None
+           ) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """One decode step on one layer's cache.  x_t: (B, 1, D).
 
     ``active`` is an optional (B,) bool slot mask: inactive slots neither
-    write their K/V nor advance their length.  ``cache`` is updated in
-    place and returned."""
+    write their K/V nor advance their length.  A :class:`PagedKVCache`
+    takes the block-mapped path and requires ``block_table`` (B, MB).
+    ``cache`` is updated in place and returned."""
+    if isinstance(cache, PagedKVCache):
+        if block_table is None:
+            raise ValueError(
+                "paged KV cache requires a block_table operand (the "
+                "engine threads it through lm.decode_step)")
+        return _decode_paged(params, x_t, cache, cfg, rt, block_table,
+                             active)
     if not isinstance(cache, KVCache):
-        raise NotImplementedError(
-            f"decode takes a dense KVCache, got {type(cache).__name__}")
+        raise TypeError(f"decode takes a KVCache or a PagedKVCache, got "
+                        f"{type(cache).__name__}")
     b = x_t.shape[0]
     h, hd = cfg.n_heads, cfg.head_dim
     s_max = cache.k.shape[2]

@@ -8,7 +8,7 @@ schedule, with the JAX package's routing:
 * ``brainslug`` — the dedicated kernels where an idiom is recognised
   (residual + rms norm without bias: the rmsnorm kernel; a GLU gate with
   silu, gelu or squared_relu: the swiglu kernel), the generated fused-stack
-  kernel otherwise (which takes float32 only);
+  kernel otherwise (float32 or bfloat16);
 * ``xla``       — the eager interpreter;
 * ``barrier``   — the interpreter with every op output materialised.
 """

@@ -188,42 +188,83 @@ def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       dtype: torch.dtype = torch.bfloat16, *,
-                      kv_layout: str = "dense",
+                      kv_layout: str = "dense", kv_num_blocks: int = 0,
+                      kv_block_size: int = 16,
                       device: str | torch.device = "cuda") -> dict:
     """Decode cache for every layer, stacked along the layer axis:
-    ``{"blocks": {"sub0": KVCache}}`` with k/v ``(L, B, G, max_len, hd)``.
-    Only the dense layout is ported; the paged one comes with the serving
-    engine."""
+    ``{"blocks": {"sub0": cache}}``.  ``kv_layout="dense"``: a
+    :class:`~repro_torch.layers.attention.KVCache` with k/v ``(L, B, G,
+    max_len, hd)``.  ``kv_layout="paged"``: a
+    :class:`~repro_torch.layers.attention.PagedKVCache` of ``kv_num_blocks``
+    blocks of ``kv_block_size`` tokens, pools ``(L, N, G, bs, hd)``; one
+    block id addresses the same pool row in every layer, so one host-side
+    block table serves the whole model."""
     plan = _check_ported(cfg)
-    if kv_layout != "dense":
-        raise NotImplementedError(
-            f"kv_layout {kv_layout!r}: the paged layout comes with the "
-            f"continuous-batching engine slice of the port")
-    return {"blocks": {"sub0": attention.init_cache(
-        cfg, batch, max_len, dtype, n_layers=plan.n_super,
-        dev=base.device(device))}}
+    if kv_layout not in ("dense", "paged"):
+        raise ValueError(f"unknown kv_layout {kv_layout!r}; "
+                         f"allowed: 'dense' | 'paged'")
+    if kv_layout == "paged" and kv_num_blocks < 1:
+        raise ValueError("paged kv_layout requires kv_num_blocks >= 1")
+    dev = base.device(device)
+    if kv_layout == "paged":
+        sub = attention.init_paged_cache(cfg, batch, kv_num_blocks,
+                                         kv_block_size, dtype,
+                                         n_layers=plan.n_super, dev=dev)
+    else:
+        sub = attention.init_cache(cfg, batch, max_len, dtype,
+                                   n_layers=plan.n_super, dev=dev)
+    return {"blocks": {"sub0": sub}}
 
 
-def reset_slots(cache: dict, mask: torch.Tensor) -> dict:
-    """Zero the decode state (K/V contents and length) of the batch slots
-    where ``mask`` is True, in place; every leaf is layer-stacked, so batch
-    is axis 1."""
+def reset_slots(cache: dict, mask: torch.Tensor,
+                lengths: torch.Tensor | None = None) -> dict:
+    """Reset the decode state of the batch slots where ``mask`` is True, in
+    place (the engine's slot-admission primitive); every leaf is
+    layer-stacked, so batch is axis 1.
+
+    Dense leaves (K/V contents and length) are zeroed.  Paged KV state is
+    block-mapped: the pool is shared, so a freed slot returns its blocks on
+    the host and only its logical ``length`` is rewritten, to 0 or to
+    ``lengths[b]`` when prefix sharing admits the slot mid-prompt (the
+    shared blocks already hold its first ``lengths[b]`` positions)."""
     c = cache["blocks"]["sub0"]
+    if isinstance(c, attention.PagedKVCache):
+        new_len = (torch.zeros_like(c.length[0]) if lengths is None
+                   else lengths.to(c.length.dtype))
+        c.length.copy_(torch.where(mask[None, :], new_len[None, :],
+                                   c.length))
+        return cache
     for leaf in (c.k, c.v, c.length):
         m = mask.reshape((1, -1) + (1,) * (leaf.dim() - 2))
         leaf.masked_fill_(m, 0)
     return cache
 
 
+def copy_blocks(cache: dict, src: int, dst: int) -> dict:
+    """Copy physical KV block ``src`` to ``dst`` in every layer's pool, in
+    place (the copy-on-write fork: the engine allocates ``dst``, copies,
+    and remaps the writing slot's table before the dispatch that would
+    have written into the shared ``src``).  A dense cache is untouched.
+    The copy is queued on the current stream, so the next dispatch, on the
+    same stream, reads the forked block."""
+    c = cache["blocks"]["sub0"]
+    if isinstance(c, attention.PagedKVCache):
+        c.k_pool[:, dst] = c.k_pool[:, src]
+        c.v_pool[:, dst] = c.v_pool[:, src]
+    return cache
+
+
 def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
                 cfg: ModelConfig, rt: RuntimeConfig,
-                active: torch.Tensor | None = None
+                active: torch.Tensor | None = None,
+                block_tables: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict]:
     """One serving step: tokens_t (B, 1) -> (logits (B, 1, V), cache).
 
     ``active`` is an optional (B,) bool slot mask: inactive slots compute
-    but their cache state is frozen.  The cache is updated in place and
-    returned."""
+    but their cache state is frozen.  ``block_tables`` (B, MB) is required
+    for (and only read by) a paged cache: one table addresses every
+    layer's pool.  The cache is updated in place and returned."""
     plan = _check_ported(cfg)
     x = params["embed"][tokens_t]
     if cfg.tie_embeddings:
@@ -233,14 +274,20 @@ def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
     c = cache["blocks"]["sub0"]
     blocks = params["blocks"]["sub0"]
     resid, pending = x, torch.zeros_like(x)
+    paged = isinstance(c, attention.PagedKVCache)
     for i in range(plan.n_super):
         p = _layer(blocks, i)
-        layer_cache = attention.KVCache(k=c.k[i], v=c.v[i],
-                                        length=c.length[i])
+        if paged:
+            layer_cache = attention.PagedKVCache(
+                k_pool=c.k_pool[i], v_pool=c.v_pool[i], length=c.length[i])
+        else:
+            layer_cache = attention.KVCache(k=c.k[i], v=c.v[i],
+                                            length=c.length[i])
         h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
                                     p["norm1"].get("bias"), **norm_kw)
         attn_out, _ = attention.decode(p["attn"], h1, layer_cache, cfg, rt,
-                                       active=active)
+                                       active=active,
+                                       block_table=block_tables)
         h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
                                     p["norm2"].get("bias"), **norm_kw)
         pending = dense.apply(p["mlp"], h2, cfg, rt)

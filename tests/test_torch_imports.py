@@ -38,6 +38,7 @@ def test_port_modules_import_neither_jax_nor_repro():
                  "kernels.attention.flash", "kernels.attention.decode",
                  "kernels.attention.ops", "layers.base", "layers.dense",
                  "layers.attention", "models.lm", "core.scheduler",
-                 "launch.serve"):
+                 "launch.serve", "core.verify", "launch.engine",
+                 "examples.serve_batch"):
         assert f"repro_torch.{name}" in result["modules"]
     assert result["bad"] == []

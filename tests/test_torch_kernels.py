@@ -9,8 +9,9 @@ kernels (run in interpret mode), on the CPU.
   ``_run_descriptor``, a line-by-line transliteration of
   ``csrc/fused_nhwc.cu`` over the descriptor the wrapper builds;
 * the generated Triton source parses, names the expected ops, and, run
-  against ``_fake_triton`` (numpy standing in for ``triton.language``),
-  computes what the JAX kernel computes.
+  against ``_fake_triton`` (numpy standing in for ``triton.language``,
+  with bf16 from ``ml_dtypes``), computes what the JAX kernel computes, in
+  float32 and in bfloat16.
 
 The kernels themselves run only on the card (``chip_smoke.py``)."""
 from __future__ import annotations
@@ -21,6 +22,7 @@ import sys
 import types
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -504,6 +506,14 @@ def _fake_triton():
     tl.constexpr = object
     tl.int64 = np.int64
     tl.float32 = np.float32
+    tl.bfloat16 = ml_dtypes.bfloat16
+    tl.uint32 = np.uint32
+
+    def cast(x, dtype, bitcast=False):
+        x = np.asarray(x)
+        return x.view(dtype) if bitcast else x.astype(dtype)
+
+    tl.cast = cast
     tl.zeros = lambda shape, dtype: np.zeros(shape, dtype)
     tl.PropagateNan = types.SimpleNamespace(ALL="all", NONE="none")
     state = {"pid": 0}
@@ -571,29 +581,41 @@ def _np_int64(x):
     return np.asarray(x).astype(np.int64)
 
 
+_T_DTYPE = {np.dtype(np.float32): torch.float32,
+            np.dtype(ml_dtypes.bfloat16): torch.bfloat16}
+_NP_DTYPE = {torch.float32: np.float32, torch.bfloat16: ml_dtypes.bfloat16}
+
+
 def _run_generated(program, inputs, params, tile, monkeypatch):
     """Execute :func:`rows.emit_source` for ``program`` on the fake Triton,
     program id by program id, as ``rows.fused_rows`` would launch it."""
-    modules, state = _fake_triton()
-    for k, v in modules.items():
-        monkeypatch.setitem(sys.modules, k, v)
     arrays = [inputs[n] for n in program.inputs]
     lead = arrays[0].shape[:-1]
     rows = math.prod(lead)
     in_w = {n: a.shape[-1] for n, a in zip(program.inputs, arrays)}
     p_w = {p: int(np.asarray(params[p]).size) for p in program.param_names}
     feat = max(list(in_w.values()) + list(p_w.values()))
-    src = trows.emit_source(program, in_w, p_w, feat)
+    dtypes = {k: _T_DTYPE[np.asarray(v).dtype] for k, v in
+              {**inputs, **params}.items()}
+    steps = trows.value_dtypes(
+        program, {n: dtypes[n] for n in program.inputs},
+        {p: torch.empty(np.shape(params[p]), dtype=dtypes[p])
+         for p in program.param_names})
+    src = trows.emit_source(program, in_w, p_w, feat, dtypes, steps)
+    modules, state = _fake_triton()
+    for k, v in modules.items():
+        monkeypatch.setitem(sys.modules, k, v)
     # numpy arrays have no .to(); the generated code casts with it
     src = src.replace("rows.to(tl.int64)", "_np_int64(rows)")
     ns = {"_np_int64": _np_int64}
     exec(compile(src, "<generated>", "exec"), ns)
     widths = trows.value_widths(program, in_w, p_w)
-    outs = [np.full(rows * widths[v], np.nan, np.float32)
+    out_dt = {**dtypes, **{v: st[-1] for v, st in steps.items()}}
+    outs = [np.full(rows * widths[v], np.nan, _NP_DTYPE[out_dt[v]])
             for v in program.outputs]
     block_f, r_sub, _ = trows.launch_config(feat, tile)
     args = ([_Ptr(a.reshape(-1)) for a in arrays]
-            + [_Ptr(np.asarray(params[p], np.float32).reshape(-1))
+            + [_Ptr(np.asarray(params[p]).reshape(-1))
                for p in program.param_names]
             + [_Ptr(o) for o in outs])
     for pid in range(-(-rows // tile)):
@@ -622,6 +644,78 @@ def test_rows_paths_match_jax_kernel(name, monkeypatch):
         np.testing.assert_allclose(plain[k].numpy(), want[k], rtol=TOL,
                                    atol=TOL)
         np.testing.assert_allclose(gen[k], want[k], rtol=tol, atol=TOL)
+
+
+BF16_ROWS_CASES = {
+    # name: (make, {input: shape}, {param: shape}, tile_rows); inputs and
+    # parameters in bfloat16, as a bf16 LM hands them to the rows kernel
+    "norm_layer_bias": (lambda m: (jstacks if m is jir else tstacks)
+                        .norm_program("layer", 1e-5, True), {"x": (3, 7, 40)},
+                        {"scale": (40,), "bias": (40,)}, 8),
+    "addnorm_rms": ROWS_CASES["addnorm_rms"],
+    "glu_gelu": (lambda m: (jstacks if m is jir else tstacks)
+                 .glu_program("gelu"), {"gate": (2, 5, 72), "up": (2, 5, 72)},
+                 {}, 8),
+}
+#: bfloat16 against the JAX kernel: the two may round one output a bf16
+#: step (2^-8 relative) apart where float32 sums differ in their last bits
+BF16_TOL = 1e-2
+
+
+@pytest.mark.parametrize("name", sorted(BF16_ROWS_CASES))
+def test_rows_bf16_matches_jax_kernel(name, monkeypatch):
+    """bfloat16 chains: the plain version and the generated source (on the
+    fake Triton, rounding where the interpreter does) against the Pallas
+    kernel in interpret mode, each output in bfloat16."""
+    make, in_shapes, p_shapes, tile = BF16_ROWS_CASES[name]
+    rng = np.random.default_rng(90 + sorted(BF16_ROWS_CASES).index(name))
+    bf = ml_dtypes.bfloat16
+    inputs = {k: _randn(rng, s, 1.5).astype(bf) for k, s in in_shapes.items()}
+    params = {k: (1.0 + 0.3 * _randn(rng, s)).astype(bf)
+              for k, s in p_shapes.items()}
+    want = _jax_rows(make, inputs, params, tile)
+    tprog = make(tir)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+    plain = trows.fused_rows(tprog, {k: t(v) for k, v in inputs.items()},
+                             {k: t(v) for k, v in params.items()},
+                             tile_rows=tile)
+    gen = _run_generated(tprog, inputs, params, tile, monkeypatch)
+    for k in want:
+        assert want[k].dtype == bf and gen[k].dtype == bf
+        assert plain[k].dtype == torch.bfloat16
+        w = want[k].astype(np.float32)
+        np.testing.assert_allclose(plain[k].float().numpy(), w,
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+        np.testing.assert_allclose(gen[k].astype(np.float32), w,
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+        np.testing.assert_allclose(gen[k].astype(np.float32),
+                                   plain[k].float().numpy(),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
+
+
+def test_rows_value_dtypes_follow_the_interpreter():
+    """Output dtypes and rounding steps of mixed chains are PyTorch's
+    promotion, as the interpreter computes them: a float32 parameter lifts
+    a bf16 value to float32, a 0-dim one does not."""
+    bf, f32 = torch.bfloat16, torch.float32
+    prog = tstacks.norm_program("layer", 1e-5, True)
+    steps = trows.value_dtypes(prog, {"x": bf}, {
+        "scale": torch.ones(4, dtype=f32), "bias": torch.ones(4, dtype=bf)})
+    assert steps == {"y": (bf, f32, f32)}
+    out = tir.run_program(prog, {"x": torch.ones(2, 4, dtype=bf)}, {
+        "scale": torch.ones(4), "bias": torch.ones(4, dtype=bf)})
+    assert out["y"].dtype == f32
+    scalar = _rows_scalar(tir)
+    steps = trows.value_dtypes(scalar, {"x": bf, "g": bf},
+                               {"t": torch.ones((), dtype=f32)})
+    assert steps == {"a": (bf,), "y": (bf,)}
+    src = trows.emit_source(scalar, {"x": 16, "g": 1}, {"t": 1}, 16,
+                            {"x": bf, "g": bf, "t": f32}, steps)
+    assert src.count("= round_bf16(") == 2
+    assert "tl.store(out0 + r64 * F + cols, tl.cast(v3, tl.bfloat16)" in src
 
 
 @pytest.mark.parametrize("name", sorted(ROWS_CASES))

@@ -178,10 +178,17 @@ def test_unported_families_and_layouts_raise():
         with pytest.raises(NotImplementedError, match="slice"):
             tlm.init(0, tconfigs.get_config(arch).reduced(), device="cpu")
     cfg = tconfigs.get_config("deepseek-7b").reduced()
-    with pytest.raises(NotImplementedError, match="engine"):
+    with pytest.raises(ValueError, match="kv_layout"):
+        tlm.init_decode_cache(cfg, 1, 4, kv_layout="ring", device="cpu")
+    with pytest.raises(ValueError, match="kv_num_blocks"):
         tlm.init_decode_cache(cfg, 1, 4, kv_layout="paged", device="cpu")
-    with pytest.raises(NotImplementedError, match="engine"):
-        tattn.PagedKVCache()
+    paged = tlm.init_decode_cache(cfg, 2, 4, kv_layout="paged",
+                                  kv_num_blocks=3, kv_block_size=4,
+                                  device="cpu")["blocks"]["sub0"]
+    assert isinstance(paged, tattn.PagedKVCache)
+    assert tuple(paged.k_pool.shape) == (4, 3, cfg.n_kv_heads, 4,
+                                         cfg.head_dim)
+    assert tuple(paged.length.shape) == (4, 2)
     assert tlm.layer_plan(cfg) == tlm.LayerPlan(("attn_dense",), 4, ())
     jplan = jlm.layer_plan(jconfigs.get_config("llama4-maverick-400b-a17b"))
     tplan = tlm.layer_plan(tconfigs.get_config("llama4-maverick-400b-a17b"))

@@ -90,8 +90,10 @@ def test_config_registry_and_runtime_defaults():
     trt, jrt = tconfigs.RuntimeConfig(), jconfigs.RuntimeConfig()
     for f in dataclasses.fields(trt):
         assert getattr(trt, f.name) == getattr(jrt, f.name), f.name
-    with pytest.raises(NotImplementedError, match="engine"):
-        tconfigs.RuntimeConfig(kv_layout="paged")
+    paged = tconfigs.RuntimeConfig(kv_layout="paged", kv_block_size=4)
+    assert (paged.kv_layout, paged.kv_block_size) == ("paged", 4)
+    with pytest.raises(ValueError, match="kv_layout"):
+        tconfigs.RuntimeConfig(kv_layout="ring")
     with pytest.raises(ValueError, match="mode"):
         tconfigs.RuntimeConfig(mode="fast")
     with pytest.raises(KeyError, match="unknown arch"):
@@ -452,7 +454,9 @@ def test_flash_decode_matches_jax_kernel(dtype, s, block_k):
     before = tattn_ops.STATS.snapshot()
     got = tattn_ops.flash_decode(tq, tk, tv, tl_, block_k=block_k)
     assert tattn_ops.STATS.delta(before) == {
-        "decode_kernel": 0, "decode_plain": 1, "decode_ref": 0}
+        "decode_kernel": 0, "decode_plain": 1, "decode_ref": 0,
+        "paged_decode_kernel": 0, "paged_decode_plain": 0,
+        "paged_decode_ref": 0}
     cuda = _decode_cuda(tq, tk, tv, tl_, 1.0 / d ** 0.5)
     for out, how in ((got, "plain"), (cuda, "CUDA transliteration")):
         assert out.dtype == T_DTYPE[dtype]

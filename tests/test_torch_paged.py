@@ -1,0 +1,504 @@
+"""The port's paged KV layout against the JAX package's, on the CPU.
+
+* ``paged_flash_decode``'s plain version (what a CPU tensor runs) against
+  the Pallas kernel in interpret mode and against ``paged_decode_ref``:
+  ragged lengths, a length-0 slot (exact zeros), GQA at qwen2.5-14b's 40/8
+  heads, a shuffled table with sentinel tail entries, q in bf16 over a
+  float32 pool; 1e-5 in float32, 1e-2 in bf16;
+* a transliteration of ``csrc/paged_flash_decode.cu``'s loop order (the
+  dense decode kernel's CTA walk, through the table in shared memory)
+  against the same, and bit for bit against the dense kernel's walk on the
+  gathered view;
+* the layer's in-place paged write, ``lm.reset_slots`` and
+  ``lm.copy_blocks`` against the JAX package's;
+* ``BlockAllocator``/``PrefixCache`` under one random op sequence in both
+  packages, and the ``kv.*`` invariants on ``test_paged_kv.py``'s seeded
+  mutants.
+
+The kernel itself runs only on the card (``chip_smoke.py`` phase 14)."""
+from __future__ import annotations
+
+import dataclasses
+import re
+
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import RuntimeConfig as JRuntime
+from repro.core import verify as jverify
+from repro.kernels.attention import ops as jattn_ops
+from repro.kernels.attention import ref as jattn_ref
+from repro.launch import engine as jengine
+from repro.layers import attention as jattn
+from repro.models import lm as jlm
+from repro_torch import configs as tconfigs
+from repro_torch.configs.base import RuntimeConfig as TRuntime
+from repro_torch.core import verify as tverify
+from repro_torch.kernels.attention import decode as tdecode
+from repro_torch.kernels.attention import ops as tattn_ops
+from repro_torch.kernels.attention import ref as tattn_ref
+from repro_torch.launch import engine as tengine
+from repro_torch.layers import attention as tattn
+from repro_torch.models import lm as tlm
+
+TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+       "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+NP_DTYPE = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16}
+T_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _t(a, dtype="float32"):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(T_DTYPE[dtype])
+
+
+def _close(got, want, dtype, what=""):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32), err_msg=what,
+                               **TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the decode kernel
+# ---------------------------------------------------------------------------
+
+#: name: (B, H, G, lengths, q dtype, pool dtype)
+PAGED_CASES = {
+    "ragged_f32": (4, 8, 2, [9, 4, 1, 23], "float32", "float32"),
+    "length0_f32": (3, 4, 4, [0, 7, 0], "float32", "float32"),
+    "gqa_40_8_f32": (2, 40, 8, [19, 24], "float32", "float32"),
+    "ragged_bf16": (4, 8, 2, [9, 0, 1, 23], "bfloat16", "bfloat16"),
+    "bf16_q_f32_pool": (4, 40, 8, [24, 0, 5, 13], "bfloat16", "float32"),
+}
+N_BLOCKS, BS, MB, D = 40, 4, 6, 32
+
+
+def _paged_case(name):
+    """Seeded operands: a table that is a shuffle of the pool, with the
+    sentinel id N past each slot's mapped blocks."""
+    b, h, g, lengths, qdt, pdt = PAGED_CASES[name]
+    rng = np.random.default_rng(sorted(PAGED_CASES).index(name) + 30)
+    q = rng.standard_normal((b, h, 1, D), np.float32).astype(NP_DTYPE[qdt])
+    kp = rng.standard_normal((N_BLOCKS, g, BS, D), np.float32).astype(
+        NP_DTYPE[pdt])
+    vp = rng.standard_normal((N_BLOCKS, g, BS, D), np.float32).astype(
+        NP_DTYPE[pdt])
+    table = rng.permutation(N_BLOCKS)[:b * MB].reshape(b, MB).astype(np.int32)
+    lens = np.asarray(lengths, np.int32)
+    used = -(-lens // BS)
+    table = np.where(np.arange(MB)[None] < used[:, None], table,
+                     N_BLOCKS).astype(np.int32)
+    return q, kp, vp, table, lens, qdt
+
+
+def _jax_paged(q, kp, vp, table, lens, qdt):
+    """The JAX layer's call: the pool cast to q's dtype, then the Pallas
+    kernel in interpret mode (it clips the sentinel ids itself)."""
+    jq = jnp.asarray(q)
+    jk = jnp.asarray(kp).astype(jq.dtype)
+    jv = jnp.asarray(vp).astype(jq.dtype)
+    return np.asarray(jattn_ops.paged_flash_decode(
+        jq, jk, jv, jnp.asarray(table), jnp.asarray(lens),
+        interpret=True)).astype(np.float32)
+
+
+def _cu_const(path, name):
+    return int(re.search(rf"constexpr int {name} = (\d+)",
+                         path.read_text()).group(1))
+
+
+def _decode_cta_walk(q, rows_k, rows_v, n, scale, source):
+    """One CTA of a decode kernel in torch float32: group ``i`` of
+    ``THREADS / LANES`` (from ``source``) walks keys ``i, i + groups, ...``
+    below ``n`` with its own online softmax (keys fetched by
+    ``rows_k(t)``/``rows_v(t)``), then the 16 states merge."""
+    groups = (_cu_const(source, "THREADS") // _cu_const(source, "LANES"))
+    m = torch.full((groups,), tdecode.NEG_INF)
+    l = torch.zeros(groups)
+    acc = torch.zeros(groups, q.shape[-1])
+    for t0 in range(0, n, groups):
+        t = t0 + torch.arange(groups)
+        act = t < n
+        tc = t.clamp(max=max(n - 1, 0))
+        sc = (rows_k(tc) @ q) * scale
+        m_new = torch.where(act, torch.maximum(m, sc), m)
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = torch.where(act, l * corr + p, l)
+        acc = torch.where(act[:, None], acc * corr[:, None]
+                          + p[:, None] * rows_v(tc), acc)
+        m = m_new
+    mx = m.max()
+    w = torch.exp(m - mx)
+    o = (acc * w[:, None]).sum(0) / torch.clamp((l * w).sum(), min=1e-30)
+    return o if mx > 0.5 * tdecode.NEG_INF else torch.zeros_like(o)
+
+
+def _paged_cuda(q, k_pool, v_pool, table, lengths, scale):
+    """``csrc/paged_flash_decode.cu``: per (slot, head) CTA, the slot's
+    table row clamped to ``[0, N-1]`` (the entries below the clamped
+    length), the length clamped to ``[0, MB*bs]``, key ``t`` read at
+    ``pool[tbl[t // bs], g, t % bs]``; K/V rounded to q's dtype first."""
+    b, h, _, d = q.shape
+    n_blk, g, bs, _ = k_pool.shape
+    mb = table.shape[1]
+    kq, vq = k_pool.to(q.dtype).float(), v_pool.to(q.dtype).float()
+    out = torch.full(q.shape, float("nan"))
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), mb * bs)
+        tbl = table[bi, :-(-n // bs)].long().clamp(0, n_blk - 1)
+        for hi in range(h):
+            gi = hi // (h // g)
+            out[bi, hi, 0] = _decode_cta_walk(
+                q[bi, hi, 0].float(),
+                lambda t: kq[tbl[t // bs], gi, t % bs],
+                lambda t: vq[tbl[t // bs], gi, t % bs], n, scale,
+                tdecode.PAGED_SOURCE)
+    return out.to(q.dtype)
+
+
+def _dense_cuda(q, k, v, lengths, scale):
+    """``csrc/flash_decode.cu`` over a dense cache, the same walk."""
+    b, h, _, d = q.shape
+    g, s = k.shape[1], k.shape[2]
+    kq, vq = k.to(q.dtype).float(), v.to(q.dtype).float()
+    out = torch.full(q.shape, float("nan"))
+    for bi in range(b):
+        n = min(max(int(lengths[bi]), 0), s)
+        for hi in range(h):
+            gi = hi // (h // g)
+            out[bi, hi, 0] = _decode_cta_walk(
+                q[bi, hi, 0].float(), lambda t: kq[bi, gi, t],
+                lambda t: vq[bi, gi, t], n, scale, tdecode.SOURCE)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("name", sorted(PAGED_CASES))
+def test_paged_plain_matches_jax_kernel_and_oracle(name):
+    q, kp, vp, table, lens, qdt = _paged_case(name)
+    want = _jax_paged(q, kp, vp, table, lens, qdt)
+    tq, tk, tv = _t(q, qdt), _t(kp, PAGED_CASES[name][5]), _t(
+        vp, PAGED_CASES[name][5])
+    before = tattn_ops.STATS.snapshot()
+    got = tattn_ops.paged_flash_decode(tq, tk, tv, torch.from_numpy(table),
+                                       torch.from_numpy(lens))
+    delta = tattn_ops.STATS.delta(before)
+    assert delta["paged_decode_plain"] == 1 and delta[
+        "paged_decode_kernel"] == 0
+    assert got.dtype == T_DTYPE[qdt] and bool(torch.isfinite(got).all())
+    _close(got.float(), want, qdt, "plain vs Pallas kernel")
+    for i in np.flatnonzero(lens == 0):
+        assert bool((got[i] == 0).all()), "length 0 is not exactly zero"
+    # both oracles on the clipped table (the sentinel is out of the pool)
+    clipped = np.clip(table, 0, N_BLOCKS - 1)
+    jref = np.asarray(jattn_ref.paged_decode_ref(
+        jnp.asarray(q), jnp.asarray(kp).astype(jnp.asarray(q).dtype),
+        jnp.asarray(vp).astype(jnp.asarray(q).dtype), jnp.asarray(clipped),
+        jnp.asarray(lens))).astype(np.float32)
+    tref = tattn_ref.paged_decode_ref(
+        tq, tk.to(tq.dtype), tv.to(tq.dtype), torch.from_numpy(clipped),
+        torch.from_numpy(lens))
+    _close(tref.float(), jref, qdt, "port oracle vs JAX oracle")
+    _close(got.float(), jref, qdt, "plain vs oracle")
+
+
+@pytest.mark.parametrize("name", sorted(PAGED_CASES))
+def test_paged_cuda_transliteration_matches_jax_kernel(name):
+    q, kp, vp, table, lens, qdt = _paged_case(name)
+    want = _jax_paged(q, kp, vp, table, lens, qdt)
+    pdt = PAGED_CASES[name][5]
+    got = _paged_cuda(_t(q, qdt), _t(kp, pdt), _t(vp, pdt),
+                      torch.from_numpy(table), torch.from_numpy(lens),
+                      1.0 / D ** 0.5)
+    assert bool(torch.isfinite(got).all())
+    _close(got.float(), want, qdt, "CUDA transliteration vs Pallas kernel")
+    for i in np.flatnonzero(lens == 0):
+        assert bool((got[i] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["ragged_f32", "bf16_q_f32_pool"])
+def test_paged_equals_dense_on_the_gathered_view(name):
+    """Paged decode on a pool equals dense decode on the gathered view:
+    the plain versions within float32 rounding (their tiles differ), the
+    two kernels' walks bit for bit (one key order)."""
+    q, kp, vp, table, lens, qdt = _paged_case(name)
+    pdt = PAGED_CASES[name][5]
+    tq, tk, tv = _t(q, qdt), _t(kp, pdt), _t(vp, pdt)
+    tbl, tl_ = torch.from_numpy(table), torch.from_numpy(lens)
+    kd = tattn_ref.gather_paged(tk, tbl.clamp(0, N_BLOCKS - 1))
+    vd = tattn_ref.gather_paged(tv, tbl.clamp(0, N_BLOCKS - 1))
+    _close(tdecode.paged_flash_decode_plain(tq, tk, tv, tbl, tl_).float(),
+           tdecode.flash_decode_plain(tq, kd, vd, tl_).float(), qdt,
+           "plain versions")
+    scale = 1.0 / D ** 0.5
+    assert torch.equal(_paged_cuda(tq, tk, tv, tbl, tl_, scale),
+                       _dense_cuda(tq, kd, vd, tl_, scale))
+
+
+def test_gather_paged_matches_jax():
+    q, kp, vp, table, lens, _ = _paged_case("ragged_f32")
+    clipped = np.clip(table, 0, N_BLOCKS - 1)
+    np.testing.assert_array_equal(
+        tattn_ref.gather_paged(torch.from_numpy(kp),
+                               torch.from_numpy(clipped)).numpy(),
+        np.asarray(jattn_ref.gather_paged(jnp.asarray(kp),
+                                          jnp.asarray(clipped))))
+
+
+def test_paged_wrapper_checks_and_names_its_tpu_kernel():
+    q, kp, vp, table, lens, _ = _paged_case("ragged_f32")
+    with pytest.raises(ValueError, match="paged flash decode"):
+        tdecode.paged_flash_decode(_t(q), _t(kp), _t(vp),
+                                   torch.from_numpy(table[:2]),
+                                   torch.from_numpy(lens))
+    with pytest.raises(ValueError, match="multiple"):
+        tdecode.paged_flash_decode(_t(q[:, :3]), _t(kp), _t(vp),
+                                   torch.from_numpy(table),
+                                   torch.from_numpy(lens))
+    text = tdecode.PAGED_SOURCE.read_text()
+    assert "repro/kernels/attention/decode.py:paged_flash_decode" in text
+    assert "pool + ((tbl[p / bs] * G + g) * bs + p % bs) * D" in text
+
+
+# ---------------------------------------------------------------------------
+# the layer's paged write and the model's cache operations
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def attn_layer():
+    cfg_t = tconfigs.get_config("qwen2.5-14b").reduced()
+    from repro import configs as jconfigs
+    cfg_j = jconfigs.get_config("qwen2.5-14b").reduced()
+    rng = np.random.default_rng(4)
+    d, h, g, hd = cfg_t.d_model, cfg_t.n_heads, cfg_t.n_kv_heads, \
+        cfg_t.head_dim
+    shapes = {"wq": (d, h * hd), "wk": (d, g * hd), "wv": (d, g * hd),
+              "wo": (h * hd, d), "bq": (h * hd,), "bk": (g * hd,),
+              "bv": (g * hd,)}
+    params = {k: (0.2 * rng.standard_normal(s)).astype(np.float32)
+              for k, s in shapes.items()}
+    return cfg_t, cfg_j, params
+
+
+@pytest.mark.parametrize("mode", ["brainslug", "xla"])
+def test_paged_layer_decode_matches_jax(attn_layer, mode):
+    """One paged decode step per layer: active slots write one row each
+    through the table; an inactive slot and an idle slot whose stale
+    length and zeroed table row alias an active slot's target write
+    nothing (the JAX scatter's drop rule); outputs, pools and lengths
+    equal the JAX layer's."""
+    cfg_t, cfg_j, params = attn_layer
+    rng = np.random.default_rng(8)
+    b, n_blk, bs, mb = 4, 10, 4, 3
+    g, hd = cfg_t.n_kv_heads, cfg_t.head_dim
+    x = rng.standard_normal((b, 1, cfg_t.d_model)).astype(np.float32)
+    kp = rng.standard_normal((n_blk, g, bs, hd)).astype(np.float32)
+    vp = rng.standard_normal((n_blk, g, bs, hd)).astype(np.float32)
+    # slot 3 is idle: its table row is zeroed and its stale length 2 aims
+    # at block 0, offset 2, where active slot 0 writes this step
+    table = np.array([[0, 5, 6], [1, 2, 7], [3, 4, 8], [0, 0, 0]], np.int32)
+    length = np.array([2, 9, 5, 2], np.int32)
+    active = np.array([True, True, False, False])
+    jp = {k: jnp.asarray(v) for k, v in params.items()}
+    jcache = jattn.PagedKVCache(k_pool=jnp.asarray(kp), v_pool=jnp.asarray(vp),
+                                length=jnp.asarray(length))
+    jout, jc = jattn.decode(jp, jnp.asarray(x), jcache, cfg_j,
+                            JRuntime(mode=mode), active=jnp.asarray(active),
+                            block_table=jnp.asarray(table))
+    tp = {k: torch.from_numpy(v) for k, v in params.items()}
+    tcache = tattn.PagedKVCache(k_pool=torch.from_numpy(kp.copy()),
+                                v_pool=torch.from_numpy(vp.copy()),
+                                length=torch.from_numpy(length.copy()))
+    key = "paged_decode_plain" if mode == "brainslug" else "paged_decode_ref"
+    before = tattn_ops.STATS.snapshot()
+    tout, tc = tattn.decode(tp, torch.from_numpy(x), tcache, cfg_t,
+                            TRuntime(mode=mode),
+                            active=torch.from_numpy(active),
+                            block_table=torch.from_numpy(table))
+    assert tattn_ops.STATS.delta(before)[key] == 1
+    assert tc is tcache                                   # in place
+    # the two active slots' rows (block 0 offset 2, block 7 offset 1) hold
+    # the new K/V (rope rounds apart from JAX's by an ulp); every other
+    # row, the idle slot's alias included, is untouched
+    written = np.zeros((n_blk, bs), bool)
+    written[0, 2] = written[7, 1] = True
+    for got, want, old in ((tc.k_pool, jc.k_pool, kp),
+                           (tc.v_pool, jc.v_pool, vp)):
+        # (N, bs, G, hd): a row is one (block, offset)
+        got, want, old = (np.asarray(a).transpose(0, 2, 1, 3)
+                          for a in (got.numpy(), want, old))
+        np.testing.assert_allclose(got[written], want[written], rtol=1e-6,
+                                   atol=1e-6)
+        assert not np.array_equal(got[written], old[written])
+        np.testing.assert_array_equal(got[~written], old[~written])
+        np.testing.assert_array_equal(want[~written], old[~written])
+    np.testing.assert_array_equal(tc.length.numpy(), np.asarray(jc.length))
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=2e-5,
+                               atol=2e-5)
+    with pytest.raises(ValueError, match="block_table"):
+        tattn.decode(tp, torch.from_numpy(x), tcache, cfg_t,
+                     TRuntime(mode=mode))
+
+
+def test_reset_slots_and_copy_blocks_match_jax():
+    cfg_t = tconfigs.get_config("deepseek-7b").reduced()
+    from repro import configs as jconfigs
+    cfg_j = jconfigs.get_config("deepseek-7b").reduced()
+    kw = dict(kv_layout="paged", kv_num_blocks=6, kv_block_size=4)
+    jc = jlm.init_decode_cache(cfg_j, 3, 12, dtype=jnp.float32, **kw)
+    tc = tlm.init_decode_cache(cfg_t, 3, 12, dtype=torch.float32,
+                               device="cpu", **kw)
+    rng = np.random.default_rng(2)
+    pool = rng.standard_normal(tuple(tc["blocks"]["sub0"].k_pool.shape)
+                               ).astype(np.float32)
+    lens = np.array([[5, 7, 2]] * cfg_t.n_layers, np.int32)
+    jc["blocks"]["sub0"] = jattn.PagedKVCache(
+        k_pool=jnp.asarray(pool), v_pool=jnp.asarray(-pool),
+        length=jnp.asarray(lens))
+    sub = tc["blocks"]["sub0"]
+    sub.k_pool.copy_(torch.from_numpy(pool))
+    sub.v_pool.copy_(torch.from_numpy(-pool))
+    sub.length.copy_(torch.from_numpy(lens))
+    mask = np.array([True, False, True])
+    for lengths in (None, np.array([3, 9, 0], np.int32)):
+        jr = jlm.reset_slots(jc, jnp.asarray(mask),
+                             None if lengths is None else jnp.asarray(lengths))
+        tr = tlm.reset_slots(tc, torch.from_numpy(mask),
+                             None if lengths is None
+                             else torch.from_numpy(lengths))
+        np.testing.assert_array_equal(tr["blocks"]["sub0"].length.numpy(),
+                                      np.asarray(jr["blocks"]["sub0"].length))
+    jcopy = jlm.copy_blocks(jc, jnp.asarray(1, jnp.int32),
+                            jnp.asarray(4, jnp.int32))
+    tcopy = tlm.copy_blocks(tc, 1, 4)
+    assert tcopy is tc
+    for f in ("k_pool", "v_pool"):
+        np.testing.assert_array_equal(
+            getattr(tcopy["blocks"]["sub0"], f).numpy(),
+            np.asarray(getattr(jcopy["blocks"]["sub0"], f)))
+
+
+# ---------------------------------------------------------------------------
+# host bookkeeping: allocator, prefix cache, kv.* invariants
+# ---------------------------------------------------------------------------
+
+def _alloc_state(a):
+    return (list(a.refcount), list(a.filled), a.free_blocks(), a.stored,
+            a.peak_in_use, a.n_free, a.in_use)
+
+
+def test_allocator_and_prefix_cache_follow_jax_under_random_ops():
+    """One seeded sequence of alloc / share / release / fill / fork /
+    register / lookup / evict on both packages: equal refcounts, free
+    lists, fills, lookups and evictions at every step."""
+    rng = np.random.default_rng(11)
+    bs, n = 4, 16
+    ja, ta = jengine.BlockAllocator(n, bs), tengine.BlockAllocator(n, bs)
+    jp, tp = jengine.PrefixCache(ja), tengine.PrefixCache(ta)
+    held: list[int] = []
+    prompts = [rng.integers(1, 9, int(rng.integers(1, 14))).astype(np.int32)
+               for _ in range(6)]
+    for step in range(1500):
+        op = int(rng.integers(0, 8))
+        if op == 0 and ja.n_free:
+            b = ja.alloc()
+            assert ta.alloc() == b
+            held.append(b)
+        elif op == 1 and held:
+            b = held[int(rng.integers(0, len(held)))]
+            ja.share(b), ta.share(b)
+            held.append(b)
+        elif op == 2 and held:
+            b = held.pop(int(rng.integers(0, len(held))))
+            ja.release(b), ta.release(b)
+        elif op == 3 and held:
+            b = held[int(rng.integers(0, len(held)))]
+            upto = int(rng.integers(0, bs + 1))
+            ja.note_fill(b, upto), ta.note_fill(b, upto)
+        elif op == 4 and len(held) >= 2:
+            s, d = (held[int(i)] for i in rng.integers(0, len(held), 2))
+            ja.note_fork(s, d), ta.note_fork(s, d)
+        elif op == 5 and held:
+            p = prompts[int(rng.integers(0, len(prompts)))]
+            b = held[int(rng.integers(0, len(held)))]
+            n_full = len(p) // bs
+            jk = tk = b"\x00" * 16
+            for c in range(n_full):
+                jk = jp.register_full(jk, p[c * bs:(c + 1) * bs], b)
+                tk = tp.register_full(tk, p[c * bs:(c + 1) * bs], b)
+            assert jk == tk
+            jp.register_partial(jk, p[n_full * bs:], b)
+            tp.register_partial(tk, p[n_full * bs:], b)
+        elif op == 6:
+            p = prompts[int(rng.integers(0, len(prompts)))]
+            assert jp.lookup(p) == tp.lookup(p)
+        elif op == 7:
+            k = int(rng.integers(0, 3))
+            assert jp.evict(k) == tp.evict(k)
+        assert _alloc_state(ja) == _alloc_state(ta), step
+        assert jp.cached_blocks() == tp.cached_blocks(), step
+    jp.clear(), tp.clear()
+    assert _alloc_state(ja) == _alloc_state(ta)
+    with pytest.raises(RuntimeError, match="exhausted"):
+        small = tengine.BlockAllocator(1, 4)
+        small.alloc(), small.alloc()
+
+
+def _clean_state(m):
+    return m.BlockTableState(
+        num_blocks=8, block_size=4,
+        refcounts=(2, 1, 1, 0, 0, 0, 0, 1),
+        free=(3, 4, 5, 6),
+        tables=((0, 1), (0, 2)),
+        lengths=(8, 7),
+        cached=(7,),
+        writers=(1, 2))
+
+
+MUTANTS = {
+    "clean": {},
+    "out_of_bounds": dict(tables=((0, 99), (0, 2))),
+    "uncovered": dict(lengths=(9, 7)),
+    "refcount": dict(refcounts=(1, 1, 1, 0, 0, 0, 0, 1)),
+    "shared_writable": dict(writers=(0, 1, 2)),
+    "freed_reachable": dict(free=(1, 3, 4, 5, 6),
+                            refcounts=(2, 0, 1, 0, 0, 0, 0, 1)),
+    "bad_ids_everywhere": dict(free=(3, 4, 5, -1), cached=(7, 12),
+                               writers=(1, 2, 8)),
+    "refcount_length": dict(refcounts=(2, 1, 1)),
+}
+
+
+def _findings(fs):
+    return [(f.invariant, f.severity, f.subject, f.detail) for f in fs]
+
+
+@pytest.mark.parametrize("name", sorted(MUTANTS))
+def test_kv_invariants_give_the_jax_findings(name):
+    js = dataclasses.replace(_clean_state(jverify), **MUTANTS[name])
+    ts = dataclasses.replace(_clean_state(tverify), **MUTANTS[name])
+    want = _findings(jverify.check_block_tables(js))
+    got = tverify.check_block_tables(ts)
+    assert _findings(got) == want
+    assert (name == "clean") == (want == [])
+    for f in got:
+        assert f.source == "src/repro_torch/launch/engine.py"
+        assert f.invariant in tverify.INVARIANTS
+        assert str(f).startswith(f"[{f.severity}] {f.invariant} @ ")
+    if want:
+        with pytest.raises(tverify.VerifyError, match=want[0][0]):
+            tverify.enforce(got, "strict")
+        with pytest.warns(UserWarning, match="waived"):
+            tverify.enforce(got, "warn", subject="engine tick")
+    tverify.enforce(got, "off")
+    with pytest.raises(ValueError, match="verify mode"):
+        tverify.enforce(got, "loud")
+
+
+def test_kv_invariant_table_matches_jax():
+    want = {k: v[1] for k, v in jverify.INVARIANTS.items()
+            if k.startswith("kv.")}
+    assert {k: v[1] for k, v in tverify.INVARIANTS.items()} == want
+    assert tverify.VERIFY_MODES == jverify.VERIFY_MODES

@@ -71,7 +71,8 @@ def test_generate_matches_jax_server(served, mode):
     attn = tattn_ops.STATS.delta(before[0])
     if mode == "brainslug":
         assert attn == {"decode_kernel": 0, "decode_plain": steps * layers,
-                        "decode_ref": 0}
+                        "decode_ref": 0, "paged_decode_kernel": 0,
+                        "paged_decode_plain": 0, "paged_decode_ref": 0}
         assert trms_ops.STATS.delta(before[1])["plain"] == steps * (
             2 * layers + 1)
         assert tsw_ops.STATS.delta(before[2])["plain"] == steps * layers
@@ -126,9 +127,21 @@ def test_validation_errors_match_jax(served):
 
 
 def test_engine_and_default_device(served):
-    _, out = served
-    with pytest.raises(NotImplementedError, match="engine slice"):
-        out["xla"]["ts"].engine()
+    """``Server.engine()`` serves the static driver's prompts to the same
+    greedy tokens as ``generate``; the entry points run on the card unless
+    asked for the CPU."""
+    prompts, out = served
+    from repro_torch.launch.engine import Request
+    ts = out["xla"]["ts"]
+    eng = ts.engine()
+    comps = eng.run([Request(request_id=i, prompt=prompts[i],
+                             max_new_tokens=int(STOPS[i]))
+                     for i in range(len(prompts))])
+    gen = ts.generate(prompts, stop_lengths=STOPS)
+    for i, c in enumerate(comps):
+        assert c.status == "ok"
+        np.testing.assert_array_equal(c.tokens, gen[i, :STOPS[i]])
+    assert eng.slots == SC["batch"] and eng.max_len == SC["max_len"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.Server(tserve.ServeConfig(**SC))
