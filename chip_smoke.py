@@ -50,6 +50,27 @@ Phases, one line each (plus tables):
 16. the paged kernel's time beside its bound, its plain version and the
    dense kernel on the gathered view; the engine runs' wall time,
    tokens/s, TTFT and ``ServeStats``; a traced decode-only tick per mode;
+17. the fused vocab cross-entropy CUDA kernel against its plain version
+   (TF32 off): (4096, 4096, 102400) and ragged (1000, 4000, 50257) in bf16
+   and float32, a tenth of the labels and one row block masked, lse and
+   gold within 1e-4 x max(1, max|logits|), two launches bit for bit;
+   ``fused_nll`` exactly 0 at T = 0 and fully masked, and its gradients
+   against autograd of ``nll_ref`` at (1024, 4096, 102400) bf16;
+18. LM training through ``launch/train.py`` (``build_trainer`` /
+   ``Trainer.run``): deepseek-7b at full width cut to 8 layers, bf16, one
+   sequence of 4096 tokens, three AdamW steps (lr 3e-4) in ``brainslug``
+   and ``barrier`` from the same weights (counters per step: 1 fused_ce,
+   17 rmsnorm, 8 swiglu, 8 flash-attention launches, plain 0; losses
+   within 2e-5 / 1e-4 / 1e-4 and grad norms within 1e-3 of ``barrier``,
+   relative), and two defective ``barrier`` runs (bf16 attention scores;
+   one layer's attention dropped) that those limits must flag; a float32
+   run at 2 layers (losses within 1e-4, step-1 gradients within rtol 1e-4
+   and atol 1e-4 x max|g|); a run killed at step 2 and resumed from its
+   step-1 checkpoint lands on the uninterrupted step-3 loss exactly; peak
+   memory per run;
+19. the CE kernel's device time beside its bound, its plain version and
+   the two-call PyTorch form; the 8-layer training step per mode in turns;
+   a traced step per mode (device time by group, idle share);
 then the ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
@@ -92,7 +113,7 @@ TRAIN_LR = 1e-3
 # The LM serving slice (phases 11-13): deepseek-7b at full width.
 KERNELS = ("fused_nhwc", "fused_rows", "fused_nhwc_bwd", "fused_rows_bwd",
            "rmsnorm", "swiglu", "flash_attention", "flash_decode",
-           "paged_flash_decode")
+           "paged_flash_decode", "fused_ce")
 # Kernel against plain version, per dtype.  float32: the same arithmetic
 # summed in another order.  bfloat16: the two may round one output apart
 # (one bf16 step is 2^-8 relative), so atol/rtol 1e-2.
@@ -116,6 +137,28 @@ ENGINE = dict(slots=4, max_len=256, prefill_chunk=8, kv_block_size=16,
               kv_num_blocks=32)
 ENGINE_RUNS = (("paged", "brainslug"), ("paged", "barrier"),
                ("dense", "brainslug"))
+# The LM training slice (phases 17-19): deepseek-7b at full width, depth cut
+# to fit one 80 GB card with AdamW's float32 moments, one 4096-token
+# sequence (train_4k's length), three steps.
+TRAIN_LM = dict(layers=8, layers_f32=2, seq=4096, steps=3, lr=3e-4)
+CE_SHAPE = (4096, 4096, 102400)         # (tokens, d_model, vocab)
+CE_RAGGED = (1000, 4000, 50257)
+CE_GRAD_ROWS = 1024
+# brainslug against barrier in bf16 (8 layers, three steps), relative: the
+# modes round at other places (barrier's logits are bf16, the CE kernel's
+# float32).  Each limit sits above the gaps of sound runs and, where one
+# exists, below what a control reads (PERF.md section 2, on one H100):
+# sound loss gaps 7.3e-6 / 2.1e-5 / 2.8e-5 and grad-norm gaps 2.5e-4 /
+# 2.0e-4 / 4.4e-4; barrier with bf16 attention scores reads 4.6e-5 on the
+# step-1 loss and 1.7e-3 on the step-3 grad norm; with one layer's
+# attention dropped, 1.4e-3 / 5.1e-4 on the step-1/2 losses and 9e-2 or
+# more on every grad norm
+TRAIN_BF16_LOSS_REL = (2e-5, 1e-4, 1e-4)        # per step
+TRAIN_BF16_GNORM_REL = 1e-3                     # every step
+# profiler ranges of the port that a traced training step reads
+TRAIN_RANGES = {"vocab_ce.backward": "ce_backward",
+                "flash_attention.backward": "attention_backward",
+                "adamw.update": "adamw"}
 
 
 class PhaseError(RuntimeError):
@@ -145,7 +188,8 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.dev = torch.device("cuda")
-        self.err = {k: 0.0 for k in KERNELS + ("fused_rows_bf16",)}
+        self.err = {k: 0.0 for k in KERNELS + (
+            "fused_rows_bf16", "fused_rows_bwd_bf16", "fused_ce_bwd")}
         self.vgg_stages: list = []      # (stack, input) of phase 5
         self.kernels: dict[str, dict] = {}
 
@@ -211,6 +255,9 @@ class Smoke:
         self.phase14_paged_kernel()
         self.phase15_engine()
         self.phase16_engine_timing()
+        self.phase17_ce_kernel()
+        self.phase18_train()
+        self.phase19_train_timing()
         print(f"[total] {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"kernels": [self.kernels[k] for k in KERNELS]}))
         print(self.smi)
@@ -241,15 +288,16 @@ class Smoke:
         from repro_torch.kernels import _build
         from repro_torch.kernels.attention import decode, flash
         from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd
+        from repro_torch.kernels.vocab_ce import ce
         t = time.perf_counter()
         procs = [(src, _build.start_build(src)) for src in (
             nhwc.SOURCE, nhwc_bwd.SOURCE, flash.SOURCE, decode.SOURCE,
-            decode.PAGED_SOURCE)]
+            decode.PAGED_SOURCE, ce.SOURCE)]
         try:
             libs = [_build.finish_build(src, p) for src, p in procs]
         except _build.BuildError as e:
             raise PhaseError(str(e)) from e
-        for mod in (nhwc, nhwc_bwd, flash, decode):
+        for mod in (nhwc, nhwc_bwd, flash, decode, ce):
             mod._library()
         decode._library(decode.PAGED_SOURCE)
         import triton
@@ -822,9 +870,9 @@ class Smoke:
               f"fused_rows max|d|={self.err['fused_rows']:.3e}")
 
     # -- the training slice ---------------------------------------------------
-    def check_bwd(self, kernel, what, got, want, reduced):
+    def check_bwd(self, kernel, what, got, want, reduced, tol=BWD_TOL):
         """Gradients ``got`` against ``want`` (name -> tensor) within
-        BWD_TOL; names in ``reduced`` are sums over every position, whose
+        ``tol``; names in ``reduced`` are sums over every position, whose
         atol scales with their largest entry.  Returns a summary: the
         largest |d| of the input cotangents, and of the reduced gradients
         with its share of their largest entry."""
@@ -841,10 +889,14 @@ class Smoke:
                 raise PhaseError(f"{kernel} {what}: non-finite {k}")
             if not w.numel():
                 continue
+            if g.dtype != w.dtype:
+                raise PhaseError(f"{kernel} {what}: {k} is {g.dtype}, the "
+                                 f"plain version's {w.dtype}")
+            g, w = g.float(), w.float()
             d = (g - w).abs()
-            atol = BWD_TOL["atol"]
+            atol = tol["atol"]
             if k in reduced:
-                atol = max(atol, BWD_TOL["rtol"] * float(w.abs().max()))
+                atol = max(atol, tol["rtol"] * float(w.abs().max()))
             err = float(d.max())
             worst = max(worst, err)
             if k in reduced:
@@ -852,10 +904,10 @@ class Smoke:
                 red_rel = max(red_rel, err / max(float(w.abs().max()), 1e-30))
             else:
                 cot = max(cot, err)
-            if not bool((d <= atol + BWD_TOL["rtol"] * w.abs()).all()):
+            if not bool((d <= atol + tol["rtol"] * w.abs()).all()):
                 raise PhaseError(f"{kernel} {what}: {k} max|d|={err:.3e} "
                                  f"outside atol {atol:.1e} rtol "
-                                 f"{BWD_TOL['rtol']}")
+                                 f"{tol['rtol']}")
         self.err[kernel] = max(self.err[kernel], worst)
         return (f"{cot:.1e}" + (f"/{red:.1e} ({red_rel:.1e} of max)"
                                 if reduced else ""))
@@ -994,6 +1046,53 @@ class Smoke:
               f"of the input cotangents / of the reduced gradients) and two "
               f"runs give equal bits: "
               f"{' '.join(lines)}; Triton compiles included: "
+              f"{time.perf_counter() - t:.1f} s")
+        self.phase8_rows_bwd_bf16()
+
+    def phase8_rows_bwd_bf16(self):
+        """The rows backward on bf16 chains at deepseek-7b widths against
+        its plain version (``autodiff.program_vjp`` on the bf16 tensors)
+        within LM_TOL's bf16 tolerance, each gradient in its primal's dtype;
+        two runs give equal bits."""
+        torch = self.torch
+        from repro_torch.layers import stacks
+        d, f = ROWS + (D_MODEL,), ROWS + (D_FF,)
+        vec = (D_MODEL,)
+        cases = [
+            ("rms", stacks.norm_program("rms", 1e-6, False), {"x": d},
+             {"scale": vec}),
+            ("addnorm_layer_bias", stacks.addnorm_program("layer", 1e-5, True),
+             {"x": d, "res": d}, {"scale": vec, "bias": vec}),
+            ("glu_silu", stacks.glu_program("silu"), {"gate": f, "up": f},
+             {}),
+        ]
+        t = time.perf_counter()
+        lines = []
+        for k, (name, program, in_shapes, p_shapes) in enumerate(cases):
+            inputs, _ = self.rows_inputs(name, in_shapes, {}, 3400 + 100 * k)
+            inputs = {n: v.to(torch.bfloat16) for n, v in inputs.items()}
+            params = {n: ((1.0 if n == "scale" else 0.0) + 0.1 * self.randn(
+                shp, 3450 + 100 * k + j)).to(torch.bfloat16)
+                for j, (n, shp) in enumerate(p_shapes.items())}
+            tile = self.train_tile(name, program, in_shapes)
+            cot = {v: c.to(torch.bfloat16) for v, c in self.rows_cotangents(
+                program, inputs, params, 3480 + 10 * k).items()}
+            got = self.rows_bwd_grads(program, inputs, params, cot, tile)
+            again = self.rows_bwd_grads(program, inputs, params, cot, tile)
+            from repro_torch.kernels.fused_stack import rows_bwd
+            dins, dpar = rows_bwd.fused_rows_bwd_ref(program, inputs, params,
+                                                     cot)
+            want = {f"d{n}": v for n, v in {**dins, **dpar}.items()}
+            reduced = {f"d{p}" for p in program.param_names}
+            err = self.check_bwd("fused_rows_bwd_bf16", f"bf16 {name}", got,
+                                 want, reduced=reduced,
+                                 tol=LM_TOL["bfloat16"])
+            self.same_bits("fused_rows_bwd", f"bf16 {name}", got, again)
+            lines.append(f"{name}[rows {tile}]={err}")
+        print(f"[8 rows_bwd bf16] {len(lines)} bf16 chains at {ROWS} x "
+              f"{D_MODEL}/{D_FF} agree with the plain version in bf16 (tol "
+              f"{LM_TOL['bfloat16']}, parameter gradients atol rtol*max) and "
+              f"two runs give equal bits: {' '.join(lines)}; "
               f"{time.perf_counter() - t:.1f} s")
 
     def launch_counts(self):
@@ -2139,6 +2238,560 @@ class Smoke:
               f"{self.err['paged_flash_decode']:.3e}  fused_rows bf16 max|d|="
               f"{self.err['fused_rows_bf16']:.3e}")
 
+
+    # -- the LM training slice ------------------------------------------------
+    def release_serving(self):
+        """Phases 17-19 train at full width: drop what phases 2-16 hold
+        (the 30-layer serving model among it)."""
+        import gc
+        for name in ("lm_model", "engine_results", "train_nets", "train_data",
+                     "vgg_params", "rows_bf16"):
+            setattr(self, name, None)
+        self.vgg_stages = []
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def ce_operands(self, t, d, v, dt, seed):
+        """h (t, d), w (d, v) scaled as a head, int32 labels with about a
+        tenth at -1 and the first row block (the kernel's 128 rows) fully
+        masked."""
+        torch = self.torch
+        from repro_torch.kernels.vocab_ce import ce
+        h = self.randn((t, d), seed).to(dt)
+        w = (self.randn((d, v), seed + 1) / d ** 0.5).to(dt)
+        g = torch.Generator(device=self.dev).manual_seed(seed + 2)
+        labels = torch.randint(0, v, (t,), generator=g, device=self.dev,
+                               dtype=torch.int32)
+        drop = torch.rand((t,), generator=g, device=self.dev) < 0.1
+        labels = torch.where(drop, -1, labels)
+        labels[:ce.BLOCK_ROWS] = -1
+        return h, w, labels
+
+    def phase17_ce_kernel(self):
+        torch = self.torch
+        from repro_torch.kernels.vocab_ce import ce, ops, ref
+        self.release_serving()
+        t = time.perf_counter()
+        lines = []
+        for (tt, d, v), dt in ((CE_SHAPE, torch.bfloat16),
+                               (CE_SHAPE, torch.float32),
+                               (CE_RAGGED, torch.float32),
+                               (CE_RAGGED, torch.bfloat16)):
+            h, w, labels = self.ce_operands(tt, d, v, dt, 1700 + d % 97)
+            lse, gold = ce.fused_ce_fwd(h, w, labels)
+            lse2, gold2 = ce.fused_ce_fwd(h, w, labels)
+            want_lse, want_gold = ref.ce_ref(h, w, labels)
+            top = float((h.float() @ w.float()).abs().max())
+            torch.cuda.synchronize()
+            what = f"fused_ce {(tt, d, v)} {str(dt).split('.')[-1]}"
+            if not (bool(torch.isfinite(lse).all())
+                    and bool(torch.isfinite(gold).all())):
+                raise PhaseError(f"{what}: non-finite output")
+            tol = 1e-4 * max(1.0, top)
+            err = max(float((lse - want_lse).abs().max()),
+                      float((gold - want_gold).abs().max()))
+            self.err["fused_ce"] = max(self.err["fused_ce"], err)
+            if not err <= tol:
+                raise PhaseError(f"{what}: max|d| {err:.3e} > {tol:.3e}")
+            if not (torch.equal(lse, lse2) and torch.equal(gold, gold2)):
+                raise PhaseError(f"{what}: two launches differ")
+            if bool((gold[labels < 0] != 0).any()):
+                raise PhaseError(f"{what}: a masked row's gold is not 0")
+            lines.append(f"{(tt, d, v)} {str(dt).split('.')[-1]} "
+                         f"{ce.split_plan(tt, v, 132)} splits: max|d| "
+                         f"{err:.2e} (tol {tol:.2e})")
+            del h, w, lse, gold, lse2, gold2, want_lse, want_gold
+        torch.cuda.empty_cache()
+
+        # fused_nll at T = 0 and with every label masked: exactly 0
+        h, w, labels = self.ce_operands(300, 512, 1000, torch.bfloat16, 1760)
+        zero_t = float(ops.fused_nll(h[:0], w, labels[:0]))
+        masked = float(ops.fused_nll(h, w, torch.full_like(labels, -1)))
+        if zero_t != 0.0 or masked != 0.0:
+            raise PhaseError(f"fused_nll: T=0 gives {zero_t}, fully masked "
+                             f"{masked}, not 0")
+
+        # gradients against autograd of the plain nll
+        tt, d, v = CE_GRAD_ROWS, CE_SHAPE[1], CE_SHAPE[2]
+        h, w, labels = self.ce_operands(tt, d, v, torch.bfloat16, 1770)
+        with torch.enable_grad():
+            hs = [x.clone().requires_grad_() for x in (h, w)]
+            nll = ops.fused_nll(hs[0], hs[1], labels)
+            got = dict(zip(("dh", "dw"), torch.autograd.grad(nll, hs)))
+            rs = [x.clone().requires_grad_() for x in (h, w)]
+            nll_r = ref.nll_ref(rs[0], rs[1], labels)
+            want = dict(zip(("dh", "dw"), torch.autograd.grad(nll_r, rs)))
+        nll, nll_r = float(nll.detach()), float(nll_r.detach())
+        if abs(nll - nll_r) > 1e-4 * abs(nll_r):
+            raise PhaseError(f"fused_nll {nll} vs nll_ref "
+                             f"{nll_r}")
+        grad_err = self.check_bwd("fused_ce_bwd",
+                                  f"fused_nll grads {(tt, d, v)}",
+                                  got, want, reduced={"dh", "dw"},
+                                  tol=LM_TOL["bfloat16"])
+        del h, w, hs, rs, got, want
+        torch.cuda.empty_cache()
+        print(f"[17 fused_ce] against the plain version (ce_ref), TF32 off, "
+              f"labels a tenth and the first 128 rows masked, tol 1e-4 x "
+              f"max(1, max|logits|), two launches bit for bit: "
+              + "; ".join(lines)
+              + f"; fused_nll at T=0 {zero_t} and fully masked {masked}; "
+              f"fused_nll gradients at ({tt}, {d}, {v}) bf16 against autograd "
+              f"of nll_ref (tol {LM_TOL['bfloat16']} x max|g|): max|d| "
+              f"{grad_err}; {time.perf_counter() - t:.1f} s")
+
+    def lm_train_counts(self, zero=False):
+        """Launch counts of the kernels on the LM training path and the
+        plain dispatches of their wrappers (``zero`` sets them to 0)."""
+        from repro_torch.kernels.attention import flash
+        from repro_torch.kernels.rmsnorm import ops as rops
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.kernels.swiglu import ops as sops
+        from repro_torch.kernels.swiglu import swiglu
+        from repro_torch.kernels.vocab_ce import ce
+        from repro_torch.kernels.vocab_ce import ops as cops
+        fns = {"fused_ce": ce.fused_ce_fwd, "rmsnorm": rmsnorm.rmsnorm_fwd,
+               "swiglu": swiglu.swiglu_fwd,
+               "flash_attention": flash.flash_attention_fwd}
+        stats = (cops.STATS, rops.STATS, sops.STATS)
+        if zero:
+            for fn in fns.values():
+                fn.launches = 0
+            for st in stats:
+                st.reset()
+        out = {k: fn.launches for k, fn in fns.items()}
+        out["plain"] = sum(st.counts["plain"] for st in stats)
+        return out
+
+    def lm_trainer(self, mode, layers, dtype, **tc_kw):
+        """``build_trainer`` of deepseek-7b at full width cut to ``layers``,
+        one 4096-token sequence, lr 3e-4 constant, weights from seed 0."""
+        from repro_torch.launch import train as train_mod
+        from repro_torch.models import lm
+        from repro_torch.optim import adamw
+        tc = train_mod.TrainerConfig(
+            arch="deepseek-7b", reduced=False, steps=TRAIN_LM["steps"],
+            mode=mode, batch_override=1, seq_override=TRAIN_LM["seq"],
+            config_overrides=(("n_layers", layers), ("dtype", dtype)),
+            device="cuda", log_every=10 ** 9, **tc_kw)
+        return train_mod.build_trainer(
+            tc, init_params=lambda cfg, dev: lm.init(0, cfg, device=dev),
+            opt_cfg=adamw.AdamWConfig(lr=TRAIN_LM["lr"]))
+
+    def train_lm(self, mode, layers, dtype, failure=None, **tc_kw):
+        """Train through ``Trainer.run``; the counters are zeroed just
+        before the run and read around each step.  Returns (history,
+        per-step counters, peak GiB, wall s)."""
+        torch = self.torch
+        import gc
+        torch.cuda.reset_peak_memory_stats()
+        trainer = self.lm_trainer(mode, layers, dtype, **tc_kw)
+        per_step = []
+        inner = trainer.step_fn
+
+        def counted(params, opt_state, batch):
+            torch.cuda.synchronize()
+            before = self.lm_train_counts()
+            out = inner(params, opt_state, batch)
+            torch.cuda.synchronize()
+            after = self.lm_train_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+            return out
+
+        trainer.step_fn = counted
+        self.lm_train_counts(zero=True)
+        t = time.perf_counter()
+        try:
+            history = trainer.run(failure)
+        finally:
+            if trainer.checkpointer is not None:
+                trainer.checkpointer.close()
+            wall = time.perf_counter() - t
+            del trainer
+            gc.collect()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.empty_cache()
+        return history, per_step, peak, wall
+
+    def expect_train_counts(self, what, per_step, mode, layers):
+        want = ({"fused_ce": 1, "rmsnorm": 2 * layers + 1, "swiglu": layers,
+                 "flash_attention": layers, "plain": 0}
+                if mode == "brainslug" else
+                {"fused_ce": 0, "rmsnorm": 0, "swiglu": 0,
+                 "flash_attention": 0, "plain": 0})
+        for i, got in enumerate(per_step):
+            if got != want:
+                raise PhaseError(f"{what} step {i + 1}: counters {got}, "
+                                 f"expected {want}")
+
+    def lm_step1_grads(self, mode, layers, dtype):
+        """Step-1 gradients of the trainer's loss: ``lm.loss_fn`` on the
+        seed-0 weights and the first batch, ``torch.autograd.grad`` over
+        every leaf (what ``make_train_step`` hands AdamW)."""
+        torch = self.torch
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.data import pipeline
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        trainer = self.lm_trainer(mode, layers, dtype)
+        params, cfg = trainer.params, trainer.cfg
+        batch = {k: torch.from_numpy(x).to(self.dev) for k, x in
+                 pipeline.synth_batch(cfg, trainer.shape, 0, 0).items()}
+        del trainer
+        with torch.enable_grad():
+            live = base.tree_map(lambda p: p.detach().requires_grad_(),
+                                 params)
+            loss, _ = lm.loss_fn(live, batch, cfg, RuntimeConfig(mode=mode))
+            grads = torch.autograd.grad(loss, base.tree_leaves(live))
+        return grads
+
+    def train_controls(self, layers, losses, gnorms):
+        """Two defective ``barrier`` runs against the sound one, held to
+        phase 18a's limits, which must flag each of them: attention scores
+        and softmax in bf16 (a lower-precision control), and one layer's
+        attention output dropped (a wrong forward)."""
+        torch = self.torch
+        from repro_torch.layers import attention
+        full, apply = attention._full_attention, attention.apply
+
+        def bf16_scores(q, k, v, causal):
+            b, h, sq, hd = q.shape
+            g, sk = k.shape[1], k.shape[2]
+            s = torch.einsum("bgrqd,bgkd->bgrqk",
+                             q.reshape(b, g, h // g, sq, hd), k) * (
+                                 1.0 / hd ** 0.5)
+            if causal:
+                keep = torch.ones((sq, sk), dtype=torch.bool,
+                                  device=q.device).tril(diagonal=sk - sq)
+                s = s.masked_fill(~keep, -1e30)
+            o = torch.einsum("bgrqk,bgkd->bgrqd", torch.softmax(s, -1), v)
+            return o.reshape(b, h, sq, hd)
+
+        calls = [0]
+
+        def drop_one(params, x, cfg, rt, **kw):
+            calls[0] += 1
+            out = apply(params, x, cfg, rt, **kw)
+            return out * 0.0 if calls[0] % cfg.n_layers == 4 else out
+
+        lines = []
+        for name, fa, ap in (("bf16 attention scores", bf16_scores, apply),
+                             ("layer 4's attention dropped", full, drop_one)):
+            attention._full_attention, attention.apply = fa, ap
+            try:
+                hist = self.train_lm("barrier", layers, "bfloat16")[0]
+            finally:
+                attention._full_attention, attention.apply = full, apply
+            gl = [abs(h["loss"] - b) / abs(b) for h, b in zip(hist, losses)]
+            gg = [abs(h["grad_norm"] - b) / abs(b)
+                  for h, b in zip(hist, gnorms)]
+            flagged = [f"step-{i + 1} loss" for i, (g, lim) in enumerate(
+                zip(gl, TRAIN_BF16_LOSS_REL)) if g > lim] + [
+                f"step-{i + 1} grad_norm" for i, g in enumerate(gg)
+                if g > TRAIN_BF16_GNORM_REL]
+            if not flagged:
+                raise PhaseError(f"train bf16 control ({name}): within every "
+                                 f"limit of 18a (loss gaps {gl}, grad_norm "
+                                 f"gaps {gg})")
+            lines.append(f"{name}: loss gaps "
+                         f"{[f'{g:.3e}' for g in gl]}, grad_norm gaps "
+                         f"{[f'{g:.3e}' for g in gg]}, flagged by "
+                         f"{', '.join(flagged)}")
+        print("[18a controls] barrier bf16 against the sound barrier run, "
+              "relative: " + "; ".join(lines))
+
+    def phase18_train(self):
+        torch = self.torch
+        import shutil
+        import tempfile
+        from repro_torch.distributed import fault_tolerance as ft
+        t = time.perf_counter()
+        L, L32 = TRAIN_LM["layers"], TRAIN_LM["layers_f32"]
+        runs = {}
+        for mode in ("brainslug", "barrier"):
+            hist, per_step, peak, wall = self.train_lm(mode, L, "bfloat16")
+            self.expect_train_counts(f"train bf16 {mode}", per_step, mode, L)
+            runs[mode] = (hist, per_step, peak, wall)
+        self.ce_launches = sum(s["fused_ce"] for s in runs["brainslug"][1])
+        sb = runs["brainslug"][1]
+        losses = {m: [h["loss"] for h in r[0]] for m, r in runs.items()}
+        gnorms = {m: [h["grad_norm"] for h in r[0]] for m, r in runs.items()}
+        if not all(math.isfinite(x) for t in (losses, gnorms)
+                   for v in t.values() for x in v):
+            raise PhaseError(f"train bf16: losses {losses}, grad norms "
+                             f"{gnorms}")
+        gaps = {}
+        for what, vals, limits in (
+                ("loss", losses, TRAIN_BF16_LOSS_REL),
+                ("grad_norm", gnorms,
+                 (TRAIN_BF16_GNORM_REL,) * TRAIN_LM["steps"])):
+            gaps[what] = [abs(a - b) / abs(b) for a, b in
+                          zip(vals["brainslug"], vals["barrier"])]
+            for i, (gap, lim) in enumerate(zip(gaps[what], limits)):
+                if not gap <= lim:
+                    raise PhaseError(
+                        f"train bf16: step-{i + 1} {what} brainslug "
+                        f"{vals['brainslug'][i]} vs barrier "
+                        f"{vals['barrier'][i]} ({gap:.3e} > {lim})")
+        print(f"[18a train bf16] deepseek-7b, d_model 4096, 32 heads, d_ff "
+              f"11008, vocab 102400, {L} of 30 layers, bf16, 1 x "
+              f"{TRAIN_LM['seq']} tokens, {TRAIN_LM['steps']} AdamW steps lr "
+              f"{TRAIN_LM['lr']} through build_trainer / Trainer.run: "
+              + "; ".join(
+                  f"{m} losses {losses[m]} grad_norm {gnorms[m]} peak "
+                  f"{runs[m][2]:.2f} GiB wall {runs[m][3]:.1f} s"
+                  for m in runs)
+              + f"; relative gaps per step: loss "
+              f"{[f'{g:.3e}' for g in gaps['loss']]} (tol "
+              f"{TRAIN_BF16_LOSS_REL}), grad_norm "
+              f"{[f'{g:.3e}' for g in gaps['grad_norm']]} (tol "
+              f"{TRAIN_BF16_GNORM_REL}); brainslug counters per step "
+              f"{sb[0]}")
+        self.train_controls(L, losses["barrier"], gnorms["barrier"])
+
+        # float32 at 2 layers: losses and step-1 gradients
+        runs32 = {}
+        for mode in ("brainslug", "barrier"):
+            hist, per_step, peak, wall = self.train_lm(mode, L32, "float32")
+            self.expect_train_counts(f"train f32 {mode}", per_step, mode, L32)
+            runs32[mode] = (hist, peak, wall)
+        l32 = {m: [h["loss"] for h in r[0]] for m, r in runs32.items()}
+        for a, b in zip(l32["brainslug"], l32["barrier"]):
+            if not math.isfinite(a) or abs(a - b) > TRAIN_RTOL * abs(b):
+                raise PhaseError(f"train f32: losses {l32}")
+        g_r = self.lm_step1_grads("barrier", L32, "float32")
+        g_b = self.lm_step1_grads("brainslug", L32, "float32")
+        worst = 0.0
+        for i, (gb, gr) in enumerate(zip(g_b, g_r)):
+            d = (gb - gr).abs()
+            scale = float(gr.abs().max())
+            worst = max(worst, float(d.max()) / max(scale, 1e-30))
+            if not bool(torch.isfinite(gb).all()) or not bool(
+                    (d <= TRAIN_RTOL * (gr.abs() + scale)).all()):
+                raise PhaseError(f"train f32: step-1 gradient of leaf {i} "
+                                 f"max|d| {float(d.max()):.3e} (max|g| "
+                                 f"{scale:.3e})")
+        del g_b, g_r
+        torch.cuda.empty_cache()
+        print(f"[18b train f32] the same widths at {L32} layers, float32: "
+              f"losses brainslug {l32['brainslug']} barrier {l32['barrier']}"
+              f" (tol {TRAIN_RTOL} relative); step-1 gradients max|d|/max|g| "
+              f"{worst:.2e} (tol rtol {TRAIN_RTOL}, atol {TRAIN_RTOL} x "
+              f"max|g|); peak {runs32['brainslug'][1]:.2f} / "
+              f"{runs32['barrier'][1]:.2f} GiB")
+
+        # kill at step 2, resume from the step-1 checkpoint
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            free = shutil.disk_usage(d).free / 2 ** 30
+            try:
+                self.train_lm("brainslug", L32, "float32",
+                              failure=ft.failure_injector({2}), ckpt_dir=d,
+                              ckpt_every=1)
+            except ft.SimulatedFailure:
+                pass
+            else:
+                raise PhaseError("kill/resume: the injected failure at step 2 "
+                                 "did not happen")
+            resumed, _, _, wall = self.train_lm("brainslug", L32, "float32",
+                                                ckpt_dir=d, ckpt_every=1)
+        full = runs32["brainslug"][0]
+        if [h["step"] for h in resumed] != [2] or \
+                resumed[-1]["loss"] != full[-1]["loss"]:
+            raise PhaseError(f"kill/resume: resumed {resumed}, uninterrupted "
+                             f"step 3 loss {full[-1]['loss']}")
+        print(f"[18c kill/resume] f32 {L32} layers brainslug: killed at step "
+              f"2, resumed from the step-1 checkpoint ({free:.0f} GiB free in "
+              f"the temp dir): step-3 loss {resumed[-1]['loss']} equals the "
+              f"uninterrupted run's bit for bit; resume run {wall:.1f} s; "
+              f"phase {time.perf_counter() - t:.1f} s")
+
+    def train_group(self, low):
+        for frag, group in (("ce_split_kernel", "fused_ce"),
+                            ("ce_merge_kernel", "fused_ce"),
+                            ("flash_fwd_kernel", "flash_attention"),
+                            ("rmsnorm_kernel", "rmsnorm"),
+                            ("swiglu_kernel", "swiglu")):
+            if frag in low:
+                return group
+        return None
+
+    def train_trace(self, fn):
+        """One call of ``fn`` under the profiler: device time by group and
+        the idle share of the traced window.  Kernels of the port's named
+        ranges (``TRAIN_RANGES``: the CE chunked backward, the attention
+        backward's recompute, AdamW) are found through the chrome trace's
+        ``External id`` (kernel -> launching op) and the op's thread and
+        time inside the range; the port's kernels by name; the rest are
+        matmuls or other."""
+        torch = self.torch
+        import os
+        import tempfile
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPIN_KERNELS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        finally:
+            os.unlink(path)
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "spin_kernel" not in e.get("name", "")]
+        if not kernels:
+            return "not measured (the profiler recorded no device events)"
+        ops = {}
+        for e in events:
+            ext = (e.get("args") or {}).get("External id")
+            if e.get("cat") == "cpu_op" and ext is not None:
+                ops[ext] = e
+        ranges = [e for e in events if e.get("cat") == "user_annotation"
+                  and e.get("name") in TRAIN_RANGES]
+
+        def in_range(k):
+            op = ops.get((k.get("args") or {}).get("External id"))
+            if op is None:
+                return None
+            for r in ranges:
+                if (r.get("tid") == op.get("tid") and r["ts"] <= op["ts"]
+                        <= r["ts"] + r.get("dur", 0)):
+                    return TRAIN_RANGES[r["name"]]
+            return None
+
+        groups: dict[str, float] = {}
+        attributed = 0
+        for k in kernels:
+            low = k["name"].lower()
+            g = self.train_group(low)
+            if g is None:
+                g = in_range(k)
+                attributed += g is not None
+            if g is None:
+                g = ("matmul" if any(x in low for x in (
+                    "gemm", "gemv", "nvjet", "xmma", "cutlass")) else "other")
+            groups[g] = groups.get(g, 0.0) + k.get("dur", 0.0) / 1e3
+        spans = sorted((k["ts"], k["ts"] + k.get("dur", 0.0)) for k in kernels)
+        busy, end = 0.0, spans[0][0]
+        for t0, t1 in spans:
+            if t1 > end:
+                busy += t1 - max(t0, end)
+                end = t1
+        window = max(t1 for _, t1 in spans) - spans[0][0]
+        parts = "  ".join(f"{g}={v:.3f} ms" for g, v in sorted(
+            groups.items()))
+        note = ("" if ranges else "; the named ranges were not recorded, "
+                "their kernels count as matmul / other")
+        return (f"device {busy / 1e3:.3f} ms busy of a {window / 1e3:.3f} ms "
+                f"window (idle {100 * (1 - busy / window):.1f}%); by group: "
+                f"{parts}; {len(kernels)} kernels, {attributed} attributed to "
+                f"a named range{note}")
+
+    def phase19_train_timing(self):
+        torch = self.torch
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.core.resource import H100
+        from repro_torch.data import pipeline
+        from repro_torch.kernels.vocab_ce import ce, ref
+        from repro_torch.launch import steps as steps_mod
+        from repro_torch.optim import adamw
+        tt, d, v = CE_SHAPE
+        h, w, labels = self.ce_operands(tt, d, v, torch.bfloat16, 1900)
+        run = lambda: ce.fused_ce_fwd(h, w, labels)  # noqa: E731
+        safe = torch.clamp_min(labels, 0).long()[:, None]
+
+        def two_calls():
+            logits = h.float() @ w.float()
+            return torch.logsumexp(logits, -1), logits.gather(-1, safe)
+
+        # the profiler may drop some of these long kernels' events: its
+        # time stands only when the trace holds every launch
+        spans = [sp for sp in self.device_spans(run, reps=5)
+                 if self.train_group(sp[0].lower()) == "fused_ce"]
+        k_call = self.cuda_ms(run, reps=2, groups=3, warmup=1)
+        if len(spans) == 2 * 5:                 # split + merge per call
+            k_ms, how = sum(t1 - t0 for _, t0, t1 in spans) / 5 / 1e3, \
+                "device, mean of 5"
+        else:
+            k_ms, how = k_call, (f"events; the trace held {len(spans)} of "
+                                 f"the 10 kernel launches")
+        p_ms = self.cuda_ms(lambda: ref.ce_ref(h, w, labels), reps=2,
+                            groups=3, warmup=1)
+        two_ms = self.cuda_ms(two_calls, reps=2, groups=3, warmup=1)
+        n_ops = 2 * tt * d * v
+        n_bytes = (h.numel() + w.numel()) * 2 + labels.numel() * 4 + 2 * tt * 4
+        t_ops, t_bytes = n_ops / PEAK_BF16 * 1e3, \
+            n_bytes / H100.hbm_bandwidth * 1e3
+        b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
+            t_bytes, "bytes")
+        shape = f"({tt}, {d}, {v}) bf16"
+        print(f"[19 fused_ce] {shape}: kernel {k_ms:.3f} ms (split + merge, "
+              f"{how}; {k_call:.3f} per call, events) = "
+              f"{n_ops / k_ms / 1e9:.1f} TFLOP/s; plain (ce_ref) {p_ms:.3f} "
+              f"ms; two calls (h.float() @ w.float(), then logsumexp and a "
+              f"gather; no single PyTorch call computes the function) "
+              f"{two_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}: {n_ops:.3e} "
+              f"operations at {PEAK_BF16 / 1e12:.0f} TFLOP/s; bytes alone "
+              f"{t_bytes:.3f} ms), kernel/bound {k_ms / b_ms:.1f}")
+        self.kernels["fused_ce"] = {
+            "name": "fused_ce", "route": "cuda",
+            "source": "src/repro_torch/kernels/vocab_ce/csrc/fused_ce.cu",
+            "replaces": "src/repro/kernels/vocab_ce/ce.py:78",
+            "launches": self.ce_launches, "max_abs_err": self.err["fused_ce"],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "two_call_ms": two_ms, "shape": shape}
+        del h, w, labels, safe
+        torch.cuda.empty_cache()
+
+        # the 8-layer bf16 step per mode, in turns, on one model and state
+        L = TRAIN_LM["layers"]
+        trainer = self.lm_trainer("brainslug", L, "bfloat16")
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_LM["lr"])
+        fns = {m: steps_mod.make_train_step(trainer.cfg,
+                                            RuntimeConfig(mode=m), opt_cfg)
+               for m in ("barrier", "brainslug")}
+        batch = {k: torch.from_numpy(x).to(self.dev) for k, x in
+                 pipeline.synth_batch(trainer.cfg, trainer.shape, 0,
+                                      0).items()}
+
+        def step(m):
+            trainer.params, trainer.opt_state, _ = fns[m](
+                trainer.params, trainer.opt_state, batch)
+
+        def timed(m):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(m)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            return statistics.median(times)
+
+        for m in fns:
+            step(m)                                     # warm-up
+        turns = [(m, timed(m)) for m in ("barrier", "brainslug", "brainslug",
+                                         "barrier")]
+        print(f"[19 train step] deepseek-7b {L} layers bf16, 1 x "
+              f"{TRAIN_LM['seq']} tokens, forward + backward + AdamW, median "
+              f"of 3 after a warm-up (host clock around synchronised steps), "
+              f"in turns: " + "  ".join(f"{m}={ms:.1f} ms" for m, ms in turns))
+        for m in ("barrier", "brainslug"):
+            print(f"[19 trace train step {m}] "
+                  + self.train_trace(lambda m=m: step(m)))
+        del trainer, fns, batch
+        torch.cuda.empty_cache()
+        print("[19 kernels] fused_ce max|d|="
+              f"{self.err['fused_ce']:.3e}  fused_rows_bwd bf16 max|d|="
+              f"{self.err['fused_rows_bwd_bf16']:.3e}")
 
 if __name__ == "__main__":
     sys.exit(main())

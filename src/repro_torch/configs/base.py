@@ -150,9 +150,10 @@ def applicable_shapes(cfg: ModelConfig) -> dict[str, ShapeConfig]:
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
     """Execution knobs threaded through model apply functions: the fields
-    of the JAX package's ``RuntimeConfig`` that the ported serving path
-    reads, with the same defaults."""
+    of the JAX package's ``RuntimeConfig`` that the ported serving and
+    training paths read, with the same defaults."""
     mode: str = "xla"                  # 'brainslug' | 'xla' | 'barrier'
+    remat: str = "none"                # 'none' | 'full' ('dots' comes later)
     # --- serving KV-cache layout ------------------------------------------
     # 'dense'  — every batch slot reserves max_len contiguous KV columns
     # 'paged'  — a fixed pool of kv_block_size-token blocks addressed
@@ -163,6 +164,7 @@ class RuntimeConfig:
     decode_block_k: int = 512
     attn_block_q: int = 128
     attn_block_k: int = 128
+    fused_loss_chunk: int = 0          # 0 = unchunked vocab loss
     attn_impl: str = "auto"            # 'auto' | 'skip_core' (cost probes:
                                        # bypass the quadratic core so the
                                        # attention share of a block's cost
@@ -172,6 +174,9 @@ class RuntimeConfig:
         if self.mode not in ("brainslug", "xla", "barrier"):
             raise ValueError(f"mode must be brainslug, xla or barrier, got "
                              f"{self.mode!r}")
+        if self.remat not in ("none", "dots", "full"):
+            raise ValueError(f"remat must be none, dots or full, got "
+                             f"{self.remat!r}")
         if self.kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {self.kv_layout!r}; "
                              f"allowed: 'dense' | 'paged'")

@@ -13,6 +13,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.layers import base
+
 
 def params_from_numpy(params: Mapping[str, np.ndarray],
                       device: torch.device | str,
@@ -40,16 +42,21 @@ def params_from_numpy(params: Mapping[str, np.ndarray],
 def grads_to_numpy(grads: Mapping[str, torch.Tensor],
                    *, like: Mapping[str, object] | None = None
                    ) -> dict[str, np.ndarray]:
-    """The port's gradients (a dict of tensors, keyed by parameter name) as
-    float32 numpy arrays under the same names, the JAX package's, so two
-    gradient dicts compare name by name.  With ``like`` (for example the
-    JAX parameters), the key sets and shapes must match."""
+    """The port's gradients (a dict of tensors keyed by parameter name, or
+    the LM's nested tree) as float32 numpy arrays under the same names, the
+    JAX package's, so two gradient trees compare name by name.  With
+    ``like`` (for example the JAX parameters), the key sets and shapes must
+    match at every level."""
     if like is not None and set(grads) != set(like):
         raise ValueError(f"gradient names differ: only in grads "
                          f"{sorted(set(grads) - set(like))}, only in like "
                          f"{sorted(set(like) - set(grads))}")
-    out: dict[str, np.ndarray] = {}
+    out: dict = {}
     for name, g in grads.items():
+        if isinstance(g, Mapping):           # a nested (LM) tree
+            out[name] = grads_to_numpy(
+                g, like=None if like is None else like[name])
+            continue
         arr = g.detach().to("cpu", torch.float32).numpy()
         if like is not None and tuple(arr.shape) != tuple(np.shape(like[name])):
             raise ValueError(f"{name!r}: shape {tuple(arr.shape)} != "
@@ -76,4 +83,21 @@ def lm_params_from_numpy(tree: Mapping[str, object],
                 device=device, dtype=torch.bfloat16)
         else:
             out[name] = torch.tensor(arr, device=device)     # a copy
+    return out
+
+
+def opt_state_from_numpy(state: Mapping[str, object],
+                         device: torch.device | str) -> dict:
+    """AdamW state of numpy arrays (the JAX package's ``adamw.init`` /
+    ``update`` output, or a checkpoint it wrote: ``{"mu": tree, "nu": tree,
+    "count": scalar}``) as the port's: float32 moment trees and an int32
+    scalar ``count`` on ``device``."""
+    out = {k: lm_params_from_numpy(state[k], device) for k in ("mu", "nu")}
+    for k in ("mu", "nu"):
+        for leaf in base.tree_leaves(out[k]):
+            if leaf.dtype != torch.float32:
+                raise ValueError(f"AdamW moment {k} must be float32, got "
+                                 f"{leaf.dtype}")
+    out["count"] = torch.tensor(np.asarray(state["count"]), dtype=torch.int32,
+                                device=device)
     return out

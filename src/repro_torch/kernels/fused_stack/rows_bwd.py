@@ -36,12 +36,22 @@ stored once after them, and a width-1 input's cotangent is added into
 ``din`` chunk by chunk by the program that owns the rows (a barrier orders
 each chunk's adds after the last one's stores).
 
+Dtypes.  Inputs and parameters may be float32 or bfloat16, as the Pallas
+backward takes the primals' dtypes; each cotangent has its value's dtype.
+The recompute rounds where the forward kernel does; the reverse sweep
+rounds where ``autodiff.program_vjp`` on bf16 tensors rounds (each PyTorch
+op of a rule whose operands are all bf16, the cast of each contribution to
+its value's dtype, the sum of two contributions; an activation's derivative
+is ``autodiff``'s rule itself, traced op by op), on the bits
+(``rows.round_bf16``), so no FMA contraction crosses a rounding point; the
+arithmetic between is float32.  Parameter partials stay float32, and the
+fixed-order second pass's sum is cast to the parameter's dtype once.
+
 Bound: device-memory bytes (inputs and output cotangents read once, input
 cotangents written once); the recompute and the VJP run in registers.
 """
 from __future__ import annotations
 
-import math
 from collections import OrderedDict
 from typing import Mapping
 
@@ -57,50 +67,24 @@ SUB_ELEMS = 4096
 #: Programs per SM of the persistent launch.
 PROGRAMS_PER_SM = 4
 
-_SQRT_2_OVER_PI = math.sqrt(2.0 / math.pi)
-_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
-_K = repr(_SQRT_2_OVER_PI)
-_K3 = repr(3.0 * 0.044715)
-
-
-def _d_gelu(x: str) -> str:
-    t = f"libdevice.tanh({_K} * ({x} + 0.044715 * {x} * {x} * {x}))"
-    return (f"0.5 * (1.0 + {t}) + 0.5 * {x} * (1.0 - {t} * {t}) * "
-            f"({_K} * (1.0 + {_K3} * {x} * {x}))")
-
-
-#: d f / d x of each unary fn as an expression of ``x`` and ``y = f(x)``
-#: (``autodiff._UNARY_DERIVS``).
-_DERIV = {
-    "relu": lambda x, y: f"tl.where({x} > 0, 1.0, 0.0)",
-    "relu6": lambda x, y: f"tl.where(({x} > 0) & ({x} < 6), 1.0, 0.0)",
-    "squared_relu": lambda x, y: (f"2.0 * tl.maximum({x}, 0.0, propagate_nan"
-                                  f"=tl.PropagateNan.ALL)"),
-    "gelu": lambda x, y: _d_gelu(x),
-    "gelu_exact": lambda x, y: (
-        f"0.5 * (1.0 + libdevice.erf({x} / 1.4142135623730951)) + {x} * "
-        f"(tl.exp(-0.5 * {x} * {x}) * {_INV_SQRT_2PI!r})"),
-    "silu": lambda x, y: (f"tl.sigmoid({x}) * (1.0 + {x} * (1.0 - "
-                          f"tl.sigmoid({x})))"),
-    "sigmoid": lambda x, y: f"{y} * (1.0 - {y})",
-    "tanh": lambda x, y: f"1.0 - {y} * {y}",
-    "exp": lambda x, y: y,
-    "abs": lambda x, y: f"tl.where({x} > 0, 1.0, tl.where({x} < 0, -1.0, "
-                        f"{x} * 0.0))",
-    "square": lambda x, y: f"2.0 * {x}",
-    "identity": lambda x, y: f"tl.where({x} == {x}, 1.0, 1.0)",
-    "neg": lambda x, y: f"tl.where({x} == {x}, -1.0, -1.0)",
-    "softplus": lambda x, y: f"tl.sigmoid({x})",
-}
-
-
 def emit_bwd_source(program: ir.StackProgram, in_widths: Mapping[str, int],
                     param_widths: Mapping[str, int], features: int,
-                    f_block: int) -> str:
+                    f_block: int,
+                    dtypes: Mapping[str, torch.dtype] | None = None,
+                    steps: Mapping[str, tuple[torch.dtype, ...]] | None = None
+                    ) -> str:
     """The Triton source of ``program``'s backward kernel and of the
     partial-sum reduction; ``f_block`` features of a row at a time
-    (:func:`repro_torch.core.resource.feature_block`)."""
+    (:func:`repro_torch.core.resource.feature_block`).  ``dtypes`` gives
+    each input's and parameter's dtype and ``steps`` each op's rounding
+    steps (:func:`repro_torch.kernels.fused_stack.rows.value_dtypes`);
+    without them everything is float32."""
     widths = rows.value_widths(program, in_widths, param_widths)
+    dtypes = dict(dtypes or {})
+    steps = dict(steps or {})
+    vdt = {v: dtypes.get(v, torch.float32) for v in program.inputs}
+    vdt.update({v: st[-1] for v, st in steps.items()})
+    pdt = {p: dtypes.get(p, torch.float32) for p in program.param_names}
     chunked = f_block < features
     scalar = [p for p in program.param_names if param_widths[p] == 1]
     var = {v: f"v{i}" for i, v in enumerate(
@@ -118,6 +102,10 @@ def emit_bwd_source(program: ir.StackProgram, in_widths: Mapping[str, int],
         "from triton.language.extra import libdevice",
         "",
         "",
+    ]
+    if any(dt != torch.float32 for dt in [*vdt.values(), *pdt.values()]):
+        lines += [rows.ROUND_BF16, ""]
+    lines += [
         f"# generated from stack {program.name!r}",
         "@triton.jit",
         f"def fused_rows_bwd_kernel({', '.join(args)}, n_rows, n_tiles,",
@@ -135,7 +123,7 @@ def emit_bwd_source(program: ir.StackProgram, in_widths: Mapping[str, int],
         "        cmask = cols < F",
     ]
     chunk = ["    " + ln for ln in rows.param_lines(program, pvar,
-                                                    param_widths)]
+                                                    param_widths, dtypes)]
     chunk += [f"    {acc[p]} = tl.zeros([BLOCK_F], tl.float32)"
               for p in program.param_names if p not in scalar]
     chunk += [
@@ -147,11 +135,11 @@ def emit_bwd_source(program: ir.StackProgram, in_widths: Mapping[str, int],
         "            rmask = rows < row_end",
         "            r64 = rows.to(tl.int64)",
     ]
-    body = [f"{var[v]} = {rows.load(f'in{i}', widths[v])}"
+    body = [f"{var[v]} = {rows.load(f'in{i}', widths[v], vdt[v])}"
             for i, v in enumerate(program.inputs)]
-    body += rows.op_lines(program, var, pvar, widths)
+    body += rows.op_lines(program, var, pvar, widths, steps)
     body += _vjp_lines(program, var, pvar, acc, widths, param_widths,
-                       chunked)
+                       chunked, vdt, pdt)
     chunk += ["            " + b for b in body]
     off, after = 0, []
     for p in program.param_names:
@@ -180,27 +168,169 @@ def emit_bwd_source(program: ir.StackProgram, in_widths: Mapping[str, int],
     return "\n".join(lines) + "\n"
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _both(*dts: torch.dtype) -> torch.dtype:
+    """The dtype PyTorch gives an operation on values of ``dts``: bfloat16
+    only when every operand is (a float32 operand promotes)."""
+    return BF16 if all(d == BF16 for d in dts) else F32
+
+
+class _Emit:
+    """Statements of the reverse sweep.  :meth:`value` gives an expression
+    the dtype the interpreter's value has there: in bfloat16 it is named
+    and rounded (``round_bf16``, which no FMA contraction crosses); in
+    float32 it stays inline."""
+
+    def __init__(self, body: list[str]) -> None:
+        self.body = body
+        self.n = 0
+
+    def value(self, expr: str, dt: torch.dtype) -> str:
+        if dt == F32:
+            return f"({expr})"
+        name = f"r{self.n}"
+        self.n += 1
+        self.body.append(f"{name} = {expr}")
+        self.body += rows.rounded(name, dt)
+        return name
+
+
+class _Traced:
+    """A value of a derivative rule of ``autodiff._UNARY_DERIVS``, traced:
+    the rule runs on these stand-ins, so each PyTorch op it applies becomes
+    one Triton expression, in its order, of the dtype PyTorch gives it
+    (:meth:`_Emit.value`: a bfloat16 op is named and rounded, as the bf16
+    tensor op rounds its result; a float32 one stays inline).  The kernel's
+    derivative and its rounding steps are the interpreter's own."""
+
+    _FNS = {
+        torch.sigmoid: "tl.sigmoid({0})",
+        torch.tanh: "libdevice.tanh({0})",
+        torch.exp: "tl.exp({0})",
+        torch.erf: "libdevice.erf({0})",
+        torch.sign: "tl.where({0} > 0, 1.0, tl.where({0} < 0, -1.0, "
+                    "{0} * 0.0))",
+        torch.ones_like: "tl.where({0} == {0}, 1.0, 1.0)",
+        torch.clamp_min: "tl.maximum({0}, {1}, "
+                         "propagate_nan=tl.PropagateNan.ALL)",
+    }
+
+    def __init__(self, expr: str, dtype: torch.dtype, e: "_Emit") -> None:
+        self.expr, self.dtype, self.e = expr, dtype, e
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func not in cls._FNS or kwargs:
+            raise NotImplementedError(f"rows_bwd: no Triton expression for "
+                                      f"{func}")
+        return args[0]._new(cls._FNS[func].format(*map(_operand, args)))
+
+    def _new(self, expr: str, dtype: torch.dtype | None = None) -> "_Traced":
+        dtype = dtype or self.dtype
+        if dtype == torch.bool:
+            return _Traced(f"({expr})", dtype, self.e)
+        return _Traced(self.e.value(expr, dtype), dtype, self.e)
+
+    def _bin(self, fmt: str, o, dtype: torch.dtype | None = None
+             ) -> "_Traced":
+        if dtype is None and isinstance(o, _Traced):
+            dtype = _both(self.dtype, o.dtype)
+        return self._new(fmt.format(self.expr, _operand(o)), dtype)
+
+    def __add__(self, o):
+        return self._bin("{0} + {1}", o)
+
+    def __radd__(self, o):
+        return self._bin("{1} + {0}", o)
+
+    def __sub__(self, o):
+        return self._bin("{0} - {1}", o)
+
+    def __rsub__(self, o):
+        return self._bin("{1} - {0}", o)
+
+    def __mul__(self, o):
+        return self._bin("{0} * {1}", o)
+
+    def __rmul__(self, o):
+        return self._bin("{1} * {0}", o)
+
+    def __truediv__(self, o):
+        return self._bin("{0} / {1}", o)
+
+    def __neg__(self):
+        return self._new(f"-{self.expr}")
+
+    def __gt__(self, o):
+        return self._bin("{0} > {1}", o, torch.bool)
+
+    def __lt__(self, o):
+        return self._bin("{0} < {1}", o, torch.bool)
+
+    def __and__(self, o):
+        return self._bin("{0} & {1}", o, torch.bool)
+
+    def to(self, dtype: torch.dtype) -> "_Traced":
+        if self.dtype != torch.bool:
+            raise NotImplementedError("rows_bwd: only a mask is cast")
+        return self._new(f"tl.where({self.expr}, 1.0, 0.0)", dtype)
+
+
+def _operand(o) -> str:
+    return o.expr if isinstance(o, _Traced) else repr(float(o))
+
+
+def _deriv(fn: str, x: str, y: str, dt: torch.dtype, e: _Emit) -> str:
+    """d f / d x at ``x`` (``y = f(x)``), both of dtype ``dt``:
+    ``autodiff._UNARY_DERIVS[fn]`` traced (:class:`_Traced`)."""
+    return autodiff._UNARY_DERIVS[fn](_Traced(x, dt, e),
+                                      _Traced(y, dt, e)).expr
+
+
 def _vjp_lines(program: ir.StackProgram, var: Mapping[str, str],
                pvar: Mapping[str, str], acc: Mapping[str, str],
                widths: Mapping[str, int],
-               param_widths: Mapping[str, int], chunked: bool) -> list[str]:
+               param_widths: Mapping[str, int], chunked: bool,
+               vdt: Mapping[str, torch.dtype] | None = None,
+               pdt: Mapping[str, torch.dtype] | None = None) -> list[str]:
     """The reverse sweep (``autodiff.program_vjp``) as statements: output
     cotangent loads, one group per op in reverse, input cotangent stores
-    (a width-1 input's added to the earlier chunks' when ``chunked``)."""
+    (a width-1 input's added to the earlier chunks' when ``chunked``).
+
+    ``vdt``/``pdt`` give each value's and parameter's dtype (default
+    float32).  A value's cotangent has the value's dtype; where the
+    interpreter's rule runs on bfloat16 tensors the statements round where
+    it does (each product or sum of bf16 operands, the cast of each
+    contribution, the sum of contributions); everything between is float32.
+    Parameter partials stay float32 (the wrapper casts the reduced
+    gradient to the parameter's dtype once)."""
+    vdt, pdt = dict(vdt or {}), dict(pdt or {})
     body: list[str] = []
+    e = _Emit(body)
     cot: dict[str, str] = {}
+
+    def dv(v: str) -> torch.dtype:
+        return vdt.get(v, F32)
+
     for i, v in enumerate(program.outputs):
-        g = rows.load(f"g{i}", widths[v])
+        g = rows.load(f"g{i}", widths[v], dv(v))
         if widths[v] == 1 and chunked:            # seed the first chunk only
             g = g.replace("mask=rmask", "mask=rmask & (f0 == 0)")
         body.append(f"c{var[v]} = {g}")
         cot[v] = f"c{var[v]}"
 
-    def add_cot(v: str, expr: str, w: int) -> None:
+    def add_cot(v: str, expr: str, w: int, dt: torch.dtype = F32) -> None:
+        """Add ``expr``, a contribution of dtype ``dt``, to v's cotangent."""
         if widths[v] == 1 and w != 1:             # undo the broadcast
             expr = f"tl.sum({rows.zeroed(f'({expr})', w)}, axis=1)[:, None]"
+            dt = F32
+        if dt != dv(v):                           # the cast to v's dtype
+            expr = e.value(expr, dv(v))
         if v in cot:
-            body.append(f"{cot[v]} = {cot[v]} + ({expr})")
+            body.append(f"{cot[v]} = {cot[v]} + {expr}")
+            body.extend(rows.rounded(cot[v], dv(v)))
         else:
             cot[v] = f"c{var[v]}"
             body.append(f"{cot[v]} = {expr}")
@@ -219,48 +349,65 @@ def _vjp_lines(program: ir.StackProgram, var: Mapping[str, str],
         if op.output not in cot:                  # never used downstream
             continue
         g = cot.pop(op.output)
+        dg = dv(op.output)
         wo = widths[op.output]
         x = var[op.inputs[0]]
+        dx = dv(op.inputs[0])
         body.append(f"# d {op.name}: {op.kind.value} {op.fn or ''}".rstrip())
         if op.kind == ir.OpKind.EW_UNARY:
-            d = _DERIV[op.fn](x, var[op.output])
-            add_cot(op.inputs[0], f"{g} * ({d})", wo)
+            d = _deriv(op.fn, x, var[op.output], dx, e)
+            dt = _both(dg, dx)
+            add_cot(op.inputs[0], e.value(f"{g} * {d}", dt), wo, dt)
         elif op.kind == ir.OpKind.EW_BINARY:
-            b = pvar[op.params[0]] if op.params else var[op.inputs[1]]
-            da, db = _binary_vjp(op.fn, x, b, g, f"m{k}", body)
             if op.params:
-                add_cot(op.inputs[0], da, wo)
+                b, db_t = pvar[op.params[0]], pdt.get(op.params[0], F32)
+            else:
+                b, db_t = var[op.inputs[1]], dv(op.inputs[1])
+            (da, da_t), (db, dbo_t) = _binary_vjp(
+                op.fn, x, b, g, f"m{k}", body, e, (dg, dx, db_t))
+            if op.params:
+                add_cot(op.inputs[0], da, wo, da_t)
                 add_param(op.params[0], db, wo)
             elif op.inputs[1] == op.inputs[0]:     # x op x
-                add_cot(op.inputs[0], f"({da}) + ({db})", wo)
+                da = da if da_t == dx else e.value(da, dx)
+                db = db if dbo_t == dx else e.value(db, dx)
+                add_cot(op.inputs[0], e.value(f"{da} + {db}", dx), wo, dx)
             else:
-                add_cot(op.inputs[0], da, wo)
-                add_cot(op.inputs[1], db, wo)
+                add_cot(op.inputs[0], da, wo, da_t)
+                add_cot(op.inputs[1], db, wo, dbo_t)
         elif op.kind == ir.OpKind.AFFINE:
-            s, _ = (pvar[p] for p in op.params)
-            add_cot(op.inputs[0], f"{g} * {s}", wo)
-            add_param(op.params[0], f"{g} * {x}", wo)
+            s = pvar[op.params[0]]
+            ds = pdt.get(op.params[0], F32)
+            dt = _both(dg, ds)
+            add_cot(op.inputs[0], e.value(f"{g} * {s}", dt), wo, dt)
+            add_param(op.params[0], e.value(f"{g} * {x}", _both(dg, dx)), wo)
             add_param(op.params[1], g, wo)
         elif op.kind == ir.OpKind.ROW_NORM:
-            _norm_vjp(op, k, x, var[op.output], g, wo, pvar, body, add_param)
+            _norm_vjp(op, k, x, var[op.output], g, wo, pvar, body, add_param,
+                      e, (dg, dx, pdt.get(op.params[0], F32)
+                          if op.params else F32))
             add_cot(op.inputs[0], f"n{k}_dx", wo)
         elif op.kind == ir.OpKind.ROW_SOFTMAX:
             y = var[op.output]
-            body.append(f"s{k}_dot = tl.sum({rows.zeroed(f'{g} * {y}', wo)}, "
+            gy = e.value(f"{g} * {y}", dg)
+            body.append(f"s{k}_dot = tl.sum({rows.zeroed(gy, wo)}, "
                         f"axis=1)[:, None]")
-            add_cot(op.inputs[0], f"{y} * ({g} - s{k}_dot)", wo)
+            diff = e.value(f"{g} - {e.value(f's{k}_dot', dg)}", dg)
+            add_cot(op.inputs[0], e.value(f"{y} * {diff}", dg), wo, dg)
         else:
             raise ValueError(f"{program.name}: no VJP rule for {op.kind}")
 
     for i, v in enumerate(program.inputs):
-        w = widths[v]
+        w, dt = widths[v], dv(v)
         val = cot.get(v, f"tl.zeros([R_SUB, {'1' if w == 1 else 'BLOCK_F'}],"
                          f" tl.float32)")
         if w == 1 and chunked:
-            body.append(f"tl.store(din{i} + r64, tl.load(din{i} + r64, "
-                        f"mask=rmask & (f0 > 0), other=0.0) + {val}, "
-                        f"mask=rmask)")
-        elif w == 1:
+            prev = rows.widened(f"tl.load(din{i} + r64, mask=rmask & "
+                                f"(f0 > 0), other=0.0)", dt)
+            val = e.value(f"{prev} + {val}", dt)
+        if dt != F32:
+            val = f"tl.cast({val}, {rows.DTYPES[dt]})"
+        if w == 1:
             body.append(f"tl.store(din{i} + r64, {val}, mask=rmask)")
         else:
             body.append(f"tl.store(din{i} + r64 * F + cols, {val}, "
@@ -268,28 +415,44 @@ def _vjp_lines(program: ir.StackProgram, var: Mapping[str, str],
     return body
 
 
-def _binary_vjp(fn: str, a: str, b: str, g: str, m: str,
-                body: list[str]) -> tuple[str, str]:
+def _binary_vjp(fn: str, a: str, b: str, g: str, m: str, body: list[str],
+                e: _Emit, dts: tuple[torch.dtype, torch.dtype, torch.dtype]
+                ) -> tuple[tuple[str, torch.dtype], tuple[str, torch.dtype]]:
+    """``((da, its dtype), (db, its dtype))`` of ``a fn b`` under cotangent
+    ``g``; ``dts`` are the dtypes of ``g``, ``a`` and ``b``."""
+    dg, da, db = dts
     if fn == "add":
-        return g, g
+        return (g, dg), (g, dg)
     if fn == "sub":
-        return g, f"-{g}"
+        return (g, dg), (f"-{g}", dg)
     if fn == "mul":
-        return f"{g} * {b}", f"{g} * {a}"
+        ta, tb = _both(dg, db), _both(dg, da)
+        return ((e.value(f"{g} * {b}", ta), ta),
+                (e.value(f"{g} * {a}", tb), tb))
     if fn == "div":
-        return f"tl.div_rn({g}, {b})", f"tl.div_rn(-{g} * {a}, {b} * {b})"
+        ta, tb = _both(dg, db), _both(dg, da, db)
+        num = e.value(f"-{g} * {a}", _both(dg, da))
+        return ((e.value(f"tl.div_rn({g}, {b})", ta), ta),
+                (e.value(f"tl.div_rn({num}, {e.value(f'{b} * {b}', db)})",
+                         tb), tb))
     if fn in ("max", "min"):
+        # the split mask is a float32 tensor: the products promote
         win = ">" if fn == "max" else "<"
         body.append(f"{m} = tl.where({a} {win} {b}, 1.0, tl.where({a} == {b}, "
                     f"0.5, 0.0))")
-        return f"{g} * {m}", f"{g} * (1.0 - {m})"
+        return (f"{g} * {m}", F32), (f"{g} * (1.0 - {m})", F32)
     raise ValueError(f"no VJP rule for binary fn {fn!r}")
 
 
 def _norm_vjp(op: ir.OpNode, k: int, x: str, out: str, g: str, w: int,
-              pvar: Mapping[str, str], body: list[str], add_param) -> None:
+              pvar: Mapping[str, str], body: list[str], add_param, e: _Emit,
+              dts: tuple[torch.dtype, torch.dtype, torch.dtype]) -> None:
     """``autodiff._row_norm_vjp`` on the forward's own statistics
-    (``{out}_v``, and ``{out}_d = x - mean`` for layer norm)."""
+    (``{out}_v``, and ``{out}_d = x - mean`` for layer norm); ``dts`` are the
+    dtypes of ``g``, ``x`` and the scale.  The statistics and ``dx`` are
+    float32; ``xhat`` is rounded to x's dtype for the scale's gradient, and
+    ``g * scale`` to the product's dtype, as the rule casts them."""
+    dg, dx, ds = dts
     eps = float(op.attrs.get("eps", 1e-6))
     n = float(w)
     kind = op.attrs.get("norm", "rms")
@@ -297,15 +460,18 @@ def _norm_vjp(op: ir.OpNode, k: int, x: str, out: str, g: str, w: int,
     xh = f"{x} * n{k}_r" if kind == "rms" else f"{out}_d * n{k}_r"
     body.append(f"n{k}_xh = {xh}")
     if op.params:
-        add_param(op.params[0], f"{g} * n{k}_xh", w)
+        xh_cast = e.value(f"n{k}_xh", dx)
+        add_param(op.params[0], e.value(f"{g} * {xh_cast}", _both(dg, dx)),
+                  w)
         if len(op.params) > 1:
             add_param(op.params[1], g, w)
-        body.append(f"n{k}_gy = {g} * {pvar[op.params[0]]}")
+        gy = e.value(f"{g} * {pvar[op.params[0]]}", _both(dg, ds))
+        body.append(f"n{k}_gy = {gy}")
     else:
         body.append(f"n{k}_gy = {g}")
 
-    def mean(e: str) -> str:
-        return f"(tl.sum({rows.zeroed(e, w)}, axis=1) / {n!r})[:, None]"
+    def mean(expr: str) -> str:
+        return f"(tl.sum({rows.zeroed(expr, w)}, axis=1) / {n!r})[:, None]"
 
     if kind == "rms":
         body.append(f"n{k}_dx = n{k}_r * n{k}_gy - {x} * (n{k}_r * n{k}_r * "
@@ -339,13 +505,17 @@ _MODULE_LIMIT = 256
 
 
 def _module(program: ir.StackProgram, in_widths: dict[str, int],
-            param_widths: dict[str, int], features: int, f_block: int):
+            param_widths: dict[str, int], features: int, f_block: int,
+            dtypes: dict[str, torch.dtype],
+            steps: dict[str, tuple[torch.dtype, ...]]):
     key = (program.signature(), tuple(sorted(in_widths.items())),
-           tuple(sorted(param_widths.items())), features, f_block)
+           tuple(sorted(param_widths.items())), features, f_block,
+           tuple(sorted((k, str(v)) for k, v in dtypes.items())),
+           tuple(sorted((k, str(v)) for k, v in steps.items())))
     mod = _MODULES.get(key)
     if mod is None:
         src = emit_bwd_source(program, in_widths, param_widths, features,
-                              f_block)
+                              f_block, dtypes, steps)
         mod = _MODULES[key] = _build.import_generated("fused_rows_bwd", src)
     _MODULES.move_to_end(key)
     while len(_MODULES) > _MODULE_LIMIT:
@@ -375,8 +545,9 @@ def fused_rows_bwd(program: ir.StackProgram,
                    ) -> tuple[dict[str, torch.Tensor],
                               dict[str, torch.Tensor]]:
     """The backward of one rows sequence.  ``cotangents`` maps each program
-    output to its cotangent; returns ``(dinputs, dparams)`` shaped as the
-    primals.  ``f_chunk`` is the plan's device's (0: hold whole rows).  CPU
+    output to its cotangent (in the output's dtype); returns ``(dinputs,
+    dparams)`` shaped and typed as the primals.  Inputs and parameters are
+    float32 or bfloat16.  ``f_chunk`` is the plan's device's (0: hold whole rows).  CPU
     tensors run the plain version; CUDA tensors launch the kernel or
     raise."""
     device = inputs[program.inputs[0]].device
@@ -386,12 +557,22 @@ def fused_rows_bwd(program: ir.StackProgram,
         raise ValueError(f"fused_rows_bwd takes cpu or cuda tensors, got "
                          f"{device}")
     operands = [*((n, inputs[n]) for n in program.inputs),
-                *((p, params[p]) for p in program.param_names),
-                *((v, cotangents[v]) for v in program.outputs)]
+                *((p, params[p]) for p in program.param_names)]
     for name, t in operands:
-        if t.device != device or t.dtype != torch.float32:
-            raise TypeError(f"{program.name}: {name!r} must be float32 on "
-                            f"{device}, got {t.dtype} on {t.device}")
+        if t.device != device or t.dtype not in rows.DTYPES:
+            raise TypeError(f"{program.name}: {name!r} must be float32 or "
+                            f"bfloat16 on {device}, got {t.dtype} on "
+                            f"{t.device}")
+    dtypes = {name: t.dtype for name, t in operands}
+    steps = rows.value_dtypes(program, {n: inputs[n].dtype
+                                        for n in program.inputs}, params)
+    for v in program.outputs:
+        want = steps[v][-1] if v in steps else dtypes[v]
+        t = cotangents[v]
+        if t.device != device or t.dtype != want:
+            raise TypeError(f"{program.name}: the cotangent of {v!r} must be "
+                            f"{want} on {device} (the value's dtype), got "
+                            f"{t.dtype} on {t.device}")
     flat, lead, n_rows = rows.flatten_rows(program.name, list(program.inputs),
                                            inputs)
     gflat, glead, _ = rows.flatten_rows(program.name, list(program.outputs),
@@ -420,7 +601,8 @@ def fused_rows_bwd(program: ir.StackProgram,
     partial = torch.empty((n_prog, max(p_w, 1)), device=device,
                           dtype=torch.float32)
     f_block = resource.feature_block(program, features, f_chunk)
-    mod = _module(program, in_widths, param_widths, features, f_block)
+    mod = _module(program, in_widths, param_widths, features, f_block,
+                  dtypes, steps)
     block_f, r_sub, num_warps = launch_config(f_block, tile_rows)
     total = torch.empty((max(p_w, 1),), device=device, dtype=torch.float32)
     if n_rows:
@@ -439,7 +621,8 @@ def fused_rows_bwd(program: ir.StackProgram,
     off = 0
     for p in program.param_names:
         w = param_widths[p]
-        dparams[p] = total[off: off + w].reshape(params[p].shape)
+        dparams[p] = total[off: off + w].reshape(params[p].shape).to(
+            params[p].dtype)
         off += w
     return ({n: d.reshape(*lead, d.shape[-1])
              for n, d in zip(program.inputs, dins)}, dparams)

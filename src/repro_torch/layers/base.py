@@ -48,15 +48,19 @@ def normal(g: torch.Generator, shape: tuple[int, ...], *,
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree: Tree) -> Tree:
-    """``fn`` over every tensor leaf of a nested dict."""
+    """``fn`` over every tensor leaf of a nested dict, in sorted-key order
+    (``jax.tree_util``'s, as :func:`tree_leaves`)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
     return fn(tree)
 
 
 def tree_leaves(tree: Tree) -> list[torch.Tensor]:
+    """The tensor leaves of a nested dict in sorted-key order, so two trees
+    of one structure pair up leaf by leaf whatever order their dicts were
+    built in."""
     if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
     return [tree]
 
 

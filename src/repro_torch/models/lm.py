@@ -1,7 +1,7 @@
 """Language-model assembly, ported from ``repro/models/lm.py`` for the dense
 family (attention + MLP blocks): embedding, a stack of blocks over the
 layer-stacked parameters, fused BrainSlug norm and activation chains, the
-final norm and the vocab head; prefill and decode.
+final norm and the vocab head; prefill, decode and the training loss.
 
 * Parameters are the JAX package's nested tree, ``blocks/sub0/...`` leaves
   carrying a leading layer axis; ``jax.lax.scan`` over that axis becomes a
@@ -9,6 +9,9 @@ final norm and the vocab head; prefill and decode.
 * The residual stream uses a (resid, pending) carry so every residual add
   fuses with the next norm.
 * Decode caches are stacked along the same layer axis and updated in place.
+* The training loss (:func:`loss_fn`) runs the fused vocab cross-entropy
+  kernel in ``brainslug`` mode; ``remat="full"`` recomputes each block in
+  the backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
 
 MoE, Mamba (SSM, hybrid) and the audio / vision frontends raise and name
 the slice of the port that brings them.  Entry points run on ``cuda``
@@ -20,8 +23,10 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
+from repro_torch.kernels.vocab_ce import ops as ce_ops
 from repro_torch.layers import attention, base, dense, stacks
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -112,6 +117,17 @@ def _layer(tree: Any, i: int) -> Any:
     return base.tree_map(lambda a: a[i], tree)
 
 
+def _unstack(tree: Any, n: int) -> list:
+    """The ``n`` per-layer trees of a layer-stacked tree, each leaf taken
+    apart once (``torch.unbind``).  Under autograd the backward then stacks
+    each leaf's gradient once; indexing a layer (``a[i]``) would add a zero
+    tensor the size of the whole stacked leaf for every layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
@@ -126,6 +142,23 @@ def _apply_sub(p: dict, resid: torch.Tensor, pending: torch.Tensor,
     h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
                                 p["norm2"].get("bias"), **norm_kw)
     return resid, dense.apply(p["mlp"], h2, cfg, rt)
+
+
+def _remat(fn, rt: RuntimeConfig):
+    """``fn`` as the backward should see it: ``remat="full"`` recomputes
+    it from its inputs (``torch.utils.checkpoint``, non-reentrant) instead
+    of saving what it makes."""
+    if rt.remat == "full":
+        def recomputed(*args):
+            return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                     use_reentrant=False)
+        return recomputed
+    if rt.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (keep only the matmul outputs) has no PyTorch "
+            "counterpart yet; it comes with a later slice of the port "
+            "(ROADMAP.md, queue 1)")
+    return fn
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig
@@ -151,10 +184,13 @@ def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
     plan = _check_ported(cfg)
     x = embed_inputs(params, batch, cfg)
     resid, pending = x, torch.zeros_like(x)
-    blocks = params["blocks"]["sub0"]
-    for i in range(plan.n_super):
-        resid, pending = _apply_sub(_layer(blocks, i), resid, pending, cfg,
-                                    rt)
+
+    def block(p, resid, pending):
+        return _apply_sub(p, resid, pending, cfg, rt)
+
+    body = _remat(block, rt)
+    for p in _unstack(params["blocks"]["sub0"], plan.n_super):
+        resid, pending = body(p, resid, pending)
     h = _final_norm(params, resid + pending, cfg, rt)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return h, {"router_aux_loss": zero, "drop_fraction": zero}
@@ -180,6 +216,49 @@ def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig
     if cfg.tie_embeddings:
         return h @ params["embed"].T
     return h @ params["out_head"]
+
+
+def _nll_from_hidden(params: dict, h: torch.Tensor, labels: torch.Tensor,
+                     cfg: ModelConfig, chunk: int) -> torch.Tensor:
+    """Masked next-token NLL.  ``chunk > 0`` (dividing the sequence)
+    computes the vocab projection and log-sum-exp in sequence chunks, each
+    under ``torch.utils.checkpoint``, bounding the (B, S, V) float32 logits
+    working set."""
+    def chunk_nll(h_c, labels_c):
+        lf = _logits(params, h_c, cfg).float()
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, torch.clamp_min(labels_c, 0).long()
+                            [..., None])[..., 0]
+        mask = (labels_c >= 0).float()
+        return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+    s = h.shape[1]
+    if chunk <= 0 or s <= chunk or s % chunk:
+        total, count = chunk_nll(h, labels)
+        return total / torch.clamp_min(count, 1.0)
+    total = count = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, chunk):
+        t, c = torch.utils.checkpoint.checkpoint(
+            chunk_nll, h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+            use_reentrant=False)
+        total, count = total + t, count + c
+    return total / torch.clamp_min(count, 1.0)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy; labels < 0 are masked.  Returns ``(loss,
+    {"loss", "nll", "router_aux_loss", "drop_fraction"})``."""
+    h, aux = hidden(params, batch, cfg, rt)
+    labels = batch["labels"]
+    if rt.mode == "brainslug" and not cfg.tie_embeddings:
+        # the fused CE kernel: the (T, V) logits never reach device memory
+        nll = ce_ops.fused_nll(h.reshape(-1, h.shape[-1]), params["out_head"],
+                               labels.reshape(-1))
+    else:
+        nll = _nll_from_hidden(params, h, labels, cfg, rt.fused_loss_chunk)
+    loss = nll + cfg.router_aux_weight * aux["router_aux_loss"]
+    return loss, {"loss": loss, "nll": nll, **aux}
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,7 @@ every module of ``repro_torch`` loads no ``jax*`` module and nothing of the
 JAX package (``repro`` / ``repro.*``)."""
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -24,12 +25,17 @@ print(json.dumps({"modules": names, "bad": bad}))
 """
 
 
-def test_port_modules_import_neither_jax_nor_repro():
+@functools.lru_cache(maxsize=None)
+def _probe() -> dict:
     env = {**os.environ, "PYTHONPATH": str(SRC)}
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                           capture_output=True, text=True, timeout=300,
                           check=True)
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_port_modules_import_neither_jax_nor_repro():
+    result = _probe()
     assert "repro_torch.kernels.fused_stack.rows_bwd" in result["modules"]
     assert "repro_torch.kernels.fused_stack.nhwc_bwd" in result["modules"]
     assert "repro_torch.core.autodiff" in result["modules"]
@@ -40,5 +46,18 @@ def test_port_modules_import_neither_jax_nor_repro():
                  "layers.attention", "models.lm", "core.scheduler",
                  "launch.serve", "core.verify", "launch.engine",
                  "examples.serve_batch"):
+        assert f"repro_torch.{name}" in result["modules"]
+    assert result["bad"] == []
+
+
+def test_training_slice_modules_import_neither_jax_nor_repro():
+    """The LM training slice keeps its own copies of the JAX package's
+    numpy-only modules (the data pipeline, the fault-tolerance hooks)."""
+    result = _probe()
+    for name in ("kernels.vocab_ce.ref", "kernels.vocab_ce.ce",
+                 "kernels.vocab_ce.ops", "optim.adamw", "optim.schedule",
+                 "data.pipeline", "checkpoint.checkpointer",
+                 "distributed.fault_tolerance", "launch.steps",
+                 "launch.train", "examples.train_lm"):
         assert f"repro_torch.{name}" in result["modules"]
     assert result["bad"] == []

@@ -21,6 +21,7 @@ import sys
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -28,6 +29,7 @@ import torch
 from repro.core import ir as jir
 from repro.kernels.fused_stack import nhwc_bwd as jnhwc_bwd
 from repro.kernels.fused_stack import rows_bwd as jrows_bwd
+from repro.layers import stacks as jstacks
 from repro_torch.core import autodiff as tad
 from repro_torch.core import ir as tir
 from repro_torch.core import resource as tresource
@@ -35,10 +37,11 @@ from repro_torch.kernels.fused_stack import nhwc as tnhwc
 from repro_torch.kernels.fused_stack import nhwc_bwd as tnhwc_bwd
 from repro_torch.kernels.fused_stack import rows as trows
 from repro_torch.kernels.fused_stack import rows_bwd as trows_bwd
+from repro_torch.layers import stacks as tstacks
 
-from test_torch_kernels import (NHWC_CASES, _fake_triton, _np_int64, _Ptr,
-                                _randn, _rows_inputs, _tile_forward,
-                                _vec_fn)
+from test_torch_kernels import (NHWC_CASES, _NP_DTYPE, _T_DTYPE,
+                                _fake_triton, _np_int64, _Ptr, _randn,
+                                _rows_inputs, _tile_forward, _vec_fn)
 
 TOL = 1e-5
 # the stand-ins sum rows, windows and tiles in another order than XLA
@@ -89,10 +92,6 @@ def _run_generated_bwd(program, inputs, params, gs, tile, n_prog,
                        monkeypatch, f_chunk=tresource.H100.f_chunk):
     """Execute ``emit_bwd_source`` on the fake Triton: every program of the
     persistent launch, then the reduction of the partials."""
-    modules, state = _fake_triton()
-    modules["triton.language"].debug_barrier = lambda: None
-    for k, v in modules.items():
-        monkeypatch.setitem(sys.modules, k, v)
     arrays = [inputs[n] for n in program.inputs]
     lead = arrays[0].shape[:-1]
     n_rows = math.prod(lead)
@@ -100,20 +99,32 @@ def _run_generated_bwd(program, inputs, params, gs, tile, n_prog,
     p_w = {p: int(np.asarray(params[p]).size) for p in program.param_names}
     feat = max(list(in_w.values()) + list(p_w.values()))
     f_block = tresource.feature_block(program, feat, f_chunk)
-    src = trows_bwd.emit_bwd_source(program, in_w, p_w, feat, f_block)
+    # float32 or bfloat16 arrays, each in its own dtype, as the kernel
+    # reads them
+    dtypes = {k: _T_DTYPE[np.asarray(v).dtype]
+              for k, v in {**inputs, **params}.items()}
+    steps = trows.value_dtypes(
+        program, {n: dtypes[n] for n in program.inputs},
+        {p: torch.empty(np.shape(params[p]), dtype=dtypes[p])
+         for p in program.param_names})
+    src = trows_bwd.emit_bwd_source(program, in_w, p_w, feat, f_block,
+                                    dtypes, steps)
+    modules, state = _fake_triton()          # after the meta-tensor steps
+    modules["triton.language"].debug_barrier = lambda: None
+    for k, v in modules.items():
+        monkeypatch.setitem(sys.modules, k, v)
     src = src.replace("rows.to(tl.int64)", "_np_int64(rows)")
     ns = {"_np_int64": _np_int64}
     exec(compile(src, "<generated>", "exec"), ns)
-    dins = [np.full(n_rows * in_w[n], np.nan, np.float32)
+    dins = [np.full(n_rows * in_w[n], np.nan, _NP_DTYPE[dtypes[n]])
             for n in program.inputs]
     pw = sum(p_w.values())
     partial = np.full(n_prog * max(pw, 1), np.nan, np.float32)
     block_f, r_sub, _ = trows_bwd.launch_config(f_block, tile)
     args = ([_Ptr(a.reshape(-1)) for a in arrays]
-            + [_Ptr(np.asarray(params[p], np.float32).reshape(-1))
+            + [_Ptr(np.asarray(params[p]).reshape(-1))
                for p in program.param_names]
-            + [_Ptr(np.asarray(gs[v], np.float32).reshape(-1))
-               for v in program.outputs]
+            + [_Ptr(np.asarray(gs[v]).reshape(-1)) for v in program.outputs]
             + [_Ptr(d) for d in dins] + [_Ptr(partial)])
     n_tiles = -(-n_rows // tile)
     for pid in range(n_prog):
@@ -128,7 +139,9 @@ def _run_generated_bwd(program, inputs, params, gs, tile, n_prog,
                                      BLOCK=8)
     dparams, off = {}, 0
     for p in program.param_names:
-        dparams[p] = total[off: off + p_w[p]].reshape(np.shape(params[p]))
+        # the wrapper's one cast of the reduced sum to the parameter's dtype
+        dparams[p] = total[off: off + p_w[p]].reshape(
+            np.shape(params[p])).astype(_NP_DTYPE[dtypes[p]])
         off += p_w[p]
     return ({n: d.reshape(*lead, in_w[n])
              for n, d in zip(program.inputs, dins)}, dparams)
@@ -156,6 +169,130 @@ def test_rows_bwd_paths_match_jax_kernel(name, monkeypatch):
     for k in want_p:
         _assert_close(plain_p[k].numpy(), want_p[k], f"plain d{k}", RTOL_SUM)
         _assert_close(gen_p[k], want_p[k], f"generated d{k}", RTOL_SUM)
+
+
+BF16_BWD_CASES = {
+    # name: (make, {input: shape}, {param: shape}); a bf16 LM's chains
+    "norm_rms": (lambda m: (jstacks if m is jir else tstacks)
+                 .norm_program("rms", 1e-6, False), {"x": (3, 7, 40)},
+                 {"scale": (40,)}),
+    "addnorm_layer_bias": (lambda m: (jstacks if m is jir else tstacks)
+                           .addnorm_program("layer", 1e-5, True),
+                           {"x": (21, 96), "res": (21, 96)},
+                           {"scale": (96,), "bias": (96,)}),
+    "glu_silu": (lambda m: (jstacks if m is jir else tstacks)
+                 .glu_program("silu"), {"gate": (4, 5, 72), "up": (4, 5, 72)},
+                 {}),
+}
+BF16_STEP = 2.0 ** -8
+#: Against the Pallas backward the two packages round at other places
+#: (XLA's and PyTorch's bf16 ops, and the rounded recompute): an element
+#: may differ by a bf16 step of its own size plus one of the tensor's
+#: largest entry (cancellation in a norm's dx), on all but this share of
+#: the elements, and by at most four steps of the largest entry anywhere.
+BF16_BWD_SHARE = 0.03
+BF16_BWD_MAX_STEPS = 4
+
+
+@pytest.mark.parametrize("name", sorted(BF16_BWD_CASES))
+def test_rows_bwd_bf16_matches_jax_kernel(name, monkeypatch):
+    """bfloat16 primals and cotangents: the generated source (fake Triton;
+    several programs, row tile 4) and the plain version against the Pallas
+    backward in interpret mode (one tile, so its bf16 parameter
+    accumulator adds once).  Each gradient has its primal's dtype; the
+    generated kernel agrees with the plain version to a bf16 step."""
+    make, in_shapes, p_shapes = BF16_BWD_CASES[name]
+    rng = np.random.default_rng(7)
+    bf = ml_dtypes.bfloat16
+    inputs = {k: _randn(rng, sh, 1.5).astype(bf)
+              for k, sh in in_shapes.items()}
+    params = {k: ((1.0 + 0.1 * _randn(rng, sh)) if k == "scale"
+                  else 0.1 * _randn(rng, sh)).astype(bf)
+              for k, sh in p_shapes.items()}
+    tprog = make(tir)
+    lead = next(iter(in_shapes.values()))[:-1]
+    width = next(iter(in_shapes.values()))[-1]
+    gs = {v: _randn(rng, lead + (width,)).astype(bf) for v in tprog.outputs}
+    want_in, want_p = _jax_rows_bwd(make, inputs, params, gs, 32)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+    plain_in, plain_p = trows_bwd.fused_rows_bwd(
+        tprog, {k: t(v) for k, v in inputs.items()},
+        {k: t(v) for k, v in params.items()},
+        {k: t(v) for k, v in gs.items()}, tile_rows=4)
+    gen_in, gen_p = _run_generated_bwd(tprog, inputs, params, gs, 4, 3,
+                                       monkeypatch)
+    for k, w in {**want_in, **want_p}.items():
+        w = np.asarray(w, np.float32)
+        plain = {**plain_in, **plain_p}[k]
+        gen = np.asarray({**gen_in, **gen_p}[k])
+        assert plain.dtype == torch.bfloat16 and gen.dtype == bf, k
+        scale = float(np.abs(w).max())
+        for what, got in (("plain", plain.float().numpy()),
+                          ("generated", gen.astype(np.float32))):
+            d = np.abs(got - w)
+            share = float((d > BF16_STEP * (np.abs(w) + scale)).mean())
+            assert share <= BF16_BWD_SHARE, (what, k, share)
+            assert d.max() <= BF16_BWD_MAX_STEPS * BF16_STEP * scale, (
+                what, k, float(d.max()), scale)
+        np.testing.assert_allclose(gen.astype(np.float32),
+                                   plain.float().numpy(), rtol=BF16_STEP,
+                                   atol=1e-6, err_msg=f"generated vs plain "
+                                                      f"d{k}")
+
+
+def test_rows_bwd_bf16_source_rounds_each_step():
+    """The bf16 reverse sweep of the silu gate rounds after each PyTorch op
+    of the derivative and the products, as ``program_vjp`` on bf16 tensors
+    does; in float32 the same chain rounds nowhere."""
+    prog = tstacks.glu_program("silu")
+    widths = {"gate": 64, "up": 64}
+    bf, f32 = torch.bfloat16, torch.float32
+    steps = trows.value_dtypes(prog, {"gate": bf, "up": bf}, {})
+    src = trows_bwd.emit_bwd_source(prog, widths, {}, 64, 64,
+                                    {"gate": bf, "up": bf}, steps)
+    # recompute: act, mul; reverse: 5 derivative steps, g * d, and the two
+    # products of the mul rule
+    assert src.count("= round_bf16(") == 2 + 5 + 1 + 2
+    assert "tl.cast(cv0, tl.bfloat16)" in src
+    src32 = trows_bwd.emit_bwd_source(prog, widths, {}, 64, 64,
+                                      {"gate": f32, "up": f32},
+                                      trows.value_dtypes(
+                                          prog, {"gate": f32, "up": f32},
+                                          {}))
+    assert "round_bf16" not in src32
+
+
+@pytest.mark.parametrize("fn", sorted(tad._UNARY_DERIVS))
+def test_rows_bwd_bf16_derivative_is_the_interpreters(fn, monkeypatch):
+    """Each unary fn's bf16 derivative is ``autodiff._UNARY_DERIVS`` itself,
+    traced op by op: the generated backward of ``y = fn(x)`` on the numpy
+    stand-in equals ``program_vjp`` on bf16 tensors bit for bit on all but
+    1% of the elements (numpy's and PyTorch's float32 transcendentals may
+    differ by an ulp) and within one bf16 step on every element."""
+    def make(m):
+        return m.StackProgram(name=f"d_{fn}", inputs=("x",), outputs=("y",),
+                              ops=(m.OpNode(m.OpKind.EW_UNARY, "f", ("x",),
+                                            "y", fn=fn),))
+
+    rng = np.random.default_rng(11)
+    bf = ml_dtypes.bfloat16
+    x = (2.0 * _randn(rng, (16, 96))).astype(bf)
+    g = _randn(rng, (16, 96)).astype(bf)
+    prog = make(tir)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+    plain, _ = trows_bwd.fused_rows_bwd(prog, {"x": t(x)}, {}, {"y": t(g)})
+    gen, _ = _run_generated_bwd(prog, {"x": x}, {}, {"y": g}, 4, 2,
+                                monkeypatch)
+    got = np.asarray(gen["x"]).astype(np.float32)
+    want = plain["x"].float().numpy()
+    assert float((got != want).mean()) <= 0.01, fn
+    np.testing.assert_allclose(got, want, rtol=BF16_STEP, atol=0, err_msg=fn)
 
 
 def test_rows_bwd_walks_f_in_chunks(monkeypatch):
