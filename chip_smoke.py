@@ -44,8 +44,9 @@ Phases, one line each (plus tables):
    the gathered view;
 15. the continuous-batching engine (``Server.engine(kv_layout="paged")
    .run``) over a ragged, prefix-sharing queue of 12 requests at full
-   width, paged ``brainslug`` against paged ``barrier`` and dense
-   ``brainslug`` (counters per model evaluation, no ``kv.*`` finding, the
+   width cut to 8 layers (``ENGINE_LAYERS``), paged ``brainslug`` against
+   paged ``barrier`` and dense ``brainslug`` (counters per model
+   evaluation, no ``kv.*`` finding, the
    free list whole), and a float32 4-layer run with identical tokens;
 16. the paged kernel's time beside its bound, its plain version and the
    dense kernel on the gathered view; the engine runs' wall time,
@@ -71,6 +72,29 @@ Phases, one line each (plus tables):
 19. the CE kernel's device time beside its bound, its plain version and
    the two-call PyTorch form; the 8-layer training step per mode in turns;
    a traced step per mode (device time by group, idle share);
+20. the SSD intra-chunk CUDA kernel against its plain version (max|d| <=
+   1e-5 x max(1, max|ref|)): mamba2-2.7b's prefill shape (1, 80, 32, 64,
+   64) with N 128, decays that overflow float32 ``exp`` above the diagonal
+   (the output finite), two launches bit for bit; ``ops.ssd`` at batch 2
+   over 1000 tokens (padded to whole chunks) against ``ssd_chunked``, and
+   its gradients finite on the overflowing decays; the kernel's device
+   time beside its bound, its plain version and "none" for a library call;
+21. mamba2-2.7b at full width and depth (64 layers, d_model 2560, 80 heads
+   of 64, N 128, vocab 50280, bf16): ``lm.prefill`` (1, 2048) brainslug
+   against barrier within 5e-2 (and both against the float32 logits of
+   the same weights), ``Server.generate`` (4 x 64 + 32 new) and
+   ``Engine.run`` of 8 ragged requests, dense and paged, teacher-forced
+   against barrier and a float32 run (SSM_F32_FACTOR); counters (64 SSD
+   launches a prefill, 0 a decode step, plain 0); a float32 run at 4
+   layers with identical tokens; wall, tokens/s and a traced idle share
+   per mode;
+22. mamba2-2.7b training through ``Trainer.run``: full width and depth,
+   bf16, remat "full", one 4096-token sequence, three AdamW steps (lr
+   3e-4), brainslug held to barrier through a float32 run on the same
+   weights (SSM_F32_FACTOR), counters per step, peak memory; kill at step
+   2 and resume from the step-1
+   checkpoint at 4 layers lands on the uninterrupted step-3 loss exactly;
+   the step per mode in turns and a traced step per mode;
 then the ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
@@ -78,6 +102,7 @@ when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -113,7 +138,7 @@ TRAIN_LR = 1e-3
 # The LM serving slice (phases 11-13): deepseek-7b at full width.
 KERNELS = ("fused_nhwc", "fused_rows", "fused_nhwc_bwd", "fused_rows_bwd",
            "rmsnorm", "swiglu", "flash_attention", "flash_decode",
-           "paged_flash_decode", "fused_ce")
+           "paged_flash_decode", "fused_ce", "ssd_intra_chunk")
 # Kernel against plain version, per dtype.  float32: the same arithmetic
 # summed in another order.  bfloat16: the two may round one output apart
 # (one bf16 step is 2^-8 relative), so atol/rtol 1e-2.
@@ -137,6 +162,11 @@ ENGINE = dict(slots=4, max_len=256, prefill_chunk=8, kv_block_size=16,
               kv_num_blocks=32)
 ENGINE_RUNS = (("paged", "brainslug"), ("paged", "barrier"),
                ("dense", "brainslug"))
+# The engine phases run phase 12's deepseek-7b cut to ENGINE_LAYERS of its
+# 30 layers: the engine is host-bound (a tick's launches grow with depth),
+# and with the SSM slice's phases (20-22) the script has to stay near half
+# its 1200 s limit on a slow host.
+ENGINE_LAYERS = 8
 # The LM training slice (phases 17-19): deepseek-7b at full width, depth cut
 # to fit one 80 GB card with AdamW's float32 moments, one 4096-token
 # sequence (train_4k's length), three steps.
@@ -158,7 +188,49 @@ TRAIN_BF16_GNORM_REL = 1e-3                     # every step
 # profiler ranges of the port that a traced training step reads
 TRAIN_RANGES = {"vocab_ce.backward": "ce_backward",
                 "flash_attention.backward": "attention_backward",
-                "adamw.update": "adamw"}
+                "ssd.backward": "ssd_backward", "adamw.update": "adamw"}
+# The SSM slice (phases 20-22): mamba2-2.7b at full width and depth.
+# (b, h, nc, L, P, N) of the SSD kernel at lm.prefill (1, 2048)
+SSD_SHAPE = (1, 80, 32, 64, 64, 128)
+# kernel against plain version: max|d| <= SSD_TOL x max(1, max|ref|) per
+# output (float32 products summed in another order, 1.3 M a cell)
+SSD_TOL = 1e-5
+SSD_RAGGED = (2, 1000)                  # (batch, sequence) through ops.ssd
+MAMBA_ENGINE = dict(requests=8, prompt=(16, 96), stops=(8, 32))
+# training: full depth with every block recomputed in the backward; the
+# kill/resume leg is cut to 4 layers (a 64-layer checkpoint with its AdamW
+# moments is 27 GB, written twice)
+MAMBA_TRAIN = dict(remat="full", layers_resume=4)
+# mamba2-2.7b in bf16 over 64 random layers rounds far noisier than
+# deepseek-7b: both modes' prefill logits lie 0.17 of max from the float32
+# logits of the same weights, and the two modes' teacher-forced decode
+# logits drift 0.31 apart (PERF.md section 2, on one H100).  Where phase
+# 12's and phase 18's direct limits cannot hold, brainslug is held to
+# barrier through a float32 run on the same weights: its distance to that
+# run within SSM_F32_FACTOR times barrier's, worst and median over the
+# served steps (21b, 21c), and for the step-1 gradient of every parameter
+# as one relative L2 distance (22b).  Training's per-step losses and grad
+# norms are read, not held: three scalars a mode, where a change of
+# summation order alone moved a grad-norm ratio from 0.45x to 1.61x.
+SSM_F32_FACTOR = 1.5
+# Defects planted in barrier's run (``Smoke.ssm_control``): the SSD's
+# arithmetic in bf16, layer 4's mixer output dropped, and the gated norm in
+# bf16 throughout (its sum of squares in bf16 partials).  The block-by-block
+# checks (21f, 22e) must flag all three.  The end-to-end checks against the
+# float32 run (21b teacher-forced logits, 22b the step-1 gradient) must flag
+# the wrong forward (SSM_END_TO_END); the precision defects are read there:
+# on one H100 the bf16 gated norm reads 1.08x / 1.04x barrier's distance
+# and the bf16 SSD 1.19x in serving, inside the noise of 64 random bf16
+# layers (PERF.md section 2).
+SSM_CONTROLS = ("SSD in bf16", "layer 4's mixer dropped", "bf16 gated norm")
+SSM_END_TO_END = ("layer 4's mixer dropped",)
+# Block by block, each block alone on barrier's inputs to it (nothing is
+# amplified through the layers before it), brainslug's relative L2 distance
+# to the float32 block within this factor of barrier's.  The statistic runs
+# over 5 M (forward) to 100 M (VJP) values a block and sits at 1.000 /
+# 1.010 in the sound run on one H100; the bf16 gated norm reads 1.11 /
+# 1.28, the bf16 SSD 5.5 / 5.0, the dropped layer over 100.
+SSM_BLOCK_FACTOR = 1.05
 
 
 class PhaseError(RuntimeError):
@@ -189,7 +261,8 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda")
         self.err = {k: 0.0 for k in KERNELS + (
-            "fused_rows_bf16", "fused_rows_bwd_bf16", "fused_ce_bwd")}
+            "fused_rows_bf16", "fused_rows_bwd_bf16", "fused_ce_bwd",
+            "ssd_ops", "mamba_rows", "mamba_rows_bwd", "mamba_rmsnorm")}
         self.vgg_stages: list = []      # (stack, input) of phase 5
         self.kernels: dict[str, dict] = {}
 
@@ -258,6 +331,9 @@ class Smoke:
         self.phase17_ce_kernel()
         self.phase18_train()
         self.phase19_train_timing()
+        self.phase20_ssd_kernel()
+        self.phase21_ssm_serving()
+        self.phase22_ssm_train()
         print(f"[total] {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"kernels": [self.kernels[k] for k in KERNELS]}))
         print(self.smi)
@@ -288,16 +364,17 @@ class Smoke:
         from repro_torch.kernels import _build
         from repro_torch.kernels.attention import decode, flash
         from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd
+        from repro_torch.kernels.ssd import ssd
         from repro_torch.kernels.vocab_ce import ce
         t = time.perf_counter()
         procs = [(src, _build.start_build(src)) for src in (
             nhwc.SOURCE, nhwc_bwd.SOURCE, flash.SOURCE, decode.SOURCE,
-            decode.PAGED_SOURCE, ce.SOURCE)]
+            decode.PAGED_SOURCE, ce.SOURCE, ssd.SOURCE)]
         try:
             libs = [_build.finish_build(src, p) for src, p in procs]
         except _build.BuildError as e:
             raise PhaseError(str(e)) from e
-        for mod in (nhwc, nhwc_bwd, flash, decode, ce):
+        for mod in (nhwc, nhwc_bwd, flash, decode, ce, ssd):
             mod._library()
         decode._library(decode.PAGED_SOURCE)
         import triton
@@ -1504,42 +1581,52 @@ class Smoke:
         return float((got.float() - want).abs().max()
                      / want.abs().max().clamp_min(1e-30))
 
-    def teacher_forced(self, servers, prompts, tokens):
-        """Per step, max|d logits| / max|logits| of ``servers["brainslug"]``
-        against ``servers["barrier"]``, both fed ``tokens`` (barrier's
+    def forced_steps(self, server, prompts, tokens):
+        """``server``'s logits per step, fed ``tokens`` (barrier's
         generations): the prefill's last logits, then each decode step."""
         torch = self.torch
         from repro_torch.models import lm
         with torch.inference_mode():
-            state = {m: list(s.prefill(prompts)) for m, s in servers.items()}
-            errs = [self.relative(state["brainslug"][1],
-                                  state["barrier"][1])]
+            cache, lo = server.prefill(prompts)
+            out = [lo]
             for i in range(tokens.shape[1] - 1):
                 tok = torch.as_tensor(tokens[:, i:i + 1], dtype=torch.int64,
                                       device=self.dev)
-                for m, s in servers.items():
-                    lo, state[m][0] = lm.decode_step(s.params, state[m][0],
-                                                     tok, s.cfg, s.rt)
-                    state[m][1] = lo[:, 0]
-                errs.append(self.relative(state["brainslug"][1],
-                                          state["barrier"][1]))
-        return errs
+                lo, cache = lm.decode_step(server.params, cache, tok,
+                                           server.cfg, server.rt)
+                out.append(lo[:, 0])
+        return out
 
-    def serve_pair(self, cfg, params, prompts):
+    def teacher_forced(self, servers, prompts, tokens,
+                       pairs=(("brainslug", "barrier"),), steps=None):
+        """Per step, max|d logits| / max|logits| of ``servers[a]`` against
+        ``servers[b]``, by pair ``(a, b)`` of ``pairs``, every server fed
+        ``tokens`` (:meth:`forced_steps`); ``steps`` (a dict) receives each
+        server's logits per step."""
+        steps = {} if steps is None else steps
+        for m, s in servers.items():
+            steps[m] = self.forced_steps(s, prompts, tokens)
+        return {(a, b): [self.relative(x, y) for x, y in zip(steps[a],
+                                                             steps[b])]
+                for a, b in pairs}
+
+    def serve_pair(self, cfg, params, prompts, counters=None):
         """Greedy generations of both modes (barrier first), the counters
-        of brainslug's run, and brainslug's ServeStats."""
+        of brainslug's run (``counters``, default :meth:`lm_counters`), and
+        brainslug's ServeStats."""
         torch = self.torch
         from repro_torch.launch import serve
         servers = {m: serve.Server(serve.ServeConfig(
             arch=cfg.name, reduced=False, mode=m,
             max_len=SERVE["prompt_len"] + SERVE["new_tokens"] + 1, **SERVE),
             params=params, cfg=cfg) for m in ("barrier", "brainslug")}
+        counters = counters or self.lm_counters
         gens = {"barrier": servers["barrier"].generate(prompts)}
         torch.cuda.synchronize()
-        self.lm_counters(zero=True)
+        counters(zero=True)
         gens["brainslug"] = servers["brainslug"].generate(prompts)
         torch.cuda.synchronize()
-        return servers, gens, self.lm_counters()
+        return servers, gens, counters()
 
     def phase12_serving(self):
         torch = self.torch
@@ -1606,7 +1693,8 @@ class Smoke:
             "flash_attention": 0, "flash_decode": steps * L})
         for k in ("rmsnorm", "swiglu", "flash_decode"):
             self.lm_launches[k] = counts[k]
-        errs = self.teacher_forced(servers, prompts, gens["barrier"])
+        errs = self.teacher_forced(servers, prompts, gens["barrier"])[
+            ("brainslug", "barrier")]
         agree = float((gens["brainslug"] == gens["barrier"]).mean())
         stats = servers["brainslug"].last_stats
         if not max(errs) <= PATH_BF16_REL:
@@ -1633,7 +1721,8 @@ class Smoke:
         if not np.array_equal(gens["brainslug"], gens["barrier"]):
             raise PhaseError("serving f32: brainslug's tokens differ from "
                              "barrier's")
-        errs = self.teacher_forced(servers, prompts, gens["barrier"])
+        errs = self.teacher_forced(servers, prompts, gens["barrier"])[
+            ("brainslug", "barrier")]
         if not max(errs) <= PATH_F32_REL:
             raise PhaseError(f"serving f32: logits max|d|/max "
                              f"{max(errs):.3e} > {PATH_F32_REL}")
@@ -1654,11 +1743,12 @@ class Smoke:
             raise PhaseError(f"the profiler recorded no {frag} launch")
         return sum(durs) / len(durs) / 1e3, len(durs)
 
-    def complete_trace(self, fn, expect, tries=3):
-        """:meth:`trace` with the LM groups, retried while the profiler
-        loses launches; the last try is reported either way."""
+    def complete_trace(self, fn, expect, tries=3, classify=None):
+        """:meth:`trace` with the LM groups (or ``classify``'s), retried
+        while the profiler loses launches; the last try is reported either
+        way."""
         for _ in range(tries):
-            out = self.trace(fn, expect, classify=self.lm_group)
+            out = self.trace(fn, expect, classify=classify or self.lm_group)
             if not out.startswith("incomplete"):
                 return out
         return out
@@ -1926,9 +2016,11 @@ class Smoke:
                 temperature=0.8 if i == 7 else 0.0))
         return reqs
 
-    def engine_run(self, cfg, params, layout, mode, reqs, verify="strict"):
+    def engine_run(self, cfg, params, layout, mode, reqs, verify="strict",
+                   counters=None):
         """One ``Engine.run`` through ``Server.engine``; returns (engine,
-        completions, launch counters of the run, wall seconds)."""
+        completions, launch counters of the run (``counters``, default
+        :meth:`lm_counters`), wall seconds)."""
         torch = self.torch
         from repro_torch.launch import serve
         sc = serve.ServeConfig(arch=cfg.name, reduced=False, mode=mode,
@@ -1939,13 +2031,14 @@ class Smoke:
             slots=ENGINE["slots"], prefill_chunk=ENGINE["prefill_chunk"],
             kv_layout=layout, kv_block_size=ENGINE["kv_block_size"],
             kv_num_blocks=ENGINE["kv_num_blocks"], verify_mode=verify)
+        counters = counters or self.lm_counters
         torch.cuda.synchronize()
-        self.lm_counters(zero=True)
+        counters(zero=True)
         t = time.perf_counter()
         comps = eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        counts = self.lm_counters()
+        counts = counters()
         if any(c.status != "ok" for c in comps):
             raise PhaseError(f"engine {layout} {mode}: statuses "
                              f"{[c.status for c in comps]}")
@@ -1960,6 +2053,17 @@ class Smoke:
             raise PhaseError(f"engine {layout} {mode}: {alloc.in_use} blocks "
                              f"still in use after the run")
         return eng, comps, counts, wall
+
+    def engine_model(self):
+        """Phase 12's model cut to ENGINE_LAYERS: its config and the first
+        layers' slices of the stacked parameters (views, no copy)."""
+        import dataclasses
+        from repro_torch.layers import base
+        cfg, params = self.lm_model
+        blocks = base.tree_map(lambda a: a[:ENGINE_LAYERS],
+                               params["blocks"])
+        return (dataclasses.replace(cfg, n_layers=ENGINE_LAYERS),
+                {**params, "blocks": blocks})
 
     @staticmethod
     def evaluations(stats):
@@ -2007,7 +2111,7 @@ class Smoke:
         torch = self.torch
         import dataclasses
         from repro_torch.models import lm
-        cfg, params = self.lm_model
+        cfg, params = self.engine_model()
         L = cfg.n_layers
         reqs = self.engine_queue(cfg.vocab_size)
         t = time.perf_counter()
@@ -2201,7 +2305,7 @@ class Smoke:
                   f"ServeStats {json.dumps(st.as_dict())}")
 
         # one decode-only tick per run: four slots decoding at position 100
-        cfg, params = self.lm_model
+        cfg, params = self.engine_model()
         L = cfg.n_layers
         bs = ENGINE["kv_block_size"]
         slots = ENGINE["slots"]
@@ -2363,27 +2467,40 @@ class Smoke:
         out["plain"] = sum(st.counts["plain"] for st in stats)
         return out
 
-    def lm_trainer(self, mode, layers, dtype, **tc_kw):
-        """``build_trainer`` of deepseek-7b at full width cut to ``layers``,
-        one 4096-token sequence, lr 3e-4 constant, weights from seed 0."""
+    def lm_trainer(self, mode, layers, dtype, arch="deepseek-7b",
+                   init_dtype=None, **tc_kw):
+        """``build_trainer`` of ``arch`` at full width cut to ``layers``,
+        one 4096-token sequence, lr 3e-4 constant, weights from seed 0
+        (drawn in ``init_dtype`` when given, then cast to ``dtype``)."""
         from repro_torch.launch import train as train_mod
         from repro_torch.models import lm
         from repro_torch.optim import adamw
         tc = train_mod.TrainerConfig(
-            arch="deepseek-7b", reduced=False, steps=TRAIN_LM["steps"],
+            arch=arch, reduced=False, steps=TRAIN_LM["steps"],
             mode=mode, batch_override=1, seq_override=TRAIN_LM["seq"],
             config_overrides=(("n_layers", layers), ("dtype", dtype)),
             device="cuda", log_every=10 ** 9, **tc_kw)
-        return train_mod.build_trainer(
-            tc, init_params=lambda cfg, dev: lm.init(0, cfg, device=dev),
-            opt_cfg=adamw.AdamWConfig(lr=TRAIN_LM["lr"]))
+        def init(cfg, dev):
+            if init_dtype is None:
+                return lm.init(0, cfg, device=dev)
+            import dataclasses
+            from repro_torch.layers import base
+            drawn = lm.init(0, dataclasses.replace(cfg, dtype=init_dtype),
+                            device=dev)
+            return base.cast_tree(drawn, lm.DTYPES[dtype])
 
-    def train_lm(self, mode, layers, dtype, failure=None, **tc_kw):
-        """Train through ``Trainer.run``; the counters are zeroed just
-        before the run and read around each step.  Returns (history,
-        per-step counters, peak GiB, wall s)."""
+        return train_mod.build_trainer(
+            tc, init_params=init, opt_cfg=adamw.AdamWConfig(lr=TRAIN_LM["lr"]))
+
+    def train_lm(self, mode, layers, dtype, failure=None, counters=None,
+                 **tc_kw):
+        """Train through ``Trainer.run``; the counters (``counters``,
+        default :meth:`lm_train_counts`) are zeroed just before the run and
+        read around each step.  Returns (history, per-step counters, peak
+        GiB, wall s)."""
         torch = self.torch
         import gc
+        counters = counters or self.lm_train_counts
         torch.cuda.reset_peak_memory_stats()
         trainer = self.lm_trainer(mode, layers, dtype, **tc_kw)
         per_step = []
@@ -2391,15 +2508,15 @@ class Smoke:
 
         def counted(params, opt_state, batch):
             torch.cuda.synchronize()
-            before = self.lm_train_counts()
+            before = counters()
             out = inner(params, opt_state, batch)
             torch.cuda.synchronize()
-            after = self.lm_train_counts()
+            after = counters()
             per_step.append({k: after[k] - before[k] for k in after})
             return out
 
         trainer.step_fn = counted
-        self.lm_train_counts(zero=True)
+        counters(zero=True)
         t = time.perf_counter()
         try:
             history = trainer.run(failure)
@@ -2616,14 +2733,16 @@ class Smoke:
                 return group
         return None
 
-    def train_trace(self, fn):
+    def train_trace(self, fn, classify=None):
         """One call of ``fn`` under the profiler: device time by group and
         the idle share of the traced window.  Kernels of the port's named
         ranges (``TRAIN_RANGES``: the CE chunked backward, the attention
-        backward's recompute, AdamW) are found through the chrome trace's
-        ``External id`` (kernel -> launching op) and the op's thread and
-        time inside the range; the port's kernels by name; the rest are
+        backward's recompute, the SSD backward's recompute, AdamW) are found
+        through the chrome trace's ``External id`` (kernel -> launching op)
+        and the op's thread and time inside the range; the port's kernels by
+        name (``classify``, default :meth:`train_group`); the rest are
         matmuls or other."""
+        classify = classify or self.train_group
         torch = self.torch
         import os
         import tempfile
@@ -2671,7 +2790,7 @@ class Smoke:
         attributed = 0
         for k in kernels:
             low = k["name"].lower()
-            g = self.train_group(low)
+            g = classify(low)
             if g is None:
                 g = in_range(k)
                 attributed += g is not None
@@ -2792,6 +2911,991 @@ class Smoke:
         print("[19 kernels] fused_ce max|d|="
               f"{self.err['fused_ce']:.3e}  fused_rows_bwd bf16 max|d|="
               f"{self.err['fused_rows_bwd_bf16']:.3e}")
+
+    # -- the SSM slice --------------------------------------------------------
+    def ssd_operands(self, shape, seed, decay):
+        """dtx (b,h,nc,L,P), a (b,h,nc,L,1), B and C (b,nc,L,N), float32.
+        ``a`` is the within-chunk cumulative sum of per-step decays drawn in
+        [-decay, -decay/10]; ``decay=None`` takes -2 every step (dt |A| = 2),
+        so a_i - a_j reaches 126 above the diagonal, past float32 ``exp``'s
+        88."""
+        torch = self.torch
+        b, h, nc, L, p, n = shape
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        dtx = torch.randn((b, h, nc, L, p), generator=g, device=self.dev)
+        if decay is None:
+            steps = torch.full((b, h, nc, L, 1), -2.0, device=self.dev)
+        else:
+            steps = -decay * (0.1 + 0.9 * torch.rand(
+                (b, h, nc, L, 1), generator=g, device=self.dev))
+        a = torch.cumsum(steps, dim=3)
+        Bm = torch.randn((b, nc, L, n), generator=g, device=self.dev)
+        Cm = torch.randn((b, nc, L, n), generator=g, device=self.dev)
+        return dtx, a, Bm, Cm
+
+    def ssd_check(self, what, got, want, key="ssd_intra_chunk"):
+        """Finite outputs (dicts by name) within SSD_TOL x max(1,
+        max|want|), the largest max|d| kept under ``key`` (the kernel
+        against its plain version, or ``ssd_ops`` for the mixer against
+        the plain chunked path); returns the worst max|d| / max(1,
+        max|want|)."""
+        torch = self.torch
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, g, w in ((k, got[k], want[k]) for k in want):
+            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                raise PhaseError(f"ssd_intra_chunk {what}: {name} "
+                                 f"{tuple(g.shape)} vs {tuple(w.shape)}, "
+                                 f"finite {bool(torch.isfinite(g).all())}")
+            scale = max(1.0, float(w.abs().max()))
+            err = float((g - w).abs().max())
+            self.err[key] = max(self.err[key], err)
+            worst = max(worst, err / scale)
+            if not err <= SSD_TOL * scale:
+                raise PhaseError(f"ssd_intra_chunk {what}: {name} max|d| "
+                                 f"{err:.3e} > {SSD_TOL} x {scale:.3e}")
+        return worst
+
+    def phase20_ssd_kernel(self):
+        torch = self.torch
+        from repro_torch.core.resource import H100
+        from repro_torch.kernels.ssd import chunked, ops, ssd
+        t = time.perf_counter()
+        b, h, nc, L, p, n = SSD_SHAPE
+        lines = []
+        for what, decay, seed in (("prefill shape, decays up to 0.5 a step",
+                                   0.5, 2000),
+                                  ("overflowing decays, dt |A| = 2 a step",
+                                   None, 2001)):
+            dtx, a, Bm, Cm = self.ssd_operands(SSD_SHAPE, seed, decay)
+            span = float((a[..., 0, 0] - a[..., -1, 0]).max())
+            got = ssd.ssd_intra_chunk(dtx, a, Bm, Cm)
+            again = ssd.ssd_intra_chunk(dtx, a, Bm, Cm)
+            want = ssd.ssd_intra_chunk_ref(dtx, a, Bm, Cm)
+            rel = self.ssd_check(what, dict(zip("yS", got)),
+                                 dict(zip("yS", want)))
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                raise PhaseError(f"ssd_intra_chunk {what}: two launches "
+                                 f"differ")
+            if decay is None and not span > 88:
+                raise PhaseError(f"ssd_intra_chunk {what}: a_i - a_j reaches "
+                                 f"only {span:.1f}")
+            lines.append(f"{what} (a_i - a_j up to {span:.1f} above the "
+                         f"diagonal): max|d|/max(1, max|ref|) {rel:.3e}, two "
+                         f"launches bit for bit")
+        # ops.ssd over a sequence that is not whole chunks, against the
+        # plain chunked path; its backward on overflowing decays
+        bb, s = SSD_RAGGED
+        g = torch.Generator(device=self.dev).manual_seed(2002)
+        x = torch.randn((bb, s, h, p), generator=g, device=self.dev)
+        dt = 0.1 * torch.rand((bb, s, h), generator=g, device=self.dev)
+        A = -1.0 - 15.0 * torch.rand((h,), generator=g, device=self.dev)
+        Bs = torch.randn((bb, s, n), generator=g, device=self.dev)
+        Cs = torch.randn((bb, s, n), generator=g, device=self.dev)
+        D = torch.ones((h,), device=self.dev)
+        before = ssd.ssd_intra_chunk.launches
+        y = ops.ssd(x, dt, A, Bs, Cs, D, L)
+        if ssd.ssd_intra_chunk.launches != before + 1:
+            raise PhaseError("ops.ssd did not launch the kernel")
+        y_ref = chunked.ssd_chunked(x, dt, A, Bs, Cs, D, chunk=L)
+        rel = self.ssd_check(f"ops.ssd ({bb}, {s})", {"y": y}, {"y": y_ref},
+                             key="ssd_ops")
+        lines.append(f"ops.ssd at batch {bb} x {s} tokens (padded to "
+                     f"{-(-s // L) * L}) vs ssd_chunked: max|d|/max(1, "
+                     f"max|ref|) {rel:.3e}")
+        leaves = [t_.detach()[:, :128].clone().requires_grad_()
+                  if t_.dim() > 1 else t_.detach().clone().requires_grad_()
+                  for t_ in (x, torch.full_like(dt, 2.0), -torch.ones_like(A),
+                             Bs, Cs, D)]
+        with torch.enable_grad():
+            yo = ops.ssd(*leaves, L)
+            grads = torch.autograd.grad(yo.float().square().sum(), leaves)
+        if not all(bool(torch.isfinite(gr).all()) for gr in grads) or not \
+                bool(torch.isfinite(yo).all()):
+            raise PhaseError("ops.ssd: non-finite output or gradient on "
+                             "overflowing decays")
+        lines.append("ops.ssd gradients on overflowing decays (dt 2, A -1, "
+                     "128 tokens): finite")
+        del x, dt, Bs, Cs, y, y_ref, leaves, grads, yo
+
+        # time, bound, plain version
+        dtx, a, Bm, Cm = self.ssd_operands(SSD_SHAPE, 2000, 0.5)
+        run = lambda: ssd.ssd_intra_chunk(dtx, a, Bm, Cm)  # noqa: E731
+        k_ms, held = self.kernel_ms(run, "ssd_intra_chunk_kernel")
+        k_call = self.cuda_ms(run)
+        p_ms = self.cuda_ms(lambda: ssd.ssd_intra_chunk_ref(dtx, a, Bm, Cm))
+        cells = b * h * nc
+        # FMAs a cell: G and Y over the causal lower triangle (with its
+        # diagonal; the rest of the tile is exactly 0), the state over L
+        n_ops = 2 * (L * (L + 1) // 2 * (n + p) + n * L * p) * cells
+        n_bytes = 4 * (dtx.numel() + a.numel() + Bm.numel() + Cm.numel()
+                       + dtx.numel() + cells * n * p)
+        t_ops = n_ops / H100.peak_flops_f32 * 1e3
+        t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
+        b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
+            t_bytes, "bytes")
+        shape = f"({b}, {h}, {nc}, {L}, {p}), N {n}, float32"
+        print(f"[20 ssd_intra_chunk] " + "; ".join(lines)
+              + f" (tol {SSD_TOL} x max(1, max|ref|))")
+        print(f"[20 ssd_intra_chunk time] {shape}: kernel {k_ms:.4f} ms "
+              f"device ({held} of 20 launches held; {k_call:.4f} per call, "
+              f"events) = {n_ops / k_ms / 1e9:.1f} GFLOP/s; plain "
+              f"(ssd_intra_chunk_ref) {p_ms:.4f} ms; library none (no single "
+              f"PyTorch call computes the masked chain); bound {b_ms:.4f} ms "
+              f"({b_by}: {n_ops:.3e} float32 operations at "
+              f"{H100.peak_flops_f32 / 1e12:.0f} TFLOP/s, {n_bytes / 1e6:.1f} "
+              f"MB at {H100.hbm_bandwidth / 1e12:.2f} TB/s), kernel/bound "
+              f"{k_ms / b_ms:.2f}; phase {time.perf_counter() - t:.1f} s")
+        self.kernels["ssd_intra_chunk"] = {
+            "name": "ssd_intra_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
+            "replaces": "src/repro/kernels/ssd/ssd.py:50",
+            "launches": None, "max_abs_err": self.err["ssd_intra_chunk"],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": shape}
+        del dtx, a, Bm, Cm
+        torch.cuda.empty_cache()
+
+    def ssm_counters(self, zero=False):
+        """Launch counts of the kernels on the mamba path (SSD, rmsnorm,
+        the rows kernel of the gated norm and its backward) and the plain
+        or reference dispatches of their wrappers (``zero`` sets them to
+        0)."""
+        from repro_torch.kernels.fused_stack import ops as fops
+        from repro_torch.kernels.fused_stack import rows, rows_bwd
+        from repro_torch.kernels.rmsnorm import ops as rops
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.kernels.ssd import ops as dops
+        from repro_torch.kernels.ssd import ssd
+        fns = {"ssd_intra_chunk": ssd.ssd_intra_chunk,
+               "rmsnorm": rmsnorm.rmsnorm_fwd, "fused_rows": rows.fused_rows,
+               "fused_rows_bwd": rows_bwd.fused_rows_bwd}
+        if zero:
+            for fn in fns.values():
+                fn.launches = 0
+            for st in (fops.STATS, rops.STATS, dops.STATS):
+                st.reset()
+        out = {k: fn.launches for k, fn in fns.items()}
+        out["plain"] = (dops.STATS.counts["plain"] + rops.STATS.counts["plain"]
+                        + fops.STATS.counts["fwd_reference"]
+                        + fops.STATS.counts["bwd_reference"])
+        return out
+
+    def expect_ssm(self, what, got, ssd=0, rmsnorm=0, rows=0, rows_bwd=0):
+        want = {"ssd_intra_chunk": ssd, "rmsnorm": rmsnorm,
+                "fused_rows": rows, "fused_rows_bwd": rows_bwd, "plain": 0}
+        if got != want:
+            raise PhaseError(f"{what}: counters {got}, expected {want}")
+
+    def held_to_f32(self, what, err_b, err_r):
+        """brainslug's per-step distances to the float32 run (``err_b``)
+        within SSM_F32_FACTOR times barrier's (``err_r``), worst and
+        median; returns a summary."""
+        for name, stat in (("worst", max), ("median", statistics.median)):
+            if not stat(err_b) <= SSM_F32_FACTOR * stat(err_r):
+                raise PhaseError(
+                    f"{what}: brainslug's {name} distance to the float32 run "
+                    f"{stat(err_b):.3e} > {SSM_F32_FACTOR} x barrier's "
+                    f"{stat(err_r):.3e}")
+        return (f"to the float32 run, brainslug worst {max(err_b):.3e} "
+                f"median {statistics.median(err_b):.3e}, barrier worst "
+                f"{max(err_r):.3e} median {statistics.median(err_r):.3e} "
+                f"(brainslug within {SSM_F32_FACTOR}x barrier's)")
+
+    @contextlib.contextmanager
+    def ssm_control(self, name):
+        """A defect planted in the mamba layer while the block runs, in
+        every full-sequence and decode call: the SSD's arithmetic in bf16
+        (the intra-chunk products of the chunked path, and the decode
+        step's state update; the JAX kernel is float32 throughout), layer
+        4's mixer output dropped (a wrong forward), or the gated RMSNorm in
+        bf16 throughout, its sum of squares in bf16 partials of 128 added
+        in bf16.  Yields a list whose length counts the calls the defect
+        touched."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.ssd import chunked
+        from repro_torch.layers import mamba2
+        saved = (mamba2.apply, mamba2.decode, mamba2._gated_norm,
+                 mamba2._ssd_dispatch, chunked.ssd_decode_step)
+        apply, decode = saved[:2]
+        touched = []
+        bf = torch.bfloat16
+
+        def bf16_intra(dtx, a, B, C):
+            y, st = chunked.ssd_intra_chunk_ref(
+                *(t.to(bf) for t in (dtx, a, B, C)))
+            return y.float(), st.float()
+
+        def bf16_ssd(xs, dt, A, B, C, D, rt):
+            touched.append(1)
+            return chunked.ssd_chunked(xs, dt, A, B, C, D, chunk=rt.ssd_chunk,
+                                       intra=bf16_intra)
+
+        def bf16_step(hstate, x_t, dt_t, A, B_t, C_t, D=None):
+            touched.append(1)
+            dA = torch.exp(dt_t.to(bf) * A.to(bf))
+            dBx = torch.einsum("bn,bhp->bhnp", B_t.to(bf),
+                               dt_t.to(bf)[..., None] * x_t.to(bf))
+            hnew = hstate.to(bf) * dA[..., None, None] + dBx
+            y = torch.einsum("bn,bhnp->bhp", C_t.to(bf), hnew)
+            if D is not None:
+                y = y + D.to(bf)[None, :, None] * x_t.to(bf)
+            return hnew.float(), y.to(x_t.dtype)
+
+        def bf16_norm(params, y, z, rt):
+            touched.append(1)
+            m = y * F.silu(z)
+            part = (m * m).unflatten(-1, (-1, 128)).sum(-1)
+            acc = part[..., 0]
+            for k in range(1, part.shape[-1]):
+                acc = acc + part[..., k]
+            inv = torch.rsqrt(acc / m.shape[-1] + 1e-6)
+            return m * inv[..., None] * params["norm_scale"]
+
+        def layer(params):
+            a = params["A_log"]
+            return a.storage_offset() // a.shape[-1]
+
+        def drop_apply(params, x, cfg, rt):
+            out = apply(params, x, cfg, rt)
+            if layer(params) != 4:
+                return out
+            touched.append(1)
+            return out * 0.0
+
+        def drop_decode(params, x_t, cache, cfg, rt, **kw):
+            out, cache = decode(params, x_t, cache, cfg, rt, **kw)
+            if layer(params) != 4:
+                return out, cache
+            touched.append(1)
+            return out * 0.0, cache
+
+        if name == "SSD in bf16":
+            mamba2._ssd_dispatch, chunked.ssd_decode_step = bf16_ssd, bf16_step
+        elif name == "bf16 gated norm":
+            mamba2._gated_norm = bf16_norm
+        else:
+            mamba2.apply, mamba2.decode = drop_apply, drop_decode
+        try:
+            yield touched
+        finally:
+            (mamba2.apply, mamba2.decode, mamba2._gated_norm,
+             mamba2._ssd_dispatch, chunked.ssd_decode_step) = saved
+
+    def control_flagged(self, what, err_c, err_r):
+        """Whether :meth:`held_to_f32` flags a control's distances
+        ``err_c`` against barrier's ``err_r``; returns the ratios read."""
+        try:
+            self.held_to_f32(what, err_c, err_r)
+            flagged = False
+        except PhaseError:
+            flagged = True
+        return flagged, (f"worst {max(err_c):.3e} ({max(err_c) / max(err_r):.2f}"
+                         f"x barrier's), median {statistics.median(err_c):.3e} "
+                         f"({statistics.median(err_c) / statistics.median(err_r):.2f}"
+                         f"x)")
+
+    def rel_l2(self, got, want):
+        """||got - want|| / ||want|| over lists of tensors, in float32."""
+        num = sum(float((g.float() - w.float()).square().sum())
+                  for g, w in zip(got, want))
+        den = sum(float(w.float().square().sum()) for w in want)
+        return math.sqrt(num / max(den, 1e-30))
+
+    def ssm_blocks(self, params, cfg, tokens, vjp):
+        """Every mamba block run alone on barrier's inputs to it, in
+        brainslug, in barrier and in barrier with each control's defect,
+        against the same block in float32 on the same inputs: the relative
+        L2 distance of the mixer output (``vjp`` False), or of the block's
+        VJP, the gradients of every input and parameter for a seeded
+        cotangent on the mixer output (``vjp`` True).  The block is
+        teacher-forced, so rounding is not amplified through the layers
+        before it.  Returns {run: [distance per block]} and, per control,
+        the calls its defect touched."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        rts = {m: RuntimeConfig(mode=m) for m in ("brainslug", "barrier")}
+        dist = {r: [] for r in ("brainslug", "barrier") + SSM_CONTROLS}
+        touched = {name: 0 for name in SSM_CONTROLS}
+        g = torch.Generator(device=self.dev).manual_seed(2300)
+
+        def run(p, c, rt, resid, pending, cot):
+            if not vjp:
+                with torch.no_grad():
+                    return [lm._apply_sub("mamba", p, resid, pending, c,
+                                          rt)[1]]
+            with torch.enable_grad():
+                live = base.tree_map(lambda t: t.detach().requires_grad_(),
+                                     p)
+                ins = [t.detach().requires_grad_() for t in (resid, pending)]
+                out = lm._apply_sub("mamba", live, *ins, c, rt)[1]
+                return list(torch.autograd.grad(
+                    out, ins + base.tree_leaves(live), cot.to(out.dtype)))
+
+        with torch.no_grad():
+            resid = lm.embed_inputs(params, {"tokens": tokens}, cfg)
+        pending = torch.zeros_like(resid)
+        for p in lm._unstack(params["blocks"]["sub0"], cfg.n_layers):
+            cot = torch.randn(resid.shape, generator=g, device=self.dev) \
+                if vjp else None
+            ref = run(base.cast_tree(p, torch.float32), cfg32,
+                      rts["barrier"], resid.float(), pending.float(), cot)
+            for m in ("brainslug", "barrier"):
+                dist[m].append(self.rel_l2(
+                    run(p, cfg, rts[m], resid, pending, cot), ref))
+            for name in SSM_CONTROLS:
+                with self.ssm_control(name) as hit:
+                    dist[name].append(self.rel_l2(
+                        run(p, cfg, rts["barrier"], resid, pending, cot),
+                        ref))
+                touched[name] += len(hit)
+            del ref
+            with torch.no_grad():
+                resid, pending = lm._apply_sub("mamba", p, resid, pending,
+                                               cfg, rts["barrier"])
+        return dist, touched
+
+    def check_blocks(self, tag, what, dist, touched):
+        """brainslug's distance to the float32 block within
+        SSM_BLOCK_FACTOR x barrier's in every block; each control's
+        defect touched a call and is flagged in some block.  Prints the
+        readings."""
+        ratio = {r: [a / b for a, b in zip(d, dist["barrier"])]
+                 for r, d in dist.items()}
+        line = "; ".join(
+            f"{r}: distance median {statistics.median(d):.3e} worst "
+            f"{max(d):.3e}, ratio to barrier's median "
+            f"{statistics.median(ratio[r]):.3f} worst {max(ratio[r]):.3f} "
+            f"(block {ratio[r].index(max(ratio[r]))})"
+            for r, d in dist.items())
+        print(f"[{tag} blocks] {what}, each of {len(dist['barrier'])} blocks "
+              f"alone on barrier's inputs, relative L2 distance to the "
+              f"float32 block; brainslug within {SSM_BLOCK_FACTOR}x "
+              f"barrier's in every block, each control flagged past it: "
+              + line)
+        if not max(ratio["brainslug"]) <= SSM_BLOCK_FACTOR:
+            raise PhaseError(f"{tag} blocks: brainslug at "
+                             f"{max(ratio['brainslug']):.3f}x barrier's "
+                             f"distance to the float32 block")
+        for name in SSM_CONTROLS:
+            if not touched[name]:
+                raise PhaseError(f"{tag} blocks: the control {name} touched "
+                                 f"no call")
+            if not max(ratio[name]) > SSM_BLOCK_FACTOR:
+                raise PhaseError(f"{tag} blocks: the control {name} is not "
+                                 f"flagged (worst {max(ratio[name]):.3f}x)")
+
+    def ssm_kernel(self, low):
+        """The mamba path's kernel group of a kernel name, else None."""
+        for frag, group in (("ssd_intra_chunk_kernel", "ssd_intra_chunk"),
+                            ("rmsnorm_kernel", "rmsnorm"),
+                            ("fused_rows_bwd", "fused_rows_bwd"),
+                            ("reduce_partials", "fused_rows_bwd"),
+                            ("fused_rows", "fused_rows")):
+            if frag in low:
+                return group
+        return None
+
+    def ssm_group(self, low):
+        if self.ssm_kernel(low) is not None:
+            return self.ssm_kernel(low)
+        if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            return "matmul"
+        return "other"
+
+    def ssm_queue(self, vocab):
+        """MAMBA_ENGINE's ragged queue from numpy seed 2100: prompts of
+        16-96 tokens, 8-32 new tokens each, greedy."""
+        from repro_torch.launch.engine import Request
+        rng = np.random.default_rng(2100)
+        lo, hi = MAMBA_ENGINE["prompt"]
+        s_lo, s_hi = MAMBA_ENGINE["stops"]
+        return [Request(request_id=i,
+                        prompt=rng.integers(1, vocab, int(rng.integers(
+                            lo, hi + 1))).tolist(),
+                        max_new_tokens=int(rng.integers(s_lo, s_hi + 1)))
+                for i in range(MAMBA_ENGINE["requests"])]
+
+    def ssm_path_kernels(self, cfg):
+        """The kernels of the mamba path other than the SSD kernel, called
+        as the path calls them, at its shapes, on bf16 tensors, against
+        their plain versions at LM_TOL's bf16 tolerance: the gated RMSNorm
+        (``mamba2._gated_norm``: ``fused_stack_apply`` in brainslug mode,
+        the generated rows kernel) at prefill (1, 2048) and a decode step
+        (4, 1) over d_inner, its backward through autograd (the rows
+        backward kernel and its partial-sum reduction) at one 4096-token
+        training sequence, and rmsnorm over d_model (its block masked past
+        d_model, not a power of two) with the residual (each layer's
+        add-norm) and without (the final norm).  Two runs of each give
+        equal bits."""
+        torch = self.torch
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.kernels.fused_stack import ref, rows, rows_bwd
+        from repro_torch.kernels.rmsnorm import ref as rref
+        from repro_torch.kernels.rmsnorm import rmsnorm
+        from repro_torch.layers import mamba2
+        t = time.perf_counter()
+        bf = torch.bfloat16
+        di, d = cfg.d_inner, cfg.d_model
+        program = mamba2._gated_norm_program(1e-6)
+        rt = RuntimeConfig(mode="brainslug")
+        scale = (1.0 + 0.1 * self.randn((di,), 2210)).to(bf)
+        lines = []
+        for k, lead in enumerate((PREFILL, (SERVE["batch"], 1))):
+            y = self.randn(lead + (di,), 2200 + 2 * k).to(bf)
+            z = self.randn(lead + (di,), 2201 + 2 * k).to(bf)
+            before = rows.fused_rows.launches
+            got = mamba2._gated_norm({"norm_scale": scale}, y, z, rt)
+            again = mamba2._gated_norm({"norm_scale": scale}, y, z, rt)
+            if rows.fused_rows.launches != before + 2:
+                raise PhaseError("gated norm: the rows kernel did not launch")
+            want = ref.fused_stack_ref(program, {"y": y, "z": z},
+                                       {"scale": scale})["o"]
+            if got.dtype != want.dtype:
+                raise PhaseError(f"gated norm {lead}: output {got.dtype}, the "
+                                 f"plain version's {want.dtype}")
+            err = self.lm_check("mamba_rows", f"gated norm {lead}", got, want)
+            self.same_bits("fused_rows", f"gated norm {lead}", {"o": got},
+                           {"o": again})
+            lines.append(f"gated norm fwd {lead + (di,)} max|d| {err:.2e}")
+        # the backward at one training sequence
+        seq = (1, TRAIN_LM["seq"])
+        y = self.randn(seq + (di,), 2220).to(bf)
+        z = self.randn(seq + (di,), 2221).to(bf)
+        cot = self.randn(seq + (di,), 2222).to(bf)
+
+        def grads():
+            leaves = [v.detach().requires_grad_() for v in (y, z, scale)]
+            with torch.enable_grad():
+                o = mamba2._gated_norm({"norm_scale": leaves[2]}, leaves[0],
+                                       leaves[1], rt)
+                g = torch.autograd.grad(o, leaves, cot)
+            return dict(zip(("dy", "dz", "dscale"), g))
+
+        before = rows_bwd.fused_rows_bwd.launches
+        got, again = grads(), grads()
+        if rows_bwd.fused_rows_bwd.launches != before + 2:
+            raise PhaseError("gated norm backward: the rows backward kernel "
+                             "did not launch")
+        dins, dpar = rows_bwd.fused_rows_bwd_ref(
+            program, {"y": y, "z": z}, {"scale": scale}, {"o": cot})
+        want = {f"d{n}": v for n, v in {**dins, **dpar}.items()}
+        err = self.check_bwd("mamba_rows_bwd", f"gated norm bwd {seq}", got,
+                             want, reduced={"dscale"}, tol=LM_TOL["bfloat16"])
+        self.same_bits("fused_rows_bwd", "gated norm bwd", got, again)
+        lines.append(f"gated norm bwd {seq + (di,)} max|d| {err}")
+        # rmsnorm over d_model: the add-norms and the final norm
+        sc = (1.0 + 0.1 * self.randn((d,), 2230)).to(bf)
+        for k, (lead, residual) in enumerate(((PREFILL, True),
+                                              (PREFILL, False),
+                                              ((SERVE["batch"], 1), True))):
+            x = self.randn(lead + (d,), 2231 + 2 * k).to(bf)
+            r = self.randn(lead + (d,), 2232 + 2 * k).to(bf) \
+                if residual else None
+            before = rmsnorm.rmsnorm_fwd.launches
+            (yk, hk), again = (rmsnorm.rmsnorm_fwd(x, sc, r),
+                               rmsnorm.rmsnorm_fwd(x, sc, r))
+            if rmsnorm.rmsnorm_fwd.launches != before + 2:
+                raise PhaseError("rmsnorm did not launch")
+            yw, hw = rref.rmsnorm_ref(x, sc, r)
+            what = f"rmsnorm {lead + (d,)} {'with' if residual else 'no'} " \
+                   f"residual"
+            err = max(self.lm_check("mamba_rmsnorm", what, yk, yw),
+                      self.lm_check("mamba_rmsnorm", what + " h", hk, hw))
+            self.same_bits("rmsnorm", what, {"y": yk, "h": hk},
+                           {"y": again[0], "h": again[1]})
+            lines.append(f"{what} max|d| {err:.2e}")
+        print(f"[21 path kernels] {cfg.name} bf16, against the plain versions "
+              f"(tol {LM_TOL['bfloat16']}; the backward's dscale atol rtol x "
+              f"max), two runs bit for bit: " + "; ".join(lines)
+              + f"; {time.perf_counter() - t:.1f} s")
+
+    def phase21_ssm_serving(self):
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.launch import serve
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        cfg = get_config("mamba2-2.7b")
+        L = cfg.n_layers
+        self.ssm_path_kernels(cfg)
+        t = time.perf_counter()
+        params = lm.init(0, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        print(f"[21 model] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+              f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, N "
+              f"{cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+              f"{base.param_count(params) / 1e9:.3f} B random parameters "
+              f"(seed 0) in {time.perf_counter() - t:.1f} s")
+        rts = {m: RuntimeConfig(mode=m) for m in ("barrier", "brainslug")}
+
+        # 21a: lm.prefill over (1, 2048) tokens
+        g = torch.Generator(device=self.dev).manual_seed(2101)
+        tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=g,
+                               device=self.dev)
+        with torch.inference_mode():
+            want = lm.prefill(params, {"tokens": tokens}, cfg, rts["barrier"])
+            torch.cuda.synchronize()
+            self.ssm_counters(zero=True)
+            got = lm.prefill(params, {"tokens": tokens}, cfg,
+                             rts["brainslug"])
+            torch.cuda.synchronize()
+            counts = self.ssm_counters()
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            p32 = base.cast_tree(params, torch.float32)
+            ref32 = lm.prefill(p32, {"tokens": tokens}, cfg32,
+                               rts["barrier"])
+        self.expect_ssm("mamba prefill", counts, ssd=L, rmsnorm=L + 1, rows=L)
+        self.kernels["ssd_intra_chunk"]["launches"] = counts["ssd_intra_chunk"]
+        if tuple(got.shape) != (1, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(got).all()):
+            raise PhaseError(f"mamba prefill logits {tuple(got.shape)}")
+        rel = self.relative(got, want)
+        if not rel <= PATH_BF16_REL:
+            raise PhaseError(f"mamba prefill brainslug vs barrier: "
+                             f"max|d|/max {rel:.3e} > {PATH_BF16_REL}")
+        print(f"[21a lm.prefill {PREFILL} bf16] brainslug vs barrier last-"
+              f"position logits: max|d|/max|logits| = {rel:.3e} (tol "
+              f"{PATH_BF16_REL}), argmax equal "
+              f"{bool(got.argmax() == want.argmax())}; against the float32 "
+              f"logits of the same weights: brainslug "
+              f"{self.relative(got, ref32):.3e}, barrier "
+              f"{self.relative(want, ref32):.3e}; counters {counts}")
+        del ref32
+
+        # 21b: Server.generate, 4 requests, greedy
+        prompts = np.random.default_rng(2102).integers(
+            0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
+        ).astype(np.int32)
+        t = time.perf_counter()
+        servers, gens, counts = self.serve_pair(cfg, params, prompts,
+                                                self.ssm_counters)
+        steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
+        self.expect_ssm("mamba serving", counts, rmsnorm=steps * (L + 1),
+                        rows=steps * L)
+        serve_wall = {m: s.last_stats.wall_s for m, s in servers.items()}
+        servers["float32"] = serve.Server(serve.ServeConfig(
+            arch=cfg.name, reduced=False, mode="barrier",
+            max_len=SERVE["prompt_len"] + SERVE["new_tokens"] + 1, **SERVE),
+            params=p32, cfg=cfg32)
+        pairs = (("brainslug", "barrier"), ("brainslug", "float32"),
+                 ("barrier", "float32"))
+        logits = {}
+        errs = self.teacher_forced(servers, prompts, gens["barrier"], pairs,
+                                   steps=logits)
+        held = self.held_to_f32("mamba serving bf16", errs[pairs[1]],
+                                errs[pairs[2]])
+        controls = []
+        for name in SSM_CONTROLS:
+            with self.ssm_control(name) as hit:
+                ctrl = self.forced_steps(servers["barrier"], prompts,
+                                         gens["barrier"])
+            err_c = [self.relative(x, y) for x, y in zip(ctrl,
+                                                         logits["float32"])]
+            flagged, read = self.control_flagged(
+                f"mamba serving control ({name})", err_c, errs[pairs[2]])
+            controls.append((name, flagged, read, len(hit)))
+        del logits, ctrl
+        agree = float((gens["brainslug"] == gens["barrier"]).mean())
+        n_gen = servers["brainslug"].last_stats.generated_tokens
+        d = errs[pairs[0]]
+        print(f"[21b Server.generate bf16] {SERVE['batch']} requests, prompt "
+              f"{SERVE['prompt_len']}, {SERVE['new_tokens']} new tokens, "
+              f"greedy: token agreement brainslug vs barrier {agree:.4f}; "
+              f"teacher-forced logits max|d|/max per step, brainslug vs "
+              f"barrier worst {max(d):.3e}, median "
+              f"{statistics.median(d):.3e}; {held}; wall " + ", ".join(
+                  f"{m} {w:.3f} s ({n_gen / w:.2f} tok/s)"
+                  for m, w in serve_wall.items())
+              + f"; brainslug counters {counts}; "
+              f"{time.perf_counter() - t:.1f} s")
+        self.report_controls("21b", "barrier bf16 with a defect, teacher-"
+                             "forced logits to the float32 run", controls)
+        del servers
+
+        # 21c: Engine.run over a ragged queue, dense and paged
+        reqs = self.ssm_queue(cfg.vocab_size)
+        t = time.perf_counter()
+        results = {}
+        for layout, mode in ENGINE_RUNS:
+            eng, comps, counts, wall = self.engine_run(
+                cfg, params, layout, mode, reqs, counters=self.ssm_counters)
+            results[(layout, mode)] = (eng, comps, wall)
+            if eng.report()["decode_path"] != "ssm-recurrent":
+                raise PhaseError(f"engine {layout} {mode}: decode path "
+                                 f"{eng.report()['decode_path']}")
+            if mode == "brainslug":
+                e = self.evaluations(eng.last_stats)
+                self.expect_ssm(f"mamba engine {layout}", counts,
+                                rmsnorm=(L + 1) * e, rows=L * e)
+        pb = results[("paged", "brainslug")][1]
+        db = results[("dense", "brainslug")][1]
+        pr = results[("paged", "barrier")][1]
+        for i in range(len(reqs)):
+            if not np.array_equal(pb[i].tokens, db[i].tokens):
+                raise PhaseError(f"mamba engine: paged and dense brainslug "
+                                 f"differ on request {i}")
+        n_tok = sum(len(c.tokens) for c in pr)
+        agree = sum(int((a.tokens == c.tokens).sum())
+                    for a, c in zip(pb, pr)) / max(n_tok, 1)
+        pick = list(range(4))
+        seqs = [list(reqs[i].prompt) + pr[i].tokens.tolist() for i in pick]
+        starts = [len(reqs[i].prompt) for i in pick]
+        forced = {m: self.forced_logits(cfg, params, m, seqs, starts)
+                  for m in ("brainslug", "barrier")}
+        forced["float32"] = self.forced_logits(cfg32, p32, "barrier", seqs,
+                                               starts)
+        errs = {(a, b): [self.relative(x, y) for x, y in zip(forced[a],
+                                                             forced[b])]
+                for a, b in pairs}
+        held = self.held_to_f32("mamba engine bf16", errs[pairs[1]],
+                                errs[pairs[2]])
+        d = errs[pairs[0]]
+        print(f"[21c engine] {cfg.name} bf16, {L} layers, Engine(slots "
+              f"{ENGINE['slots']}, max_len {ENGINE['max_len']}, prefill_chunk "
+              f"{ENGINE['prefill_chunk']}, verify strict), "
+              f"{len(reqs)} requests (prompts {MAMBA_ENGINE['prompt']}, new "
+              f"tokens {MAMBA_ENGINE['stops']}): every request completed in "
+              f"all three runs, decode path ssm-recurrent, prefix sharing "
+              f"off; paged == dense brainslug tokens; vs paged barrier token "
+              f"agreement {agree:.4f}, teacher-forced logits max|d|/max vs "
+              f"barrier worst {max(d):.3e}, median {statistics.median(d):.3e};"
+              f" {held}; {time.perf_counter() - t:.1f} s")
+        for (layout, mode), (eng, comps, wall) in results.items():
+            st = eng.last_stats
+            print(f"[21c engine {layout} {mode}] wall {wall:.3f} s, "
+                  f"{st.generated_tokens} tokens "
+                  f"({st.generated_tokens / wall:.2f} tok/s), "
+                  f"{self.evaluations(st)} model evaluations, TTFT "
+                  f"p50 {st.ttft_p50_ms:.1f} ms p99 {st.ttft_p99_ms:.1f} ms; "
+                  f"ServeStats {json.dumps(st.as_dict())}")
+        del results, forced, p32
+
+        # 21d: float32 at 4 layers, identical greedy tokens
+        cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+        p4 = lm.init(1, cfg4, device=self.dev)
+        servers, gens, counts = self.serve_pair(cfg4, p4, prompts,
+                                                self.ssm_counters)
+        self.expect_ssm("mamba serving f32", counts, rmsnorm=steps * 5,
+                        rows=steps * 4)
+        if not np.array_equal(gens["brainslug"], gens["barrier"]):
+            raise PhaseError("mamba serving f32: brainslug's tokens differ "
+                             "from barrier's")
+        errs = self.teacher_forced(servers, prompts, gens["barrier"])[
+            ("brainslug", "barrier")]
+        if not max(errs) <= PATH_F32_REL:
+            raise PhaseError(f"mamba serving f32: logits max|d|/max "
+                             f"{max(errs):.3e} > {PATH_F32_REL}")
+        toks = {}
+        for layout, mode in ENGINE_RUNS:
+            toks[(layout, mode)] = self.engine_run(
+                cfg4, p4, layout, mode, reqs, counters=self.ssm_counters)[1]
+        first = toks[ENGINE_RUNS[0]]
+        for run, comps in toks.items():
+            for i, c in enumerate(comps):
+                if not np.array_equal(c.tokens, first[i].tokens):
+                    raise PhaseError(f"mamba engine f32: {run} differs on "
+                                     f"request {i}")
+        print(f"[21d float32, 4 layers] Server.generate brainslug == barrier "
+              f"tokens, logits max|d|/max worst {max(errs):.3e} (tol "
+              f"{PATH_F32_REL}); the three engine runs' tokens identical")
+        del servers, p4
+
+        # 21e: the path per mode, in turns; a trace per mode
+        with torch.inference_mode():
+            cache = lm.init_decode_cache(cfg, SERVE["batch"], 97,
+                                         dtype=torch.float32, device=self.dev)
+        tok = tokens[:, :SERVE["batch"]].reshape(SERVE["batch"], 1)
+
+        def prefill(m):
+            return lm.prefill(params, {"tokens": tokens}, cfg, rts[m])
+
+        def step(m):
+            return lm.decode_step(params, cache, tok, cfg, rts[m])
+
+        with torch.inference_mode():
+            pre = [(m, self.cuda_ms(lambda m=m: prefill(m), reps=1, groups=5))
+                   for m in ("barrier", "brainslug", "brainslug", "barrier")]
+            dec = [(m, self.cuda_ms(lambda m=m: step(m), reps=1, groups=20))
+                   for m in ("barrier", "brainslug", "brainslug", "barrier")]
+        print(f"[21e path] mamba2-2.7b bf16, {L} layers: lm.prefill "
+              f"{PREFILL}, median of 5 (CUDA events), in turns: "
+              + "  ".join(f"{m}={v:.3f} ms ({PREFILL[1] / v:.1f} tok/ms)"
+                          for m, v in pre))
+        print(f"[21e path] one decode step at batch {SERVE['batch']} (float32 "
+              f"state as Server builds it), median of 20, in turns: "
+              + "  ".join(f"{m}={v:.3f} ms" for m, v in dec))
+        expect = {"prefill": {"ssd_intra_chunk_kernel": L,
+                              "rmsnorm_kernel": L + 1},
+                  "decode step": {"rmsnorm_kernel": L + 1}}
+        with torch.inference_mode():
+            for what, fn in (("prefill", prefill), ("decode step", step)):
+                for m in ("barrier", "brainslug"):
+                    out = self.complete_trace(
+                        lambda m=m: fn(m),
+                        expect[what] if m == "brainslug" else None,
+                        classify=self.ssm_group)
+                    if out.startswith("incomplete"):
+                        # the idle share stands without every launch
+                        out += "; unchecked: " + self.trace(
+                            lambda m=m: fn(m), classify=self.ssm_group)
+                    print(f"[21e trace {what} {m}] {out}")
+
+        # 21f: every block alone, teacher-forced, against float32
+        dist, touched = self.ssm_blocks(params, cfg, tokens, vjp=False)
+        self.check_blocks("21f", f"mamba2-2.7b bf16 prefill {PREFILL}, the "
+                          f"mixer output", dist, touched)
+        del params, cache, want, got
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def report_controls(self, tag, what, controls):
+        """Print the controls' readings (name, flagged, reading, touched
+        calls); raise if a defect touched no call, or if the check missed
+        one of SSM_END_TO_END."""
+        print(f"[{tag} controls] {what}: " + "; ".join(
+            f"{name}: {read}, {'flagged' if flagged else 'not flagged'}"
+            for name, flagged, read, _ in controls)
+            + f" (flagged past {SSM_F32_FACTOR}x; must flag "
+            f"{list(SSM_END_TO_END)})")
+        for name, flagged, _, hit in controls:
+            if not hit:
+                raise PhaseError(f"{tag}: the control {name} touched no call")
+            if name in SSM_END_TO_END and not flagged:
+                raise PhaseError(f"{tag}: brainslug's check against the "
+                                 f"float32 run passes the defective run "
+                                 f"{name}")
+
+    def ssm_grad_anchor(self, layers):
+        """22b: the step-1 gradient of the trainer's loss over every
+        parameter (the seed-0 weights drawn in bf16, the first batch) in
+        brainslug, in barrier and in barrier with each control's defect;
+        its relative L2 distance to the float32 gradient of the same
+        weights.  brainslug's within SSM_F32_FACTOR x barrier's."""
+        torch = self.torch
+        import gc
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.data import pipeline
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+
+        def grads(mode, dtype):
+            trainer = self.lm_trainer(mode, layers, dtype,
+                                      arch="mamba2-2.7b",
+                                      init_dtype="bfloat16",
+                                      remat=MAMBA_TRAIN["remat"])
+            params, cfg = trainer.params, trainer.cfg
+            batch = {k: torch.from_numpy(x).to(self.dev) for k, x in
+                     pipeline.synth_batch(cfg, trainer.shape, 0, 0).items()}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            with torch.enable_grad():
+                live = base.tree_map(lambda p: p.detach().requires_grad_(),
+                                     params)
+                loss, _ = lm.loss_fn(live, batch, cfg, RuntimeConfig(
+                    mode=mode, remat=MAMBA_TRAIN["remat"]))
+                out = torch.autograd.grad(loss, base.tree_leaves(live))
+            return float(loss), out
+
+        loss32, g32 = grads("barrier", "float32")
+        dist, loss = {}, {}
+        for m in ("brainslug", "barrier"):
+            loss[m], g = grads(m, "bfloat16")
+            dist[m] = self.rel_l2(g, g32)
+            del g
+        controls = []
+        for name in SSM_CONTROLS:
+            with self.ssm_control(name) as hit:
+                loss[name], g = grads("barrier", "bfloat16")
+            dist[name] = self.rel_l2(g, g32)
+            del g
+            ratio = dist[name] / dist["barrier"]
+            controls.append((name, ratio > SSM_F32_FACTOR,
+                             f"{dist[name]:.4e} ({ratio:.2f}x barrier's), "
+                             f"loss {loss[name]}", len(hit)))
+        del g32
+        gc.collect()
+        torch.cuda.empty_cache()
+        ratio = dist["brainslug"] / dist["barrier"]
+        print(f"[22b step-1 gradient] {layers} layers bf16, every parameter, "
+              f"relative L2 distance to the float32 gradient of the same "
+              f"weights (loss {loss32}): brainslug {dist['brainslug']:.4e} "
+              f"(loss {loss['brainslug']}), barrier {dist['barrier']:.4e} "
+              f"(loss {loss['barrier']}), brainslug at {ratio:.3f}x "
+              f"barrier's (tol {SSM_F32_FACTOR}x); "
+              f"{time.perf_counter() - t:.1f} s")
+        self.report_controls("22b", "barrier bf16 with a defect, step-1 "
+                             "gradient's distance to the float32 gradient",
+                             controls)
+        if not ratio <= SSM_F32_FACTOR:
+            raise PhaseError(f"mamba step-1 gradient: brainslug's distance "
+                             f"to float32 {dist['brainslug']:.4e} > "
+                             f"{SSM_F32_FACTOR} x barrier's "
+                             f"{dist['barrier']:.4e}")
+
+    def phase22_ssm_train(self):
+        torch = self.torch
+        import shutil
+        import tempfile
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.data import pipeline
+        from repro_torch.distributed import fault_tolerance as ft
+        from repro_torch.launch import steps as steps_mod
+        from repro_torch.optim import adamw
+        from repro_torch.configs import get_config
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        L = get_config("mamba2-2.7b").n_layers
+        kw = dict(arch="mamba2-2.7b", remat=MAMBA_TRAIN["remat"],
+                  counters=self.ssm_counters)
+        runs = {}
+        for mode in ("brainslug", "barrier"):
+            hist, per_step, peak, wall = self.train_lm(mode, L, "bfloat16",
+                                                       **kw)
+            for i, got in enumerate(per_step):
+                if mode == "brainslug":
+                    # remat "full": every block runs twice, its backward once
+                    self.expect_ssm(f"mamba train step {i + 1}", got,
+                                    ssd=2 * L, rmsnorm=2 * L + 1, rows=2 * L,
+                                    rows_bwd=L)
+                else:
+                    self.expect_ssm(f"mamba train barrier step {i + 1}", got)
+            runs[mode] = (hist, per_step, peak, wall)
+        # the float32 reference: the same bf16-drawn weights in float32
+        runs["float32"] = self.train_lm("barrier", L, "float32",
+                                        init_dtype="bfloat16", **kw)
+        losses = {m: [h["loss"] for h in r[0]] for m, r in runs.items()}
+        gnorms = {m: [h["grad_norm"] for h in r[0]] for m, r in runs.items()}
+        if not all(math.isfinite(x) for d in (losses, gnorms)
+                   for v in d.values() for x in v):
+            raise PhaseError(f"mamba train: losses {losses}, grad norms "
+                             f"{gnorms}")
+        gaps, held = {}, {}
+        for what, vals in (("loss", losses), ("grad_norm", gnorms)):
+            gaps[what] = [abs(a - b) / abs(b) for a, b in
+                          zip(vals["brainslug"], vals["barrier"])]
+            held[what] = [(abs(a - c) / abs(c), abs(b - c) / abs(c))
+                          for a, b, c in zip(vals["brainslug"],
+                                             vals["barrier"],
+                                             vals["float32"])]
+        print(f"[22a train bf16] mamba2-2.7b, d_model 2560, 80 heads of 64, "
+              f"N 128, vocab 50280, {L} layers, bf16, remat "
+              f"{MAMBA_TRAIN['remat']}, 1 x {TRAIN_LM['seq']} tokens, "
+              f"{TRAIN_LM['steps']} AdamW steps lr {TRAIN_LM['lr']} through "
+              f"build_trainer / Trainer.run: " + "; ".join(
+                  f"{m} losses {losses[m]} grad_norm {gnorms[m]} peak "
+                  f"{runs[m][2]:.2f} GiB wall {runs[m][3]:.1f} s"
+                  for m in runs)
+              + f"; brainslug vs barrier relative gaps per step: loss "
+              f"{[f'{g:.3e}' for g in gaps['loss']]}, grad_norm "
+              f"{[f'{g:.3e}' for g in gaps['grad_norm']]}; distances to "
+              f"the float32 run (brainslug, barrier): loss "
+              f"{[(f'{a:.2e}', f'{b:.2e}') for a, b in held['loss']]}, "
+              f"grad_norm "
+              f"{[(f'{a:.2e}', f'{b:.2e}') for a, b in held['grad_norm']]} "
+              f"(read, not held: agreement is held on the step-1 gradient, "
+              f"22b, and block by block, 22e); brainslug counters per step "
+              f"{runs['brainslug'][1][0]}")
+        self.ssm_grad_anchor(L)
+
+        # 22c: kill at step 2, resume from the step-1 checkpoint (at
+        # MAMBA_TRAIN["layers_resume"] layers)
+        Lr = MAMBA_TRAIN["layers_resume"]
+        full = self.train_lm("brainslug", Lr, "bfloat16", **kw)[0]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            free = shutil.disk_usage(d).free / 2 ** 30
+            try:
+                self.train_lm("brainslug", Lr, "bfloat16",
+                              failure=ft.failure_injector({2}), ckpt_dir=d,
+                              ckpt_every=1, **kw)
+            except ft.SimulatedFailure:
+                pass
+            else:
+                raise PhaseError("mamba kill/resume: the injected failure at "
+                                 "step 2 did not happen")
+            resumed, _, _, wall = self.train_lm("brainslug", Lr, "bfloat16",
+                                                ckpt_dir=d, ckpt_every=1,
+                                                **kw)
+        if [h["step"] for h in resumed] != [2] or \
+                resumed[-1]["loss"] != full[-1]["loss"]:
+            raise PhaseError(f"mamba kill/resume: resumed {resumed}, "
+                             f"uninterrupted step-3 loss {full[-1]['loss']}")
+        print(f"[22c kill/resume] bf16 {Lr} layers brainslug: killed at step "
+              f"2, resumed from the step-1 bf16 checkpoint ({free:.0f} GiB "
+              f"free in the temp dir): step-3 loss {resumed[-1]['loss']} "
+              f"equals the uninterrupted run's bit for bit; resume run "
+              f"{wall:.1f} s; phase {time.perf_counter() - t:.1f} s")
+
+        # 22d: the full-depth step per mode, in turns, on one model and state
+        trainer = self.lm_trainer("brainslug", L, "bfloat16",
+                                  arch="mamba2-2.7b",
+                                  remat=MAMBA_TRAIN["remat"])
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_LM["lr"])
+        fns = {m: steps_mod.make_train_step(
+            trainer.cfg, RuntimeConfig(mode=m, remat=MAMBA_TRAIN["remat"]),
+            opt_cfg) for m in ("barrier", "brainslug")}
+        batch = {k: torch.from_numpy(x).to(self.dev) for k, x in
+                 pipeline.synth_batch(trainer.cfg, trainer.shape, 0,
+                                      0).items()}
+
+        def step(m):
+            trainer.params, trainer.opt_state, _ = fns[m](
+                trainer.params, trainer.opt_state, batch)
+
+        def timed(m):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(m)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            return statistics.median(times)
+
+        for m in fns:
+            step(m)                                     # warm-up
+        turns = [(m, timed(m)) for m in ("barrier", "brainslug", "brainslug",
+                                         "barrier")]
+        print(f"[22d train step] mamba2-2.7b {L} layers bf16 remat "
+              f"{MAMBA_TRAIN['remat']}, 1 x {TRAIN_LM['seq']} tokens, forward "
+              f"+ backward + AdamW, median of 3 after a warm-up (host clock "
+              f"around synchronised steps), in turns: "
+              + "  ".join(f"{m}={ms:.1f} ms ({TRAIN_LM['seq'] / ms:.2f} "
+                          f"tok/ms)" for m, ms in turns))
+        for m in ("barrier", "brainslug"):
+            print(f"[22d trace train step {m}] " + self.train_trace(
+                lambda m=m: step(m), classify=self.ssm_kernel))
+        del trainer, fns, batch
+        torch.cuda.empty_cache()
+
+        # 22e: every block's VJP alone, teacher-forced, against float32
+        cfg = get_config("mamba2-2.7b")
+        params = lm.init(0, cfg, device=self.dev)
+        g = torch.Generator(device=self.dev).manual_seed(2301)
+        tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_LM["seq"]),
+                               generator=g, device=self.dev)
+        dist, touched = self.ssm_blocks(params, cfg, tokens, vjp=True)
+        self.check_blocks("22e", f"mamba2-2.7b bf16 at 1 x {TRAIN_LM['seq']} "
+                          f"tokens, the VJP of every input and parameter",
+                          dist, touched)
+        del params
+        torch.cuda.empty_cache()
+        print(f"[22 kernels] ssd_intra_chunk max|d|="
+              f"{self.err['ssd_intra_chunk']:.3e} (against its plain "
+              f"version)  ops.ssd max|d|={self.err['ssd_ops']:.3e} (against "
+              f"ssd_chunked)")
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -12,7 +12,11 @@ manifest's fsync, so a killed process never leaves a half-readable
 Leaves are tensors (or numpy arrays), moved to the host on the caller's
 thread.  A bfloat16 leaf is written as its bits, a ``uint16`` array, with
 ``"bfloat16"`` as its dtype in the manifest, and read back as the same
-bits: it round-trips exactly (numpy has no bfloat16 of its own).
+bits: it round-trips exactly (numpy has no bfloat16 of its own).  The JAX
+package's ``np.save`` writes its bfloat16 leaves as two-byte void records
+(``|V2``) under the same manifest dtype; those are read as the same bits
+too.  The other direction waits on the JAX package's ``restore``, which
+takes a ``uint16`` leaf for a dtype mismatch.
 
 ``AsyncCheckpointer`` runs the writes on a worker thread (serialisation
 and IO overlap training).
@@ -30,6 +34,9 @@ import numpy as np
 import torch
 
 BF16 = "bfloat16"
+#: How a bfloat16 leaf lies on disk: the port writes its bits as ``uint16``,
+#: the JAX package as two-byte void records (``|V2``).
+_BF16_DISK = (np.dtype(np.uint16), np.dtype("V2"))
 
 
 def _host(leaf: Any) -> tuple[np.ndarray, str]:
@@ -180,7 +187,7 @@ def restore(directory: str, step: int, like: Any) -> tuple[Any, dict]:
         except (OSError, ValueError, EOFError) as e:
             raise CheckpointError(f"checkpoint {path}: leaf {name!r} "
                                   f"unreadable or truncated ({e})") from e
-        bf16 = spec.get("dtype") == BF16 and arr.dtype == np.uint16
+        bf16 = spec.get("dtype") == BF16 and arr.dtype in _BF16_DISK
         disk = BF16 if bf16 else str(arr.dtype)
         if tuple(arr.shape) != tuple(spec.get("shape", ())) \
                 or disk != spec.get("dtype"):

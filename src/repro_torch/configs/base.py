@@ -161,6 +161,7 @@ class RuntimeConfig:
     #            continuous-batching engine allocates blocks on demand
     kv_layout: str = "dense"           # 'dense' | 'paged'
     kv_block_size: int = 16            # tokens per KV block (paged layout)
+    ssd_chunk: int = 64                # SSD (mamba2) chunk length
     decode_block_k: int = 512
     attn_block_q: int = 128
     attn_block_k: int = 128
@@ -183,6 +184,8 @@ class RuntimeConfig:
         if self.kv_block_size < 1:
             raise ValueError(f"kv_block_size must be >= 1, got "
                              f"{self.kv_block_size}")
+        if self.ssd_chunk < 1:
+            raise ValueError(f"ssd_chunk must be >= 1, got {self.ssd_chunk}")
 
 
 def _count_params(cfg: ModelConfig, active_only: bool) -> int:

@@ -6,6 +6,7 @@ baseline (``--static``); the twin of the JAX package's
     python -m repro_torch.examples.serve_batch --arch deepseek-7b \\
         --mode brainslug --kv-layout paged
     python -m repro_torch.examples.serve_batch --device cpu --reduced
+    python -m repro_torch.examples.serve_batch --arch mamba2-2.7b
 
 It serves the full-width model on the card by default; ``--device cpu
 --reduced`` runs the config's small variant with the plain versions.

@@ -3,7 +3,8 @@
 
 Without flags it trains deepseek-7b on the card at its published widths
 with the depth cut to fit one 80 GB card (8 layers, bf16, one sequence of
-4096 tokens, lr 3e-4 constant).  ``--device cpu`` runs the reduced config
+4096 tokens, lr 3e-4 constant); ``--arch mamba2-2.7b`` trains all 64
+layers, each block recomputed in the backward (``remat="full"``).  ``--device cpu`` runs the reduced config
 (a CPU-sized deepseek-family model, batch 4 x 64, lr 3e-3) on the kernels'
 plain versions.  Checkpoints go to ``--ckpt-dir`` every 50 steps (on the
 CPU, a fresh temporary directory by default; on the card none by default,
@@ -18,6 +19,12 @@ import tempfile
 
 from repro_torch.launch.train import TrainerConfig, train
 from repro_torch.optim import adamw
+
+#: What fits one 80 GB card with AdamW's float32 moments, per arch: the
+#: depth cut and the remat policy (mamba2-2.7b's 2.7 G parameters need
+#: about 32 GB before activations).
+CARD = {"deepseek-7b": dict(config_overrides=(("n_layers", 8),)),
+        "mamba2-2.7b": dict(remat="full")}
 
 
 def main() -> None:
@@ -46,8 +53,8 @@ def main() -> None:
         tc = TrainerConfig(arch=args.arch, reduced=False, steps=args.steps,
                            mode=args.mode, ckpt_dir=ckpt_dir, ckpt_every=50,
                            batch_override=1, seq_override=4096,
-                           config_overrides=(("n_layers", 8),),
-                           device=args.device, log_every=1)
+                           device=args.device, log_every=1,
+                           **CARD.get(args.arch, {}))
         kw["opt_cfg"] = adamw.AdamWConfig(lr=3e-4)
 
     history = train(tc, **kw)

@@ -12,8 +12,9 @@ Bound: device-memory bytes (one read per input, one write per output).
 The whole row sits in one ``BLOCK_F = next_power_of_2(F)`` block, so row
 reductions (``ROW_NORM`` rms/layer, ``ROW_SOFTMAX``) need no second pass;
 a program walks its ``tile_rows`` in sub-blocks of ``R_SUB`` rows so that a
-wide row (d_ff = 11008) still fits the registers.  Rows past the end are
-masked, never padded, read or written.
+wide row (d_ff = 11008) still fits the registers, and stops at the last row
+(a short last tile, such as a decode step's few rows, walks only its own
+rows).  Rows past the end are masked, never padded, read or written.
 
 Lanes past F: 0 in every sum (and re-zeroed after ``x - mu``), ``-inf``
 before the softmax max; means divide by the real F.  Divisions
@@ -83,6 +84,10 @@ _BINARY = {
 DTYPES = {torch.float32: "tl.float32", torch.bfloat16: "tl.bfloat16"}
 
 
+#: value_dtypes by (signature, input dtypes, parameter dtypes and shapes).
+_STEPS: dict[tuple, dict[str, tuple[torch.dtype, ...]]] = {}
+
+
 def value_dtypes(program: ir.StackProgram,
                  in_dtypes: Mapping[str, torch.dtype],
                  params: Mapping[str, torch.Tensor]
@@ -92,7 +97,23 @@ def value_dtypes(program: ir.StackProgram,
     biased])`` for a ``ROW_NORM``, ``(out,)`` for the rest.  Found by
     running the interpreter's steps on meta tensors (PyTorch's promotion,
     0-dim parameters included); the port's stand-in for the JAX kernel's
-    ``_infer_outputs``."""
+    ``_infer_outputs``.  Computed once per signature, dtypes and parameter
+    shapes (on meta tensors it costs some 0.4 ms, at every launch of a
+    decode step's many small chains)."""
+    key = (program.signature(),
+           tuple((v, in_dtypes[v]) for v in sorted(in_dtypes)),
+           tuple((p, params[p].dtype, tuple(params[p].shape))
+                 for p in program.param_names))
+    steps = _STEPS.get(key)
+    if steps is None:
+        steps = _STEPS[key] = _value_dtypes(program, in_dtypes, params)
+    return dict(steps)
+
+
+def _value_dtypes(program: ir.StackProgram,
+                  in_dtypes: Mapping[str, torch.dtype],
+                  params: Mapping[str, torch.Tensor]
+                  ) -> dict[str, tuple[torch.dtype, ...]]:
     def meta(dtype, shape=(1, 1)):
         return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -178,7 +199,7 @@ def emit_source(program: ir.StackProgram, in_widths: Mapping[str, int],
     lines += ["    " + ln for ln in param_lines(program, pvar, param_widths,
                                                   dtypes)]
     lines += [
-        "    for r0 in range(row_start, row_start + TILE_R, R_SUB):",
+        "    for r0 in range(row_start, row_end, R_SUB):",
         "        rows = (r0 + tl.arange(0, R_SUB))[:, None]",
         "        rmask = rows < row_end",
         "        r64 = rows.to(tl.int64)",

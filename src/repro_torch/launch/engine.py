@@ -401,7 +401,8 @@ class Engine:
 
     def report(self) -> dict:
         """Dispatch summary of the last run: which decode path ran (the
-        CUDA kernel, its plain version on the CPU, or the reference), with
+        CUDA kernel, its plain version on the CPU, the reference, or for an
+        attention-free model the recurrent SSM step), with
         the reason where it is not the kernel, and the engine and
         attention dispatch deltas.  ``mesh_axes`` and ``serve_partition``
         stay empty until the multi-device slice."""
@@ -414,6 +415,9 @@ class Engine:
             path = f"plain-{name}"
             fallback = ("CPU tensors run the kernel's plain version; the "
                         "CUDA kernel runs on the card")
+        elif self.cfg.family == "ssm":
+            path = "ssm-recurrent"
+            fallback = "no attention layers: nothing to flash-decode"
         elif attn.get(f"{pre}decode_ref") or self.rt.mode != "brainslug":
             path = f"ref-{name}" if pre else "ref-decode"
             fallback = (f"mode={self.rt.mode!r} runs the reference decode; "

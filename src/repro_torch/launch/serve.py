@@ -20,6 +20,7 @@ Usage (full width on the card; ``--reduced`` for the small config,
 ``--device cpu`` for the plain versions on the CPU):
 
   python -m repro_torch.launch.serve --arch deepseek-7b --mode brainslug
+  python -m repro_torch.launch.serve --arch mamba2-2.7b --mode brainslug
 """
 from __future__ import annotations
 

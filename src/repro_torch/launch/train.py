@@ -10,6 +10,8 @@ and test meshes come with the multi-device slice of the port.
 Usage:
   python -m repro_torch.launch.train --arch deepseek-7b --reduced \\
       --device cpu --steps 100
+  python -m repro_torch.launch.train --arch mamba2-2.7b --device cpu \\
+      --steps 6
 """
 from __future__ import annotations
 

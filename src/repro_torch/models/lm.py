@@ -1,21 +1,28 @@
 """Language-model assembly, ported from ``repro/models/lm.py`` for the dense
-family (attention + MLP blocks): embedding, a stack of blocks over the
-layer-stacked parameters, fused BrainSlug norm and activation chains, the
-final norm and the vocab head; prefill, decode and the training loss.
+family (attention + MLP blocks) and the SSM family (mamba2 blocks):
+embedding, a stack of blocks over the layer-stacked parameters, fused
+BrainSlug norm and activation chains, the final norm and the vocab head;
+prefill, decode and the training loss.
 
 * Parameters are the JAX package's nested tree, ``blocks/sub0/...`` leaves
   carrying a leading layer axis; ``jax.lax.scan`` over that axis becomes a
-  loop over it.
+  loop over it.  A dense block is ``{norm1, attn, norm2, mlp}``, a mamba
+  block ``{norm1, mixer}``.
 * The residual stream uses a (resid, pending) carry so every residual add
   fuses with the next norm.
-* Decode caches are stacked along the same layer axis and updated in place.
+* Decode caches are stacked along the same layer axis and updated in place:
+  a KV cache (dense or paged) per attention layer, a :class:`~repro_torch.
+  layers.mamba2.MambaCache` (conv window and SSM state) per mamba layer.
 * The training loss (:func:`loss_fn`) runs the fused vocab cross-entropy
-  kernel in ``brainslug`` mode; ``remat="full"`` recomputes each block in
-  the backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
+  kernel in ``brainslug`` mode for an untied head (a tied head, as mamba2's,
+  takes the plain loss in every mode, as the JAX package does);
+  ``remat="full"`` recomputes each block in the backward
+  (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
 
-MoE, Mamba (SSM, hybrid) and the audio / vision frontends raise and name
-the slice of the port that brings them.  Entry points run on ``cuda``
-unless the caller asks for the CPU.
+MoE, the hybrid family (zamba2: mamba blocks with a shared attention block)
+and the audio / vision frontends raise and name the slice of the port that
+brings them.  Entry points run on ``cuda`` unless the caller asks for the
+CPU.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
 from repro_torch.kernels.vocab_ce import ops as ce_ops
-from repro_torch.layers import attention, base, dense, stacks
+from repro_torch.layers import attention, base, dense, mamba2, stacks
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -66,12 +73,16 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 
 def _check_ported(cfg: ModelConfig) -> LayerPlan:
-    """The plan of a config this slice runs: dense blocks, token inputs."""
+    """The plan of a config the port runs: dense or mamba blocks, token
+    inputs."""
     plan = layer_plan(cfg)
     kinds = set(plan.superblock) | set(plan.tail)
-    if "mamba" in kinds:
-        raise NotImplementedError(f"{cfg.name}: Mamba layers come with the "
-                                  f"SSM slice of the port")
+    if "shared_attn" in kinds:
+        raise NotImplementedError(
+            f"{cfg.name}: the hybrid family (mamba blocks with a shared "
+            f"attention block) comes with the hybrid slice of the port; its "
+            f"attention head dim {cfg.head_dim} needs the flash and decode "
+            f"kernels beyond their head dim of 128")
     if "attn_moe" in kinds:
         raise NotImplementedError(f"{cfg.name}: MoE layers come with the "
                                   f"MoE slice of the port")
@@ -80,6 +91,12 @@ def _check_ported(cfg: ModelConfig) -> LayerPlan:
                                   f"comes with the multimodal slice of the "
                                   f"port")
     return plan
+
+
+def _kind(plan: LayerPlan) -> str:
+    """The one block kind of a ported plan (``attn_dense`` or ``mamba``)."""
+    (kind,) = plan.superblock
+    return kind
 
 
 # ---------------------------------------------------------------------------
@@ -104,12 +121,14 @@ def init(seed: int, cfg: ModelConfig, *,
         tree["out_head"] = base.normal(g, (cfg.d_model, cfg.vocab_size),
                                        dtype=dtype)
     tree["final_norm"] = dense.norm_init(cfg, None, dtype, dev)
-    tree["blocks"] = {"sub0": {
-        "norm1": dense.norm_init(cfg, L, dtype, dev),
-        "attn": attention.init(g, cfg, L, dtype),
-        "norm2": dense.norm_init(cfg, L, dtype, dev),
-        "mlp": dense.init(g, cfg, L, dtype),
-    }}
+    sub = {"norm1": dense.norm_init(cfg, L, dtype, dev)}
+    if _kind(plan) == "mamba":
+        sub["mixer"] = mamba2.init(g, cfg, L, dtype)
+    else:
+        sub["attn"] = attention.init(g, cfg, L, dtype)
+        sub["norm2"] = dense.norm_init(cfg, L, dtype, dev)
+        sub["mlp"] = dense.init(g, cfg, L, dtype)
+    tree["blocks"] = {"sub0": sub}
     return tree
 
 
@@ -132,12 +151,14 @@ def _unstack(tree: Any, n: int) -> list:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_sub(p: dict, resid: torch.Tensor, pending: torch.Tensor,
-               cfg: ModelConfig, rt: RuntimeConfig
+def _apply_sub(kind: str, p: dict, resid: torch.Tensor,
+               pending: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
                ) -> tuple[torch.Tensor, torch.Tensor]:
     norm_kw = dict(norm=cfg.norm, mode=rt.mode)
     h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
                                 p["norm1"].get("bias"), **norm_kw)
+    if kind == "mamba":
+        return resid, mamba2.apply(p["mixer"], h1, cfg, rt)
     attn_out = attention.apply(p["attn"], h1, cfg, rt)
     h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
                                 p["norm2"].get("bias"), **norm_kw)
@@ -184,9 +205,10 @@ def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
     plan = _check_ported(cfg)
     x = embed_inputs(params, batch, cfg)
     resid, pending = x, torch.zeros_like(x)
+    kind = _kind(plan)
 
     def block(p, resid, pending):
-        return _apply_sub(p, resid, pending, cfg, rt)
+        return _apply_sub(kind, p, resid, pending, cfg, rt)
 
     body = _remat(block, rt)
     for p in _unstack(params["blocks"]["sub0"], plan.n_super):
@@ -271,13 +293,18 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       kv_block_size: int = 16,
                       device: str | torch.device = "cuda") -> dict:
     """Decode cache for every layer, stacked along the layer axis:
-    ``{"blocks": {"sub0": cache}}``.  ``kv_layout="dense"``: a
+    ``{"blocks": {"sub0": cache}}``.
+
+    Attention layers: ``kv_layout="dense"`` gives a
     :class:`~repro_torch.layers.attention.KVCache` with k/v ``(L, B, G,
-    max_len, hd)``.  ``kv_layout="paged"``: a
+    max_len, hd)``; ``kv_layout="paged"`` a
     :class:`~repro_torch.layers.attention.PagedKVCache` of ``kv_num_blocks``
     blocks of ``kv_block_size`` tokens, pools ``(L, N, G, bs, hd)``; one
     block id addresses the same pool row in every layer, so one host-side
-    block table serves the whole model."""
+    block table serves the whole model.  Mamba layers keep their dense
+    per-slot :class:`~repro_torch.layers.mamba2.MambaCache` either way (conv
+    ``(L, B, cw-1, di+2n)`` in ``dtype``, state ``(L, B, H, N, P)`` in
+    float32): a recurrent state has no block structure to share."""
     plan = _check_ported(cfg)
     if kv_layout not in ("dense", "paged"):
         raise ValueError(f"unknown kv_layout {kv_layout!r}; "
@@ -285,7 +312,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     if kv_layout == "paged" and kv_num_blocks < 1:
         raise ValueError("paged kv_layout requires kv_num_blocks >= 1")
     dev = base.device(device)
-    if kv_layout == "paged":
+    if _kind(plan) == "mamba":
+        sub = mamba2.init_cache(cfg, batch, dtype, n_layers=plan.n_super,
+                                dev=dev)
+    elif kv_layout == "paged":
         sub = attention.init_paged_cache(cfg, batch, kv_num_blocks,
                                          kv_block_size, dtype,
                                          n_layers=plan.n_super, dev=dev)
@@ -301,11 +331,12 @@ def reset_slots(cache: dict, mask: torch.Tensor,
     place (the engine's slot-admission primitive); every leaf is
     layer-stacked, so batch is axis 1.
 
-    Dense leaves (K/V contents and length) are zeroed.  Paged KV state is
-    block-mapped: the pool is shared, so a freed slot returns its blocks on
-    the host and only its logical ``length`` is rewritten, to 0 or to
-    ``lengths[b]`` when prefix sharing admits the slot mid-prompt (the
-    shared blocks already hold its first ``lengths[b]`` positions)."""
+    Dense leaves (K/V contents and length, the mamba conv window and SSM
+    state) are zeroed.  Paged KV state is block-mapped: the pool is shared,
+    so a freed slot returns its blocks on the host and only its logical
+    ``length`` is rewritten, to 0 or to ``lengths[b]`` when prefix sharing
+    admits the slot mid-prompt (the shared blocks already hold its first
+    ``lengths[b]`` positions)."""
     c = cache["blocks"]["sub0"]
     if isinstance(c, attention.PagedKVCache):
         new_len = (torch.zeros_like(c.length[0]) if lengths is None
@@ -313,7 +344,9 @@ def reset_slots(cache: dict, mask: torch.Tensor,
         c.length.copy_(torch.where(mask[None, :], new_len[None, :],
                                    c.length))
         return cache
-    for leaf in (c.k, c.v, c.length):
+    leaves = ((c.conv, c.state) if isinstance(c, mamba2.MambaCache)
+              else (c.k, c.v, c.length))
+    for leaf in leaves:
         m = mask.reshape((1, -1) + (1,) * (leaf.dim() - 2))
         leaf.masked_fill_(m, 0)
     return cache
@@ -323,14 +356,24 @@ def copy_blocks(cache: dict, src: int, dst: int) -> dict:
     """Copy physical KV block ``src`` to ``dst`` in every layer's pool, in
     place (the copy-on-write fork: the engine allocates ``dst``, copies,
     and remaps the writing slot's table before the dispatch that would
-    have written into the shared ``src``).  A dense cache is untouched.
-    The copy is queued on the current stream, so the next dispatch, on the
-    same stream, reads the forked block."""
+    have written into the shared ``src``).  A dense KV cache and the mamba
+    caches are untouched.  The copy is queued on the current stream, so
+    the next dispatch, on the same stream, reads the forked block."""
     c = cache["blocks"]["sub0"]
     if isinstance(c, attention.PagedKVCache):
         c.k_pool[:, dst] = c.k_pool[:, src]
         c.v_pool[:, dst] = c.v_pool[:, src]
     return cache
+
+
+def _layer_cache(c: Any, i: int) -> Any:
+    """Layer ``i``'s view of a layer-stacked cache (writes go through)."""
+    if isinstance(c, mamba2.MambaCache):
+        return mamba2.MambaCache(conv=c.conv[i], state=c.state[i])
+    if isinstance(c, attention.PagedKVCache):
+        return attention.PagedKVCache(k_pool=c.k_pool[i], v_pool=c.v_pool[i],
+                                      length=c.length[i])
+    return attention.KVCache(k=c.k[i], v=c.v[i], length=c.length[i])
 
 
 def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
@@ -341,10 +384,12 @@ def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
     """One serving step: tokens_t (B, 1) -> (logits (B, 1, V), cache).
 
     ``active`` is an optional (B,) bool slot mask: inactive slots compute
-    but their cache state is frozen.  ``block_tables`` (B, MB) is required
-    for (and only read by) a paged cache: one table addresses every
-    layer's pool.  The cache is updated in place and returned."""
+    but their cache state (KV write and length, mamba conv window and SSM
+    state) is frozen.  ``block_tables`` (B, MB) is required for (and only
+    read by) a paged KV cache: one table addresses every layer's pool.  The
+    cache is updated in place and returned."""
     plan = _check_ported(cfg)
+    kind = _kind(plan)
     x = params["embed"][tokens_t]
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
@@ -353,17 +398,15 @@ def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
     c = cache["blocks"]["sub0"]
     blocks = params["blocks"]["sub0"]
     resid, pending = x, torch.zeros_like(x)
-    paged = isinstance(c, attention.PagedKVCache)
     for i in range(plan.n_super):
         p = _layer(blocks, i)
-        if paged:
-            layer_cache = attention.PagedKVCache(
-                k_pool=c.k_pool[i], v_pool=c.v_pool[i], length=c.length[i])
-        else:
-            layer_cache = attention.KVCache(k=c.k[i], v=c.v[i],
-                                            length=c.length[i])
+        layer_cache = _layer_cache(c, i)
         h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
                                     p["norm1"].get("bias"), **norm_kw)
+        if kind == "mamba":
+            pending, _ = mamba2.decode(p["mixer"], h1, layer_cache, cfg, rt,
+                                       active=active)
+            continue
         attn_out, _ = attention.decode(p["attn"], h1, layer_cache, cfg, rt,
                                        active=active,
                                        block_table=block_tables)

@@ -61,3 +61,13 @@ def test_training_slice_modules_import_neither_jax_nor_repro():
                  "launch.train", "examples.train_lm"):
         assert f"repro_torch.{name}" in result["modules"]
     assert result["bad"] == []
+
+
+def test_ssm_slice_modules_import_neither_jax_nor_repro():
+    """The SSM slice: the SSD kernels, their dispatch and the mamba2
+    layer."""
+    result = _probe()
+    for name in ("kernels.ssd.ref", "kernels.ssd.chunked", "kernels.ssd.ssd",
+                 "kernels.ssd.ops", "layers.mamba2", "configs.mamba2_2p7b"):
+        assert f"repro_torch.{name}" in result["modules"]
+    assert result["bad"] == []

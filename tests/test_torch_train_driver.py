@@ -166,6 +166,33 @@ def test_bf16_leaves_round_trip_exactly(tmp_path):
     assert int(got["n"]) == 3
 
 
+def test_jax_bf16_checkpoint_restores_bit_for_bit(tmp_path):
+    """A bf16 tree written by the JAX checkpointer (its ``np.save`` stores
+    the leaves as ``|V2`` records) restores in the port with the same bits;
+    float32 and int leaves beside it keep theirs.  A leaf whose bytes do not
+    match the manifest's dtype still raises."""
+    import ml_dtypes
+    rng = np.random.default_rng(6)
+    w = rng.standard_normal((5, 7)).astype(ml_dtypes.bfloat16)
+    tree = {"w": w, "a": rng.standard_normal(3).astype(np.float32),
+            "n": np.asarray(3, np.int32)}
+    jckpt.save(str(tmp_path), 2, tree)
+    disk = np.load(tmp_path / "step_00000002" / "w.npy")
+    assert disk.dtype == np.dtype("V2")
+    like = {"w": torch.zeros((5, 7), dtype=torch.bfloat16),
+            "a": torch.zeros(3), "n": torch.tensor(0, dtype=torch.int32)}
+    got, _ = tckpt.restore(str(tmp_path), 2, like)
+    assert got["w"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(got["w"].view(torch.int16).numpy(),
+                                  w.view(np.int16))
+    np.testing.assert_array_equal(got["a"].numpy(), tree["a"])
+    assert int(got["n"]) == 3
+    np.save(tmp_path / "step_00000002" / "a.npy",
+            np.zeros(3, np.float32).view(np.dtype("V4")))
+    with pytest.raises(tckpt.CheckpointError, match="manifest"):
+        tckpt.restore(str(tmp_path), 2, like)
+
+
 def test_truncated_latest_falls_back(tmp_path):
     """A truncated leaf in the newest checkpoint (and a crash orphan) make
     ``restore_latest`` sweep the orphan and take the previous step."""
