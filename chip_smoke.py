@@ -382,6 +382,28 @@ class Smoke:
               f"parallel, {time.perf_counter() - t:.1f} s; triton "
               f"{triton.__version__} compiles each rows signature and the "
               f"rmsnorm / swiglu kernels at their first launch")
+        print("[1 build] flash_attention.cu, nvcc -Xptxas -v: "
+              + "; ".join(self.ptxas_report(_build.build_log(flash.SOURCE))))
+
+    @staticmethod
+    def ptxas_report(log):
+        """Each kernel's registers and spills from ptxas's ``-v`` lines."""
+        out, name = [], None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                name = ("flash_fwd_kernel_bf16_wgmma" if "bf16_wgmma" in name
+                        else "flash_fwd_kernel<float>" if "flash_fwd_kernel"
+                        in name else name)
+            elif "spill stores" in line and name:
+                spill = line.strip()
+            elif "Used" in line and "registers" in line and name:
+                regs = line.split("Used")[1].split(",")[0].strip()
+                out.append(f"{name}: {regs}, {spill}")
+                name = None
+        if not any("bf16_wgmma" in o for o in out):
+            raise PhaseError("ptxas reported no flash_fwd_kernel_bf16_wgmma")
+        return out
 
     def nhwc_cases(self):
         """(name, program, input shape, tile, extra shapes or "block") of
@@ -1402,6 +1424,7 @@ class Smoke:
             run = lambda: rows_bwd.fused_rows_bwd(  # noqa: E731
                 program, inputs, params, cot, tile_rows=tile)
             dins, dpar = run()
+            regs = self.triton_regs(rows_bwd.fused_rows_bwd.compiled)
             k_ms, k_how = self.device_ms(run)
             k_call = self.cuda_ms(run)
             p_ms, _ = self.device_ms(lambda: rows_bwd.fused_rows_bwd_ref(
@@ -1415,15 +1438,16 @@ class Smoke:
                                  *cot.values()]),
                 nbytes([*dins.values(), *dpar.values()]), first.numel(),
                 first.numel(), op_factor=3)
-            rows_entries[name] = (k_ms, p_ms, l_ms, b_ms, b_by, tile)
+            rows_entries[name] = (k_ms, p_ms, l_ms, b_ms, b_by, tile, regs)
             lib_s = f"{l_ms:.4f} ms" if l_ms is not None else "none"
             print(f"  {name} rows={math.prod(in_shapes[program.inputs[0]][:-1])}"
                   f" F={in_shapes[program.inputs[0]][-1]} tile_rows={tile}: "
                   f"kernel {k_ms:.4f} ms {k_how} ({k_call:.4f} per call)  "
                   f"plain {p_ms:.4f} ms  library {lib_s}"
                   f"  bound {b_ms:.4f} ms ({b_by})  kernel/bound "
-                  f"{k_ms / b_ms:.2f}")
-        k_ms, p_ms, l_ms, b_ms, b_by, tile = rows_entries["rms"]
+                  f"{k_ms / b_ms:.2f}  {regs}")
+        self.gated_norm_bwd_timing(nbytes)
+        k_ms, p_ms, l_ms, b_ms, b_by, tile, regs = rows_entries["rms"]
         self.kernels["fused_rows_bwd"] = {
             "name": "fused_rows_bwd", "route": "triton",
             "source": "src/repro_torch/kernels/fused_stack/rows_bwd.py",
@@ -1431,8 +1455,9 @@ class Smoke:
             "launches": self.train_launches["fused_rows_bwd"],
             "max_abs_err": self.err["fused_rows_bwd"], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms,
-            "shape": f"norm_program rms {ROWS} x {D_MODEL} tile {tile}"}
+            "library_ms": l_ms, "registers": regs,
+            "shape": f"norm_program rms {ROWS} x {D_MODEL} tile {tile}",
+            "gated_norm": self.gated_norm_bwd}
 
         nets = self.train_nets
         x, labels, params = self.train_data
@@ -1462,6 +1487,58 @@ class Smoke:
               f"{self.err['fused_nhwc_bwd']:.3e}  fused_rows_bwd max|d|="
               f"{self.err['fused_rows_bwd']:.3e}")
 
+
+    @staticmethod
+    def triton_regs(compiled):
+        """Registers a thread and bytes spilled of a compiled Triton
+        kernel."""
+        return (f"{compiled.n_regs} registers, {compiled.n_spills} bytes "
+                f"spilled")
+
+    def gated_norm_bwd_timing(self, nbytes):
+        """The rows backward at mamba2's gated norm, one 4096-token
+        training sequence over d_inner 5120 in bf16 (each launch of its
+        training step): against its plain version, two runs bit for bit,
+        its device time beside the byte bound, registers and spills."""
+        torch = self.torch
+        from repro_torch.kernels.fused_stack import rows_bwd
+        from repro_torch.layers import mamba2
+        bf = torch.bfloat16
+        shape = (TRAIN_LM["seq"], 5120)
+        program = mamba2._gated_norm_program(1e-6)
+        inputs = {"y": self.randn(shape, 1180).to(bf),
+                  "z": self.randn(shape, 1181).to(bf)}
+        params = {"scale": (1.0 + 0.1 * self.randn(shape[-1:], 1182)).to(bf)}
+        cot = {"o": self.randn(shape, 1183).to(bf)}
+        run = lambda: rows_bwd.fused_rows_bwd(  # noqa: E731
+            program, inputs, params, cot)
+        dins, dpar = run()
+        dins2, dpar2 = run()
+        regs = self.triton_regs(rows_bwd.fused_rows_bwd.compiled)
+        want_in, want_p = rows_bwd.fused_rows_bwd_ref(program, inputs,
+                                                      params, cot)
+        got = {f"d{n}": v for n, v in {**dins, **dpar}.items()}
+        err = self.check_bwd("mamba_rows_bwd", "gated norm bwd", got,
+                             {f"d{n}": v for n, v in
+                              {**want_in, **want_p}.items()},
+                             reduced={"dscale"}, tol=LM_TOL["bfloat16"])
+        self.same_bits("fused_rows_bwd", "gated norm bwd", got,
+                       {f"d{n}": v for n, v in {**dins2, **dpar2}.items()})
+        k_ms, k_how = self.device_ms(run)
+        k_call = self.cuda_ms(run)
+        p_ms, _ = self.device_ms(lambda: rows_bwd.fused_rows_bwd_ref(
+            program, inputs, params, cot))
+        from repro_torch.core.resource import H100
+        b_ms = nbytes([*inputs.values(), *params.values(), *cot.values(),
+                       *dins.values(), *dpar.values()]) \
+            / H100.hbm_bandwidth * 1e3
+        print(f"  gated_norm (mamba2) rows={shape[0]} F={shape[1]} bf16: "
+              f"kernel {k_ms:.4f} ms {k_how} ({k_call:.4f} per call)  plain "
+              f"{p_ms:.4f} ms  library none  bound {b_ms:.4f} ms (bytes)  "
+              f"kernel/bound {k_ms / b_ms:.2f}  {regs}; max|d| {err}")
+        self.gated_norm_bwd = {"shape": f"{shape} bf16", "ms": k_ms,
+                               "plain_ms": p_ms, "bound_ms": b_ms,
+                               "registers": regs}
 
     # -- the LM serving slice -------------------------------------------------
     def lm_check(self, kernel, what, got, want):
@@ -1519,6 +1596,8 @@ class Smoke:
         t = time.perf_counter()
         worst: dict[str, float] = {}
 
+        flash_bound: list[str] = []
+
         def note(kernel, err):
             worst[kernel] = max(worst.get(kernel, 0.0), err)
 
@@ -1545,11 +1624,24 @@ class Smoke:
                 k = self.randn((b, kv, s_, 128), 1321).to(dt)
                 v = self.randn((b, kv, s_, 128), 1322).to(dt)
                 for causal in causals:
-                    note("flash_attention", self.lm_check(
-                        "flash_attention", f"{dt} {(b, h_, kv, s_)} causal="
-                        f"{causal}", flash.flash_attention_fwd(
-                            q, k, v, causal=causal),
-                        flash.flash_attention_plain(q, k, v, causal=causal)))
+                    what = f"{dt} {(b, h_, kv, s_)} causal={causal}"
+                    got = flash.flash_attention_fwd(q, k, v, causal=causal)
+                    again = flash.flash_attention_fwd(q, k, v, causal=causal)
+                    err = self.lm_check("flash_attention", what, got,
+                                        flash.flash_attention_plain(
+                                            q, k, v, causal=causal))
+                    note("flash_attention", err)
+                    self.same_bits("flash_attention", what, {"o": got},
+                                   {"o": again})
+                    if dt == torch.bfloat16:
+                        # P as hi + lo in bf16: |d| <= 2^-18 max|v| plus
+                        # one bf16 step of o
+                        top = max(float(got.float().abs().max()), 1e-30)
+                        bound = (2.0 ** -18 * float(v.float().abs().max())
+                                 + 2.0 ** (math.floor(math.log2(top)) - 7))
+                        flash_bound.append(f"{(b, h_, kv, s_)} causal="
+                                           f"{causal} {err:.3e} (bound "
+                                           f"{bound:.3e})")
             b, h_, s_ = 8, 32, 8192
             lens = torch.tensor([0, 1, 17, 513, 4000, 8191, 8192, 8192],
                                 dtype=torch.int32, device=self.dev)
@@ -1575,6 +1667,10 @@ class Smoke:
               f"0 exactly zero); max|d| "
               + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
               + f"; {time.perf_counter() - t:.1f} s")
+        print("[11 flash bf16] wgmma kernel, two launches bit for bit; "
+              "max|d| against the plain version beside the bound of P as "
+              "two bf16 terms (2^-18 max|v| + one bf16 step of o): "
+              + "; ".join(flash_bound))
 
     def relative(self, got, want):
         want = want.float()
@@ -1795,6 +1891,9 @@ class Smoke:
         q = self.randn((1, 32, S, 128), 1510).to(bf)
         k = self.randn((1, 32, S, 128), 1511).to(bf)
         v = self.randn((1, 32, S, 128), 1512).to(bf)
+        S2 = PREFILL[1]                               # the prefill's length
+        q2, k2, v2 = (t[:, :, :S2].contiguous() for t in (q, k, v))
+        pairs2 = S2 * (S2 + 1) // 2
         B, Sd = 8, 32768
         qd = self.randn((B, 32, 1, 128), 1520).to(bf)
         kd = self.randn((B, 32, Sd, 128), 1521).to(bf)
@@ -1828,6 +1927,13 @@ class Smoke:
              lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                     enable_gqa=True),
              bound(nbytes(q, k, v, q), 4 * 128 * 32 * pairs, PEAK_BF16)),
+            ("flash_attention@prefill", f"(1, 32, {S2}, 128) bf16 causal",
+             lambda: flash.flash_attention_fwd(q2, k2, v2, causal=True),
+             lambda: flash.flash_attention_plain(q2, k2, v2, causal=True),
+             lambda: F.scaled_dot_product_attention(q2, k2, v2,
+                                                    is_causal=True,
+                                                    enable_gqa=True),
+             bound(nbytes(q2, k2, v2, q2), 4 * 128 * 32 * pairs2, PEAK_BF16)),
             ("flash_decode", f"({B}, 32, {Sd}, 128) bf16, lengths "
              f"{lens.tolist()}",
              lambda: decode.flash_decode(qd, kd, vd, lens),
@@ -1849,6 +1955,7 @@ class Smoke:
                  "rmsnorm+residual": "rmsnorm_kernel",
                  "swiglu": "swiglu_kernel",
                  "flash_attention": "flash_fwd_kernel",
+                 "flash_attention@prefill": "flash_fwd_kernel",
                  "flash_decode": "flash_decode_kernel"}
         rows = {}
         with torch.inference_mode():
@@ -1884,7 +1991,11 @@ class Smoke:
                 "max_abs_err": self.err[name], "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
                 "shape": shape}
-        del q, k, v, qd, kd, vd, mask
+        k_ms, p_ms, l_ms, b_ms, _, shape = rows["flash_attention@prefill"]
+        self.kernels["flash_attention"]["at_prefill"] = {
+            "shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "library_ms": l_ms}
+        del q, k, v, q2, k2, v2, qd, kd, vd, mask
 
         # the path: prefill and one decode step, per mode, in turns
         cfg, params = self.lm_model

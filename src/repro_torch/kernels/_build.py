@@ -34,6 +34,12 @@ BUILD_DIR = ROOT / "build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
 
+#: Flags of one source beyond :data:`NVCC_FLAGS`, by file name.  The flash
+#: kernel encodes its TMA tensor maps with the driver API (``-lcuda``, found
+#: in the toolkit's ``stubs``) and has ptxas report its registers and
+#: spills (``-Xptxas -v``), which :func:`build_log` keeps.
+SOURCE_FLAGS = {"flash_attention.cu": ("-Xptxas", "-v", "-lcuda")}
+
 _LOCK = threading.Lock()
 _LIBS: dict[Path, ctypes.CDLL] = {}
 
@@ -54,15 +60,35 @@ def nvcc() -> str:
     return found
 
 
+def source_flags(source: Path) -> tuple[str, ...]:
+    """``source``'s own flags, placed after the source file (a library
+    named before the code that needs it would be dropped); a ``-lcuda``
+    source links against the toolkit's stub of the driver library."""
+    extra = SOURCE_FLAGS.get(source.name, ())
+    if "-lcuda" in extra:
+        home = Path(nvcc()).resolve().parent.parent
+        extra = tuple(f"-L{d}" for d in (home / "lib64" / "stubs",
+                                         home / "lib" / "stubs")
+                      if d.is_dir()) + extra
+    return extra
+
+
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` lives: keyed on a hash of the
     source text, the headers beside it (``*.cuh``) and the compiler
     flags."""
     text = source.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
-    digest = hashlib.sha256(text
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(source.name, ())
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / "kernels" / f"{source.stem}-{digest}.so"
+
+
+def build_log(source: Path) -> str:
+    """What nvcc printed when it built ``source``'s library ("" before the
+    build)."""
+    log = library_path(source).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
 
 
 def start_build(source: Path) -> subprocess.Popen | None:
@@ -74,7 +100,8 @@ def start_build(source: Path) -> subprocess.Popen | None:
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source),
+           *source_flags(source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
@@ -89,6 +116,7 @@ def finish_build(source: Path, proc: subprocess.Popen | None) -> Path:
         tmp.unlink(missing_ok=True)
         raise BuildError(f"nvcc failed on {source} (exit {proc.returncode}):\n"
                          f"{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)                  # atomic: readers never see half
     return out
 

@@ -1,30 +1,72 @@
-// Flash attention forward (online softmax), float32 or bfloat16 in,
-// float32 arithmetic.
+// Flash attention forward (online softmax): bfloat16 on the tensor cores
+// (wgmma, TMA), float32 on the CUDA cores.
 //
 // Replaces repro/kernels/attention/flash.py:flash_attention_fwd (the Pallas
 // kernel).  The Pallas grid carries m / l / acc in VMEM scratch across a
 // sequential k-block axis; CUDA blocks run in no order, so here one CTA owns
-// one (batch, query head, 64-query block) and carries that state in
-// registers through a loop over 64-key blocks.  The score tile never leaves
-// the SM: no (Sq x Sk) matrix is written to device memory.
+// one (batch, query head, query block) and carries that state in registers
+// through a loop over key blocks.  The score tile never leaves the SM: no
+// (Sq x Sk) matrix is written to device memory.
 //
-// Semantics kept from the Pallas kernel:
+// Semantics kept from the Pallas kernel (both instances):
 //   * GQA: query head h reads KV head h / (H / G);
 //   * s = (q . k) * scale in float32; masked scores are the finite -1e30;
 //   * causal keeps k_idx <= q_idx (the kernel's rule; the oracle's offset
 //     rule agrees when Sq == Sk, which is all attention.apply produces);
 //   * ragged tails of Q and K are masked in the kernel, nothing is padded;
-//   * o = acc / max(l, 1e-30), cast to the input dtype.
+//   * l sums the float32 p; o = acc / max(l, 1e-30), cast to the input
+//     dtype once.
 // Key blocks wholly above the diagonal are skipped: for every query row
 // the first key is valid, so there corr = 1 and p = 0, the same bits.
 //
 // Bound on the H100: at prefill lengths (S = 2048, D = 128) the work is
 // 4 * S^2 * D / 2 operations per head against 4 * S * D elements of
-// traffic, far above the card's ridge point, so the bound is operations.
-// This first kernel runs them on the CUDA cores in float32 (no wgmma, no
-// TMA): 128 threads, each a 4 x 8 block of scores and a 4 x 16 block of the
-// output; Q, K, V and P tiles in padded shared memory (115,712 bytes for
-// D = 128, so two CTAs an SM).  Tensor cores are later work.
+// traffic, far above the card's ridge point, so the bound is operations at
+// the bf16 tensor-core rate (989 TFLOP/s).
+//
+// bfloat16 (flash_fwd_kernel_bf16_wgmma, D = 128).  A CTA of two
+// warpgroups owns 128 query rows (64 each) and walks 128-key blocks:
+//   * S = Q K^T and O += P V run as wgmma (m64n64k16, float32 accumulators
+//     in registers): Q and K K-major from shared memory; P from registers
+//     (the S accumulator's layout is the A operand's, as bf16 pairs); V
+//     from shared memory MN-major (transposed B).  Each product is two
+//     independent n64 accumulator chains, issued interleaved;
+//   * P enters the second product as two bf16 terms, hi = bf16(p) and lo =
+//     bf16(p - hi) (the remainder is exact in float32), so the product
+//     sees p to 2^-18 relative, and p is the accurate expf, not the
+//     hardware's approximate exp2: chip_smoke.py holds the 8-layer bf16
+//     training step to barrier's float32 attention within 2e-5 / 1e-4 /
+//     1e-4 in the loss and 1e-3 in the grad norm, and on an H100 P in one
+//     bf16 term read 2.9e-5 in the step-1 loss, the approximate exp 1.6e-3
+//     in the step-3 grad norm.  Both cost time (a third more tensor-core
+//     work, a longer exp);
+//   * Q (once) and K / V (a ring of TC_STAGES stages) are loaded by TMA
+//     into 128-byte-swizzled shared memory, each 128-column tile as two
+//     64-column halves (the swizzle spans 128 bytes), completing on
+//     mbarriers; thread 0 keeps the next block's load in flight while both
+//     warpgroups compute on this one, and every thread releases a stage
+//     once its products have read it;
+//   * a 3-D tensor map per operand ((D, S, batch x heads)) zero-fills rows
+//     past Sq and Sk, which the mask then removes; diagonal and tail blocks
+//     are masked, the others are not;
+//   * the grid runs the heaviest (last) query blocks of every head first,
+//     so the tail of a causal grid is short.
+// Forms tried on an H100 and found slower: one n128 chain for Q K^T (with
+// Q in shared memory or in registers); the next block's Q K^T issued
+// beside this block's P V; the two warpgroups taking turns at the tensor
+// cores (named barriers); the query blocks of a head side by side in the
+// grid; a producer warp (it caps every thread at 168 registers: the
+// register file is split among the SM's four schedulers).
+// The one numerical change from the float32 instance: P reaches the second
+// product as hi + lo in bf16, so each p_j moves by at most 2^-18 relative
+// and |o - o_plain| <= 2^-18 max|v| plus one bf16 rounding of o (2^-9
+// max|v| with hi alone).
+//
+// float32 (flash_fwd_kernel<float, 128>): the CUDA cores in float32, exact
+// against the plain version's arithmetic: 128 threads, each a 4 x 8 block
+// of scores and a 4 x 16 block of the output; Q, K, V and P tiles in
+// padded shared memory (115,712 bytes for D = 128, so two CTAs an SM).
+#include <cuda.h>
 #include "attn_common.cuh"
 
 namespace {
@@ -192,8 +234,382 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  D must be 128.  Returns a cudaError_t,
-// or -1 for a head dim or dtype this build has no instance of.
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma + TMA
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int TC_BQ = 128;       // query rows a CTA (two warpgroups of 64)
+constexpr int TC_BK = 128;       // keys a step
+constexpr int TC_D = 128;        // head dim
+constexpr int TC_STAGES = 2;     // K / V ring depth
+constexpr int TC_THREADS = 256;  // two warpgroups
+constexpr int HALF = 64;         // columns of one 128-byte swizzled half
+constexpr uint32_t Q_HALF = TC_BQ * HALF * 2;         // 16,384 bytes
+constexpr uint32_t KV_HALF = TC_BK * HALF * 2;        // 16,384
+constexpr uint32_t Q_BYTES = 2 * Q_HALF;
+constexpr uint32_t KV_BYTES = 2 * KV_HALF;            // one K or V tile
+constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;        // K then V
+constexpr uint32_t BAR_BYTES = 8 * (1 + 2 * TC_STAGES);
+// 1 KB of slack aligns the swizzled tiles to 1024 bytes
+constexpr size_t SMEM = 1024 + Q_BYTES + TC_STAGES * STAGE_BYTES + BAR_BYTES;
+static_assert(SMEM <= 232448, "over the H100's shared memory a block");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 3-D tensor map into shared memory, completing on ``bar``.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle.  K-major tiles: rows of
+// 128 bytes, 8-row groups 1024 bytes apart (SBO); a k16 step inside the
+// swizzle span advances the start address by 32 bytes.  MN-major (V): the
+// same rows read as 8-key groups (SBO 1024) of 64 columns, one 64-column
+// block per n64 product (LBO, the next block, is then not read).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Pins the accumulators: no read is moved above the wait, no write below
+// the fence.
+__device__ __forceinline__ void hold(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define TC_D32                                                               \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define TC_OUT32(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d (64 x 64, float32) = A (64 x 16, K-major, shared) * B (16 x 64,
+// K-major, shared), + d unless ``first``.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b, int first) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TC_OUT32(d)
+      : "l"(a), "l"(b), "r"(first));
+}
+
+// d (64 x 64, float32) += A (64 x 16, bf16 pairs in registers) * B (16 x
+// 64, MN-major in shared memory).
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TC_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    flash_fwd_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                __nv_bfloat16* __restrict__ o, int H, int G,
+                                int Sq, int Sk, float scale, int causal) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qs = base;                     // Q: half 0, half 1
+  const uint32_t ring = qs + Q_BYTES;           // stage: K0 K1 V0 V1
+  const uint32_t bars = ring + TC_STAGES * STAGE_BYTES;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + TC_STAGES + s); };
+
+  const int bh = blockIdx.x;                    // b * H + h
+  const int qb = gridDim.y - 1 - blockIdx.y;    // heaviest blocks first
+  const int b = bh / H, h = bh - b * H;
+  const int bg = b * G + h / (H / G);
+  const int q0 = qb * TC_BQ;
+  int nk = (Sk + TC_BK - 1) / TC_BK;
+  if (causal) nk = min(nk, (q0 + TC_BQ - 1) / TC_BK + 1);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;                      // consumer warpgroup
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), TC_THREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Key block j into stage j % STAGES, once every thread has released the
+  // block that used that stage before it.
+  auto load_kv = [&](int j) {
+    const int s = j % TC_STAGES;
+    if (j >= TC_STAGES) mbar_wait(empty(s), ((j / TC_STAGES) - 1) & 1);
+    const uint32_t dst = ring + s * STAGE_BYTES;
+    mbar_expect_tx(full(s), STAGE_BYTES);
+    tma_load(dst, &kmap, full(s), 0, j * TC_BK, bg);
+    tma_load(dst + KV_HALF, &kmap, full(s), HALF, j * TC_BK, bg);
+    tma_load(dst + KV_BYTES, &vmap, full(s), 0, j * TC_BK, bg);
+    tma_load(dst + KV_BYTES + KV_HALF, &vmap, full(s), HALF, j * TC_BK, bg);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(q_full, Q_BYTES);
+    tma_load(qs, &qmap, q_full, 0, q0, bh);
+    tma_load(qs + Q_HALF, &qmap, q_full, HALF, q0, bh);
+    for (int j = 0; j < TC_STAGES - 1 && j < nk; ++j) load_kv(j);
+  }
+
+  // This thread's two rows of the warpgroup's 64 (the accumulator layout:
+  // element i is row r0 + 8 * ((i >> 1) & 1), column 8 * (i >> 2) +
+  // 2 * (lane & 3) + (i & 1) of its 64-column tile).
+  const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  const uint32_t qa = qs + wg * 64 * 128;       // the warpgroup's Q rows
+  float o_lo[32], o_hi[32];                     // output columns 0-63, 64-127
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o_lo[i] = o_hi[i] = 0.f;
+  float m[2] = {attn::NEG_INF, attn::NEG_INF}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  for (int kb = 0; kb < nk; ++kb) {
+    if (tid == 0 && kb + TC_STAGES - 1 < nk) load_kv(kb + TC_STAGES - 1);
+    const int s = kb % TC_STAGES;
+    mbar_wait(full(s), (kb / TC_STAGES) & 1);
+    const uint32_t kt = ring + s * STAGE_BYTES;
+    const uint32_t vt = kt + KV_BYTES;
+
+    // S = Q K^T: keys 0-63 into s_lo, 64-127 into s_hi; 8 k16 steps over
+    // the two 64-column halves of D.
+    float s_lo[32], s_hi[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s_lo[i] = s_hi[i] = 0.f;   // overwritten
+    hold(s_lo);
+    hold(s_hi);
+    wg_fence();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t a = desc(qa + half * Q_HALF + 32 * j, 16, 1024);
+        const uint32_t kh = kt + half * KV_HALF + 32 * j;
+        mma_ss(s_lo, a, desc(kh, 16, 1024), half + j == 0);
+        mma_ss(s_hi, a, desc(kh + 64 * 128, 16, 1024), half + j == 0);
+      }
+    }
+    wg_commit();
+    wg_wait();
+    hold(s_lo);
+    hold(s_hi);
+
+    // online softmax on the float32 scores; only diagonal and tail blocks
+    // are masked
+    const int k0 = kb * TC_BK;
+    const bool masked = k0 + TC_BK > Sk ||
+                        (causal && k0 + TC_BK - 1 > q0 + wg * 64);
+    float mx[2] = {attn::NEG_INF, attn::NEG_INF};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float& x = i < 32 ? s_lo[i] : s_hi[i & 31];
+      const int row = r0 + 8 * ((i >> 1) & 1);
+      const int key = k0 + 8 * (i >> 2) + c0 + (i & 1);
+      float v = x * scale;
+      if (masked && !(key < Sk && (!causal || key <= row))) v = attn::NEG_INF;
+      x = v;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], v);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // a row's 16 column pairs sit in the 4 lanes of a quad
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+    // P in the A operand's layout: k16 step t holds keys 16t..16t+15, the
+    // accumulator's column tiles 2t and 2t + 1
+    // (p = hi + lo, both bf16: hi is p rounded, lo its rounded remainder)
+    uint32_t p_hi[8][4], p_lo[8][4];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * t + 2 * e;            // element of the 64 columns
+        const int r = e & 1;
+        float& x0 = i < 32 ? s_lo[i] : s_hi[i & 31];
+        float& x1 = i < 32 ? s_lo[i + 1] : s_hi[(i + 1) & 31];
+        const float p0 = expf(x0 - m[r]);
+        const float p1 = expf(x1 - m[r]);
+        l[r] += p0 + p1;                        // the float32 p
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[t][e] = *reinterpret_cast<const uint32_t*>(&hi);
+        p_lo[t][e] = pack_bf16(p0 - hf.x, p1 - hf.y);   // exact remainders
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      o_lo[i] *= corr[(i >> 1) & 1];
+      o_hi[i] *= corr[(i >> 1) & 1];
+    }
+
+    // O += P V: 8 k16 steps over the block's keys, V MN-major
+    hold(o_lo);
+    hold(o_hi);
+    wg_fence();
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const uint64_t v_lo = desc(vt + t * 16 * 128, KV_HALF, 1024);
+      const uint64_t v_hi = desc(vt + t * 16 * 128 + KV_HALF, KV_HALF, 1024);
+      mma_rs(o_lo, p_hi[t], v_lo);
+      mma_rs(o_hi, p_hi[t], v_hi);
+      mma_rs(o_lo, p_lo[t], v_lo);
+      mma_rs(o_hi, p_lo[t], v_hi);
+    }
+    wg_commit();
+    wg_wait();
+    hold(o_lo);
+    hold(o_hi);
+    mbar_arrive(empty(s));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  __nv_bfloat16* op = o + (int64_t)bh * Sq * TC_D;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int r = (i >> 1) & 1;
+    const int row = r0 + 8 * r;
+    if (row >= Sq) continue;
+    const int col = 8 * (i >> 2) + c0;
+    __nv_bfloat16* at = op + (int64_t)row * TC_D + col;
+    *reinterpret_cast<__nv_bfloat162*>(at) =
+        __floats2bfloat162_rn(o_lo[i] / l[r], o_lo[i + 1] / l[r]);
+    *reinterpret_cast<__nv_bfloat162*>(at + HALF) =
+        __floats2bfloat162_rn(o_hi[i] / l[r], o_hi[i + 1] / l[r]);
+  }
+}
+
+// A (D, S, planes) view of a contiguous (planes, S, 128) bf16 tensor, boxes
+// of 64 columns x ``rows`` rows, 128-byte swizzle, zero fill past S.
+int tensor_map(CUtensorMap* map, const void* ptr, int s, int planes,
+               int rows) {
+  if (reinterpret_cast<uintptr_t>(ptr) % 16) return 1;
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(TC_D),
+                        static_cast<cuuint64_t>(s),
+                        static_cast<cuuint64_t>(planes)};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(TC_D) * 2,
+                           static_cast<cuuint64_t>(s) * TC_D * 2};
+  cuuint32_t box[3] = {HALF, static_cast<cuuint32_t>(rows), 1};
+  cuuint32_t step[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS;
+}
+
+constexpr int TMA_ERROR = -2;
+
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int G, int Sq, int Sk, float scale, int causal,
+           cudaStream_t stream) {
+  if (Sq == 0 || B * H == 0) return 0;
+  if (Sk == 0)                  // no key: acc = 0, l = 0, o = 0
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * H * Sq * TC_D * 2, stream);
+  CUtensorMap qm, km, vm;
+  if (tensor_map(&qm, q, Sq, B * H, TC_BQ) ||
+      tensor_map(&km, k, Sk, B * G, TC_BK) ||
+      tensor_map(&vm, v, Sk, B * G, TC_BK))
+    return TMA_ERROR;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel_bf16_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Sq + TC_BQ - 1) / TC_BQ);
+  flash_fwd_kernel_bf16_wgmma<<<grid, TC_THREADS, SMEM, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), H, G, Sq, Sk, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores).  D must be
+// 128.  Returns a cudaError_t, -1 for a head dim or dtype this build has no
+// instance of, -2 for a tensor map the driver refuses.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int G, int Sq, int Sk, int D, float scale,
@@ -203,12 +619,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (dtype == 0)
     return launch<float, 128>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, B, H, G, Sq, Sk, scale,
-                                      causal, s);
+    return tc::launch(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
   return -1;
 }
 
 extern "C" const char* flash_attention_error(int code) {
+  if (code == tc::TMA_ERROR)
+    return "cuTensorMapEncodeTiled refused a tensor map (a base address not "
+           "16-byte aligned?)";
   return code < 0 ? "no instance for this head dim or dtype"
                   : cudaGetErrorString(static_cast<cudaError_t>(code));
 }

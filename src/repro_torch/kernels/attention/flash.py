@@ -2,9 +2,12 @@
 version.
 
 Replaces ``repro/kernels/attention/flash.py:flash_attention_fwd`` (the
-Pallas kernel).  The kernel is ``csrc/flash_attention.cu`` (one CTA per
-batch, query head and 64-query block, an online softmax over 64-key blocks
-in registers and shared memory; its note gives the bound and the design).
+Pallas kernel).  The kernel is ``csrc/flash_attention.cu``: bfloat16 runs on
+the tensor cores (``wgmma``, K and V through a TMA ring; one CTA per batch,
+query head and 128-query block), float32 on the CUDA cores (64-query
+blocks), each an online softmax over key blocks; its note gives the bound,
+the design and the bf16 instance's one numerical change (P fed to the
+second product as two bf16 terms).
 The plain version, :func:`flash_attention_plain`, is the Pallas kernel's
 algorithm on whole tensors: ``(block_q, block_k)`` tiles, the running
 max / denominator / accumulator carried across key blocks in float32, the

@@ -27,10 +27,11 @@ interpreter's value is bfloat16 (:func:`value_dtypes`: each op's output,
 and inside an ``AFFINE`` or ``ROW_NORM`` the steps PyTorch rounds
 separately), the source rounds it to the nearest bfloat16 (ties to even)
 and keeps it in float32, so the kernel rounds where
-:func:`repro_torch.core.ir.run_program` does.  The rounding works on the
-bits (``round_bf16``): written as a float cast pair, a bf16 multiply and
-the add after it came out of the compiler rounded once, where the
-interpreter rounds twice (no float pass can narrow an integer rounding).
+:func:`repro_torch.core.ir.run_program` does.  The rounding is one
+hardware conversion in inline PTX (``round_bf16``): written as a float cast
+pair, a bf16 multiply and the add after it came out of the compiler
+rounded once, where the interpreter rounds twice (no compiler pass sees
+through the asm).
 Each output has the interpreter's dtype.
 """
 from __future__ import annotations
@@ -242,14 +243,18 @@ def rounded(v: str, dtype: torch.dtype) -> list[str]:
 
 
 #: Round-to-nearest-even of a float32 block to bfloat16, kept in float32,
-#: on the bits: add half an ulp of bf16 (less one, plus the kept lowest
-#: bit for ties to even) and clear the 16 low bits; NaN stays NaN.
+#: on the bits: one ``cvt.rn.bf16x2.f32`` packs bf16(x) into the high half
+#: of a word whose low half is bf16(0) = 0, which is the rounded float32.
+#: The conversion is inline PTX, opaque to the compiler, so no FMA
+#: contraction crosses it.
 ROUND_BF16 = """\
 @triton.jit
 def round_bf16(x):
     u = tl.cast(x, tl.uint32, bitcast=True)
-    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
-    return tl.where(x != x, x, tl.cast(u, tl.float32, bitcast=True))
+    r = tl.inline_asm_elementwise("cvt.rn.bf16x2.f32 $0, $1, $2;",
+                                  "=r,r,r", [u, u * 0], dtype=tl.uint32,
+                                  is_pure=True, pack=1)
+    return tl.cast(r, tl.float32, bitcast=True)
 """
 
 

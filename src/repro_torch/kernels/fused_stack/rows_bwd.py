@@ -12,13 +12,20 @@ signature and widths.  On each sub-block of rows it
 3. writes each input cotangent once, and adds each parameter's gradient
    into a register accumulator.
 
+Launch geometry (:func:`launch_plan`).  The grid comes from the rows, the
+widths and the card, not from the plan's row tile: a persistent grid of
+:data:`PROGRAMS_PER_SM` programs an SM (fewer when there are fewer
+sub-blocks) walks sub-blocks of ``R_SUB`` rows, program ``p`` taking
+sub-blocks ``p, p + programs, ...``, so that at 2048-8192 rows every SM
+has work whatever tile the planner chose.
+
 Parameter gradients.  The Pallas kernel adds every tile's ``(1, F)`` partial
-into one shared block, which is right only on a sequential grid.  Here a
-fixed number of programs (:func:`n_programs`: four per SM) each walk a
-strided set of row tiles and keep their partial in registers; each writes
-one row of a ``(programs, params' widths)`` buffer, and a second kernel sums
-that buffer over the programs in a fixed order.  Two runs give bitwise-equal
-gradients, and the partials scale with the SM count, not the row count.
+into one shared block, which is right only on a sequential grid.  Here each
+program keeps its partial in registers and writes one row of a
+``(programs, params' widths)`` buffer; a second kernel sums that buffer
+over the programs in a fixed order, :data:`REDUCE_BLOCK` columns a program.
+Two runs give bitwise-equal gradients, and the partials scale with the SM
+count, not the row count.
 
 Masking, as in the forward kernel: rows past the end are masked, never
 padded, and kept out of the parameter sums (the JAX ``row_mask`` fix for
@@ -42,8 +49,8 @@ The recompute rounds where the forward kernel does; the reverse sweep
 rounds where ``autodiff.program_vjp`` on bf16 tensors rounds (each PyTorch
 op of a rule whose operands are all bf16, the cast of each contribution to
 its value's dtype, the sum of two contributions; an activation's derivative
-is ``autodiff``'s rule itself, traced op by op), on the bits
-(``rows.round_bf16``), so no FMA contraction crosses a rounding point; the
+is ``autodiff``'s rule itself, traced op by op), with ``rows.round_bf16``,
+so no FMA contraction crosses a rounding point; the
 arithmetic between is float32.  Parameter partials stay float32, and the
 fixed-order second pass's sum is cast to the parameter's dtype once.
 
@@ -53,7 +60,7 @@ cotangents written once); the recompute and the VJP run in registers.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 import torch
 
@@ -64,8 +71,16 @@ from repro_torch.kernels.fused_stack import rows
 #: Elements one sub-block of rows holds in the backward (R_SUB * BLOCK_F):
 #: half the forward's, for the cotangents live beside the recompute.
 SUB_ELEMS = 4096
-#: Programs per SM of the persistent launch.
-PROGRAMS_PER_SM = 4
+#: Programs per SM of the persistent launch (each writes one partial row).
+PROGRAMS_PER_SM = 2
+#: Shared memory a program may give to loading its next sub-block while it
+#: works on this one (Triton's loop pipelining, two stages); past it the
+#: loop runs unpipelined.
+PIPELINE_BYTES = 96 * 1024
+#: The second pass: columns a program reduces, and partial rows it loads
+#: at a time (summed as one block, then block after block: a fixed order).
+REDUCE_BLOCK = 128
+REDUCE_ROWS = 32
 
 def emit_bwd_source(program: ir.StackProgram, in_widths: Mapping[str, int],
                     param_widths: Mapping[str, int], features: int,
@@ -108,10 +123,11 @@ def emit_bwd_source(program: ir.StackProgram, in_widths: Mapping[str, int],
     lines += [
         f"# generated from stack {program.name!r}",
         "@triton.jit",
-        f"def fused_rows_bwd_kernel({', '.join(args)}, n_rows, n_tiles,",
+        f"def fused_rows_bwd_kernel({', '.join(args)}, n_rows, n_sub,",
         "                          n_prog, F: tl.constexpr,",
-        "                          TILE_R: tl.constexpr, R_SUB: tl.constexpr,",
-        "                          BLOCK_F: tl.constexpr, P_W: tl.constexpr):",
+        "                          R_SUB: tl.constexpr,",
+        "                          BLOCK_F: tl.constexpr, P_W: tl.constexpr,",
+        "                          LOOP_STAGES: tl.constexpr):",
         "    pid = tl.program_id(0)",
     ]
     lines += [f"    {acc[p]} = tl.zeros([1], tl.float32)" for p in scalar]
@@ -127,20 +143,17 @@ def emit_bwd_source(program: ir.StackProgram, in_widths: Mapping[str, int],
     chunk += [f"    {acc[p]} = tl.zeros([BLOCK_F], tl.float32)"
               for p in program.param_names if p not in scalar]
     chunk += [
-        "    for t in range(pid, n_tiles, n_prog):",
-        "        row_start = t * TILE_R",
-        "        row_end = tl.minimum(row_start + TILE_R, n_rows)",
-        "        for r0 in range(row_start, row_start + TILE_R, R_SUB):",
-        "            rows = (r0 + tl.arange(0, R_SUB))[:, None]",
-        "            rmask = rows < row_end",
-        "            r64 = rows.to(tl.int64)",
+        "    for sb in tl.range(pid, n_sub, n_prog, num_stages=LOOP_STAGES):",
+        "        rows = (sb * R_SUB + tl.arange(0, R_SUB))[:, None]",
+        "        rmask = rows < n_rows",
+        "        r64 = rows.to(tl.int64)",
     ]
     body = [f"{var[v]} = {rows.load(f'in{i}', widths[v], vdt[v])}"
             for i, v in enumerate(program.inputs)]
     body += rows.op_lines(program, var, pvar, widths, steps)
     body += _vjp_lines(program, var, pvar, acc, widths, param_widths,
                        chunked, vdt, pdt)
-    chunk += ["            " + b for b in body]
+    chunk += ["        " + b for b in body]
     off, after = 0, []
     for p in program.param_names:
         base = f"partial + pid * P_W + {off}"
@@ -156,14 +169,17 @@ def emit_bwd_source(program: ir.StackProgram, in_widths: Mapping[str, int],
         "",
         "@triton.jit",
         "def reduce_partials_kernel(partial, out, n_prog, W,",
-        "                           BLOCK: tl.constexpr):",
-        "    cols = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)",
+        "                           BLOCK: tl.constexpr,",
+        "                           P_BLOCK: tl.constexpr):",
+        "    cols = (tl.program_id(0) * BLOCK + tl.arange(0, BLOCK))[None, :]",
         "    mask = cols < W",
         "    total = tl.zeros([BLOCK], tl.float32)",
-        "    for p in range(0, n_prog):",
-        "        total = total + tl.load(partial + p * W + cols, mask=mask,",
-        "                                other=0.0)",
-        "    tl.store(out + cols, total, mask=mask)",
+        "    for p0 in range(0, n_prog, P_BLOCK):",
+        "        ps = (p0 + tl.arange(0, P_BLOCK))[:, None]",
+        "        part = tl.load(partial + ps * W + cols,",
+        "                       mask=(ps < n_prog) & mask, other=0.0)",
+        "        total = total + tl.sum(part, axis=0)",
+        "    tl.store(out + cols, total[None, :], mask=mask)",
     ]
     return "\n".join(lines) + "\n"
 
@@ -481,22 +497,46 @@ def _norm_vjp(op: ir.OpNode, k: int, x: str, out: str, g: str, w: int,
                     f"n{k}_xh * {mean(f'n{k}_gy * n{k}_xh')})")
 
 
-def launch_config(f_block: int, tile_rows: int) -> tuple[int, int, int]:
+def launch_config(f_block: int, max_rows: int) -> tuple[int, int, int]:
     """(BLOCK_F, R_SUB, num_warps) of one backward kernel that holds
-    ``f_block`` features of a row at a time."""
+    ``f_block`` features of a row at a time, at most ``max_rows`` rows a
+    sub-block."""
     block_f = rows._next_pow2(f_block)
     r_sub = 1
-    while r_sub * 2 <= tile_rows and r_sub * 2 * block_f <= SUB_ELEMS:
+    while r_sub * 2 <= max_rows and r_sub * 2 * block_f <= SUB_ELEMS:
         r_sub *= 2
-    elems = r_sub * block_f
-    num_warps = 4 if elems <= 1024 else 8 if elems <= 2048 else 16
+    # 8 warps keep a whole 5120-feature row's live values in registers
+    # (16 spill them: 128 registers a thread, 28 bytes spilled, on an H100)
+    num_warps = 4 if r_sub * block_f <= 1024 else 8
     return block_f, r_sub, num_warps
 
 
-def n_programs(n_tiles: int, sm_count: int) -> int:
-    """Programs of the persistent launch: :data:`PROGRAMS_PER_SM` per SM,
-    at most one per tile."""
-    return max(1, min(n_tiles, PROGRAMS_PER_SM * sm_count))
+class LaunchPlan(NamedTuple):
+    block_f: int        # features a program holds of a row (power of two)
+    r_sub: int          # rows a sub-block
+    num_warps: int
+    n_sub: int          # sub-blocks, ceil(n_rows / r_sub)
+    n_prog: int         # programs of the persistent grid = partial rows
+    loop_stages: int    # 2: the next sub-block's loads overlap this one
+
+
+def launch_plan(n_rows: int, features: int, f_block: int, sm_count: int,
+                row_bytes: int = 0) -> LaunchPlan:
+    """The backward's grid from the rows, the widths and the card.
+    Sub-blocks are as tall as :data:`SUB_ELEMS` allows, but no taller than
+    leaves :data:`PROGRAMS_PER_SM` sub-blocks an SM; the grid is that many
+    programs an SM, or one a sub-block when there are fewer.  ``features``
+    (F) only bounds the sub-block's width: ``f_block`` features of it are
+    held at a time.  ``row_bytes`` is what one feature of a row loads
+    (inputs and cotangents): the loop is pipelined when two sub-blocks of
+    it fit :data:`PIPELINE_BYTES`."""
+    target = PROGRAMS_PER_SM * max(sm_count, 1)
+    block_f, r_sub, num_warps = launch_config(
+        min(f_block, features), max(1, n_rows // target))
+    n_sub = -(-n_rows // r_sub)
+    stages = 2 if 2 * r_sub * block_f * row_bytes <= PIPELINE_BYTES else 1
+    return LaunchPlan(block_f, r_sub, num_warps, n_sub,
+                      max(1, min(n_sub, target)), stages)
 
 
 #: Generated modules by (signature, widths, F, features held).
@@ -547,8 +587,10 @@ def fused_rows_bwd(program: ir.StackProgram,
     """The backward of one rows sequence.  ``cotangents`` maps each program
     output to its cotangent (in the output's dtype); returns ``(dinputs,
     dparams)`` shaped and typed as the primals.  Inputs and parameters are
-    float32 or bfloat16.  ``f_chunk`` is the plan's device's (0: hold whole rows).  CPU
-    tensors run the plain version; CUDA tensors launch the kernel or
+    float32 or bfloat16.  ``tile_rows`` is the plan's row tile, which no
+    longer sets the launch (:func:`launch_plan` takes it from the rows and
+    the card); ``f_chunk`` is the plan's device's (0: hold whole rows).
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise."""
     device = inputs[program.inputs[0]].device
     if device.type == "cpu":
@@ -595,25 +637,28 @@ def fused_rows_bwd(program: ir.StackProgram,
                              f"{gv.shape[-1]}, the value {widths[v]}")
     dins = [torch.empty_like(a) for a in flat]
     p_w = sum(param_widths.values())
-    n_tiles = -(-n_rows // tile_rows)
     sm = torch.cuda.get_device_properties(device).multi_processor_count
-    n_prog = n_programs(n_tiles, sm)
-    partial = torch.empty((n_prog, max(p_w, 1)), device=device,
-                          dtype=torch.float32)
     f_block = resource.feature_block(program, features, f_chunk)
+    row_bytes = sum(a.element_size() for a in [*flat, *gflat]
+                    if a.shape[-1] != 1)
+    plan = launch_plan(n_rows, features, f_block, sm, row_bytes)
+    partial = torch.empty((plan.n_prog, max(p_w, 1)), device=device,
+                          dtype=torch.float32)
     mod = _module(program, in_widths, param_widths, features, f_block,
                   dtypes, steps)
-    block_f, r_sub, num_warps = launch_config(f_block, tile_rows)
     total = torch.empty((max(p_w, 1),), device=device, dtype=torch.float32)
     if n_rows:
         with torch.cuda.device(device):
-            mod.fused_rows_bwd_kernel[(n_prog,)](
-                *flat, *pflat, *gflat, *dins, partial, n_rows, n_tiles,
-                n_prog, F=features, TILE_R=tile_rows, R_SUB=r_sub,
-                BLOCK_F=block_f, P_W=p_w, num_warps=num_warps)
+            fused_rows_bwd.compiled = mod.fused_rows_bwd_kernel[
+                (plan.n_prog,)](
+                *flat, *pflat, *gflat, *dins, partial, n_rows, plan.n_sub,
+                plan.n_prog, F=features, R_SUB=plan.r_sub,
+                BLOCK_F=plan.block_f, P_W=p_w, LOOP_STAGES=plan.loop_stages,
+                num_warps=plan.num_warps)
             if p_w:
-                mod.reduce_partials_kernel[(-(-p_w // 1024),)](
-                    partial, total, n_prog, p_w, BLOCK=1024, num_warps=4)
+                mod.reduce_partials_kernel[(-(-p_w // REDUCE_BLOCK),)](
+                    partial, total, plan.n_prog, p_w, BLOCK=REDUCE_BLOCK,
+                    P_BLOCK=REDUCE_ROWS, num_warps=4)
         fused_rows_bwd.launches += 1
     else:
         total.zero_()
@@ -629,3 +674,5 @@ def fused_rows_bwd(program: ir.StackProgram,
 
 
 fused_rows_bwd.launches = 0
+#: The last launch's compiled kernel (its ``n_regs`` and ``n_spills``).
+fused_rows_bwd.compiled = None

@@ -514,11 +514,24 @@ def _fake_triton():
         return x.view(dtype) if bitcast else x.astype(dtype)
 
     tl.cast = cast
+
+    def inline_asm_elementwise(asm, constraints, args, dtype, is_pure, pack):
+        # the one asm the generated kernels use: round_bf16's conversion,
+        # bf16(a) in the high half, bf16(b) in the low
+        assert asm == "cvt.rn.bf16x2.f32 $0, $1, $2;", asm
+        hi, lo = (np.asarray(a, np.uint32).view(np.float32).astype(
+            ml_dtypes.bfloat16).view(np.uint16).astype(np.uint32)
+            for a in args)
+        return ((hi << 16) | lo).astype(dtype)
+
+    tl.inline_asm_elementwise = inline_asm_elementwise
     tl.zeros = lambda shape, dtype: np.zeros(shape, dtype)
     tl.PropagateNan = types.SimpleNamespace(ALL="all", NONE="none")
     state = {"pid": 0}
     tl.program_id = lambda axis: state["pid"]
     tl.arange = lambda a, b: np.arange(a, b)
+    tl.range = lambda start, stop, step=1, num_stages=None: range(
+        start, stop, step)
 
     def load(ptr, mask=None, other=0.0):
         off = np.asarray(ptr.off)

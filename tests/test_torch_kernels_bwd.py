@@ -89,9 +89,14 @@ def _jax_rows_bwd(make, inputs, params, gs, tile):
 
 
 def _run_generated_bwd(program, inputs, params, gs, tile, n_prog,
-                       monkeypatch, f_chunk=tresource.H100.f_chunk):
-    """Execute ``emit_bwd_source`` on the fake Triton: every program of the
-    persistent launch, then the reduction of the partials."""
+                       monkeypatch, f_chunk=tresource.H100.f_chunk,
+                       partials=None):
+    """Execute ``emit_bwd_source`` on the fake Triton: every program of a
+    persistent launch of ``n_prog`` programs, with ``launch_plan``'s
+    sub-blocks for a card of ``n_prog / PROGRAMS_PER_SM`` SMs, then the
+    reduction of the partials.  ``tile`` is the plan's row tile, which the
+    launch no longer reads (as ``fused_rows_bwd``).  The partial-sum buffer
+    is appended to ``partials`` when one is given."""
     arrays = [inputs[n] for n in program.inputs]
     lead = arrays[0].shape[:-1]
     n_rows = math.prod(lead)
@@ -120,23 +125,26 @@ def _run_generated_bwd(program, inputs, params, gs, tile, n_prog,
             for n in program.inputs]
     pw = sum(p_w.values())
     partial = np.full(n_prog * max(pw, 1), np.nan, np.float32)
-    block_f, r_sub, _ = trows_bwd.launch_config(f_block, tile)
+    plan = trows_bwd.launch_plan(
+        n_rows, feat, f_block, max(1, n_prog // trows_bwd.PROGRAMS_PER_SM))
     args = ([_Ptr(a.reshape(-1)) for a in arrays]
             + [_Ptr(np.asarray(params[p]).reshape(-1))
                for p in program.param_names]
             + [_Ptr(np.asarray(gs[v]).reshape(-1)) for v in program.outputs]
             + [_Ptr(d) for d in dins] + [_Ptr(partial)])
-    n_tiles = -(-n_rows // tile)
     for pid in range(n_prog):
         state["pid"] = pid
-        ns["fused_rows_bwd_kernel"](*args, n_rows, n_tiles, n_prog, F=feat,
-                                    TILE_R=tile, R_SUB=r_sub, BLOCK_F=block_f,
-                                    P_W=pw)
+        ns["fused_rows_bwd_kernel"](*args, n_rows, plan.n_sub, n_prog,
+                                    F=feat, R_SUB=plan.r_sub,
+                                    BLOCK_F=plan.block_f, P_W=pw,
+                                    LOOP_STAGES=plan.loop_stages)
+    if partials is not None:
+        partials.append(partial.reshape(n_prog, max(pw, 1)))
     total = np.full(max(pw, 1), np.nan, np.float32)
     for pid in range(-(-pw // 8)):
         state["pid"] = pid
         ns["reduce_partials_kernel"](_Ptr(partial), _Ptr(total), n_prog, pw,
-                                     BLOCK=8)
+                                     BLOCK=8, P_BLOCK=2)
     dparams, off = {}, 0
     for p in program.param_names:
         # the wrapper's one cast of the reduced sum to the parameter's dtype
@@ -380,10 +388,100 @@ def test_rows_bwd_chunk_is_the_planner_chunk():
             prog, feat, tresource.H100, True)
     assert tresource.feature_block(glu, 11008,
                                    tresource.TINY_DEVICE.f_chunk) == 11008
-    assert trows_bwd.launch_config(2048, 2) == (2048, 2, 16)
-    assert trows_bwd.launch_config(4096, 2) == (4096, 1, 16)
-    assert trows_bwd.n_programs(4096, 132) == 528
-    assert trows_bwd.n_programs(5, 132) == 5
+    assert trows_bwd.launch_config(2048, 2) == (2048, 2, 8)
+    assert trows_bwd.launch_config(4096, 2) == (4096, 1, 8)
+    # the grid follows the rows and the card, not the plan's tile
+    assert trows_bwd.launch_plan(8192, 4096, 4096, 132).n_prog == 264
+    assert trows_bwd.launch_plan(5, 4096, 4096, 132).n_prog == 5
+    # the loop is pipelined where two sub-blocks of loads fit: mamba2's
+    # gated norm (y, z and the cotangent in bf16), rms in float32; not a
+    # float32 row of 16384
+    assert trows_bwd.launch_plan(4096, 5120, 5120, 132, 6).loop_stages == 2
+    assert trows_bwd.launch_plan(8192, 4096, 4096, 132, 8).loop_stages == 2
+    assert trows_bwd.launch_plan(8192, 16384, 16384, 132, 8).loop_stages == 1
+
+
+@pytest.mark.parametrize("n_rows,features", [
+    (4096, 5120), (8192, 4096), (2048, 5120), (4097, 5120), (1000, 96),
+    (21, 24), (1, 4096)])
+def test_rows_bwd_launch_plan_covers_every_row_once(n_rows, features):
+    """``launch_plan`` on the H100's 132 SMs: every SM gets a program where
+    the rows allow it (mamba2's gated norm at (4096, 5120), rms at (8192,
+    4096)); the strided walk of sub-blocks covers every row exactly once,
+    ragged tails included; one partial row a program."""
+    sm = 132
+    plan = trows_bwd.launch_plan(n_rows, features, features, sm)
+    if n_rows >= 2048:
+        assert plan.n_prog >= sm
+    assert plan.n_prog == min(plan.n_sub, trows_bwd.PROGRAMS_PER_SM * sm)
+    assert plan.block_f >= features and plan.n_sub * plan.r_sub >= n_rows
+    assert plan.r_sub == 1 or plan.r_sub * plan.block_f <= trows_bwd.SUB_ELEMS
+    seen = np.zeros(n_rows, np.int64)
+    for pid in range(plan.n_prog):
+        for sb in range(pid, plan.n_sub, plan.n_prog):
+            r = sb * plan.r_sub + np.arange(plan.r_sub)
+            np.add.at(seen, r[r < n_rows], 1)
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("name", ["addnorm_layer_bias", "norms_softmax",
+                                  "glu_silu", "scalar"])
+def test_rows_bwd_program_counts_agree(name, monkeypatch):
+    """The generated source at 1, 3 and 5 programs: one count twice gives
+    the same bits; every count agrees with the plain version within this
+    file's float32 tolerance; each program writes its one partial row."""
+    make, inputs, params, _ = _rows_inputs(name)
+    tprog = make(tir)
+    gs = _rows_cotangents(tprog, inputs, params, 76)
+    want_in, want_p = trows_bwd.fused_rows_bwd(
+        tprog, {k: torch.from_numpy(v) for k, v in inputs.items()},
+        {k: torch.from_numpy(np.asarray(v)) for k, v in params.items()},
+        {k: torch.from_numpy(v) for k, v in gs.items()})
+    for n_prog in (1, 3, 5):
+        parts = []
+        runs = [_run_generated_bwd(tprog, inputs, params, gs, 4, n_prog,
+                                   monkeypatch, partials=parts)
+                for _ in range(2)]
+        for (a_in, a_p), (b_in, b_p) in [runs]:
+            for k in a_in:
+                np.testing.assert_array_equal(a_in[k], b_in[k])
+            for k in a_p:
+                np.testing.assert_array_equal(a_p[k], b_p[k])
+        p_w = sum(int(np.asarray(v).size) for v in params.values())
+        assert parts[0].shape[0] == n_prog
+        assert np.isfinite(parts[0][:, :p_w]).all()
+        gen_in, gen_p = runs[0]
+        for k in want_in:
+            _assert_close(gen_in[k], want_in[k].numpy(),
+                          f"{n_prog} programs d{k}", RTOL_SUM)
+        for k in want_p:
+            _assert_close(gen_p[k], want_p[k].numpy(),
+                          f"{n_prog} programs d{k}", RTOL_SUM)
+
+
+@pytest.mark.parametrize("n_prog", [1, 3, 4])
+def test_rows_bwd_padded_rows_out_at_every_program_count(n_prog,
+                                                         monkeypatch):
+    """Padded rows recompute 0 / 0; at every program count the row mask
+    keeps that NaN out of the parameter sums."""
+    def make(m):
+        return m.StackProgram(name="pad", inputs=("x", "z"), outputs=("y",),
+                              ops=(
+            m.OpNode(m.OpKind.EW_BINARY, "d", ("x", "z"), "a", fn="div"),
+            m.OpNode(m.OpKind.AFFINE, "f", ("a",), "y", params=("s", "o"))))
+
+    rng = np.random.default_rng(6)
+    inputs = {"x": _randn(rng, (11, 24)),
+              "z": np.abs(_randn(rng, (11, 24))) + 1.0}
+    params = {"s": _randn(rng, (24,)), "o": _randn(rng, (24,))}
+    tprog = make(tir)
+    gs = _rows_cotangents(tprog, inputs, params, 77)
+    _, want_p = _jax_rows_bwd(make, inputs, params, gs, 4)
+    _, gen_p = _run_generated_bwd(tprog, inputs, params, gs, 4, n_prog,
+                                  monkeypatch)
+    for k in want_p:
+        assert np.isfinite(gen_p[k]).all()
+        _assert_close(gen_p[k], want_p[k], f"d{k}", RTOL_SUM)
 
 
 # ---------------------------------------------------------------------------

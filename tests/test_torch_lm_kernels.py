@@ -284,9 +284,10 @@ def _cu_const(source, name):
 
 
 def _flash_cuda(q, k, v, causal, scale):
-    """``csrc/flash_attention.cu`` in torch float32, CTA by CTA: 64 x 64
-    tiles (read from the source), zero-filled tails, causal key blocks
-    above the diagonal skipped, the online softmax of one CTA."""
+    """The float32 instance of ``csrc/flash_attention.cu`` in torch
+    float32, CTA by CTA: 64 x 64 tiles (read from the source), zero-filled
+    tails, causal key blocks above the diagonal skipped, the online softmax
+    of one CTA."""
     BQ = _cu_const(tflash.SOURCE, "BQ")
     BK = _cu_const(tflash.SOURCE, "BK")
     b, h, sq, d = q.shape
@@ -327,6 +328,69 @@ def _flash_cuda(q, k, v, causal, scale):
     return out.to(q.dtype)
 
 
+def _flash_cuda_tc(q, k, v, causal, scale):
+    """The bfloat16 instance of ``csrc/flash_attention.cu`` (wgmma) in torch
+    float32, CTA by CTA: ``TC_BQ`` query rows in two warpgroups of half as
+    many, ``TC_BK``-key blocks (both read from the source), tails
+    zero-filled as TMA fills them, key blocks above the diagonal skipped,
+    the mask applied only on a warpgroup's diagonal and tail blocks, and P
+    fed to the second product as two bf16 terms, hi = bf16(p) and lo =
+    bf16(p - hi), while ``l`` sums the float32 P."""
+    BQ = _cu_const(tflash.SOURCE, "TC_BQ")
+    BK = _cu_const(tflash.SOURCE, "TC_BK")
+    WG = BQ // 2
+    b, h, sq, d = q.shape
+    g, sk = k.shape[1], k.shape[2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.full((b, h, sq, d), float("nan"))
+    for bi in range(b):
+        for hi in range(h):
+            gi = hi // (h // g)
+            for q0 in range(0, sq, BQ):
+                nk = -(-sk // BK)
+                if causal:
+                    nk = min(nk, (q0 + BQ - 1) // BK + 1)
+                for qw in (q0, q0 + WG):            # the two warpgroups
+                    qt = torch.zeros(WG, d)
+                    n = max(0, min(WG, sq - qw))
+                    qt[:n] = qf[bi, hi, qw:qw + n]
+                    m = torch.full((WG,), tflash.NEG_INF)
+                    l = torch.zeros(WG)
+                    acc = torch.zeros(WG, d)
+                    for kb in range(nk):
+                        k0 = kb * BK
+                        kt, vt = torch.zeros(BK, d), torch.zeros(BK, d)
+                        kt[:min(BK, sk - k0)] = kf[bi, gi, k0:k0 + BK]
+                        vt[:min(BK, sk - k0)] = vf[bi, gi, k0:k0 + BK]
+                        s = (qt @ kt.T) * scale
+                        if k0 + BK > sk or (causal and k0 + BK - 1 > qw):
+                            qi = qw + torch.arange(WG)[:, None]
+                            ki = k0 + torch.arange(BK)[None, :]
+                            valid = (ki < sk) & ((ki <= qi) | (not causal))
+                            s = torch.where(valid, s, tflash.NEG_INF)
+                        m_new = torch.maximum(m, s.amax(1))
+                        corr = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new[:, None])
+                        l = l * corr + p.sum(1)
+                        p_hi = p.to(torch.bfloat16).float()
+                        p_lo = (p - p_hi).to(torch.bfloat16).float()
+                        acc = acc * corr[:, None] + p_hi @ vt + p_lo @ vt
+                        m = m_new
+                    out[bi, hi, qw:qw + n] = (
+                        acc / torch.clamp(l, min=1e-30)[:, None])[:n]
+    return out.to(q.dtype)
+
+
+def _flash_transliteration(dtype):
+    """The kernel instance a dtype launches, transliterated."""
+    return _flash_cuda_tc if dtype == "bfloat16" else _flash_cuda
+
+
+#: (Sq, the JAX kernel's block): one block, and (260) a Sq that is not a
+#: multiple of the bf16 kernel's query or key tile, with several of each
+FLASH_SEQS = ((100, 32), (33, 16), (260, 64))
+
+
 @pytest.fixture(scope="module")
 def flash_cases():
     """JAX flash kernel (interpret mode) outputs, shared by the plain and
@@ -334,7 +398,9 @@ def flash_cases():
     out = {}
     for dtype in ("float32", "bfloat16"):
         for h, g in ((4, 4), (8, 2), (4, 1)):
-            for sq, block in ((100, 32), (33, 16)):
+            for sq, block in FLASH_SEQS:
+                if sq == 260 and g == 1:
+                    continue
                 for causal in (True, False):
                     rng = np.random.default_rng(h * 100 + g * 10 + sq)
                     b, d = 2, 32
@@ -351,7 +417,9 @@ def flash_cases():
 
 FLASH_IDS = [(dt, h, g, sq, c) for dt in ("float32", "bfloat16")
              for h, g in ((4, 4), (8, 2), (4, 1)) for sq in (100, 33)
-             for c in (True, False)]
+             for c in (True, False)] + [
+    (dt, h, g, 260, c) for dt in ("float32", "bfloat16")
+    for h, g in ((4, 4), (8, 2)) for c in (True, False)]
 
 
 @pytest.mark.parametrize("case", FLASH_IDS, ids=lambda c: "-".join(map(str, c)))
@@ -362,8 +430,38 @@ def test_flash_attention_matches_jax_kernel(case, flash_cases):
     got = tattn_ops.flash_attention(tq, tk, tv, case[4], block, block)
     assert got.dtype == T_DTYPE[dtype]
     _close(got, want, dtype, "plain")
-    _close(_flash_cuda(tq, tk, tv, case[4], 1.0 / q.shape[-1] ** 0.5), want,
+    _close(_flash_transliteration(dtype)(tq, tk, tv, case[4],
+                                         1.0 / q.shape[-1] ** 0.5), want,
            dtype, "CUDA transliteration")
+
+
+@pytest.mark.parametrize("causal", (True, False))
+def test_flash_bf16_p_rounding_within_its_bound(causal):
+    """The bf16 kernel's one numerical change: P reaches the second product
+    as hi + lo in bf16, so each p_j moves by at most 2^-18 relative (2^-9
+    with hi alone), and the output stays within 2^-18 max|v| plus one bf16
+    step of o, plus float32 summation in another order (Sk 2^-24 max|v|),
+    of the JAX kernel (interpret mode, float32 P); here on a large max|v|
+    and a peaked softmax.  That is inside the single-term bound, 2^-9
+    max|v| plus one step."""
+    rng = np.random.default_rng(29)
+    b, h, g, s, d = 1, 4, 2, 200, 32
+    q = (3.0 * rng.standard_normal((b, h, s, d))).astype(ml_dtypes.bfloat16)
+    k = (3.0 * rng.standard_normal((b, g, s, d))).astype(ml_dtypes.bfloat16)
+    v = (100.0 * rng.standard_normal((b, g, s, d))).astype(
+        ml_dtypes.bfloat16)
+    want = np.asarray(jattn_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, 64, 64,
+        True)).astype(np.float32)
+    tq, tk, tv = (_t(a, "bfloat16") for a in (q, k, v))
+    got = _flash_cuda_tc(tq, tk, tv, causal, 1.0 / d ** 0.5).float().numpy()
+    v_max = float(np.abs(v.astype(np.float32)).max())
+    top = np.maximum(np.abs(got), np.abs(want))
+    step = np.exp2(np.floor(np.log2(np.maximum(top, 1e-30))) - 7)
+    bound = (2.0 ** -18 + s * 2.0 ** -24) * v_max + step
+    d_got = np.abs(got - want)
+    assert (d_got <= bound).all(), float((d_got - bound).max())
+    assert (bound <= 2.0 ** -9 * v_max + step).all()
 
 
 def test_flash_attention_oracle_agrees_at_equal_lengths():
