@@ -53,8 +53,10 @@ Phases, one line each (plus tables):
    tokens/s, TTFT and ``ServeStats``; a traced decode-only tick per mode;
 17. the fused vocab cross-entropy CUDA kernel against its plain version
    (TF32 off): (4096, 4096, 102400) and ragged (1000, 4000, 50257) in bf16
-   and float32, a tenth of the labels and one row block masked, lse and
-   gold within 1e-4 x max(1, max|logits|), two launches bit for bit;
+   (the wgmma instance; the ragged head staged to a pitch of 50264) and
+   float32 (the CUDA-core instance), a tenth of the labels and one row
+   block masked, lse and gold within 1e-4 x max(1, max|logits|), two
+   launches bit for bit;
    ``fused_nll`` exactly 0 at T = 0 and fully masked, and its gradients
    against autograd of ``nll_ref`` at (1024, 4096, 102400) bf16;
 18. LM training through ``launch/train.py`` (``build_trainer`` /
@@ -70,8 +72,10 @@ Phases, one line each (plus tables):
    step-1 checkpoint lands on the uninterrupted step-3 loss exactly; peak
    memory per run;
 19. the CE kernel's device time beside its bound, its plain version and
-   the two-call PyTorch form; the 8-layer training step per mode in turns;
-   a traced step per mode (device time by group, idle share);
+   the two-call PyTorch forms (bf16 and float32), the bytes of w its
+   launch order implies, the ragged head's time with its staging copy; the
+   8-layer training step per mode in turns; a traced step per mode (device
+   time by group, idle share);
 20. the SSD intra-chunk CUDA kernel against its plain version (max|d| <=
    1e-5 x max(1, max|ref|)): mamba2-2.7b's prefill shape (1, 80, 32, 64,
    64) with N 128, decays that overflow float32 ``exp`` above the diagonal
@@ -87,7 +91,9 @@ Phases, one line each (plus tables):
    against barrier and a float32 run (SSM_F32_FACTOR); counters (64 SSD
    launches a prefill, 0 a decode step, plain 0); a float32 run at 4
    layers with identical tokens; wall, tokens/s and a traced idle share
-   per mode;
+   per mode; the gated norm's rows forward at (2048, 5120), (4096, 5120)
+   and (4, 5120) bf16 timed beside its byte bound, plain version, launch
+   plan, registers and spills;
 22. mamba2-2.7b training through ``Trainer.run``: full width and depth,
    bf16, remat "full", one 4096-token sequence, three AdamW steps (lr
    3e-4), brainslug held to barrier through a float32 run on the same
@@ -155,6 +161,9 @@ SERVE = dict(batch=4, prompt_len=64, new_tokens=32)
 PATH_F32_REL = 1e-4
 PATH_BF16_REL = 5e-2
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core rate (datasheet)
+# The rows forward is also timed at the other count of programs an SM
+# (rows.PROGRAMS_PER_SM gives the grid), beside the one it launches.
+PROGRAMS_ALT = {2: 8, 8: 2}
 SPIN_KERNELS = 16       # sacrificial launches at the start of a trace
 # The engine slice (phases 14-16).
 PAGED = dict(batch=8, heads=32, max_len=32768, block=16)
@@ -173,6 +182,8 @@ ENGINE_LAYERS = 8
 TRAIN_LM = dict(layers=8, layers_f32=2, seq=4096, steps=3, lr=3e-4)
 CE_SHAPE = (4096, 4096, 102400)         # (tokens, d_model, vocab)
 CE_RAGGED = (1000, 4000, 50257)
+# d_model not a multiple of 8: h's rows are staged to a padded pitch
+CE_ODD_D = (1000, 4001, 102400)
 CE_GRAD_ROWS = 1024
 # brainslug against barrier in bf16 (8 layers, three steps), relative: the
 # modes round at other places (barrier's logits are bf16, the CE kernel's
@@ -235,6 +246,26 @@ SSM_BLOCK_FACTOR = 1.05
 
 class PhaseError(RuntimeError):
     pass
+
+
+def w_stream_model(n_rows, d, vocab, n_split, resident):
+    """Bytes of a bf16 ``w`` that the bf16 CE kernel's launch order implies
+    are read from device memory, in a model: the CTAs run in windows of
+    ``resident`` consecutive launches, the row tile on ``blockIdx.x``
+    varying fastest, and a split's columns are read once for every window
+    that holds one of its row tiles (``w`` is far larger than L2, ``h``
+    stays there).  Printed by phase 19 beside w's size; not a reading."""
+    from repro_torch.kernels.vocab_ce import ce
+    row_tiles = -(-n_rows // ce.TC_BLOCK_ROWS)
+    n_vtiles = -(-vocab // ce.TC_BLOCK_V)
+    order = [s for s in range(n_split) for _ in range(row_tiles)]
+    total = 0
+    for w0 in range(0, len(order), resident):
+        for s in set(order[w0:w0 + resident]):
+            c0 = s * n_vtiles // n_split * ce.TC_BLOCK_V
+            c1 = min((s + 1) * n_vtiles // n_split * ce.TC_BLOCK_V, vocab)
+            total += 2 * d * (c1 - c0)
+    return total
 
 
 def main() -> int:
@@ -356,6 +387,7 @@ class Smoke:
         except (OSError, subprocess.SubprocessError) as e:
             raise PhaseError(f"nvidia-smi: {e}") from e
         self.smi = smi.stdout.strip().splitlines()[0]
+        self.sm_count = torch.cuda.get_device_properties(0).multi_processor_count
         print(f"[0 device] {torch.cuda.get_device_name(0)} | {self.smi} | "
               f"torch {torch.__version__} cuda {torch.version.cuda} | "
               f"tf32 off")
@@ -383,26 +415,39 @@ class Smoke:
               f"{triton.__version__} compiles each rows signature and the "
               f"rmsnorm / swiglu kernels at their first launch")
         print("[1 build] flash_attention.cu, nvcc -Xptxas -v: "
-              + "; ".join(self.ptxas_report(_build.build_log(flash.SOURCE))))
+              + "; ".join(self.ptxas_report(_build.build_log(flash.SOURCE),
+                                            "flash_fwd_kernel_bf16_wgmma")))
+        self.ce_ptxas = self.ptxas_report(_build.build_log(ce.SOURCE),
+                                          "ce_tc_kernel")
+        print("[1 build] fused_ce.cu, nvcc -Xptxas -v: "
+              + "; ".join(self.ce_ptxas))
 
-    @staticmethod
-    def ptxas_report(log):
-        """Each kernel's registers and spills from ptxas's ``-v`` lines."""
+    #: Kernel names as the ptxas lines report them, by a fragment of the
+    #: mangled name (first match wins).
+    PTXAS_NAMES = (("bf16_wgmma", "flash_fwd_kernel_bf16_wgmma"),
+                   ("flash_fwd_kernel", "flash_fwd_kernel<float>"),
+                   ("ce_tc_kernel", "ce_tc_kernel"),
+                   ("ce_split_kernel", "ce_split_kernel<float>"),
+                   ("ce_merge_kernel", "ce_merge_kernel"))
+
+    @classmethod
+    def ptxas_report(cls, log, need):
+        """Each kernel's registers and spills from ptxas's ``-v`` lines;
+        fails unless the kernel ``need`` is among them."""
         out, name = [], None
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
-                name = ("flash_fwd_kernel_bf16_wgmma" if "bf16_wgmma" in name
-                        else "flash_fwd_kernel<float>" if "flash_fwd_kernel"
-                        in name else name)
+                name = next((n for frag, n in cls.PTXAS_NAMES if frag in name),
+                            name)
             elif "spill stores" in line and name:
                 spill = line.strip()
             elif "Used" in line and "registers" in line and name:
                 regs = line.split("Used")[1].split(",")[0].strip()
                 out.append(f"{name}: {regs}, {spill}")
                 name = None
-        if not any("bf16_wgmma" in o for o in out):
-            raise PhaseError("ptxas reported no flash_fwd_kernel_bf16_wgmma")
+        if not any(o.startswith(need + ":") for o in out):
+            raise PhaseError(f"ptxas reported no {need}")
         return out
 
     def nhwc_cases(self):
@@ -770,12 +815,18 @@ class Smoke:
     def device_ms(self, fn, reps=20):
         """Device milliseconds per call: the summed durations of the
         kernels one call launches (profiler, mean of ``reps`` calls), free
-        of the host's launch overhead.  Without device events, the
-        event-timed :meth:`cuda_ms` stands in, and the label says so."""
-        spans = self.device_spans(fn, reps)
-        if not spans:
-            return self.cuda_ms(fn), "events"
-        return sum(t1 - t0 for _, t0, t1 in spans) / reps / 1e3, "device"
+        of the host's launch overhead.  A trace whose kernel count is not a
+        multiple of ``reps`` lost launches past the spin kernels (the
+        mean would fall short: 0.0652 ms against 0.0924 for rms at (8192,
+        4096) float32 on an H100), so it is taken again, up to three times.
+        Without a whole trace, the event-timed :meth:`cuda_ms` stands in,
+        and the label says so."""
+        for _ in range(3):
+            spans = self.device_spans(fn, reps)
+            if spans and len(spans) % reps == 0:
+                return sum(t1 - t0 for _, t0, t1 in spans) / reps / 1e3, \
+                    "device"
+        return self.cuda_ms(fn), "events"
 
     def trace(self, fn, expect=None, classify=None) -> str:
         """Device time of one call by kernel group, the share of the traced
@@ -937,6 +988,8 @@ class Smoke:
             out = run()
             k_ms, k_how = self.device_ms(run)
             k_call = self.cuda_ms(run)
+            alt = PROGRAMS_ALT[rows.PROGRAMS_PER_SM]
+            a_ms = self.at_programs_per_sm(run, alt)
             p_ms, _ = self.device_ms(lambda: ref.fused_stack_ref(
                 program, inputs, params_))
             lib = library.get(name)
@@ -951,8 +1004,9 @@ class Smoke:
             lib_s = f"{l_ms:.4f} ms" if l_ms is not None else "none"
             print(f"  {name} rows={math.prod(in_shapes[program.inputs[0]][:-1])}"
                   f" F={in_shapes[program.inputs[0]][-1]} tile_rows={tile}: "
-                  f"kernel {k_ms:.4f} ms {k_how} ({k_call:.4f} per call)  "
-                  f"plain {p_ms:.4f} ms  library {lib_s}"
+                  f"kernel {k_ms:.4f} ms {k_how} ({k_call:.4f} per call; "
+                  f"{rows.PROGRAMS_PER_SM} programs an SM, at {alt}: "
+                  f"{a_ms:.4f} ms)  plain {p_ms:.4f} ms  library {lib_s}"
                   f"  bound {b_ms:.4f} ms ({b_by})  kernel/bound "
                   f"{k_ms / b_ms:.2f}")
         k_ms, p_ms, l_ms, b_ms, b_by, tile = rows_entries["rms"]
@@ -1424,7 +1478,7 @@ class Smoke:
             run = lambda: rows_bwd.fused_rows_bwd(  # noqa: E731
                 program, inputs, params, cot, tile_rows=tile)
             dins, dpar = run()
-            regs = self.triton_regs(rows_bwd.fused_rows_bwd.compiled)
+            regs = self.triton_regs(self.rows_jit(bwd=True))
             k_ms, k_how = self.device_ms(run)
             k_call = self.cuda_ms(run)
             p_ms, _ = self.device_ms(lambda: rows_bwd.fused_rows_bwd_ref(
@@ -1489,11 +1543,43 @@ class Smoke:
 
 
     @staticmethod
-    def triton_regs(compiled):
-        """Registers a thread and bytes spilled of a compiled Triton
-        kernel."""
-        return (f"{compiled.n_regs} registers, {compiled.n_spills} bytes "
-                f"spilled")
+    def triton_regs(jit_fn):
+        """Registers a thread and bytes spilled of the kernels Triton has
+        compiled from one JIT function (one for each specialization of its
+        arguments), read from Triton's cache."""
+        found = []
+        for entry in getattr(jit_fn, "device_caches", {}).values():
+            for cache in (c for c in entry if isinstance(c, dict)):
+                found += [k for k in cache.values() if hasattr(k, "n_regs")]
+        if not found:
+            return "registers not read (no compiled kernel in Triton's cache)"
+        regs = sorted({k.n_regs for k in found})
+        spills = sorted({k.n_spills for k in found})
+        text = (f"{'/'.join(map(str, regs))} registers, "
+                f"{'/'.join(map(str, spills))} bytes spilled")
+        return text if len(found) == 1 else (
+            f"{text} ({len(found)} compiled specializations)")
+
+    @staticmethod
+    def rows_jit(bwd=False):
+        """The JIT function of the rows kernel launched last (the wrappers'
+        caches keep the one in use last)."""
+        from repro_torch.kernels.fused_stack import rows, rows_bwd
+        if bwd:
+            return next(reversed(rows_bwd._MODULES.values())
+                        ).fused_rows_bwd_kernel
+        return next(reversed(rows._KERNELS.values()))
+
+    def at_programs_per_sm(self, run, n):
+        """Device time of a rows-forward call with its grid at ``n``
+        programs an SM in place of ``rows.PROGRAMS_PER_SM``."""
+        from repro_torch.kernels.fused_stack import rows
+        keep = rows.PROGRAMS_PER_SM
+        rows.PROGRAMS_PER_SM = n
+        try:
+            return self.device_ms(run)[0]
+        finally:
+            rows.PROGRAMS_PER_SM = keep
 
     def gated_norm_bwd_timing(self, nbytes):
         """The rows backward at mamba2's gated norm, one 4096-token
@@ -1514,7 +1600,7 @@ class Smoke:
             program, inputs, params, cot)
         dins, dpar = run()
         dins2, dpar2 = run()
-        regs = self.triton_regs(rows_bwd.fused_rows_bwd.compiled)
+        regs = self.triton_regs(self.rows_jit(bwd=True))
         want_in, want_p = rows_bwd.fused_rows_bwd_ref(program, inputs,
                                                       params, cot)
         got = {f"d{n}": v for n, v in {**dins, **dpar}.items()}
@@ -1830,14 +1916,20 @@ class Smoke:
 
     def kernel_ms(self, fn, frag, reps=20):
         """Mean device duration of the launches whose name holds ``frag`` in
-        a profiler trace of ``reps`` calls, and how many launches the trace
-        held.  A mean over the launches held, so an event the profiler
-        loses does not bias it."""
-        durs = [t1 - t0 for name, t0, t1 in self.device_spans(fn, reps)
-                if frag in name.lower()]
-        if not durs:
-            raise PhaseError(f"the profiler recorded no {frag} launch")
-        return sum(durs) / len(durs) / 1e3, len(durs)
+        a profiler trace of ``reps`` calls, and a note of how it was read.
+        A mean over the launches held, so an event the profiler loses does
+        not bias it.  A trace that holds none of them (the profiler can drop
+        a whole trace's device events) is taken again, up to three times;
+        without one, the event-timed :meth:`cuda_ms` per call stands in,
+        and the note says so."""
+        for _ in range(3):
+            durs = [t1 - t0 for name, t0, t1 in self.device_spans(fn, reps)
+                    if frag in name.lower()]
+            if durs:
+                return sum(durs) / len(durs) / 1e3, \
+                    f"device, {len(durs)} of {reps} launches held"
+        return self.cuda_ms(fn, reps), (f"events per call: 3 traces held no "
+                                        f"{frag} launch")
 
     def complete_trace(self, fn, expect, tries=3, classify=None):
         """:meth:`trace` with the LM groups (or ``classify``'s), retried
@@ -1960,15 +2052,14 @@ class Smoke:
         rows = {}
         with torch.inference_mode():
             for name, shape, run, plain, lib, (b_ms, b_by) in cases:
-                k_ms, n_held = self.kernel_ms(run, frags[name])
+                k_ms, how = self.kernel_ms(run, frags[name])
                 k_call = self.cuda_ms(run)
                 p_ms = self.cuda_ms(plain, reps=3, groups=3, warmup=1)
                 l_ms = self.cuda_ms(lib) if lib else None
                 rows[name] = (k_ms, p_ms, l_ms, b_ms, b_by, shape)
                 lib_s = f"{l_ms:.4f} ms" if l_ms is not None else "none"
-                print(f"  {name} {shape}: kernel {k_ms:.4f} ms device "
-                      f"({n_held} of 20 launches held; {k_call:.4f} per "
-                      f"call)  plain {p_ms:.4f} ms  library {lib_s}  bound "
+                print(f"  {name} {shape}: kernel {k_ms:.4f} ms ({how}; "
+                      f"{k_call:.4f} per call)  plain {p_ms:.4f} ms  library {lib_s}  bound "
                       f"{b_ms:.4f} ms ({b_by})  kernel/bound "
                       f"{k_ms / b_ms:.2f}")
         sources = {
@@ -2352,7 +2443,7 @@ class Smoke:
             t_ops, "operations")
         with torch.inference_mode():
             run = lambda: decode.paged_flash_decode(q, kp, vp, table, lens)  # noqa: E731
-            k_ms, n_held = self.kernel_ms(run, "paged_flash_decode_kernel")
+            k_ms, how = self.kernel_ms(run, "paged_flash_decode_kernel")
             k_call = self.cuda_ms(run)
             k32_ms, _ = self.kernel_ms(
                 lambda: decode.paged_flash_decode(q32, kp32, vp32, table,
@@ -2367,8 +2458,8 @@ class Smoke:
                 q, kd, vd, attn_mask=mask))
         shape = (f"({PAGED['batch']}, {heads}, lengths {lens.tolist()}, 128) "
                  f"bf16, block {PAGED['block']}")
-        print(f"[16 paged kernel] {shape}: kernel {k_ms:.4f} ms device "
-              f"({n_held} of 20 launches held; {k_call:.4f} per call); over "
+        print(f"[16 paged kernel] {shape}: kernel {k_ms:.4f} ms ({how}; "
+              f"{k_call:.4f} per call); over "
               f"a float32 pool {k32_ms:.4f} ms; dense flash_decode on the "
               f"gathered view {d_ms:.4f} ms (paging costs "
               f"{100 * (k_ms / d_ms - 1):+.1f}%); plain {p_ms:.4f} ms; "
@@ -2395,14 +2486,19 @@ class Smoke:
             from repro_torch.kernels.fused_stack import rows
             nb = sum(t.numel() * t.element_size() for t in
                      [*inputs.values(), *params.values(), *out.values()])
-            r_ms, _ = self.device_ms(lambda: rows.fused_rows(
-                program, inputs, params, tile_rows=tile))
+            run = lambda: rows.fused_rows(  # noqa: E731
+                program, inputs, params, tile_rows=tile)
+            r_ms, _ = self.device_ms(run)
+            alt = PROGRAMS_ALT[rows.PROGRAMS_PER_SM]
+            a_ms = self.at_programs_per_sm(run, alt)
             rp_ms, _ = self.device_ms(lambda: fref.fused_stack_ref(
                 program, inputs, params))
             rb_ms = nb / H100.hbm_bandwidth * 1e3
             print(f"[16 rows bf16] {name} {ROWS} x "
                   f"{next(iter(inputs.values())).shape[-1]} tile_rows={tile}: "
-                  f"kernel {r_ms:.4f} ms device, plain {rp_ms:.4f} ms, bound "
+                  f"kernel {r_ms:.4f} ms device ({rows.PROGRAMS_PER_SM} "
+                  f"programs an SM, at {alt}: {a_ms:.4f} ms), plain "
+                  f"{rp_ms:.4f} ms, bound "
                   f"{rb_ms:.4f} ms (bytes), kernel/bound {r_ms / rb_ms:.2f}")
 
         # the engine's runs of phase 15
@@ -2491,7 +2587,8 @@ class Smoke:
         for (tt, d, v), dt in ((CE_SHAPE, torch.bfloat16),
                                (CE_SHAPE, torch.float32),
                                (CE_RAGGED, torch.float32),
-                               (CE_RAGGED, torch.bfloat16)):
+                               (CE_RAGGED, torch.bfloat16),
+                               (CE_ODD_D, torch.bfloat16)):
             h, w, labels = self.ce_operands(tt, d, v, dt, 1700 + d % 97)
             lse, gold = ce.fused_ce_fwd(h, w, labels)
             lse2, gold2 = ce.fused_ce_fwd(h, w, labels)
@@ -2512,9 +2609,17 @@ class Smoke:
                 raise PhaseError(f"{what}: two launches differ")
             if bool((gold[labels < 0] != 0).any()):
                 raise PhaseError(f"{what}: a masked row's gold is not 0")
-            lines.append(f"{(tt, d, v)} {str(dt).split('.')[-1]} "
-                         f"{ce.split_plan(tt, v, 132)} splits: max|d| "
-                         f"{err:.2e} (tol {tol:.2e})")
+            if dt == torch.bfloat16:       # the tensor-core instance
+                how = (f"wgmma, {ce.tc_split_plan(tt, v, self.sm_count)} "
+                       f"splits" + "".join(
+                           f", {n} staged to pitch {p}" for n, x in
+                           (("h", h), ("w", w))
+                           for p in [ce.staged(x)[1]] if p != x.shape[1]))
+            else:
+                how = f"CUDA cores, {ce.split_plan(tt, v, self.sm_count)} " \
+                      f"splits"
+            lines.append(f"{(tt, d, v)} {str(dt).split('.')[-1]} ({how}): "
+                         f"max|d| {err:.2e} (tol {tol:.2e})")
             del h, w, lse, gold, lse2, gold2, want_lse, want_gold
         torch.cuda.empty_cache()
 
@@ -2836,6 +2941,7 @@ class Smoke:
 
     def train_group(self, low):
         for frag, group in (("ce_split_kernel", "fused_ce"),
+                            ("ce_tc_kernel", "fused_ce"),
                             ("ce_merge_kernel", "fused_ce"),
                             ("flash_fwd_kernel", "flash_attention"),
                             ("rmsnorm_kernel", "rmsnorm"),
@@ -2942,6 +3048,11 @@ class Smoke:
             logits = h.float() @ w.float()
             return torch.logsumexp(logits, -1), logits.gather(-1, safe)
 
+        def two_calls_bf16():
+            # cuBLAS in bf16 with float32 accumulation, then float32
+            logits = (h @ w).float()
+            return torch.logsumexp(logits, -1), logits.gather(-1, safe)
+
         # the profiler may drop some of these long kernels' events: its
         # time stands only when the trace holds every launch
         spans = [sp for sp in self.device_spans(run, reps=5)
@@ -2956,6 +3067,11 @@ class Smoke:
         p_ms = self.cuda_ms(lambda: ref.ce_ref(h, w, labels), reps=2,
                             groups=3, warmup=1)
         two_ms = self.cuda_ms(two_calls, reps=2, groups=3, warmup=1)
+        two_bf16_ms = self.cuda_ms(two_calls_bf16, reps=2, groups=3,
+                                   warmup=1)
+        n_split = ce.tc_split_plan(tt, v, self.sm_count)
+        w_gb = 2 * d * v / 1e9
+        w_model = w_stream_model(tt, d, v, n_split, self.sm_count) / 1e9
         n_ops = 2 * tt * d * v
         n_bytes = (h.numel() + w.numel()) * 2 + labels.numel() * 4 + 2 * tt * 4
         t_ops, t_bytes = n_ops / PEAK_BF16 * 1e3, \
@@ -2963,22 +3079,49 @@ class Smoke:
         b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
             t_bytes, "bytes")
         shape = f"({tt}, {d}, {v}) bf16"
-        print(f"[19 fused_ce] {shape}: kernel {k_ms:.3f} ms (split + merge, "
-              f"{how}; {k_call:.3f} per call, events) = "
-              f"{n_ops / k_ms / 1e9:.1f} TFLOP/s; plain (ce_ref) {p_ms:.3f} "
-              f"ms; two calls (h.float() @ w.float(), then logsumexp and a "
-              f"gather; no single PyTorch call computes the function) "
-              f"{two_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}: {n_ops:.3e} "
-              f"operations at {PEAK_BF16 / 1e12:.0f} TFLOP/s; bytes alone "
-              f"{t_bytes:.3f} ms), kernel/bound {k_ms / b_ms:.1f}")
+        print(f"[19 fused_ce] {shape}: kernel {k_ms:.3f} ms (wgmma, "
+              f"{n_split} splits, split + merge, {how}; {k_call:.3f} per "
+              f"call, events) = {n_ops / k_ms / 1e9:.1f} TFLOP/s; plain "
+              f"(ce_ref) {p_ms:.3f} ms; two calls (no single PyTorch call "
+              f"computes the function): bf16 (h @ w with float32 "
+              f"accumulation, then logsumexp and a gather in float32) "
+              f"{two_bf16_ms:.3f} ms, float32 (h.float() @ w.float(), then "
+              f"the same) {two_ms:.3f} ms; bound {b_ms:.3f} ms ({b_by}: "
+              f"{n_ops:.3e} operations at {PEAK_BF16 / 1e12:.0f} TFLOP/s; "
+              f"bytes alone {t_bytes:.3f} ms), kernel/bound "
+              f"{k_ms / b_ms:.2f}; ptxas {self.ce_ptxas}")
+        print(f"[19 fused_ce] w ({w_gb:.3f} GB) from device memory as the "
+              f"launch order implies, a model, not a reading (CTAs in "
+              f"windows of {self.sm_count}, each split's columns read once a "
+              f"window that holds its row tiles): {w_model:.3f} GB")
         self.kernels["fused_ce"] = {
             "name": "fused_ce", "route": "cuda",
             "source": "src/repro_torch/kernels/vocab_ce/csrc/fused_ce.cu",
             "replaces": "src/repro/kernels/vocab_ce/ce.py:78",
             "launches": self.ce_launches, "max_abs_err": self.err["fused_ce"],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "two_call_ms": two_ms, "shape": shape}
+            "library_ms": None, "two_call_bf16_ms": two_bf16_ms,
+            "two_call_f32_ms": two_ms, "shape": shape,
+            "ptxas": self.ce_ptxas}
         del h, w, labels, safe
+        torch.cuda.empty_cache()
+
+        # the ragged head: w staged to a pitch of a multiple of 8 inside
+        # each call, the copy counted
+        tt, d, v = CE_RAGGED
+        h, w, labels = self.ce_operands(tt, d, v, torch.bfloat16, 1910)
+        r_ms = self.cuda_ms(lambda: ce.fused_ce_fwd(h, w, labels), reps=3,
+                            groups=3, warmup=1)
+        stage_ms = self.cuda_ms(lambda: ce.staged(w), reps=3, groups=3,
+                                warmup=1)
+        r_bound = 2 * tt * d * v / PEAK_BF16 * 1e3
+        print(f"[19 fused_ce] ragged {CE_RAGGED} bf16, w staged to pitch "
+              f"{ce.staged(w)[1]} in each call: {r_ms:.3f} ms a call "
+              f"(events; the staging copy alone {stage_ms:.3f} ms), bound "
+              f"{r_bound:.3f} ms (operations), kernel/bound "
+              f"{r_ms / r_bound:.2f}")
+        self.kernels["fused_ce"]["ragged_ms"] = r_ms
+        del h, w, labels
         torch.cuda.empty_cache()
 
         # the 8-layer bf16 step per mode, in turns, on one model and state
@@ -3133,7 +3276,7 @@ class Smoke:
         # time, bound, plain version
         dtx, a, Bm, Cm = self.ssd_operands(SSD_SHAPE, 2000, 0.5)
         run = lambda: ssd.ssd_intra_chunk(dtx, a, Bm, Cm)  # noqa: E731
-        k_ms, held = self.kernel_ms(run, "ssd_intra_chunk_kernel")
+        k_ms, how = self.kernel_ms(run, "ssd_intra_chunk_kernel")
         k_call = self.cuda_ms(run)
         p_ms = self.cuda_ms(lambda: ssd.ssd_intra_chunk_ref(dtx, a, Bm, Cm))
         cells = b * h * nc
@@ -3150,8 +3293,8 @@ class Smoke:
         print(f"[20 ssd_intra_chunk] " + "; ".join(lines)
               + f" (tol {SSD_TOL} x max(1, max|ref|))")
         print(f"[20 ssd_intra_chunk time] {shape}: kernel {k_ms:.4f} ms "
-              f"device ({held} of 20 launches held; {k_call:.4f} per call, "
-              f"events) = {n_ops / k_ms / 1e9:.1f} GFLOP/s; plain "
+              f"({how}; {k_call:.4f} per call, events) = "
+              f"{n_ops / k_ms / 1e9:.1f} TFLOP/s; plain "
               f"(ssd_intra_chunk_ref) {p_ms:.4f} ms; library none (no single "
               f"PyTorch call computes the masked chain); bound {b_ms:.4f} ms "
               f"({b_by}: {n_ops:.3e} float32 operations at "
@@ -3475,6 +3618,7 @@ class Smoke:
             self.same_bits("fused_rows", f"gated norm {lead}", {"o": got},
                            {"o": again})
             lines.append(f"gated norm fwd {lead + (di,)} max|d| {err:.2e}")
+        self.gated_norm_fwd_timing(program, scale)
         # the backward at one training sequence
         seq = (1, TRAIN_LM["seq"])
         y = self.randn(seq + (di,), 2220).to(bf)
@@ -3526,6 +3670,55 @@ class Smoke:
               f"(tol {LM_TOL['bfloat16']}; the backward's dscale atol rtol x "
               f"max), two runs bit for bit: " + "; ".join(lines)
               + f"; {time.perf_counter() - t:.1f} s")
+
+    def gated_norm_fwd_timing(self, program, scale):
+        """The rows forward at mamba2's gated norm over d_inner in bf16:
+        prefill (1, 2048), one training sequence (1, 4096) and a decode step
+        (4, 1); each against its plain version (LM_TOL, two runs bit for
+        bit), its device time (profiler, mean of 20, and at the other count
+        of programs an SM) beside the byte bound (read y and z, write o),
+        its plain version, the launch plan and the registers and
+        spills."""
+        torch = self.torch
+        from repro_torch.core.resource import H100
+        from repro_torch.kernels.fused_stack import ref, rows
+        bf = torch.bfloat16
+        di = scale.shape[0]
+        out = {}
+        for k, lead in enumerate((PREFILL, (1, TRAIN_LM["seq"]),
+                                  (SERVE["batch"], 1))):
+            y = self.randn(lead + (di,), 2240 + 2 * k).to(bf)
+            z = self.randn(lead + (di,), 2241 + 2 * k).to(bf)
+            inputs, params = {"y": y, "z": z}, {"scale": scale}
+            run = lambda: rows.fused_rows(  # noqa: E731
+                program, inputs, params)
+            o = run()["o"]
+            regs = self.triton_regs(self.rows_jit())
+            n = math.prod(lead)
+            what = f"gated norm fwd {lead + (di,)}"
+            err = self.lm_check("mamba_rows", what, o, ref.fused_stack_ref(
+                program, inputs, params)["o"])
+            self.same_bits("fused_rows", what, {"o": o}, {"o": run()["o"]})
+            plan = rows.launch_plan(n, di, di, self.sm_count, 4,
+                                    programs_per_sm=rows.PROGRAMS_PER_SM)
+            k_ms, k_how = self.device_ms(run)
+            alt = PROGRAMS_ALT[rows.PROGRAMS_PER_SM]
+            a_ms = self.at_programs_per_sm(run, alt)
+            p_ms, _ = self.device_ms(lambda: ref.fused_stack_ref(
+                program, inputs, params))
+            nb = sum(t.numel() * t.element_size() for t in (y, z, scale, o))
+            b_ms = nb / H100.hbm_bandwidth * 1e3
+            print(f"[21 gated norm fwd] rows={n} F={di} bf16: max|d| "
+                  f"{err:.2e} (tol {LM_TOL['bfloat16']}), two runs bit for "
+                  f"bit; kernel {k_ms:.4f} ms {k_how} ({alt} programs an SM: "
+                  f"{a_ms:.4f} ms)  plain {p_ms:.4f} ms  library none  "
+                  f"bound {b_ms:.4f} ms (bytes)  kernel/bound "
+                  f"{k_ms / b_ms:.2f}  {regs}; {plan.n_prog} programs, "
+                  f"{plan.r_sub} row(s) a sub-block, {plan.num_warps} warps, "
+                  f"{plan.loop_stages} stage(s)")
+            out[str(n)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                           "registers": regs, f"ms_at_{alt}_per_sm": a_ms}
+        self.kernels["fused_rows"]["gated_norm"] = out
 
     def phase21_ssm_serving(self):
         torch = self.torch

@@ -1,11 +1,12 @@
 """Building the port's kernels from the sources in the tree, at first use.
 
-* CUDA C++ sources (``csrc/*.cu``, with the ``csrc/*.cuh`` headers they
-  include) are compiled by ``nvcc`` into a shared
-  library with a plain C interface, for ``sm_90a``, and bound with
-  ``ctypes``.  No PyTorch header is included, so one build takes seconds.
-  The library's file name carries a hash of the source and the flags, so an
-  edited source is rebuilt and an unchanged one is loaded as it is.
+* CUDA C++ sources (``csrc/*.cu``, with the ``csrc/*.cuh`` headers beside
+  them and the shared ``kernels/csrc/*.cuh`` they include) are compiled by
+  ``nvcc`` into a shared library with a plain C interface, for ``sm_90a``,
+  and bound with ``ctypes``.  No PyTorch header is included, so one build
+  takes seconds.  The library's file name carries a hash of the source, the
+  headers and the flags, so an edited source or header is rebuilt and an
+  unchanged one is loaded as it is.
 * Triton kernels generated at run time are written as modules into the
   build directory (``@triton.jit`` reads its function's source from a real
   file) and imported from there.  Triton's own cache of compiled binaries
@@ -34,11 +35,16 @@ BUILD_DIR = ROOT / "build"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC")
 
-#: Flags of one source beyond :data:`NVCC_FLAGS`, by file name.  The flash
-#: kernel encodes its TMA tensor maps with the driver API (``-lcuda``, found
-#: in the toolkit's ``stubs``) and has ptxas report its registers and
-#: spills (``-Xptxas -v``), which :func:`build_log` keeps.
-SOURCE_FLAGS = {"flash_attention.cu": ("-Xptxas", "-v", "-lcuda")}
+#: Flags of one source beyond :data:`NVCC_FLAGS`, by file name.  The
+#: tensor-core kernels encode their TMA tensor maps with the driver API
+#: (``-lcuda``, found in the toolkit's ``stubs``) and have ptxas report
+#: their registers and spills (``-Xptxas -v``), which :func:`build_log`
+#: keeps.
+SOURCE_FLAGS = {"flash_attention.cu": ("-Xptxas", "-v", "-lcuda"),
+                "fused_ce.cu": ("-Xptxas", "-v", "-lcuda")}
+#: Headers every source may include (``../../csrc/*.cuh``): the Hopper
+#: helpers the tensor-core kernels share.
+SHARED_HEADERS = Path(__file__).resolve().parent / "csrc"
 
 _LOCK = threading.Lock()
 _LIBS: dict[Path, ctypes.CDLL] = {}
@@ -75,10 +81,11 @@ def source_flags(source: Path) -> tuple[str, ...]:
 
 def library_path(source: Path) -> Path:
     """Where the library built from ``source`` lives: keyed on a hash of the
-    source text, the headers beside it (``*.cuh``) and the compiler
-    flags."""
-    text = source.read_bytes() + b"".join(
-        h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
+    source text, the headers beside it and the shared ones (``*.cuh``) and
+    the compiler flags."""
+    headers = [*sorted(source.parent.glob("*.cuh")),
+               *sorted(SHARED_HEADERS.glob("*.cuh"))]
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
     flags = NVCC_FLAGS + SOURCE_FLAGS.get(source.name, ())
     digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / "kernels" / f"{source.stem}-{digest}.so"

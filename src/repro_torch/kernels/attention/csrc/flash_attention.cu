@@ -66,7 +66,7 @@
 // against the plain version's arithmetic: 128 threads, each a 4 x 8 block
 // of scores and a 4 x 16 block of the output; Q, K, V and P tiles in
 // padded shared memory (115,712 bytes for D = 128, so two CTAs an SM).
-#include <cuda.h>
+#include "../../csrc/hopper.cuh"
 #include "attn_common.cuh"
 
 namespace {
@@ -255,75 +255,7 @@ constexpr uint32_t BAR_BYTES = 8 * (1 + 2 * TC_STAGES);
 constexpr size_t SMEM = 1024 + Q_BYTES + TC_STAGES * STAGE_BYTES + BAR_BYTES;
 static_assert(SMEM <= 232448, "over the H100's shared memory a block");
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One box of a 3-D tensor map into shared memory, completing on ``bar``.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle.  K-major tiles: rows of
-// 128 bytes, 8-row groups 1024 bytes apart (SBO); a k16 step inside the
-// swizzle span advances the start address by 32 bytes.  MN-major (V): the
-// same rows read as 8-key groups (SBO 1024) of 64 columns, one 64-column
-// block per n64 product (LBO, the next block, is then not read).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// Pins the accumulators: no read is moved above the wait, no write below
-// the fence.
-__device__ __forceinline__ void hold(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using namespace hopper;   // mbarriers, TMA, descriptors, fences
 
 #define TC_D32                                                               \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \

@@ -10,11 +10,20 @@ per stack signature (Triton's JIT compiles one in about a second).
 
 Bound: device-memory bytes (one read per input, one write per output).
 The whole row sits in one ``BLOCK_F = next_power_of_2(F)`` block, so row
-reductions (``ROW_NORM`` rms/layer, ``ROW_SOFTMAX``) need no second pass;
-a program walks its ``tile_rows`` in sub-blocks of ``R_SUB`` rows so that a
-wide row (d_ff = 11008) still fits the registers, and stops at the last row
-(a short last tile, such as a decode step's few rows, walks only its own
-rows).  Rows past the end are masked, never padded, read or written.
+reductions (``ROW_NORM`` rms/layer, ``ROW_SOFTMAX``) need no second pass.
+
+Launch geometry (:func:`launch_plan`, shared with the backward).  The grid
+comes from the rows, the widths and the card, not from the plan's row
+tile: :data:`PROGRAMS_PER_SM` programs an SM (fewer when there are fewer
+sub-blocks) walk sub-blocks of ``R_SUB`` rows, program ``p`` taking
+sub-blocks ``p, p + programs, ...``.  Sub-blocks are as tall as
+:data:`SUB_ELEMS` allows (so a wide row, d_ff = 11008, still fits the
+registers) but no taller than leaves every program work, and the loop's
+loads are pipelined two deep where two sub-blocks fit
+:data:`PIPELINE_BYTES`.  So mamba2's gated norm at (2048, 5120) runs 1056
+programs, each walking one or two one-row sub-blocks, not 8 programs of
+the plan's 256-row tiles, and a decode step's 4 rows run 4 programs.  Rows past the end are masked,
+never padded, read or written.
 
 Lanes past F: 0 in every sum (and re-zeroed after ``x - mu``), ``-inf``
 before the softmax max; means divide by the real F.  Divisions
@@ -37,7 +46,7 @@ Each output has the interpreter's dtype.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Mapping
+from typing import Callable, Mapping, NamedTuple
 
 import torch
 
@@ -47,6 +56,16 @@ from repro_torch.kernels.fused_stack import ref
 
 #: Elements one sub-block of rows holds (R_SUB * BLOCK_F), at least one row.
 SUB_ELEMS = 8192
+#: Programs per SM of the forward's launch, more than stay resident
+#: (chip_smoke.py times each rows forward at 2 beside it: on an H100, 8 ran
+#: mamba2's gated norm 12-14% faster than 2, while the deepseek-7b chains
+#: read within about 7% either way from run to run).  The backward keeps
+#: its own count, as each of its programs writes a partial row.
+PROGRAMS_PER_SM = 8
+#: Shared memory a program may give to loading its next sub-block while it
+#: works on this one (Triton's loop pipelining, two stages); past it the
+#: loop runs unpipelined.
+PIPELINE_BYTES = 96 * 1024
 
 _UNARY = {
     "relu": "tl.maximum({x}, 0.0, propagate_nan=tl.PropagateNan.ALL)",
@@ -188,21 +207,20 @@ def emit_source(program: ir.StackProgram, in_widths: Mapping[str, int],
     lines += [
         f"# generated from stack {program.name!r}",
         "@triton.jit",
-        f"def fused_rows_kernel({', '.join(args)}, n_rows, F: tl.constexpr,",
-        "                      TILE_R: tl.constexpr, R_SUB: tl.constexpr,",
-        "                      BLOCK_F: tl.constexpr):",
+        f"def fused_rows_kernel({', '.join(args)}, n_rows, n_sub, n_prog,",
+        "                      F: tl.constexpr, R_SUB: tl.constexpr,",
+        "                      BLOCK_F: tl.constexpr,",
+        "                      LOOP_STAGES: tl.constexpr):",
         "    pid = tl.program_id(0)",
-        "    row_start = pid * TILE_R",
-        "    row_end = tl.minimum(row_start + TILE_R, n_rows)",
         "    cols = tl.arange(0, BLOCK_F)[None, :]",
         "    cmask = cols < F",
     ]
     lines += ["    " + ln for ln in param_lines(program, pvar, param_widths,
                                                   dtypes)]
     lines += [
-        "    for r0 in range(row_start, row_end, R_SUB):",
-        "        rows = (r0 + tl.arange(0, R_SUB))[:, None]",
-        "        rmask = rows < row_end",
+        "    for sb in tl.range(pid, n_sub, n_prog, num_stages=LOOP_STAGES):",
+        "        rows = (sb * R_SUB + tl.arange(0, R_SUB))[:, None]",
+        "        rmask = rows < n_rows",
         "        r64 = rows.to(tl.int64)",
     ]
     body = [f"{var[v]} = {load(f'in{i}', widths[v], out_dt[v])}"
@@ -352,15 +370,48 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
-def launch_config(features: int, tile_rows: int) -> tuple[int, int, int]:
-    """(BLOCK_F, R_SUB, num_warps) of one kernel."""
+def launch_config(features: int, max_rows: int) -> tuple[int, int, int]:
+    """(BLOCK_F, R_SUB, num_warps) of one forward kernel, at most
+    ``max_rows`` rows a sub-block."""
     block_f = _next_pow2(features)
     r_sub = 1
-    while r_sub * 2 <= tile_rows and r_sub * 2 * block_f <= SUB_ELEMS:
+    while r_sub * 2 <= max_rows and r_sub * 2 * block_f <= SUB_ELEMS:
         r_sub *= 2
     elems = r_sub * block_f
-    num_warps = 4 if elems <= 1024 else 8 if elems <= 4096 else 16
+    num_warps = 4 if elems <= 1024 else 8 if elems <= 8192 else 16
     return block_f, r_sub, num_warps
+
+
+class LaunchPlan(NamedTuple):
+    block_f: int        # features a program holds of a row (power of two)
+    r_sub: int          # rows a sub-block
+    num_warps: int
+    n_sub: int          # sub-blocks, ceil(n_rows / r_sub)
+    n_prog: int         # programs of the persistent grid
+    loop_stages: int    # 2: the next sub-block's loads overlap this one
+
+
+def launch_plan(n_rows: int, features: int, f_block: int, sm_count: int,
+                row_bytes: int = 0,
+                config: Callable[[int, int], tuple[int, int, int]]
+                = launch_config,
+                programs_per_sm: int = PROGRAMS_PER_SM) -> LaunchPlan:
+    """The grid of a rows kernel, forward or backward, from the rows, the
+    widths and the card.  Sub-blocks are as tall as ``config`` (the
+    direction's :func:`launch_config`) allows, but no taller than leaves
+    ``programs_per_sm`` sub-blocks an SM; the grid is that many programs
+    an SM, or one a sub-block when there are fewer.  ``features``
+    (F) only bounds the sub-block's width: ``f_block`` features of it are
+    held at a time.  ``row_bytes`` is what one feature of a row loads: the
+    loop is pipelined when two sub-blocks of it fit
+    :data:`PIPELINE_BYTES`."""
+    target = programs_per_sm * max(sm_count, 1)
+    block_f, r_sub, num_warps = config(min(f_block, features),
+                                       max(1, n_rows // target))
+    n_sub = -(-n_rows // r_sub)
+    stages = 2 if 2 * r_sub * block_f * row_bytes <= PIPELINE_BYTES else 1
+    return LaunchPlan(block_f, r_sub, num_warps, n_sub,
+                      max(1, min(n_sub, target)), stages)
 
 
 #: Generated kernels by (signature, widths, F): the imported jit function.
@@ -424,8 +475,10 @@ def fused_rows(program: ir.StackProgram,
     Every input shares one leading shape ``(..., F_i)``, flattened to rows;
     each trailing width and each parameter size is 1 or F.  Inputs and
     parameters are float32 or bfloat16; each output has the dtype the
-    interpreter gives it.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    interpreter gives it.  ``tile_rows`` is the plan's row tile, which no
+    longer sets the launch (:func:`launch_plan` takes it from the rows and
+    the card).  A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel or raises."""
     device = inputs[program.inputs[0]].device
     if device.type == "cpu":
         return ref.fused_stack_ref(program, inputs, params)
@@ -460,11 +513,15 @@ def fused_rows(program: ir.StackProgram,
             for v in program.outputs]
     kernel = _kernel(program, in_widths, param_widths, features, dtypes,
                      steps)
-    block_f, r_sub, num_warps = launch_config(features, tile_rows)
-    grid = (-(-rows // tile_rows),)
+    sm = torch.cuda.get_device_properties(device).multi_processor_count
+    row_bytes = sum(a.element_size() for a in flat if a.shape[-1] != 1)
+    plan = launch_plan(rows, features, features, sm, row_bytes,
+                       programs_per_sm=PROGRAMS_PER_SM)
     with torch.cuda.device(device):
-        kernel[grid](*flat, *pflat, *outs, rows, F=features, TILE_R=tile_rows,
-                     R_SUB=r_sub, BLOCK_F=block_f, num_warps=num_warps)
+        kernel[(plan.n_prog,)](
+            *flat, *pflat, *outs, rows, plan.n_sub, plan.n_prog, F=features,
+            R_SUB=plan.r_sub, BLOCK_F=plan.block_f,
+            LOOP_STAGES=plan.loop_stages, num_warps=plan.num_warps)
     fused_rows.launches += 1
     return {v: o.reshape(*lead, o.shape[-1])
             for v, o in zip(program.outputs, outs)}

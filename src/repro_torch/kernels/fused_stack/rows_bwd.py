@@ -60,7 +60,7 @@ cotangents written once); the recompute and the VJP run in registers.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Mapping, NamedTuple
+from typing import Mapping
 
 import torch
 
@@ -73,10 +73,6 @@ from repro_torch.kernels.fused_stack import rows
 SUB_ELEMS = 4096
 #: Programs per SM of the persistent launch (each writes one partial row).
 PROGRAMS_PER_SM = 2
-#: Shared memory a program may give to loading its next sub-block while it
-#: works on this one (Triton's loop pipelining, two stages); past it the
-#: loop runs unpipelined.
-PIPELINE_BYTES = 96 * 1024
 #: The second pass: columns a program reduces, and partial rows it loads
 #: at a time (summed as one block, then block after block: a fixed order).
 REDUCE_BLOCK = 128
@@ -511,32 +507,14 @@ def launch_config(f_block: int, max_rows: int) -> tuple[int, int, int]:
     return block_f, r_sub, num_warps
 
 
-class LaunchPlan(NamedTuple):
-    block_f: int        # features a program holds of a row (power of two)
-    r_sub: int          # rows a sub-block
-    num_warps: int
-    n_sub: int          # sub-blocks, ceil(n_rows / r_sub)
-    n_prog: int         # programs of the persistent grid = partial rows
-    loop_stages: int    # 2: the next sub-block's loads overlap this one
-
-
 def launch_plan(n_rows: int, features: int, f_block: int, sm_count: int,
-                row_bytes: int = 0) -> LaunchPlan:
-    """The backward's grid from the rows, the widths and the card.
-    Sub-blocks are as tall as :data:`SUB_ELEMS` allows, but no taller than
-    leaves :data:`PROGRAMS_PER_SM` sub-blocks an SM; the grid is that many
-    programs an SM, or one a sub-block when there are fewer.  ``features``
-    (F) only bounds the sub-block's width: ``f_block`` features of it are
-    held at a time.  ``row_bytes`` is what one feature of a row loads
-    (inputs and cotangents): the loop is pipelined when two sub-blocks of
-    it fit :data:`PIPELINE_BYTES`."""
-    target = PROGRAMS_PER_SM * max(sm_count, 1)
-    block_f, r_sub, num_warps = launch_config(
-        min(f_block, features), max(1, n_rows // target))
-    n_sub = -(-n_rows // r_sub)
-    stages = 2 if 2 * r_sub * block_f * row_bytes <= PIPELINE_BYTES else 1
-    return LaunchPlan(block_f, r_sub, num_warps, n_sub,
-                      max(1, min(n_sub, target)), stages)
+                row_bytes: int = 0) -> rows.LaunchPlan:
+    """The backward's grid: :func:`rows.launch_plan` (shared with the
+    forward) with this direction's sub-blocks (:func:`launch_config`) and
+    :data:`PROGRAMS_PER_SM`.
+    ``row_bytes`` counts the inputs and the cotangents."""
+    return rows.launch_plan(n_rows, features, f_block, sm_count, row_bytes,
+                            launch_config, PROGRAMS_PER_SM)
 
 
 #: Generated modules by (signature, widths, F, features held).
@@ -649,8 +627,7 @@ def fused_rows_bwd(program: ir.StackProgram,
     total = torch.empty((max(p_w, 1),), device=device, dtype=torch.float32)
     if n_rows:
         with torch.cuda.device(device):
-            fused_rows_bwd.compiled = mod.fused_rows_bwd_kernel[
-                (plan.n_prog,)](
+            mod.fused_rows_bwd_kernel[(plan.n_prog,)](
                 *flat, *pflat, *gflat, *dins, partial, n_rows, plan.n_sub,
                 plan.n_prog, F=features, R_SUB=plan.r_sub,
                 BLOCK_F=plan.block_f, P_W=p_w, LOOP_STAGES=plan.loop_stages,
@@ -674,5 +651,3 @@ def fused_rows_bwd(program: ir.StackProgram,
 
 
 fused_rows_bwd.launches = 0
-#: The last launch's compiled kernel (its ``n_regs`` and ``n_spills``).
-fused_rows_bwd.compiled = None

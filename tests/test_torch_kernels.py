@@ -599,9 +599,13 @@ _T_DTYPE = {np.dtype(np.float32): torch.float32,
 _NP_DTYPE = {torch.float32: np.float32, torch.bfloat16: ml_dtypes.bfloat16}
 
 
-def _run_generated(program, inputs, params, tile, monkeypatch):
+def _run_generated(program, inputs, params, tile, monkeypatch, n_prog=None):
     """Execute :func:`rows.emit_source` for ``program`` on the fake Triton,
-    program id by program id, as ``rows.fused_rows`` would launch it."""
+    program id by program id, as ``rows.fused_rows`` would launch it: a
+    persistent launch of ``n_prog`` programs (default: the plan's on the
+    H100's 132 SMs) with ``launch_plan``'s sub-blocks for a card of
+    ``n_prog / PROGRAMS_PER_SM`` SMs.  ``tile`` is the plan's row tile,
+    which the launch no longer reads (as ``fused_rows``)."""
     arrays = [inputs[n] for n in program.inputs]
     lead = arrays[0].shape[:-1]
     rows = math.prod(lead)
@@ -626,15 +630,19 @@ def _run_generated(program, inputs, params, tile, monkeypatch):
     out_dt = {**dtypes, **{v: st[-1] for v, st in steps.items()}}
     outs = [np.full(rows * widths[v], np.nan, _NP_DTYPE[out_dt[v]])
             for v in program.outputs]
-    block_f, r_sub, _ = trows.launch_config(feat, tile)
+    if n_prog is None:
+        n_prog = trows.launch_plan(rows, feat, feat, 132).n_prog
+    plan = trows.launch_plan(rows, feat, feat,
+                             max(1, n_prog // trows.PROGRAMS_PER_SM))
     args = ([_Ptr(a.reshape(-1)) for a in arrays]
             + [_Ptr(np.asarray(params[p]).reshape(-1))
                for p in program.param_names]
             + [_Ptr(o) for o in outs])
-    for pid in range(-(-rows // tile)):
+    for pid in range(n_prog):
         state["pid"] = pid
-        ns["fused_rows_kernel"](*args, rows, F=feat, TILE_R=tile, R_SUB=r_sub,
-                                BLOCK_F=block_f)
+        ns["fused_rows_kernel"](*args, rows, plan.n_sub, n_prog, F=feat,
+                                R_SUB=plan.r_sub, BLOCK_F=plan.block_f,
+                                LOOP_STAGES=plan.loop_stages)
     return {v: o.reshape(*lead, widths[v])
             for v, o in zip(program.outputs, outs)}
 
@@ -759,10 +767,65 @@ def test_rows_emitter_masks_lanes_for_reductions():
 
 
 @pytest.mark.parametrize("features,tile,want", [
-    (4096, 4, (4096, 2, 16)), (11008, 1, (16384, 1, 16)),
-    (64, 256, (64, 128, 16)), (40, 8, (64, 8, 4))])
+    (4096, 4, (4096, 2, 8)), (11008, 1, (16384, 1, 16)),
+    (64, 256, (64, 128, 8)), (40, 8, (64, 8, 4))])
 def test_rows_launch_config(features, tile, want):
     assert trows.launch_config(features, tile) == want
+
+
+@pytest.mark.parametrize("sm", [132, 114, 7])
+@pytest.mark.parametrize("n_rows,features", [
+    (2048, 5120), (4096, 5120), (4, 5120), (8192, 4096), (8192, 11008),
+    (4097, 96), (21, 24), (1, 4096), (0, 64)])
+def test_rows_launch_plan_covers_every_row_once(n_rows, features, sm):
+    """The forward's ``launch_plan``: ``PROGRAMS_PER_SM`` programs an SM
+    where the rows allow it (mamba2's gated norm at (2048, 5120): 1056 on
+    132 SMs, not the 8 of 256-row tiles), one a sub-block where they do
+    not; whole rows in a sub-block of at most ``SUB_ELEMS``; the strided
+    walk covers every row exactly once, ragged tails included."""
+    plan = trows.launch_plan(n_rows, features, features, sm)
+    if n_rows >= trows.PROGRAMS_PER_SM * sm:
+        assert plan.n_prog == trows.PROGRAMS_PER_SM * sm
+    assert plan.n_prog == max(1, min(plan.n_sub,
+                                     trows.PROGRAMS_PER_SM * sm))
+    assert plan.block_f >= features and plan.n_sub * plan.r_sub >= n_rows
+    assert plan.r_sub == 1 or plan.r_sub * plan.block_f <= trows.SUB_ELEMS
+    seen = np.zeros(n_rows, np.int64)
+    for pid in range(plan.n_prog):
+        for sb in range(pid, plan.n_sub, plan.n_prog):
+            r = sb * plan.r_sub + np.arange(plan.r_sub)
+            np.add.at(seen, r[r < n_rows], 1)
+    assert (seen == 1).all()
+
+
+def test_rows_launch_plan_pipelines_where_two_sub_blocks_fit():
+    """The forward's loop runs two stages deep where two sub-blocks of its
+    loads fit ``PIPELINE_BYTES``: mamba2's gated norm (y and z in bf16),
+    rms over 4096 in float32; not a float32 row of 16384 with two
+    inputs."""
+    assert trows.launch_plan(2048, 5120, 5120, 132, 4).loop_stages == 2
+    assert trows.launch_plan(8192, 4096, 4096, 132, 4).loop_stages == 2
+    assert trows.launch_plan(8192, 16384, 16384, 132, 8).loop_stages == 1
+    assert trows.launch_plan(2048, 5120, 5120, 132, 4).n_prog == 1056
+    assert trows.launch_plan(4, 5120, 5120, 132, 4).n_prog == 4
+
+
+@pytest.mark.parametrize("name", ["addnorm_layer_bias", "norms_softmax",
+                                  "glu_silu", "scalar"])
+def test_rows_program_counts_match_jax_kernel(name, monkeypatch):
+    """The generated forward at 1, 3 and 5 programs of the persistent
+    launch against the Pallas kernel in interpret mode, and one count twice
+    bit for bit."""
+    make, inputs, params, tile = _rows_inputs(name)
+    want = _jax_rows(make, inputs, params, tile)
+    tprog = make(tir)
+    tol = 1e-4 if "norm" in name or "softmax" in name else TOL
+    for n_prog in (1, 3, 5):
+        a = _run_generated(tprog, inputs, params, tile, monkeypatch, n_prog)
+        b = _run_generated(tprog, inputs, params, tile, monkeypatch, n_prog)
+        for k in want:
+            np.testing.assert_array_equal(a[k], b[k])
+            np.testing.assert_allclose(a[k], want[k], rtol=tol, atol=TOL)
 
 
 def test_dispatch_on_cpu_records_reference():

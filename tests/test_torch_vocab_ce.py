@@ -15,8 +15,11 @@ Float32 tolerance 1e-5: the same products summed in another order.  The
 kernel itself runs only on the card (``chip_smoke.py`` phase 17)."""
 from __future__ import annotations
 
+import re
+
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -227,3 +230,211 @@ def test_split_plan_fills_the_card():
     assert bounds[0][0] == 0 and bounds[-1][1] == 50257
     assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
     assert all(lo % tce.BLOCK_V == 0 and hi > lo for lo, hi in bounds)
+
+
+# -- the bf16 instance of csrc/fused_ce.cu (wgmma + TMA), transliterated ------
+
+TC_CASES = {
+    # name: (T, D, V): two row tiles, D and V ragged against the 64-deep
+    # chunks and 256-column tiles, and D or V not a multiple of 8 (staged)
+    "odd_d_and_v": (150, 70, 300),
+    "odd_v": (37, 136, 517),
+    "odd_d": (130, 131, 264),
+    "aligned": (20, 64, 512),
+}
+
+
+def _bf16_inputs(name, seed=40):
+    """bf16-representable h, w (as numpy float32) and labels with a tenth
+    and the first row masked."""
+    t, d, v = TC_CASES[name]
+    rng = np.random.default_rng(seed + sorted(TC_CASES).index(name))
+    bf = ml_dtypes.bfloat16
+    h = rng.standard_normal((t, d), dtype=np.float32).astype(bf)
+    w = (rng.standard_normal((d, v), dtype=np.float32) / np.sqrt(d)).astype(
+        bf)
+    labels = rng.integers(0, v, (t,)).astype(np.int32)
+    labels[rng.random(t) < 0.1] = -1
+    labels[0] = -1
+    return h.astype(np.float32), w.astype(np.float32), labels
+
+
+def _tc_kernel_source():
+    """``csrc/fused_ce.cu`` from the bf16 kernel's definition on (its body
+    and its launch)."""
+    text = tce.SOURCE.read_text()
+    return text[text.index("ce_tc_kernel(const"):]
+
+
+def _tc_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+)",
+                         tce.SOURCE.read_text()).group(1))
+
+
+def _launch_order(row_tiles, n_split):
+    """(row tile, split) of the bf16 kernel's CTAs in launch order, read
+    from the kernel: the coordinate on ``blockIdx.x`` varies fastest."""
+    src = _tc_kernel_source()
+    row_axis = re.search(r"r0 = blockIdx\.([xy]) \* TC_BM;", src).group(1)
+    split_axis = re.search(r"split = blockIdx\.([xy]);", src).group(1)
+    grid_x = re.search(r"dim3 grid\(\((.*?)\) / TC_BM, n_split\)", src)
+    assert {row_axis, split_axis} == {"x", "y"}
+    assert (grid_x is not None) == (row_axis == "x")
+    if row_axis == "x":
+        return [(rt, s) for s in range(n_split) for rt in range(row_tiles)]
+    return [(rt, s) for rt in range(row_tiles) for s in range(n_split)]
+
+
+def _split_tiles(n_vtiles, n_split, split):
+    """The column tiles of one split: the bf16 kernel's ``t_begin`` /
+    ``t_end``."""
+    src = _tc_kernel_source()
+    assert "t_begin = (int)((int64_t)split * n_vtiles / n_split)" in src
+    assert "t_end = (int)((int64_t)(split + 1) * n_vtiles / n_split)" in src
+    return range(split * n_vtiles // n_split,
+                 (split + 1) * n_vtiles // n_split)
+
+
+def _tma_box(buf, pitch, rows, cols, r0, c0, box_rows, box_cols):
+    """A TMA box of a tensor map over ``buf`` (rows of ``pitch`` elements,
+    ``rows`` x ``cols`` described): elements past ``rows`` or ``cols`` are
+    zero, whatever the buffer holds there."""
+    flat = buf.reshape(-1)
+    out = torch.zeros((box_rows, box_cols), dtype=buf.dtype)
+    for i in range(box_rows):
+        r = r0 + i
+        if r >= rows:
+            break
+        n = max(0, min(box_cols, cols - c0))
+        out[i, :n] = flat[r * pitch + c0: r * pitch + c0 + n]
+    return out
+
+
+def _tc_walk(h, w, labels, n_split):
+    """The bf16 kernel's work on the CPU: the wrapper stages h and w
+    (``ce.staged``); CTAs in the kernel's launch order, each a row tile of
+    128 and one split's 256-column tiles; each tile's logits summed
+    over 64-deep chunks of TMA boxes (zero past T, D and V) as bf16 products
+    in float32; the epilogue (columns >= V to -1e30, gold at col == label,
+    the online (m, l, g) update); one partial per (split, row), merged in
+    split order."""
+    t, d = h.shape
+    v = w.shape[1]
+    hb, ldh = tce.staged(h)
+    wb, ldw = tce.staged(w)
+    bm, bn, bk = _tc_const("TC_BM"), _tc_const("TC_BN"), _tc_const("TC_BK")
+    assert (bm, bn, bk) == (tce.TC_BLOCK_ROWS, tce.TC_BLOCK_V,
+                            tce.TC_BLOCK_D)
+    row_tiles, n_vtiles = -(-t // bm), -(-v // bn)
+    part = torch.full((3, n_split, t), float("nan"))
+    for rt, s in _launch_order(row_tiles, n_split):
+        r0 = rt * bm
+        rows = torch.arange(r0, r0 + bm)
+        lab = torch.where(rows < t, labels.long()[rows.clamp_max(t - 1)], -1)
+        m = torch.full((bm,), tce.NEG_INF)
+        l = torch.zeros(bm)
+        g = torch.zeros(bm)
+        for vt in _split_tiles(n_vtiles, n_split, s):
+            c0 = vt * bn
+            acc = torch.zeros((bm, bn))
+            for k0 in range(0, d, bk):
+                a = _tma_box(hb, ldh, t, d, r0, k0, bm, bk)
+                b = torch.cat([_tma_box(wb, ldw, d, v, k0, c0 + 64 * j, bk, 64)
+                               for j in range(bn // 64)], dim=1)
+                acc = acc + a.float() @ b.float()
+            cols = torch.arange(c0, c0 + bn)[None, :]
+            x = torch.where(cols < v, acc, tce.NEG_INF)
+            gs = torch.where(cols == lab[:, None], x, 0.0).sum(dim=1)
+            m_new = torch.maximum(m, x.max(dim=1).values)
+            l = l * torch.exp(m - m_new) + torch.exp(
+                x - m_new[:, None]).sum(dim=1)
+            m, g = m_new, g + gs
+        keep = rows < t
+        part[0, s, rows[keep]] = m[keep]
+        part[1, s, rows[keep]] = l[keep]
+        part[2, s, rows[keep]] = g[keep]
+    assert not part.isnan().any()            # every (split, row) written
+    mx = part[0].max(dim=0).values
+    total, gold = torch.zeros(t), torch.zeros(t)
+    for s in range(n_split):
+        total = total + part[1, s] * torch.exp(part[0, s] - mx)
+        gold = gold + part[2, s]
+    return mx + torch.log(torch.clamp_min(total, 1e-30)), gold
+
+
+@pytest.mark.parametrize("name", sorted(TC_CASES))
+@pytest.mark.parametrize("n_split", [1, 2, "plan"])
+def test_tc_walk_matches_jax_kernel(name, n_split):
+    """The bf16 instance's algorithm (tile walk, staging, launch order,
+    epilogue, split merge) against the Pallas kernel in interpret mode and
+    ``ce_ref`` on the same bf16 values, at ragged T, D and V, D or V not a
+    multiple of 8; bf16 products are exact in float32, so 1e-5."""
+    h, w, labels = _bf16_inputs(name)
+    t, _, v = TC_CASES[name]
+    if n_split == "plan":
+        n_split = tce.tc_split_plan(t, v, 132)
+    bf = ml_dtypes.bfloat16
+    want_lse, want_gold = jce.fused_ce_fwd(
+        jnp.asarray(h.astype(bf)), jnp.asarray(w.astype(bf)),
+        jnp.asarray(labels), interpret=True, **BLOCKS)
+    ht, wt = _t(h).to(torch.bfloat16), _t(w).to(torch.bfloat16)
+    lse, gold = _tc_walk(ht, wt, _t(labels), n_split)
+    ref_lse, ref_gold = tref.ce_ref(ht, wt, _t(labels))
+    for got, want in ((lse, want_lse), (gold, want_gold), (lse, ref_lse),
+                      (gold, ref_gold)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                                   atol=TOL)
+    assert (gold.numpy()[labels < 0] == 0).all()
+
+
+@pytest.mark.parametrize("shape", [(5, 8), (7, 13), (300, 50257),
+                                   (2, 4001)])
+def test_staged_pitch_is_a_multiple_of_8(shape):
+    """A row pitch that a tensor map cannot describe (not 16 bytes a
+    multiple) is staged into a buffer of padded pitch holding the same
+    values; an aligned operand is used as it is."""
+    x = torch.randn(shape).to(torch.bfloat16)
+    buf, pitch = tce.staged(x)
+    assert pitch % tce.PITCH_ELEMS == 0 and pitch >= shape[1]
+    assert buf.shape == (shape[0], pitch)
+    assert torch.equal(buf[:, :shape[1]], x)
+    if shape[1] % tce.PITCH_ELEMS == 0:
+        assert buf is x
+
+
+@pytest.mark.parametrize("t,v,sm", [(4096, 102400, 132), (1000, 50257, 132),
+                                    (5, 129, 132), (37, 517, 4),
+                                    (8192, 49155, 114), (1, 300, 1)])
+def test_tc_split_plan_covers_every_column_tile_once(t, v, sm):
+    """Every column tile of the vocab in exactly one split, every split
+    non-empty, and every (row tile, split) CTA once in the launch order,
+    the row tiles of one split side by side."""
+    n_split = tce.tc_split_plan(t, v, sm)
+    n_vtiles = -(-v // tce.TC_BLOCK_V)
+    assert 1 <= n_split <= n_vtiles
+    tiles = [vt for s in range(n_split)
+             for vt in _split_tiles(n_vtiles, n_split, s)]
+    assert tiles == list(range(n_vtiles))
+    assert all(len(_split_tiles(n_vtiles, n_split, s)) >= 1
+               for s in range(n_split))
+    row_tiles = -(-t // tce.TC_BLOCK_ROWS)
+    order = _launch_order(row_tiles, n_split)
+    assert sorted(order) == sorted({(rt, s) for rt in range(row_tiles)
+                                    for s in range(n_split)})
+    assert [s for _, s in order] == sorted(s for _, s in order)
+
+
+def test_tc_split_plan_and_w_traffic_at_the_training_shape():
+    """(4096, 4096, 102400) on 132 SMs: 33 splits, 1056 CTAs (eight waves
+    of one CTA an SM).  In the kernel's launch order a split's 32 row tiles
+    are side by side, so any 132 consecutive CTAs span at most 6 splits
+    and read at most 6/33 of ``w``'s columns: ``w`` (839 MB, far past L2)
+    streams from device memory about once, not once a wave."""
+    t, v, sm = 4096, 102400, 132
+    n_split = tce.tc_split_plan(t, v, sm)
+    row_tiles = -(-t // tce.TC_BLOCK_ROWS)
+    assert (n_split, row_tiles * n_split) == (33, 1056)
+    order = _launch_order(row_tiles, n_split)
+    widest = max(len({s for _, s in order[i:i + sm]})
+                 for i in range(len(order) - sm + 1))
+    assert widest <= -(-sm // row_tiles) + 1 == 6
