@@ -8,7 +8,9 @@ Phases, one line each (plus tables):
 0. the device (``torch.cuda.get_device_name``, ``nvidia-smi`` name and
    power limit); TF32 off, so every comparison is float32 against float32;
 1. build the kernels from the sources in this tree (nvcc for the CUDA
-   source, Triton for the generated rows kernels at first launch);
+   source, Triton for the generated rows kernels at first launch), with
+   ptxas's registers and spills of the tensor-core kernels, the SSD kernel
+   and the nhwc backward;
 2. the nhwc CUDA kernel against its plain version (max |d| <= 1e-5);
 3. the rows Triton kernel against its plain version at deepseek-7b widths
    (d_model 4096, d_ff 11008, 4 x 2048 rows; <= 1e-5, rtol 1e-4 for norms
@@ -23,17 +25,19 @@ Phases, one line each (plus tables):
    time by kernel group and the idle share;
 6. the forward kernels' agreement;
 7. the nhwc backward CUDA kernel against its plain version
-   (``autodiff.program_vjp`` on whole tensors): phase 2's cases, VGG-16's
-   five stages at batch 32 and ``block_net(8, 32)`` at (32, 56, 56, 32),
-   with their training tiles; two runs must give equal bits;
+   (``autodiff.program_vjp`` on whole tensors): phase 2's cases, a chain
+   at 70 channels (two channel blocks, no float4), VGG-16's five stages at
+   batch 32 and ``block_net(8, 32)`` at (32, 56, 56, 32), with their
+   training tiles; two runs must give equal bits;
 8. the rows backward Triton kernel against its plain version at
    deepseek-7b widths, the same way;
 9. the training paths: three SGD steps through ``optimize_graph`` of the
    VGG-16 widths and through ``optimize_stack`` of the LM row chains, with
    ``differentiable=True``, ``brainslug`` against ``barrier`` (gradients
    and losses); dispatch and launch counters per step;
-10. per-backward-kernel times (as phase 5), the training step in turns per
-   mode, and a traced step per mode;
+10. per-backward-kernel times (as phase 5; the nhwc backward's with each
+   stage's work items from ``nhwc_bwd.launch_plan``), the training step in
+   turns per mode, and a traced step per mode;
 11-13. the LM serving slice: the rmsnorm, swiglu, flash-attention and
    flash-decode kernels against their plain versions, deepseek-7b at full
    width through ``lm.prefill`` and ``Server.generate``, and their times;
@@ -79,10 +83,13 @@ Phases, one line each (plus tables):
 20. the SSD intra-chunk CUDA kernel against its plain version (max|d| <=
    1e-5 x max(1, max|ref|)): mamba2-2.7b's prefill shape (1, 80, 32, 64,
    64) with N 128, decays that overflow float32 ``exp`` above the diagonal
-   (the output finite), two launches bit for bit; ``ops.ssd`` at batch 2
-   over 1000 tokens (padded to whole chunks) against ``ssd_chunked``, and
-   its gradients finite on the overflowing decays; the kernel's device
-   time beside its bound, its plain version and "none" for a library call;
+   (the output finite), the training shape (64 chunks) and padded tiles,
+   two launches bit for bit; ``ops.ssd`` at batch 2 over 1000 tokens
+   (padded to whole chunks) against ``ssd_chunked``, and its gradients
+   finite on the overflowing decays; the kernel's device time at the
+   prefill and training shapes beside its bound (bytes, and the float32
+   operations with G once a chunk), the old bound (G a cell), its plain
+   version, "none" for a library call and its launch plan;
 21. mamba2-2.7b at full width and depth (64 layers, d_model 2560, 80 heads
    of 64, N 128, vocab 50280, bf16): ``lm.prefill`` (1, 2048) brainslug
    against barrier within 5e-2 (and both against the float32 logits of
@@ -203,8 +210,10 @@ TRAIN_RANGES = {"vocab_ce.backward": "ce_backward",
 # The SSM slice (phases 20-22): mamba2-2.7b at full width and depth.
 # (b, h, nc, L, P, N) of the SSD kernel at lm.prefill (1, 2048)
 SSD_SHAPE = (1, 80, 32, 64, 64, 128)
+SSD_TRAIN_SHAPE = (1, 80, 64, 64, 64, 128)     # a 4096-token training step
 # kernel against plain version: max|d| <= SSD_TOL x max(1, max|ref|) per
-# output (float32 products summed in another order, 1.3 M a cell)
+# output (room for float32 products summed in another order, 1.3 M a
+# cell; the kernel sums in the plain version's order and reads 0)
 SSD_TOL = 1e-5
 SSD_RAGGED = (2, 1000)                  # (batch, sequence) through ops.ssd
 MAMBA_ENGINE = dict(requests=8, prompt=(16, 96), stops=(8, 32))
@@ -421,6 +430,14 @@ class Smoke:
                                           "ce_tc_kernel")
         print("[1 build] fused_ce.cu, nvcc -Xptxas -v: "
               + "; ".join(self.ce_ptxas))
+        self.ssd_ptxas = self.ptxas_report(_build.build_log(ssd.SOURCE),
+                                           "ssd_intra_chunk_kernel")
+        print("[1 build] ssd_intra_chunk.cu, nvcc -Xptxas -v: "
+              + "; ".join(self.ssd_ptxas))
+        self.nhwc_bwd_ptxas = self.ptxas_report(
+            _build.build_log(nhwc_bwd.SOURCE), "fused_nhwc_bwd_kernel")
+        print("[1 build] fused_nhwc_bwd.cu, nvcc -Xptxas -v: "
+              + "; ".join(self.nhwc_bwd_ptxas))
 
     #: Kernel names as the ptxas lines report them, by a fragment of the
     #: mangled name (first match wins).
@@ -428,7 +445,12 @@ class Smoke:
                    ("flash_fwd_kernel", "flash_fwd_kernel<float>"),
                    ("ce_tc_kernel", "ce_tc_kernel"),
                    ("ce_split_kernel", "ce_split_kernel<float>"),
-                   ("ce_merge_kernel", "ce_merge_kernel"))
+                   ("ce_merge_kernel", "ce_merge_kernel"),
+                   ("ssd_intra_chunk_kernel", "ssd_intra_chunk_kernel"),
+                   ("bwd_kernel_fused", "fused_nhwc_bwd_kernel_fused"),
+                   ("fused_nhwc_bwd_kernel", "fused_nhwc_bwd_kernel"),
+                   ("nhwc_overlap_add_kernel", "nhwc_overlap_add_kernel"),
+                   ("nhwc_reduce_kernel", "nhwc_reduce_kernel"))
 
     @classmethod
     def ptxas_report(cls, log, need):
@@ -1079,8 +1101,9 @@ class Smoke:
 
     def nhwc_bwd_items(self):
         """(name, program, x, params, extras, tile) of phase 7: phase 2's
-        cases, exact ties, VGG-16's stages on phase 5's stage inputs and
-        block_net(8, 32), the last two with their training tiles."""
+        cases, exact ties, a chain at 70 channels, VGG-16's stages on phase
+        5's stage inputs and block_net(8, 32), the last two with their
+        training tiles."""
         torch = self.torch
         from repro_torch.core import analyzer, collapse, resource
         from repro_torch.models import cnn
@@ -1094,6 +1117,12 @@ class Smoke:
         x, params, _ = self.nhwc_operands(program, shape, {}, bparams, 0)
         items.append(("max_pool_ties", program, torch.round(x), params, {},
                       (tile, tile)))
+        # 70 channels: two channel blocks, the second 6 wide (no float4)
+        name, program, shape, tile, _ = next(c for c in cases if c[0] ==
+                                             "image_not_tile_multiple")
+        shape = shape[:3] + (70,)
+        x, params, _ = self.nhwc_operands(program, shape, {}, bparams, 50)
+        items.append(("channels_70", program, x, params, {}, (tile, tile)))
         items += self.vgg_bwd_items()
         graph, bp = cnn.block_net(8, channels=32, device=self.dev)
         seg, = analyzer.analyze(graph, keep=frozenset({graph.output}))
@@ -1118,6 +1147,22 @@ class Smoke:
                               self.vgg_params, {},
                               (seq.tile_out_h, seq.tile_out_w)))
         return items
+
+    def nhwc_bwd_plan(self, program, x, tile):
+        """The backward's work items at ``x``'s shape, as a line."""
+        from repro_torch.kernels.fused_stack import nhwc_bwd
+        plan = nhwc_bwd.launch_plan(program, tuple(x.shape), (), *tile)
+        b = nhwc_bwd.NhwcBwdDesc.from_buffer_copy(nhwc_bwd.bwd_template(
+            program, tuple(x.shape), (), (1,) * len(program.param_names),
+            *tile))
+        per_sm = nhwc_bwd._ctas_per_sm(nhwc_bwd._library(), b)
+        programs = nhwc_bwd.launch_programs(plan.spatial, plan.n_cb,
+                                            self.sm_count, per_sm)
+        return (f"tile {plan.tile[0]}x{plan.tile[1]} (input "
+                f"{plan.level0[0]}x{plan.level0[1]}) x {plan.cb} channels, "
+                f"{plan.items} items, {plan.lanes} position lanes x "
+                f"{plan.cb // 4} channel quads, {plan.smem} B shared, "
+                f"{per_sm} CTAs an SM, {programs} CTAs")
 
     def phase7_nhwc_bwd(self):
         from repro_torch.core import ir
@@ -1415,18 +1460,22 @@ class Smoke:
                                     nbytes([dx] + list(dp.values())),
                                     g.numel(), xs.numel(), op_factor=3)
             entries.append((name, tuple(xs.shape), tile, k_ms, k_how, k_call,
-                            p_ms, b_ms, b_by))
+                            p_ms, b_ms, b_by,
+                            self.nhwc_bwd_plan(program, xs, tile)))
         print(f"[10 nhwc_bwd] per launch on the training path's shapes "
-              f"(VGG-16 stages, batch {VGG_INPUT[0]}, training tiles); device "
-              f"time (profiler, mean of 20 calls) and per call (CUDA events "
-              f"around 20 back-to-back calls, median of 5); bound: x and g "
-              f"read, dx written once:")
-        for name, si, tile, k_ms, k_how, k_call, p_ms, b_ms, b_by in entries:
-            print(f"  {name} {si} tile {tile[0]}x{tile[1]}: kernel "
+              f"(VGG-16 stages, batch {VGG_INPUT[0]}, the planner's training "
+              f"tiles; the items are the launch plan's); device time "
+              f"(profiler, mean of 20 calls) and per call (CUDA events around "
+              f"20 back-to-back calls, median of 5); bound: x and g read, dx "
+              f"written once; {self.smi}:")
+        for (name, si, tile, k_ms, k_how, k_call, p_ms, b_ms, b_by,
+             plan) in entries:
+            print(f"  {name} {si} planner tile {tile[0]}x{tile[1]}: kernel "
                   f"{k_ms:.4f} ms {k_how} ({k_call:.4f} per call)  plain "
                   f"{p_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})  "
-                  f"kernel/bound {k_ms / b_ms:.2f}  library none")
-        name, si, tile, k_ms, _, _, p_ms, b_ms, b_by = entries[0]
+                  f"kernel/bound {k_ms / b_ms:.2f}  library none  items: "
+                  f"{plan}")
+        name, si, tile, k_ms, _, _, p_ms, b_ms, b_by, plan = entries[0]
         self.kernels["fused_nhwc_bwd"] = {
             "name": "fused_nhwc_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/fused_stack/csrc/"
@@ -1435,7 +1484,8 @@ class Smoke:
             "launches": self.train_launches["fused_nhwc_bwd"],
             "max_abs_err": self.err["fused_nhwc_bwd"], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": f"{name} {si} tile {tile}"}
+            "library_ms": None, "shape": f"{name} {si} tile {tile}",
+            "launch_plan": plan, "registers": self.nhwc_bwd_ptxas}
 
         def lib_grad(fn, names):
             """Autograd of one PyTorch call: the backward alone, timed."""
@@ -3217,11 +3267,16 @@ class Smoke:
         t = time.perf_counter()
         b, h, nc, L, p, n = SSD_SHAPE
         lines = []
-        for what, decay, seed in (("prefill shape, decays up to 0.5 a step",
-                                   0.5, 2000),
-                                  ("overflowing decays, dt |A| = 2 a step",
-                                   None, 2001)):
-            dtx, a, Bm, Cm = self.ssd_operands(SSD_SHAPE, seed, decay)
+        for what, decay, seed, shape_ in (
+                ("prefill shape, decays up to 0.5 a step", 0.5, 2000,
+                 SSD_SHAPE),
+                ("overflowing decays, dt |A| = 2 a step", None, 2001,
+                 SSD_SHAPE),
+                ("training shape (20 heads a CTA)", 0.5, 2003,
+                 SSD_TRAIN_SHAPE),
+                ("padded tiles (2, 3, 3, 50, 9), N 5", 0.5, 2004,
+                 (2, 3, 3, 50, 9, 5))):
+            dtx, a, Bm, Cm = self.ssd_operands(shape_, seed, decay)
             span = float((a[..., 0, 0] - a[..., -1, 0]).max())
             got = ssd.ssd_intra_chunk(dtx, a, Bm, Cm)
             again = ssd.ssd_intra_chunk(dtx, a, Bm, Cm)
@@ -3273,42 +3328,71 @@ class Smoke:
                      "128 tokens): finite")
         del x, dt, Bs, Cs, y, y_ref, leaves, grads, yo
 
-        # time, bound, plain version
-        dtx, a, Bm, Cm = self.ssd_operands(SSD_SHAPE, 2000, 0.5)
-        run = lambda: ssd.ssd_intra_chunk(dtx, a, Bm, Cm)  # noqa: E731
-        k_ms, how = self.kernel_ms(run, "ssd_intra_chunk_kernel")
-        k_call = self.cuda_ms(run)
-        p_ms = self.cuda_ms(lambda: ssd.ssd_intra_chunk_ref(dtx, a, Bm, Cm))
-        cells = b * h * nc
-        # FMAs a cell: G and Y over the causal lower triangle (with its
-        # diagonal; the rest of the tile is exactly 0), the state over L
-        n_ops = 2 * (L * (L + 1) // 2 * (n + p) + n * L * p) * cells
-        n_bytes = 4 * (dtx.numel() + a.numel() + Bm.numel() + Cm.numel()
-                       + dtx.numel() + cells * n * p)
-        t_ops = n_ops / H100.peak_flops_f32 * 1e3
-        t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
-        b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
-            t_bytes, "bytes")
-        shape = f"({b}, {h}, {nc}, {L}, {p}), N {n}, float32"
+        # time, bounds, plain version and launch plan, at the prefill and
+        # training shapes
         print(f"[20 ssd_intra_chunk] " + "; ".join(lines)
               + f" (tol {SSD_TOL} x max(1, max|ref|))")
-        print(f"[20 ssd_intra_chunk time] {shape}: kernel {k_ms:.4f} ms "
-              f"({how}; {k_call:.4f} per call, events) = "
-              f"{n_ops / k_ms / 1e9:.1f} TFLOP/s; plain "
-              f"(ssd_intra_chunk_ref) {p_ms:.4f} ms; library none (no single "
-              f"PyTorch call computes the masked chain); bound {b_ms:.4f} ms "
-              f"({b_by}: {n_ops:.3e} float32 operations at "
-              f"{H100.peak_flops_f32 / 1e12:.0f} TFLOP/s, {n_bytes / 1e6:.1f} "
-              f"MB at {H100.hbm_bandwidth / 1e12:.2f} TB/s), kernel/bound "
-              f"{k_ms / b_ms:.2f}; phase {time.perf_counter() - t:.1f} s")
+        lib = ssd._library()
+        entries = {}
+        for label, shape_ in (("prefill", SSD_SHAPE), ("training",
+                                                       SSD_TRAIN_SHAPE)):
+            b, h, nc, L, p, n = shape_
+            dtx, a, Bm, Cm = self.ssd_operands(shape_, 2000, 0.5)
+            run = lambda: ssd.ssd_intra_chunk(dtx, a, Bm, Cm)  # noqa: E731
+            k_ms, how = self.kernel_ms(run, "ssd_intra_chunk_kernel")
+            k_call = self.cuda_ms(run)
+            p_ms = self.cuda_ms(lambda: ssd.ssd_intra_chunk_ref(dtx, a, Bm,
+                                                                Cm))
+            per_sm = ssd._ctas_per_sm(lib, L, n, p)
+            plan = ssd.launch_plan(b, h, nc, self.sm_count, per_sm)
+            cells = b * h * nc
+            # FMAs: G over the causal lower triangle (with its diagonal; the
+            # rest of the tile is exactly 0) once a (batch, chunk), as the
+            # kernel computes it (G does not depend on the head), Y over
+            # the triangle and the state over L a cell; the old count took
+            # G a cell
+            tri = L * (L + 1) // 2
+            n_ops = 2 * (tri * n * b * nc + (tri * p + n * L * p) * cells)
+            n_ops_cell = 2 * (tri * (n + p) + n * L * p) * cells
+            n_bytes = 4 * (dtx.numel() + a.numel() + Bm.numel() + Cm.numel()
+                           + dtx.numel() + cells * n * p)
+            t_ops = n_ops / H100.peak_flops_f32 * 1e3
+            t_f32 = n_ops_cell / H100.peak_flops_f32 * 1e3
+            t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
+            b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (
+                t_bytes, "bytes")
+            shape = f"({b}, {h}, {nc}, {L}, {p}), N {n}, float32"
+            print(f"[20 ssd_intra_chunk time] {label} {shape}: kernel "
+                  f"{k_ms:.4f} ms ({how}; {k_call:.4f} per call, events) = "
+                  f"{n_ops / k_ms / 1e9:.1f} TFLOP/s of the causal work; "
+                  f"plain (ssd_intra_chunk_ref) {p_ms:.4f} ms; library none "
+                  f"(no single PyTorch call computes the masked chain); "
+                  f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB at "
+                  f"{H100.hbm_bandwidth / 1e12:.2f} TB/s = {t_bytes:.4f} ms; "
+                  f"{n_ops:.3e} float32 operations, G once a chunk, at "
+                  f"{H100.peak_flops_f32 / 1e12:.0f} TFLOP/s = {t_ops:.4f} "
+                  f"ms), kernel/bound {k_ms / b_ms:.2f}; the old bound "
+                  f"({n_ops_cell:.3e} float32 operations, G a cell) "
+                  f"{t_f32:.4f} ms, kernel/that {k_ms / t_f32:.2f}; launch "
+                  f"plan "
+                  f"{plan.heads_per_cta} heads a CTA, {plan.groups} groups, "
+                  f"{plan.ctas} CTAs, {per_sm} an SM x {self.sm_count} SMs, "
+                  f"{plan.waves} wave(s); {self.smi}")
+            entries[label] = (k_ms, p_ms, b_ms, b_by, t_f32, shape, plan)
+            del dtx, a, Bm, Cm
+        print(f"[20 ssd_intra_chunk] phase {time.perf_counter() - t:.1f} s")
+        k_ms, p_ms, b_ms, b_by, t_f32, shape, plan = entries["prefill"]
         self.kernels["ssd_intra_chunk"] = {
             "name": "ssd_intra_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
             "replaces": "src/repro/kernels/ssd/ssd.py:50",
             "launches": None, "max_abs_err": self.err["ssd_intra_chunk"],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "shape": shape}
-        del dtx, a, Bm, Cm
+            "library_ms": None, "shape": shape,
+            "old_bound_ms": t_f32,
+            "heads_per_cta": plan.heads_per_cta,
+            "training_ms": entries["training"][0],
+            "registers": self.ssd_ptxas}
         torch.cuda.empty_cache()
 
     def ssm_counters(self, zero=False):

@@ -344,25 +344,22 @@ def compile_chain(program: ir.StackProgram, *, keep_values: bool = False,
 
 
 def channel_block(n_slots: int, rowred: bool, level0_elems: int,
-                  channels: int, fixed_bytes: int = 0) -> int:
+                  channels: int) -> int:
     """Channels one CTA carries: all of C when the chain reduces over C,
     else the largest power of two (or C itself) whose slots stay under
     :data:`SMEM_TARGET`, growing past it up to :data:`SMEM_MAX` only when a
-    single channel does not fit.  ``fixed_bytes`` is shared memory the CTA
-    needs besides the slots."""
+    single channel does not fit."""
     per_channel = n_slots * level0_elems * 4
-    target = SMEM_TARGET - fixed_bytes
-    if rowred or per_channel * channels <= target:
+    if rowred or per_channel * channels <= SMEM_TARGET:
         cb = channels
     else:
         cb = 1
-        while cb * 2 <= channels and per_channel * cb * 2 <= target:
+        while cb * 2 <= channels and per_channel * cb * 2 <= SMEM_TARGET:
             cb *= 2
-    if per_channel * cb + fixed_bytes > SMEM_MAX:
+    if per_channel * cb > SMEM_MAX:
         raise DescriptorError(
-            f"{per_channel * cb + fixed_bytes} B of shared memory for "
-            f"{n_slots} slots of {level0_elems} positions x {cb} channels "
-            f"exceed {SMEM_MAX} B")
+            f"{per_channel * cb} B of shared memory for {n_slots} slots of "
+            f"{level0_elems} positions x {cb} channels exceed {SMEM_MAX} B")
     return cb
 
 
@@ -396,10 +393,10 @@ def build_desc(program: ir.StackProgram, chain: Chain,
                x_shape: tuple[int, ...],
                extra_shapes: tuple[tuple[str, tuple[int, ...]], ...],
                vec_strides: tuple[int, ...], tile_out_h: int,
-               tile_out_w: int, fixed_bytes: int = 0) -> NhwcDesc:
+               tile_out_w: int, cb: int | None = None) -> NhwcDesc:
     """The descriptor of ``chain`` on one call shape, without its vector
-    pointers.  ``fixed_bytes``: shared memory the kernel needs besides the
-    slots (the backward's gradient accumulators)."""
+    pointers.  ``cb``: the channel block (the backward's launch plan sets
+    it); by default :func:`channel_block`'s."""
     geo = plan_geometry(program, x_shape, dict(extra_shapes), tile_out_h,
                         tile_out_w)
     # geometry levels are per op; the kernel wants one per pool boundary
@@ -409,7 +406,8 @@ def build_desc(program: ir.StackProgram, chain: Chain,
     n, h, w, c = x_shape
     (oh, ow), (th, tw) = geo.out_hw, geo.tile
     e0 = lv[0].extent_h * lv[0].extent_w
-    cb = channel_block(chain.n_slots, chain.rowred, e0, c, fixed_bytes)
+    if cb is None:
+        cb = channel_block(chain.n_slots, chain.rowred, e0, c)
     d = NhwcDesc()
     for i, s in enumerate(vec_strides):
         d.vec_stride[i] = s

@@ -2,22 +2,31 @@
 
 Replaces ``repro/kernels/fused_stack/nhwc_bwd.py:fused_nhwc_bwd_call`` (the
 Pallas kernel).  The source is ``csrc/fused_nhwc_bwd.cu``; it recomputes
-each tile with the forward's own device code (``csrc/fused_nhwc.cuh``) and
-walks the forward's descriptor (:class:`~.nhwc.NhwcDesc`) in reverse.
+each work item with the forward's op semantics (``csrc/fused_nhwc.cuh``)
+and walks the forward's descriptor (:class:`~.nhwc.NhwcDesc`) in reverse.
 
 Host side (:func:`compile_bwd_chain`): the forward chain compiled with every
 value in a slot of its own (the reverse sweep reads them back), plus the
 cotangent slots of a liveness scan over the reversed chain (a value's
 cotangent is born at its last consumer and dies once its producer is
 transposed), plus one scratch slot when a norm has a scale.  The limit is
-:data:`BWD_MAX_SLOTS`; the channel block keeps the slots and the gradient
-accumulators under the forward's shared-memory target.
+:data:`BWD_MAX_SLOTS`.
 
-The grid is persistent (as many CTAs as fit the card at once), so per-CTA
-parameter and broadcast-extra partials stay few and a second kernel sums
-them in a fixed order; the input cotangent goes straight to ``dx`` where
-tiles' halos do not overlap, else through private halo patches and a
-gather overlap-add.  No float atomics: two runs give equal bits.
+The work item comes from :func:`launch_plan` (the chain, the shape and the
+card), not from the planner's tile: a channel block of at least
+:data:`CB_MIN` channels in float4s (all of C when the chain reduces over
+C), and, where tiles' input regions do not overlap (the direct write), the
+tile whose items cost least under :data:`SMEM_BWD` (two CTAs an SM); where
+they overlap, the planner's tile (smaller where it does not fit).  A chain
+that :func:`fused_chain` accepts (batch norm, an activation, a pool whose
+windows do not overlap: VGG's stages) runs the kernel's fused path, every
+output position in registers, on 8 x 8 output tiles.  The grid is
+persistent: each CTA keeps one channel block (so its threads keep their
+channels) and walks spatial items; per-CTA parameter and broadcast-extra
+partials are summed by a second kernel in a fixed order.  The input
+cotangent goes straight to ``dx`` where tiles' halos do not overlap, else
+through private halo patches and a gather overlap-add.  No float atomics:
+two runs give equal bits.
 
 Bound: device-memory bytes: ``x`` and ``g`` read once, ``dx`` written once.
 The patch path moves about twice that for ``dx``.
@@ -40,6 +49,23 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_nhwc_bwd.cu"
 
 #: Shared-memory slots of one backward CTA: values, cotangents, scratch.
 BWD_MAX_SLOTS = 32
+#: Threads a CTA (``THREADS`` of ``csrc/fused_nhwc.cuh``).
+THREADS = 256
+#: Shared memory a backward CTA aims to stay under, so that two fit an SM
+#: of the H100 (228 KB an SM, 1 KB of it reserved a CTA).
+SMEM_BWD = 113 * 1024
+#: Channels an item carries on a chain that does not reduce over C: this
+#: many (256 contiguous bytes a position), or all of C below it.
+CB_MIN = 64
+#: Tile sides the plan weighs on the direct path, besides the output's own.
+TILE_SIDES = (1, 2, 4, 8, 16, 32)
+#: An item's fixed cost (its barriers, decode, interior test), in
+#: level-0 positions' worth of work.
+ITEM_COST = 16
+#: Window positions the fused path holds in registers (``FUSED_WIN``), and
+#: the output positions it aims at an item (8 x 8).
+FUSED_WIN = 4
+FUSED_SIDE = 8
 
 
 class BwdOpDesc(ctypes.Structure):
@@ -51,7 +77,11 @@ class NhwcBwdDesc(ctypes.Structure):
     _fields_ = ([("f", nhwc.NhwcDesc), ("bops", BwdOpDesc * nhwc.MAX_OPS)]
                 + [(f, ctypes.c_int) for f in (
                     "g_slot", "dx_slot", "scratch", "n_vecs", "work",
-                    "patches")])
+                    "patches", "lanes", "spatial", "vec4", "fused")])
+
+
+#: The CTA's shared-memory copy of the descriptor, 16-byte aligned.
+_DESC_BYTES = -(-ctypes.sizeof(NhwcBwdDesc) // 16) * 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,6 +175,154 @@ def _plan_bwd_chain(program: ir.StackProgram) -> BwdChain:
                     dx_slot=cot.get(program.inputs[0], -1), scratch=scratch)
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """One call shape's work items: ``tile`` output positions (``level0``
+    input positions) by ``cb`` channels; ``tiles`` per image, ``spatial``
+    = N x tiles items a channel block; ``lanes`` position lanes of
+    ``cb // 4`` channel quads; ``smem`` bytes a CTA."""
+    tile: tuple[int, int]
+    level0: tuple[int, int]
+    tiles: tuple[int, int]
+    spatial: int
+    cb: int
+    n_cb: int
+    lanes: int
+    smem: int
+    patches: bool
+    fused: bool = False
+
+    @property
+    def items(self) -> int:
+        return self.spatial * self.n_cb
+
+
+def desc_smem(b: NhwcBwdDesc) -> int:
+    """Shared-memory bytes of a CTA with descriptor ``b`` (as the kernel's
+    ``bwd_smem``)."""
+    f = b.f
+    return _smem(f.n_slots, b.n_vecs, f.slot_elems // f.cb, f.cb)
+
+
+def fused_chain(program: ir.StackProgram) -> bool:
+    """Whether ``program`` takes the kernel's fused path: AFFINE of the
+    input, then an element-wise unary op, then a POOL2D whose windows do not
+    overlap (window == stride) and hold at most :data:`FUSED_WIN` positions
+    (batch norm, an activation and VGG's 2x2/s2 max pool), nothing else."""
+    ops = program.ops
+    if len(ops) != 3 or len(program.inputs) != 1:
+        return False
+    aff, un, pool = ops
+    if (aff.kind != ir.OpKind.AFFINE or aff.inputs != program.inputs[:1]
+            or un.kind != ir.OpKind.EW_UNARY or un.inputs != (aff.output,)
+            or pool.kind != ir.OpKind.POOL2D or pool.inputs != (un.output,)
+            or program.outputs != (pool.output,)):
+        return False
+    (kh, kw), (sh, sw) = pool.attrs["window"], pool.attrs["stride"]
+    return (kh, kw) == (sh, sw) and kh * kw <= FUSED_WIN
+
+
+def _smem(n_slots: int, n_vecs: int, e0: int, cb: int) -> int:
+    """Bytes a CTA: the descriptor's copy, the slots, the per-lane gradient
+    partials and the vector operands at the CTA's channel block."""
+    return _DESC_BYTES + 4 * (n_slots * e0 * cb
+                              + (THREADS // (cb // 4) + 1) * n_vecs * cb)
+
+
+def launch_plan(program: ir.StackProgram, x_shape: tuple[int, ...],
+                extra_shapes: tuple[tuple[str, tuple[int, ...]], ...],
+                tile_out_h: int, tile_out_w: int) -> BwdPlan:
+    """The work item of one call shape (see the module doc).  The channel
+    block is all of C (rounded up to a float4) when the chain reduces over
+    C, else ``min(C, CB_MIN)`` so rounded.  Where the planner's tile
+    (``tile_out_h``, ``tile_out_w``) has input regions that do not overlap,
+    the tile is the one of :data:`TILE_SIDES` (each evened out over its
+    tile count, or the output's extent) whose items cost least, ``items x
+    (positions + ITEM_COST)``, in :data:`SMEM_BWD` (else in ``SMEM_MAX``),
+    the squarer on a tie; where they overlap, the planner's tile, its
+    channel block halved (to one float4), then its sides, until it fits.
+    Raises ``nhwc.DescriptorError`` when nothing fits."""
+    bc = compile_bwd_chain(program)
+    n_slots, n_vecs = bc.chain.n_slots, len(bc.chain.vec_names)
+    n_img, c = x_shape[0], x_shape[-1]
+    c4 = -(-c // 4) * 4
+    cb = c4 if bc.chain.rowred else min(c4, CB_MIN)
+    if cb > 4 * THREADS:
+        raise nhwc.DescriptorError(f"{program.name}: {c} channels reduced "
+                                   f"over exceed {4 * THREADS}")
+    extras = dict(extra_shapes)
+
+    def geometry(th, tw):
+        geo = nhwc.plan_geometry(program, x_shape, extras, th, tw)
+        L = geo.levels[0]
+        patches = (L.extent_h > geo.tile[0] * L.mul_h
+                   or L.extent_w > geo.tile[1] * L.mul_w)
+        return geo, (L.extent_h, L.extent_w), patches
+
+    def plan(geo, l0, patches, cb_):
+        n_cb = -(-c // cb_)
+        spatial = n_img * geo.grid[1] * geo.grid[2]
+        return BwdPlan(geo.tile, l0, geo.grid[1:], spatial, cb_, n_cb,
+                       THREADS // (cb_ // 4),
+                       _smem(n_slots, n_vecs, l0[0] * l0[1], cb_), patches)
+
+    def sides(extent, targets=TILE_SIDES):  # evened out over the tile count
+        return sorted({-(-extent // -(-extent // t))
+                       for t in targets + (extent,)})
+
+    geo, l0, patches = geometry(tile_out_h, tile_out_w)
+    if fused_chain(program):        # no slots: an 8 x 8 output tile
+        oh, ow = geo.out_hw
+        g2, l2, _ = geometry(sides(oh, (FUSED_SIDE,))[0],
+                             sides(ow, (FUSED_SIDE,))[0])
+        return dataclasses.replace(plan(g2, l2, False, cb), fused=True,
+                                   smem=_smem(0, n_vecs, 0, cb))
+    if patches:
+        for budget in (SMEM_BWD, nhwc.SMEM_MAX):
+            th, tw = geo.tile
+            while True:
+                g2, l2, _ = geometry(th, tw)
+                cb_ = cb
+                while cb_ > 4 and not bc.chain.rowred and _smem(
+                        n_slots, n_vecs, l2[0] * l2[1], cb_) > budget:
+                    cb_ = max(4, cb_ // 2 // 4 * 4)
+                if _smem(n_slots, n_vecs, l2[0] * l2[1], cb_) <= budget:
+                    return plan(g2, l2, True, cb_)
+                if th == tw == 1:
+                    break
+                th, tw = max(1, th // 2), max(1, tw // 2)
+        raise nhwc.DescriptorError(f"{program.name}: no tile and channel "
+                                   f"block fit {nhwc.SMEM_MAX} B")
+    oh, ow = geo.out_hw
+    sides_h, sides_w = sides(oh), sides(ow)
+    for budget in (SMEM_BWD, nhwc.SMEM_MAX):
+        best = None
+        for th in sides_h:
+            for tw in sides_w:
+                g2, l2, p2 = geometry(th, tw)
+                e0 = l2[0] * l2[1]
+                if p2 or _smem(n_slots, n_vecs, e0, cb) > budget:
+                    continue
+                key = (n_img * g2.grid[1] * g2.grid[2] * (e0 + ITEM_COST),
+                       abs(th - tw), -e0)
+                if best is None or key < best[0]:
+                    best = (key, plan(g2, l2, False, cb))
+        if best is not None:
+            return best[1]
+    raise nhwc.DescriptorError(f"{program.name}: no tile of {cb} channels "
+                               f"fits {nhwc.SMEM_MAX} B")
+
+
+def launch_programs(plan_spatial: int, n_cb: int, sm_count: int,
+                    ctas_per_sm: int) -> int:
+    """The persistent grid: a multiple of ``n_cb`` (CTA ``p`` keeps channel
+    block ``p % n_cb``), as many as fit the card at once, at most one per
+    item."""
+    per_block = max(1, min(plan_spatial,
+                           max(sm_count, 1) * max(ctas_per_sm, 1) // n_cb))
+    return n_cb * per_block
+
+
 #: Descriptors by call shape, without their vector pointers (LRU).
 _TEMPLATES: "OrderedDict[tuple, bytes]" = OrderedDict()
 _TEMPLATE_LIMIT = 256
@@ -154,8 +332,9 @@ def bwd_template(program: ir.StackProgram, x_shape: tuple[int, ...],
                  extra_shapes: tuple[tuple[str, tuple[int, ...]], ...],
                  vec_strides: tuple[int, ...],
                  tile_out_h: int, tile_out_w: int) -> bytes:
-    """The backward descriptor of one call shape, without its vector
-    pointers; cached on the program's structural signature."""
+    """The backward descriptor of one call shape, its geometry from
+    :func:`launch_plan`, without its vector pointers (``vec4`` 0); cached
+    on the program's structural signature."""
     key = (program.signature(), x_shape, extra_shapes, vec_strides,
            tile_out_h, tile_out_w)
     hit = _TEMPLATES.get(key)
@@ -163,21 +342,22 @@ def bwd_template(program: ir.StackProgram, x_shape: tuple[int, ...],
         _TEMPLATES.move_to_end(key)
         return hit
     bc = compile_bwd_chain(program)
-    n_vecs = len(bc.chain.vec_names)
+    plan = launch_plan(program, x_shape, extra_shapes, tile_out_h,
+                       tile_out_w)
     f = nhwc.build_desc(program, bc.chain, x_shape, extra_shapes, vec_strides,
-                        tile_out_h, tile_out_w,
-                        fixed_bytes=n_vecs * x_shape[-1] * 4)
+                        plan.tile[0], plan.tile[1], cb=plan.cb)
     b = NhwcBwdDesc()
     b.f = f
     for i, bo in enumerate(bc.bops):
         b.bops[i] = BwdOpDesc(**bo)
-    l0 = f.levels[0]
     for k, v in dict(g_slot=bc.g_slot, dx_slot=bc.dx_slot,
-                     scratch=bc.scratch, n_vecs=n_vecs,
-                     work=f.N * f.tiles_h * f.tiles_w * f.n_cb,
-                     patches=int(l0.eh > f.th * l0.mul_h
-                                 or l0.ew > f.tw * l0.mul_w)).items():
+                     scratch=bc.scratch, n_vecs=len(bc.chain.vec_names),
+                     work=plan.items, patches=int(plan.patches),
+                     lanes=plan.lanes, spatial=plan.spatial, vec4=0,
+                     fused=int(plan.fused)).items():
         setattr(b, k, v)
+    if plan.fused:                  # the fused path keeps no slots
+        b.f.n_slots = 0
     hit = _TEMPLATES[key] = bytes(b)
     while len(_TEMPLATES) > _TEMPLATE_LIMIT:
         _TEMPLATES.popitem(last=False)
@@ -263,17 +443,20 @@ def fused_nhwc_bwd(program: ir.StackProgram, x: torch.Tensor,
     with torch.cuda.device(x.device):
         dx = (torch.empty_like(x) if b.patches or direct_covers(b)
               else torch.zeros_like(x))
+        b.vec4 = int(c % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                        for t in (x, g, dx)))
         dvecs = torch.zeros(n_vec, device=x.device, dtype=torch.float32)
         if b.work:
-            programs = lib.fused_nhwc_bwd_programs(ctypes.byref(b))
-            if programs < 0:
-                _raise(lib, -programs)
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            programs = launch_programs(b.spatial, f.n_cb, sms,
+                                       _ctas_per_sm(lib, b))
             l0 = f.levels[0]
             patches = torch.empty(
                 (f.N * f.tiles_h * f.tiles_w * l0.eh * l0.ew * c
                  if b.patches else 1), device=x.device, dtype=torch.float32)
-            partials = torch.empty(programs * n_vec, device=x.device,
-                                   dtype=torch.float32)
+            partials = torch.empty(programs * max(b.n_vecs, 1) * f.cb,
+                                   device=x.device, dtype=torch.float32)
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.fused_nhwc_bwd_launch(
                 ctypes.byref(b), programs, x.data_ptr(), g.data_ptr(),
@@ -296,6 +479,25 @@ def fused_nhwc_bwd(program: ir.StackProgram, x: torch.Tensor,
 fused_nhwc_bwd.launches = 0
 
 
+#: Backward CTAs an SM by (device, shared-memory bytes).
+_CTAS_PER_SM: dict[tuple[int, int], int] = {}
+
+
+def _ctas_per_sm(lib: ctypes.CDLL, b: NhwcBwdDesc) -> int:
+    smem = desc_smem(b)
+    key = (torch.cuda.current_device(), smem)
+    hit = _CTAS_PER_SM.get(key)
+    if hit is None:
+        hit = lib.fused_nhwc_bwd_ctas_per_sm(ctypes.byref(b))
+        if hit < 0:
+            _raise(lib, -hit)
+        if hit == 0:
+            raise RuntimeError(f"fused_nhwc_bwd: no CTA of {smem} B of shared"
+                               f" memory fits an SM")
+        _CTAS_PER_SM[key] = hit
+    return hit
+
+
 def _raise(lib: ctypes.CDLL, err: int) -> None:
     raise RuntimeError(f"fused_nhwc_bwd launch failed: CUDA error {err} "
                        f"({lib.fused_nhwc_bwd_error(err).decode()})")
@@ -305,8 +507,9 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library(SOURCE)
     if not getattr(lib, "_bound", False):
         p = ctypes.c_void_p
-        lib.fused_nhwc_bwd_programs.argtypes = [ctypes.POINTER(NhwcBwdDesc)]
-        lib.fused_nhwc_bwd_programs.restype = ctypes.c_int
+        lib.fused_nhwc_bwd_ctas_per_sm.argtypes = [
+            ctypes.POINTER(NhwcBwdDesc)]
+        lib.fused_nhwc_bwd_ctas_per_sm.restype = ctypes.c_int
         lib.fused_nhwc_bwd_launch.argtypes = [
             ctypes.POINTER(NhwcBwdDesc), ctypes.c_int, p, p, p, p, p, p, p]
         lib.fused_nhwc_bwd_launch.restype = ctypes.c_int

@@ -7,8 +7,10 @@ kernels (run in interpret mode), on the CPU.
   launch runs it, then the partial-sum reduction;
 * nhwc: ``_run_bwd_descriptor``, a transliteration of
   ``csrc/fused_nhwc_bwd.cu`` over the descriptor the wrapper builds
-  (persistent CTAs, the reverse sweep, the overlap-add or direct ``dx``
-  write, and the two-pass parameter reduction);
+  (``nhwc_bwd.launch_plan``'s items, persistent CTAs that keep a channel
+  block, the reverse sweep, per-lane gradient partials summed in a fixed
+  order, the overlap-add or direct ``dx`` write), and the launch plan's
+  coverage;
 * both plain versions (what a CPU tensor runs).
 
 Both are held to ``fused_rows_bwd_call`` / ``fused_nhwc_bwd_call`` with
@@ -517,6 +519,18 @@ def _avg_then_max(m):
                         "padding": (0, 0)})))
 
 
+def _vgg_stage(m, fn="relu", pool="max", pad=0):
+    """VGG-16's stage chain: batch norm (affine), ReLU, 2x2/s2 max pool (or
+    another activation, pool and padding); the kernel's fused path."""
+    return m.StackProgram(name="vggstage", inputs=("x",), outputs=("y",),
+                          layout="nhwc", ops=(
+        m.OpNode(m.OpKind.AFFINE, "bn", ("x",), "b", params=("s", "o")),
+        m.OpNode(m.OpKind.EW_UNARY, "r", ("b",), "r", fn=fn),
+        m.OpNode(m.OpKind.POOL2D, "p", ("r",), "y", fn=pool,
+                 attrs={"window": (2, 2), "stride": (2, 2),
+                        "padding": (pad, pad)})))
+
+
 BWD_NHWC_CASES = {
     # name: (make, x shape, tile, extras shapes, planted ties)
     **{k: (make, shape, tile, extra, False)
@@ -524,6 +538,11 @@ BWD_NHWC_CASES = {
     "stride2_11x13": (_stride2_11x13, (2, 11, 13, 8), 2, {}, False),
     "ties": (_stride2_11x13, (1, 11, 13, 4), 4, {}, True),
     "avg_then_max": (_avg_then_max, (1, 9, 10, 4), 2, {}, False),
+    # two 64-channel blocks, the second ragged; an odd row the tiles miss
+    "vgg_stage_two_blocks": (_vgg_stage, (2, 9, 14, 72), 2, {}, False),
+    # the fused path with tanh, an avg pool over padded borders, 6 channels
+    "fused_avg_tanh_padded": (lambda m: _vgg_stage(m, "tanh", "avg", 1),
+                              (2, 9, 10, 6), 2, {}, False),
 }
 
 
@@ -552,35 +571,126 @@ def _jax_nhwc_bwd(make, x, params, extras, g, tile):
             {k: np.asarray(v) for k, v in dps.items()})
 
 
-def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
+def _bwd_desc(program, x, extras, vecs, tile):
+    strides = tuple(int(v.numel() != 1) for v in vecs)
+    blob = tnhwc_bwd.bwd_template(
+        program, x.shape, tuple(sorted((k, v.shape) for k, v in
+                                       extras.items())), strides, tile, tile)
+    return tnhwc_bwd.NhwcBwdDesc.from_buffer_copy(blob)
+
+
+def _cta_items(b, programs):
+    """CTA ``p``'s channel block and its spatial items as (n, ti, tj), in
+    the kernel's order: block ``p % n_cb``, items ``p // n_cb``, then every
+    ``programs // n_cb``-th."""
+    d = b.f
+    for p in range(programs):
+        items = []
+        for s in range(p // d.n_cb, b.spatial, programs // d.n_cb):
+            items.append((s // (d.tiles_w * d.tiles_h),
+                          (s // d.tiles_w) % d.tiles_h, s % d.tiles_w))
+        yield p, p % d.n_cb, items
+
+
+def _lane_sums(contrib, lanes):
+    """``(n_pos, cb)`` terms summed per position lane (lane ``l`` takes
+    positions ``l, l + lanes, ...``): ``(lanes, cb)``."""
+    n_pos, cb = contrib.shape
+    pad = torch.zeros((-n_pos) % lanes, cb)
+    return torch.cat([contrib, pad]).view(-1, lanes, cb).sum(0)
+
+
+def _fused_item(d, b, vec, xt, gt, dx, n, ti, tj, c0, accs):
+    """``fused_item`` of the .cu file on one item: per output position its
+    window's x, affine (rounded) and unary values, the pool and its first
+    maximum, g, and the chain rule back to dx; the scale and bias terms of
+    the valid window positions summed per position lane into ``accs``."""
+    aff, un, pool = d.ops[0], d.ops[1], d.ops[2]
+    _, H, W, C = xt.shape
+    L0, L1 = d.levels[0], d.levels[1]
+    cb, lanes = d.cb, b.lanes
+    gh, gw = ti * d.th * L0.mul_h - L0.off_h, tj * d.tw * L0.mul_w - L0.off_w
+    p = torch.arange(L1.eh * L1.ew)
+    r, c = p // L1.ew, p % L1.ew
+    cg = c0 + torch.arange(cb)
+    live = (cg < C)[None]
+    oh, ow = ti * d.th + r, tj * d.tw + c
+    gv = torch.where(((oh < d.OH) & (ow < d.OW))[:, None] & live, gt[
+        n, oh.clamp(max=d.OH - 1), ow.clamp(max=d.OW - 1)][:, cg.clamp(
+            max=C - 1)], 0.0)
+    s, t = vec(aff.b_idx, cg)[None], vec(aff.c_idx, cg)[None]
+    fn = {i: k for k, i in tnhwc.UNARY_IDS.items()}[un.fn]
+    is_max = pool.fn == 0
+    neutral = -np.finfo(np.float32).max if is_max else 0.0
+    wins = []
+    for k in range(pool.kh * pool.kw):
+        h = gh + r * pool.sh + k // pool.kw
+        w = gw + c * pool.sw + k % pool.kw
+        ok = ((h >= 0) & (h < H) & (w >= 0) & (w < W))[:, None]
+        xk = torch.where(ok & live, xt[n, h.clamp(0, H - 1), w.clamp(
+            0, W - 1)][:, cg.clamp(max=C - 1)], 0.0)
+        bk = xk * s + t
+        vk = torch.where(ok, tir.UNARY_FNS[fn](bk), neutral)
+        wins.append((h, w, ok, xk, bk, vk))
+    y = wins[0][5]
+    for *_, vk in wins[1:]:
+        y = torch.maximum(y, vk) if is_max else y + vk
+    code = torch.full(y.shape, -1)
+    for k, (*_, vk) in enumerate(wins):
+        code = torch.where((code < 0) & (vk == y), k, code)
+    scale, bias = torch.zeros_like(gv), torch.zeros_like(gv)
+    for k, (h, w, ok, xk, bk, _) in enumerate(wins):
+        du = (torch.where(code == k, gv, 0.0) if is_max
+              else gv / float(pool.kh * pool.kw))
+        db = torch.where(ok, du, 0.0) * tad._UNARY_DERIVS[fn](
+            bk, tir.UNARY_FNS[fn](bk))
+        m = ok & live
+        rows = torch.nonzero(m)
+        dx[n, h[rows[:, 0]], w[rows[:, 0]], cg[rows[:, 1]]] = (db * s)[m]
+        scale = scale + torch.where(ok, db * xk, 0.0)
+        bias = bias + torch.where(ok, db, 0.0)
+    accs[:, aff.b_idx] += _lane_sums(scale, lanes)
+    accs[:, aff.c_idx] += _lane_sums(bias, lanes)
+
+
+def _run_bwd_descriptor(program, x, params, extras, g, tile, card=(3, 1)):
     """``csrc/fused_nhwc_bwd.cu`` in Python over the descriptor
-    :func:`nhwc_bwd.fused_nhwc_bwd` passes: ``programs`` persistent CTAs,
-    the recompute (``_tile_forward``), the reverse sweep pass by pass, the
-    direct or patch write of dx, the overlap-add and the reduction."""
+    :func:`nhwc_bwd.fused_nhwc_bwd` passes, on a card of ``card`` = (SMs,
+    CTAs an SM): ``launch_programs`` persistent CTAs, each keeping one
+    channel block and walking its spatial items (``_cta_items``); per item
+    the interior test, the recompute (``_tile_forward``), the reverse sweep
+    (masking only off the interior; a pool whose windows do not overlap in
+    one pass over its windows, else marked then gathered), vector gradients
+    summed per position lane into the lane's partials; at the CTA's end the
+    lanes summed in order; per channel the owning CTAs' partials summed in
+    CTA order; the direct or patch write of dx and the overlap-add."""
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     names = list(program.inputs[1:]) + list(program.param_names)
     vals = {**extras, **params}
     vecs = [torch.from_numpy(np.asarray(vals[n], np.float32)).reshape(-1)
             for n in names]
     strides = tuple(int(v.numel() != 1) for v in vecs)
-    blob = tnhwc_bwd.bwd_template(
-        program, x.shape, tuple(sorted((k, v.shape) for k, v in
-                                       extras.items())), strides, tile, tile)
-    b = tnhwc_bwd.NhwcBwdDesc.from_buffer_copy(blob)
+    b = _bwd_desc(program, x, extras, vecs, tile)
     d = b.f
     N, H, W, C = x.shape
-    cb = d.cb
+    cb, nq, lanes = d.cb, d.cb // 4, b.lanes
+    assert cb % 4 == 0 and lanes == tnhwc_bwd.THREADS // nq
+    assert not d.rowred or cb == C      # _tile_forward's rows span cb
     vec = _vec_fn(d, vecs, C)
     unary = {i: n for n, i in tnhwc.UNARY_IDS.items()}
     binary = {i: n for n, i in tnhwc.BINARY_IDS.items()}
-    L0 = d.levels[0]
+    L0, Lout = d.levels[0], d.levels[d.n_levels - 1]
     # NaN where the direct write must reach every element unzeroed
     dx = torch.full((N, H, W, C), float("nan")) if tnhwc_bwd.direct_covers(
         b) else torch.zeros(N, H, W, C)
     patches = torch.full((N, d.tiles_h, d.tiles_w, L0.eh * L0.ew, C),
                          float("nan"))
-    programs = min(programs, b.work)
-    partials = torch.zeros(programs, b.n_vecs * C)
+    programs = tnhwc_bwd.launch_programs(b.spatial, d.n_cb, *card)
+    assert programs % d.n_cb == 0
+    partials = torch.full((programs, b.n_vecs, cb), float("nan"))
+
+    def origin(L, ti, tj):
+        return ti * d.th * L.mul_h - L.off_h, tj * d.tw * L.mul_w - L.off_w
 
     def valid(L, gh, gw, p):
         h, w = gh + p // L.ew, gw + p % L.ew
@@ -589,13 +699,18 @@ def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
     def put(smem, slot, e, v, acc):
         smem[slot, e] = smem[slot, e] + v if acc else v
 
-    for blk in range(programs):
-        acc = torch.zeros(b.n_vecs * C)
-        for w in range(blk, b.work, programs):
-            cblk, t = w % d.n_cb, w // d.n_cb
-            tj, t = t % d.tiles_w, t // d.tiles_w
-            ti, n = t % d.tiles_h, t // d.tiles_h
-            c0 = cblk * cb
+    for blk, cblk, items in _cta_items(b, programs):
+        c0 = cblk * cb
+        accs = torch.zeros(lanes, b.n_vecs, cb)     # per-lane partials
+        for n, ti, tj in items:
+            if b.fused:
+                _fused_item(d, b, vec, xt, gt, dx, n, ti, tj, c0, accs)
+                continue
+            interior = all(
+                gh >= 0 and gh + L.eh <= L.ih and gw >= 0
+                and gw + L.ew <= L.iw
+                for L in d.levels[:d.n_levels]
+                for gh, gw in [origin(L, ti, tj)])
             smem = _tile_forward(d, vec, xt, n, ti, tj, c0)
 
             def operand(src, idx, e, cg):
@@ -605,6 +720,7 @@ def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
             c, p = e % cb, e // cb
             oh, ow, cg = ti * d.th + p // d.tw, tj * d.tw + p % d.tw, c0 + c
             ok = (oh < d.OH) & (ow < d.OW) & (cg < C)
+            assert Lout.eh * Lout.ew == d.th * d.tw
             smem[b.g_slot, e] = torch.where(ok, gt[
                 n, oh.clamp(max=d.OH - 1), ow.clamp(max=d.OW - 1),
                 cg.clamp(max=C - 1)], 0.0)
@@ -615,19 +731,21 @@ def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
                 pool = op.kind == tnhwc.K_POOL
                 Li = d.levels[bo.level]
                 Lo = d.levels[bo.level + int(pool)]
-                ghi, gwi = (ti * d.th * Li.mul_h - Li.off_h,
-                            tj * d.tw * Li.mul_w - Li.off_w)
-                gho, gwo = (ti * d.th * Lo.mul_h - Lo.off_h,
-                            tj * d.tw * Lo.mul_w - Lo.off_w)
+                ghi, gwi = origin(Li, ti, tj)
+                gho, gwo = origin(Lo, ti, tj)
                 e = torch.arange(Lo.eh * Lo.ew * cb)
-                smem[bo.g, e] = torch.where(valid(Lo, gho, gwo, e // cb),
-                                            smem[bo.g, e], 0.0)
+                if not interior:
+                    smem[bo.g, e] = torch.where(valid(Lo, gho, gwo, e // cb),
+                                                smem[bo.g, e], 0.0)
+                else:           # the skip changes nothing: all inside
+                    assert valid(Lo, gho, gwo, e // cb).all()
                 G = smem[bo.g]
                 if pool:
                     eo = torch.arange(Lo.eh * Lo.ew * cb)
                     co, po = eo % cb, eo // cb
                     oi, oj = po // Lo.ew, po % Lo.ew
-                    if op.fn == 0:              # phase A: first max offset
+                    direct = op.kh == op.sh and op.kw == op.sw
+                    if op.fn == 0:              # the first max offset
                         y = smem[op.out, eo]
                         code = torch.full(eo.shape, -1.0)
                         for di in range(op.kh):
@@ -641,7 +759,21 @@ def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
                                 code = torch.where((code < 0) & (v == y),
                                                    float(di * op.kw + dj),
                                                    code)
-                        smem[op.out, eo] = code
+                        if not direct:          # marked in the dead slot
+                            smem[op.out, eo] = code
+                    if direct:      # each window's owner writes it whole
+                        assert Li.eh == Lo.eh * op.sh and Li.ew == Lo.ew * op.sw
+                        for di in range(op.kh):
+                            for dj in range(op.kw):
+                                hi, wj = oi * op.sh + di, oj * op.sw + dj
+                                ei = (hi * Li.ew + wj) * cb + co
+                                s = (torch.where(code == di * op.kw + dj,
+                                                 G[eo], 0.0) if op.fn == 0
+                                     else G[eo] / float(op.kh * op.kw))
+                                okv = valid(Li, ghi, gwi, ei // cb)
+                                put(smem, bo.da, ei, torch.where(okv, s, 0.0),
+                                    bo.da_acc)
+                        continue
                     ei = torch.arange(Li.eh * Li.ew * cb)
                     ci, pi = ei % cb, ei // cb
                     hi, wj = pi // Li.ew, pi % Li.ew
@@ -664,10 +796,21 @@ def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
                                     op.kh * op.kw), 0.0)
                     put(smem, bo.da, ei, torch.where(
                         valid(Li, ghi, gwi, pi), s, 0.0), bo.da_acc)
-                elif op.kind in (tnhwc.K_NORM, tnhwc.K_SOFTMAX):
-                    n_pos = Li.eh * Li.ew
-                    gv = G[:n_pos * cb].view(n_pos, cb)
+                    continue
+                n_pos = Lo.eh * Lo.ew
+                okp = valid(Lo, gho, gwo, torch.arange(n_pos))[:, None]
+                cgs = c0 + torch.arange(cb)
+                e2 = (torch.arange(n_pos)[:, None] * cb
+                      + torch.arange(cb)[None, :])
+                cg2 = cgs.expand_as(e2)
+
+                def add(idx, contrib):      # the lanes' partials of idx
+                    accs[:, idx] += _lane_sums(torch.where(okp, contrib, 0.0),
+                                               lanes)
+
+                if op.kind in (tnhwc.K_NORM, tnhwc.K_SOFTMAX):
                     sl = slice(0, n_pos * cb)
+                    gv = G[sl].view(n_pos, cb)
                     if op.kind == tnhwc.K_SOFTMAX:
                         yv = smem[op.out, sl].view(n_pos, cb)
                         dot = (gv * yv).sum(-1, keepdim=True)
@@ -681,9 +824,8 @@ def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
                         cc = torch.arange(cb)
                         gy = gv * vec(op.b_idx, cc) if op.b_idx >= 0 else gv
                         if op.b_idx >= 0:
-                            okp = valid(Li, ghi, gwi, torch.arange(n_pos))
                             smem[b.scratch, sl] = torch.where(
-                                okp[:, None], gv * xh, 0.0).reshape(-1)
+                                okp, gv * xh, 0.0).reshape(-1)
                         if op.norm == 0:
                             m1 = (gy * xv).mean(-1, keepdim=True)
                             dxv = r * gy - xv * (r * r * r) * m1
@@ -693,66 +835,41 @@ def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
                             dxv = r * (gy - m1 - xh * m2)
                     put(smem, bo.da, torch.arange(n_pos * cb),
                         dxv.reshape(-1), bo.da_acc)
+                    if op.kind == tnhwc.K_NORM and op.b_idx >= 0:
+                        add(op.b_idx, smem[b.scratch, e2])
+                        if op.c_idx >= 0:
+                            add(op.c_idx, G[e2])
+                    continue
+                # an element-wise op, its vector gradients in the same pass
+                a = operand(op.a_src, op.a_idx, e2, cg2)
+                gv = G[e2]
+                db = torch.zeros_like(a)
+                if op.kind == tnhwc.K_UNARY:
+                    fn = unary[op.fn]
+                    da = gv * tad._UNARY_DERIVS[fn](a, tir.UNARY_FNS[fn](a))
+                elif op.kind == tnhwc.K_BINARY:
+                    bv = operand(op.b_src, op.b_idx, e2, cg2)
+                    da, db = tad._binary_vjp(binary[op.fn], a, bv, gv)
                 else:
-                    e = torch.arange(Li.eh * Li.ew * cb)
-                    cg = c0 + e % cb
-                    gv = G[e]
-                    a = operand(op.a_src, op.a_idx, e, cg)
-                    db = torch.zeros_like(a)
-                    if op.kind == tnhwc.K_UNARY:
-                        fn = unary[op.fn]
-                        da = gv * tad._UNARY_DERIVS[fn](a, tir.UNARY_FNS[fn](a))
-                    elif op.kind == tnhwc.K_BINARY:
-                        bv = operand(op.b_src, op.b_idx, e, cg)
-                        da, db = tad._binary_vjp(binary[op.fn], a, bv, gv)
-                    else:
-                        da = gv * vec(op.b_idx, cg)
-                    if bo.da >= 0:
-                        put(smem, bo.da, e, da + db if bo.same else da,
-                            bo.da_acc)
-                    if bo.db >= 0:
-                        put(smem, bo.db, e, db, bo.db_acc)
-                # vector_bwd: valid positions of the output level, per channel
-                n_pos = Lo.eh * Lo.ew
-                okp = valid(Lo, gho, gwo, torch.arange(n_pos))[:, None]
-                cgs = c0 + torch.arange(cb)
-                e2 = (torch.arange(n_pos)[:, None] * cb
-                      + torch.arange(cb)[None, :])
-                live = cgs < C
-
-                def add(idx, contrib):
-                    s = torch.where(okp, contrib, 0.0).sum(0)
-                    acc[idx * C + cgs[live]] += s[live]
-
+                    da = gv * vec(op.b_idx, cg2)
+                if bo.da >= 0:
+                    put(smem, bo.da, e2, da + db if bo.same else da,
+                        bo.da_acc)
+                if bo.db >= 0:
+                    put(smem, bo.db, e2, db, bo.db_acc)
                 a_vec = op.a_src == tnhwc.SRC_VEC
                 b_vec = (op.kind == tnhwc.K_BINARY
                          and op.b_src == tnhwc.SRC_VEC)
-                cg2 = cgs.expand_as(e2)
-                if op.kind in (tnhwc.K_UNARY, tnhwc.K_BINARY) and (
-                        a_vec or b_vec):
-                    av = operand(op.a_src, op.a_idx, e2, cg2)
-                    if op.kind == tnhwc.K_UNARY:
-                        fn = unary[op.fn]
-                        da = G[e2] * tad._UNARY_DERIVS[fn](
-                            av, tir.UNARY_FNS[fn](av))
-                    else:
-                        bv = operand(op.b_src, op.b_idx, e2, cg2)
-                        da, db = tad._binary_vjp(binary[op.fn], av, bv,
-                                                 G[e2])
+                if op.kind == tnhwc.K_AFFINE:
+                    add(op.b_idx, gv * a)
+                    add(op.c_idx, gv)
+                    if a_vec:
+                        add(op.a_idx, da)
+                else:
                     if a_vec:
                         add(op.a_idx, da)
                     if b_vec:
                         add(op.b_idx, db)
-                elif op.kind == tnhwc.K_AFFINE:
-                    add(op.b_idx, G[e2] * operand(op.a_src, op.a_idx, e2,
-                                                  cg2))
-                    add(op.c_idx, G[e2])
-                    if a_vec:
-                        add(op.a_idx, G[e2] * vec(op.b_idx, cg2))
-                elif op.kind == tnhwc.K_NORM and op.b_idx >= 0:
-                    add(op.b_idx, smem[b.scratch, e2])
-                    if op.c_idx >= 0:
-                        add(op.c_idx, G[e2])
             # the primary input's cotangent
             e = torch.arange(L0.eh * L0.ew * cb)
             c, p = e % cb, e // cb
@@ -761,23 +878,24 @@ def _run_bwd_descriptor(program, x, params, extras, g, tile, programs=3):
             if b.patches:
                 patches[n, ti, tj, p[cg < C], cg[cg < C]] = v[cg < C]
             else:
-                gh, gw = (ti * d.th * L0.mul_h - L0.off_h,
-                          tj * d.tw * L0.mul_w - L0.off_w)
+                gh, gw = origin(L0, ti, tj)
                 h, w_ = gh + p // L0.ew, gw + p % L0.ew
                 ok = (h >= 0) & (h < H) & (w_ >= 0) & (w_ < W) & (cg < C)
                 dx[n, h[ok], w_[ok], cg[ok]] = v[ok]
-        partials[blk] = acc
+        partials[blk] = accs.sum(0)     # lanes in order
     if b.patches:                      # overlap-add, row-major tile order
         for ti in range(d.tiles_h):
             for tj in range(d.tiles_w):
-                gh = ti * d.th * L0.mul_h - L0.off_h
-                gw = tj * d.tw * L0.mul_w - L0.off_w
+                gh, gw = origin(L0, ti, tj)
                 pt = patches[:, ti, tj].view(N, L0.eh, L0.ew, C)
                 h0, h1 = max(gh, 0), min(gh + L0.eh, H)
                 w0, w1 = max(gw, 0), min(gw + L0.ew, W)
                 dx[:, h0:h1, w0:w1] += pt[:, h0 - gh: h1 - gh,
                                           w0 - gw: w1 - gw]
-    total = partials.sum(0).view(b.n_vecs, C) if b.n_vecs else None
+    total = torch.zeros(b.n_vecs, C)
+    for ch in range(C):                 # the owners of ch, in CTA order
+        for p in range(ch // cb, programs, d.n_cb):
+            total[:, ch] += partials[p, :, ch % cb]
     grads = {}
     for i, name in enumerate(names):
         grad = total[i] if strides[i] else total[i].sum().reshape(1)
@@ -830,7 +948,8 @@ def test_nhwc_bwd_ties_route_whole():
 ])
 def test_bwd_descriptor_builds_for_main_path_stacks(graph, shape):
     """Every differentiable sequence of the main paths fits the backward's
-    descriptor and shared memory (VGG-16's five, block_net(8)'s three)."""
+    descriptor and, with its launch plan's items, two CTAs an SM (VGG-16's
+    five, block_net(8)'s three)."""
     from repro_torch.core import analyzer, collapse
     from repro_torch.models import cnn
     g, _ = (cnn.block_net(8, channels=32, device="cpu") if graph == "block_net8"
@@ -850,8 +969,7 @@ def test_bwd_descriptor_builds_for_main_path_stacks(graph, shape):
             blob = tnhwc_bwd.bwd_template(sub, sub_shape, (), (1,) * len(
                 sub.param_names), seq.tile_out_h, seq.tile_out_w)
             b = tnhwc_bwd.NhwcBwdDesc.from_buffer_copy(blob)
-            smem = (b.f.n_slots * b.f.slot_elems + b.n_vecs * b.f.C) * 4
-            assert smem <= tnhwc.SMEM_TARGET
+            assert tnhwc_bwd.desc_smem(b) <= tnhwc_bwd.SMEM_BWD  # 2 an SM
             assert b.f.n_slots <= tnhwc_bwd.BWD_MAX_SLOTS
             # VGG's 2x2/s2 pools: halos do not overlap, dx is written
             # directly and whole, with no zero fill first
@@ -861,6 +979,104 @@ def test_bwd_descriptor_builds_for_main_path_stacks(graph, shape):
         x_shape = tir.infer_shapes(seg.stack, {seg.stack.inputs[0]: x_shape})[
             seg.stack.outputs[0]]
     assert n_seq == (3 if graph == "block_net8" else 5)
+
+
+def _main_path_sequences(graph, shape):
+    """(name, sub-program, input shape, planner tile) of every
+    differentiable sequence of VGG-16's or block_net(8, 32)'s stacks."""
+    from repro_torch.core import analyzer, collapse
+    from repro_torch.models import cnn
+    g, _ = (cnn.block_net(8, channels=32, device="cpu") if graph == "block_net8"
+            else cnn.vgg_net((64, 128, 256, 512, 512), device="cpu"))
+    x_shape, out = shape, []
+    for seg in analyzer.analyze(g, keep=frozenset({g.output})):
+        if not seg.is_stack:
+            if seg.op.kind == tir.OpKind.CONV2D:
+                x_shape = x_shape[:3] + (seg.op.attrs["kernel_shape"][-1],)
+            continue
+        plan = collapse.collapse(seg.stack, {seg.stack.inputs[0]: x_shape},
+                                 tresource.H100, differentiable=True)
+        for i, seq in enumerate(plan.sequences):
+            sub = plan.subprogram(i)
+            sub_shape = tir.infer_shapes(seg.stack, {seg.stack.inputs[0]:
+                                                     x_shape})[sub.inputs[0]]
+            out.append((f"{graph}_{len(out)}", sub, sub_shape,
+                        seq.tile_out_h))
+        x_shape = tir.infer_shapes(seg.stack, {seg.stack.inputs[0]: x_shape})[
+            seg.stack.outputs[0]]
+    return out
+
+
+def _plan_cases():
+    """VGG-16's five stages (batch 2), block_net(8, 32)'s three
+    overlapping-window sequences, and stage 1's chain at 200 and 6
+    channels (not a multiple of the 64-channel block, nor of a float4)."""
+    cases = _main_path_sequences("vgg16", (2, 224, 224, 3))
+    cases += _main_path_sequences("block_net8", (2, 56, 56, 32))
+    _, prog, shape, tile = cases[0]
+    for c in (200, 6):
+        cases.append((f"vgg16_0_c{c}", prog, shape[:3] + (c,), tile))
+    return cases
+
+
+_PLAN_CASES = {name: case for name, *case in _plan_cases()}
+
+
+@pytest.mark.parametrize("name", sorted(_PLAN_CASES))
+def test_nhwc_bwd_launch_plan_covers_every_element_once(name):
+    """Each (image, output position, channel) in exactly one item of one
+    CTA, one position lane and one channel quad; on the direct path each
+    (image, input position, channel) of dx too, so dx needs no zero fill."""
+    prog, shape, tile = _PLAN_CASES[name]
+    b = _bwd_desc(prog, np.zeros(shape, np.float32), {},
+                  [torch.ones(shape[-1])] * len(prog.param_names), tile)
+    d = b.f
+    N, H, W, C = shape
+    nq = d.cb // 4
+    programs = tnhwc_bwd.launch_programs(b.spatial, d.n_cb, 132, 2)
+    rows = [(n, ti, tj, cblk) for _, cblk, items in _cta_items(b, programs)
+            for n, ti, tj in items]
+    n, ti, tj, cblk = (np.array(v)[:, None] for v in zip(*rows))
+    assert len(rows) == b.work == b.spatial * d.n_cb
+
+    def covered(L, ih, iw, windows=False):
+        """Counts of (image, h, w, channel) over the items' positions of
+        level L (each lane's walk; with ``windows``, the fused path's: each
+        lane's output positions and their pool windows) and their channel
+        quads."""
+        if windows:
+            pool, Lo = prog.ops[-1], d.levels[d.n_levels - 1]
+            (kh, kw), (sh, sw) = pool.attrs["window"], pool.attrs["stride"]
+            out = np.concatenate([np.arange(lane, Lo.eh * Lo.ew, b.lanes)
+                                  for lane in range(b.lanes)])
+            rr = (out[:, None] // Lo.ew * sh + np.arange(kh * kw) // kw)
+            cc = (out[:, None] % Lo.ew * sw + np.arange(kh * kw) % kw)
+            pos = (rr * L.ew + cc).ravel()
+        else:
+            pos = np.concatenate([np.arange(lane, L.eh * L.ew, b.lanes)
+                                  for lane in range(b.lanes)])
+        assert np.array_equal(np.sort(pos), np.arange(L.eh * L.ew))
+        h = ti * d.th * L.mul_h - L.off_h + pos[None] // L.ew
+        w = tj * d.tw * L.mul_w - L.off_w + pos[None] % L.ew
+        ch = cblk * d.cb + (4 * np.arange(nq)[:, None]
+                            + np.arange(4)[None]).reshape(1, -1)
+        flat = ((n * ih + h) * iw + w)[:, :, None] * C + ch[:, None, :]
+        keep = (((h >= 0) & (h < ih) & (w >= 0) & (w < iw))[:, :, None]
+                & (ch < C)[:, None, :])
+        return np.bincount(flat[keep], minlength=N * ih * iw * C)
+
+    Lout = d.levels[d.n_levels - 1]
+    assert (Lout.eh, Lout.ew) == (d.th, d.tw)
+    assert (covered(Lout, d.OH, d.OW) == 1).all()
+    if not b.patches:
+        assert (covered(d.levels[0], H, W, windows=bool(b.fused)) == 1).all()
+        assert tnhwc_bwd.direct_covers(b)
+    assert b.patches == name.startswith("block_net8")
+    # VGG's stage chain (batch norm, ReLU, 2x2/s2 max pool) takes the fused
+    # path, 8 x 8 output positions of all 64 channels an item at stage 1
+    assert b.fused == name.startswith("vgg16")
+    if name == "vgg16_0":
+        assert (d.th, d.tw, d.cb, b.lanes) == (8, 8, 64, 16)
 
 
 def test_broadcast_only_op_trains_through_both_packages():

@@ -7,7 +7,10 @@ intra-chunk block itself (``ssd_intra_chunk_ref`` against the Pallas
 float32 and bf16; the decode step rolled over a sequence; gradients of
 ``ops.ssd`` against ``jax.grad`` of the JAX ``ssd_chunked``; and
 ``_intra_chunk_cuda``, a transliteration of ``csrc/ssd_intra_chunk.cu``
-(its grid order, offsets and select), against the plain version.
+(its launch plan's head groups, G once a group, the causal k-skip, one
+float32 FMA after another), against the plain version, and bit for bit
+against the plain version's FMA order over the whole of k; and
+``ssd.launch_plan``'s coverage.
 
 Tolerances: float32 within 1e-5 of max|want| (the same float32 products
 summed in another order); bf16 outputs within one bf16 step of max|want|
@@ -202,51 +205,147 @@ def test_overflowing_decay_gradient_is_finite_where_jax_is_nan():
 
 # -- csrc/ssd_intra_chunk.cu, transliterated --------------------------------
 
-def _intra_chunk_cuda(dtx, a, Bm, Cm):
-    """The kernel on flat buffers: one CTA per grid index, head fastest
-    (``h = blk % H``, ``bc = blk / H``), the cell's offsets into dtx, a, y
-    and S (``((b H + h) NC + c)``) and into B and C (``bc``); the scores
-    computed for the whole tile and selected (``j <= i`` takes
-    ``G exp(a_i - a_j)``, every other entry 0, no ``exp`` evaluated there);
-    the state decay ``exp(a_{L-1} - a_l)`` applied to B before the
-    product."""
+def _fma(a, b, c):
+    """float32 ``fmaf(a, b, c)``: the product exact in float64, one
+    rounding to float32."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _intra_chunk_cuda(dtx, a, Bm, Cm, sm_count=132, ctas_per_sm=2):
+    """The kernel on flat buffers: CTAs of ``ssd.launch_plan`` (group
+    ``blk % groups`` of (batch, chunk) ``blk // groups``); G once a CTA,
+    one FMA after another over n; per head M = G * exp(a_i - a_j) where j
+    <= i < L (the exponent taken only there: a select, never a multiply)
+    and 0 elsewhere, Y's FMAs over j up to the end of each row's 4-row
+    block (the terms past it are exactly 0), the state's over l with B * d
+    rounded first."""
     b, h, nc, L, p = dtx.shape
     n = Bm.shape[-1]
+    plan = tssd.launch_plan(b, h, nc, sm_count, ctas_per_sm)
     f_dtx, f_a = dtx.reshape(-1), a.reshape(-1)
     f_b, f_c = Bm.reshape(-1), Cm.reshape(-1)
     y = np.full(b * h * nc * L * p, np.nan, np.float32)
     S = np.full(b * h * nc * n * p, np.nan, np.float32)
-    for blk in range(b * h * nc):
-        hh, bc = blk % h, blk // h
+    j_end = np.minimum((np.arange(L) // 4) * 4 + 4, L)
+    for blk in range(plan.ctas):
+        grp, bc = blk % plan.groups, blk // plan.groups
         c, bb = bc % nc, bc // nc
-        cell = (bb * h + hh) * nc + c
-        xs = f_dtx[cell * L * p:(cell + 1) * L * p].reshape(L, p)
-        av = f_a[cell * L:(cell + 1) * L]
-        bs = f_b[bc * L * n:(bc + 1) * L * n].reshape(L, n)
+        h0 = grp * plan.heads_per_cta
         cs = f_c[bc * L * n:(bc + 1) * L * n].reshape(L, n)
-        g = cs @ bs.T
-        ms = np.zeros((L, L), np.float32)
-        for i in range(L):
-            ms[i, :i + 1] = g[i, :i + 1] * np.exp(av[i] - av[:i + 1])
-        y[cell * L * p:(cell + 1) * L * p] = (ms @ xs).reshape(-1)
-        ds = np.exp(av[L - 1] - av)
-        S[cell * n * p:(cell + 1) * n * p] = (
-            (bs * ds[:, None]).T @ xs).reshape(-1)
+        bs = f_b[bc * L * n:(bc + 1) * L * n].reshape(L, n)
+        g = np.zeros((L, L), np.float32)
+        for k in range(n):
+            g = _fma(cs[:, k, None], bs[None, :, k], g)
+        for hh in range(h0, min(h, h0 + plan.heads_per_cta)):
+            cell = (bb * h + hh) * nc + c
+            xs = f_dtx[cell * L * p:(cell + 1) * L * p].reshape(L, p)
+            av = f_a[cell * L:(cell + 1) * L]
+            i, j = np.arange(L)[:, None], np.arange(L)[None, :]
+            ok = j <= i
+            m = np.where(ok, g * np.exp(np.where(ok, av[i] - av[j],
+                                                 np.float32(0))),
+                         np.float32(0)).astype(np.float32)
+            ys = np.zeros((L, p), np.float32)
+            for jj in range(L):
+                rows = j_end > jj
+                ys[rows] = _fma(m[rows, jj, None], xs[None, jj], ys[rows])
+            d = np.exp(av[L - 1] - av).astype(np.float32)
+            ss = np.zeros((n, p), np.float32)
+            for ll in range(L):
+                ss = _fma((bs[ll] * d[ll])[:, None], xs[None, ll], ss)
+            y[cell * L * p:(cell + 1) * L * p] = ys.reshape(-1)
+            S[cell * n * p:(cell + 1) * n * p] = ss.reshape(-1)
     return y.reshape(b, h, nc, L, p), S.reshape(b, h, nc, n, p)
 
 
+def _plain_fma(dtx, a, Bm, Cm):
+    """The plain version's products one FMA after another over the whole of
+    k, cell by cell: G over n, Y over every j (the zeros above the diagonal
+    included), S over l with B * d rounded first."""
+    b, h, nc, L, p = dtx.shape
+    y = np.zeros(dtx.shape, np.float32)
+    S = np.zeros((b, h, nc, Bm.shape[-1], p), np.float32)
+    i, j = np.arange(L)[:, None], np.arange(L)[None, :]
+    for bb in range(b):
+        for c in range(nc):
+            g = np.zeros((L, L), np.float32)
+            for k in range(Bm.shape[-1]):
+                g = _fma(Cm[bb, c, :, k, None], Bm[bb, c, None, :, k], g)
+            for hh in range(h):
+                av, xs = a[bb, hh, c, :, 0], dtx[bb, hh, c]
+                ok = j <= i
+                m = np.where(ok, g * np.exp(np.where(ok, av[i] - av[j],
+                                                     np.float32(0))),
+                             np.float32(0)).astype(np.float32)
+                d = np.exp(av[-1] - av).astype(np.float32)
+                for k in range(L):
+                    y[bb, hh, c] = _fma(m[:, k, None], xs[None, k],
+                                        y[bb, hh, c])
+                    S[bb, hh, c] = _fma((Bm[bb, c, k] * d[k])[:, None],
+                                        xs[None, k], S[bb, hh, c])
+    return y, S
+
+
+@pytest.mark.parametrize("card", [(132, 2), (1, 1)])
 @pytest.mark.parametrize("overflow", [False, True])
-def test_kernel_transliteration_matches_plain_version(overflow):
+def test_kernel_transliteration_matches_plain_version(overflow, card):
+    """On the H100's grid (one head a CTA at these 3 heads) and on a
+    one-slot card (all 3 heads a CTA, one G for the group)."""
     nc, L = 3, 64
     dtx, a, Bm, Cm = _intra_operands(nc, L, seed=7,
                                      dt_scale=4.0 if overflow else 0.2)
     if overflow:        # above the diagonal a_i - a_j passes 88
         assert float(a[..., 0, 0].max() - a[..., -1, 0].min()) > 88
-    y, S = _intra_chunk_cuda(dtx, a, Bm, Cm)
+    y, S = _intra_chunk_cuda(dtx, a, Bm, Cm, *card)
     ty, ts = tssd.ssd_intra_chunk_ref(*(torch.from_numpy(o)
                                         for o in (dtx, a, Bm, Cm)))
     _close(ty, y, TOL, "y_intra")
     _close(ts, S, TOL, "S")
+
+
+@pytest.mark.parametrize("overflow", [False, True])
+def test_kernel_sums_in_the_plain_order_bit_for_bit(overflow):
+    """G shared by a head group and Y's k loop cut at each row block's
+    diagonal change no bit: the kernel's walk equals the plain version's
+    FMA order over the whole of k, at mamba2-2.7b's chunk (L 64, P 64, N
+    128), on both decay cases.  (On the card the plain version's cuBLAS
+    products run in that order: phase 20 reads max|d| 0.)"""
+    rng = np.random.default_rng(20 + overflow)
+    L, P, N, heads = 64, 64, 128, 3
+    dtx = rng.standard_normal((1, heads, 1, L, P)).astype(np.float32)
+    steps = (np.full((1, heads, 1, L, 1), -2.0) if overflow else
+             -0.5 * rng.uniform(0.1, 1.0, (1, heads, 1, L, 1)))
+    a = np.cumsum(steps, axis=3).astype(np.float32)
+    Bm = rng.standard_normal((1, 1, L, N)).astype(np.float32)
+    Cm = rng.standard_normal((1, 1, L, N)).astype(np.float32)
+    want = _plain_fma(dtx, a, Bm, Cm)
+    for card in ((132, 2), (1, 1)):     # a head a CTA; all three in one
+        got = _intra_chunk_cuda(dtx, a, Bm, Cm, *card)
+        assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all()
+        assert np.array_equal(got[0], want[0]), card
+        assert np.array_equal(got[1], want[1]), card
+
+
+@pytest.mark.parametrize("shape", [(1, 80, 32), (1, 80, 64), (2, 7, 5)])
+@pytest.mark.parametrize("card", [(132, 2), (4, 1)])
+def test_launch_plan_covers_every_cell_once(shape, card):
+    """Every (batch, head, chunk) cell in exactly one CTA, at mamba2-2.7b's
+    prefill (32 chunks) and training (64) shapes and at a ragged head
+    count; on the H100 (132 SMs, two CTAs an SM) the prefill takes 10
+    heads a CTA and training 20, 256 CTAs in one wave."""
+    b, h, nc = shape
+    plan = tssd.launch_plan(b, h, nc, *card)
+    seen = np.zeros((b, h, nc), np.int64)
+    for blk in range(plan.ctas):
+        grp, bc = blk % plan.groups, blk // plan.groups
+        h0 = grp * plan.heads_per_cta
+        seen[bc // nc, h0:min(h, h0 + plan.heads_per_cta), bc % nc] += 1
+    assert (seen == 1).all()
+    assert plan.ctas == b * nc * plan.groups
+    if card == (132, 2) and h == 80:
+        assert (plan.heads_per_cta, plan.ctas, plan.waves) == (
+            (10, 256, 1) if nc == 32 else (20, 256, 1))
 
 
 def test_kernel_wrapper_checks_shapes_and_devices():
