@@ -9,9 +9,11 @@ Phases, one line each (plus tables):
    power limit); TF32 off, so every comparison is float32 against float32;
 1. build the kernels from the sources in this tree (nvcc for the CUDA
    source, Triton for the generated rows kernels at first launch), with
-   ptxas's registers and spills of the tensor-core kernels, the SSD kernel
-   and the nhwc backward;
-2. the nhwc CUDA kernel against its plain version (max |d| <= 1e-5);
+   ptxas's registers and spills of the tensor-core kernels, the SSD kernel,
+   the nhwc kernels forward and backward and the paged decode's instances;
+2. the nhwc CUDA kernel against its plain version (max |d| <= 1e-5); its
+   fused path (batch norm, ReLU, a 2x2/s2 max pool) at VGG-16's five stage
+   shapes at batch 8 and at two odd extents, bit for bit;
 3. the rows Triton kernel against its plain version at deepseek-7b widths
    (d_model 4096, d_ff 11008, 4 x 2048 rows; <= 1e-5, rtol 1e-4 for norms
    and softmax);
@@ -21,7 +23,8 @@ Phases, one line each (plus tables):
    launch counters are zeroed before each path and read after it;
 5. per-kernel device times (profiler) and per-call times (CUDA events)
    beside the plain version, a library call where one computes the same
-   function, and the bound; a traced forward per mode gives the device
+   function, and the bound, with each VGG stage's nhwc path (fused or
+   generic), items and CTAs; a traced forward per mode gives the device
    time by kernel group and the idle share;
 6. the forward kernels' agreement;
 7. the nhwc backward CUDA kernel against its plain version
@@ -45,7 +48,9 @@ Phases, one line each (plus tables):
    32, ragged lengths up to 32768, 128), block size 16, through a shuffled
    table with sentinel tails, GQA 40/8, q in bf16 and float32 over pools
    in q's dtype and in float32; bit for bit against the dense kernel on
-   the gathered view;
+   the gathered view, there and at one slot of 32768, blocks of 8 and 32,
+   all eight slots full, every split of the launch plan and the engine
+   tick's shape;
 15. the continuous-batching engine (``Server.engine(kv_layout="paged")
    .run``) over a ragged, prefix-sharing queue of 12 requests at full
    width cut to 8 layers (``ENGINE_LAYERS``), paged ``brainslug`` against
@@ -53,7 +58,9 @@ Phases, one line each (plus tables):
    evaluation, no ``kv.*`` finding, the
    free list whole), and a float32 4-layer run with identical tokens;
 16. the paged kernel's time beside its bound, its plain version and the
-   dense kernel on the gathered view; the engine runs' wall time,
+   dense kernel on the gathered view, and at one slot of 32768 and the
+   engine tick's shape beside their bounds, each with its launch plan and
+   the kernel's time before its redesign; the engine runs' wall time,
    tokens/s, TTFT and ``ServeStats``; a traced decode-only tick per mode;
 17. the fused vocab cross-entropy CUDA kernel against its plain version
    (TF32 off): (4096, 4096, 102400) and ragged (1000, 4000, 50257) in bf16
@@ -178,6 +185,11 @@ ENGINE = dict(slots=4, max_len=256, prefill_chunk=8, kv_block_size=16,
               kv_num_blocks=32)
 ENGINE_RUNS = (("paged", "brainslug"), ("paged", "barrier"),
                ("dense", "brainslug"))
+# The paged kernel before its redesign (commit a683f4a: one CTA a slot and
+# head), device ms at phase 16's three shapes: tools/kernel_times.py on an
+# H100 80GB HBM3 at 700.00 W, in turns with the redesigned kernel.
+PAGED_PARENT_MS = {"table": 1.7126, "one_slot_32768": 1.6813,
+                   "tick": 0.00578}
 # The engine phases run phase 12's deepseek-7b cut to ENGINE_LAYERS of its
 # 30 layers: the engine is host-bound (a tick's launches grow with depth),
 # and with the SSM slice's phases (20-22) the script has to stay near half
@@ -438,6 +450,15 @@ class Smoke:
             _build.build_log(nhwc_bwd.SOURCE), "fused_nhwc_bwd_kernel")
         print("[1 build] fused_nhwc_bwd.cu, nvcc -Xptxas -v: "
               + "; ".join(self.nhwc_bwd_ptxas))
+        self.nhwc_ptxas = self.ptxas_report(_build.build_log(nhwc.SOURCE),
+                                            "fused_nhwc_kernel_fused")
+        print("[1 build] fused_nhwc.cu, nvcc -Xptxas -v: "
+              + "; ".join(self.nhwc_ptxas))
+        self.paged_ptxas = self.ptxas_report(
+            _build.build_log(decode.PAGED_SOURCE),
+            "paged_flash_decode_kernel<bf16,bf16,1>")
+        print("[1 build] paged_flash_decode.cu (instances <q, pool, chains a "
+              "CTA>), nvcc -Xptxas -v: " + "; ".join(self.paged_ptxas))
 
     #: Kernel names as the ptxas lines report them, by a fragment of the
     #: mangled name (first match wins).
@@ -450,7 +471,13 @@ class Smoke:
                    ("bwd_kernel_fused", "fused_nhwc_bwd_kernel_fused"),
                    ("fused_nhwc_bwd_kernel", "fused_nhwc_bwd_kernel"),
                    ("nhwc_overlap_add_kernel", "nhwc_overlap_add_kernel"),
-                   ("nhwc_reduce_kernel", "nhwc_reduce_kernel"))
+                   ("nhwc_reduce_kernel", "nhwc_reduce_kernel"),
+                   ("nhwc_kernel_fused", "fused_nhwc_kernel_fused"),
+                   ("fused_nhwc_kernel", "fused_nhwc_kernel"))
+    #: The paged kernel's instances: mangled template arguments
+    #: (``<q, pool, chains a CTA>``) by dtype pair.
+    PAGED_DTYPES = (("13__nv_bfloat16f", "bf16,f32"),
+                    ("13__nv_bfloat16S", "bf16,bf16"), ("ff", "f32,f32"))
 
     @classmethod
     def ptxas_report(cls, log, need):
@@ -460,6 +487,12 @@ class Smoke:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
+                if "paged_flash_decode_kernelI" in name:
+                    args = name.split("paged_flash_decode_kernelI")[1]
+                    dts = next(n for frag, n in cls.PAGED_DTYPES
+                               if args.startswith(frag))
+                    cps = args.split("Li")[1].split("E")[0]
+                    name = f"paged_flash_decode_kernel<{dts},{cps}>"
                 name = next((n for frag, n in cls.PTXAS_NAMES if frag in name),
                             name)
             elif "spill stores" in line and name:
@@ -569,6 +602,59 @@ class Smoke:
         print(f"[2 nhwc] {len(cases)} cases ({', '.join(c[0] for c in cases)})"
               f" agree with the plain version: max|d| = {worst:.3e} "
               f"(tol {NHWC_TOL})")
+        # the fused path (batch norm, ReLU, a 2x2/s2 max pool): bit for bit
+        lines = []
+        for k, (name, program, shape) in enumerate(self.nhwc_fused_cases()):
+            if not nhwc.fused_chain(program):
+                raise PhaseError(f"fused_nhwc {name}: not a fused chain")
+            x, params, _ = self.nhwc_operands(program, shape, {}, bparams,
+                                              60 + k)
+            got = nhwc.fused_nhwc(program, x, params)
+            want = ref.fused_stack_ref(program, {program.inputs[0]: x},
+                                       params)
+            out = program.outputs[0]
+            err = self.check("fused_nhwc", name, {out: got}, want, NHWC_TOL)
+            if not self.torch.equal(got, want[out]):
+                raise PhaseError(f"fused_nhwc {name}: the fused path differs "
+                                 f"from the plain version (max|d| "
+                                 f"{err:.3e}); it must agree bit for bit")
+            lines.append(f"{name} {shape}")
+        print(f"[2 nhwc fused] {len(lines)} cases on the fused path, bit for "
+              f"bit equal to the plain version (max|d| exactly 0): "
+              + "; ".join(lines))
+
+    def nhwc_fused_cases(self):
+        """(name, program, input shape) of phase 2's fused-path cases:
+        VGG-16's five stage chains at batch 8, stage 1's at odd extents
+        (a row and a column no window reads), and with padded borders at
+        odd extents and 72 channels (windows reach past the edge; two
+        channel blocks, the second 8 wide)."""
+        from repro_torch.core import analyzer, collapse, ir, resource
+        from repro_torch.models import cnn
+        graph, _ = cnn.vgg_net(VGG16_STAGES, device=self.dev)
+        shape, cases = (8,) + VGG_INPUT[1:], []
+        for seg in analyzer.analyze(graph, keep=frozenset({graph.output})):
+            if not seg.is_stack:
+                if seg.op.kind == ir.OpKind.CONV2D:
+                    shape = shape[:3] + (seg.op.attrs["kernel_shape"][-1],)
+                continue
+            plan = collapse.collapse(seg.stack, {seg.stack.inputs[0]: shape},
+                                     resource.H100)
+            cases.append((f"vgg16_stage{len(cases) + 1}", plan.subprogram(0),
+                          shape))
+            shape = ir.infer_shapes(seg.stack, {seg.stack.inputs[0]: shape})[
+                seg.stack.outputs[0]]
+        stage1 = cases[0][1]
+        cases.append(("vgg16_stage1_odd", stage1, (4, 57, 43, 64)))
+        aff, relu, pool = stage1.ops
+        padded = ir.StackProgram(
+            name="padded", inputs=stage1.inputs, outputs=stage1.outputs,
+            layout="nhwc", ops=(aff, relu, ir.OpNode(
+                ir.OpKind.POOL2D, pool.name, pool.inputs, pool.output,
+                fn="max", attrs={"window": (2, 2), "stride": (2, 2),
+                                 "padding": (1, 1)})))
+        cases.append(("padded_odd_c72", padded, (4, 29, 31, 72)))
+        return cases
 
     def rows_cases(self):
         """(name, program, input shapes, param shapes, tol) of phase 3."""
@@ -922,6 +1008,27 @@ class Smoke:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
 
+    def nhwc_path(self, program, shape, seq):
+        """The forward's path at ``shape`` as a phrase: the fused path's
+        items (``nhwc.fused_plan``) and persistent CTAs, or the generic
+        kernel's tile and one CTA an item."""
+        from repro_torch.kernels.fused_stack import nhwc
+        if nhwc.fused_chain(program):
+            plan = nhwc.fused_plan(program, shape)
+            per_sm = nhwc.fused_ctas_per_sm()
+            ctas = nhwc.launch_programs(plan.spatial, plan.n_cb,
+                                        self.sm_count, per_sm)
+            return (f"fused path, tile {plan.tile[0]}x{plan.tile[1]} x "
+                    f"{plan.cb} channels, {plan.items} items, {plan.lanes} "
+                    f"position lanes x {plan.cb // 4} channel quads, "
+                    f"{per_sm} CTAs an SM, {ctas} CTAs")
+        _, blob = nhwc._template(program, shape, (), (1,) * len(
+            program.param_names), seq.tile_out_h, seq.tile_out_w)
+        d = nhwc.NhwcDesc.from_buffer_copy(blob)
+        items = d.N * d.tiles_h * d.tiles_w * d.n_cb
+        return (f"generic path, tile {d.th}x{d.tw} x {d.cb} channels, "
+                f"{items} items, one CTA an item")
+
     def phase5_timing(self):
         torch = self.torch
         import torch.nn.functional as F
@@ -967,19 +1074,20 @@ class Smoke:
                 b_ms, b_by = self.bound(sub, nbytes([xs] + pv), nbytes([y]),
                                         y.numel(), xs.numel())
                 entries.append((seg.stack.name, tuple(xs.shape),
-                                tuple(y.shape), seq.tile_out_h, k_ms, k_how,
-                                k_call, p_ms, b_ms, b_by))
+                                tuple(y.shape),
+                                self.nhwc_path(sub, tuple(xs.shape), seq),
+                                k_ms, k_how, k_call, p_ms, b_ms, b_by))
         print("[5 nhwc] per launch on the main path's shapes, each checked "
               "against the plain version; device time (profiler, mean of 20 "
               "calls) and per call (CUDA events around 20 back-to-back calls,"
               " median of 5):")
-        for (name, si, so, tile, k_ms, k_how, k_call, p_ms, b_ms,
+        for (name, si, so, path, k_ms, k_how, k_call, p_ms, b_ms,
              b_by) in entries:
-            print(f"  {name} {si}->{so} tile {tile}: kernel {k_ms:.4f} ms "
+            print(f"  {name} {si}->{so} {path}: kernel {k_ms:.4f} ms "
                   f"{k_how} ({k_call:.4f} per call)  plain {p_ms:.4f} ms  "
                   f"bound {b_ms:.4f} ms ({b_by})  kernel/bound "
                   f"{k_ms / b_ms:.2f}  library none")
-        name, si, so, tile, k_ms, _, _, p_ms, b_ms, b_by = entries[0]
+        name, si, so, _, k_ms, _, _, p_ms, b_ms, b_by = entries[0]
         self.kernels["fused_nhwc"] = {
             "name": "fused_nhwc", "route": "cuda",
             "source": "src/repro_torch/kernels/fused_stack/csrc/fused_nhwc.cu",
@@ -2183,16 +2291,22 @@ class Smoke:
 
 
     # -- the engine slice -----------------------------------------------------
-    def paged_operands(self, dt, pool_dt, heads, kv_heads, seed):
+    def paged_operands(self, dt, pool_dt, heads, kv_heads, seed,
+                       lengths=None, bs=None, max_len=None):
         """Phase 14's operands: q, pools, a table that is a random
         permutation of the pool with the sentinel id N past each slot's
-        blocks, and ragged lengths (one 0, one full)."""
+        blocks, and ragged lengths (by default one 0, one full) over a
+        table of ``max_len // bs`` entries a slot."""
         torch = self.torch
-        b, bs, s_max = PAGED["batch"], PAGED["block"], PAGED["max_len"]
+        bs = bs or PAGED["block"]
+        s_max = max_len or PAGED["max_len"]
         mb = s_max // bs
-        lens = torch.tensor([0, 1, 17, 513, 4000, 8191, 20000, s_max],
-                            dtype=torch.int32, device=self.dev)[:b].clamp(
-                                max=s_max)
+        if lengths is None:
+            lengths = [0, 1, 17, 513, 4000, 8191, 20000, s_max][
+                :PAGED["batch"]]
+        b = len(lengths)
+        lens = torch.tensor(lengths, dtype=torch.int32,
+                            device=self.dev).clamp(max=s_max)
         n = int(((lens + bs - 1) // bs).sum()) + 8
         g = torch.Generator(device=self.dev).manual_seed(seed)
         perm = torch.randperm(n, generator=g, device=self.dev)
@@ -2246,6 +2360,46 @@ class Smoke:
               f"table with sentinel tails: " + "; ".join(lines)
               + "; length 0 exactly zero; bit for bit equal to flash_decode "
               f"on the gathered view; {time.perf_counter() - t:.1f} s")
+        # where the launch plan splits widest, where chains and rows a block
+        # differ, every slot full, and every split: bit for bit as above
+        t = time.perf_counter()
+        bf = torch.bfloat16
+        full = PAGED["max_len"]
+        lines = []
+        for what, kw, splits in (
+                ("one slot at 32768", dict(lengths=[full]), (None,)),
+                ("block 8", dict(bs=8), (None,)),
+                ("block 32", dict(bs=32), (None,)),
+                ("all eight slots full", dict(lengths=[full] * 8), (None,)),
+                ("every split", {}, decode.SPLITS),
+                ("engine tick", dict(lengths=[101] * 4, max_len=256),
+                 (None,) + decode.SPLITS)):
+            q, kp, vp, table, lens = self.paged_operands(
+                bf, bf, PAGED["heads"], PAGED["heads"], 1710, **kw)
+            clipped = table.clamp(0, kp.shape[0] - 1)
+            dense = decode.flash_decode(q, ref.gather_paged(kp, clipped),
+                                        ref.gather_paged(vp, clipped), lens)
+            for s in splits:
+                got = decode.paged_flash_decode(q, kp, vp, table, lens,
+                                                splits=s)
+                torch.cuda.synchronize()
+                if not torch.equal(got, dense):
+                    raise PhaseError(
+                        f"paged_flash_decode {what}, splits {s}: differs "
+                        f"from flash_decode on the gathered view (max|d| "
+                        f"{float((got.float() - dense.float()).abs().max()):.3e})")
+            plan = decode._plan(decode._library(decode.PAGED_SOURCE),
+                                q.device, q.shape[0], q.shape[1],
+                                table.shape[1], kp.shape[2], (1, 1))
+            lines.append(f"{what} (batch {q.shape[0]}, block {kp.shape[2]}, "
+                         f"plan {plan.splits} CTAs a (slot, head)"
+                         + (f"; splits {', '.join(str(x) for x in splits)}"
+                            if len(splits) > 1 else "") + ")")
+            del q, kp, vp, dense, clipped
+            torch.cuda.empty_cache()
+        print("[14 paged kernel] bf16, 32 heads, bit for bit equal to "
+              "flash_decode on the gathered view: " + "; ".join(lines)
+              + f"; {time.perf_counter() - t:.1f} s")
 
     def engine_queue(self, vocab):
         """12 requests from numpy seed 0: eight share a 64-token prefix with
@@ -2467,6 +2621,32 @@ class Smoke:
         del p32, static
         torch.cuda.empty_cache()
 
+    def paged_bound(self, q, lens):
+        """The paged kernel's bound on bf16 operands: q read and o written,
+        the valid keys' K and V rows, the table entries they use and the
+        lengths, over HBM; or its operations (a multiply-add a K and a V
+        element) over the bf16 tensor-core rate, whichever is larger."""
+        from repro_torch.core.resource import H100
+        heads = q.shape[1]
+        valid = int(lens.sum())
+        used = int(((lens + PAGED["block"] - 1) // PAGED["block"]).sum())
+        n_bytes = (2 * q.numel() * 2 + 2 * valid * heads * 128 * 2
+                   + used * 4 + lens.numel() * 4)
+        t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
+        t_ops = 4 * 128 * heads * valid / PEAK_BF16 * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                             "operations")
+
+    def paged_plan_note(self, q, table, kp):
+        """The paged kernel's launch plan at these operands, as a phrase."""
+        from repro_torch.kernels.attention import decode
+        plan = decode._plan(decode._library(decode.PAGED_SOURCE), q.device,
+                            q.shape[0], q.shape[1], table.shape[1],
+                            kp.shape[2], (decode.DTYPE_IDS[q.dtype],
+                                          decode.DTYPE_IDS[kp.dtype]))
+        return (f"plan {plan.splits} CTAs a (slot, head) of {plan.chains} "
+                f"chains, {plan.ctas} CTAs")
+
     def phase16_engine_timing(self):
         torch = self.torch
         import torch.nn.functional as F
@@ -2483,14 +2663,7 @@ class Smoke:
         s_max = kd.shape[2]
         mask = (torch.arange(s_max, device=self.dev)[None, :]
                 < lens[:, None])[:, None, None, :]
-        valid = int(lens.sum())
-        used = int(((lens + PAGED["block"] - 1) // PAGED["block"]).sum())
-        n_bytes = (2 * q.numel() * 2 + 2 * valid * heads * 128 * 2
-                   + used * 4 + lens.numel() * 4)
-        t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
-        t_ops = 4 * 128 * heads * valid / PEAK_BF16 * 1e3
-        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (
-            t_ops, "operations")
+        b_ms, b_by = self.paged_bound(q, lens)
         with torch.inference_mode():
             run = lambda: decode.paged_flash_decode(q, kp, vp, table, lens)  # noqa: E731
             k_ms, how = self.kernel_ms(run, "paged_flash_decode_kernel")
@@ -2515,7 +2688,8 @@ class Smoke:
               f"{100 * (k_ms / d_ms - 1):+.1f}%); plain {p_ms:.4f} ms; "
               f"library none (SDPA on the gathered view, a note: "
               f"{sdpa_ms:.4f} ms); bound {b_ms:.4f} ms ({b_by}), kernel/bound "
-              f"{k_ms / b_ms:.2f}")
+              f"{k_ms / b_ms:.2f}; " + self.paged_plan_note(q, table, kp)
+              + f"; before the redesign {PAGED_PARENT_MS['table']} ms")
         self.kernels["paged_flash_decode"] = {
             "name": "paged_flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/attention/csrc/"
@@ -2526,6 +2700,24 @@ class Smoke:
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "shape": shape}
         del q, kp, vp, q32, kp32, vp32, kd, vd, mask
+        torch.cuda.empty_cache()
+        # where the plan splits widest, and the engine tick (launch-bound)
+        for what, kw in (("one_slot_32768", dict(lengths=[PAGED["max_len"]])),
+                         ("tick", dict(lengths=[101] * 4, max_len=256))):
+            q, kp, vp, table, lens = self.paged_operands(bf, bf, heads, heads,
+                                                         1700, **kw)
+            with torch.inference_mode():
+                ms, how = self.kernel_ms(
+                    lambda: decode.paged_flash_decode(q, kp, vp, table, lens),
+                    "paged_flash_decode_kernel")
+            t_ms, t_by = self.paged_bound(q, lens)
+            print(f"[16 paged kernel] {what} (batch {q.shape[0]}, lengths "
+                  f"{lens.tolist()}, a table of {table.shape[1]} blocks): "
+                  f"kernel {ms:.4f} ms ({how}); bound {t_ms:.4f} ms ({t_by}),"
+                  f" kernel/bound {ms / t_ms:.2f}; "
+                  + self.paged_plan_note(q, table, kp)
+                  + f"; before the redesign {PAGED_PARENT_MS[what]} ms")
+            del q, kp, vp
         torch.cuda.empty_cache()
 
         # the bf16 rows chains of phase 3: device time beside the plain

@@ -17,16 +17,19 @@ the kernel does it in registers, so a float32 cache is never copied.
 
 ``paged_flash_decode`` replaces
 ``repro/kernels/attention/decode.py:paged_flash_decode``.  Its kernel is
-``csrc/paged_flash_decode.cu``: the dense kernel's design and arithmetic,
-with key rows addressed through the slot's table row, loaded into shared
-memory and clamped to ``[0, N-1]``.  Its plain version,
-:func:`paged_flash_decode_plain`, walks tiles of one pool block each, as
-the Pallas grid does.
+``csrc/paged_flash_decode.cu``: the dense kernel's arithmetic, chain for
+chain (:data:`CHAINS` chains of 16 lanes a slot and head, merged in chain
+order), with the chains split over the CTAs of :func:`launch_plan` and key
+rows staged into shared memory through the slot's table row, clamped to
+``[0, N-1]``.  Its plain version, :func:`paged_flash_decode_plain`, walks
+tiles of one pool block each, as the Pallas grid does.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -38,6 +41,15 @@ PAGED_SOURCE = (Path(__file__).resolve().parent / "csrc"
 NEG_INF = -1e30
 HEAD_DIM = 128
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+#: Online-softmax chains of one (slot, head): ``CHAINS`` in
+#: ``csrc/paged_flash_decode.cu``, ``GROUPS`` in ``csrc/flash_decode.cu``.
+CHAINS = 16
+#: CTAs one (slot, head) may be split over.
+SPLITS = (1, 2, 4, 8, 16)
+#: Keys a chain walks at the longest length the table maps, at or below
+#: which one CTA takes all the chains: the call is launch-bound, and a split
+#: would add the workspace's round trip.
+SPLIT_MIN_KEYS = 64
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -128,6 +140,48 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_decode.launches = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """How ``csrc/paged_flash_decode.cu`` runs one call shape: the chains
+    of a (slot, head) split over ``splits`` CTAs of ``chains`` chains (16
+    lanes each); ``ctas`` in all."""
+    splits: int
+    chains: int
+    threads: int
+    ctas: int
+
+
+def launch_plan(batch: int, heads: int, max_keys: int, block_size: int,
+                sm_count: int, ctas_per_sm: Callable[[int], int]
+                ) -> PagedPlan:
+    """The split of one call shape, from the batch, the query heads, the
+    longest length the table maps (``MB * bs``), the block size and the
+    card (``ctas_per_sm(splits)``: CTAs of that instance an SM holds, from
+    the occupancy API, at this table width).  Never from the lengths: they
+    live on the device, and reading them would put a sync into every
+    engine tick.
+
+    One CTA a (slot, head) where a chain walks at most
+    :data:`SPLIT_MIN_KEYS` keys.  Else the least split of :data:`SPLITS`
+    at which one slot's CTAs reach every SM (the ragged worst case: one long
+    slot among short ones), halved while the grid would not fit the card at
+    once (every slot long).  ``block_size`` enters through ``ctas_per_sm``
+    (the table row is staged in shared memory)."""
+    if min(batch, heads, max_keys, block_size, sm_count) < 1:
+        raise ValueError(f"paged flash decode plan: batch {batch}, heads "
+                         f"{heads}, keys {max_keys}, block {block_size}, "
+                         f"SMs {sm_count}")
+    splits = 1
+    if -(-max_keys // CHAINS) > SPLIT_MIN_KEYS:
+        splits = next((s for s in SPLITS if heads * s >= sm_count),
+                      SPLITS[-1])
+        while (splits > 1
+               and batch * heads * splits > sm_count * ctas_per_sm(splits)):
+            splits //= 2
+    chains = CHAINS // splits
+    return PagedPlan(splits, chains, chains * 16, batch * heads * splits)
+
+
 def paged_flash_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
                              v_pool: torch.Tensor, table: torch.Tensor,
                              lengths: torch.Tensor, *,
@@ -173,16 +227,18 @@ def paged_flash_decode_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, table: torch.Tensor,
-                       lengths: torch.Tensor, *, scale: float | None = None
-                       ) -> torch.Tensor:
+                       lengths: torch.Tensor, *, scale: float | None = None,
+                       splits: int | None = None) -> torch.Tensor:
     """q: (B, H, 1, D); k_pool, v_pool: (N, G, bs, D); table: (B, MB) int;
     lengths: (B,) int.
 
     Table entries are clamped to ``[0, N-1]`` (a sentinel tail entry reads
     nothing out of bounds); keys at logical positions ``>= lengths[b]`` are
     masked.  The pools are read where they lie: on the card they must be
-    contiguous (a layer's view of a layer-stacked pool is), and they are
-    never copied or cast."""
+    contiguous and 16-byte aligned (a layer's view of a layer-stacked pool
+    is), and they are never copied or cast.  ``splits``: CTAs a (slot,
+    head), by default :func:`launch_plan`'s; every split gives the same
+    bits."""
     b, h, one, d = q.shape
     if one != 1 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
             or k_pool.shape[3] != d or table.dim() != 2 \
@@ -217,18 +273,33 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged flash decode: the pools must be contiguous "
                          "(a copy of a pool per call is what this kernel "
                          "avoids)")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("paged flash decode: the pools must be 16-byte "
+                         "aligned (rows are staged by 16-byte copies)")
+    if splits is not None and splits not in SPLITS:
+        raise ValueError(f"paged flash decode: splits {splits} not in "
+                         f"{SPLITS}")
     q = q.contiguous()
     tbl = table.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
     o = torch.empty_like(q)
     lib = _library(PAGED_SOURCE)
+    ids = DTYPE_IDS[q.dtype], DTYPE_IDS[k_pool.dtype]
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if splits is None:
+            splits = _plan(lib, q.device, b, h, mb, bs, ids).splits
+        stream = torch.cuda.current_stream(q.device)
+        ws = tickets = None
+        if splits > 1:
+            ws = torch.empty(b * h * CHAINS * (d + 2), device=q.device,
+                             dtype=torch.float32)
+            tickets = _tickets(q.device, stream, b * h)
         err = lib.paged_flash_decode(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tbl.data_ptr(), lens.data_ptr(), o.data_ptr(), b, h, n, g, bs,
-            mb, d, float(scale), DTYPE_IDS[q.dtype], DTYPE_IDS[k_pool.dtype],
-            stream)
+            tbl.data_ptr(), lens.data_ptr(), o.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            tickets.data_ptr() if tickets is not None else None, b, h, n, g,
+            bs, mb, d, float(scale), *ids, splits, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_flash_decode launch failed: "
                            f"{lib.paged_flash_decode_error(err).decode()}")
@@ -238,13 +309,46 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
 
 paged_flash_decode.launches = 0
 
+#: Plans by (device, batch, heads, table width, block size, dtypes).
+_PLANS: dict[tuple, PagedPlan] = {}
+#: Ticket counters by (device, stream): zero between calls (the last CTA of
+#: each (slot, head) resets its own), grown as calls widen.
+_TICKETS: dict[tuple, torch.Tensor] = {}
+
+
+def _plan(lib: ctypes.CDLL, device: torch.device, b: int, h: int, mb: int,
+          bs: int, ids: tuple[int, int]) -> PagedPlan:
+    key = (device.index, b, h, mb, bs, ids)
+    hit = _PLANS.get(key)
+    if hit is None:
+        def ctas_per_sm(splits: int) -> int:
+            got = lib.paged_flash_decode_ctas_per_sm(splits, *ids, mb)
+            if got <= 0:
+                raise RuntimeError(
+                    f"paged_flash_decode: no CTA of split {splits} fits an SM "
+                    f"({lib.paged_flash_decode_error(-got).decode()})")
+            return got
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        hit = _PLANS[key] = launch_plan(b, h, mb * bs, bs, sms, ctas_per_sm)
+    return hit
+
+
+def _tickets(device: torch.device, stream: torch.cuda.Stream,
+             n: int) -> torch.Tensor:
+    key = (device.index, stream.cuda_stream)
+    have = _TICKETS.get(key)
+    if have is None or have.numel() < n:
+        have = _TICKETS[key] = torch.zeros(n, device=device,
+                                           dtype=torch.int32)
+    return have
+
 
 #: The C entry point of each source's library and its ctypes argtypes.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRY = {
     SOURCE: ("flash_decode", [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P]),
     PAGED_SOURCE: ("paged_flash_decode",
-                   [_P] * 6 + [_I] * 7 + [_F, _I, _I, _P]),
+                   [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P]),
 }
 
 
@@ -257,5 +361,8 @@ def _library(source: Path = SOURCE) -> ctypes.CDLL:
         fn, err = getattr(lib, name), getattr(lib, f"{name}_error")
         fn.argtypes, fn.restype = argtypes, _I
         err.argtypes, err.restype = [_I], ctypes.c_char_p
+        if source == PAGED_SOURCE:
+            occ = lib.paged_flash_decode_ctas_per_sm
+            occ.argtypes, occ.restype = [_I] * 4, _I
         lib._bound = True
     return lib

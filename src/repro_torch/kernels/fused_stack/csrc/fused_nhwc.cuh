@@ -1,7 +1,8 @@
 // Shared device code of the nhwc kernels, forward (fused_nhwc.cu) and
-// backward (fused_nhwc_bwd.cu): the descriptor, the op semantics and the
+// backward (fused_nhwc_bwd.cu): the descriptor, the op semantics, the
 // depth-first recompute of one tile, so the backward recomputes exactly
-// what the forward computed.
+// what the forward computed, and the persistent kernels' float4 walk over
+// an item's positions.
 //
 // Semantics held to the JAX kernel's run_tile: a pool masks its *own* input
 // level by that level's image extent with a select to its neutral element
@@ -12,12 +13,17 @@
 
 #include <cuda_runtime.h>
 #include <float.h>
+#include <limits.h>
 #include <math.h>
 
 #define MAX_OPS 32
 #define MAX_LEVELS 16
 #define MAX_VECS 24
 #define THREADS 256
+
+// Window positions the fused paths (forward and backward) hold in
+// registers: nhwc.FUSED_WIN.
+constexpr int FUSED_WIN = 4;
 
 enum { K_UNARY = 0, K_BINARY, K_AFFINE, K_POOL, K_NORM, K_SOFTMAX };
 enum { SRC_SLOT = 0, SRC_VEC = 1 };
@@ -284,4 +290,134 @@ __device__ void run_chain(const NhwcDesc& d, float* smem, int ti, int tj,
       k = last;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The thread's share of an item, float4 arithmetic, the position walk.
+// ---------------------------------------------------------------------------
+
+struct Own {
+  int q, nq;       // channel quad, quads a block (cb / 4)
+  int pl, lanes;   // position lane (INT_MAX / 2 on an idle thread), lanes
+  const float* vs; // the vector operands at the CTA's channel block
+};
+
+// Positions pl, pl + lanes, ... of an eh x ew level, with their row and
+// column, stepped without a division.
+struct Walk {
+  int p, r, c, n, ew, step, dr, dc;
+  __device__ __forceinline__ Walk(const Own& o, int eh, int ew_)
+      : p(o.pl), r(o.pl / ew_), c(o.pl % ew_), n(eh * ew_), ew(ew_),
+        step(o.lanes), dr(o.lanes / ew_), dc(o.lanes % ew_) {}
+  __device__ __forceinline__ bool ok() const { return p < n; }
+  __device__ __forceinline__ void next() {
+    p += step;
+    r += dr;
+    c += dc;
+    if (c >= ew) {
+      c -= ew;
+      ++r;
+    }
+  }
+};
+
+// The thread's positions of an eh x ew level: body(p, r, c) for each.
+template <class Body>
+__device__ __forceinline__ void walk(const Own& o, int eh, int ew,
+                                     Body body) {
+  for (Walk w(o, eh, ew); w.ok(); w.next()) body(w.p, w.r, w.c);
+}
+
+__device__ __forceinline__ float4 f4(float v) {
+  return make_float4(v, v, v, v);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+
+// An affine op rounded after the multiply, as x * s + o is in PyTorch (no
+// fused multiply-add): the backward's max-pool routing then sees the plain
+// version's values.
+__device__ __forceinline__ float4 affine4(float4 a, float4 s, float4 t) {
+  return make_float4(__fadd_rn(__fmul_rn(a.x, s.x), t.x),
+                     __fadd_rn(__fmul_rn(a.y, s.y), t.y),
+                     __fadd_rn(__fmul_rn(a.z, s.z), t.z),
+                     __fadd_rn(__fmul_rn(a.w, s.w), t.w));
+}
+
+__device__ __forceinline__ float4* slot4(const NhwcDesc& d, float* smem,
+                                         int s) {
+  return reinterpret_cast<float4*>(smem + (size_t)s * d.slot_elems);
+}
+
+// A vector operand at the thread's four channels, from the CTA's copy of
+// its channel block (``vs``, staged once: the block never changes).
+__device__ __forceinline__ float4 vec4(const float* vs, const NhwcDesc& d,
+                                       int idx, int q) {
+  return reinterpret_cast<const float4*>(vs + (size_t)idx * d.cb)[q];
+}
+
+__device__ __forceinline__ void put4(float4* slot, int e, float4 v,
+                                     int acc) {
+  slot[e] = acc ? add4(slot[e], v) : v;
+}
+
+// Four channels from global memory (0 past C), one 16-byte load where the
+// whole quad is in range and aligned.
+__device__ __forceinline__ float4 load4(const float* src, int cg0, int C,
+                                        bool full4) {
+  if (full4) return __ldg(reinterpret_cast<const float4*>(src));
+  return make_float4(cg0 < C ? __ldg(src) : 0.f,
+                     cg0 + 1 < C ? __ldg(src + 1) : 0.f,
+                     cg0 + 2 < C ? __ldg(src + 2) : 0.f,
+                     cg0 + 3 < C ? __ldg(src + 3) : 0.f);
+}
+
+__device__ __forceinline__ void store4(float* dst, float4 v, int cg0, int C,
+                                       bool full4) {
+  if (full4) {
+    *reinterpret_cast<float4*>(dst) = v;
+    return;
+  }
+  if (cg0 < C) dst[0] = v.x;
+  if (cg0 + 1 < C) dst[1] = v.y;
+  if (cg0 + 2 < C) dst[2] = v.z;
+  if (cg0 + 3 < C) dst[3] = v.w;
+}
+
+struct Origin {
+  int h, w;
+};
+
+__device__ __forceinline__ Origin origin(const NhwcDesc& d,
+                                         const LevelDesc& L, int ti, int tj) {
+  return {ti * d.th * L.mul_h - L.off_h, tj * d.tw * L.mul_w - L.off_w};
+}
+
+__device__ __forceinline__ bool inside(const LevelDesc& L, Origin g, int r,
+                                       int c) {
+  const int h = g.h + r, w = g.w + c;
+  return h >= 0 && h < L.ih && w >= 0 && w < L.iw;
+}
+
+// Item s: image n, tile (ti, tj); returns whether it lies inside the image
+// at every level (then nothing is masked).
+__device__ __forceinline__ bool decode_item(const NhwcDesc& d, int s,
+                                            long long& n, int& ti, int& tj) {
+  tj = s % d.tiles_w;
+  ti = (s / d.tiles_w) % d.tiles_h;
+  n = s / (d.tiles_w * d.tiles_h);
+  bool interior = true;
+  for (int l = 0; l < d.n_levels; ++l) {
+    const LevelDesc& L = d.levels[l];
+    const Origin g = origin(d, L, ti, tj);
+    interior = interior && g.h >= 0 && g.h + L.eh <= L.ih && g.w >= 0 &&
+               g.w + L.ew <= L.iw;
+  }
+  return interior;
 }

@@ -12,16 +12,28 @@ and the per-level geometry of :func:`_plan_levels`.  A sequence longer than
 :data:`MAX_OPS` ops or :data:`MAX_LEVELS` levels raises
 :class:`DescriptorError`.
 
-Grid: one CTA per ``(tile_i * tile_j * channel block, n)``.  The chain is
-channel-independent unless it holds ``ROW_NORM``/``ROW_SOFTMAX`` (which, in
-nhwc, reduce over C): then the channel block is all of C.  The halo comes in
-through predicated loads from the unpadded input, with no padded copy; the
-output writes are guarded, with no grid-padded output array.
+Two kernels, one per kind of chain:
+
+* **The fused path** (:func:`fused_chain`: AFFINE of the input, an
+  element-wise unary op, then a POOL2D whose windows do not overlap, as in
+  VGG's stages): ``fused_nhwc_kernel_fused``, persistent, with the work
+  items of :func:`fused_plan` (8 x 8 output tiles of a block of up to
+  :data:`CB_MIN` channels in float4s), the plan the backward's fused path
+  takes too, and the grid of :func:`launch_programs` from the card.  Each
+  thread holds four channels and a run of output positions; per position it
+  loads its window straight from ``x`` (each input element read once),
+  applies the affine, the unary op and the pool in registers and stores
+  one float4.  No slots, no barriers.
+* **Any other chain**: ``fused_nhwc_kernel``, one CTA per ``(tile_i *
+  tile_j * channel block, n)`` of the planner's tile.  The chain is
+  channel-independent unless it holds ``ROW_NORM``/``ROW_SOFTMAX`` (which,
+  in nhwc, reduce over C): then the channel block is all of C.  The halo
+  comes in through predicated loads from the unpadded input, with no padded
+  copy; the output writes are guarded, with no grid-padded output array.
 
 Bound: device-memory bytes.  Each input element is read once per tile that
 covers it (more only by the halo overlap), each output element written
-once; the chain itself runs out of shared memory.  What the simple design
-does about it: nothing beyond fusion yet (plain loads, float32, no TMA).
+once; the chain itself runs out of shared memory or registers.
 
 Semantics kept from the Pallas kernel (``run_tile``): each POOL2D masks its
 own input level by that level's image extent, with a select (never a
@@ -50,6 +62,17 @@ MAX_OPS = 32
 MAX_LEVELS = 16
 MAX_VECS = 24
 MAX_SLOTS = 8
+#: Threads a CTA (``THREADS`` of ``csrc/fused_nhwc.cuh``).
+THREADS = 256
+#: Channels an item of the persistent kernels carries on a chain that does
+#: not reduce over C: this many (256 contiguous bytes a position), or all
+#: of C below it, rounded up to a float4.
+CB_MIN = 64
+#: Window positions the fused paths hold in registers (``FUSED_WIN`` of
+#: ``csrc/fused_nhwc.cuh``), and the output positions they aim at an item
+#: (8 x 8).
+FUSED_WIN = 4
+FUSED_SIDE = 8
 #: Shared memory a CTA of a channel-independent chain aims to stay under
 #: (several CTAs per SM); a chain that reduces over C may use up to
 #: SMEM_MAX, the per-CTA opt-in limit of sm_90.
@@ -343,6 +366,78 @@ def compile_chain(program: ir.StackProgram, *, keep_values: bool = False,
                  rowred=any(r["kind"] in (K_NORM, K_SOFTMAX) for r in rows))
 
 
+def fused_chain(program: ir.StackProgram) -> bool:
+    """Whether ``program`` takes the kernels' fused path, forward and
+    backward: AFFINE of the input, then an element-wise unary op, then a
+    POOL2D whose windows do not overlap (window == stride) and hold at most
+    :data:`FUSED_WIN` positions (batch norm, an activation and VGG's 2x2/s2
+    max pool), nothing else."""
+    ops = program.ops
+    if len(ops) != 3 or len(program.inputs) != 1:
+        return False
+    aff, un, pool = ops
+    if (aff.kind != ir.OpKind.AFFINE or aff.inputs != program.inputs[:1]
+            or un.kind != ir.OpKind.EW_UNARY or un.inputs != (aff.output,)
+            or pool.kind != ir.OpKind.POOL2D or pool.inputs != (un.output,)
+            or program.outputs != (pool.output,)):
+        return False
+    (kh, kw), (sh, sw) = pool.attrs["window"], pool.attrs["stride"]
+    return (kh, kw) == (sh, sw) and kh * kw <= FUSED_WIN
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """The fused path's work items on one call shape: ``tile`` output
+    positions (``level0`` input positions) by ``cb`` channels; ``tiles``
+    per image, ``spatial`` = N x tiles items a channel block, ``n_cb``
+    blocks; ``lanes`` position lanes of ``cb // 4`` channel quads."""
+    tile: tuple[int, int]
+    level0: tuple[int, int]
+    tiles: tuple[int, int]
+    spatial: int
+    cb: int
+    n_cb: int
+    lanes: int
+
+    @property
+    def items(self) -> int:
+        return self.spatial * self.n_cb
+
+
+def _even(extent: int, side: int) -> int:
+    """``side`` evened out over the tiles it takes to cover ``extent``."""
+    return -(-extent // -(-extent // side))
+
+
+def fused_plan(program: ir.StackProgram, x_shape: tuple[int, ...],
+               extra_shapes: tuple[tuple[str, tuple[int, ...]], ...] = ()
+               ) -> FusedPlan:
+    """Items of a :func:`fused_chain` program, forward and backward: 8 x 8
+    output tiles (:data:`FUSED_SIDE`, evened out over the output) of a
+    channel block of ``min(C, CB_MIN)`` channels rounded up to a float4."""
+    shapes = ir.infer_shapes(program, {program.inputs[0]: tuple(x_shape),
+                                       **dict(extra_shapes)})
+    _, oh, ow, _ = shapes[program.outputs[0]]
+    geo = plan_geometry(program, x_shape, dict(extra_shapes),
+                        _even(oh, FUSED_SIDE), _even(ow, FUSED_SIDE))
+    n_img, c = x_shape[0], x_shape[-1]
+    cb = min(-(-c // 4) * 4, CB_MIN)
+    L = geo.levels[0]
+    return FusedPlan(geo.tile, (L.extent_h, L.extent_w), geo.grid[1:],
+                     n_img * geo.grid[1] * geo.grid[2], cb, -(-c // cb),
+                     THREADS // (cb // 4))
+
+
+def launch_programs(plan_spatial: int, n_cb: int, sm_count: int,
+                    ctas_per_sm: int) -> int:
+    """The persistent grid: a multiple of ``n_cb`` (CTA ``p`` keeps channel
+    block ``p % n_cb``), as many as fit the card at once, at most one per
+    item."""
+    per_block = max(1, min(plan_spatial,
+                           max(sm_count, 1) * max(ctas_per_sm, 1) // n_cb))
+    return n_cb * per_block
+
+
 def channel_block(n_slots: int, rowred: bool, level0_elems: int,
                   channels: int) -> int:
     """Channels one CTA carries: all of C when the chain reduces over C,
@@ -381,8 +476,14 @@ def _template(program: ir.StackProgram, x_shape: tuple[int, ...],
         _TEMPLATES.move_to_end(key)
         return hit
     chain = compile_chain(program)
-    d = build_desc(program, chain, x_shape, extra_shapes, vec_strides,
-                   tile_out_h, tile_out_w)
+    if fused_chain(program):        # the plan's items; no slots
+        plan = fused_plan(program, x_shape, extra_shapes)
+        d = build_desc(program, chain, x_shape, extra_shapes, vec_strides,
+                       *plan.tile, cb=plan.cb)
+        d.n_slots = 0
+    else:
+        d = build_desc(program, chain, x_shape, extra_shapes, vec_strides,
+                       tile_out_h, tile_out_w)
     hit = _TEMPLATES[key] = (chain, bytes(d))
     while len(_TEMPLATES) > _TEMPLATE_LIMIT:
         _TEMPLATES.popitem(last=False)
@@ -445,7 +546,10 @@ def fused_nhwc(program: ir.StackProgram, x: torch.Tensor,
     ``x`` is the spatial input (``program.inputs[0]``, ``(N, H, W, C)``
     float32); ``extras`` maps the remaining program inputs to broadcast side
     operands (every non-channel dim 1).  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel or raises.  A
+    :func:`fused_chain` program takes the fused path with
+    :func:`fused_plan`'s items (the planner's tile is not read), any other
+    the descriptor walk on ``tile_out_h`` x ``tile_out_w`` tiles."""
     extras = dict(extras or {})
     missing = [v for v in program.inputs[1:] if v not in extras]
     if missing:
@@ -481,8 +585,19 @@ def fused_nhwc(program: ir.StackProgram, x: torch.Tensor,
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_nhwc_launch(ctypes.byref(desc), x.data_ptr(),
-                                    out.data_ptr(), stream)
+        if fused_chain(program):
+            vec4 = int(c % 4 == 0 and x.data_ptr() % 16 == 0
+                       and out.data_ptr() % 16 == 0)
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            programs = launch_programs(desc.N * desc.tiles_h * desc.tiles_w,
+                                       desc.n_cb, sms, fused_ctas_per_sm())
+            err = lib.fused_nhwc_fused_launch(
+                ctypes.byref(desc), programs, x.data_ptr(), out.data_ptr(),
+                vec4, stream)
+        else:
+            err = lib.fused_nhwc_launch(ctypes.byref(desc), x.data_ptr(),
+                                        out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"fused_nhwc launch failed: CUDA error {err} "
                            f"({lib.fused_nhwc_error(err).decode()})")
@@ -493,6 +608,24 @@ def fused_nhwc(program: ir.StackProgram, x: torch.Tensor,
 fused_nhwc.launches = 0
 
 
+def fused_ctas_per_sm() -> int:
+    """CTAs of ``fused_nhwc_kernel_fused`` one SM of the current device
+    holds at once (the occupancy API's)."""
+    key = torch.cuda.current_device()
+    hit = _FUSED_CTAS_PER_SM.get(key)
+    if hit is None:
+        lib = _library()
+        hit = lib.fused_nhwc_fused_ctas_per_sm()
+        if hit <= 0:
+            raise RuntimeError(f"fused_nhwc: no fused CTA fits an SM "
+                               f"({lib.fused_nhwc_error(-hit).decode()})")
+        _FUSED_CTAS_PER_SM[key] = hit
+    return hit
+
+
+_FUSED_CTAS_PER_SM: dict[int, int] = {}
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load_library(SOURCE)
     if not getattr(lib, "_bound", False):
@@ -500,6 +633,12 @@ def _library() -> ctypes.CDLL:
                                           ctypes.c_void_p, ctypes.c_void_p,
                                           ctypes.c_void_p]
         lib.fused_nhwc_launch.restype = ctypes.c_int
+        lib.fused_nhwc_fused_launch.argtypes = [
+            ctypes.POINTER(NhwcDesc), ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.fused_nhwc_fused_launch.restype = ctypes.c_int
+        lib.fused_nhwc_fused_ctas_per_sm.argtypes = []
+        lib.fused_nhwc_fused_ctas_per_sm.restype = ctypes.c_int
         lib.fused_nhwc_desc_size.argtypes = []
         lib.fused_nhwc_desc_size.restype = ctypes.c_int
         lib.fused_nhwc_error.argtypes = [ctypes.c_int]

@@ -18,9 +18,10 @@ card), not from the planner's tile: a channel block of at least
 C), and, where tiles' input regions do not overlap (the direct write), the
 tile whose items cost least under :data:`SMEM_BWD` (two CTAs an SM); where
 they overlap, the planner's tile (smaller where it does not fit).  A chain
-that :func:`fused_chain` accepts (batch norm, an activation, a pool whose
-windows do not overlap: VGG's stages) runs the kernel's fused path, every
-output position in registers, on 8 x 8 output tiles.  The grid is
+that :func:`~.nhwc.fused_chain` accepts (batch norm, an activation, a pool
+whose windows do not overlap: VGG's stages) runs the kernel's fused path,
+every output position in registers, on the items of
+:func:`~.nhwc.fused_plan`, as the forward's fused path does.  The grid is
 persistent: each CTA keeps one channel block (so its threads keep their
 channels) and walks spatial items; per-CTA parameter and broadcast-extra
 partials are summed by a second kernel in a fixed order.  The input
@@ -50,22 +51,18 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_nhwc_bwd.cu"
 #: Shared-memory slots of one backward CTA: values, cotangents, scratch.
 BWD_MAX_SLOTS = 32
 #: Threads a CTA (``THREADS`` of ``csrc/fused_nhwc.cuh``).
-THREADS = 256
+THREADS = nhwc.THREADS
 #: Shared memory a backward CTA aims to stay under, so that two fit an SM
 #: of the H100 (228 KB an SM, 1 KB of it reserved a CTA).
 SMEM_BWD = 113 * 1024
 #: Channels an item carries on a chain that does not reduce over C: this
 #: many (256 contiguous bytes a position), or all of C below it.
-CB_MIN = 64
+CB_MIN = nhwc.CB_MIN
 #: Tile sides the plan weighs on the direct path, besides the output's own.
 TILE_SIDES = (1, 2, 4, 8, 16, 32)
 #: An item's fixed cost (its barriers, decode, interior test), in
 #: level-0 positions' worth of work.
 ITEM_COST = 16
-#: Window positions the fused path holds in registers (``FUSED_WIN``), and
-#: the output positions it aims at an item (8 x 8).
-FUSED_WIN = 4
-FUSED_SIDE = 8
 
 
 class BwdOpDesc(ctypes.Structure):
@@ -204,24 +201,6 @@ def desc_smem(b: NhwcBwdDesc) -> int:
     return _smem(f.n_slots, b.n_vecs, f.slot_elems // f.cb, f.cb)
 
 
-def fused_chain(program: ir.StackProgram) -> bool:
-    """Whether ``program`` takes the kernel's fused path: AFFINE of the
-    input, then an element-wise unary op, then a POOL2D whose windows do not
-    overlap (window == stride) and hold at most :data:`FUSED_WIN` positions
-    (batch norm, an activation and VGG's 2x2/s2 max pool), nothing else."""
-    ops = program.ops
-    if len(ops) != 3 or len(program.inputs) != 1:
-        return False
-    aff, un, pool = ops
-    if (aff.kind != ir.OpKind.AFFINE or aff.inputs != program.inputs[:1]
-            or un.kind != ir.OpKind.EW_UNARY or un.inputs != (aff.output,)
-            or pool.kind != ir.OpKind.POOL2D or pool.inputs != (un.output,)
-            or program.outputs != (pool.output,)):
-        return False
-    (kh, kw), (sh, sw) = pool.attrs["window"], pool.attrs["stride"]
-    return (kh, kw) == (sh, sw) and kh * kw <= FUSED_WIN
-
-
 def _smem(n_slots: int, n_vecs: int, e0: int, cb: int) -> int:
     """Bytes a CTA: the descriptor's copy, the slots, the per-lane gradient
     partials and the vector operands at the CTA's channel block."""
@@ -270,13 +249,12 @@ def launch_plan(program: ir.StackProgram, x_shape: tuple[int, ...],
         return sorted({-(-extent // -(-extent // t))
                        for t in targets + (extent,)})
 
+    if nhwc.fused_chain(program):   # the forward's items; no slots
+        fp = nhwc.fused_plan(program, x_shape, extra_shapes)
+        return BwdPlan(fp.tile, fp.level0, fp.tiles, fp.spatial, fp.cb,
+                       fp.n_cb, fp.lanes, _smem(0, n_vecs, 0, fp.cb), False,
+                       fused=True)
     geo, l0, patches = geometry(tile_out_h, tile_out_w)
-    if fused_chain(program):        # no slots: an 8 x 8 output tile
-        oh, ow = geo.out_hw
-        g2, l2, _ = geometry(sides(oh, (FUSED_SIDE,))[0],
-                             sides(ow, (FUSED_SIDE,))[0])
-        return dataclasses.replace(plan(g2, l2, False, cb), fused=True,
-                                   smem=_smem(0, n_vecs, 0, cb))
     if patches:
         for budget in (SMEM_BWD, nhwc.SMEM_MAX):
             th, tw = geo.tile
@@ -313,14 +291,8 @@ def launch_plan(program: ir.StackProgram, x_shape: tuple[int, ...],
                                f"fits {nhwc.SMEM_MAX} B")
 
 
-def launch_programs(plan_spatial: int, n_cb: int, sm_count: int,
-                    ctas_per_sm: int) -> int:
-    """The persistent grid: a multiple of ``n_cb`` (CTA ``p`` keeps channel
-    block ``p % n_cb``), as many as fit the card at once, at most one per
-    item."""
-    per_block = max(1, min(plan_spatial,
-                           max(sm_count, 1) * max(ctas_per_sm, 1) // n_cb))
-    return n_cb * per_block
+#: The persistent grid, shared with the forward's fused path.
+launch_programs = nhwc.launch_programs
 
 
 #: Descriptors by call shape, without their vector pointers (LRU).

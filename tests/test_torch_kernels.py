@@ -7,7 +7,11 @@ kernels (run in interpret mode), on the CPU.
   ``fused_nhwc_call``/``fused_rows_call`` at 1e-5;
 * the CUDA kernel's algorithm is held to the same reference through
   ``_run_descriptor``, a line-by-line transliteration of
-  ``csrc/fused_nhwc.cu`` over the descriptor the wrapper builds;
+  ``csrc/fused_nhwc.cu``'s generic kernel over the descriptor the wrapper
+  builds, and ``_run_fused_forward``, of its fused path (persistent CTAs
+  over ``fused_plan``'s items), bit for bit with the plain version on
+  VGG-like chains; the fused plan stores every output element once, and
+  ``fused_chain`` takes VGG's stacks and leaves block_net's;
 * the generated Triton source parses, names the expected ops, and, run
   against ``_fake_triton`` (numpy standing in for ``triton.language``,
   with bf16 from ``ml_dtypes``), computes what the JAX kernel computes, in
@@ -406,6 +410,222 @@ def test_descriptor_reuses_slots():
     chain = tnhwc.compile_chain(_block_chain(tir, 6))
     assert chain.n_slots == 2 and chain.n_pools == 6 and not chain.rowred
     assert tnhwc.compile_chain(_swish_twice(tir)).n_slots == 3
+
+
+# -- the fused path (AFFINE -> UNARY -> POOL2D, window == stride) ---------
+
+def _vgg_stage(m, fn="relu", pool="max", pad=0, window=2):
+    """VGG-16's stage chain: batch norm (affine), ReLU, 2x2/s2 max pool (or
+    another activation, pool, padding and window)."""
+    return m.StackProgram(name="vggstage", inputs=("x",), outputs=("y",),
+                          layout="nhwc", ops=(
+        m.OpNode(m.OpKind.AFFINE, "bn", ("x",), "b", params=("s", "o")),
+        m.OpNode(m.OpKind.EW_UNARY, "r", ("b",), "r", fn=fn),
+        m.OpNode(m.OpKind.POOL2D, "p", ("r",), "y", fn=pool,
+                 attrs={"window": (window, window),
+                        "stride": (window, window),
+                        "padding": (pad, pad)})))
+
+
+FUSED_CASES = {
+    # name: (make, x shape); every one is a fused chain
+    "vgg_stage": (_vgg_stage, (2, 16, 16, 64)),
+    # two channel blocks, the second ragged; an odd row no window reads
+    "vgg_stage_odd_two_blocks": (_vgg_stage, (2, 9, 14, 72)),
+    # odd extents whose windows reach past the edge (padded borders)
+    "vgg_stage_padded_odd": (lambda m: _vgg_stage(m, pad=1), (1, 11, 13, 8)),
+    # six channels: one float4 quad and a tail
+    "vgg_stage_c6": (_vgg_stage, (2, 10, 10, 6)),
+    "avg_tanh_padded": (lambda m: _vgg_stage(m, "tanh", "avg", 1),
+                        (2, 9, 10, 6)),
+    "silu_max_1x1": (lambda m: _vgg_stage(m, "silu", window=1), (1, 5, 7, 8)),
+}
+#: cases whose plain version is exact (relu and max): the walk equals it bit
+#: for bit, as the kernel must on the card
+EXACT_FUSED = ("vgg_stage", "vgg_stage_odd_two_blocks",
+               "vgg_stage_padded_odd", "vgg_stage_c6")
+
+
+def _fused_inputs(name):
+    make, shape = FUSED_CASES[name]
+    rng = np.random.default_rng(40 + sorted(FUSED_CASES).index(name))
+    x = _randn(rng, shape, 2.0)
+    c = shape[-1]
+    params = {"s": _randn(rng, (c,), 0.3) + 1.0, "o": _randn(rng, (c,), 0.3)}
+    return make, x, params
+
+
+def _fused_cta_items(d, spatial, programs):
+    """CTA ``p``'s channel block and items (n, ti, tj), in the kernel's
+    order: block ``p % n_cb``, items ``p // n_cb``, then every
+    ``programs // n_cb``-th."""
+    for p in range(programs):
+        for s in range(p // d.n_cb, spatial, programs // d.n_cb):
+            yield p % d.n_cb, (s // (d.tiles_w * d.tiles_h),
+                               (s // d.tiles_w) % d.tiles_h, s % d.tiles_w)
+
+
+def _run_fused_forward(program, x, params, card=(3, 2), writes=None):
+    """``fused_nhwc_kernel_fused`` of ``csrc/fused_nhwc.cu`` in torch over
+    the descriptor and the plan ``nhwc.fused_nhwc`` passes, on a card of
+    ``card`` = (SMs, CTAs an SM): ``launch_programs`` persistent CTAs, each
+    keeping one channel block and walking its items; per item every thread
+    (position lane, channel quad) takes output positions lane, lane +
+    lanes, ... of the 8 x 8 tile that lie in the output; per position its
+    window's x (0 past C), the affine rounded after the multiply, the unary
+    op, the pool's neutral element at window positions outside the image,
+    the max in window order (or the sum divided by the window).  ``writes``
+    (an int tensor shaped as the output) counts the stores."""
+    xt = torch.from_numpy(x)
+    N, H, W, C = x.shape
+    vecs = [torch.from_numpy(params[n]).reshape(-1)
+            for n in program.param_names]
+    _, blob = tnhwc._template(program, x.shape, (), (1,) * len(vecs), 8, 8)
+    d = tnhwc.NhwcDesc.from_buffer_copy(blob)
+    plan = tnhwc.fused_plan(program, x.shape)
+    assert (d.th, d.tw, d.cb, d.n_slots) == (*plan.tile, plan.cb, 0)
+    spatial = N * d.tiles_h * d.tiles_w
+    assert spatial == plan.spatial
+    programs = tnhwc.launch_programs(spatial, d.n_cb, *card)
+    vec = _vec_fn(d, vecs, C)
+    aff, un, pool = d.ops[0], d.ops[1], d.ops[2]
+    fn = {i: k for k, i in tnhwc.UNARY_IDS.items()}[un.fn]
+    is_max = pool.fn == tnhwc.POOL_IDS["max"]
+    neutral = -np.finfo(np.float32).max if is_max else 0.0
+    L0, L1 = d.levels[0], d.levels[1]
+    nq = d.cb // 4
+    lanes = tnhwc.THREADS // nq
+    assert lanes == plan.lanes
+    out = torch.full((N, d.OH, d.OW, C), float("nan"))
+    for cblk, (n, ti, tj) in _fused_cta_items(d, spatial, programs):
+        gh = ti * d.th * L0.mul_h - L0.off_h
+        gw = tj * d.tw * L0.mul_w - L0.off_w
+        # the lanes' positions, then the quads' channels
+        p = torch.tensor([q for lane in range(lanes)
+                          for q in range(lane, L1.eh * L1.ew, lanes)])
+        r, c = p // L1.ew, p % L1.ew
+        oh, ow = ti * d.th + r, tj * d.tw + c
+        keep = (oh < d.OH) & (ow < d.OW)
+        r, c, oh, ow = r[keep], c[keep], oh[keep], ow[keep]
+        cg = cblk * d.cb + torch.arange(nq * 4)
+        live = cg < C
+        s, t = vec(aff.b_idx, cg)[None], vec(aff.c_idx, cg)[None]
+        y = None
+        for k in range(pool.kh * pool.kw):
+            h = gh + r * pool.sh + k // pool.kw
+            w = gw + c * pool.sw + k % pool.kw
+            ok = ((h >= 0) & (h < H) & (w >= 0) & (w < W))[:, None]
+            xk = torch.where(ok & live[None], xt[n, h.clamp(0, H - 1),
+                                                w.clamp(0, W - 1)][
+                :, cg.clamp(max=C - 1)], 0.0)
+            v = torch.where(ok, tir.UNARY_FNS[fn](xk * s + t), neutral)
+            y = v if y is None else (torch.maximum(y, v) if is_max
+                                     else y + v)
+        if not is_max:
+            y = y / float(pool.kh * pool.kw)
+        rows = oh[:, None].expand(-1, int(live.sum()))
+        cols = ow[:, None].expand(-1, int(live.sum()))
+        out[n, rows, cols, cg[live][None].expand(len(oh), -1)] = y[:, live]
+        if writes is not None:
+            writes[n, rows, cols, cg[live][None].expand(len(oh), -1)] += 1
+    return out.numpy()
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_CASES))
+def test_nhwc_fused_walk_matches_plain_and_jax(name):
+    """The fused path's walk: bit for bit with the plain version where that
+    is exact (relu, max), and within ``TOL`` of the Pallas kernel."""
+    make, x, params = _fused_inputs(name)
+    tprog = make(tir)
+    assert tnhwc.fused_chain(tprog)
+    got = _run_fused_forward(tprog, x, params)
+    plain = tnhwc.fused_nhwc(tprog, torch.from_numpy(x),
+                             {k: torch.from_numpy(v)
+                              for k, v in params.items()}).numpy()
+    if name in EXACT_FUSED:
+        np.testing.assert_array_equal(got, plain)
+    else:
+        np.testing.assert_allclose(got, plain, rtol=TOL, atol=TOL)
+    want = _jax_kernel(make, x, params, {}, 4)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def _vgg_fused_cases():
+    """(name, program, input shape) of VGG-16's five stacks at batch 2,
+    stage 1's chain at odd extents and at 200 and 6 channels."""
+    from repro_torch.core import analyzer, collapse, resource
+    from repro_torch.models import cnn
+    g, _ = cnn.vgg_net((64, 128, 256, 512, 512), device="cpu")
+    x_shape, out = (2, 224, 224, 3), []
+    for seg in analyzer.analyze(g, keep=frozenset({g.output})):
+        if not seg.is_stack:
+            if seg.op.kind == tir.OpKind.CONV2D:
+                x_shape = x_shape[:3] + (seg.op.attrs["kernel_shape"][-1],)
+            continue
+        plan = collapse.collapse(seg.stack, {seg.stack.inputs[0]: x_shape},
+                                 resource.H100)
+        for i in range(len(plan.sequences)):
+            out.append((f"vgg16_{len(out)}", plan.subprogram(i), x_shape))
+        x_shape = tir.infer_shapes(seg.stack, {seg.stack.inputs[0]: x_shape})[
+            seg.stack.outputs[0]]
+    _, prog, shape = out[0]
+    out += [("vgg16_0_odd", prog, (1, 33, 47, 64)),
+            ("vgg16_0_c200", prog, shape[:3] + (200,)),
+            ("vgg16_0_c6", prog, shape[:3] + (6,))]
+    return out
+
+
+_VGG_FUSED = {name: case for name, *case in _vgg_fused_cases()}
+
+
+@pytest.mark.parametrize("name", sorted(_VGG_FUSED))
+def test_nhwc_fused_launch_plan_writes_every_output_once(name):
+    """Over ``launch_programs``' persistent CTAs, the items of
+    ``fused_plan`` and each thread's positions and channel quad, every
+    (image, output position, channel) is stored exactly once; the plan is
+    the backward's fused plan."""
+    from repro_torch.kernels.fused_stack import nhwc_bwd as tnhwc_bwd
+    prog, shape = _VGG_FUSED[name]
+    assert tnhwc.fused_chain(prog)
+    plan = tnhwc.fused_plan(prog, shape)
+    bwd = tnhwc_bwd.launch_plan(prog, shape, (), 8, 8)
+    assert bwd.fused and (bwd.tile, bwd.cb, bwd.lanes, bwd.spatial) == (
+        plan.tile, plan.cb, plan.lanes, plan.spatial)
+    c = shape[-1]
+    if name == "vgg16_0":
+        assert (plan.tile, plan.cb, plan.lanes, plan.n_cb) == ((8, 8), 64,
+                                                               16, 1)
+    # the kernel's walk on zeros (values do not matter here), one image
+    x = np.zeros((1,) + tuple(shape[1:]), np.float32)
+    scale, offset = prog.ops[0].params
+    params = {scale: np.ones(c, np.float32), offset: np.zeros(c, np.float32)}
+    oh, ow = tir.infer_shapes(prog, {prog.inputs[0]: x.shape})[
+        prog.outputs[0]][1:3]
+    for card in ((132, 8), (3, 2)):
+        writes = torch.zeros((1, oh, ow, c), dtype=torch.int32)
+        _run_fused_forward(prog, x, params, card, writes)
+        assert bool((writes == 1).all())
+
+
+def test_fused_chain_takes_vgg_and_leaves_block_net():
+    """VGG-16's five stacks (batch norm, ReLU, 2x2/s2 max pool) take the
+    fused path forward and backward; block_net's overlapping pools keep
+    the generic kernels."""
+    from repro_torch.core import analyzer, collapse, resource
+    from repro_torch.models import cnn
+    vgg = [prog for name, prog, _ in _vgg_fused_cases()
+           if name.count("_") == 1]
+    assert len(vgg) == 5 and all(tnhwc.fused_chain(p) for p in vgg)
+    g, _ = cnn.block_net(8, channels=32, device="cpu")
+    seg, = analyzer.analyze(g, keep=frozenset({g.output}))
+    plan = collapse.collapse(seg.stack, {"x": (8, 56, 56, 32)},
+                             resource.H100)
+    block = [plan.subprogram(i) for i in range(len(plan.sequences))]
+    assert block and not any(tnhwc.fused_chain(p) for p in block)
+    assert not tnhwc.fused_chain(_block_chain(tir, 1))
+    assert not tnhwc.fused_chain(_vgg_stage(tir, window=3))   # 9 > FUSED_WIN
+    header = (tnhwc.SOURCE.parent / "fused_nhwc.cuh").read_text()
+    assert f"constexpr int FUSED_WIN = {tnhwc.FUSED_WIN};" in header
 
 
 # ---------------------------------------------------------------------------

@@ -5,10 +5,14 @@
   ragged lengths, a length-0 slot (exact zeros), GQA at qwen2.5-14b's 40/8
   heads, a shuffled table with sentinel tail entries, q in bf16 over a
   float32 pool; 1e-5 in float32, 1e-2 in bf16;
-* a transliteration of ``csrc/paged_flash_decode.cu``'s loop order (the
-  dense decode kernel's CTA walk, through the table in shared memory)
-  against the same, and bit for bit against the dense kernel's walk on the
-  gathered view;
+* a transliteration of ``csrc/paged_flash_decode.cu``'s walk (the
+  ``launch_plan``'s CTAs, each CTA's chains with their block and row
+  cursors and ring of staged keys, the workspace and the merge in chain
+  order by whichever CTA arrives last) against the same, and bit for bit
+  against the dense kernel's walk on the gathered view at 1, 2, 4 and 16
+  CTAs a (slot, head);
+* ``launch_plan``: every (slot, head, chain) once, no lengths read, the
+  chain count the dense kernel's;
 * the layer's in-place paged write, ``lm.reset_slots`` and
   ``lm.copy_blocks`` against the JAX package's;
 * ``BlockAllocator``/``PrefixCache`` under one random op sequence in both
@@ -19,6 +23,8 @@ The kernel itself runs only on the card (``chip_smoke.py`` phase 14)."""
 from __future__ import annotations
 
 import dataclasses
+import inspect
+import itertools
 import re
 
 import jax.numpy as jnp
@@ -109,58 +115,175 @@ def _cu_const(path, name):
                          path.read_text()).group(1))
 
 
-def _decode_cta_walk(q, rows_k, rows_v, n, scale, source):
-    """One CTA of a decode kernel in torch float32: group ``i`` of
-    ``THREADS / LANES`` (from ``source``) walks keys ``i, i + groups, ...``
-    below ``n`` with its own online softmax (keys fetched by
-    ``rows_k(t)``/``rows_v(t)``), then the 16 states merge."""
-    groups = (_cu_const(source, "THREADS") // _cu_const(source, "LANES"))
-    m = torch.full((groups,), tdecode.NEG_INF)
-    l = torch.zeros(groups)
-    acc = torch.zeros(groups, q.shape[-1])
-    for t0 in range(0, n, groups):
-        t = t0 + torch.arange(groups)
-        act = t < n
-        tc = t.clamp(max=max(n - 1, 0))
-        sc = (rows_k(tc) @ q) * scale
-        m_new = torch.where(act, torch.maximum(m, sc), m)
-        corr = torch.exp(m - m_new)
-        p = torch.exp(sc - m_new)
-        l = torch.where(act, l * corr + p, l)
-        acc = torch.where(act[:, None], acc * corr[:, None]
-                          + p[:, None] * rows_v(tc), acc)
-        m = m_new
+#: The chains of a (slot, head): ``GROUPS`` (``THREADS / LANES``) of
+#: ``csrc/flash_decode.cu``, ``CHAINS`` of ``csrc/paged_flash_decode.cu``.
+GROUPS = (_cu_const(tdecode.SOURCE, "THREADS")
+          // _cu_const(tdecode.SOURCE, "LANES"))
+#: A card of (SMs, CTAs an SM at every split) for the plan in these tests.
+CARD = (3, lambda splits: 2)
+
+
+def _chain_step(q, k, v, m, l, acc, act, scale):
+    """One key of every chain at once (``CHAINS`` wide, whatever subset
+    advances): the kernels' dot product, each lane's ``D / 16`` elements in
+    order, then the xor-shuffle tree 8, 4, 2, 1 over the 16 lanes; then
+    the online-softmax update.  Elementwise over the chains, so a chain's
+    bits do not depend on which others advance."""
+    lanes = 16
+    e = q.shape[-1] // lanes
+    qv, kv = q.view(lanes, e), k.view(-1, lanes, e)
+    dot = torch.zeros(k.shape[0], lanes)
+    for i in range(e):
+        dot = qv[:, i] * kv[:, :, i] + dot
+    for x in (8, 4, 2, 1):
+        dot = dot + dot[:, torch.arange(lanes) ^ x]
+    sc = dot[:, 0] * scale
+    m_new = torch.where(act, torch.maximum(m, sc), m)
+    corr = torch.exp(m - m_new)
+    p = torch.exp(sc - m_new)
+    l = torch.where(act, l * corr + p, l)
+    acc = torch.where(act[:, None], acc * corr[:, None] + p[:, None] * v, acc)
+    return m_new, l, acc
+
+
+def _merge(m, l, acc):
+    """The CHAINS states merged in chain order (``flash_decode.cu``'s fmaf
+    sequence, as a multiply and an add)."""
     mx = m.max()
     w = torch.exp(m - mx)
-    o = (acc * w[:, None]).sum(0) / torch.clamp((l * w).sum(), min=1e-30)
+    den, num = torch.zeros(()), torch.zeros(acc.shape[-1])
+    for c in range(m.shape[0]):
+        den = l[c] * w[c] + den
+        num = acc[c] * w[c] + num
+    o = num / torch.clamp(den, min=1e-30)
     return o if mx > 0.5 * tdecode.NEG_INF else torch.zeros_like(o)
 
 
-def _paged_cuda(q, k_pool, v_pool, table, lengths, scale):
-    """``csrc/paged_flash_decode.cu``: per (slot, head) CTA, the slot's
-    table row clamped to ``[0, N-1]`` (the entries below the clamped
-    length), the length clamped to ``[0, MB*bs]``, key ``t`` read at
-    ``pool[tbl[t // bs], g, t % bs]``; K/V rounded to q's dtype first."""
+def _seed(d):
+    return (torch.full((GROUPS,), tdecode.NEG_INF), torch.zeros(GROUPS),
+            torch.zeros(GROUPS, d))
+
+
+def _ring_keys(pool_dtype, chains):
+    """``ring_keys<TKV, CPS>()`` and ``step_keys<TKV, CPS>()`` of the .cu
+    file: keys a chain stages, and keys it takes a step."""
+    lane_bytes = (4 if pool_dtype == torch.float32 else 2) * 8
+    r = (_cu_const(tdecode.PAGED_SOURCE, "RING_BYTES")
+         // (chains * 16 * 2 * lane_bytes))
+    ring = min(max(r, 2), 16)
+    return ring, min(ring // 2, 4)
+
+
+def _paged_cta(q, kq, vq, tbl, g, n, bs, chains, c0, scale, ring):
+    """One CTA of ``csrc/paged_flash_decode.cu``: chains ``c0 ..
+    c0 + chains - 1`` walk keys ``c, c + CHAINS, ...`` below ``n``.  Each
+    chain's cursor (block ``pj``, row ``pr``) starts at ``c // bs, c % bs``
+    and steps by ``(CHAINS // bs, CHAINS % bs)`` with one wrap, the table
+    entry read (clamped) at each new block.  ``ring`` = (RING, U): RING - U
+    keys are staged ahead; a step stages U more into the slots the last
+    step's keys left, then takes keys ``i0 .. i0 + U - 1`` from slots ``i %
+    RING``, in order.  Returns the chains' (m, l, acc), seeds elsewhere."""
+    ring_keys, step = ring
+    d = q.shape[-1]
+    own = torch.zeros(GROUPS, dtype=torch.bool)
+    own[c0:c0 + chains] = True
+    cs = torch.arange(GROUPS)
+    n_keys = torch.where(own & (cs < n), (n - cs + GROUPS - 1) // GROUPS, 0)
+    pj, pr = cs // bs, cs % bs
+    dj, dr = GROUPS // bs, GROUPS % bs
+    slots = [dict() for _ in range(GROUPS)]    # slot -> (block, row, key)
+    staged = torch.zeros(GROUPS, dtype=torch.long)
+
+    def stage():
+        nonlocal pj, pr
+        for c in range(GROUPS):
+            i = int(staged[c])
+            if i < n_keys[c]:
+                blk = int(tbl[int(pj[c])].clamp(0, kq.shape[0] - 1))
+                slots[c][i % ring_keys] = (blk, int(pr[c]), c + GROUPS * i)
+        step_ = staged < n_keys
+        pr = torch.where(step_, pr + dr, pr)
+        pj = torch.where(step_, pj + dj, pj)
+        wrap = step_ & (pr >= bs)
+        pr = torch.where(wrap, pr - bs, pr)
+        pj = torch.where(wrap, pj + 1, pj)
+        staged.add_(1)
+
+    for _ in range(ring_keys - step):
+        stage()
+    m, l, acc = _seed(d)
+    for i in range(int(n_keys.max())):
+        if i % step == 0:
+            for _ in range(step):
+                stage()
+        act = i < n_keys
+        k = torch.zeros(GROUPS, d)
+        v = torch.zeros(GROUPS, d)
+        for c in torch.nonzero(act).flatten().tolist():
+            blk, row, key = slots[c][i % ring_keys]
+            assert key == c + GROUPS * i        # the slot holds key i
+            assert (blk, row) == (int(tbl[key // bs].clamp(
+                0, kq.shape[0] - 1)), key % bs)
+            k[c], v[c] = kq[blk, g, row], vq[blk, g, row]
+        m, l, acc = _chain_step(q, k, v, m, l, acc, act, scale)
+    return m, l, acc
+
+
+def _paged_cuda(q, k_pool, v_pool, table, lengths, scale, splits=None,
+                arrival=0):
+    """``csrc/paged_flash_decode.cu`` over :func:`tdecode.launch_plan`'s
+    grid (or ``splits`` CTAs a (slot, head)): per (slot, head) the length
+    clamped to ``[0, MB*bs]`` (zeros at 0); CTA ``j`` holds chains
+    ``j*chains ..``, holds keys iff ``j*chains < len`` (else returns);
+    with one CTA holding keys it merges in place, else each writes its
+    chains' states to the workspace and the CTA that arrives last (the
+    ``arrival``-th of a rotation of the CTAs holding keys) merges, reading
+    chains below ``len`` from the workspace and seeds above.  K/V rounded
+    to q's dtype first."""
     b, h, _, d = q.shape
     n_blk, g, bs, _ = k_pool.shape
     mb = table.shape[1]
+    if splits is None:
+        splits = tdecode.launch_plan(b, h, mb * bs, bs, *CARD).splits
+    chains = GROUPS // splits
+    ring = _ring_keys(k_pool.dtype, chains)
     kq, vq = k_pool.to(q.dtype).float(), v_pool.to(q.dtype).float()
     out = torch.full(q.shape, float("nan"))
     for bi in range(b):
         n = min(max(int(lengths[bi]), 0), mb * bs)
-        tbl = table[bi, :-(-n // bs)].long().clamp(0, n_blk - 1)
         for hi in range(h):
+            if n == 0:
+                out[bi, hi, 0] = 0.0            # split 0 writes zeros
+                continue
             gi = hi // (h // g)
-            out[bi, hi, 0] = _decode_cta_walk(
-                q[bi, hi, 0].float(),
-                lambda t: kq[tbl[t // bs], gi, t % bs],
-                lambda t: vq[tbl[t // bs], gi, t % bs], n, scale,
-                tdecode.PAGED_SOURCE)
+            qv = q[bi, hi, 0].float()
+            active = min(splits, -(-n // chains))
+            ws = _seed(d)
+            states = {}
+            for j in range(active):             # CTAs that hold keys
+                c0 = j * chains
+                states[j] = _paged_cta(qv, kq, vq, table[bi], gi, n, bs,
+                                       chains, c0, scale, ring)
+                if active > 1:                  # publish to the workspace
+                    for t, s in zip(ws, states[j]):
+                        t[c0:c0 + chains] = s[c0:c0 + chains]
+            last = arrival % active             # the CTA that merges
+            c0 = last * chains
+            # its own chains from shared memory, the others' from the
+            # workspace where they hold keys (c < len), seeds past len
+            m, l, acc = (t.clone() for t in (ws if active > 1
+                                              else _seed(d)))
+            for t, o in zip((m, l, acc), states[last]):
+                t[c0:c0 + chains] = o[c0:c0 + chains]
+            for t, o in zip((m, l, acc), _seed(d)):
+                t[n:] = o[n:]
+            out[bi, hi, 0] = _merge(m, l, acc)
     return out.to(q.dtype)
 
 
 def _dense_cuda(q, k, v, lengths, scale):
-    """``csrc/flash_decode.cu`` over a dense cache, the same walk."""
+    """``csrc/flash_decode.cu`` over a dense cache: one CTA of all GROUPS
+    chains a (slot, head), keys ``c, c + GROUPS, ...`` read in place."""
     b, h, _, d = q.shape
     g, s = k.shape[1], k.shape[2]
     kq, vq = k.to(q.dtype).float(), v.to(q.dtype).float()
@@ -169,9 +292,15 @@ def _dense_cuda(q, k, v, lengths, scale):
         n = min(max(int(lengths[bi]), 0), s)
         for hi in range(h):
             gi = hi // (h // g)
-            out[bi, hi, 0] = _decode_cta_walk(
-                q[bi, hi, 0].float(), lambda t: kq[bi, gi, t],
-                lambda t: vq[bi, gi, t], n, scale, tdecode.SOURCE)
+            m, l, acc = _seed(d)
+            for t0 in range(0, n, GROUPS):
+                t = t0 + torch.arange(GROUPS)
+                act = t < n
+                tc = t.clamp(max=max(n - 1, 0))
+                m, l, acc = _chain_step(q[bi, hi, 0].float(), kq[bi, gi, tc],
+                                        vq[bi, gi, tc], m, l, acc, act,
+                                        scale)
+            out[bi, hi, 0] = _merge(m, l, acc)
     return out.to(q.dtype)
 
 
@@ -218,11 +347,13 @@ def test_paged_cuda_transliteration_matches_jax_kernel(name):
         assert bool((got[i] == 0).all())
 
 
+@pytest.mark.parametrize("splits", [1, 2, 4, 16])
 @pytest.mark.parametrize("name", ["ragged_f32", "bf16_q_f32_pool"])
-def test_paged_equals_dense_on_the_gathered_view(name):
+def test_paged_equals_dense_on_the_gathered_view(name, splits):
     """Paged decode on a pool equals dense decode on the gathered view:
     the plain versions within float32 rounding (their tiles differ), the
-    two kernels' walks bit for bit (one key order)."""
+    two kernels' walks bit for bit (one key order, one chain arithmetic,
+    one merge order) at every split, whichever CTA arrives last."""
     q, kp, vp, table, lens, qdt = _paged_case(name)
     pdt = PAGED_CASES[name][5]
     tq, tk, tv = _t(q, qdt), _t(kp, pdt), _t(vp, pdt)
@@ -233,8 +364,52 @@ def test_paged_equals_dense_on_the_gathered_view(name):
            tdecode.flash_decode_plain(tq, kd, vd, tl_).float(), qdt,
            "plain versions")
     scale = 1.0 / D ** 0.5
-    assert torch.equal(_paged_cuda(tq, tk, tv, tbl, tl_, scale),
-                       _dense_cuda(tq, kd, vd, tl_, scale))
+    dense = _dense_cuda(tq, kd, vd, tl_, scale)
+    for arrival in range(2):
+        assert torch.equal(_paged_cuda(tq, tk, tv, tbl, tl_, scale, splits,
+                                       arrival), dense)
+
+
+@pytest.mark.parametrize("sm", [1, 8, 132])
+def test_paged_launch_plan_covers_every_chain_once(sm):
+    """Over a grid of batches, heads, table widths and block sizes on a
+    card of ``sm`` SMs: the grid (splits, H, B) of CTAs of ``chains``
+    chains, chain ``split * chains + grp`` for thread group ``grp``, holds
+    every (slot, head, chain) exactly once; short tables take one CTA a
+    (slot, head)."""
+    for b, h, mb, bs in itertools.product((1, 3, 8), (4, 32, 40),
+                                          (1, 16, 2048), (1, 8, 16, 32)):
+        plan = tdecode.launch_plan(b, h, mb * bs, bs, sm,
+                                   lambda s: 1 + s % 5)
+        assert plan.splits in tdecode.SPLITS
+        assert plan.chains * plan.splits == GROUPS
+        assert plan.threads == 16 * plan.chains
+        assert plan.ctas == b * h * plan.splits
+        seen = np.zeros((b, h, GROUPS), np.int64)
+        for split, hi, bi in itertools.product(range(plan.splits), range(h),
+                                               range(b)):
+            for grp in range(plan.threads // 16):
+                seen[bi, hi, split * plan.chains + grp] += 1
+        assert (seen == 1).all()
+        if -(-mb * bs // GROUPS) <= tdecode.SPLIT_MIN_KEYS:
+            assert plan.splits == 1
+
+
+def test_paged_plan_reads_no_lengths_and_keeps_the_chains():
+    """The plan is a function of shapes and the card alone (the lengths
+    live on the device); the paged kernel's CHAINS is the dense kernel's
+    GROUPS, so the two walk the same keys per chain; the plan spreads a
+    lone long slot over every SM, keeps a batch of long slots within what
+    the card holds at once, and one CTA a (slot, head) for short tables."""
+    assert list(inspect.signature(tdecode.launch_plan).parameters) == [
+        "batch", "heads", "max_keys", "block_size", "sm_count",
+        "ctas_per_sm"]
+    assert tdecode.CHAINS == GROUPS == _cu_const(tdecode.PAGED_SOURCE,
+                                                 "CHAINS")
+    occupancy = {1: 4, 2: 5, 4: 5, 8: 9, 16: 13}.get
+    assert tdecode.launch_plan(1, 32, 32768, 16, 132, occupancy).splits == 8
+    assert tdecode.launch_plan(8, 32, 32768, 16, 132, occupancy).splits == 2
+    assert tdecode.launch_plan(4, 32, 256, 16, 132, occupancy).splits == 1
 
 
 def test_gather_paged_matches_jax():
