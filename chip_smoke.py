@@ -115,6 +115,27 @@ Phases, one line each (plus tables):
    2 and resume from the step-1
    checkpoint at 4 layers lands on the uninterrupted step-3 loss exactly;
    the step per mode in turns and a traced step per mode;
+23. the traced frontend, ``repro_torch.api.optimize`` on the plain twins:
+   (a) ``cnn.vgg_fn`` at phase 4's VGG-16 widths, within 1e-4 of the plain
+   function, with phase 4's stacks and sequences, capture at least 0.9,
+   every sequence on ``fused_nhwc``; (b) three SGD steps of it with
+   ``differentiable=True`` and one step of ``cnn.block_fn`` at
+   ``block_net(8, 32)``'s shape, held to autograd of the plain functions
+   at phase 9's limits, every sequence's backward on ``fused_nhwc_bwd``;
+   (c) ``lm.transformer_block_fn`` at deepseek-7b widths (1, 2048, 4096),
+   float32 and bf16, the registry dispatching attention, both rmsnorms
+   and swiglu to their kernels (float32 within 1e-4 and bf16 within 2e-2
+   of ``barrier``, relative to max|y|, gradients too), the gradient pass
+   counted (every sequence's backward on ``fused_rows_bwd``), and
+   ``lm.ce_loss_fn`` at (4096, 4096, 102400) bf16 and float32 on one
+   ``fused_ce`` launch (loss within 1e-4 relative; gradients within
+   ``CE_GRAD_L2`` in relative L2 distance of ``barrier``'s, which runs
+   the registry's plain entry, and the bf16 limit parts a sound twin from
+   two with a wrong row logsumexp);
+   (d) the traced VGG forward and training step against phase 4's and
+   phase 9's ``optimize_graph`` and ``barrier``, the traced blocks against
+   ``barrier``, in turns, and ``OptimizedFn.__call__``'s host time per
+   call; the kernels these paths launch record it as ``traced_launches``;
 then the ``kernels`` JSON line, the card line, and the ``ok`` line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
@@ -204,6 +225,15 @@ CE_RAGGED = (1000, 4000, 50257)
 # d_model not a multiple of 8: h's rows are staged to a padded pitch
 CE_ODD_D = (1000, 4001, 102400)
 CE_GRAD_ROWS = 1024
+# Phase 23's traced CE tail: brainslug's gradients against barrier's, as a
+# relative L2 distance.  float32 holds 1e-4.  In bf16 both modes sum each
+# element in float32 (in another order: 512-column chunks against one
+# product) and round it to bf16, so the elements that straddle a rounding
+# boundary part by one bf16 step: dh read 1.556e-4 and dw 4.1e-5 on an
+# H100.  The bf16 limit sits twice above dh's reading, and its controls,
+# backwards that take the row logsumexp rounded to bf16 or 0.1% high,
+# must fail it.
+CE_GRAD_L2 = {"float32": 1e-4, "bfloat16": 3e-4}
 # brainslug against barrier in bf16 (8 layers, three steps), relative: the
 # modes round at other places (barrier's logits are bf16, the CE kernel's
 # float32).  Each limit sits above the gaps of sound runs and, where one
@@ -362,30 +392,23 @@ class Smoke:
         return statistics.median(times)
 
     # -- phases ---------------------------------------------------------------
+    PHASES = ("phase0_device", "phase1_build", "phase2_nhwc", "phase3_rows",
+              "phase4_paths", "phase5_timing", "phase7_nhwc_bwd",
+              "phase8_rows_bwd", "phase9_train", "phase10_bwd_timing",
+              "phase11_lm_kernels", "phase12_serving", "phase13_lm_timing",
+              "phase14_paged_kernel", "phase15_engine",
+              "phase16_engine_timing", "phase17_ce_kernel", "phase18_train",
+              "phase19_train_timing", "phase20_ssd_kernel",
+              "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced")
+
     def run(self):
         t0 = time.perf_counter()
-        self.phase0_device()
-        self.phase1_build()
-        self.phase2_nhwc()
-        self.phase3_rows()
-        self.phase4_paths()
-        self.phase5_timing()
-        self.phase7_nhwc_bwd()
-        self.phase8_rows_bwd()
-        self.phase9_train()
-        self.phase10_bwd_timing()
-        self.phase11_lm_kernels()
-        self.phase12_serving()
-        self.phase13_lm_timing()
-        self.phase14_paged_kernel()
-        self.phase15_engine()
-        self.phase16_engine_timing()
-        self.phase17_ce_kernel()
-        self.phase18_train()
-        self.phase19_train_timing()
-        self.phase20_ssd_kernel()
-        self.phase21_ssm_serving()
-        self.phase22_ssm_train()
+        spent = {}
+        for name in self.PHASES:
+            t = time.perf_counter()
+            getattr(self, name)()
+            spent[name.split("_")[0][5:]] = round(time.perf_counter() - t, 1)
+        print(f"[phases] seconds each {json.dumps(spent)}")
         print(f"[total] {time.perf_counter() - t0:.1f} s")
         print(json.dumps({"kernels": [self.kernels[k] for k in KERNELS]}))
         print(self.smi)
@@ -4476,6 +4499,455 @@ class Smoke:
               f"version)  ops.ssd max|d|={self.err['ssd_ops']:.3e} (against "
               f"ssd_chunked)")
 
+
+    # -- phase 23: the traced frontend (repro_torch.api.optimize) ------------
+    def traced_counts(self, zero=False):
+        """Dispatch and launch counts of the traced paths: the fused-stack
+        counters, the four fused-stack kernels, the registry's dispatches
+        and the LM kernels' launches (``zero`` sets them all to 0)."""
+        from repro_torch.core import registry
+        from repro_torch.kernels.fused_stack import ops
+        from repro_torch.kernels.vocab_ce import ce
+        if zero:
+            self.zero_counts()
+            self.lm_counters(zero=True)
+            registry.STATS.reset()
+            ce.fused_ce_fwd.launches = 0
+        lm = self.lm_counters()
+        return {**ops.STATS.snapshot(), **self.launch_counts(),
+                **{k: lm[k] for k in ("rmsnorm", "swiglu",
+                                      "flash_attention")},
+                "fused_ce": ce.fused_ce_fwd.launches,
+                "registry": {k: v for k, v in registry.STATS.counts.items()
+                             if v}}
+
+    def expect_traced(self, what, got, n_seq, **launches):
+        """The counts of one traced run: every sequence on its generated
+        kernels, the kernels launched as ``launches`` says, every registry
+        dispatch on its Hopper kernel."""
+        want = {"fwd_generated": n_seq, "fwd_reference": 0,
+                "bwd_generated": 0, "bwd_reference": 0, "fused_nhwc": 0,
+                "fused_rows": 0, "fused_nhwc_bwd": 0, "fused_rows_bwd": 0,
+                "rmsnorm": 0, "swiglu": 0, "flash_attention": 0,
+                "fused_ce": 0, **launches}
+        reg = {"attention_hopper": launches.get("flash_attention", 0),
+               "rmsnorm_hopper": launches.get("rmsnorm", 0),
+               "swiglu_hopper": launches.get("swiglu", 0),
+               "vocab_ce_hopper": launches.get("fused_ce", 0)}
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad or got["registry"] != {k: v for k, v in reg.items() if v}:
+            raise PhaseError(f"{what}: counters {got}; (got, expected) "
+                             f"{bad}; registry expected {reg}")
+
+    def host_ms(self, fn, reps=20):
+        """Host milliseconds per call (the enqueue, no synchronisation
+        inside), median of ``reps`` calls each started on an idle card."""
+        torch = self.torch
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def phase23_traced(self):
+        torch = self.torch
+        import gc
+
+        import torch.nn.functional as F
+        from repro_torch import api
+        from repro_torch.core import api as core_api
+        from repro_torch.models import cnn, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+
+        # 23a: the quickstart twin at VGG-16 widths
+        graph, params = cnn.vgg_net(VGG16_STAGES, device=self.dev)
+        x = self.randn(VGG_INPUT, 7)
+        t_opt = time.perf_counter()
+        net = api.optimize(cnn.vgg_fn, x, params,
+                           config=api.OptimizeConfig(mode="brainslug"))
+        t_opt = time.perf_counter() - t_opt
+        gnet = core_api.optimize_graph(graph, VGG_INPUT, core_api.
+                                       OptimizeConfig(mode="brainslug"))
+        bnet = api.optimize(cnn.vgg_fn, x, params,
+                            config=api.OptimizeConfig(mode="barrier"))
+        with torch.no_grad():
+            want = cnn.vgg_fn(x, params)
+            torch.cuda.synchronize()
+            self.traced_counts(zero=True)
+            got = net(x, params)
+            torch.cuda.synchronize()
+            counts = self.traced_counts()
+        n_seq = net.n_sequences
+        if tuple(got.shape) != (VGG_INPUT[0], 10) \
+                or not bool(torch.isfinite(got).all()):
+            raise PhaseError(f"23a: output {tuple(got.shape)}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, **PATH_TOL):
+            raise PhaseError(f"23a: traced VGG vs vgg_fn max|d|={err:.3e}")
+        if (net.n_stacks, n_seq) != (gnet.n_stacks, gnet.n_sequences):
+            raise PhaseError(f"23a: {net.n_stacks} stacks / {n_seq} "
+                             f"sequences, optimize_graph {gnet.n_stacks} / "
+                             f"{gnet.n_sequences}")
+        self.expect_traced("23a", counts, n_seq, fused_nhwc=n_seq)
+        report = net.report()
+        if report.capture_ratio < 0.9:
+            raise PhaseError(f"23a: capture ratio {report.capture_ratio}")
+        self.kernels["fused_nhwc"]["traced_launches"] = counts["fused_nhwc"]
+        print(f"[23a api.optimize(vgg_fn) VGG-16 widths {VGG_INPUT}, "
+              f"brainslug] traced in {t_opt:.2f} s; vs the plain vgg_fn "
+              f"max|d|={err:.3e} (tol {PATH_TOL}); {net.n_stacks} stacks, "
+              f"{n_seq} sequences (optimize_graph: {gnet.n_stacks}, "
+              f"{gnet.n_sequences}); capture ratio "
+              f"{report.capture_ratio:.4f}; counters {counts}")
+        print(net.explain())
+
+        # 23b: training through optimize, against autograd of the plain fn
+        labels = torch.randint(0, 10, (VGG_INPUT[0],), device=self.dev,
+                               generator=torch.Generator(
+                                   device=self.dev).manual_seed(8))
+        tnets = {m: api.optimize(cnn.vgg_fn, x, params,
+                                 config=api.OptimizeConfig(
+                                     mode=m, differentiable=True))
+                 for m in ("brainslug", "barrier")}
+        tgnet = core_api.optimize_graph(graph, VGG_INPUT, core_api.
+                                        OptimizeConfig(mode="brainslug",
+                                                       differentiable=True))
+        loss = lambda y: F.cross_entropy(y, labels)        # noqa: E731
+        runs = {}
+        self.traced_counts(zero=True)
+        runs["brainslug"] = self.sgd(lambda p: tnets["brainslug"](x, p),
+                                     params, loss)
+        train_counts = self.traced_counts()
+        runs["barrier"] = self.sgd(lambda p: cnn.vgg_fn(x, p), params, loss)
+        n_tseq = tnets["brainslug"].n_sequences
+        worst = self.compare_training("23b traced VGG training", runs,
+                                      n_tseq, "fused_nhwc_bwd")
+        self.kernels["fused_nhwc_bwd"]["traced_launches"] = \
+            train_counts["fused_nhwc_bwd"]
+        print(f"[23b api.optimize(vgg_fn, differentiable=True), "
+              f"{TRAIN_STEPS} SGD steps lr {TRAIN_LR}] losses "
+              f"{runs['brainslug'][0]} against autograd of the plain "
+              f"vgg_fn {runs['barrier'][0]}; step-1 gradients max|d|/max|g| "
+              f"{worst:.3e} (tol rtol {TRAIN_RTOL}, atol {TRAIN_RTOL}"
+              f"*max|g|); counters per step "
+              f"{[s for s, _ in runs['brainslug'][2]]}; launches over the "
+              f"run {{'fused_nhwc': {train_counts['fused_nhwc']}, "
+              f"'fused_nhwc_bwd': {train_counts['fused_nhwc_bwd']}}}")
+
+        _, bparams = cnn.block_net(8, 32, device=self.dev)
+        bx = self.randn(BLOCK_INPUT, 11)
+        cot = self.randn(BLOCK_INPUT, 12)
+        blk = {m: api.optimize(cnn.block_fn, bx, bparams,
+                               config=api.OptimizeConfig(
+                                   mode=m, differentiable=True))
+               for m in ("brainslug", "barrier")}
+
+        def block_grads(fn):
+            with torch.enable_grad():
+                leaves = {"x": bx.clone().requires_grad_(),
+                          **{k: v.clone().requires_grad_()
+                             for k, v in bparams.items()}}
+                out = fn(leaves["x"], {k: leaves[k] for k in bparams})
+                grads = torch.autograd.grad((out * cot).sum(),
+                                            list(leaves.values()))
+            return dict(zip(leaves, grads))
+
+        self.traced_counts(zero=True)
+        gb = block_grads(blk["brainslug"])
+        torch.cuda.synchronize()
+        bcounts = self.traced_counts()
+        gp = block_grads(cnn.block_fn)
+        b_seq = blk["brainslug"].n_sequences
+        self.expect_traced("23b block_fn", bcounts, b_seq,
+                           fused_nhwc=b_seq, bwd_generated=b_seq,
+                           fused_nhwc_bwd=b_seq)
+        bworst = 0.0
+        for k, w in gp.items():
+            d = (gb[k] - w).abs()
+            scale = float(w.abs().max())
+            bworst = max(bworst, float(d.max()) / max(scale, 1e-30))
+            if not bool(torch.isfinite(gb[k]).all()) or not bool(
+                    (d <= TRAIN_RTOL * (w.abs() + scale)).all()):
+                raise PhaseError(f"23b block_fn: gradient of {k} max|d| "
+                                 f"{float(d.max()):.3e} (max|g| {scale:.3e})")
+        report = blk["brainslug"].report()
+        if report.capture_ratio != 1.0 or report.n_opaque:
+            raise PhaseError(f"23b block_fn: {report}")
+        print(f"[23b api.optimize(block_fn, differentiable=True), block_net"
+              f"(8, 32) at {BLOCK_INPUT}, one step] gradients of x and every "
+              f"parameter against autograd of the plain block_fn: max|d|/"
+              f"max|g| {bworst:.3e} (tol rtol {TRAIN_RTOL}, atol "
+              f"{TRAIN_RTOL}*max|g|); capture 1.0, {b_seq} sequences; "
+              f"counters {bcounts}")
+
+        # 23d (CNN): times in turns, and the traced call's host cost
+        with torch.no_grad():
+            fwd = {"traced": lambda: net(x, params),
+                   "optimize_graph": lambda: gnet(x, params),
+                   "barrier": lambda: bnet(x, params)}
+            order = ("traced", "optimize_graph", "barrier", "barrier",
+                     "optimize_graph", "traced")
+            ms = [(m, self.cuda_ms(fwd[m], reps=1, groups=20))
+                  for m in order]
+            host = {m: self.host_ms(fwd[m]) for m in
+                    ("traced", "optimize_graph")}
+
+        def step(f):
+            with torch.enable_grad():
+                req = {k: v.detach().requires_grad_()
+                       for k, v in params.items()}
+                grads = torch.autograd.grad(F.cross_entropy(f(req), labels),
+                                            list(req.values()))
+            with torch.no_grad():
+                return [v - TRAIN_LR * g for v, g in zip(req.values(), grads)]
+
+        steps = {"traced": lambda: step(lambda p: tnets["brainslug"](x, p)),
+                 "optimize_graph": lambda: step(lambda p: tgnet(x, p)),
+                 "barrier": lambda: step(lambda p: tnets["barrier"](x, p))}
+        step_ms = [(m, self.cuda_ms(steps[m], reps=1, groups=10))
+                   for m in order]
+        block_ms = [(m, self.cuda_ms(lambda m=m: block_grads(blk[m]), reps=1,
+                                     groups=10))
+                    for m in ("barrier", "brainslug", "brainslug", "barrier")]
+        self.traced_ms = {"vgg_forward": ms, "vgg_step": step_ms,
+                          "block_fn_step": block_ms, "host": host}
+        print("[23d time] VGG-16 widths forward, median of 20 (CUDA events), "
+              "in turns: " + "  ".join(f"{m}={v:.3f} ms" for m, v in ms))
+        print("[23d time] VGG-16 widths training step (forward + backward + "
+              "SGD), median of 10, in turns: "
+              + "  ".join(f"{m}={v:.3f} ms" for m, v in step_ms))
+        print(f"[23d time] block_fn, block_net(8, 32) at {BLOCK_INPUT}: "
+              f"forward + backward, median of 10, in turns: "
+              + "  ".join(f"{m}={v:.3f} ms" for m, v in block_ms))
+        print(f"[23d host] one forward call's host time (enqueue on an idle "
+              f"card, median of 20): OptimizedFn.__call__ "
+              f"{host['traced']:.3f} ms, OptimizedNet.__call__ "
+              f"{host['optimize_graph']:.3f} ms")
+        del net, gnet, bnet, tnets, tgnet, blk, params, x, bx, cot, gb, gp
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 23c: the registry at deepseek-7b widths
+        self.phase23_registry()
+        print(f"[23] phase {time.perf_counter() - t:.1f} s")
+
+    def phase23_registry(self):
+        torch = self.torch
+        import gc
+
+        from repro_torch import api
+        from repro_torch.models import lm
+        heads, seq = 32, PREFILL[1]
+
+        def block(x, p):
+            return lm.transformer_block_fn(x, p, n_heads=heads)
+
+        lines, limits = [], {"float32": 1e-4, "bfloat16": 2e-2}
+        for dt_name, lim in limits.items():
+            dt = getattr(torch, dt_name)
+            p = lm.transformer_block_params(
+                D_MODEL, heads, D_FF, generator=torch.Generator(
+                    device=self.dev).manual_seed(23), dtype=dt,
+                device=self.dev)
+            x = self.randn((1, seq, D_MODEL), 24).to(dt)
+            cot = self.randn((1, seq, D_MODEL), 25).to(dt)
+            nets = {m: api.optimize(block, x, p, config=api.OptimizeConfig(
+                mode=m, differentiable=True)) for m in ("brainslug",
+                                                        "barrier")}
+            report = nets["brainslug"].report()
+            if report.kernel_hits != {"attention": 1, "rmsnorm": 2,
+                                      "swiglu": 1} \
+                    or report.kernel_fallbacks:
+                raise PhaseError(f"23c {dt_name}: registry {report}")
+            n_seq = nets["brainslug"].n_sequences
+            with torch.no_grad():
+                self.traced_counts(zero=True)
+                y = nets["brainslug"](x, p)
+                torch.cuda.synchronize()
+                counts = self.traced_counts()
+                yb = nets["barrier"](x, p)
+            self.expect_traced(f"23c {dt_name}", counts, n_seq,
+                               fused_rows=n_seq, flash_attention=1,
+                               rmsnorm=2, swiglu=1)
+            rel = float((y.float() - yb.float()).abs().max()) / float(
+                yb.float().abs().max())
+            if not bool(torch.isfinite(y).all()) or rel > lim:
+                raise PhaseError(f"23c {dt_name}: brainslug vs barrier "
+                                 f"max|d|/max|y| {rel:.3e} (tol {lim})")
+            grads = {}
+            for m in ("brainslug", "barrier"):
+                if m == "brainslug":
+                    self.traced_counts(zero=True)
+                with torch.enable_grad():
+                    leaves = {"x": x.clone().requires_grad_(),
+                              **{k: v.clone().requires_grad_()
+                                 for k, v in p.items()}}
+                    out = nets[m](leaves["x"], {k: leaves[k] for k in p})
+                    grads[m] = dict(zip(leaves, torch.autograd.grad(
+                        (out.float() * cot.float()).sum(),
+                        list(leaves.values()))))
+                if m == "brainslug":
+                    torch.cuda.synchronize()
+                    gcounts = self.traced_counts()
+            # the gradient pass: the forward again, then every sequence's
+            # backward on fused_rows_bwd
+            self.expect_traced(f"23c {dt_name} gradients", gcounts, n_seq,
+                               fused_rows=n_seq, flash_attention=1,
+                               rmsnorm=2, swiglu=1, bwd_generated=n_seq,
+                               fused_rows_bwd=n_seq)
+            gworst = 0.0
+            for k, w in grads["barrier"].items():
+                g = grads["brainslug"][k]
+                if not bool(torch.isfinite(g).all()):
+                    raise PhaseError(f"23c {dt_name}: non-finite grad {k}")
+                r = float((g.float() - w.float()).abs().max()) / max(
+                    float(w.float().abs().max()), 1e-30)
+                gworst = max(gworst, r)
+                if r > lim:
+                    raise PhaseError(f"23c {dt_name}: gradient of {k} "
+                                     f"max|d|/max|g| {r:.3e} (tol {lim})")
+            lines.append(f"{dt_name}: max|d|/max|y| {rel:.3e}, gradients "
+                         f"max|d|/max|g| {gworst:.3e} (tol {lim}); counters "
+                         f"{counts}; gradient pass {gcounts}")
+            for k in ("rmsnorm", "swiglu", "flash_attention", "fused_rows"):
+                self.kernels[k][f"traced_launches_{dt_name}"] = counts[k]
+            if dt_name == "bfloat16":
+                with torch.no_grad():
+                    ms = [(m, self.cuda_ms(lambda m=m: nets[m](x, p),
+                                           reps=1, groups=10))
+                          for m in ("barrier", "brainslug", "brainslug",
+                                    "barrier")]
+                self.traced_ms["block_bf16"] = ms
+            del nets, p, x, cot, grads, y, yb, gcounts
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"[23c api.optimize(transformer_block_fn) deepseek-7b widths "
+              f"(1, {seq}, {D_MODEL}), {heads} heads of 128, d_ff {D_FF}, "
+              f"differentiable=True] registry attention 1, rmsnorm 2, swiglu "
+              f"1, all hopper; brainslug against barrier (attention through "
+              f"its plain version): " + "; ".join(lines))
+        print("[23d time] the traced block bf16 forward, median of 10 (CUDA "
+              "events), in turns: " + "  ".join(
+                  f"{m}={v:.3f} ms" for m, v in self.traced_ms["block_bf16"]))
+        self.phase23_ce()
+
+    def phase23_ce(self):
+        """``lm.ce_loss_fn`` through ``optimize`` at CE_SHAPE, bf16 (the
+        registry's ``vocab_ce`` on ``fused_ce``) and float32.  The loss
+        within 1e-4 of ``barrier``'s (the registry's REF entry), relative;
+        the gradients within CE_GRAD_L2 in relative L2 distance (float32
+        also every element within 1e-4 x max|g|), and in bf16 the limit's
+        controls (``ce_grad_controls``)."""
+        torch = self.torch
+        from repro_torch import api
+        from repro_torch.models import lm
+        t, d, v = CE_SHAPE
+        g = torch.Generator(device=self.dev).manual_seed(2330)
+        labels = torch.randint(0, v, (t,), generator=g, device=self.dev)
+        labels[torch.rand(t, generator=g, device=self.dev) < 0.1] = -1
+        lines = []
+        for dt in (torch.bfloat16, torch.float32):
+            dt_name = str(dt).split(".")[-1]
+            lim = CE_GRAD_L2[dt_name]
+            h = self.randn((t, d), 31).to(dt)
+            w = (self.randn((d, v), 32) / d ** 0.5).to(dt)
+            nets = {m: api.optimize(lm.ce_loss_fn, h, w, labels,
+                                    config=api.OptimizeConfig(
+                                        mode=m, differentiable=True))
+                    for m in ("brainslug", "barrier")}
+            out = {}
+            for m in ("brainslug", "barrier"):
+                rep = nets[m].report()
+                if rep.kernel_hits != {"vocab_ce": 1}:
+                    raise PhaseError(f"23c ce {m}: registry {rep}")
+                self.traced_counts(zero=True)
+                with torch.enable_grad():
+                    hs = [z.clone().requires_grad_() for z in (h, w)]
+                    loss = nets[m](hs[0], hs[1], labels)
+                    grads = torch.autograd.grad(loss, hs)
+                torch.cuda.synchronize()
+                out[m] = (float(loss.detach()), grads, self.traced_counts())
+            (lb, gb, counts), (lr_, gr, _) = out["brainslug"], out["barrier"]
+            n_seq = nets["brainslug"].n_sequences
+            what = f"23c ce {dt_name}"
+            self.expect_traced(what, counts, n_seq, fused_ce=1,
+                               fused_rows=n_seq, bwd_generated=n_seq,
+                               fused_rows_bwd=n_seq)
+            if not math.isfinite(lb) or abs(lb - lr_) > 1e-4 * abs(lr_):
+                raise PhaseError(f"{what}: loss {lb} vs barrier {lr_}")
+            rels = []
+            for name, a, b in zip(("dh", "dw"), gb, gr):
+                if not bool(torch.isfinite(a).all()):
+                    raise PhaseError(f"{what}: non-finite {name}")
+                a, b = a.float(), b.float()
+                diff = (a - b).abs()
+                l2 = float(diff.norm() / b.norm())
+                worst = float(diff.max() / b.abs().max())
+                rels.append(f"{name} relative L2 {l2:.3e} (tol {lim}), "
+                            f"max|d|/max|g| {worst:.3e}")
+                if not l2 <= lim or (dt == torch.float32 and not worst <= 1e-4):
+                    raise PhaseError(f"{what}: {name} outside its tolerance "
+                                     f"({rels[-1]})")
+            if dt == torch.bfloat16:
+                self.kernels["fused_ce"]["traced_launches"] = \
+                    counts["fused_ce"]
+                rels.append(self.ce_grad_controls(h, w, labels, gr, lim))
+            lines.append(f"{dt_name}: fused_ce launches "
+                         f"{counts['fused_ce']}, registry "
+                         f"{counts['registry']}; loss {lb} vs barrier {lr_}; "
+                         + "; ".join(rels))
+            del nets, out, h, w, gb, gr
+            torch.cuda.empty_cache()
+        print(f"[23c api.optimize(ce_loss_fn) {CE_SHAPE}, a tenth of the "
+              f"labels masked, differentiable=True, against barrier (the "
+              f"plain version through the registry's REF entry), loss tol "
+              f"1e-4 relative, gradients {CE_GRAD_L2} in relative L2 "
+              f"(float32 also max|d| 1e-4 x max|g|)] " + " | ".join(lines))
+
+    def ce_grad_controls(self, h, w, labels, want, lim):
+        """The bf16 CE tail's gradient limit against three twins of the
+        masked-mean CE's (dh, dw), computed by hand in float32 and cast to
+        bf16 as autograd casts them: sound, which must pass, and two whose
+        backward takes a wrong row logsumexp, which must fail: rounded to
+        bf16 (a kernel that keeps it in bf16) and 0.1% high."""
+        torch = self.torch
+        hf, wf = h.float(), w.float()
+        logits = hf @ wf
+        lse = torch.logsumexp(logits, -1, keepdim=True)
+        valid = labels >= 0
+        rows = valid.nonzero()[:, 0]
+        # the traced gold log-probabilities are bf16, so their cotangent,
+        # mask / count, reaches the CE in bf16
+        scale = (valid.float() / max(int(valid.sum()), 1)).bfloat16() \
+            .float()[:, None]
+        l2 = {}
+        for twin, lse_t in (("sound", lse),
+                            ("lse in bf16", lse.bfloat16().float()),
+                            ("lse 0.1% high", lse * 1.001)):
+            p = torch.exp(logits - lse_t)
+            p[rows, labels[rows]] -= 1.0
+            p.mul_(scale)
+            got = ((p @ wf.T).bfloat16(), (hf.T @ p).bfloat16())
+            del p
+            l2[twin] = [float((a.float() - b.float()).norm()
+                              / b.float().norm()) for a, b in zip(got, want)]
+            del got
+        del logits, lse, hf, wf
+        torch.cuda.empty_cache()
+        line = "controls (dh, dw) relative L2: " + "; ".join(
+            f"{twin} {', '.join(f'{x:.3e}' for x in v)}"
+            for twin, v in l2.items())
+        if max(l2["sound"]) > lim or any(
+                max(v) <= lim for twin, v in l2.items() if twin != "sound"):
+            raise PhaseError(f"23c ce bfloat16: the limit {lim} does not "
+                             f"part the controls ({line})")
+        return line
 
 if __name__ == "__main__":
     sys.exit(main())

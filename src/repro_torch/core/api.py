@@ -10,7 +10,12 @@ Two entry points:
 * :func:`optimize_stack` — the composable path of the LM layers: takes one
   :class:`~repro_torch.core.ir.StackProgram` and returns a fused executor.
 
-Both run on ``cuda`` unless the config asks for ``cpu``
+The traced path, :func:`repro_torch.api.optimize` on a plain PyTorch
+function, shares :func:`compile_stacks`, :func:`run_segments` and
+:func:`coverage_report` with them; its graphs also hold registry ``KERNEL``
+ops (:mod:`repro_torch.core.registry`).
+
+All run on ``cuda`` unless the config asks for ``cpu``
 (``OptimizeConfig(torch_device="cpu")``); asking for ``cuda`` without a GPU
 raises ``RuntimeError``.
 """
@@ -21,7 +26,8 @@ from typing import Mapping
 
 import torch
 
-from repro_torch.core import analyzer, codegen, collapse, ir, resource
+from repro_torch.core import (analyzer, codegen, collapse, ir, registry,
+                              resource)
 
 #: Execution modes an OptimizeConfig accepts.
 MODES = ("brainslug", "xla", "barrier")
@@ -44,6 +50,9 @@ class OptimizeConfig:
     # recomputed forward and live cotangents in shared memory, so
     # differentiable plans get smaller tiles and earlier sequence splits.
     differentiable: bool = False
+    # The traced path: rewrite attention / rmsnorm / swiglu / vocab-CE
+    # clusters onto the dedicated kernels (repro_torch.core.registry).
+    kernel_registry: bool = True
 
     def __post_init__(self) -> None:
         if self.mode not in MODES:
@@ -57,9 +66,10 @@ class OptimizeConfig:
             raise ValueError(
                 f"code_cache_size must be a positive int, got "
                 f"{self.code_cache_size!r}")
-        if not isinstance(self.differentiable, bool):
-            raise ValueError(f"differentiable must be a bool, got "
-                             f"{self.differentiable!r}")
+        for flag in ("differentiable", "kernel_registry"):
+            if not isinstance(getattr(self, flag), bool):
+                raise ValueError(f"{flag} must be a bool, got "
+                                 f"{getattr(self, flag)!r}")
         if torch.device(self.torch_device).type not in ("cuda", "cpu"):
             raise ValueError(f"torch_device must be cuda or cpu, got "
                              f"{self.torch_device!r}")
@@ -100,13 +110,29 @@ class StackCoverage:
 
 
 @dataclasses.dataclass(frozen=True)
+class KernelCoverage:
+    """One registry-dispatched KERNEL op of the rewritten network."""
+
+    op_name: str
+    kernel: str                 # registry id: attention / rmsnorm / ...
+    backend: str                # 'hopper' | 'ref'
+    fallback_reason: str | None = None   # why ref runs (None for hopper)
+
+
+@dataclasses.dataclass(frozen=True)
 class CoverageReport:
     """What the optimizer captured — the ``report()``/``explain()`` payload.
 
     ``capture_ratio`` is computed over the ops that could have been
     captured: everything except the backbone kinds (matmul / conv /
     attention / ssd / embed), which the paper's optimizer leaves untouched
-    by design.  ``n_opaque`` counts ops that stayed OPAQUE."""
+    by design, and KERNEL ops, which the registry routed to a dedicated
+    kernel.  ``n_opaque`` counts ops that stayed OPAQUE; ``n_synthetic``
+    the tracer's plumbing (parameter binds, projections of an op's several
+    results), which is neither.  ``kernels`` lists every registry dispatch
+    with the backend that runs, and ``vetoes`` every region a kernel
+    matched but whose probe disagreed (it runs as traced), so a fallback
+    to the plain version shows."""
 
     n_ops: int
     n_captured: int
@@ -115,12 +141,35 @@ class CoverageReport:
     n_stacks: int
     capture_ratio: float
     stacks: tuple[StackCoverage, ...]
+    n_synthetic: int = 0
+    n_kernel: int = 0
+    kernels: tuple[KernelCoverage, ...] = ()
+    vetoes: tuple[registry.KernelVeto, ...] = ()
+
+    @property
+    def kernel_hits(self) -> dict[str, int]:
+        """Registry dispatches per kernel."""
+        hits: dict[str, int] = {}
+        for k in self.kernels:
+            hits[k.kernel] = hits.get(k.kernel, 0) + 1
+        return hits
+
+    @property
+    def kernel_fallbacks(self) -> dict[str, int]:
+        """Regions per kernel that run the plain version: registry
+        dispatches to it and vetoed matches."""
+        falls: dict[str, int] = {}
+        for kernel in [k.kernel for k in self.kernels
+                       if k.backend != registry.KernelType.HOPPER.value] \
+                + [v.kernel for v in self.vetoes]:
+            falls[kernel] = falls.get(kernel, 0) + 1
+        return falls
 
     def __str__(self) -> str:
         lines = [
             f"ops total={self.n_ops}  captured={self.n_captured}  "
             f"opaque-fallback={self.n_opaque}  backbone={self.n_backbone}  "
-            f"stacks={self.n_stacks}  "
+            f"kernels={self.n_kernel}  stacks={self.n_stacks}  "
             f"capture_ratio={100.0 * self.capture_ratio:.1f}%",
         ]
         for s in self.stacks:
@@ -132,6 +181,14 @@ class CoverageReport:
                 f"{s.hbm_depth_bytes / 2**20:8.2f} MiB  ({ratio:.2f}x)  "
                 f"tiles [{', '.join(s.tiles)}]"
                 f"{' fwd+bwd' if s.differentiable else ''}")
+        for k in self.kernels:
+            note = (f"  (fallback: {k.fallback_reason})"
+                    if k.fallback_reason else "")
+            lines.append(f"  kernel {k.kernel:12s} {k.op_name:28s} "
+                         f"backend={k.backend}{note}")
+        for v in self.vetoes:
+            lines.append(f"  kernel {v.kernel:12s} {v.op_name:28s} "
+                         f"vetoed, runs as traced ({v.reason})")
         return "\n".join(lines)
 
 
@@ -144,11 +201,18 @@ BACKBONE_KINDS = frozenset({
 
 def coverage_report(segments, plans: Mapping[int, collapse.CollapsePlan],
                     shapes: Mapping[str, tuple[int, ...]],
-                    itemsize: int) -> CoverageReport:
+                    itemsize: int,
+                    kernel_dispatch: Mapping[int, registry.KernelDispatch]
+                    | None = None,
+                    vetoes: tuple[registry.KernelVeto, ...] = ()
+                    ) -> CoverageReport:
     """Per-stack coverage + planned HBM traffic (analytic bytes from shapes,
-    not measured) of a rewritten network."""
-    n_captured = n_opaque = n_backbone = 0
+    not measured) of a rewritten network, its registry dispatches and the
+    registry's vetoed matches."""
+    kernel_dispatch = kernel_dispatch or {}
+    n_captured = n_opaque = n_backbone = n_synthetic = 0
     stacks: list[StackCoverage] = []
+    kernels: list[KernelCoverage] = []
     for idx, seg in enumerate(segments):
         if seg.is_stack:
             n_captured += len(seg.stack.ops)
@@ -166,27 +230,39 @@ def coverage_report(segments, plans: Mapping[int, collapse.CollapsePlan],
                             f"{q.tile_out_h}x{q.tile_out_w}"
                             for q in plan.sequences),
                 differentiable=plan.differentiable))
+        elif seg.op.kind == ir.OpKind.KERNEL:
+            d = kernel_dispatch.get(idx)
+            kernels.append(KernelCoverage(
+                op_name=seg.op.name, kernel=seg.op.attrs["kernel"],
+                backend=d.backend.value if d else "unknown",
+                fallback_reason=d.reason if d else None))
+        elif seg.op.attrs.get("synthetic"):
+            n_synthetic += 1
         elif seg.op.kind in BACKBONE_KINDS:
             n_backbone += 1
         else:
             n_opaque += 1
-    total = n_captured + n_opaque + n_backbone
+    total = n_captured + n_opaque + n_backbone + len(kernels)
     eligible = n_captured + n_opaque
     return CoverageReport(
         n_ops=total, n_captured=n_captured, n_opaque=n_opaque,
         n_backbone=n_backbone, n_stacks=len(stacks),
         capture_ratio=n_captured / eligible if eligible else 1.0,
-        stacks=tuple(stacks))
+        stacks=tuple(stacks), n_synthetic=n_synthetic,
+        n_kernel=len(kernels), kernels=tuple(kernels), vetoes=tuple(vetoes))
 
 
 def run_segments(segments, executors: Mapping[int, codegen.Executor],
                  env: dict, params: Mapping[str, torch.Tensor]) -> dict:
-    """Execute a rewritten network: stacks through their compiled
-    executors, opaque ops breadth-first through the interpreter.  Mutates
-    and returns ``env``."""
+    """Execute a rewritten network: stacks and registry KERNEL ops through
+    their compiled executors, opaque ops breadth-first through the
+    interpreter.  Mutates and returns ``env``."""
     for idx, seg in enumerate(segments):
         if seg.is_stack:
             env.update(executors[idx]({k: env[k] for k in seg.stack.inputs},
+                                      params))
+        elif seg.op.kind == ir.OpKind.KERNEL:
+            env.update(executors[idx]({k: env[k] for k in seg.op.inputs},
                                       params))
         else:
             env[seg.op.output] = ir.apply_op(seg.op, env, params)
@@ -206,6 +282,8 @@ class OptimizedNet:
     device: torch.device
     shapes: dict[str, tuple[int, ...]] = dataclasses.field(
         default_factory=dict)   # value name -> inferred shape
+    kernel_dispatches: dict[int, registry.KernelDispatch] = \
+        dataclasses.field(default_factory=dict)
 
     def __call__(self, x: torch.Tensor,
                  params: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -225,7 +303,8 @@ class OptimizedNet:
     def report(self) -> CoverageReport:
         """Per-stack coverage + planned HBM traffic of this rewrite."""
         return coverage_report(self.segments, self.plans, self.shapes,
-                               self.config.itemsize)
+                               self.config.itemsize,
+                               kernel_dispatch=self.kernel_dispatches)
 
     def explain(self) -> str:
         """Human-readable :meth:`report`."""
@@ -235,13 +314,20 @@ class OptimizedNet:
 def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
                    config: OptimizeConfig
                    ) -> tuple[dict[int, codegen.Executor],
-                              dict[int, collapse.CollapsePlan]]:
-    """Collapse + compile every stack segment against ``config``.
-    Returns (executors, plans), both keyed by segment index."""
+                              dict[int, collapse.CollapsePlan],
+                              dict[int, registry.KernelDispatch]]:
+    """Collapse + compile every stack segment, and compile every registry
+    KERNEL segment, against ``config``.  Returns (executors, plans, kernel
+    dispatch records), each keyed by segment index."""
     executors: dict[int, codegen.Executor] = {}
     plans: dict[int, collapse.CollapsePlan] = {}
+    dispatches: dict[int, registry.KernelDispatch] = {}
     for idx, seg in enumerate(segments):
         if not seg.is_stack:
+            if seg.op.kind == ir.OpKind.KERNEL:
+                executors[idx], dispatches[idx] = codegen.compile_kernel_op(
+                    seg.op, mode=config.mode,
+                    cache_size=config.code_cache_size)
             continue
         in_shapes = {v: tuple(shapes[v]) for v in seg.stack.inputs}
         plans[idx] = collapse.collapse(
@@ -250,7 +336,7 @@ def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
             differentiable=config.differentiable)
         executors[idx] = codegen.compile_plan(
             plans[idx], mode=config.mode, cache_size=config.code_cache_size)
-    return executors, plans
+    return executors, plans, dispatches
 
 
 def optimize_graph(graph: ir.NetGraph,
@@ -267,10 +353,10 @@ def optimize_graph(graph: ir.NetGraph,
             shapes.update(ir.infer_shapes(seg.stack, in_shapes))
         else:
             _infer_opaque_shape(seg.op, shapes)
-    executors, plans = compile_stacks(segments, shapes, config)
+    executors, plans, dispatches = compile_stacks(segments, shapes, config)
     return OptimizedNet(graph=graph, segments=segments, executors=executors,
                         plans=plans, config=config, device=device,
-                        shapes=shapes)
+                        shapes=shapes, kernel_dispatches=dispatches)
 
 
 def optimize_stack(program: ir.StackProgram,

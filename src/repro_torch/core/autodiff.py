@@ -21,7 +21,7 @@ parameter's own shape and cast to its dtype.
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Callable, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -90,6 +90,36 @@ def supports(program: ir.StackProgram) -> bool:
                (op.kind != ir.OpKind.EW_UNARY or op.fn in _UNARY_DERIVS) and
                (op.kind != ir.OpKind.EW_BINARY or op.fn in BINARY_VJP_FNS)
                for op in program.ops)
+
+
+def with_ref_vjp(fwd_fn: Callable, ref_fn: Callable) -> Callable:
+    """Wrap a kernel forward that has no backward of its own with the
+    plain version's: the forward runs ``fwd_fn``, the backward recomputes
+    ``ref_fn`` on the saved operands and differentiates it with autograd.
+    Both take positional tensors and return one tensor; the schedules
+    differ, the math must not.  (The four registry entries' kernel wrappers
+    carry such a backward of their own; this is for a kernel that has
+    none.)"""
+
+    class _RefVjp(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args)
+            return fwd_fn(*args)
+
+        @staticmethod
+        def backward(ctx, g):
+            args = ctx.saved_tensors
+            with torch.enable_grad():
+                xs = [a.detach().requires_grad_(a.is_floating_point())
+                      for a in args]
+                wrt = [x for x in xs if x.requires_grad]
+                grads = iter(torch.autograd.grad(ref_fn(*xs), wrt, g,
+                                                 allow_unused=True))
+            return tuple(next(grads) if x.requires_grad else None
+                         for x in xs)
+
+    return _RefVjp.apply
 
 
 # ---------------------------------------------------------------------------

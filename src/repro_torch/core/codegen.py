@@ -10,10 +10,16 @@ Sequences run serially, communicating through materialised boundary values
 * ``xla``       — the eager interpreter;
 * ``barrier``   — per-op materialisation (the paper's framework baseline).
 
+Registry ``KERNEL`` ops compile through :func:`compile_kernel_op`: the
+hand-written kernel (``hopper``) or its plain version (``ref``), decided
+once from the traced shapes and the mode.
+
 Executors are cached on the program's structural signature, plan shapes and
-tile geometry (the paper generates code once per equivalent stack).  The
-cache is LRU-bounded (``OptimizeConfig.code_cache_size``); ``clear_cache()``
-resets the dispatch counters alongside.
+tile geometry (the paper generates code once per equivalent stack), kernel
+closures on the kernel, backend and static attributes (identical kernel
+sites share one).  The cache is LRU-bounded
+(``OptimizeConfig.code_cache_size``); ``clear_cache()`` resets the dispatch
+counters alongside.
 """
 from __future__ import annotations
 
@@ -22,7 +28,9 @@ from typing import Callable, Mapping
 
 import torch
 
+from repro_torch.core import ir
 from repro_torch.core import collapse as collapse_mod
+from repro_torch.core import registry as registry_mod
 from repro_torch.kernels.fused_stack import ops as fused_ops
 
 Executor = Callable[[Mapping[str, torch.Tensor], Mapping[str, torch.Tensor]],
@@ -117,8 +125,64 @@ def compile_plan(plan: collapse_mod.CollapsePlan, *, mode: str = "xla",
     return run_body
 
 
+#: KERNEL attrs that locate operands rather than shape the computation.
+_KERNEL_PLUMBING_ATTRS = frozenset({"slots", "kernel"})
+
+
+def kernel_inner(op: ir.OpNode, *, backend: registry_mod.KernelType,
+                 cache_size: int | None = None) -> Callable:
+    """The positional closure of one KERNEL op on ``backend``, cached on
+    the kernel, the backend and the static attrs, so identical kernel sites
+    share one entry.  Each call counts ``<kernel>_hopper`` (the kernel
+    launched on a CUDA tensor), ``<kernel>_plain`` (its wrapper on a CPU
+    tensor, which runs the kernel's plain version) or ``<kernel>_ref`` in
+    ``registry.STATS``."""
+    if cache_size is not None:
+        _raise_cache_limit_to(cache_size)
+    entry = registry_mod.get(op.attrs["kernel"])
+    static = {k: v for k, v in op.attrs.items()
+              if k not in _KERNEL_PLUMBING_ATTRS}
+    key = ("kernel", entry.name, backend.value, ir._freeze(static))
+    inner = _cache_get(key)
+    if inner is not None:
+        return inner
+    out_shape = tuple(op.attrs["out_shape"])
+    out_dtype = op.attrs["out_dtype"]
+    hopper = backend is registry_mod.KernelType.HOPPER
+    call = entry.hopper if hopper else entry.ref
+
+    def inner(*arrays):
+        kind = ("ref" if not hopper else
+                "hopper" if arrays[0].is_cuda else "plain")
+        registry_mod.STATS.record(f"{entry.name}_{kind}")
+        return call(list(arrays), static).reshape(out_shape).to(out_dtype)
+
+    _cache_put(key, inner)
+    return inner
+
+
+def compile_kernel_op(op: ir.OpNode, *, mode: str = "xla",
+                      cache_size: int | None = None
+                      ) -> tuple[Executor, registry_mod.KernelDispatch]:
+    """Compile one registry KERNEL op; returns (executor, dispatch record).
+    The backend (the hand-written kernel or its plain version) is decided
+    here, once, from the traced shapes and the mode, and returned so that
+    ``report()`` shows a fallback."""
+    dispatch = registry_mod.plan_dispatch(op, mode)
+    inner = kernel_inner(op, backend=dispatch.backend, cache_size=cache_size)
+
+    def executor(inputs: Mapping[str, torch.Tensor],
+                 params: Mapping[str, torch.Tensor]
+                 ) -> dict[str, torch.Tensor]:
+        return {op.output: inner(*registry_mod.slot_tensors(op, inputs,
+                                                            params))}
+
+    return executor, dispatch
+
+
 def clear_cache() -> None:
     """Drop every compiled executor and zero the dispatch counters."""
     _CODE_CACHE.clear()
     fused_ops.clear_executable_cache()
     fused_ops.STATS.reset()
+    registry_mod.STATS.reset()

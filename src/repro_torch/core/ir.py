@@ -39,7 +39,9 @@ class OpKind(enum.Enum):
     ATTENTION = "attention"
     SSD = "ssd"
     EMBED = "embed"
-    KERNEL = "kernel"            # registry-dispatched region (not ported yet)
+    KERNEL = "kernel"            # a traced region the kernel registry
+    # (repro_torch.core.registry) rewrote onto a dedicated kernel; attrs
+    # carry the kernel id, the operand slots and the static arguments
     OPAQUE = "opaque"            # anything else (kept as a black box)
 
 
@@ -283,9 +285,11 @@ def apply_op(op: OpNode, env: Mapping[str, torch.Tensor],
         return op.attrs["fn"](*ins, *ps)
 
     if op.kind == OpKind.KERNEL:
-        raise NotImplementedError(
-            f"KERNEL op {op.name!r}: the kernel registry is not ported yet "
-            f"(Slice D)")
+        # the interpreter runs the registry entry's plain version; compiled
+        # networks decide kernel or plain version once, in
+        # repro_torch.core.codegen.compile_kernel_op
+        from repro_torch.core import registry   # registry imports ir
+        return registry.apply_ref(op, env, params)
 
     raise NotImplementedError(f"apply_op cannot execute kind {op.kind}")
 

@@ -19,6 +19,10 @@ prefill, decode and the training loss.
   ``remat="full"`` recomputes each block in the backward
   (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
 
+Plain twins for the traced frontend (:func:`repro_torch.api.optimize`):
+:func:`transformer_block_fn` and :func:`ce_loss_fn`, ordinary tensor code
+whose traced graph the kernel registry rewrites onto the dedicated kernels.
+
 MoE, the hybrid family (zamba2: mamba blocks with a shared attention block)
 and the audio / vision frontends raise and name the slice of the port that
 brings them.  Entry points run on ``cuda`` unless the caller asks for the
@@ -30,6 +34,7 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
@@ -415,3 +420,87 @@ def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
         pending = dense.apply(p["mlp"], h2, cfg, rt)
     h = _final_norm(params, resid + pending, cfg, rt)
     return _logits(params, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Plain twins for the traced frontend (repro_torch.api.optimize): the LM
+# analogue of models/cnn.py's vgg_fn, ordinary tensor code whose traced
+# graph the kernel registry rewrites onto the dedicated kernels (softmax·V
+# -> flash attention, rmsnorm·g -> fused rmsnorm, the GLU gate -> fused
+# swiglu, the log_softmax / gather loss tail -> fused vocab-CE).
+# ---------------------------------------------------------------------------
+
+def transformer_block_params(d_model: int, n_heads: int, d_ff: int, *,
+                             generator: torch.Generator | None = None,
+                             dtype: torch.dtype = torch.float32,
+                             device: torch.device | str = "cuda"
+                             ) -> dict[str, torch.Tensor]:
+    """Parameters of :func:`transformer_block_fn` (pre-norm attention and a
+    SwiGLU MLP, rms scales near 1), drawn from ``generator`` (a seeded CPU
+    one by default; a CUDA generator draws on its card) and moved to
+    ``device`` in ``dtype``.  The dict is flat, so weights from numpy (the
+    JAX package's ``transformer_block_params``) carry over with
+    ``convert.params_from_numpy(np_params, device, like=..., dtype=...)``."""
+    del n_heads                     # the layout is head-count agnostic
+    g = generator if generator is not None \
+        else torch.Generator().manual_seed(0)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=g.device)
+
+    def dk(i, o):
+        return normal(i, o) / i ** 0.5
+
+    params = {
+        "norm1_g": 1.0 + 0.1 * normal(d_model),
+        "wq": dk(d_model, d_model), "wk": dk(d_model, d_model),
+        "wv": dk(d_model, d_model), "wo": dk(d_model, d_model),
+        "norm2_g": 1.0 + 0.1 * normal(d_model),
+        "w_gate": dk(d_model, d_ff), "w_up": dk(d_model, d_ff),
+        "w_down": dk(d_ff, d_model),
+    }
+    return {k: v.to(device=device, dtype=dtype) for k, v in params.items()}
+
+
+def transformer_block_fn(x: torch.Tensor, params: dict, *, n_heads: int = 4,
+                         causal: bool = True,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """Plain pre-norm transformer block, what a user would write; ``x`` is
+    (B, S, D).  Multi-head attention with an additive causal mask, then a
+    SwiGLU MLP; the twin of ``repro.models.lm.transformer_block_fn``."""
+    b, s, d = x.shape
+    dh = d // n_heads
+
+    def rms(v, g):
+        var = torch.mean(torch.square(v), dim=-1, keepdim=True)
+        return v * torch.rsqrt(var + eps) * g
+
+    def heads(t):                               # (B,S,D) -> (B,H,S,dh)
+        return t.reshape(b, s, n_heads, dh).transpose(1, 2)
+
+    h = rms(x, params["norm1_g"])
+    q, k, v = (heads(h @ params[w]) for w in ("wq", "wk", "wv"))
+    scores = (q @ k.transpose(-2, -1)) * (1.0 / dh ** 0.5)
+    if causal:
+        idx = torch.arange(s, device=x.device)
+        mask = torch.where(idx[:, None] >= idx[None, :], 0.0, -1e30)
+        scores = scores + mask.to(scores.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    o = (probs @ v).transpose(1, 2).reshape(b, s, d)
+    x = x + o @ params["wo"]
+    h2 = rms(x, params["norm2_g"])
+    y = F.silu(h2 @ params["w_gate"]) * (h2 @ params["w_up"])
+    return x + y @ params["w_down"]
+
+
+def ce_loss_fn(h: torch.Tensor, w: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Plain masked-mean cross-entropy over (T, D) hidden states and a
+    (D, V) head, labels < 0 masked; the twin of
+    ``repro.models.lm.ce_loss_fn``.  The registry rewrites the logits ->
+    log_softmax -> gather core onto the fused vocab-CE kernel; the mask
+    and the mean stay ordinary traced ops."""
+    logp = torch.log_softmax(h @ w, dim=-1)
+    gold = torch.gather(logp, -1, torch.clamp_min(labels, 0)[:, None])[:, 0]
+    mask = (labels >= 0).float()
+    return torch.sum(-gold * mask) / torch.clamp_min(torch.sum(mask), 1.0)
