@@ -9,8 +9,10 @@ Phases, one line each (plus tables):
    power limit); TF32 off, so every comparison is float32 against float32;
 1. build the kernels from the sources in this tree (nvcc for the CUDA
    source, Triton for the generated rows kernels at first launch), with
-   ptxas's registers and spills of the tensor-core kernels, the SSD kernel,
-   the nhwc kernels forward and backward and the paged decode's instances;
+   ptxas's registers and spills of the tensor-core kernels and the float32
+   flash kernel (an instance per head dim, 112 and 128), the SSD kernel,
+   the nhwc kernels forward and backward and the paged decode's 30
+   instances (dtypes x splits x head dims);
 2. the nhwc CUDA kernel against its plain version (max |d| <= 1e-5); its
    fused path (batch norm, ReLU, a 2x2/s2 max pool) at VGG-16's five stage
    shapes at batch 8 and at two odd extents, bit for bit;
@@ -136,7 +138,33 @@ Phases, one line each (plus tables):
    phase 9's ``optimize_graph`` and ``barrier``, the traced blocks against
    ``barrier``, in turns, and ``OptimizedFn.__call__``'s host time per
    call; the kernels these paths launch record it as ``traced_launches``;
-then the ``kernels`` JSON line, the card line, and the ``ok`` line last.
+24. the hybrid family, zamba2-7b at full width (d_model 3584, the shared
+   attention's 32 heads of 112, mamba N 64 and 112 heads of 64, bf16):
+   (a) flash attention at head dim 112, causal (1, 32, 2048) and (2, 32,
+   1000) in bf16 and float32, flash decode and paged decode at (8, 32,
+   ragged lengths up to 32768, 112), block 16, through a shuffled table
+   with sentinel tails, each against its plain version at phases 11 and
+   14's limits, paged bit for bit with dense on the gathered view at
+   every split; the SSD kernel at (1, 112, 32, 64, 64) N 64 and the gated
+   norm's rows kernels (forward and backward) and rmsnorm at zamba2's
+   widths; their times beside bound, plain version and SDPA; (b)
+   ``lm.prefill`` (1, 2048) at all 81 layers (5 super-blocks of 13 mamba
+   blocks and the shared attention, an 11-layer tail): counters, every
+   position held to barrier through a float32 run (SSM_F32_FACTOR), each
+   block alone on barrier's inputs against its float32 twin (a dropped
+   shared-attention application planted in barrier's run must be
+   flagged), and a float32 run at the CPU tests' cut (attention every
+   3rd layer, 8 layers) with identical tokens; (c) ``Server.generate`` (4
+   x 64 + 32 new) at 81 layers, dense cache, teacher-forced against
+   barrier and float32, flash decode 5 launches a step; (d) ``Engine.run``
+   of 8 ragged requests, dense and paged, and (e) ``Trainer.run`` (remat
+   full, 4096 tokens, three AdamW steps; the step-1 gradient against
+   float32; kill at step 2 and resume), both at HYBRID's 17 layers; (f)
+   the prefill, a decode step and the training step per mode in turns,
+   with a trace of each;
+then the ``kernels`` JSON line (each CUDA kernel with its instances, the
+attention kernels' and the SSD's zamba2 shapes), the card line, and the
+``ok`` line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
 when any phase fails.
@@ -146,6 +174,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -293,6 +322,17 @@ SSM_END_TO_END = ("layer 4's mixer dropped",)
 # 1.010 in the sound run on one H100; the bf16 gated norm reads 1.11 /
 # 1.28, the bf16 SSD 5.5 / 5.0, the dropped layer over 100.
 SSM_BLOCK_FACTOR = 1.05
+# The hybrid slice (phase 24): zamba2-7b at full width (d_model 3584, 32
+# heads of 112, mamba N 64 and 112 heads of 64).  Prefill and serving run
+# all 81 layers.  The engine and the trainer (kill/resume included) are cut
+# to 17 layers: one super-block and a 3-layer tail, so both cache kinds,
+# the shared block and the tail are present.  At 31 layers (two
+# super-blocks) phase 24 took 371 s on one H100 and the script would have
+# run past its 1050 s aim; 17 layers save about 115 s.  The CPU tests hold the shared
+# block's gradient summed over two applications.  bf16 is held to barrier
+# through a float32 run (SSM_F32_FACTOR).
+HYBRID = dict(arch="zamba2-7b", engine_layers=17, train_layers=17,
+              remat="full")
 
 
 class PhaseError(RuntimeError):
@@ -399,7 +439,8 @@ class Smoke:
               "phase14_paged_kernel", "phase15_engine",
               "phase16_engine_timing", "phase17_ce_kernel", "phase18_train",
               "phase19_train_timing", "phase20_ssd_kernel",
-              "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced")
+              "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced",
+              "phase24_hybrid")
 
     def run(self):
         t0 = time.perf_counter()
@@ -458,9 +499,12 @@ class Smoke:
               f"parallel, {time.perf_counter() - t:.1f} s; triton "
               f"{triton.__version__} compiles each rows signature and the "
               f"rmsnorm / swiglu kernels at their first launch")
-        print("[1 build] flash_attention.cu, nvcc -Xptxas -v: "
-              + "; ".join(self.ptxas_report(_build.build_log(flash.SOURCE),
-                                            "flash_fwd_kernel_bf16_wgmma")))
+        self.flash_ptxas = self.ptxas_report(
+            _build.build_log(flash.SOURCE),
+            [f"flash_fwd_kernel_bf16_wgmma<{d}>" for d in flash.HEAD_DIMS]
+            + [f"flash_fwd_kernel<float,{d}>" for d in flash.HEAD_DIMS])
+        print("[1 build] flash_attention.cu (instances <head dim>), nvcc "
+              "-Xptxas -v: " + "; ".join(self.flash_ptxas))
         self.ce_ptxas = self.ptxas_report(_build.build_log(ce.SOURCE),
                                           "ce_tc_kernel")
         print("[1 build] fused_ce.cu, nvcc -Xptxas -v: "
@@ -479,15 +523,16 @@ class Smoke:
               + "; ".join(self.nhwc_ptxas))
         self.paged_ptxas = self.ptxas_report(
             _build.build_log(decode.PAGED_SOURCE),
-            "paged_flash_decode_kernel<bf16,bf16,1>")
-        print("[1 build] paged_flash_decode.cu (instances <q, pool, chains a "
-              "CTA>), nvcc -Xptxas -v: " + "; ".join(self.paged_ptxas))
+            [f"paged_flash_decode_kernel<{dts},{cps},{d}>"
+             for _, dts in self.PAGED_DTYPES for cps in (1, 2, 4, 8, 16)
+             for d in decode.HEAD_DIMS])
+        print(f"[1 build] paged_flash_decode.cu ({len(self.paged_ptxas)} "
+              f"instances <q, pool, chains a CTA, head dim>), nvcc -Xptxas "
+              f"-v: " + "; ".join(self.paged_ptxas))
 
     #: Kernel names as the ptxas lines report them, by a fragment of the
     #: mangled name (first match wins).
-    PTXAS_NAMES = (("bf16_wgmma", "flash_fwd_kernel_bf16_wgmma"),
-                   ("flash_fwd_kernel", "flash_fwd_kernel<float>"),
-                   ("ce_tc_kernel", "ce_tc_kernel"),
+    PTXAS_NAMES = (("ce_tc_kernel", "ce_tc_kernel"),
                    ("ce_split_kernel", "ce_split_kernel<float>"),
                    ("ce_merge_kernel", "ce_merge_kernel"),
                    ("ssd_intra_chunk_kernel", "ssd_intra_chunk_kernel"),
@@ -505,17 +550,24 @@ class Smoke:
     @classmethod
     def ptxas_report(cls, log, need):
         """Each kernel's registers and spills from ptxas's ``-v`` lines;
-        fails unless the kernel ``need`` is among them."""
+        fails unless the kernel ``need`` (a name, or a list of names) is
+        among them.  Templated attention kernels are named with their
+        instance's arguments (the head dim last)."""
         out, name = [], None
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
+                ints = re.findall(r"Li(\d+)E", name)
                 if "paged_flash_decode_kernelI" in name:
                     args = name.split("paged_flash_decode_kernelI")[1]
                     dts = next(n for frag, n in cls.PAGED_DTYPES
                                if args.startswith(frag))
-                    cps = args.split("Li")[1].split("E")[0]
-                    name = f"paged_flash_decode_kernel<{dts},{cps}>"
+                    name = (f"paged_flash_decode_kernel<{dts},{ints[0]},"
+                            f"{ints[1]}>")
+                elif "bf16_wgmma" in name:
+                    name = f"flash_fwd_kernel_bf16_wgmma<{ints[0]}>"
+                elif "flash_fwd_kernelIf" in name:
+                    name = f"flash_fwd_kernel<float,{ints[0]}>"
                 name = next((n for frag, n in cls.PTXAS_NAMES if frag in name),
                             name)
             elif "spill stores" in line and name:
@@ -524,8 +576,9 @@ class Smoke:
                 regs = line.split("Used")[1].split(",")[0].strip()
                 out.append(f"{name}: {regs}, {spill}")
                 name = None
-        if not any(o.startswith(need + ":") for o in out):
-            raise PhaseError(f"ptxas reported no {need}")
+        for want in [need] if isinstance(need, str) else need:
+            if not any(o.startswith(want + ":") for o in out):
+                raise PhaseError(f"ptxas reported no {want}")
         return out
 
     def nhwc_cases(self):
@@ -2315,7 +2368,7 @@ class Smoke:
 
     # -- the engine slice -----------------------------------------------------
     def paged_operands(self, dt, pool_dt, heads, kv_heads, seed,
-                       lengths=None, bs=None, max_len=None):
+                       lengths=None, bs=None, max_len=None, d=128):
         """Phase 14's operands: q, pools, a table that is a random
         permutation of the pool with the sentinel id N past each slot's
         blocks, and ragged lengths (by default one 0, one full) over a
@@ -2339,9 +2392,9 @@ class Smoke:
             used = -(-ln // bs)
             table[i, :used] = perm[at:at + used].int()
             at += used
-        q = self.randn((b, heads, 1, 128), seed + 1).to(dt)
-        kp = self.randn((n, kv_heads, bs, 128), seed + 2).to(pool_dt)
-        vp = self.randn((n, kv_heads, bs, 128), seed + 3).to(pool_dt)
+        q = self.randn((b, heads, 1, d), seed + 1).to(dt)
+        kp = self.randn((n, kv_heads, bs, d), seed + 2).to(pool_dt)
+        vp = self.randn((n, kv_heads, bs, d), seed + 3).to(pool_dt)
         return q, kp, vp, table, lens
 
     def phase14_paged_kernel(self):
@@ -2413,7 +2466,8 @@ class Smoke:
                         f"{float((got.float() - dense.float()).abs().max()):.3e})")
             plan = decode._plan(decode._library(decode.PAGED_SOURCE),
                                 q.device, q.shape[0], q.shape[1],
-                                table.shape[1], kp.shape[2], (1, 1))
+                                table.shape[1], kp.shape[2], q.shape[3],
+                                (1, 1))
             lines.append(f"{what} (batch {q.shape[0]}, block {kp.shape[2]}, "
                          f"plan {plan.splits} CTAs a (slot, head)"
                          + (f"; splits {', '.join(str(x) for x in splits)}"
@@ -2650,13 +2704,13 @@ class Smoke:
         lengths, over HBM; or its operations (a multiply-add a K and a V
         element) over the bf16 tensor-core rate, whichever is larger."""
         from repro_torch.core.resource import H100
-        heads = q.shape[1]
+        heads, d = q.shape[1], q.shape[3]
         valid = int(lens.sum())
         used = int(((lens + PAGED["block"] - 1) // PAGED["block"]).sum())
-        n_bytes = (2 * q.numel() * 2 + 2 * valid * heads * 128 * 2
+        n_bytes = (2 * q.numel() * 2 + 2 * valid * heads * d * 2
                    + used * 4 + lens.numel() * 4)
         t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
-        t_ops = 4 * 128 * heads * valid / PEAK_BF16 * 1e3
+        t_ops = 4 * d * heads * valid / PEAK_BF16 * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                              "operations")
 
@@ -2665,8 +2719,9 @@ class Smoke:
         from repro_torch.kernels.attention import decode
         plan = decode._plan(decode._library(decode.PAGED_SOURCE), q.device,
                             q.shape[0], q.shape[1], table.shape[1],
-                            kp.shape[2], (decode.DTYPE_IDS[q.dtype],
-                                          decode.DTYPE_IDS[kp.dtype]))
+                            kp.shape[2], q.shape[3],
+                            (decode.DTYPE_IDS[q.dtype],
+                             decode.DTYPE_IDS[kp.dtype]))
         return (f"plan {plan.splits} CTAs a (slot, head) of {plan.chains} "
                 f"chains, {plan.ctas} CTAs")
 
@@ -3875,7 +3930,7 @@ class Smoke:
                         max_new_tokens=int(rng.integers(s_lo, s_hi + 1)))
                 for i in range(MAMBA_ENGINE["requests"])]
 
-    def ssm_path_kernels(self, cfg):
+    def ssm_path_kernels(self, cfg, tag="21", key="gated_norm"):
         """The kernels of the mamba path other than the SSD kernel, called
         as the path calls them, at its shapes, on bf16 tensors, against
         their plain versions at LM_TOL's bf16 tolerance: the gated RMSNorm
@@ -3917,7 +3972,7 @@ class Smoke:
             self.same_bits("fused_rows", f"gated norm {lead}", {"o": got},
                            {"o": again})
             lines.append(f"gated norm fwd {lead + (di,)} max|d| {err:.2e}")
-        self.gated_norm_fwd_timing(program, scale)
+        self.gated_norm_fwd_timing(program, scale, tag, key)
         # the backward at one training sequence
         seq = (1, TRAIN_LM["seq"])
         y = self.randn(seq + (di,), 2220).to(bf)
@@ -3965,12 +4020,14 @@ class Smoke:
             self.same_bits("rmsnorm", what, {"y": yk, "h": hk},
                            {"y": again[0], "h": again[1]})
             lines.append(f"{what} max|d| {err:.2e}")
-        print(f"[21 path kernels] {cfg.name} bf16, against the plain versions "
+        print(f"[{tag} path kernels] {cfg.name} bf16, against the plain "
+              f"versions "
               f"(tol {LM_TOL['bfloat16']}; the backward's dscale atol rtol x "
               f"max), two runs bit for bit: " + "; ".join(lines)
               + f"; {time.perf_counter() - t:.1f} s")
 
-    def gated_norm_fwd_timing(self, program, scale):
+    def gated_norm_fwd_timing(self, program, scale, tag="21",
+                              key="gated_norm"):
         """The rows forward at mamba2's gated norm over d_inner in bf16:
         prefill (1, 2048), one training sequence (1, 4096) and a decode step
         (4, 1); each against its plain version (LM_TOL, two runs bit for
@@ -4007,7 +4064,7 @@ class Smoke:
                 program, inputs, params))
             nb = sum(t.numel() * t.element_size() for t in (y, z, scale, o))
             b_ms = nb / H100.hbm_bandwidth * 1e3
-            print(f"[21 gated norm fwd] rows={n} F={di} bf16: max|d| "
+            print(f"[{tag} gated norm fwd] rows={n} F={di} bf16: max|d| "
                   f"{err:.2e} (tol {LM_TOL['bfloat16']}), two runs bit for "
                   f"bit; kernel {k_ms:.4f} ms {k_how} ({alt} programs an SM: "
                   f"{a_ms:.4f} ms)  plain {p_ms:.4f} ms  library none  "
@@ -4017,7 +4074,7 @@ class Smoke:
                   f"{plan.loop_stages} stage(s)")
             out[str(n)] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                            "registers": regs, f"ms_at_{alt}_per_sm": a_ms}
-        self.kernels["fused_rows"]["gated_norm"] = out
+        self.kernels["fused_rows"][key] = out
 
     def phase21_ssm_serving(self):
         torch = self.torch
@@ -4948,6 +5005,941 @@ class Smoke:
             raise PhaseError(f"23c ce bfloat16: the limit {lim} does not "
                              f"part the controls ({line})")
         return line
+
+    # -- phase 24: the hybrid family (zamba2-7b) ------------------------------
+    def hybrid_counters(self, zero=False):
+        """Launch counts of every kernel on the hybrid's paths (the LM
+        kernels, the SSD and rows kernels, the rows backward and the CE
+        kernel) and ``plain``: the plain or reference dispatches of their
+        wrappers (``zero`` sets all of them to 0)."""
+        from repro_torch.kernels.attention import ops as aops
+        from repro_torch.kernels.vocab_ce import ce
+        from repro_torch.kernels.vocab_ce import ops as cops
+        lm_c = self.lm_counters(zero)
+        ssm_c = self.ssm_counters(zero)
+        if zero:
+            ce.fused_ce_fwd.launches = 0
+            cops.STATS.reset()
+        out = {k: lm_c[k] for k in ("rmsnorm", "swiglu", "flash_attention",
+                                    "flash_decode", "paged_flash_decode")}
+        out.update({k: ssm_c[k] for k in ("ssd_intra_chunk", "fused_rows",
+                                          "fused_rows_bwd")})
+        out["fused_ce"] = ce.fused_ce_fwd.launches
+        out["plain"] = (ssm_c["plain"] + lm_c["swiglu_plain"]
+                        + cops.STATS.counts["plain"]
+                        + sum(v for k, v in aops.STATS.counts.items()
+                              if k != "decode_kernel"
+                              and k != "paged_decode_kernel"))
+        return out
+
+    def expect_hybrid(self, what, got, **launches):
+        want = {k: 0 for k in got}
+        want.update(launches)
+        if got != want:
+            raise PhaseError(f"{what}: counters {got}, expected {want}")
+
+    def hybrid_group(self, low):
+        """The hybrid path's kernel group of a kernel name, else None."""
+        g = self.ssm_kernel(low)
+        if g is not None:
+            return g
+        for frag, group in (("swiglu_kernel", "swiglu"),
+                            ("flash_fwd_kernel", "flash_attention"),
+                            ("paged_flash_decode_kernel",
+                             "paged_flash_decode"),
+                            ("flash_decode_kernel", "flash_decode"),
+                            ("ce_tc_kernel", "fused_ce"),
+                            ("ce_split_kernel", "fused_ce"),
+                            ("ce_merge_kernel", "fused_ce")):
+            if frag in low:
+                return group
+        return None
+
+    def hybrid_trace_group(self, low):
+        g = self.hybrid_group(low)
+        if g is not None:
+            return g
+        if any(k in low for k in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+            return "matmul"
+        return "other"
+
+    @contextlib.contextmanager
+    def hybrid_drop(self, n_super):
+        """The planted defect: the first of every ``n_super`` applications
+        of the shared attention block (the first of each forward or decode
+        step) dropped in every mode's run while the block runs: the block
+        adds nothing to the residual stream.  Yields a list whose length
+        counts the applications dropped."""
+        from repro_torch.models import lm
+        saved = (lm._apply_sub, lm._decode_sub)
+        seen, dropped = [0, 0], []
+
+        def skip(resid, pending):
+            dropped.append(1)
+            return resid + pending, self.torch.zeros_like(pending)
+
+        def apply(kind, p, resid, pending, *a, **kw):
+            if kind == "shared_attn":
+                seen[0] += 1
+                if seen[0] % n_super == 1 % n_super:
+                    return skip(resid, pending)
+            return saved[0](kind, p, resid, pending, *a, **kw)
+
+        def decode(kind, p, cache, resid, pending, *a, **kw):
+            if kind == "shared_attn":
+                seen[1] += 1
+                if seen[1] % n_super == 1 % n_super:
+                    return skip(resid, pending)
+            return saved[1](kind, p, cache, resid, pending, *a, **kw)
+
+        lm._apply_sub, lm._decode_sub = apply, decode
+        try:
+            yield dropped
+        finally:
+            lm._apply_sub, lm._decode_sub = saved
+
+    def per_position(self, got, want):
+        """Per position, max|d| over the vocabulary / max|want| there."""
+        want = want.float()
+        d = (got.float() - want).abs().amax(-1) / want.abs().amax(
+            -1).clamp_min(1e-30)
+        return d.flatten().tolist()
+
+    def hybrid_kernels(self, cfg):
+        """24a: the three attention kernels at zamba2-7b's head dim 112,
+        the SSD kernel at its (112 heads, N 64) and the gated norm's rows
+        kernel (and its backward, and rmsnorm) at its widths, each against
+        its plain version; their times beside bound, plain version and a
+        library call."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.core.resource import H100
+        from repro_torch.kernels.attention import decode, flash, ref
+        from repro_torch.kernels.ssd import ssd
+        t = time.perf_counter()
+        d = cfg.head_dim
+        bf, f32 = torch.bfloat16, torch.float32
+        lines, flash_bound = [], []
+        for dt in (bf, f32):
+            for (b, h_, s_), causals in (((1, 32, 2048), (True,)),
+                                         ((2, 32, 1000), (True, False))):
+                q = self.randn((b, h_, s_, d), 2400).to(dt)
+                k = self.randn((b, h_, s_, d), 2401).to(dt)
+                v = self.randn((b, h_, s_, d), 2402).to(dt)
+                for causal in causals:
+                    what = f"D {d} {dt} {(b, h_, s_)} causal={causal}"
+                    got = flash.flash_attention_fwd(q, k, v, causal=causal)
+                    again = flash.flash_attention_fwd(q, k, v, causal=causal)
+                    err = self.lm_check("flash_attention", what, got,
+                                        flash.flash_attention_plain(
+                                            q, k, v, causal=causal))
+                    self.same_bits("flash_attention", what, {"o": got},
+                                   {"o": again})
+                    lines.append(f"flash {str(dt)[6:]} {(b, h_, s_, d)} "
+                                 f"causal={causal} max|d| {err:.2e}")
+                    if dt == bf:
+                        top = max(float(got.float().abs().max()), 1e-30)
+                        bound = (2.0 ** -18 * float(v.float().abs().max())
+                                 + 2.0 ** (math.floor(math.log2(top)) - 7))
+                        if not err <= bound:
+                            raise PhaseError(f"flash_attention {what}: max|d|"
+                                             f" {err:.3e} past the P bound "
+                                             f"{bound:.3e}")
+                        flash_bound.append(f"{err:.3e} (bound {bound:.3e})")
+                del q, k, v
+        # dense and paged decode at (8, 32, ragged up to 32768, 112)
+        for dt, pool_dt in ((bf, bf), (bf, f32), (f32, f32)):
+            q, kp, vp, table, lens = self.paged_operands(
+                dt, pool_dt, PAGED["heads"], PAGED["heads"], 2410, d=d)
+            clipped = table.clamp(0, kp.shape[0] - 1)
+            kd = ref.gather_paged(kp, clipped)
+            vd = ref.gather_paged(vp, clipped)
+            dense = decode.flash_decode(q, kd, vd, lens)
+            err_d = self.lm_check("flash_decode", f"D {d} q {dt} cache "
+                                  f"{pool_dt}", dense,
+                                  decode.flash_decode_plain(q, kd, vd, lens))
+            got = decode.paged_flash_decode(q, kp, vp, table, lens)
+            err_p = self.lm_check("paged_flash_decode", f"D {d} q {dt} pool "
+                                  f"{pool_dt}", got,
+                                  decode.paged_flash_decode_plain(
+                                      q, kp, vp, table, lens))
+            if not (bool((got[0] == 0).all()) and bool((dense[0] == 0).all())):
+                raise PhaseError(f"decode at D {d}: a length-0 slot is not "
+                                 f"exactly zero")
+            for s in (None,) + (decode.SPLITS if dt == bf == pool_dt else ()):
+                other = decode.paged_flash_decode(q, kp, vp, table, lens,
+                                                  splits=s)
+                torch.cuda.synchronize()
+                if not torch.equal(other, dense):
+                    raise PhaseError(
+                        f"paged_flash_decode D {d} q {dt} pool {pool_dt} "
+                        f"splits {s}: differs from flash_decode on the "
+                        f"gathered view (max|d| "
+                        f"{float((other.float() - dense.float()).abs().max()):.3e})")
+            lines.append(f"decode q {str(dt)[6:]} cache {str(pool_dt)[6:]} "
+                         f"max|d| dense {err_d:.2e} paged {err_p:.2e}, paged "
+                         f"== dense bit for bit"
+                         + (" at every split" if dt == bf == pool_dt else ""))
+            del q, kp, vp, kd, vd, dense, got, clipped
+        torch.cuda.empty_cache()
+        print(f"[24a kernels D {d}] against their plain versions (tol "
+              f"{LM_TOL}; bf16 flash two launches bit for bit and within the "
+              f"P bound: {', '.join(flash_bound)}), decode at ({PAGED['batch']}"
+              f", 32, lengths {lens.tolist()}, {d}), block {PAGED['block']}, "
+              f"a shuffled table with sentinel tails, length 0 exactly zero: "
+              + "; ".join(lines) + f"; {time.perf_counter() - t:.1f} s")
+
+        # times beside bound, plain version and SDPA
+        def nbytes(*ts):
+            return sum(x.numel() * x.element_size() for x in ts)
+
+        s2 = PREFILL[1]
+        q = self.randn((1, 32, s2, d), 2420).to(bf)
+        k = self.randn((1, 32, s2, d), 2421).to(bf)
+        v = self.randn((1, 32, s2, d), 2422).to(bf)
+        pairs = s2 * (s2 + 1) // 2
+        t_ops = 4 * d * 32 * pairs / PEAK_BF16 * 1e3
+        t_by = nbytes(q, k, v, q) / H100.hbm_bandwidth * 1e3
+        rows = {}
+        with torch.inference_mode():
+            run = lambda: flash.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+            k_ms, how = self.kernel_ms(run, "flash_fwd_kernel")
+            rows["flash_attention"] = dict(
+                shape=f"(1, 32, {s2}, {d}) bf16 causal", ms=k_ms, how=how,
+                plain_ms=self.cuda_ms(lambda: flash.flash_attention_plain(
+                    q, k, v, causal=True), reps=1, groups=3, warmup=1),
+                library_ms=self.cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True)),
+                bound_ms=max(t_ops, t_by),
+                bound_by="operations" if t_ops >= t_by else "bytes")
+        del q, k, v
+        q, kp, vp, table, lens = self.paged_operands(
+            bf, bf, PAGED["heads"], PAGED["heads"], 2430, d=d)
+        clipped = table.clamp(0, kp.shape[0] - 1)
+        kd, vd = ref.gather_paged(kp, clipped), ref.gather_paged(vp, clipped)
+        mask = (torch.arange(kd.shape[2], device=self.dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        b_ms, b_by = self.paged_bound(q, lens)
+        shape = (f"({PAGED['batch']}, 32, lengths {lens.tolist()}, {d}) "
+                 f"bf16")
+        with torch.inference_mode():
+            sdpa = self.cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, kd, vd, attn_mask=mask))
+            run = lambda: decode.flash_decode(q, kd, vd, lens)  # noqa: E731
+            k_ms, how = self.kernel_ms(run, "flash_decode_kernel")
+            rows["flash_decode"] = dict(
+                shape=shape, ms=k_ms, how=how,
+                plain_ms=self.cuda_ms(lambda: decode.flash_decode_plain(
+                    q, kd, vd, lens), reps=1, groups=3, warmup=1),
+                library_ms=sdpa, bound_ms=b_ms, bound_by=b_by)
+            run = lambda: decode.paged_flash_decode(  # noqa: E731
+                q, kp, vp, table, lens)
+            k_ms, how = self.kernel_ms(run, "paged_flash_decode_kernel")
+            rows["paged_flash_decode"] = dict(
+                shape=shape + f", block {PAGED['block']}", ms=k_ms, how=how,
+                plain_ms=self.cuda_ms(lambda: decode.paged_flash_decode_plain(
+                    q, kp, vp, table, lens), reps=1, groups=3, warmup=1),
+                library_ms=None, sdpa_gathered_ms=sdpa, bound_ms=b_ms,
+                bound_by=b_by, plan=self.paged_plan_note(q, table, kp))
+        del q, kp, vp, kd, vd, mask, clipped
+        torch.cuda.empty_cache()
+        print(f"[24a times D {d}] device time per launch (profiler), plain "
+              f"version and library call per call (events), bound (bytes "
+              f"each input once and each output once, or operations at the "
+              f"bf16 tensor-core rate counting {d} columns); {self.smi}:")
+        for name, r in rows.items():
+            lib = (f"{r['library_ms']:.4f} ms" if r["library_ms"] is not None
+                   else f"none (SDPA on the gathered view, a note: "
+                        f"{r['sdpa_gathered_ms']:.4f} ms)")
+            print(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms "
+                  f"({r['how']})  plain {r['plain_ms']:.4f} ms  library "
+                  f"{lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+                  f"kernel/bound {r['ms'] / r['bound_ms']:.2f}"
+                  + (f"; {r['plan']}" if "plan" in r else ""))
+            self.kernels[name]["head_dim_112"] = {
+                k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by")}
+        for name, inst in (("flash_attention", self.flash_ptxas),
+                           ("paged_flash_decode", self.paged_ptxas),
+                           ("fused_nhwc", self.nhwc_ptxas),
+                           ("fused_nhwc_bwd", self.nhwc_bwd_ptxas),
+                           ("fused_ce", self.ce_ptxas),
+                           ("ssd_intra_chunk", self.ssd_ptxas)):
+            self.kernels[name]["instances"] = inst
+        self.kernels["flash_decode"]["instances"] = [
+            f"flash_decode_kernel<{q},{kv},{dd}>"
+            for q, kv in (("f32", "f32"), ("bf16", "bf16"), ("bf16", "f32"))
+            for dd in decode.HEAD_DIMS]
+
+        # the SSD kernel at zamba2's (1, 112 heads, 32 chunks, 64, 64), N 64
+        shape_ = (1, cfg.ssm_heads, PREFILL[1] // 64, 64, cfg.ssm_head_dim,
+                  cfg.ssm_state)
+        b, h, nc, L, p, n = shape_
+        ssd_lines = []
+        for what, decay, seed in (("decays up to 0.5 a step", 0.5, 2440),
+                                  ("overflowing decays", None, 2441)):
+            dtx, a, Bm, Cm = self.ssd_operands(shape_, seed, decay)
+            got = ssd.ssd_intra_chunk(dtx, a, Bm, Cm)
+            again = ssd.ssd_intra_chunk(dtx, a, Bm, Cm)
+            rel = self.ssd_check(f"zamba2 {what}", dict(zip("yS", got)),
+                                 dict(zip("yS", ssd.ssd_intra_chunk_ref(
+                                     dtx, a, Bm, Cm))))
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                raise PhaseError(f"ssd_intra_chunk zamba2 {what}: two "
+                                 f"launches differ")
+            ssd_lines.append(f"{what} max|d|/max(1, max|ref|) {rel:.3e}")
+        dtx, a, Bm, Cm = self.ssd_operands(shape_, 2440, 0.5)
+        run = lambda: ssd.ssd_intra_chunk(dtx, a, Bm, Cm)  # noqa: E731
+        k_ms, how = self.kernel_ms(run, "ssd_intra_chunk_kernel")
+        p_ms = self.cuda_ms(lambda: ssd.ssd_intra_chunk_ref(dtx, a, Bm, Cm))
+        per_sm = ssd._ctas_per_sm(ssd._library(), L, n, p)
+        plan = ssd.launch_plan(b, h, nc, self.sm_count, per_sm)
+        cells = b * h * nc
+        tri = L * (L + 1) // 2
+        n_ops = 2 * (tri * n * b * nc + (tri * p + n * L * p) * cells)
+        n_bytes = 4 * (2 * dtx.numel() + a.numel() + Bm.numel() + Cm.numel()
+                       + cells * n * p)
+        t_ops = n_ops / H100.peak_flops_f32 * 1e3
+        t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
+        sb_ms, sb_by = (t_ops, "operations") if t_ops >= t_bytes else (
+            t_bytes, "bytes")
+        del dtx, a, Bm, Cm
+        shape = f"({b}, {h}, {nc}, {L}, {p}), N {n}, float32"
+        print(f"[24a ssd_intra_chunk] zamba2 {shape}, two launches bit for "
+              f"bit: " + "; ".join(ssd_lines) + f" (tol {SSD_TOL} x max(1, "
+              f"max|ref|)); kernel {k_ms:.4f} ms ({how}), plain {p_ms:.4f} "
+              f"ms, library none, bound {sb_ms:.4f} ms ({sb_by}: "
+              f"{n_bytes / 1e6:.1f} MB = {t_bytes:.4f} ms; {n_ops:.3e} float32"
+              f" operations = {t_ops:.4f} ms), kernel/bound "
+              f"{k_ms / sb_ms:.2f}; launch plan {plan.heads_per_cta} heads a "
+              f"CTA, {plan.groups} groups, {plan.ctas} CTAs, {plan.waves} "
+              f"wave(s)")
+        self.kernels["ssd_intra_chunk"]["zamba2"] = {
+            "shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": sb_ms,
+            "bound_by": sb_by, "heads_per_cta": plan.heads_per_cta}
+        # the gated norm's rows kernel (forward and backward) over d_inner
+        # and rmsnorm over d_model, at zamba2's widths
+        self.ssm_path_kernels(cfg, tag="24a", key="gated_norm_zamba2")
+
+    def hybrid_blocks(self, params, cfg, tokens):
+        """24b blocks: every block of the plan (the shared attention at each
+        application) run alone on barrier's inputs to it, in brainslug, in
+        barrier and in barrier with the planted defect (the first
+        shared-attention application dropped), against the same block in
+        float32 on the same inputs: the relative L2 distance of the block's
+        output (the mixer's, or the shared block's MLP output, which
+        carries its attention through the second norm).  brainslug within
+        SSM_BLOCK_FACTOR x barrier's in every block; the defect flagged."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        rts = {m: RuntimeConfig(mode=m) for m in ("brainslug", "barrier")}
+        plan = lm.layer_plan(cfg)
+        apply = lm._apply_sub                   # the sound block
+        shared = params["shared_attn"]
+        shared32 = base.cast_tree(shared, torch.float32)
+        blocks = [(kind, p) for blk in lm._superblocks(params, plan)
+                  for kind, p in zip(plan.superblock, blk)]
+        if plan.tail:
+            blocks += [("mamba", p) for p in lm._unstack(
+                params["tail"]["sub0"], len(plan.tail))]
+        dist = {r: [] for r in ("brainslug", "barrier", "control")}
+        with torch.inference_mode():
+            resid = lm.embed_inputs(params, {"tokens": tokens}, cfg)
+            pending = torch.zeros_like(resid)
+            with self.hybrid_drop(plan.n_super) as hit:
+                for kind, p in blocks:
+                    p32 = None if p is None else base.cast_tree(
+                        p, torch.float32)
+                    ref = apply(kind, p32, resid.float(), pending.float(),
+                                cfg32, rts["barrier"], shared32)[1]
+                    out = apply(kind, p, resid, pending, cfg,
+                                rts["brainslug"], shared)[1]
+                    dist["brainslug"].append(self.rel_l2([out], [ref]))
+                    # the patched block drops the first shared application
+                    out = lm._apply_sub(kind, p, resid, pending, cfg,
+                                        rts["barrier"], shared)[1]
+                    dist["control"].append(self.rel_l2([out], [ref]))
+                    resid, pending = apply(kind, p, resid, pending, cfg,
+                                           rts["barrier"], shared)
+                    dist["barrier"].append(self.rel_l2([pending], [ref]))
+                    del ref, out, p32
+        kinds = [k for k, _ in blocks]
+        ratio = {r: [a / b for a, b in zip(d, dist["barrier"])]
+                 for r, d in dist.items()}
+
+        def summary(r, kind):
+            d = [x for x, k in zip(dist[r], kinds) if k == kind]
+            q = [x for x, k in zip(ratio[r], kinds) if k == kind]
+            return (f"{kind} distance median {statistics.median(d):.3e} "
+                    f"worst {max(d):.3e}, ratio median "
+                    f"{statistics.median(q):.3f} worst {max(q):.3f}")
+
+        print(f"[24b blocks] {cfg.name} bf16 prefill {PREFILL}, each of "
+              f"{len(blocks)} blocks alone on barrier's inputs, relative L2 "
+              f"distance of its output to the float32 block; brainslug "
+              f"within {SSM_BLOCK_FACTOR}x barrier's in every block, the "
+              f"control flagged past it: " + "; ".join(
+                  f"{r}: {summary(r, 'mamba')}, {summary(r, 'shared_attn')}"
+                  for r in dist)
+              + f"; the control dropped {len(hit)} application(s), worst "
+              f"ratio {max(ratio['control']):.1f} (block "
+              f"{ratio['control'].index(max(ratio['control']))}); "
+              f"{time.perf_counter() - t:.1f} s")
+        if not max(ratio["brainslug"]) <= SSM_BLOCK_FACTOR:
+            worst = ratio["brainslug"].index(max(ratio["brainslug"]))
+            raise PhaseError(f"24b blocks: brainslug at "
+                             f"{max(ratio['brainslug']):.3f}x barrier's "
+                             f"distance to the float32 block ({kinds[worst]} "
+                             f"block {worst})")
+        if not hit or not max(ratio["control"]) > SSM_BLOCK_FACTOR:
+            raise PhaseError("24b blocks: the dropped shared-attention "
+                             "application is not flagged")
+
+    def hybrid_full_depth(self, cfg):
+        """24b, 24c and their times (24f): ``lm.prefill`` and
+        ``Server.generate`` at full width and depth."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.launch import serve
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        plan = lm.layer_plan(cfg)
+        n_attn = plan.n_super
+        n_mamba = plan.n_super * (len(plan.superblock) - 1) + len(plan.tail)
+        n_rms = n_mamba + 2 * n_attn + 1
+        t = time.perf_counter()
+        params = lm.init(0, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        print(f"[24 model] {cfg.name}: {cfg.n_layers} layers ({plan.n_super} "
+              f"super-blocks of {len(plan.superblock) - 1} mamba blocks and "
+              f"the shared attention, then a {len(plan.tail)}-layer mamba "
+              f"tail), d_model {cfg.d_model}, {cfg.n_heads} heads of "
+              f"{cfg.head_dim}, d_ff {cfg.d_ff}, mamba {cfg.ssm_heads} heads "
+              f"of {cfg.ssm_head_dim}, N {cfg.ssm_state}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype}: "
+              f"{base.param_count(params) / 1e9:.3f} B random parameters "
+              f"(seed 0) in {time.perf_counter() - t:.1f} s")
+        rts = {m: RuntimeConfig(mode=m) for m in ("barrier", "brainslug")}
+        g = torch.Generator(device=self.dev).manual_seed(2450)
+        tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=g,
+                               device=self.dev)
+        batch = {"tokens": tokens}
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = base.cast_tree(params, torch.float32)
+
+        # 24b: lm.prefill, counted; every position held through lm.forward
+        t = time.perf_counter()
+        with torch.inference_mode():
+            want = lm.prefill(params, batch, cfg, rts["barrier"])
+            torch.cuda.synchronize()
+            self.hybrid_counters(zero=True)
+            got = lm.prefill(params, batch, cfg, rts["brainslug"])
+            torch.cuda.synchronize()
+            counts = self.hybrid_counters()
+            ref32 = lm.prefill(p32, batch, cfg32, rts["barrier"])
+        self.expect_hybrid("zamba2 prefill", counts,
+                           ssd_intra_chunk=n_mamba, flash_attention=n_attn,
+                           rmsnorm=n_rms, swiglu=n_attn, fused_rows=n_mamba)
+        self.hybrid_launches["prefill"] = counts
+        if tuple(got.shape) != (1, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(got).all()):
+            raise PhaseError(f"zamba2 prefill logits {tuple(got.shape)}")
+        with torch.inference_mode():
+            full32 = lm.forward(p32, batch, cfg32, rts["barrier"])[0]
+            dist = {m: self.per_position(lm.forward(params, batch, cfg,
+                                                    rts[m])[0], full32)
+                    for m in ("brainslug", "barrier")}
+            with self.hybrid_drop(n_attn) as hit:
+                ctrl = self.per_position(lm.forward(
+                    params, batch, cfg, rts["barrier"])[0], full32)
+        del full32
+        held = self.held_to_f32("zamba2 prefill bf16", dist["brainslug"],
+                                dist["barrier"])
+        flagged, read = self.control_flagged("zamba2 prefill control", ctrl,
+                                             dist["barrier"])
+        print(f"[24b lm.prefill {PREFILL} bf16] last-position logits: "
+              f"brainslug vs barrier max|d|/max {self.relative(got, want):.3e}"
+              f", argmax equal {bool(got.argmax() == want.argmax())}; to the "
+              f"float32 logits: brainslug {self.relative(got, ref32):.3e}, "
+              f"barrier {self.relative(want, ref32):.3e}; every position "
+              f"through lm.forward, per-position max|d|/max {held}; counters "
+              f"{counts}; {time.perf_counter() - t:.1f} s")
+        print(f"[24b control] barrier bf16 with the first shared-attention "
+              f"application of the forward dropped ({len(hit)} dropped), "
+              f"every position to the float32 run: {read}, "
+              f"{'flagged' if flagged else 'not flagged'} past "
+              f"{SSM_F32_FACTOR}x barrier's (read: {cfg.n_layers} random "
+              f"bf16 layers carry barrier itself far from float32; the "
+              f"block check below must flag it)")
+        del ref32, got, want
+        self.hybrid_blocks(params, cfg, tokens)
+
+        # 24c: Server.generate, dense cache, teacher-forced
+        prompts = np.random.default_rng(2451).integers(
+            0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
+        ).astype(np.int32)
+        t = time.perf_counter()
+        servers, gens, counts = self.serve_pair(cfg, params, prompts,
+                                                self.hybrid_counters)
+        steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
+        self.expect_hybrid("zamba2 serving", counts,
+                           flash_decode=n_attn * steps,
+                           rmsnorm=n_rms * steps, swiglu=n_attn * steps,
+                           fused_rows=n_mamba * steps)
+        self.hybrid_launches["decode_step"] = {k: v // steps
+                                               for k, v in counts.items()}
+        serve_wall = {m: s.last_stats.wall_s for m, s in servers.items()}
+        servers["float32"] = serve.Server(serve.ServeConfig(
+            arch=cfg.name, reduced=False, mode="barrier",
+            max_len=SERVE["prompt_len"] + SERVE["new_tokens"] + 1, **SERVE),
+            params=p32, cfg=cfg32)
+        pairs = (("brainslug", "barrier"), ("brainslug", "float32"),
+                 ("barrier", "float32"))
+        logits = {}
+        errs = self.teacher_forced(servers, prompts, gens["barrier"], pairs,
+                                   steps=logits)
+        held = self.held_to_f32("zamba2 serving bf16", errs[pairs[1]],
+                                errs[pairs[2]])
+        del logits
+        agree = float((gens["brainslug"] == gens["barrier"]).mean())
+        n_gen = servers["brainslug"].last_stats.generated_tokens
+        d = errs[pairs[0]]
+        print(f"[24c Server.generate bf16] {SERVE['batch']} requests, prompt "
+              f"{SERVE['prompt_len']}, {SERVE['new_tokens']} new tokens, "
+              f"greedy, dense cache: token agreement brainslug vs barrier "
+              f"{agree:.4f}; teacher-forced logits max|d|/max per step, "
+              f"brainslug vs barrier worst {max(d):.3e}, median "
+              f"{statistics.median(d):.3e}; {held}; wall " + ", ".join(
+                  f"{m} {w:.3f} s ({n_gen / w:.2f} tok/s)"
+                  for m, w in serve_wall.items())
+              + f"; brainslug counters {counts}; "
+              f"{time.perf_counter() - t:.1f} s")
+        del servers, p32
+
+        # 24f: prefill and a decode step per mode, in turns; a trace of each
+        with torch.inference_mode():
+            cache = lm.init_decode_cache(cfg, SERVE["batch"], 97,
+                                         dtype=torch.float32, device=self.dev)
+        tok = tokens[:, :SERVE["batch"]].reshape(SERVE["batch"], 1)
+        pos = SERVE["prompt_len"]
+
+        def prefill(m):
+            return lm.prefill(params, batch, cfg, rts[m])
+
+        def step(m):
+            for c in lm._caches(cache):
+                if hasattr(c, "length"):
+                    c.length.fill_(pos)
+            return lm.decode_step(params, cache, tok, cfg, rts[m])
+
+        with torch.inference_mode():
+            pre = [(m, self.cuda_ms(lambda m=m: prefill(m), reps=1, groups=3,
+                                    warmup=1))
+                   for m in ("barrier", "brainslug", "brainslug", "barrier")]
+            dec = [(m, self.cuda_ms(lambda m=m: step(m), reps=1, groups=5,
+                                    warmup=1))
+                   for m in ("barrier", "brainslug", "brainslug", "barrier")]
+        print(f"[24f path] zamba2-7b bf16, {cfg.n_layers} layers: lm.prefill "
+              f"{PREFILL}, median of 3 (CUDA events), in turns: "
+              + "  ".join(f"{m}={v:.3f} ms ({PREFILL[1] / v:.1f} tok/ms)"
+                          for m, v in pre))
+        print(f"[24f path] one decode step at batch {SERVE['batch']}, position "
+              f"{pos} (float32 cache as Server builds it), median of 5, in "
+              f"turns: " + "  ".join(f"{m}={v:.3f} ms "
+                                     f"({SERVE['batch'] / v * 1e3:.1f} tok/s)"
+                                     for m, v in dec))
+        expect = {"prefill": {"ssd_intra_chunk_kernel": n_mamba,
+                              "flash_fwd_kernel": n_attn,
+                              "rmsnorm_kernel": n_rms},
+                  "decode step": {"flash_decode_kernel": n_attn,
+                                  "rmsnorm_kernel": n_rms}}
+        with torch.inference_mode():
+            for what, fn in (("prefill", prefill), ("decode step", step)):
+                for m in ("barrier", "brainslug"):
+                    out = self.complete_trace(
+                        lambda m=m: fn(m),
+                        expect[what] if m == "brainslug" else None,
+                        classify=self.hybrid_trace_group)
+                    if out.startswith("incomplete"):
+                        out += "; unchecked: " + self.trace(
+                            lambda m=m: fn(m),
+                            classify=self.hybrid_trace_group)
+                    print(f"[24f trace {what} {m}] {out}")
+        del params, cache
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def hybrid_float32_cut(self, cfg):
+        """24b/24c at float32: zamba2-7b at full width with the CPU tests'
+        cut (the shared attention every 3rd layer, 8 layers: two
+        super-blocks and a 2-layer tail): the prefill's logits and
+        ``Server.generate``'s teacher-forced logits within PATH_F32_REL,
+        identical greedy tokens in both modes."""
+        import dataclasses
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.models import lm
+        torch = self.torch
+        t = time.perf_counter()
+        cfg8 = dataclasses.replace(cfg, attn_layer_period=3, n_layers=8,
+                                   dtype="float32")
+        plan = lm.layer_plan(cfg8)
+        n_attn = plan.n_super
+        n_mamba = plan.n_super * (len(plan.superblock) - 1) + len(plan.tail)
+        p8 = lm.init(1, cfg8, device=self.dev)
+        g = torch.Generator(device=self.dev).manual_seed(2452)
+        tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=g,
+                               device=self.dev)
+        with torch.inference_mode():
+            want, got = (lm.prefill(p8, {"tokens": tokens}, cfg8,
+                                    RuntimeConfig(mode=m))
+                         for m in ("barrier", "brainslug"))
+        pre = self.relative(got, want)
+        prompts = np.random.default_rng(2453).integers(
+            0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
+        ).astype(np.int32)
+        servers, gens, counts = self.serve_pair(cfg8, p8, prompts,
+                                                self.hybrid_counters)
+        steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
+        self.expect_hybrid("zamba2 f32 serving", counts,
+                           flash_decode=n_attn * steps,
+                           rmsnorm=(n_mamba + 2 * n_attn + 1) * steps,
+                           swiglu=n_attn * steps,
+                           fused_rows=n_mamba * steps)
+        if not np.array_equal(gens["brainslug"], gens["barrier"]):
+            raise PhaseError("zamba2 f32 serving: brainslug's tokens differ "
+                             "from barrier's")
+        errs = self.teacher_forced(servers, prompts, gens["barrier"])[
+            ("brainslug", "barrier")]
+        if not max(errs + [pre]) <= PATH_F32_REL:
+            raise PhaseError(f"zamba2 f32: logits max|d|/max prefill "
+                             f"{pre:.3e}, serving worst {max(errs):.3e} > "
+                             f"{PATH_F32_REL}")
+        print(f"[24b/c float32, the CPU tests' cut at full width] "
+              f"{cfg8.n_layers} layers, shared attention every "
+              f"{cfg8.attn_layer_period}rd ({n_attn} super-blocks, a "
+              f"{len(plan.tail)}-layer tail): prefill logits max|d|/max "
+              f"{pre:.3e}; Server.generate brainslug == barrier tokens, "
+              f"teacher-forced logits worst {max(errs):.3e} (tol "
+              f"{PATH_F32_REL}); {time.perf_counter() - t:.1f} s")
+        del servers, p8
+
+    def hybrid_engine(self, cfg):
+        """24d: ``Engine.run`` of 8 ragged requests, dense and paged, at
+        full width cut to HYBRID["engine_layers"]."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        full = dataclasses.replace(cfg, n_layers=HYBRID["engine_layers"])
+        params = lm.init(0, full, device=self.dev)
+        plan = lm.layer_plan(full)
+        n_attn = plan.n_super
+        n_mamba = plan.n_super * (len(plan.superblock) - 1) + len(plan.tail)
+        reqs = self.ssm_queue(cfg.vocab_size)
+        results = {}
+        for layout, mode in ENGINE_RUNS:
+            eng, comps, counts, wall = self.engine_run(
+                full, params, layout, mode, reqs,
+                counters=self.hybrid_counters)
+            results[(layout, mode)] = (eng, comps, wall)
+            path = eng.report()["decode_path"]
+            want = ((f"{self.dev.type}-paged-decode" if layout == "paged"
+                     else f"{self.dev.type}-flash-decode")
+                    if mode == "brainslug"
+                    else ("ref-paged-decode" if layout == "paged"
+                          else "ref-decode"))
+            if path != want:
+                raise PhaseError(f"zamba2 engine {layout} {mode}: decode path "
+                                 f"{path}, expected {want}")
+            if eng.prefix_sharing:
+                raise PhaseError("zamba2 engine: prefix sharing is on")
+            if mode == "brainslug":
+                e = self.evaluations(eng.last_stats)
+                kw = {"paged_flash_decode" if layout == "paged"
+                      else "flash_decode": n_attn * e}
+                self.expect_hybrid(f"zamba2 engine {layout}", counts,
+                                   rmsnorm=(n_mamba + 2 * n_attn + 1) * e,
+                                   swiglu=n_attn * e,
+                                   fused_rows=n_mamba * e, **kw)
+                if layout == "paged":
+                    self.hybrid_launches["engine_evaluation"] = {
+                        k: v // e for k, v in counts.items()}
+        pb = results[("paged", "brainslug")][1]
+        db = results[("dense", "brainslug")][1]
+        pr = results[("paged", "barrier")][1]
+        for i in range(len(reqs)):
+            if not np.array_equal(pb[i].tokens, db[i].tokens):
+                raise PhaseError(f"zamba2 engine: paged and dense brainslug "
+                                 f"differ on request {i}")
+        n_tok = sum(len(c.tokens) for c in pr)
+        agree = sum(int((a.tokens == c.tokens).sum())
+                    for a, c in zip(pb, pr)) / max(n_tok, 1)
+        pick = list(range(4))
+        seqs = [list(reqs[i].prompt) + pr[i].tokens.tolist() for i in pick]
+        starts = [len(reqs[i].prompt) for i in pick]
+        forced = {m: self.forced_logits(full, params, m, seqs, starts)
+                  for m in ("brainslug", "barrier")}
+        forced["float32"] = self.forced_logits(
+            dataclasses.replace(full, dtype="float32"),
+            base.cast_tree(params, torch.float32), "barrier", seqs, starts)
+        pairs = (("brainslug", "barrier"), ("brainslug", "float32"),
+                 ("barrier", "float32"))
+        errs = {(a, b): [self.relative(x, y) for x, y in zip(forced[a],
+                                                             forced[b])]
+                for a, b in pairs}
+        held = self.held_to_f32("zamba2 engine bf16", errs[pairs[1]],
+                                errs[pairs[2]])
+        d = errs[pairs[0]]
+        print(f"[24d engine] {cfg.name} bf16, {full.n_layers} layers "
+              f"({plan.n_super} super-block(s), a {len(plan.tail)}-layer tail), "
+              f"Engine(slots {ENGINE['slots']}, max_len {ENGINE['max_len']}, "
+              f"prefill_chunk {ENGINE['prefill_chunk']}, verify strict), "
+              f"{len(reqs)} requests (prompts {MAMBA_ENGINE['prompt']}, new "
+              f"tokens {MAMBA_ENGINE['stops']}): every request completed in "
+              f"all three runs, no kv.* finding, the free list whole, prefix "
+              f"sharing off, decode paths cuda-paged-decode / "
+              f"cuda-flash-decode; paged == dense brainslug tokens; vs paged "
+              f"barrier token agreement {agree:.4f}, teacher-forced logits "
+              f"max|d|/max vs barrier worst {max(d):.3e}, median "
+              f"{statistics.median(d):.3e}; {held}; counters per model "
+              f"evaluation {self.hybrid_launches['engine_evaluation']}; "
+              f"{time.perf_counter() - t:.1f} s")
+        for (layout, mode), (eng, comps, wall) in results.items():
+            st = eng.last_stats
+            print(f"[24d engine {layout} {mode}] wall {wall:.3f} s, "
+                  f"{st.generated_tokens} tokens "
+                  f"({st.generated_tokens / wall:.2f} tok/s), "
+                  f"{self.evaluations(st)} model evaluations, TTFT "
+                  f"p50 {st.ttft_p50_ms:.1f} ms p99 {st.ttft_p99_ms:.1f} ms; "
+                  f"ServeStats {json.dumps(st.as_dict())}")
+        del results, forced, params
+        torch.cuda.empty_cache()
+
+    def hybrid_grad_anchor(self, layers):
+        """24e: the step-1 gradient of the trainer's loss over every
+        parameter (the seed-0 weights drawn in bf16, the first batch) in
+        brainslug and barrier, its relative L2 distance to the float32
+        gradient of the same weights (all parameters, and ``shared_attn``'s
+        alone); brainslug's within SSM_F32_FACTOR x barrier's."""
+        torch = self.torch
+        import gc
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.data import pipeline
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+
+        def grads(mode, dtype):
+            trainer = self.lm_trainer(mode, layers, dtype,
+                                      arch=HYBRID["arch"],
+                                      init_dtype="bfloat16",
+                                      remat=HYBRID["remat"])
+            params, cfg = trainer.params, trainer.cfg
+            batch = {k: torch.from_numpy(x).to(self.dev) for k, x in
+                     pipeline.synth_batch(cfg, trainer.shape, 0, 0).items()}
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            with torch.enable_grad():
+                live = base.tree_map(lambda p: p.detach().requires_grad_(),
+                                     params)
+                loss, _ = lm.loss_fn(live, batch, cfg, RuntimeConfig(
+                    mode=mode, remat=HYBRID["remat"]))
+                names = [k for k in sorted(live) for _ in
+                         base.tree_leaves(live[k])]
+                out = torch.autograd.grad(loss, base.tree_leaves(live))
+            return float(loss.detach()), out, names
+
+        loss32, g32, names = grads("barrier", "float32")
+        shared = [i for i, n in enumerate(names) if n == "shared_attn"]
+        dist, loss = {}, {}
+        for m in ("brainslug", "barrier"):
+            loss[m], g, _ = grads(m, "bfloat16")
+            dist[m] = (self.rel_l2(g, g32),
+                       self.rel_l2([g[i] for i in shared],
+                                   [g32[i] for i in shared]))
+            del g
+        del g32
+        gc.collect()
+        torch.cuda.empty_cache()
+        ratio = dist["brainslug"][0] / dist["barrier"][0]
+        print(f"[24e step-1 gradient] {layers} layers bf16, every parameter, "
+              f"relative L2 distance to the float32 gradient of the same "
+              f"weights (loss {loss32}): brainslug {dist['brainslug'][0]:.4e} "
+              f"(loss {loss['brainslug']}), barrier "
+              f"{dist['barrier'][0]:.4e} (loss {loss['barrier']}), brainslug "
+              f"at {ratio:.3f}x barrier's (tol {SSM_F32_FACTOR}x); "
+              f"shared_attn's ({len(shared)} leaves, the sum over its "
+              f"applications) brainslug {dist['brainslug'][1]:.4e}, barrier "
+              f"{dist['barrier'][1]:.4e}; {time.perf_counter() - t:.1f} s")
+        if not ratio <= SSM_F32_FACTOR:
+            raise PhaseError(f"zamba2 step-1 gradient: brainslug's distance "
+                             f"to float32 {dist['brainslug'][0]:.4e} > "
+                             f"{SSM_F32_FACTOR} x barrier's "
+                             f"{dist['barrier'][0]:.4e}")
+
+    def hybrid_train(self, cfg):
+        """24e and the training step's times (24f): ``Trainer.run`` at full
+        width cut to HYBRID["train_layers"]."""
+        torch = self.torch
+        import shutil
+        import tempfile
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.data import pipeline
+        from repro_torch.distributed import fault_tolerance as ft
+        from repro_torch.launch import steps as steps_mod
+        from repro_torch.models import lm
+        from repro_torch.optim import adamw
+        import dataclasses
+        t = time.perf_counter()
+        L = HYBRID["train_layers"]
+        plan = lm.layer_plan(dataclasses.replace(cfg, n_layers=L))
+        n_attn = plan.n_super
+        n_mamba = plan.n_super * (len(plan.superblock) - 1) + len(plan.tail)
+        kw = dict(arch=HYBRID["arch"], remat=HYBRID["remat"],
+                  counters=self.hybrid_counters)
+        runs = {}
+        for mode in ("brainslug", "barrier"):
+            hist, per_step, peak, wall = self.train_lm(mode, L, "bfloat16",
+                                                       **kw)
+            for i, got in enumerate(per_step):
+                if mode == "brainslug":
+                    # remat "full": every block's forward runs twice (the
+                    # final norm once), its backward once
+                    self.expect_hybrid(
+                        f"zamba2 train step {i + 1}", got,
+                        ssd_intra_chunk=2 * n_mamba,
+                        flash_attention=2 * n_attn,
+                        rmsnorm=2 * (n_mamba + 2 * n_attn) + 1,
+                        swiglu=2 * n_attn, fused_rows=2 * n_mamba,
+                        fused_rows_bwd=n_mamba, fused_ce=1)
+                else:
+                    self.expect_hybrid(f"zamba2 train barrier step {i + 1}",
+                                       got)
+            runs[mode] = (hist, per_step, peak, wall)
+        self.hybrid_launches["train_step"] = runs["brainslug"][1][0]
+        runs["float32"] = self.train_lm("barrier", L, "float32",
+                                        init_dtype="bfloat16", **kw)
+        losses = {m: [h["loss"] for h in r[0]] for m, r in runs.items()}
+        gnorms = {m: [h["grad_norm"] for h in r[0]] for m, r in runs.items()}
+        if not all(math.isfinite(x) for dd in (losses, gnorms)
+                   for v in dd.values() for x in v):
+            raise PhaseError(f"zamba2 train: losses {losses}, grad norms "
+                             f"{gnorms}")
+        print(f"[24e train bf16] zamba2-7b at full width, {L} layers "
+              f"({plan.n_super} super-block(s), a {len(plan.tail)}-layer tail), "
+              f"remat {HYBRID['remat']}, 1 x {TRAIN_LM['seq']} tokens, "
+              f"{TRAIN_LM['steps']} AdamW steps lr {TRAIN_LM['lr']} through "
+              f"build_trainer / Trainer.run: " + "; ".join(
+                  f"{m} losses {losses[m]} grad_norm {gnorms[m]} peak "
+                  f"{runs[m][2]:.2f} GiB wall {runs[m][3]:.1f} s"
+                  for m in runs)
+              + f" (read, not held: agreement is held on the step-1 "
+              f"gradient); brainslug counters per step "
+              f"{runs['brainslug'][1][0]}")
+        self.hybrid_grad_anchor(L)
+
+        # kill at step 2, resume from the step-1 checkpoint; the brainslug
+        # run above is the uninterrupted one (the resumed run writes only
+        # its final checkpoint: each is 17 GB at 17 layers)
+        full = runs["brainslug"][0]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            free = shutil.disk_usage(d).free / 2 ** 30
+            try:
+                self.train_lm("brainslug", L, "bfloat16",
+                              failure=ft.failure_injector({2}), ckpt_dir=d,
+                              ckpt_every=1, **kw)
+            except ft.SimulatedFailure:
+                pass
+            else:
+                raise PhaseError("zamba2 kill/resume: the injected failure "
+                                 "at step 2 did not happen")
+            resumed, _, _, wall = self.train_lm(
+                "brainslug", L, "bfloat16", ckpt_dir=d,
+                ckpt_every=TRAIN_LM["steps"], **kw)
+        if [h["step"] for h in resumed] != [2] or \
+                resumed[-1]["loss"] != full[-1]["loss"]:
+            raise PhaseError(f"zamba2 kill/resume: resumed {resumed}, "
+                             f"uninterrupted step-3 loss {full[-1]['loss']}")
+        print(f"[24e kill/resume] bf16 {L} layers brainslug: killed at step "
+              f"2, resumed from the step-1 checkpoint ({free:.0f} GiB free in "
+              f"the temp dir): step-3 loss {resumed[-1]['loss']} equals the "
+              f"uninterrupted run's bit for bit; resume run {wall:.1f} s; "
+              f"{time.perf_counter() - t:.1f} s")
+
+        # 24f: the step per mode, in turns, on one model and state
+        trainer = self.lm_trainer("brainslug", L, "bfloat16",
+                                  arch=HYBRID["arch"], remat=HYBRID["remat"])
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_LM["lr"])
+        fns = {m: steps_mod.make_train_step(
+            trainer.cfg, RuntimeConfig(mode=m, remat=HYBRID["remat"]),
+            opt_cfg) for m in ("barrier", "brainslug")}
+        batch = {k: torch.from_numpy(x).to(self.dev) for k, x in
+                 pipeline.synth_batch(trainer.cfg, trainer.shape, 0,
+                                      0).items()}
+
+        def step(m):
+            trainer.params, trainer.opt_state, _ = fns[m](
+                trainer.params, trainer.opt_state, batch)
+
+        def timed(m):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(m)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        for m in fns:
+            step(m)                                     # warm-up
+        turns = [(m, timed(m)) for m in ("barrier", "brainslug", "brainslug",
+                                         "barrier")]
+        print(f"[24f train step] zamba2-7b {L} layers bf16 remat "
+              f"{HYBRID['remat']}, 1 x {TRAIN_LM['seq']} tokens, forward + "
+              f"backward + AdamW, one step each (host clock around "
+              f"synchronised steps), in turns: "
+              + "  ".join(f"{m}={ms:.1f} ms ({TRAIN_LM['seq'] / ms:.2f} "
+                          f"tok/ms)" for m, ms in turns))
+        for m in ("barrier", "brainslug"):
+            print(f"[24f trace train step {m}] " + self.train_trace(
+                lambda m=m: step(m), classify=self.hybrid_group))
+        del trainer, fns, batch
+        torch.cuda.empty_cache()
+
+    def phase24_hybrid(self):
+        from repro_torch.configs import get_config
+        cfg = get_config(HYBRID["arch"])
+        t = time.perf_counter()
+        self.hybrid_launches = {}       # per prefill, step, evaluation
+        self.hybrid_kernels(cfg)
+        self.hybrid_full_depth(cfg)
+        self.hybrid_float32_cut(cfg)
+        self.hybrid_engine(cfg)
+        self.hybrid_train(cfg)
+        la = self.hybrid_launches
+        for name, where in (("flash_attention", ("prefill", "train_step")),
+                            ("flash_decode", ("decode_step",)),
+                            ("paged_flash_decode", ("engine_evaluation",)),
+                            ("ssd_intra_chunk", ("prefill", "train_step"))):
+            entry = self.kernels[name]["zamba2" if name == "ssd_intra_chunk"
+                                       else "head_dim_112"]
+            entry["launches"] = {w: la[w][name] for w in where}
+            entry["max_abs_err"] = self.err[name]
+        print(f"[24 launches] zamba2-7b per prefill {la['prefill']}; per "
+              f"decode step {la['decode_step']}; per engine model evaluation "
+              f"(paged, {HYBRID['engine_layers']} layers) "
+              f"{la['engine_evaluation']}; per training step "
+              f"({HYBRID['train_layers']} layers) {la['train_step']}; phase "
+              f"{time.perf_counter() - t:.1f} s")
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -145,8 +145,9 @@ def _float_dtypes(dtypes: tuple, allowed) -> str | None:
 def _attention_constraints(shapes: tuple, dtypes: tuple,
                            attrs: Mapping) -> str | None:
     q, k, v = shapes
-    if q[-1] != flash_mod.HEAD_DIM:
-        return f"head_dim {q[-1]} != {flash_mod.HEAD_DIM}"
+    if not flash_mod.supports_head_dim(q[-1]):
+        return (f"head_dim {q[-1]} is not one of the kernel's "
+                f"{flash_mod.HEAD_DIMS}")
     if k != v:
         return f"k {k} and v {v} differ"
     if len(q) == 4 and q[1] % k[1]:

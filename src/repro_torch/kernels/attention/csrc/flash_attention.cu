@@ -24,7 +24,7 @@
 // traffic, far above the card's ridge point, so the bound is operations at
 // the bf16 tensor-core rate (989 TFLOP/s).
 //
-// bfloat16 (flash_fwd_kernel_bf16_wgmma, D = 128).  A CTA of two
+// bfloat16 (flash_fwd_kernel_bf16_wgmma<D>, D = 112 or 128).  A CTA of two
 // warpgroups owns 128 query rows (64 each) and walks 128-key blocks:
 //   * S = Q K^T and O += P V run as wgmma (m64n64k16, float32 accumulators
 //     in registers): Q and K K-major from shared memory; P from registers
@@ -49,6 +49,16 @@
 //   * a 3-D tensor map per operand ((D, S, batch x heads)) zero-fills rows
 //     past Sq and Sk, which the mask then removes; diagonal and tail blocks
 //     are masked, the others are not;
+//   * head dims below 128: the shared-memory tiles keep 128 columns (two
+//     64-column halves) and the tensor map's row is D elements, so TMA
+//     fills columns D..127 of the second half with zeros.  Q K^T then sums
+//     exact zeros there, and skips the k16 steps that hold only such
+//     columns (one of eight at D = 112); P V's output columns past D are
+//     computed as zeros and written nowhere.  The global row pitch, D * 2
+//     bytes, must be a multiple of 16 (TMA's stride rule) and the second
+//     half must start inside the row: the design admits every D that is a
+//     multiple of 8 in (64, 128], and this file builds D = 112 (zamba2-7b's
+//     3584 / 32) and 128;
 //   * the grid runs the heaviest (last) query blocks of every head first,
 //     so the tail of a causal grid is short.
 // Forms tried on an H100 and found slower: one n128 chain for Q K^T (with
@@ -62,10 +72,11 @@
 // and |o - o_plain| <= 2^-18 max|v| plus one bf16 rounding of o (2^-9
 // max|v| with hi alone).
 //
-// float32 (flash_fwd_kernel<float, 128>): the CUDA cores in float32, exact
-// against the plain version's arithmetic: 128 threads, each a 4 x 8 block
-// of scores and a 4 x 16 block of the output; Q, K, V and P tiles in
-// padded shared memory (115,712 bytes for D = 128, so two CTAs an SM).
+// float32 (flash_fwd_kernel<float, D>, D = 112 or 128): the CUDA cores in
+// float32, exact against the plain version's arithmetic: 128 threads, each
+// a 4 x 8 block of scores and a 4 x D / 8 block of the output; Q, K, V and
+// P tiles in padded shared memory (115,712 bytes for D = 128, 103,424 for
+// D = 112, so two CTAs an SM).
 #include "../../csrc/hopper.cuh"
 #include "attn_common.cuh"
 
@@ -241,7 +252,7 @@ namespace tc {
 
 constexpr int TC_BQ = 128;       // query rows a CTA (two warpgroups of 64)
 constexpr int TC_BK = 128;       // keys a step
-constexpr int TC_D = 128;        // head dim
+constexpr int TC_D = 128;        // columns of a tile (the largest head dim)
 constexpr int TC_STAGES = 2;     // K / V ring depth
 constexpr int TC_THREADS = 256;  // two warpgroups
 constexpr int HALF = 64;         // columns of one 128-byte swizzled half
@@ -299,6 +310,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+template <int D>
 __global__ void __launch_bounds__(TC_THREADS, 1)
     flash_fwd_kernel_bf16_wgmma(const __grid_constant__ CUtensorMap qmap,
                                 const __grid_constant__ CUtensorMap kmap,
@@ -376,8 +388,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     const uint32_t kt = ring + s * STAGE_BYTES;
     const uint32_t vt = kt + KV_BYTES;
 
-    // S = Q K^T: keys 0-63 into s_lo, 64-127 into s_hi; 8 k16 steps over
-    // the two 64-column halves of D.
+    // S = Q K^T: keys 0-63 into s_lo, 64-127 into s_hi; k16 steps over the
+    // two 64-column halves of the tile, those past D (all zeros) skipped.
     float s_lo[32], s_hi[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s_lo[i] = s_hi[i] = 0.f;   // overwritten
@@ -388,6 +400,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     for (int half = 0; half < 2; ++half) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+        if (half * HALF + 16 * j >= D) continue;
         const uint64_t a = desc(qa + half * Q_HALF + 32 * j, 16, 1024);
         const uint32_t kh = kt + half * KV_HALF + 32 * j;
         mma_ss(s_lo, a, desc(kh, 16, 1024), half + j == 0);
@@ -479,31 +492,32 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     l[r] = fmaxf(l[r], 1e-30f);
   }
-  __nv_bfloat16* op = o + (int64_t)bh * Sq * TC_D;
+  __nv_bfloat16* op = o + (int64_t)bh * Sq * D;
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     const int r = (i >> 1) & 1;
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
     const int col = 8 * (i >> 2) + c0;
-    __nv_bfloat16* at = op + (int64_t)row * TC_D + col;
+    __nv_bfloat16* at = op + (int64_t)row * D + col;
     *reinterpret_cast<__nv_bfloat162*>(at) =
         __floats2bfloat162_rn(o_lo[i] / l[r], o_lo[i + 1] / l[r]);
-    *reinterpret_cast<__nv_bfloat162*>(at + HALF) =
-        __floats2bfloat162_rn(o_hi[i] / l[r], o_hi[i + 1] / l[r]);
+    if (col + HALF < D)       // D is even: the pair lies inside or past D
+      *reinterpret_cast<__nv_bfloat162*>(at + HALF) =
+          __floats2bfloat162_rn(o_hi[i] / l[r], o_hi[i + 1] / l[r]);
   }
 }
 
-// A (D, S, planes) view of a contiguous (planes, S, 128) bf16 tensor, boxes
-// of 64 columns x ``rows`` rows, 128-byte swizzle, zero fill past S.
-int tensor_map(CUtensorMap* map, const void* ptr, int s, int planes,
+// A (D, S, planes) view of a contiguous (planes, S, D) bf16 tensor, boxes
+// of 64 columns x ``rows`` rows, 128-byte swizzle, zero fill past D and S.
+int tensor_map(CUtensorMap* map, const void* ptr, int d, int s, int planes,
                int rows) {
-  if (reinterpret_cast<uintptr_t>(ptr) % 16) return 1;
-  cuuint64_t dims[3] = {static_cast<cuuint64_t>(TC_D),
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 || (d * 2) % 16) return 1;
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                         static_cast<cuuint64_t>(s),
                         static_cast<cuuint64_t>(planes)};
-  cuuint64_t strides[2] = {static_cast<cuuint64_t>(TC_D) * 2,
-                           static_cast<cuuint64_t>(s) * TC_D * 2};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                           static_cast<cuuint64_t>(s) * d * 2};
   cuuint32_t box[3] = {HALF, static_cast<cuuint32_t>(rows), 1};
   cuuint32_t step[3] = {1, 1, 1};
   return cuTensorMapEncodeTiled(
@@ -515,23 +529,26 @@ int tensor_map(CUtensorMap* map, const void* ptr, int s, int planes,
 
 constexpr int TMA_ERROR = -2;
 
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int G, int Sq, int Sk, float scale, int causal,
            cudaStream_t stream) {
+  static_assert(D % 8 == 0 && D > HALF && D <= TC_D,
+                "a row pitch of 16-byte multiples; the second half in it");
   if (Sq == 0 || B * H == 0) return 0;
   if (Sk == 0)                  // no key: acc = 0, l = 0, o = 0
-    return (int)cudaMemsetAsync(o, 0, (size_t)B * H * Sq * TC_D * 2, stream);
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * H * Sq * D * 2, stream);
   CUtensorMap qm, km, vm;
-  if (tensor_map(&qm, q, Sq, B * H, TC_BQ) ||
-      tensor_map(&km, k, Sk, B * G, TC_BK) ||
-      tensor_map(&vm, v, Sk, B * G, TC_BK))
+  if (tensor_map(&qm, q, D, Sq, B * H, TC_BQ) ||
+      tensor_map(&km, k, D, Sk, B * G, TC_BK) ||
+      tensor_map(&vm, v, D, Sk, B * G, TC_BK))
     return TMA_ERROR;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel_bf16_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
+      flash_fwd_kernel_bf16_wgmma<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Sq + TC_BQ - 1) / TC_BQ);
-  flash_fwd_kernel_bf16_wgmma<<<grid, TC_THREADS, SMEM, stream>>>(
+  flash_fwd_kernel_bf16_wgmma<D><<<grid, TC_THREADS, SMEM, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), H, G, Sq, Sk, scale,
       causal);
   return (int)cudaGetLastError();
@@ -540,18 +557,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace tc
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores).  D must be
-// 128.  Returns a cudaError_t, -1 for a head dim or dtype this build has no
-// instance of, -2 for a tensor map the driver refuses.
+// 112 or 128 (flash.py:HEAD_DIMS).  Returns a cudaError_t, -1 for a head
+// dim or dtype this build has no instance of, -2 for a tensor map the
+// driver refuses.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int G, int Sq, int Sk, int D, float scale,
                                    int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 128) return -1;
-  if (dtype == 0)
+  if (dtype == 0 && D == 128)
     return launch<float, 128>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
-  if (dtype == 1)
-    return tc::launch(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
+  if (dtype == 0 && D == 112)
+    return launch<float, 112>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
+  if (dtype == 1 && D == 128)
+    return tc::launch<128>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
+  if (dtype == 1 && D == 112)
+    return tc::launch<112>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
   return -1;
 }
 

@@ -29,6 +29,15 @@
 // several keys' loads in flight (restrict pointers, an unrolled loop).
 // Query heads of one KV head re-read the same rows (through L2); a CTA per
 // KV head, and splitting long caches over several CTAs, are later work.
+//
+// Head dims: a lane always holds 8 elements (one 16-byte load of bf16), so
+// D / 8 lanes of the 16 hold data and the others hold exact zeros.  A dead
+// lane loads the row's first 8 elements (a valid address, so the loop has
+// no branch), its q is 0 and its K elements are selected to 0, so its dot
+// product is exactly 0; its accumulator is never stored.  The xor-shuffle
+// order 8, 4, 2, 1 is the same at every D, so paged_flash_decode.cu, whose
+// dead lanes read zeroed slots, keeps its bits.  D must be a multiple of 8
+// up to 128; this file builds D = 112 and 128.
 #include "attn_common.cuh"
 
 namespace {
@@ -36,6 +45,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int LANES = 16;                 // lanes a key row
 constexpr int GROUPS = THREADS / LANES;   // partial softmax states a CTA
+constexpr int E = 8;                      // elements a lane: 16 bf16 bytes
 
 template <typename TQ, typename TKV, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -43,8 +53,7 @@ __global__ void __launch_bounds__(THREADS)
                         const TKV* __restrict__ v,
                         const int* __restrict__ lengths, TQ* __restrict__ o,
                         int H, int G, int S, float scale) {
-  constexpr int E = D / LANES;            // elements a lane: 8 for D = 128
-  static_assert(E == 8, "one 8-element load a lane");
+  static_assert(D % E == 0 && D <= LANES * E, "whole 8-element lanes");
   __shared__ float sm[GROUPS], sl[GROUPS];
   __shared__ float sacc[GROUPS][D];
 
@@ -54,12 +63,14 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x % LANES;
   const int grp = threadIdx.x / LANES;
   const int len = min(max(lengths[b], 0), S);
+  const bool live = lane * E < D;         // the lane holds 8 of D elements
+  const int col = live ? lane * E : 0;    // a dead lane reads columns 0-7
 
-  const TQ* qp = q + ((int64_t)b * H + h) * D + lane * E;
+  const TQ* qp = q + ((int64_t)b * H + h) * D + col;
   float qv[E];
 #pragma unroll
-  for (int e = 0; e < E; ++e) qv[e] = attn::to_f(qp[e]);
-  const int64_t base = ((int64_t)b * G + g) * S * D + lane * E;
+  for (int e = 0; e < E; ++e) qv[e] = live ? attn::to_f(qp[e]) : 0.f;
+  const int64_t base = ((int64_t)b * G + g) * S * D + col;
   const TKV* kp = k + base;
   const TKV* vp = v + base;
 
@@ -77,7 +88,7 @@ __global__ void __launch_bounds__(THREADS)
     attn::load8<TQ>(vp + (int64_t)t * D, vv);
     float dot = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) dot = fmaf(qv[e], kv[e], dot);
+    for (int e = 0; e < E; ++e) dot = fmaf(qv[e], live ? kv[e] : 0.f, dot);
     // xor 8, 4, 2, 1 stays inside the group's 16 adjacent lanes
     dot += __shfl_xor_sync(half, dot, 8);
     dot += __shfl_xor_sync(half, dot, 4);
@@ -97,8 +108,10 @@ __global__ void __launch_bounds__(THREADS)
     sm[grp] = m;
     sl[grp] = l;
   }
+  if (live) {
 #pragma unroll
-  for (int e = 0; e < E; ++e) sacc[grp][lane * E + e] = acc[e];
+    for (int e = 0; e < E; ++e) sacc[grp][lane * E + e] = acc[e];
+  }
   __syncthreads();
 
   TQ* op = o + ((int64_t)b * H + h) * D;
@@ -120,37 +133,51 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, int D>
 int launch(const void* q, const void* k, const void* v, const int* lengths,
            void* o, int B, int H, int G, int S, float scale,
            cudaStream_t stream) {
   const dim3 grid(H, B);
-  flash_decode_kernel<TQ, TKV, 128><<<grid, THREADS, 0, stream>>>(
+  flash_decode_kernel<TQ, TKV, D><<<grid, THREADS, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), lengths, static_cast<TQ*>(o), H, G, S,
       scale);
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int by_dtype(const void* q, const void* k, const void* v, const int* lengths,
+             void* o, int B, int H, int G, int S, float scale, int q_dtype,
+             int kv_dtype, cudaStream_t s) {
+  if (q_dtype == 0 && kv_dtype == 0)
+    return launch<float, float, D>(q, k, v, lengths, o, B, H, G, S, scale,
+                                   s);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, D>(q, k, v, lengths, o, B, H,
+                                                   G, S, scale, s);
+  if (q_dtype == 1 && kv_dtype == 0)
+    return launch<__nv_bfloat16, float, D>(q, k, v, lengths, o, B, H, G, S,
+                                           scale, s);
+  return -1;
+}
+
 }  // namespace
 
 // q_dtype / kv_dtype: 0 float32, 1 bfloat16 (a float32 query reads a
-// float32 cache; a bf16 query either).  D must be 128.  Returns a
-// cudaError_t, or -1 for a shape or dtype this build has no instance of.
+// float32 cache; a bf16 query either).  D must be 112 or 128
+// (decode.py:HEAD_DIMS).  Returns a cudaError_t, or -1 for a shape or dtype
+// this build has no instance of.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const int* lengths, void* o, int B, int H, int G,
                             int S, int D, float scale, int q_dtype,
                             int kv_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D != 128) return -1;
-  if (q_dtype == 0 && kv_dtype == 0)
-    return launch<float, float>(q, k, v, lengths, o, B, H, G, S, scale, s);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, lengths, o, B, H, G,
-                                                S, scale, s);
-  if (q_dtype == 1 && kv_dtype == 0)
-    return launch<__nv_bfloat16, float>(q, k, v, lengths, o, B, H, G, S,
-                                        scale, s);
+  if (D == 128)
+    return by_dtype<128>(q, k, v, lengths, o, B, H, G, S, scale, q_dtype,
+                         kv_dtype, s);
+  if (D == 112)
+    return by_dtype<112>(q, k, v, lengths, o, B, H, G, S, scale, q_dtype,
+                         kv_dtype, s);
   return -1;
 }
 

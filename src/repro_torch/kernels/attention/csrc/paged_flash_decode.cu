@@ -55,6 +55,16 @@
 // Bound on the H100: device-memory bytes, the valid keys' K and V rows read
 // once (a few operations a byte).  A CTA that serves all the query heads
 // of a KV head from one staged block is later work.
+//
+// Head dims: D is a template argument, as in flash_decode.cu, and so are
+// the row address above, a pool block's stride and the workspace's rows.
+// A lane keeps its 8 elements (16 bytes of a bf16 row, 32 of a float32
+// one): lanes with lane * 8 >= D zero their own slots of the ring once,
+// stage nothing and store nothing, and the loop reads their slots as it
+// reads the others (no branch), so their dot products are exactly 0; the
+// xor-shuffle order is unchanged, so the bits stay flash_decode.cu's.
+// This file builds D = 112 and 128, each at the three dtype pairs and five
+// splits.
 #include <type_traits>
 
 #include "attn_common.cuh"
@@ -67,8 +77,7 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 
 constexpr int CHAINS = 16;                // chains a (slot, head): GROUPS
 constexpr int LANES = 16;                 // lanes a key row
-constexpr int D = 128;
-constexpr int E = D / LANES;              // elements a lane: 8
+constexpr int E = 8;                      // elements a lane
 constexpr int RING_BYTES = 32768;         // a CTA's ring of staged keys
 
 // Bytes a lane stages of one K or V row: 16 (bf16) or 32 (float32).
@@ -144,7 +153,7 @@ __device__ __forceinline__ void unpack8(const __nv_bfloat16* p,
                                                     : attn::as_f<T>(v[e]);
 }
 
-template <typename TQ, typename TKV, int CPS>
+template <typename TQ, typename TKV, int CPS, int D>
 __global__ void __launch_bounds__(CPS * LANES)
     paged_flash_decode_kernel(const TQ* __restrict__ q,
                               const TKV* __restrict__ k_pool,
@@ -160,6 +169,7 @@ __global__ void __launch_bounds__(CPS * LANES)
   constexpr int RING = ring_keys<TKV, CPS>();
   constexpr int U = step_keys<TKV, CPS>();
   constexpr int NV = lane_bytes<TKV>() / 16;   // a lane's 16-byte copies
+  static_assert(D % E == 0 && D <= LANES * E, "whole 8-element lanes");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float sm[CPS], sl[CPS];
   __shared__ float sacc[CPS][D];
@@ -198,10 +208,11 @@ __global__ void __launch_bounds__(CPS * LANES)
   }
 
   const int g = h / (H / G);
+  const bool live = lane * E < D;         // the lane holds 8 of D elements
   const TQ* qp = q + (int64_t)bh * D + lane * E;
   float qv[E];
 #pragma unroll
-  for (int e = 0; e < E; ++e) qv[e] = attn::to_f(qp[e]);
+  for (int e = 0; e < E; ++e) qv[e] = live ? attn::to_f(qp[e]) : 0.f;
 
   // the chain's keys t = chain + CHAINS * i, i < n, staged RING - U ahead
   const int n = chain < len ? (len - chain + CHAINS - 1) / CHAINS : 0;
@@ -229,12 +240,14 @@ __global__ void __launch_bounds__(CPS * LANES)
       const int64_t row = (int64_t)pr * D;
       TKV* kd = slot(staged, 0);
       TKV* vd = slot(staged, 1);
+      if (live) {
 #pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        cp_async16(reinterpret_cast<char*>(kd) + 16 * v,
-                   reinterpret_cast<const char*>(kbase + row) + 16 * v);
-        cp_async16(reinterpret_cast<char*>(vd) + 16 * v,
-                   reinterpret_cast<const char*>(vbase + row) + 16 * v);
+        for (int v = 0; v < NV; ++v) {
+          cp_async16(reinterpret_cast<char*>(kd) + 16 * v,
+                     reinterpret_cast<const char*>(kbase + row) + 16 * v);
+          cp_async16(reinterpret_cast<char*>(vd) + 16 * v,
+                     reinterpret_cast<const char*>(vbase + row) + 16 * v);
+        }
       }
       pr += dr;
       pj += dj;
@@ -246,6 +259,11 @@ __global__ void __launch_bounds__(CPS * LANES)
     ++staged;
     cp_async_commit();                    // one group a key, even empty
   };
+  if (!live) {                            // the lane's slots hold zeros
+    for (int i = 0; i < RING; ++i)
+      for (int kv = 0; kv < 2; ++kv)
+        for (int e = 0; e < E; ++e) slot(i, kv)[e] = attn::from_f<TKV>(0.f);
+  }
 #pragma unroll
   for (int i = 0; i < RING - U; ++i) stage();
 
@@ -263,7 +281,8 @@ __global__ void __launch_bounds__(CPS * LANES)
     for (int u = 0; u < U; ++u) stage();
     cp_async_wait<RING - U>();
     // the U keys' dot products, independent of each other (a slot past
-    // the chain's last key holds stale values, never used)
+    // the chain's last key holds stale values, never used; a lane past D
+    // reads its zeros)
     float dot[U], vv[U][E];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -300,14 +319,18 @@ __global__ void __launch_bounds__(CPS * LANES)
     sm[grp] = m;
     sl[grp] = l;
   }
+  if (live) {
 #pragma unroll
-  for (int e = 0; e < E; ++e) sacc[grp][lane * E + e] = acc[e];
+    for (int e = 0; e < E; ++e) sacc[grp][lane * E + e] = acc[e];
+  }
 
   if (S > 1 && active > 1) {
     // publish the chains' states; the last CTA of the (slot, head) merges
     float* wa = ws_acc + ((int64_t)bh * CHAINS + chain) * D + lane * E;
+    if (live) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) wa[e] = acc[e];
+      for (int e = 0; e < E; ++e) wa[e] = acc[e];
+    }
     if (lane == 0) {
       ws_ml[((int64_t)bh * CHAINS + chain) * 2] = m;
       ws_ml[((int64_t)bh * CHAINS + chain) * 2 + 1] = l;
@@ -368,12 +391,12 @@ __global__ void __launch_bounds__(CPS * LANES)
   }
 }
 
-template <typename TQ, typename TKV, int CPS>
+template <typename TQ, typename TKV, int CPS, int D>
 int launch(const void* q, const void* k, const void* v, const int* table,
            const int* lengths, void* o, float* ws, int* tickets, int B, int H,
            int N, int G, int bs, int MB, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<TKV, CPS>(MB);
-  auto kernel = paged_flash_decode_kernel<TQ, TKV, CPS>;
+  auto kernel = paged_flash_decode_kernel<TQ, TKV, CPS, D>;
   // with the static shared memory, past 48 KB needs the opt-in
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -387,10 +410,10 @@ int launch(const void* q, const void* k, const void* v, const int* table,
   return (int)cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, int CPS>
+template <typename TQ, typename TKV, int CPS, int D>
 int ctas_per_sm(int MB) {
   const size_t smem = smem_bytes<TKV, CPS>(MB);
-  auto kernel = paged_flash_decode_kernel<TQ, TKV, CPS>;
+  auto kernel = paged_flash_decode_kernel<TQ, TKV, CPS, D>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -(int)e;
@@ -400,26 +423,35 @@ int ctas_per_sm(int MB) {
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// One of the instances by chains a CTA: F<CPS>() for CPS = 16 / splits.
-template <typename TQ, typename TKV, class F>
+// One of the instances by chains a CTA: F<CPS, D>() for CPS = 16 / splits.
+template <typename TQ, typename TKV, int D, class F>
 int by_split(int splits, F f) {
   switch (splits) {
-    case 1: return f.template operator()<TQ, TKV, 16>();
-    case 2: return f.template operator()<TQ, TKV, 8>();
-    case 4: return f.template operator()<TQ, TKV, 4>();
-    case 8: return f.template operator()<TQ, TKV, 2>();
-    case 16: return f.template operator()<TQ, TKV, 1>();
+    case 1: return f.template operator()<TQ, TKV, 16, D>();
+    case 2: return f.template operator()<TQ, TKV, 8, D>();
+    case 4: return f.template operator()<TQ, TKV, 4, D>();
+    case 8: return f.template operator()<TQ, TKV, 2, D>();
+    case 16: return f.template operator()<TQ, TKV, 1, D>();
   }
   return -1;
 }
 
-template <class F>
+template <int D, class F>
 int by_dtype(int splits, int q_dtype, int kv_dtype, F f) {
-  if (q_dtype == 0 && kv_dtype == 0) return by_split<float, float>(splits, f);
+  if (q_dtype == 0 && kv_dtype == 0)
+    return by_split<float, float, D>(splits, f);
   if (q_dtype == 1 && kv_dtype == 1)
-    return by_split<__nv_bfloat16, __nv_bfloat16>(splits, f);
+    return by_split<__nv_bfloat16, __nv_bfloat16, D>(splits, f);
   if (q_dtype == 1 && kv_dtype == 0)
-    return by_split<__nv_bfloat16, float>(splits, f);
+    return by_split<__nv_bfloat16, float, D>(splits, f);
+  return -1;
+}
+
+// The instance of head dim D (112 or 128, decode.py:HEAD_DIMS).
+template <class F>
+int by_head_dim(int D, int splits, int q_dtype, int kv_dtype, F f) {
+  if (D == 128) return by_dtype<128>(splits, q_dtype, kv_dtype, f);
+  if (D == 112) return by_dtype<112>(splits, q_dtype, kv_dtype, f);
   return -1;
 }
 
@@ -433,17 +465,17 @@ struct Launch {
   int B, H, N, G, bs, MB;
   float scale;
   cudaStream_t s;
-  template <typename TQ, typename TKV, int CPS>
+  template <typename TQ, typename TKV, int CPS, int D>
   int operator()() const {
-    return launch<TQ, TKV, CPS>(q, k, v, table, lengths, o, ws, tickets, B, H,
-                                N, G, bs, MB, scale, s);
+    return launch<TQ, TKV, CPS, D>(q, k, v, table, lengths, o, ws, tickets, B,
+                                   H, N, G, bs, MB, scale, s);
   }
 };
 
 struct Occupancy {
   int MB;
-  template <typename TQ, typename TKV, int CPS>
-  int operator()() const { return ctas_per_sm<TQ, TKV, CPS>(MB); }
+  template <typename TQ, typename TKV, int CPS, int D>
+  int operator()() const { return ctas_per_sm<TQ, TKV, CPS, D>(MB); }
 };
 
 }  // namespace
@@ -454,29 +486,30 @@ struct Occupancy {
 // workspace of B * H * CHAINS * (D + 2) values, tickets: B * H int32, zero
 // before the first call (each call leaves them zero); both unused (null)
 // at splits 1.  q_dtype / kv_dtype: 0 float32, 1 bfloat16 (a float32 query
-// reads a float32 pool; a bf16 query either).  D must be 128.  Returns a
-// cudaError_t, or -1 for a shape, dtype or split this build has no
-// instance of.
+// reads a float32 pool; a bf16 query either).  D must be 112 or 128.
+// Returns a cudaError_t, or -1 for a shape, dtype or split this build has
+// no instance of.
 extern "C" int paged_flash_decode(const void* q, const void* k_pool,
                                   const void* v_pool, const int* table,
                                   const int* lengths, void* o, float* ws,
                                   int* tickets, int B, int H, int N, int G,
-                                  int bs, int MB, int D_, float scale,
+                                  int bs, int MB, int D, float scale,
                                   int q_dtype, int kv_dtype, int splits,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D_ != D || bs < 1 || MB < 1 || N < 1 || B < 1 || H < 1) return -1;
+  if (bs < 1 || MB < 1 || N < 1 || B < 1 || H < 1) return -1;
   if (splits > 1 && (ws == nullptr || tickets == nullptr)) return -1;
-  return by_dtype(splits, q_dtype, kv_dtype,
-                  Launch{q, k_pool, v_pool, table, lengths, o, ws, tickets, B,
-                         H, N, G, bs, MB, scale, s});
+  return by_head_dim(D, splits, q_dtype, kv_dtype,
+                     Launch{q, k_pool, v_pool, table, lengths, o, ws, tickets,
+                            B, H, N, G, bs, MB, scale, s});
 }
 
-// CTAs of the instance for (splits, dtypes) that one SM holds at once with a
-// table of MB entries (the occupancy API's), or minus a cudaError_t, or -1.
+// CTAs of the instance for (splits, dtypes, D) that one SM holds at once
+// with a table of MB entries (the occupancy API's), or minus a cudaError_t,
+// or -1.
 extern "C" int paged_flash_decode_ctas_per_sm(int splits, int q_dtype,
-                                              int kv_dtype, int MB) {
-  return by_dtype(splits, q_dtype, kv_dtype, Occupancy{MB});
+                                              int kv_dtype, int MB, int D) {
+  return by_head_dim(D, splits, q_dtype, kv_dtype, Occupancy{MB});
 }
 
 extern "C" const char* paged_flash_decode_error(int code) {

@@ -39,7 +39,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_decode.cu"
 PAGED_SOURCE = (Path(__file__).resolve().parent / "csrc"
                 / "paged_flash_decode.cu")
 NEG_INF = -1e30
-HEAD_DIM = 128
+#: Head dims both CUDA kernels are built for (zamba2-7b's 112 and 128): a
+#: lane holds 8 elements, and lanes past ``D / 8`` of the 16 hold zeros.
+HEAD_DIMS = (112, 128)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 #: Online-softmax chains of one (slot, head): ``CHAINS`` in
 #: ``csrc/paged_flash_decode.cu``, ``GROUPS`` in ``csrc/flash_decode.cu``.
@@ -50,6 +52,11 @@ SPLITS = (1, 2, 4, 8, 16)
 #: which one CTA takes all the chains: the call is launch-bound, and a split
 #: would add the workspace's round trip.
 SPLIT_MIN_KEYS = 64
+
+
+def supports_head_dim(d: int) -> bool:
+    """Whether the decode kernels have an instance of head dim ``d``."""
+    return d in HEAD_DIMS
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,8 +125,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.device != q.device for t in (k, v, lengths)):
         raise ValueError("flash decode: q, k, v, lengths on different "
                          "devices")
-    if d != HEAD_DIM:
-        raise ValueError(f"flash decode: head dim {d} != {HEAD_DIM}")
+    if not supports_head_dim(d):
+        raise ValueError(f"flash decode: head dim {d} not in {HEAD_DIMS}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lens = lengths.to(torch.int32).contiguous()
     o = torch.empty_like(q)
@@ -267,8 +274,9 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     if any(t.device != q.device for t in (k_pool, v_pool, table, lengths)):
         raise ValueError("paged flash decode: q, pools, table, lengths on "
                          "different devices")
-    if d != HEAD_DIM:
-        raise ValueError(f"paged flash decode: head dim {d} != {HEAD_DIM}")
+    if not supports_head_dim(d):
+        raise ValueError(f"paged flash decode: head dim {d} not in "
+                         f"{HEAD_DIMS}")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("paged flash decode: the pools must be contiguous "
                          "(a copy of a pool per call is what this kernel "
@@ -287,7 +295,7 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     ids = DTYPE_IDS[q.dtype], DTYPE_IDS[k_pool.dtype]
     with torch.cuda.device(q.device):
         if splits is None:
-            splits = _plan(lib, q.device, b, h, mb, bs, ids).splits
+            splits = _plan(lib, q.device, b, h, mb, bs, d, ids).splits
         stream = torch.cuda.current_stream(q.device)
         ws = tickets = None
         if splits > 1:
@@ -309,7 +317,8 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
 
 paged_flash_decode.launches = 0
 
-#: Plans by (device, batch, heads, table width, block size, dtypes).
+#: Plans by (device, batch, heads, table width, block size, head dim,
+#: dtypes).
 _PLANS: dict[tuple, PagedPlan] = {}
 #: Ticket counters by (device, stream): zero between calls (the last CTA of
 #: each (slot, head) resets its own), grown as calls widen.
@@ -317,12 +326,12 @@ _TICKETS: dict[tuple, torch.Tensor] = {}
 
 
 def _plan(lib: ctypes.CDLL, device: torch.device, b: int, h: int, mb: int,
-          bs: int, ids: tuple[int, int]) -> PagedPlan:
-    key = (device.index, b, h, mb, bs, ids)
+          bs: int, d: int, ids: tuple[int, int]) -> PagedPlan:
+    key = (device.index, b, h, mb, bs, d, ids)
     hit = _PLANS.get(key)
     if hit is None:
         def ctas_per_sm(splits: int) -> int:
-            got = lib.paged_flash_decode_ctas_per_sm(splits, *ids, mb)
+            got = lib.paged_flash_decode_ctas_per_sm(splits, *ids, mb, d)
             if got <= 0:
                 raise RuntimeError(
                     f"paged_flash_decode: no CTA of split {splits} fits an SM "
@@ -363,6 +372,6 @@ def _library(source: Path = SOURCE) -> ctypes.CDLL:
         err.argtypes, err.restype = [_I], ctypes.c_char_p
         if source == PAGED_SOURCE:
             occ = lib.paged_flash_decode_ctas_per_sm
-            occ.argtypes, occ.restype = [_I] * 4, _I
+            occ.argtypes, occ.restype = [_I] * 5, _I
         lib._bound = True
     return lib

@@ -6,8 +6,9 @@ Pallas kernel).  The kernel is ``csrc/flash_attention.cu``: bfloat16 runs on
 the tensor cores (``wgmma``, K and V through a TMA ring; one CTA per batch,
 query head and 128-query block), float32 on the CUDA cores (64-query
 blocks), each an online softmax over key blocks; its note gives the bound,
-the design and the bf16 instance's one numerical change (P fed to the
-second product as two bf16 terms).
+the design, the bf16 instance's one numerical change (P fed to the
+second product as two bf16 terms) and how a head dim below 128 fills the
+128-column tiles.
 The plain version, :func:`flash_attention_plain`, is the Pallas kernel's
 algorithm on whole tensors: ``(block_q, block_k)`` tiles, the running
 max / denominator / accumulator carried across key blocks in float32, the
@@ -25,8 +26,14 @@ from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NEG_INF = -1e30
-HEAD_DIM = 128
+#: Head dims the CUDA kernel is built for (zamba2-7b's 112 and 128).
+HEAD_DIMS = (112, 128)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def supports_head_dim(d: int) -> bool:
+    """Whether the CUDA kernel has an instance of head dim ``d``."""
+    return d in HEAD_DIMS
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -96,8 +103,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash attention: q, k, v on different devices")
-    if d != HEAD_DIM:
-        raise ValueError(f"flash attention: head dim {d} != {HEAD_DIM}")
+    if not supports_head_dim(d):
+        raise ValueError(f"flash attention: head dim {d} not in {HEAD_DIMS}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lib = _library()

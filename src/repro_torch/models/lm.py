@@ -1,31 +1,39 @@
 """Language-model assembly, ported from ``repro/models/lm.py`` for the dense
-family (attention + MLP blocks) and the SSM family (mamba2 blocks):
-embedding, a stack of blocks over the layer-stacked parameters, fused
+family (attention + MLP blocks), the SSM family (mamba2 blocks) and the
+hybrid family (zamba2: mamba blocks with one shared attention block):
+embedding, a stack of super-blocks over the layer-stacked parameters, fused
 BrainSlug norm and activation chains, the final norm and the vocab head;
 prefill, decode and the training loss.
 
-* Parameters are the JAX package's nested tree, ``blocks/sub0/...`` leaves
-  carrying a leading layer axis; ``jax.lax.scan`` over that axis becomes a
-  loop over it.  A dense block is ``{norm1, attn, norm2, mlp}``, a mamba
-  block ``{norm1, mixer}``.
+* Parameters are the JAX package's nested tree.  :func:`layer_plan` gives
+  the kinds of one super-block and their count; ``blocks/sub{j}/...``
+  holds the parameters of the super-block's ``j``-th kind, each leaf
+  carrying a leading axis over the super-blocks (``jax.lax.scan`` over
+  that axis becomes a loop over it).  A dense block is ``{norm1, attn,
+  norm2, mlp}``, a mamba block ``{norm1, mixer}``.  The hybrid's
+  ``shared_attn`` (a dense block) is stored once, with no layer axis, and
+  applied at the last position of every super-block, so its gradient is
+  the sum over its applications; its remainder layers, ``tail/sub0``, are
+  mamba blocks stacked over the tail.
 * The residual stream uses a (resid, pending) carry so every residual add
   fuses with the next norm.
-* Decode caches are stacked along the same layer axis and updated in place:
-  a KV cache (dense or paged) per attention layer, a :class:`~repro_torch.
-  layers.mamba2.MambaCache` (conv window and SSM state) per mamba layer.
+* Decode caches mirror the parameters: ``blocks/sub{j}`` stacked over the
+  super-blocks (for the shared attention one KV cache per application) and
+  ``tail/sub0``, updated in place: a KV cache (dense or paged) per
+  attention layer, a :class:`~repro_torch.layers.mamba2.MambaCache` (conv
+  window and SSM state) per mamba layer.
 * The training loss (:func:`loss_fn`) runs the fused vocab cross-entropy
   kernel in ``brainslug`` mode for an untied head (a tied head, as mamba2's,
   takes the plain loss in every mode, as the JAX package does);
-  ``remat="full"`` recomputes each block in the backward
-  (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
+  ``remat="full"`` recomputes each super-block and each tail layer in the
+  backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
 
 Plain twins for the traced frontend (:func:`repro_torch.api.optimize`):
 :func:`transformer_block_fn` and :func:`ce_loss_fn`, ordinary tensor code
 whose traced graph the kernel registry rewrites onto the dedicated kernels.
 
-MoE, the hybrid family (zamba2: mamba blocks with a shared attention block)
-and the audio / vision frontends raise and name the slice of the port that
-brings them.  Entry points run on ``cuda`` unless the caller asks for the
+MoE and the audio / vision frontends raise and name the slice of the port
+that brings them.  Entry points run on ``cuda`` unless the caller asks for the
 CPU.
 """
 from __future__ import annotations
@@ -78,16 +86,10 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 
 def _check_ported(cfg: ModelConfig) -> LayerPlan:
-    """The plan of a config the port runs: dense or mamba blocks, token
-    inputs."""
+    """The plan of a config the port runs: dense, mamba and shared
+    attention blocks, token inputs."""
     plan = layer_plan(cfg)
     kinds = set(plan.superblock) | set(plan.tail)
-    if "shared_attn" in kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family (mamba blocks with a shared "
-            f"attention block) comes with the hybrid slice of the port; its "
-            f"attention head dim {cfg.head_dim} needs the flash and decode "
-            f"kernels beyond their head dim of 128")
     if "attn_moe" in kinds:
         raise NotImplementedError(f"{cfg.name}: MoE layers come with the "
                                   f"MoE slice of the port")
@@ -96,12 +98,6 @@ def _check_ported(cfg: ModelConfig) -> LayerPlan:
                                   f"comes with the multimodal slice of the "
                                   f"port")
     return plan
-
-
-def _kind(plan: LayerPlan) -> str:
-    """The one block kind of a ported plan (``attn_dense`` or ``mamba``)."""
-    (kind,) = plan.superblock
-    return kind
 
 
 # ---------------------------------------------------------------------------
@@ -126,15 +122,32 @@ def init(seed: int, cfg: ModelConfig, *,
         tree["out_head"] = base.normal(g, (cfg.d_model, cfg.vocab_size),
                                        dtype=dtype)
     tree["final_norm"] = dense.norm_init(cfg, None, dtype, dev)
-    sub = {"norm1": dense.norm_init(cfg, L, dtype, dev)}
-    if _kind(plan) == "mamba":
-        sub["mixer"] = mamba2.init(g, cfg, L, dtype)
-    else:
-        sub["attn"] = attention.init(g, cfg, L, dtype)
-        sub["norm2"] = dense.norm_init(cfg, L, dtype, dev)
-        sub["mlp"] = dense.init(g, cfg, L, dtype)
-    tree["blocks"] = {"sub0": sub}
+    blocks = {f"sub{j}": _init_sub(g, kind, cfg, L, dtype, dev)
+              for j, kind in enumerate(plan.superblock)
+              if kind != "shared_attn" and L}
+    if blocks:
+        tree["blocks"] = blocks
+    if plan.uses_shared_attn:
+        # stored once: the parameters of one layer, no layer axis
+        one = _init_sub(g, "shared_attn", cfg, 1, dtype, dev)
+        tree["shared_attn"] = base.tree_map(lambda a: a[0], one)
+    if plan.tail:           # the hybrid's remainder: mamba blocks
+        tree["tail"] = {"sub0": _init_sub(g, "mamba", cfg, len(plan.tail),
+                                          dtype, dev)}
     return tree
+
+
+def _init_sub(g: torch.Generator, kind: str, cfg: ModelConfig, n: int,
+              dtype: torch.dtype, dev: torch.device) -> dict:
+    """A block of ``kind`` for ``n`` layers, stacked on a leading axis."""
+    sub = {"norm1": dense.norm_init(cfg, n, dtype, dev)}
+    if kind == "mamba":
+        sub["mixer"] = mamba2.init(g, cfg, n, dtype)
+        return sub
+    sub["attn"] = attention.init(g, cfg, n, dtype)
+    sub["norm2"] = dense.norm_init(cfg, n, dtype, dev)
+    sub["mlp"] = dense.init(g, cfg, n, dtype)
+    return sub
 
 
 def _layer(tree: Any, i: int) -> Any:
@@ -156,9 +169,14 @@ def _unstack(tree: Any, n: int) -> list:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_sub(kind: str, p: dict, resid: torch.Tensor,
-               pending: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig
+def _apply_sub(kind: str, p: dict | None, resid: torch.Tensor,
+               pending: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
+               shared_params: dict | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block of ``kind``; a ``shared_attn`` block applies
+    ``shared_params`` (``p`` is None there)."""
+    if kind == "shared_attn":
+        p = shared_params
     norm_kw = dict(norm=cfg.norm, mode=rt.mode)
     h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
                                 p["norm1"].get("bias"), **norm_kw)
@@ -204,20 +222,42 @@ def _final_norm(params: dict, h: torch.Tensor, cfg: ModelConfig,
                              norm=cfg.norm, mode=rt.mode)
 
 
+def _superblocks(params: dict, plan: LayerPlan) -> list[list]:
+    """Per super-block, the parameters of each of its blocks (None where
+    the block is the shared attention), each stacked leaf taken apart once
+    (:func:`_unstack`)."""
+    subs = {j: _unstack(params["blocks"][f"sub{j}"], plan.n_super)
+            for j, kind in enumerate(plan.superblock)
+            if kind != "shared_attn"}
+    return [[subs[j][i] if j in subs else None
+             for j in range(len(plan.superblock))]
+            for i in range(plan.n_super)]
+
+
 def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
            ) -> tuple[torch.Tensor, dict]:
     """Backbone only: returns (final-normed hidden states, aux)."""
     plan = _check_ported(cfg)
     x = embed_inputs(params, batch, cfg)
     resid, pending = x, torch.zeros_like(x)
-    kind = _kind(plan)
+    shared = params.get("shared_attn")
 
-    def block(p, resid, pending):
-        return _apply_sub(kind, p, resid, pending, cfg, rt)
+    def superblock(blk, shared, resid, pending):
+        for kind, p in zip(plan.superblock, blk):
+            resid, pending = _apply_sub(kind, p, resid, pending, cfg, rt,
+                                        shared)
+        return resid, pending
 
-    body = _remat(block, rt)
-    for p in _unstack(params["blocks"]["sub0"], plan.n_super):
-        resid, pending = body(p, resid, pending)
+    def tail_layer(p, resid, pending):
+        return _apply_sub("mamba", p, resid, pending, cfg, rt)
+
+    body = _remat(superblock, rt)
+    for blk in _superblocks(params, plan):
+        resid, pending = body(blk, shared, resid, pending)
+    if plan.tail:
+        tail = _remat(tail_layer, rt)
+        for p in _unstack(params["tail"]["sub0"], len(plan.tail)):
+            resid, pending = tail(p, resid, pending)
     h = _final_norm(params, resid + pending, cfg, rt)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     return h, {"router_aux_loss": zero, "drop_fraction": zero}
@@ -297,8 +337,11 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       kv_layout: str = "dense", kv_num_blocks: int = 0,
                       kv_block_size: int = 16,
                       device: str | torch.device = "cuda") -> dict:
-    """Decode cache for every layer, stacked along the layer axis:
-    ``{"blocks": {"sub0": cache}}``.
+    """Decode cache for every layer, as the parameters lie:
+    ``{"blocks": {"sub{j}": cache}}`` with a cache per block of the
+    super-block (the shared attention's holds one cache per application),
+    stacked over the super-blocks, and the hybrid's ``{"tail": {"sub0":
+    cache}}`` stacked over the tail.
 
     Attention layers: ``kv_layout="dense"`` gives a
     :class:`~repro_torch.layers.attention.KVCache` with k/v ``(L, B, G,
@@ -317,17 +360,30 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     if kv_layout == "paged" and kv_num_blocks < 1:
         raise ValueError("paged kv_layout requires kv_num_blocks >= 1")
     dev = base.device(device)
-    if _kind(plan) == "mamba":
-        sub = mamba2.init_cache(cfg, batch, dtype, n_layers=plan.n_super,
-                                dev=dev)
-    elif kv_layout == "paged":
-        sub = attention.init_paged_cache(cfg, batch, kv_num_blocks,
-                                         kv_block_size, dtype,
-                                         n_layers=plan.n_super, dev=dev)
-    else:
-        sub = attention.init_cache(cfg, batch, max_len, dtype,
-                                   n_layers=plan.n_super, dev=dev)
-    return {"blocks": {"sub0": sub}}
+
+    def sub_cache(kind: str, n: int):
+        if kind == "mamba":
+            return mamba2.init_cache(cfg, batch, dtype, n_layers=n, dev=dev)
+        if kv_layout == "paged":
+            return attention.init_paged_cache(cfg, batch, kv_num_blocks,
+                                              kv_block_size, dtype,
+                                              n_layers=n, dev=dev)
+        return attention.init_cache(cfg, batch, max_len, dtype, n_layers=n,
+                                    dev=dev)
+
+    cache: dict[str, Any] = {}
+    if plan.n_super:
+        cache["blocks"] = {f"sub{j}": sub_cache(kind, plan.n_super)
+                           for j, kind in enumerate(plan.superblock)}
+    if plan.tail:
+        cache["tail"] = {"sub0": sub_cache("mamba", len(plan.tail))}
+    return cache
+
+
+def _caches(cache: dict) -> list:
+    """Every layer-stacked cache of a decode cache (each sub of
+    ``blocks`` and ``tail``)."""
+    return [c for group in cache.values() for c in group.values()]
 
 
 def reset_slots(cache: dict, mask: torch.Tensor,
@@ -342,18 +398,18 @@ def reset_slots(cache: dict, mask: torch.Tensor,
     ``length`` is rewritten, to 0 or to ``lengths[b]`` when prefix sharing
     admits the slot mid-prompt (the shared blocks already hold its first
     ``lengths[b]`` positions)."""
-    c = cache["blocks"]["sub0"]
-    if isinstance(c, attention.PagedKVCache):
-        new_len = (torch.zeros_like(c.length[0]) if lengths is None
-                   else lengths.to(c.length.dtype))
-        c.length.copy_(torch.where(mask[None, :], new_len[None, :],
-                                   c.length))
-        return cache
-    leaves = ((c.conv, c.state) if isinstance(c, mamba2.MambaCache)
-              else (c.k, c.v, c.length))
-    for leaf in leaves:
-        m = mask.reshape((1, -1) + (1,) * (leaf.dim() - 2))
-        leaf.masked_fill_(m, 0)
+    for c in _caches(cache):
+        if isinstance(c, attention.PagedKVCache):
+            new_len = (torch.zeros_like(c.length[0]) if lengths is None
+                       else lengths.to(c.length.dtype))
+            c.length.copy_(torch.where(mask[None, :], new_len[None, :],
+                                       c.length))
+            continue
+        leaves = ((c.conv, c.state) if isinstance(c, mamba2.MambaCache)
+                  else (c.k, c.v, c.length))
+        for leaf in leaves:
+            m = mask.reshape((1, -1) + (1,) * (leaf.dim() - 2))
+            leaf.masked_fill_(m, 0)
     return cache
 
 
@@ -364,10 +420,10 @@ def copy_blocks(cache: dict, src: int, dst: int) -> dict:
     have written into the shared ``src``).  A dense KV cache and the mamba
     caches are untouched.  The copy is queued on the current stream, so
     the next dispatch, on the same stream, reads the forked block."""
-    c = cache["blocks"]["sub0"]
-    if isinstance(c, attention.PagedKVCache):
-        c.k_pool[:, dst] = c.k_pool[:, src]
-        c.v_pool[:, dst] = c.v_pool[:, src]
+    for c in _caches(cache):
+        if isinstance(c, attention.PagedKVCache):
+            c.k_pool[:, dst] = c.k_pool[:, src]
+            c.v_pool[:, dst] = c.v_pool[:, src]
     return cache
 
 
@@ -394,32 +450,52 @@ def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
     read by) a paged KV cache: one table addresses every layer's pool.  The
     cache is updated in place and returned."""
     plan = _check_ported(cfg)
-    kind = _kind(plan)
     x = params["embed"][tokens_t]
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
-    norm_kw = dict(norm=cfg.norm, mode=rt.mode)
-    c = cache["blocks"]["sub0"]
-    blocks = params["blocks"]["sub0"]
+    shared = params.get("shared_attn")
+    kw = dict(active=active, block_tables=block_tables)
     resid, pending = x, torch.zeros_like(x)
     for i in range(plan.n_super):
-        p = _layer(blocks, i)
-        layer_cache = _layer_cache(c, i)
-        h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
-                                    p["norm1"].get("bias"), **norm_kw)
-        if kind == "mamba":
-            pending, _ = mamba2.decode(p["mixer"], h1, layer_cache, cfg, rt,
-                                       active=active)
-            continue
-        attn_out, _ = attention.decode(p["attn"], h1, layer_cache, cfg, rt,
-                                       active=active,
-                                       block_table=block_tables)
-        h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
-                                    p["norm2"].get("bias"), **norm_kw)
-        pending = dense.apply(p["mlp"], h2, cfg, rt)
+        for j, kind in enumerate(plan.superblock):
+            p = (None if kind == "shared_attn"
+                 else _layer(params["blocks"][f"sub{j}"], i))
+            resid, pending = _decode_sub(
+                kind, p, _layer_cache(cache["blocks"][f"sub{j}"], i), resid,
+                pending, cfg, rt, shared, **kw)
+    for i in range(len(plan.tail)):
+        resid, pending = _decode_sub(
+            "mamba", _layer(params["tail"]["sub0"], i),
+            _layer_cache(cache["tail"]["sub0"], i), resid, pending, cfg, rt,
+            **kw)
     h = _final_norm(params, resid + pending, cfg, rt)
     return _logits(params, h, cfg), cache
+
+
+def _decode_sub(kind: str, p: dict | None, layer_cache: Any,
+                resid: torch.Tensor, pending: torch.Tensor,
+                cfg: ModelConfig, rt: RuntimeConfig,
+                shared_params: dict | None = None, *,
+                active: torch.Tensor | None,
+                block_tables: torch.Tensor | None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One block's decode step on its layer's cache (updated in place); a
+    ``shared_attn`` block applies ``shared_params``."""
+    if kind == "shared_attn":
+        p = shared_params
+    norm_kw = dict(norm=cfg.norm, mode=rt.mode)
+    h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
+                                p["norm1"].get("bias"), **norm_kw)
+    if kind == "mamba":
+        out, _ = mamba2.decode(p["mixer"], h1, layer_cache, cfg, rt,
+                               active=active)
+        return resid, out
+    attn_out, _ = attention.decode(p["attn"], h1, layer_cache, cfg, rt,
+                                   active=active, block_table=block_tables)
+    h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
+                                p["norm2"].get("bias"), **norm_kw)
+    return resid, dense.apply(p["mlp"], h2, cfg, rt)
 
 
 # ---------------------------------------------------------------------------

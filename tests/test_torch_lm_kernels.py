@@ -10,12 +10,15 @@ CPU.
   ``triton.language`` with bf16 from ``ml_dtypes``;
 * the CUDA kernels (flash attention, flash decode) are held through
   transliterations of their loop order: tiles, causal block skipping, the
-  16 partial softmax states of a decode CTA and their merge.
+  16 partial softmax states of a decode CTA and their merge; at head dim
+  112 (zamba2-7b's) too, with the bf16 kernel's zero-filled tiles, skipped
+  k16 steps and epilogue walked element by element.
 
 The kernels themselves run only on the card (``chip_smoke.py``)."""
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import re
 import sys
 import types
@@ -586,3 +589,111 @@ def test_cuda_wrappers_name_the_tpu_kernels_they_replace():
         assert f"repro/kernels/attention/{fn}" in src.read_text()
     assert "repro/kernels/rmsnorm/rmsnorm.py:rmsnorm_fwd" in trms.__doc__
     assert "repro/kernels/swiglu/swiglu.py:swiglu_fwd" in tsw.__doc__
+
+
+# ---------------------------------------------------------------------------
+# head dim 112 (zamba2-7b: 3584 / 32)
+# ---------------------------------------------------------------------------
+
+def _tc_steps(d):
+    """The k16 steps of Q K^T the bf16 kernel issues at head dim ``d``:
+    (half, j) over the tile's two ``HALF``-column halves, those whose
+    columns all lie at or past ``d`` skipped."""
+    half = _cu_const(tflash.SOURCE, "HALF")
+    return [(h, j) for h in range(2) for j in range(half // 16)
+            if h * half + 16 * j < d]
+
+
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+def test_flash_tc_zero_fill_and_epilogue_cover_the_head_dim(d):
+    """The bf16 kernel's tiles keep ``TC_D`` columns; the tensor map's row
+    is ``d`` elements, so TMA zero-fills columns ``d .. TC_D - 1``.  The
+    issued k16 steps cover every column below ``d`` and skip only columns
+    at or past it (one of eight at 112); the row pitch ``2 d`` bytes is a
+    multiple of 16; the epilogue (each warpgroup's 64 rows, a thread's
+    pairs at column ``8 (i >> 2) + 2 (lane & 3)`` of both halves, the
+    second only below ``d``) writes every (row, column < d) of the CTA's
+    128 rows once and nothing past ``d``."""
+    tc_d = _cu_const(tflash.SOURCE, "TC_D")
+    half = _cu_const(tflash.SOURCE, "HALF")
+    bq = _cu_const(tflash.SOURCE, "TC_BQ")
+    assert tc_d == 2 * half and half < d <= tc_d and (2 * d) % 16 == 0
+    steps = _tc_steps(d)
+    cols = {h * half + 16 * j + c for h, j in steps for c in range(16)}
+    assert set(range(d)) <= cols and all(c < tc_d for c in cols)
+    skipped = {h * half + 16 * j + c for h in range(2)
+               for j in range(half // 16) for c in range(16)} - cols
+    assert all(c >= d for c in skipped)
+    assert len(steps) == -(-d // 16)
+    written = {}
+    for wg, warp, lane in itertools.product(range(2), range(4), range(32)):
+        for i in range(0, 32, 2):
+            row = wg * 64 + warp * 16 + lane // 4 + 8 * ((i >> 1) & 1)
+            col = 8 * (i >> 2) + 2 * (lane & 3)
+            targets = [col, col + 1]
+            if col + half < d:
+                targets += [col + half, col + half + 1]
+            for c in targets:
+                written[(row, c)] = written.get((row, c), 0) + 1
+    assert set(written) == {(r, c) for r in range(bq) for c in range(d)}
+    assert set(written.values()) == {1}
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_head_dim_112_matches_jax_kernel(dtype, causal):
+    """At D = 112 the plain version and the transliteration of the
+    instance the dtype launches against the Pallas kernel (interpret mode),
+    GQA 8/2, a sequence not a multiple of any tile.  The bf16 walk runs on
+    tiles zero-filled to ``TC_D`` columns, as TMA fills them, and the
+    columns past 112 come out exactly zero (computed, never written)."""
+    rng = np.random.default_rng(112 + causal)
+    b, h, g, s, d = 1, 8, 2, 150, 112
+    q = _randn(rng, (b, h, s, d), dtype)
+    k, v = _randn(rng, (b, g, s, d), dtype), _randn(rng, (b, g, s, d), dtype)
+    want = np.asarray(jattn_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, 32, 32,
+        True))
+    tq, tk, tv = _t(q, dtype), _t(k, dtype), _t(v, dtype)
+    assert tflash.supports_head_dim(d) and not tflash.supports_head_dim(136)
+    got = tattn_ops.flash_attention(tq, tk, tv, causal, 32, 32)
+    _close(got, want, dtype, "plain")
+    scale = 1.0 / d ** 0.5
+    if dtype == "bfloat16":
+        tc_d = _cu_const(tflash.SOURCE, "TC_D")
+        pad = [torch.nn.functional.pad(t, (0, tc_d - d)) for t in (tq, tk,
+                                                                   tv)]
+        full = _flash_cuda_tc(*pad, causal, scale)
+        assert bool((full[..., d:] == 0).all())
+        cuda = full[..., :d]
+    else:
+        cuda = _flash_cuda(tq, tk, tv, causal, scale)
+    _close(cuda, want, dtype, "CUDA transliteration")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_at_head_dim_112_matches_jax_kernel(dtype):
+    """Ragged lengths (0, 1, mid, full) with garbage past them, at D =
+    112: the plain version and the transliteration against the Pallas
+    kernel, exact zeros at length 0."""
+    rng = np.random.default_rng(1120)
+    b, h, g, s, d = 4, 8, 2, 100, 112
+    q = _randn(rng, (b, h, 1, d), dtype)
+    k, v = _randn(rng, (b, g, s, d), dtype), _randn(rng, (b, g, s, d), dtype)
+    lengths = np.array([0, 1, 53, s], np.int32)
+    for i, n in enumerate(lengths):
+        k[i, :, n:] = 99.0
+        v[i, :, n:] = -99.0
+    want = np.asarray(jattn_ops.flash_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        block_k=32, interpret=True))
+    tq, tk, tv = _t(q, dtype), _t(k, dtype), _t(v, dtype)
+    tl_ = torch.from_numpy(lengths)
+    assert tdecode.supports_head_dim(d) and not tdecode.supports_head_dim(96)
+    for out, how in ((tattn_ops.flash_decode(tq, tk, tv, tl_, block_k=32),
+                      "plain"),
+                     (_decode_cuda(tq, tk, tv, tl_, 1.0 / d ** 0.5),
+                      "CUDA transliteration")):
+        assert out.dtype == T_DTYPE[dtype] and bool(torch.isfinite(out).all())
+        assert bool((out[0] == 0).all()), how
+        _close(out, want, dtype, how)

@@ -13,6 +13,10 @@
   CTAs a (slot, head);
 * ``launch_plan``: every (slot, head, chain) once, no lengths read, the
   chain count the dense kernel's;
+* head dim 112 (zamba2-7b's): the plain version and the walk against the
+  Pallas kernel, paged bit for bit with dense on the gathered view, and the
+  lane layout both kernels share (8 elements a lane, lanes past ``D / 8``
+  zero) covering every element of a row once;
 * the layer's in-place paged write, ``lm.reset_slots`` and
   ``lm.copy_blocks`` against the JAX package's;
 * ``BlockAllocator``/``PrefixCache`` under one random op sequence in both
@@ -81,15 +85,15 @@ PAGED_CASES = {
 N_BLOCKS, BS, MB, D = 40, 4, 6, 32
 
 
-def _paged_case(name):
+def _paged_case(name, d=D):
     """Seeded operands: a table that is a shuffle of the pool, with the
     sentinel id N past each slot's mapped blocks."""
     b, h, g, lengths, qdt, pdt = PAGED_CASES[name]
-    rng = np.random.default_rng(sorted(PAGED_CASES).index(name) + 30)
-    q = rng.standard_normal((b, h, 1, D), np.float32).astype(NP_DTYPE[qdt])
-    kp = rng.standard_normal((N_BLOCKS, g, BS, D), np.float32).astype(
+    rng = np.random.default_rng(sorted(PAGED_CASES).index(name) + 30 + d)
+    q = rng.standard_normal((b, h, 1, d), np.float32).astype(NP_DTYPE[qdt])
+    kp = rng.standard_normal((N_BLOCKS, g, BS, d), np.float32).astype(
         NP_DTYPE[pdt])
-    vp = rng.standard_normal((N_BLOCKS, g, BS, D), np.float32).astype(
+    vp = rng.standard_normal((N_BLOCKS, g, BS, d), np.float32).astype(
         NP_DTYPE[pdt])
     table = rng.permutation(N_BLOCKS)[:b * MB].reshape(b, MB).astype(np.int32)
     lens = np.asarray(lengths, np.int32)
@@ -121,17 +125,30 @@ GROUPS = (_cu_const(tdecode.SOURCE, "THREADS")
           // _cu_const(tdecode.SOURCE, "LANES"))
 #: A card of (SMs, CTAs an SM at every split) for the plan in these tests.
 CARD = (3, lambda splits: 2)
+#: Lanes a key row and elements a lane, in both kernels.
+LANES = _cu_const(tdecode.SOURCE, "LANES")
+E = _cu_const(tdecode.SOURCE, "E")
+
+
+def _lanes(x):
+    """(..., D) as (..., LANES, E): lane ``i`` holds elements ``E*i ..
+    E*i + E - 1``; lanes at or past ``D / E`` hold zeros (they read
+    nothing)."""
+    d = x.shape[-1]
+    assert d % E == 0 and d <= LANES * E
+    pad = torch.zeros(x.shape[:-1] + (LANES * E - d,), dtype=x.dtype)
+    return torch.cat([x, pad], -1).view(x.shape[:-1] + (LANES, E))
 
 
 def _chain_step(q, k, v, m, l, acc, act, scale):
     """One key of every chain at once (``CHAINS`` wide, whatever subset
-    advances): the kernels' dot product, each lane's ``D / 16`` elements in
-    order, then the xor-shuffle tree 8, 4, 2, 1 over the 16 lanes; then
-    the online-softmax update.  Elementwise over the chains, so a chain's
-    bits do not depend on which others advance."""
-    lanes = 16
-    e = q.shape[-1] // lanes
-    qv, kv = q.view(lanes, e), k.view(-1, lanes, e)
+    advances): the kernels' dot product, each lane's ``E`` elements in
+    order (exact zeros in a lane past ``D / E``), then the xor-shuffle tree
+    8, 4, 2, 1 over the 16 lanes; then the online-softmax update.
+    Elementwise over the chains, so a chain's bits do not depend on which
+    others advance."""
+    lanes, e = LANES, E
+    qv, kv = _lanes(q), _lanes(k)
     dot = torch.zeros(k.shape[0], lanes)
     for i in range(e):
         dot = qv[:, i] * kv[:, :, i] + dot
@@ -435,6 +452,94 @@ def test_paged_wrapper_checks_and_names_its_tpu_kernel():
     text = tdecode.PAGED_SOURCE.read_text()
     assert "repro/kernels/attention/decode.py:paged_flash_decode" in text
     assert "pool + ((tbl[p / bs] * G + g) * bs + p % bs) * D" in text
+    assert not tdecode.supports_head_dim(136)
+
+
+# ---------------------------------------------------------------------------
+# head dim 112 (zamba2-7b)
+# ---------------------------------------------------------------------------
+
+D112_CASES = ("ragged_f32", "bf16_q_f32_pool", "ragged_bf16")
+
+
+@pytest.mark.parametrize("name", D112_CASES)
+def test_paged_at_head_dim_112_matches_jax_kernel(name):
+    """The plain version and the walk of ``csrc/paged_flash_decode.cu``
+    (14 of 16 lanes holding data) against the Pallas kernel at D = 112,
+    through a shuffled table with sentinel tails."""
+    q, kp, vp, table, lens, qdt = _paged_case(name, 112)
+    want = _jax_paged(q, kp, vp, table, lens, qdt)
+    pdt = PAGED_CASES[name][5]
+    tq, tk, tv = _t(q, qdt), _t(kp, pdt), _t(vp, pdt)
+    tbl, tl_ = torch.from_numpy(table), torch.from_numpy(lens)
+    assert tdecode.supports_head_dim(112)
+    for got, how in ((tattn_ops.paged_flash_decode(tq, tk, tv, tbl, tl_),
+                      "plain"),
+                     (_paged_cuda(tq, tk, tv, tbl, tl_, 112 ** -0.5),
+                      "CUDA transliteration")):
+        assert got.dtype == T_DTYPE[qdt] and bool(torch.isfinite(got).all())
+        _close(got.float(), want, qdt, how)
+        for i in np.flatnonzero(lens == 0):
+            assert bool((got[i] == 0).all()), how
+
+
+@pytest.mark.parametrize("splits", [1, 2, 16])
+def test_paged_equals_dense_at_head_dim_112(splits):
+    """At D = 112 the two kernels' walks stay bit for bit on the gathered
+    view, at every split and whichever CTA arrives last."""
+    q, kp, vp, table, lens, qdt = _paged_case("bf16_q_f32_pool", 112)
+    tq, tk, tv = _t(q, qdt), _t(kp, "float32"), _t(vp, "float32")
+    tbl, tl_ = torch.from_numpy(table), torch.from_numpy(lens)
+    kd = tattn_ref.gather_paged(tk, tbl.clamp(0, N_BLOCKS - 1))
+    vd = tattn_ref.gather_paged(tv, tbl.clamp(0, N_BLOCKS - 1))
+    dense = _dense_cuda(tq, kd, vd, tl_, 112 ** -0.5)
+    for arrival in range(2):
+        assert torch.equal(_paged_cuda(tq, tk, tv, tbl, tl_, 112 ** -0.5,
+                                       splits, arrival), dense)
+
+
+@pytest.mark.parametrize("d", tdecode.HEAD_DIMS)
+@pytest.mark.parametrize("pool_bytes", [2, 4])
+def test_lane_layout_covers_each_row_once(d, pool_bytes):
+    """The index arithmetic both decode kernels share, element by element
+    at every head dim they are built for: a lane is live iff ``lane * E <
+    D``; the live lanes' elements ``lane * E + e`` cover ``0 .. D - 1``
+    once; each 16-byte copy of a live lane (one for bf16, two for float32)
+    lies inside its row of the pool at a 16-byte aligned address, for the
+    row address ``((tbl * G + g) * bs + r) * D`` of logical key ``p`` (``r
+    = p % bs``); a lane's staged slot ``(((grp * RING + i % RING) * 2 + kv)
+    * LANES + lane) * E`` lies inside the ring, one slot a (key, tensor,
+    lane); the workspace row of a chain is ``D`` floats, the live lanes'
+    columns."""
+    text = tdecode.PAGED_SOURCE.read_text()
+    assert f"constexpr int E = {E};" in text
+    assert "paged_flash_decode_kernel<TQ, TKV, CPS, D>" in text
+    n, g_kv, bs = 5, 3, 4
+    shape = (n, g_kv, bs, d)
+    live = [lane for lane in range(LANES) if lane * E < d]
+    assert len(live) == d // E
+    cols = sorted(lane * E + e for lane in live for e in range(E))
+    assert cols == list(range(d))
+    row_bytes = d * pool_bytes
+    for tbl, g, r in itertools.product(range(n), range(g_kv), range(bs)):
+        row = ((tbl * g_kv + g) * bs + r) * d
+        assert row == np.ravel_multi_index((tbl, g, r, 0), shape)
+        for lane in live:
+            start = (row + lane * E) * pool_bytes
+            for v in range(E * pool_bytes // 16):
+                at = start + 16 * v
+                assert at % 16 == 0
+                assert row * pool_bytes <= at
+                assert at + 16 <= row * pool_bytes + row_bytes
+    for chains in (16, 8, 1):
+        ring, _ = _ring_keys(torch.float32 if pool_bytes == 4
+                             else torch.bfloat16, chains)
+        size = chains * ring * 2 * LANES * E
+        slots = {(((grp * ring + i % ring) * 2 + kv) * LANES + lane) * E
+                 for grp in range(chains) for i in range(2 * ring)
+                 for kv in (0, 1) for lane in live}
+        assert max(slots) + E <= size and min(slots) >= 0
+        assert len(slots) == chains * ring * 2 * len(live)
 
 
 # ---------------------------------------------------------------------------
