@@ -11,7 +11,7 @@ Phases, one line each (plus tables):
    source, Triton for the generated rows kernels at first launch), with
    ptxas's registers and spills of the tensor-core kernels and the float32
    flash kernel (an instance per head dim, 112 and 128), the SSD kernel,
-   the nhwc kernels forward and backward and the paged decode's 30
+   the nhwc kernels forward and backward and the two decode kernels' 30
    instances (dtypes x splits x head dims);
 2. the nhwc CUDA kernel against its plain version (max |d| <= 1e-5); its
    fused path (batch norm, ReLU, a 2x2/s2 max pool) at VGG-16's five stage
@@ -44,8 +44,14 @@ Phases, one line each (plus tables):
    stage's work items from ``nhwc_bwd.launch_plan``), the training step in
    turns per mode, and a traced step per mode;
 11-13. the LM serving slice: the rmsnorm, swiglu, flash-attention and
-   flash-decode kernels against their plain versions, deepseek-7b at full
-   width through ``lm.prefill`` and ``Server.generate``, and their times;
+   flash-decode kernels against their plain versions (flash decode at D 112
+   and 128, at its plan's split and every split, one set of bits),
+   deepseek-7b at full width through ``lm.prefill`` and
+   ``Server.generate``, and their times; flash decode at (8, 32, 32768,
+   128) also bit for bit against the paged kernel on the same cache seen
+   as a pool (no copy; both times and plans), and at 4 slots of 101 keys
+   in that cache at the plan of its length and at the plan of the Server's
+   bound (``max_keys``), each beside its time before the redesign;
 14. the paged flash-decode CUDA kernel against its plain version at (8,
    32, ragged lengths up to 32768, 128), block size 16, through a shuffled
    table with sentinel tails, GQA 40/8, q in bf16 and float32 over pools
@@ -60,9 +66,10 @@ Phases, one line each (plus tables):
    evaluation, no ``kv.*`` finding, the
    free list whole), and a float32 4-layer run with identical tokens;
 16. the paged kernel's time beside its bound, its plain version and the
-   dense kernel on the gathered view, and at one slot of 32768 and the
-   engine tick's shape beside their bounds, each with its launch plan and
-   the kernel's time before its redesign; the engine runs' wall time,
+   dense kernel on the gathered view (bit for bit; the dense kernel's
+   plan, bound, SDPA and time before its redesign), and at one slot of
+   32768 and the engine tick's shape beside their bounds, each with its
+   launch plan and the kernel's time before its redesign; the engine runs' wall time,
    tokens/s, TTFT and ``ServeStats``; a traced decode-only tick per mode;
 17. the fused vocab cross-entropy CUDA kernel against its plain version
    (TF32 off): (4096, 4096, 102400) and ragged (1000, 4000, 50257) in bf16
@@ -172,6 +179,7 @@ when any phase fails.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -240,6 +248,13 @@ ENGINE_RUNS = (("paged", "brainslug"), ("paged", "barrier"),
 # H100 80GB HBM3 at 700.00 W, in turns with the redesigned kernel.
 PAGED_PARENT_MS = {"table": 1.7126, "one_slot_32768": 1.6813,
                    "tick": 0.00578}
+# The dense kernel before its redesign (commit 1589f1c: one CTA a slot and
+# head, loads straight from device memory), device ms in bf16 at 32 heads:
+# phase 16's lengths at D 128 and 112, phase 13's shape, and 4 slots of 101
+# keys in a 32768-key cache; tools/kernel_times.py on an H100 80GB HBM3 at
+# 700.00 W, in turns with the redesigned kernel.
+DENSE_PARENT_MS = {"ragged_128": 0.9608, "ragged_112": 1.2134,
+                   "long_128": 1.2780, "short_128": 0.00430}
 # The engine phases run phase 12's deepseek-7b cut to ENGINE_LAYERS of its
 # 30 layers: the engine is host-bound (a tick's launches grow with depth),
 # and with the SSM slice's phases (20-22) the script has to stay near half
@@ -529,6 +544,14 @@ class Smoke:
         print(f"[1 build] paged_flash_decode.cu ({len(self.paged_ptxas)} "
               f"instances <q, pool, chains a CTA, head dim>), nvcc -Xptxas "
               f"-v: " + "; ".join(self.paged_ptxas))
+        self.dense_ptxas = self.ptxas_report(
+            _build.build_log(decode.SOURCE),
+            [f"flash_decode_kernel<{dts},{cps},{d}>"
+             for _, dts in self.PAGED_DTYPES for cps in (1, 2, 4, 8, 16)
+             for d in decode.HEAD_DIMS])
+        print(f"[1 build] flash_decode.cu ({len(self.dense_ptxas)} instances "
+              f"<q, cache, chains a CTA, head dim>), nvcc -Xptxas -v: "
+              + "; ".join(self.dense_ptxas))
 
     #: Kernel names as the ptxas lines report them, by a fragment of the
     #: mangled name (first match wins).
@@ -542,8 +565,8 @@ class Smoke:
                    ("nhwc_reduce_kernel", "nhwc_reduce_kernel"),
                    ("nhwc_kernel_fused", "fused_nhwc_kernel_fused"),
                    ("fused_nhwc_kernel", "fused_nhwc_kernel"))
-    #: The paged kernel's instances: mangled template arguments
-    #: (``<q, pool, chains a CTA>``) by dtype pair.
+    #: The decode kernels' instances: mangled template arguments (``<q,
+    #: cache or pool, chains a CTA, head dim>``) by dtype pair.
     PAGED_DTYPES = (("13__nv_bfloat16f", "bf16,f32"),
                     ("13__nv_bfloat16S", "bf16,bf16"), ("ff", "f32,f32"))
 
@@ -558,12 +581,14 @@ class Smoke:
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
                 ints = re.findall(r"Li(\d+)E", name)
-                if "paged_flash_decode_kernelI" in name:
-                    args = name.split("paged_flash_decode_kernelI")[1]
+                decode = next((k for k in ("paged_flash_decode_kernel",
+                                           "flash_decode_kernel")
+                               if k + "I" in name), None)
+                if decode:
+                    args = name.split(decode + "I")[1]
                     dts = next(n for frag, n in cls.PAGED_DTYPES
                                if args.startswith(frag))
-                    name = (f"paged_flash_decode_kernel<{dts},{ints[0]},"
-                            f"{ints[1]}>")
+                    name = f"{decode}<{dts},{ints[0]},{ints[1]}>"
                 elif "bf16_wgmma" in name:
                     name = f"flash_fwd_kernel_bf16_wgmma<{ints[0]}>"
                 elif "flash_fwd_kernelIf" in name:
@@ -1965,26 +1990,37 @@ class Smoke:
             b, h_, s_ = 8, 32, 8192
             lens = torch.tensor([0, 1, 17, 513, 4000, 8191, 8192, 8192],
                                 dtype=torch.int32, device=self.dev)
-            q = self.randn((b, h_, 1, 128), 1330).to(dt)
-            for kv_dt in ((dt, torch.float32) if dt == torch.bfloat16
-                          else (dt,)):
-                k = self.randn((b, h_, s_, 128), 1331).to(kv_dt)
-                v = self.randn((b, h_, s_, 128), 1332).to(kv_dt)
-                got = decode.flash_decode(q, k, v, lens)
-                note("flash_decode", self.lm_check(
-                    "flash_decode", f"q {dt} cache {kv_dt}", got,
-                    decode.flash_decode_plain(q, k, v, lens)))
-                if not bool((got[0] == 0).all()):
-                    raise PhaseError("flash_decode: a length-0 slot is not "
-                                     "exactly zero")
+            for d, kv_dt in itertools.product(
+                    decode.HEAD_DIMS, (dt, torch.float32)
+                    if dt == torch.bfloat16 else (dt,)):
+                q = self.randn((b, h_, 1, d), 1330).to(dt)
+                k = self.randn((b, h_, s_, d), 1331).to(kv_dt)
+                v = self.randn((b, h_, s_, d), 1332).to(kv_dt)
+                want = decode.flash_decode_plain(q, k, v, lens)
+                first = None
+                # the plan's split and every split: one set of bits
+                for sp in (None,) + decode.SPLITS:
+                    got = decode.flash_decode(q, k, v, lens, splits=sp)
+                    what = f"D {d} q {dt} cache {kv_dt} splits {sp}"
+                    note("flash_decode", self.lm_check("flash_decode", what,
+                                                       got, want))
+                    if not bool((got[0] == 0).all()):
+                        raise PhaseError(f"flash_decode {what}: a length-0 "
+                                         f"slot is not exactly zero")
+                    first = got if first is None else first
+                    self.same_bits("flash_decode", what, {"o": got},
+                                   {"o": first})
+                del k, v
         print(f"[11 lm kernels] against their plain versions in bf16 and "
               f"float32 (tol {LM_TOL}), TF32 off: rmsnorm and swiglu at "
               f"{ROWS} x {D_MODEL} / {D_FF} (with and without residual; "
               f"silu, gelu, squared_relu), flash attention at (1, 32, 2048, "
               f"128) causal and qwen2.5-14b's 40/8 heads at 1000, flash "
-              f"decode at (8, 32, 8192, 128) with lengths 0, ragged and "
-              f"full (a bf16 and a float32 cache under a bf16 query; length "
-              f"0 exactly zero); max|d| "
+              f"decode at (8, 32, 8192, 112 and 128) with lengths 0, ragged "
+              f"and full (a bf16 and a float32 cache under a bf16 query; "
+              f"length 0 exactly zero) at its plan's split and at splits "
+              f"{', '.join(map(str, decode.SPLITS))}, every split bit for bit "
+              f"the plan's; max|d| "
               + " ".join(f"{k}={v:.2e}" for k, v in worst.items())
               + f"; {time.perf_counter() - t:.1f} s")
         print("[11 flash bf16] wgmma kernel, two launches bit for bit; "
@@ -2188,6 +2224,82 @@ class Smoke:
             return "matmul"
         return "other"
 
+    def dense_plan_note(self, q, k, max_keys=None):
+        """The dense decode kernel's launch plan at these operands."""
+        from repro_torch.kernels.attention import decode
+        plan = decode.dense_plan(q, k, max_keys)
+        return (f"plan {plan.splits} CTAs a (slot, head) of {plan.chains} "
+                f"chains, {plan.ctas} CTAs")
+
+    def dense_decode_cases(self, qd, kd, vd, lens, rows):
+        """Phase 13's dense decode beside its timing row, with no operand
+        copied: the paged kernel on the same cache seen as a pool (bit for
+        bit; its time and plan), and 4 slots of 101 keys in the same
+        32768-key cache (the static Server's lock-step decode early in a
+        long generation) at the plan of the cache's length and at the plan
+        of the Server's bound (``max_keys``, bit for bit); each beside the
+        dense kernel's time before its redesign.  Returns the notes for
+        the kernels line."""
+        torch = self.torch
+        from repro_torch.kernels.attention import decode
+        b, heads, sd, d = kd.shape
+        bs = PAGED["block"]
+        nb = sd // bs
+        # head h of slot b as slot b * heads + h of one KV head, whose
+        # blocks (b * heads + h) * nb + j are the cache's rows seen as a pool
+        kp = kd.view(b * heads * nb, 1, bs, d)
+        vp = vd.view(b * heads * nb, 1, bs, d)
+        qp = qd.view(b * heads, 1, 1, d)
+        table = torch.arange(b * heads * nb, dtype=torch.int32,
+                             device=self.dev).view(b * heads, nb)
+        lp = lens.repeat_interleave(heads)
+        dense = decode.flash_decode(qd, kd, vd, lens)
+        paged = decode.paged_flash_decode(qp, kp, vp, table, lp)
+        torch.cuda.synchronize()
+        if not torch.equal(dense, paged.view(dense.shape)):
+            raise PhaseError(
+                f"flash_decode at {tuple(kd.shape)}: differs from "
+                f"paged_flash_decode on the cache seen as a pool (max|d| "
+                f"{float((dense.float() - paged.view(dense.shape).float()).abs().max()):.3e})")
+        pg_ms, _ = self.kernel_ms(lambda: decode.paged_flash_decode(
+            qp, kp, vp, table, lp), "paged_flash_decode_kernel")
+        k_ms, _, l_ms, b_ms, _, shape = rows["flash_decode"]
+        print(f"  flash_decode {shape}: {self.dense_plan_note(qd, kd)}; "
+              f"paged_flash_decode on the same cache seen as a pool of "
+              f"{b * heads} one-head slots (block {bs}), bit for bit equal: "
+              f"{pg_ms:.4f} ms, {self.paged_plan_note(qp, table, kp)}; "
+              f"kernel/bound {k_ms / b_ms:.2f}, SDPA {l_ms:.4f} ms; before "
+              f"the redesign {DENSE_PARENT_MS['long_128']} ms")
+        del dense, paged, table
+        # short slots in a long cache: the first 4 slots at 101 keys
+        n_short = 101
+        qs, ks, vs = qd[:4], kd[:4], vd[:4]
+        ls = torch.full((4,), n_short, dtype=torch.int32, device=self.dev)
+        at_s = decode.flash_decode(qs, ks, vs, ls)
+        hinted = decode.flash_decode(qs, ks, vs, ls, max_keys=n_short)
+        torch.cuda.synchronize()
+        short = f"(4, {heads}, {sd}, {d}) bf16, lengths [{n_short}] x 4"
+        if not torch.equal(at_s, hinted):
+            raise PhaseError(f"flash_decode {short}: the plan of max_keys "
+                             f"{n_short} changes the bits")
+        s_ms, how = self.kernel_ms(lambda: decode.flash_decode(
+            qs, ks, vs, ls), "flash_decode_kernel")
+        h_ms, _ = self.kernel_ms(lambda: decode.flash_decode(
+            qs, ks, vs, ls, max_keys=n_short), "flash_decode_kernel")
+        sb_ms, sb_by = self.decode_bound(qs, ls)
+        plan_s = self.dense_plan_note(qs, ks)
+        plan_h = self.dense_plan_note(qs, ks, n_short)
+        print(f"  flash_decode {short}: at the plan of S ({plan_s}) "
+              f"{s_ms:.4f} ms ({how}); with the Server's bound max_keys "
+              f"{n_short} ({plan_h}) {h_ms:.4f} ms, bit for bit equal; bound "
+              f"{sb_ms:.4f} ms ({sb_by}); before the redesign "
+              f"{DENSE_PARENT_MS['short_128']} ms")
+        return {"plan": self.dense_plan_note(qd, kd),
+                "paged_on_pooled_view_ms": pg_ms,
+                "short_slots": {"shape": short, "ms": s_ms, "plan": plan_s,
+                                "max_keys_ms": h_ms, "max_keys_plan": plan_h,
+                                "bound_ms": sb_ms, "bound_by": sb_by}}
+
     def phase13_lm_timing(self):
         torch = self.torch
         import torch.nn.functional as F
@@ -2296,6 +2408,7 @@ class Smoke:
                       f"{k_call:.4f} per call)  plain {p_ms:.4f} ms  library {lib_s}  bound "
                       f"{b_ms:.4f} ms ({b_by})  kernel/bound "
                       f"{k_ms / b_ms:.2f}")
+            dense_notes = self.dense_decode_cases(qd, kd, vd, lens, rows)
         sources = {
             "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/"
                         "rmsnorm.py", "src/repro/kernels/rmsnorm/rmsnorm.py:33"),
@@ -2316,6 +2429,7 @@ class Smoke:
                 "max_abs_err": self.err[name], "ms": k_ms, "plain_ms": p_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
                 "shape": shape}
+        self.kernels["flash_decode"].update(dense_notes)
         k_ms, p_ms, l_ms, b_ms, _, shape = rows["flash_attention@prefill"]
         self.kernels["flash_attention"]["at_prefill"] = {
             "shape": shape, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -2464,10 +2578,7 @@ class Smoke:
                         f"paged_flash_decode {what}, splits {s}: differs "
                         f"from flash_decode on the gathered view (max|d| "
                         f"{float((got.float() - dense.float()).abs().max()):.3e})")
-            plan = decode._plan(decode._library(decode.PAGED_SOURCE),
-                                q.device, q.shape[0], q.shape[1],
-                                table.shape[1], kp.shape[2], q.shape[3],
-                                (1, 1))
+            plan = decode.paged_plan(q, kp, table)
             lines.append(f"{what} (batch {q.shape[0]}, block {kp.shape[2]}, "
                          f"plan {plan.splits} CTAs a (slot, head)"
                          + (f"; splits {', '.join(str(x) for x in splits)}"
@@ -2699,14 +2810,20 @@ class Smoke:
         torch.cuda.empty_cache()
 
     def paged_bound(self, q, lens):
-        """The paged kernel's bound on bf16 operands: q read and o written,
-        the valid keys' K and V rows, the table entries they use and the
-        lengths, over HBM; or its operations (a multiply-add a K and a V
-        element) over the bf16 tensor-core rate, whichever is larger."""
+        """The paged kernel's bound: :meth:`decode_bound` with the table
+        entries the keys use."""
+        return self.decode_bound(q, lens, PAGED["block"])
+
+    def decode_bound(self, q, lens, block=None):
+        """A decode kernel's bound on bf16 operands: q read and o written,
+        the valid keys' K and V rows, the table entries they use (paged,
+        ``block`` rows a block) and the lengths, over HBM; or its operations
+        (a multiply-add a K and a V element) over the bf16 tensor-core
+        rate, whichever is larger."""
         from repro_torch.core.resource import H100
         heads, d = q.shape[1], q.shape[3]
         valid = int(lens.sum())
-        used = int(((lens + PAGED["block"] - 1) // PAGED["block"]).sum())
+        used = int(((lens + block - 1) // block).sum()) if block else 0
         n_bytes = (2 * q.numel() * 2 + 2 * valid * heads * d * 2
                    + used * 4 + lens.numel() * 4)
         t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
@@ -2717,11 +2834,7 @@ class Smoke:
     def paged_plan_note(self, q, table, kp):
         """The paged kernel's launch plan at these operands, as a phrase."""
         from repro_torch.kernels.attention import decode
-        plan = decode._plan(decode._library(decode.PAGED_SOURCE), q.device,
-                            q.shape[0], q.shape[1], table.shape[1],
-                            kp.shape[2], q.shape[3],
-                            (decode.DTYPE_IDS[q.dtype],
-                             decode.DTYPE_IDS[kp.dtype]))
+        plan = decode.paged_plan(q, kp, table)
         return (f"plan {plan.splits} CTAs a (slot, head) of {plan.chains} "
                 f"chains, {plan.ctas} CTAs")
 
@@ -2768,6 +2881,29 @@ class Smoke:
               f"{sdpa_ms:.4f} ms); bound {b_ms:.4f} ms ({b_by}), kernel/bound "
               f"{k_ms / b_ms:.2f}; " + self.paged_plan_note(q, table, kp)
               + f"; before the redesign {PAGED_PARENT_MS['table']} ms")
+        # the dense kernel on the gathered view: the paged kernel's bits
+        dense = decode.flash_decode(q, kd, vd, lens)
+        paged = decode.paged_flash_decode(q, kp, vp, table, lens)
+        torch.cuda.synchronize()
+        if not torch.equal(dense, paged):
+            raise PhaseError(
+                f"flash_decode {shape}: differs from paged_flash_decode on "
+                f"the gathered view (max|d| "
+                f"{float((dense.float() - paged.float()).abs().max()):.3e})")
+        db_ms, db_by = self.decode_bound(q, lens)
+        print(f"[16 flash_decode] ({PAGED['batch']}, {heads}, lengths "
+              f"{lens.tolist()}, 128) bf16 on the gathered view, bit for bit "
+              f"equal to paged_flash_decode: kernel {d_ms:.4f} ms, "
+              f"{self.dense_plan_note(q, kd)}; bound {db_ms:.4f} ms "
+              f"({db_by}), kernel/bound {d_ms / db_ms:.2f}; SDPA "
+              f"{sdpa_ms:.4f} ms; paged {k_ms:.4f} ms; before the redesign "
+              f"{DENSE_PARENT_MS['ragged_128']} ms")
+        self.kernels["flash_decode"]["ragged"] = {
+            "shape": f"({PAGED['batch']}, {heads}, lengths "
+                     f"{lens.tolist()}, 128) bf16", "ms": d_ms,
+            "bound_ms": db_ms, "bound_by": db_by, "library_ms": sdpa_ms,
+            "paged_ms": k_ms, "plan": self.dense_plan_note(q, kd)}
+        del dense, paged
         self.kernels["paged_flash_decode"] = {
             "name": "paged_flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/attention/csrc/"
@@ -5228,11 +5364,14 @@ class Smoke:
                 q, kd, vd, attn_mask=mask))
             run = lambda: decode.flash_decode(q, kd, vd, lens)  # noqa: E731
             k_ms, how = self.kernel_ms(run, "flash_decode_kernel")
+            db_ms, db_by = self.decode_bound(q, lens)
             rows["flash_decode"] = dict(
                 shape=shape, ms=k_ms, how=how,
                 plain_ms=self.cuda_ms(lambda: decode.flash_decode_plain(
                     q, kd, vd, lens), reps=1, groups=3, warmup=1),
-                library_ms=sdpa, bound_ms=b_ms, bound_by=b_by)
+                library_ms=sdpa, bound_ms=db_ms, bound_by=db_by,
+                plan=self.dense_plan_note(q, kd)
+                + f"; before the redesign {DENSE_PARENT_MS['ragged_112']} ms")
             run = lambda: decode.paged_flash_decode(  # noqa: E731
                 q, kp, vp, table, lens)
             k_ms, how = self.kernel_ms(run, "paged_flash_decode_kernel")
@@ -5261,16 +5400,13 @@ class Smoke:
                 k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by")}
         for name, inst in (("flash_attention", self.flash_ptxas),
+                           ("flash_decode", self.dense_ptxas),
                            ("paged_flash_decode", self.paged_ptxas),
                            ("fused_nhwc", self.nhwc_ptxas),
                            ("fused_nhwc_bwd", self.nhwc_bwd_ptxas),
                            ("fused_ce", self.ce_ptxas),
                            ("ssd_intra_chunk", self.ssd_ptxas)):
             self.kernels[name]["instances"] = inst
-        self.kernels["flash_decode"]["instances"] = [
-            f"flash_decode_kernel<{q},{kv},{dd}>"
-            for q, kv in (("f32", "f32"), ("bf16", "bf16"), ("bf16", "f32"))
-            for dd in decode.HEAD_DIMS]
 
         # the SSD kernel at zamba2's (1, 112 heads, 32 chunks, 64, 64), N 64
         shape_ = (1, cfg.ssm_heads, PREFILL[1] // 64, 64, cfg.ssm_head_dim,

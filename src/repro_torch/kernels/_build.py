@@ -38,13 +38,14 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 #: Flags of one source beyond :data:`NVCC_FLAGS`, by file name.  The
 #: wgmma kernels encode their TMA tensor maps with the driver API
 #: (``-lcuda``, found in the toolkit's ``stubs``); these and the redesigned
-#: SSD, nhwc and paged decode kernels have ptxas report their registers and
+#: SSD, nhwc and decode kernels have ptxas report their registers and
 #: spills (``-Xptxas -v``), which :func:`build_log` keeps.
 SOURCE_FLAGS = {"flash_attention.cu": ("-Xptxas", "-v", "-lcuda"),
                 "fused_ce.cu": ("-Xptxas", "-v", "-lcuda"),
                 "ssd_intra_chunk.cu": ("-Xptxas", "-v"),
                 "fused_nhwc.cu": ("-Xptxas", "-v"),
                 "fused_nhwc_bwd.cu": ("-Xptxas", "-v"),
+                "flash_decode.cu": ("-Xptxas", "-v"),
                 "paged_flash_decode.cu": ("-Xptxas", "-v")}
 #: Headers every source may include (``../../csrc/*.cuh``): the Hopper
 #: helpers the tensor-core kernels share.

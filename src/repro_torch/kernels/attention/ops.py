@@ -58,11 +58,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor, *, block_k: int = 512
-                 ) -> torch.Tensor:
-    """Inference only: one query position against a dense cache."""
+                 lengths: torch.Tensor, *, block_k: int = 512,
+                 max_keys: int | None = None) -> torch.Tensor:
+    """Inference only: one query position against a dense cache
+    (``max_keys``: the caller's host bound on the lengths, which picks the
+    kernel's plan)."""
     STATS.record("decode_kernel" if q.is_cuda else "decode_plain")
-    return decode_mod.flash_decode(q, k, v, lengths, block_k=block_k)
+    return decode_mod.flash_decode(q, k, v, lengths, block_k=block_k,
+                                   max_keys=max_keys)
 
 
 def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,

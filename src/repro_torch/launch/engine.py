@@ -512,12 +512,14 @@ class Engine:
     @torch.inference_mode()
     def _step(self, cache: dict, tables: np.ndarray | None,
               tokens: np.ndarray, counts: np.ndarray, rids: np.ndarray,
-              tidx: np.ndarray, temps: np.ndarray, run_seed: int
-              ) -> tuple[np.ndarray, dict]:
+              tidx: np.ndarray, temps: np.ndarray, run_seed: int,
+              max_keys: int | None = None) -> tuple[np.ndarray, dict]:
         """The mixed prefill/decode step.  Slot b consumes
         ``tokens[b, :counts[b]]`` (0 = idle lane); returns the token each
         slot samples from its last consumed position.  ``max(counts)``
-        model evaluations: in decode-only steady state one, not C."""
+        model evaluations: in decode-only steady state one, not C.
+        ``max_keys``: the longest KV length a live slot reaches in this
+        step (it picks the dense decode kernel's plan)."""
         window = int(counts.max())
         tok = self._to_device(tokens, torch.int64)
         act = self._to_device(np.arange(window)[:, None] < counts[None, :],
@@ -530,7 +532,8 @@ class Engine:
             logits, cache = lm.decode_step(self.params, cache,
                                            tok[:, t:t + 1], self.cfg,
                                            self.rt, act[t],
-                                           block_tables=tbl)
+                                           block_tables=tbl,
+                                           max_keys=max_keys)
             logits_last = torch.where(act[t][:, None],
                                       logits[:, 0].float(), logits_last)
         nxt = torch.argmax(logits_last, dim=-1)
@@ -890,8 +893,12 @@ class Engine:
                 verify.enforce(verify.check_block_tables(state),
                                self.verify_mode, subject="engine tick")
 
+            reach = max((s.kv_len + int(counts[b])
+                         for b, s in enumerate(slot) if s is not None),
+                        default=0)
             nxt, cache = self._step(cache, tables if paged else None, tokens,
-                                    counts, rids, tidx, temps, run_seed)
+                                    counts, rids, tidx, temps, run_seed,
+                                    max_keys=reach)
             stats.step_dispatches += 1
             STATS.record("mixed_step")
 

@@ -119,10 +119,12 @@ class Server:
             kv_num_blocks=kv_num_blocks, prefix_sharing=prefix_sharing,
             verify_mode=verify_mode)
 
-    def _decode(self, cache: dict, tokens_t: torch.Tensor
+    def _decode(self, cache: dict, tokens_t: torch.Tensor, n_keys: int
                 ) -> tuple[torch.Tensor, dict]:
+        """One lock-step decode; ``n_keys``: every slot's KV length after
+        it (the dense decode kernel's plan reads it on the host)."""
         return lm.decode_step(self.params, cache, tokens_t, self.cfg,
-                              self.rt)
+                              self.rt, max_keys=n_keys)
 
     @torch.inference_mode()
     def prefill(self, tokens: np.ndarray | torch.Tensor
@@ -146,7 +148,7 @@ class Server:
                                       dtype=torch.float32, device=self.device)
         STATS.record("prefill")
         for t in range(s):
-            logits, cache = self._decode(cache, tokens[:, t:t + 1])
+            logits, cache = self._decode(cache, tokens[:, t:t + 1], t + 1)
         return cache, logits[:, 0]
 
     def _sample(self, logits: torch.Tensor,
@@ -221,7 +223,8 @@ class Server:
                 stats.decode_slot_steps += b
                 stats.padded_decode_slot_steps += b - int((i + 1 < stops).sum())
                 logits_full, cache = self._decode(
-                    cache, nxt[:, None].to(torch.int64))
+                    cache, nxt[:, None].to(torch.int64),
+                    sc.prompt_len + i + 1)
                 logits = logits_full[:, 0]
         stats.completed = b
         stats.admitted = b

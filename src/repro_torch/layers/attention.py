@@ -287,14 +287,17 @@ def _decode_paged(params: dict, x_t: torch.Tensor, cache: PagedKVCache,
 def decode(params: dict, x_t: torch.Tensor,
            cache: KVCache | PagedKVCache, cfg: ModelConfig,
            rt: RuntimeConfig, *, active: torch.Tensor | None = None,
-           block_table: torch.Tensor | None = None
+           block_table: torch.Tensor | None = None,
+           max_keys: int | None = None
            ) -> tuple[torch.Tensor, KVCache | PagedKVCache]:
     """One decode step on one layer's cache.  x_t: (B, 1, D).
 
     ``active`` is an optional (B,) bool slot mask: inactive slots neither
     write their K/V nor advance their length.  A :class:`PagedKVCache`
     takes the block-mapped path and requires ``block_table`` (B, MB).
-    ``cache`` is updated in place and returned."""
+    ``max_keys``: a host bound on every slot's length after this step,
+    where the caller knows one; it picks the dense kernel's plan, never
+    the result.  ``cache`` is updated in place and returned."""
     if isinstance(cache, PagedKVCache):
         if block_table is None:
             raise ValueError(
@@ -331,7 +334,8 @@ def decode(params: dict, x_t: torch.Tensor,
     lengths = cache.length
     if rt.mode == "brainslug":
         o = attn_ops.flash_decode(q, cache.k, cache.v, lengths,
-                                  block_k=rt.decode_block_k)
+                                  block_k=rt.decode_block_k,
+                                  max_keys=max_keys)
     else:
         attn_ops.STATS.record("decode_ref")
         o = attn_ref.decode_ref(q, cache.k.to(q.dtype), cache.v.to(q.dtype),

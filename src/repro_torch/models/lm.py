@@ -440,22 +440,26 @@ def _layer_cache(c: Any, i: int) -> Any:
 def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
                 cfg: ModelConfig, rt: RuntimeConfig,
                 active: torch.Tensor | None = None,
-                block_tables: torch.Tensor | None = None
+                block_tables: torch.Tensor | None = None,
+                max_keys: int | None = None
                 ) -> tuple[torch.Tensor, dict]:
     """One serving step: tokens_t (B, 1) -> (logits (B, 1, V), cache).
 
     ``active`` is an optional (B,) bool slot mask: inactive slots compute
     but their cache state (KV write and length, mamba conv window and SSM
     state) is frozen.  ``block_tables`` (B, MB) is required for (and only
-    read by) a paged KV cache: one table addresses every layer's pool.  The
-    cache is updated in place and returned."""
+    read by) a paged KV cache: one table addresses every layer's pool.
+    ``max_keys``: a host bound on every slot's KV length after this step,
+    where the caller knows one (the Server's step, the Engine's slots); it
+    picks the dense decode kernel's plan and changes no result.  The cache
+    is updated in place and returned."""
     plan = _check_ported(cfg)
     x = params["embed"][tokens_t]
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
     shared = params.get("shared_attn")
-    kw = dict(active=active, block_tables=block_tables)
+    kw = dict(active=active, block_tables=block_tables, max_keys=max_keys)
     resid, pending = x, torch.zeros_like(x)
     for i in range(plan.n_super):
         for j, kind in enumerate(plan.superblock):
@@ -478,7 +482,8 @@ def _decode_sub(kind: str, p: dict | None, layer_cache: Any,
                 cfg: ModelConfig, rt: RuntimeConfig,
                 shared_params: dict | None = None, *,
                 active: torch.Tensor | None,
-                block_tables: torch.Tensor | None
+                block_tables: torch.Tensor | None,
+                max_keys: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One block's decode step on its layer's cache (updated in place); a
     ``shared_attn`` block applies ``shared_params``."""
@@ -492,7 +497,8 @@ def _decode_sub(kind: str, p: dict | None, layer_cache: Any,
                                active=active)
         return resid, out
     attn_out, _ = attention.decode(p["attn"], h1, layer_cache, cfg, rt,
-                                   active=active, block_table=block_tables)
+                                   active=active, block_table=block_tables,
+                                   max_keys=max_keys)
     h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
                                 p["norm2"].get("bias"), **norm_kw)
     return resid, dense.apply(p["mlp"], h2, cfg, rt)

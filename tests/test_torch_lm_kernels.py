@@ -492,12 +492,11 @@ def test_flash_attention_oracle_agrees_at_equal_lengths():
 # ---------------------------------------------------------------------------
 
 def _decode_cuda(q, k, v, lengths, scale):
-    """``csrc/flash_decode.cu`` in torch float32, CTA by CTA: 16 groups
-    (``THREADS / LANES`` from the source), group ``i`` walking keys
+    """``csrc/flash_decode.cu`` in torch float32, a (slot, head) at a time:
+    16 chains (``CHAINS`` of ``decode_chain.cuh``), chain ``i`` walking keys
     ``i, i + 16, ...`` below the clamped length with its own online
     softmax, then the merge; K/V rounded to the query's dtype first."""
-    groups = (_cu_const(tdecode.SOURCE, "THREADS")
-              // _cu_const(tdecode.SOURCE, "LANES"))
+    groups = _cu_const(tdecode.CHAIN_SOURCE, "CHAINS")
     b, h, _, d = q.shape
     g, s = k.shape[1], k.shape[2]
     kq, vq = k.to(q.dtype).float(), v.to(q.dtype).float()

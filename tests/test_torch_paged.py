@@ -7,8 +7,8 @@
   float32 pool; 1e-5 in float32, 1e-2 in bf16;
 * a transliteration of ``csrc/paged_flash_decode.cu``'s walk (the
   ``launch_plan``'s CTAs, each CTA's chains with their block and row
-  cursors and ring of staged keys, the workspace and the merge in chain
-  order by whichever CTA arrives last) against the same, and bit for bit
+  cursors and ring of staged keys, and the merge in chain order, whichever
+  CTA merges) against the same, and bit for bit
   against the dense kernel's walk on the gathered view at 1, 2, 4 and 16
   CTAs a (slot, head);
 * ``launch_plan``: every (slot, head, chain) once, no lengths read, the
@@ -119,15 +119,14 @@ def _cu_const(path, name):
                          path.read_text()).group(1))
 
 
-#: The chains of a (slot, head): ``GROUPS`` (``THREADS / LANES``) of
-#: ``csrc/flash_decode.cu``, ``CHAINS`` of ``csrc/paged_flash_decode.cu``.
-GROUPS = (_cu_const(tdecode.SOURCE, "THREADS")
-          // _cu_const(tdecode.SOURCE, "LANES"))
+#: The chains of a (slot, head): ``CHAINS`` of ``csrc/decode_chain.cuh``,
+#: the walk both decode kernels run.
+GROUPS = _cu_const(tdecode.CHAIN_SOURCE, "CHAINS")
 #: A card of (SMs, CTAs an SM at every split) for the plan in these tests.
 CARD = (3, lambda splits: 2)
 #: Lanes a key row and elements a lane, in both kernels.
-LANES = _cu_const(tdecode.SOURCE, "LANES")
-E = _cu_const(tdecode.SOURCE, "E")
+LANES = _cu_const(tdecode.CHAIN_SOURCE, "LANES")
+E = _cu_const(tdecode.CHAIN_SOURCE, "E")
 
 
 def _lanes(x):
@@ -164,7 +163,7 @@ def _chain_step(q, k, v, m, l, acc, act, scale):
 
 
 def _merge(m, l, acc):
-    """The CHAINS states merged in chain order (``flash_decode.cu``'s fmaf
+    """The CHAINS states merged in chain order (``decode_chain.cuh``'s fmaf
     sequence, as a multiply and an add)."""
     mx = m.max()
     w = torch.exp(m - mx)
@@ -182,10 +181,10 @@ def _seed(d):
 
 
 def _ring_keys(pool_dtype, chains):
-    """``ring_keys<TKV, CPS>()`` and ``step_keys<TKV, CPS>()`` of the .cu
-    file: keys a chain stages, and keys it takes a step."""
+    """``ring_keys<TKV, CPS>()`` and ``step_keys<TKV, CPS>()`` of
+    ``decode_chain.cuh``: keys a chain stages, and keys it takes a step."""
     lane_bytes = (4 if pool_dtype == torch.float32 else 2) * 8
-    r = (_cu_const(tdecode.PAGED_SOURCE, "RING_BYTES")
+    r = (_cu_const(tdecode.CHAIN_SOURCE, "RING_BYTES")
          // (chains * 16 * 2 * lane_bytes))
     ring = min(max(r, 2), 16)
     return ring, min(ring // 2, 4)
@@ -251,12 +250,12 @@ def _paged_cuda(q, k_pool, v_pool, table, lengths, scale, splits=None,
     """``csrc/paged_flash_decode.cu`` over :func:`tdecode.launch_plan`'s
     grid (or ``splits`` CTAs a (slot, head)): per (slot, head) the length
     clamped to ``[0, MB*bs]`` (zeros at 0); CTA ``j`` holds chains
-    ``j*chains ..``, holds keys iff ``j*chains < len`` (else returns);
-    with one CTA holding keys it merges in place, else each writes its
-    chains' states to the workspace and the CTA that arrives last (the
-    ``arrival``-th of a rotation of the CTAs holding keys) merges, reading
-    chains below ``len`` from the workspace and seeds above.  K/V rounded
-    to q's dtype first."""
+    ``j*chains ..``, holds keys iff ``j*chains < len``; with one CTA
+    holding keys it merges in place, else one CTA merges (on the card the
+    cluster's first; here the ``arrival``-th of a rotation of the CTAs
+    holding keys, to show the bits do not depend on which), reading the
+    other CTAs' chains below ``len`` and seeds above.  K/V rounded to q's
+    dtype first."""
     b, h, _, d = q.shape
     n_blk, g, bs, _ = k_pool.shape
     mb = table.shape[1]
@@ -281,13 +280,13 @@ def _paged_cuda(q, k_pool, v_pool, table, lengths, scale, splits=None,
                 c0 = j * chains
                 states[j] = _paged_cta(qv, kq, vq, table[bi], gi, n, bs,
                                        chains, c0, scale, ring)
-                if active > 1:                  # publish to the workspace
+                if active > 1:                  # publish the chains' states
                     for t, s in zip(ws, states[j]):
                         t[c0:c0 + chains] = s[c0:c0 + chains]
             last = arrival % active             # the CTA that merges
             c0 = last * chains
             # its own chains from shared memory, the others' from the
-            # workspace where they hold keys (c < len), seeds past len
+            # CTAs where they hold keys (c < len), seeds past len
             m, l, acc = (t.clone() for t in (ws if active > 1
                                               else _seed(d)))
             for t, o in zip((m, l, acc), states[last]):
@@ -299,8 +298,9 @@ def _paged_cuda(q, k_pool, v_pool, table, lengths, scale, splits=None,
 
 
 def _dense_cuda(q, k, v, lengths, scale):
-    """``csrc/flash_decode.cu`` over a dense cache: one CTA of all GROUPS
-    chains a (slot, head), keys ``c, c + GROUPS, ...`` read in place."""
+    """The dense kernel's walk before its chains were split over CTAs: one
+    CTA of all GROUPS chains a (slot, head), keys ``c, c + GROUPS, ...``
+    read in place, merged in chain order."""
     b, h, _, d = q.shape
     g, s = k.shape[1], k.shape[2]
     kq, vq = k.to(q.dtype).float(), v.to(q.dtype).float()
@@ -370,7 +370,7 @@ def test_paged_equals_dense_on_the_gathered_view(name, splits):
     """Paged decode on a pool equals dense decode on the gathered view:
     the plain versions within float32 rounding (their tiles differ), the
     two kernels' walks bit for bit (one key order, one chain arithmetic,
-    one merge order) at every split, whichever CTA arrives last."""
+    one merge order) at every split, whichever CTA merges."""
     q, kp, vp, table, lens, qdt = _paged_case(name)
     pdt = PAGED_CASES[name][5]
     tq, tk, tv = _t(q, qdt), _t(kp, pdt), _t(vp, pdt)
@@ -421,7 +421,7 @@ def test_paged_plan_reads_no_lengths_and_keeps_the_chains():
     assert list(inspect.signature(tdecode.launch_plan).parameters) == [
         "batch", "heads", "max_keys", "block_size", "sm_count",
         "ctas_per_sm"]
-    assert tdecode.CHAINS == GROUPS == _cu_const(tdecode.PAGED_SOURCE,
+    assert tdecode.CHAINS == GROUPS == _cu_const(tdecode.CHAIN_SOURCE,
                                                  "CHAINS")
     occupancy = {1: 4, 2: 5, 4: 5, 8: 9, 16: 13}.get
     assert tdecode.launch_plan(1, 32, 32768, 16, 132, occupancy).splits == 8
@@ -486,7 +486,7 @@ def test_paged_at_head_dim_112_matches_jax_kernel(name):
 @pytest.mark.parametrize("splits", [1, 2, 16])
 def test_paged_equals_dense_at_head_dim_112(splits):
     """At D = 112 the two kernels' walks stay bit for bit on the gathered
-    view, at every split and whichever CTA arrives last."""
+    view, at every split and whichever CTA merges."""
     q, kp, vp, table, lens, qdt = _paged_case("bf16_q_f32_pool", 112)
     tq, tk, tv = _t(q, qdt), _t(kp, "float32"), _t(vp, "float32")
     tbl, tl_ = torch.from_numpy(table), torch.from_numpy(lens)
@@ -509,10 +509,10 @@ def test_lane_layout_covers_each_row_once(d, pool_bytes):
     row address ``((tbl * G + g) * bs + r) * D`` of logical key ``p`` (``r
     = p % bs``); a lane's staged slot ``(((grp * RING + i % RING) * 2 + kv)
     * LANES + lane) * E`` lies inside the ring, one slot a (key, tensor,
-    lane); the workspace row of a chain is ``D`` floats, the live lanes'
-    columns."""
+    lane); the merge's table row of a chain is ``D`` floats, the live
+    lanes' columns."""
+    assert f"constexpr int E = {E};" in tdecode.CHAIN_SOURCE.read_text()
     text = tdecode.PAGED_SOURCE.read_text()
-    assert f"constexpr int E = {E};" in text
     assert "paged_flash_decode_kernel<TQ, TKV, CPS, D>" in text
     n, g_kv, bs = 5, 3, 4
     shape = (n, g_kv, bs, d)
