@@ -10,9 +10,9 @@ Phases, one line each (plus tables):
 1. build the kernels from the sources in this tree (nvcc for the CUDA
    source, Triton for the generated rows kernels at first launch), with
    ptxas's registers and spills of the tensor-core kernels and the float32
-   flash kernel (an instance per head dim, 112 and 128), the SSD kernel,
-   the nhwc kernels forward and backward and the two decode kernels' 30
-   instances (dtypes x splits x head dims);
+   flash kernel (an instance per head dim, 64, 112 and 128), the SSD
+   kernel, the nhwc kernels forward and backward and the two decode
+   kernels' 45 instances (dtypes x splits x head dims);
 2. the nhwc CUDA kernel against its plain version (max |d| <= 1e-5); its
    fused path (batch norm, ReLU, a 2x2/s2 max pool) at VGG-16's five stage
    shapes at batch 8 and at two odd extents, bit for bit;
@@ -61,7 +61,7 @@ Phases, one line each (plus tables):
    tick's shape;
 15. the continuous-batching engine (``Server.engine(kv_layout="paged")
    .run``) over a ragged, prefix-sharing queue of 12 requests at full
-   width cut to 8 layers (``ENGINE_LAYERS``), paged ``brainslug`` against
+   width cut to 4 layers (``ENGINE_LAYERS``), paged ``brainslug`` against
    paged ``barrier`` and dense ``brainslug`` (counters per model
    evaluation, no ``kv.*`` finding, the
    free list whole), and a float32 4-layer run with identical tokens;
@@ -110,7 +110,8 @@ Phases, one line each (plus tables):
    of 64, N 128, vocab 50280, bf16): ``lm.prefill`` (1, 2048) brainslug
    against barrier within 5e-2 (and both against the float32 logits of
    the same weights), ``Server.generate`` (4 x 64 + 32 new) and
-   ``Engine.run`` of 8 ragged requests, dense and paged, teacher-forced
+   ``Engine.run`` of 8 ragged requests, dense and paged, both at the first
+   8 layers (MAMBA_SERVE_LAYERS, MAMBA_ENGINE), teacher-forced
    against barrier and a float32 run (SSM_F32_FACTOR); counters (64 SSD
    launches a prefill, 0 a decode step, plain 0); a float32 run at 4
    layers with identical tokens; wall, tokens/s and a traced idle share
@@ -162,16 +163,40 @@ Phases, one line each (plus tables):
    shared-attention application planted in barrier's run must be
    flagged), and a float32 run at the CPU tests' cut (attention every
    3rd layer, 8 layers) with identical tokens; (c) ``Server.generate`` (4
-   x 64 + 32 new) at 81 layers, dense cache, teacher-forced against
-   barrier and float32, flash decode 5 launches a step; (d) ``Engine.run``
+   x 64 + 32 new) at HYBRID's 17 layers, dense cache, teacher-forced
+   against barrier and float32, flash decode 1 launch a step; (d)
+   ``Engine.run``
    of 8 ragged requests, dense and paged, and (e) ``Trainer.run`` (remat
    full, 4096 tokens, three AdamW steps; the step-1 gradient against
    float32; kill at step 2 and resume), both at HYBRID's 17 layers; (f)
    the prefill, a decode step and the training step per mode in turns,
    with a trace of each;
+25. the MoE family, granite-moe-3b-a800m at full width (d_model 1536, 24
+   heads of 64 over 8 KV heads, 40 experts of d_ff 512, top-8, bf16): (a)
+   the three attention kernels at head dim 64 (phase 24a's checks at
+   granite's 24 heads over 8); (b) ``lm.prefill`` (1, 2048) at all 32
+   layers: counters, two prefills bit for bit, the share of (token,
+   choice) routing decisions the modes agree on per layer and the drop
+   fractions; brainslug held to barrier at phase 12's limits with
+   barrier taking brainslug's routing decisions (MOE), every position
+   held through float32 runs taking each mode's decisions, each block
+   alone against its float32 twin; two planted defects (MOE_CONTROLS);
+   a float32 run at 4 layers; (c) ``Server.generate`` (4 x 64 + 32 new)
+   at 32 layers, MoE dropless; (d) ``Engine.run`` of phase 15's 12
+   requests (prefix sharing on) at 4 layers, paged brainslug, paged
+   barrier and dense brainslug, and at float32, 4 layers, against
+   ``Server.generate``; (e) ``Trainer.run`` at 8 layers (4096 tokens,
+   three AdamW steps per mode, the MoE aux read), the step-1 gradient
+   against float32 (and twice bit for bit), float32 at 2 layers, kill at
+   step 2 and resume; (f) the prefill, a decode step and the training
+   step per mode in turns, with a trace of each (the MoE ranges
+   ``moe.routing`` / ``moe.experts`` / ``moe.combine`` as groups); (g)
+   llama4-maverick-400b-a17b at full width cut to one super-block (2
+   layers; 128 experts, top-1, the shared expert): ``lm.prefill`` and
+   ``Server.generate`` at phase 12's limits on brainslug's routing;
 then the ``kernels`` JSON line (each CUDA kernel with its instances, the
-attention kernels' and the SSD's zamba2 shapes), the card line, and the
-``ok`` line last.
+attention kernels' head-dim 112 and 64 entries and the SSD's zamba2
+shape), the card line, and the ``ok`` line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
 when any phase fails.
@@ -257,9 +282,10 @@ DENSE_PARENT_MS = {"ragged_128": 0.9608, "ragged_112": 1.2134,
                    "long_128": 1.2780, "short_128": 0.00430}
 # The engine phases run phase 12's deepseek-7b cut to ENGINE_LAYERS of its
 # 30 layers: the engine is host-bound (a tick's launches grow with depth),
-# and with the SSM slice's phases (20-22) the script has to stay near half
-# its 1200 s limit on a slow host.
-ENGINE_LAYERS = 8
+# and with the SSM, hybrid and MoE phases (20-25) the script has to stay
+# inside its 1200 s limit on a slow host (phase 15 took 55.3 s at 8 layers
+# on one, PR 25 run 4).
+ENGINE_LAYERS = 4
 # The LM training slice (phases 17-19): deepseek-7b at full width, depth cut
 # to fit one 80 GB card with AdamW's float32 moments, one 4096-token
 # sequence (train_4k's length), three steps.
@@ -290,7 +316,9 @@ CE_GRAD_L2 = {"float32": 1e-4, "bfloat16": 3e-4}
 TRAIN_BF16_LOSS_REL = (2e-5, 1e-4, 1e-4)        # per step
 TRAIN_BF16_GNORM_REL = 1e-3                     # every step
 # profiler ranges of the port that a traced training step reads
-TRAIN_RANGES = {"vocab_ce.backward": "ce_backward",
+TRAIN_RANGES = {"moe.routing": "moe_routing", "moe.experts": "moe_experts",
+                "moe.combine": "moe_combine",
+                "vocab_ce.backward": "ce_backward",
                 "flash_attention.backward": "attention_backward",
                 "ssd.backward": "ssd_backward", "adamw.update": "adamw"}
 # The SSM slice (phases 20-22): mamba2-2.7b at full width and depth.
@@ -302,7 +330,14 @@ SSD_TRAIN_SHAPE = (1, 80, 64, 64, 64, 128)     # a 4096-token training step
 # cell; the kernel sums in the plain version's order and reads 0)
 SSD_TOL = 1e-5
 SSD_RAGGED = (2, 1000)                  # (batch, sequence) through ops.ssd
-MAMBA_ENGINE = dict(requests=8, prompt=(16, 96), stops=(8, 32))
+# The engine (21c) and serving (21b) legs run the first 8 of the 64 layers:
+# both are host-bound (a step's launches grow with depth); at 64 layers on
+# one H100 the engine's three runs took 91 s of wall and the serving leg
+# with its three controls 76 s, room the MoE slice's phase needs (at 16
+# layers 27.9 and 17.6 s, PR 25 run 5).  Prefill (21a) and training (22)
+# keep all 64.
+MAMBA_ENGINE = dict(requests=8, prompt=(16, 96), stops=(8, 32), layers=8)
+MAMBA_SERVE_LAYERS = 8
 # training: full depth with every block recomputed in the backward; the
 # kill/resume leg is cut to 4 layers (a 64-layer checkpoint with its AdamW
 # moments is 27 GB, written twice)
@@ -338,16 +373,48 @@ SSM_END_TO_END = ("layer 4's mixer dropped",)
 # 1.28, the bf16 SSD 5.5 / 5.0, the dropped layer over 100.
 SSM_BLOCK_FACTOR = 1.05
 # The hybrid slice (phase 24): zamba2-7b at full width (d_model 3584, 32
-# heads of 112, mamba N 64 and 112 heads of 64).  Prefill and serving run
-# all 81 layers.  The engine and the trainer (kill/resume included) are cut
+# heads of 112, mamba N 64 and 112 heads of 64).  Prefill runs all 81
+# layers.  The engine and the trainer (kill/resume included) are cut
 # to 17 layers: one super-block and a 3-layer tail, so both cache kinds,
 # the shared block and the tail are present.  At 31 layers (two
 # super-blocks) phase 24 took 371 s on one H100 and the script would have
 # run past its 1050 s aim; 17 layers save about 115 s.  The CPU tests hold the shared
 # block's gradient summed over two applications.  bf16 is held to barrier
 # through a float32 run (SSM_F32_FACTOR).
+# Serving (24c) runs at 17 layers too: it is host-bound (launches grow with
+# depth), took 51 s at 81 layers on one H100, and its checks (counters,
+# teacher forcing against barrier and float32) need one application of the
+# shared block and the tail, not five.
 HYBRID = dict(arch="zamba2-7b", engine_layers=17, train_layers=17,
-              remat="full")
+              serve_layers=17, remat="full")
+# The MoE slice (phase 25): granite-moe-3b-a800m at full width (d_model
+# 1536, 24 heads of 64 over 8 KV heads, 40 experts of d_ff 512, top-8, vocab
+# 49155, bf16).  Prefill and serving run all 32 layers; the trainer is cut
+# to 8 (TRAIN_LM's precedent), the engine, the kill/resume leg and the
+# float32 runs to 4 and 2: the engine is host-bound (its three runs took 50
+# s at 8 layers on one H100, each MoE layer some 5 ms of host time a model
+# evaluation) and a checkpoint with AdamW's moments is 9 GB at 8 layers,
+# written twice, where the script has to stay near 1050 s.
+# llama4-maverick-400b-a17b runs at full width cut to one super-block: a
+# dense block, then an MoE block of 128 experts, top-1, with the shared
+# expert (18.55 B parameters, 37 GB in bf16).
+MOE = dict(arch="granite-moe-3b-a800m", engine_layers=4, train_layers=8,
+           layers_resume=4, f32_layers=4, train_f32_layers=2, drop_layer=4,
+           llama4="llama4-maverick-400b-a17b", llama4_layers=2)
+# Routing is discrete: a near tie between two experts falls either way under
+# the modes' different roundings of the router's input, and a flipped choice
+# changes that token's output wholesale, at every later layer too.  So
+# brainslug is held to barrier with barrier taking brainslug's (token,
+# choice) decisions (``moe.route`` patched to replay them; each run keeps its
+# own gate weights), at phase 12's direct limits, and to a float32 run of
+# the same weights taking each mode's own decisions (SSM_F32_FACTOR) and
+# block by block (SSM_BLOCK_FACTOR); the share of decisions the free modes
+# agree on is printed per layer.  Defects planted in barrier's run: layer
+# 4's MoE output dropped (the end-to-end checks must flag it) and the gate
+# weights left unnormalised (the block checks must flag both).
+MOE_CONTROLS = ("layer 4's MoE output dropped",
+                "gate weights not renormalised")
+MOE_END_TO_END = ("layer 4's MoE output dropped",)
 
 
 class PhaseError(RuntimeError):
@@ -455,7 +522,7 @@ class Smoke:
               "phase16_engine_timing", "phase17_ce_kernel", "phase18_train",
               "phase19_train_timing", "phase20_ssd_kernel",
               "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced",
-              "phase24_hybrid")
+              "phase24_hybrid", "phase25_moe")
 
     def run(self):
         t0 = time.perf_counter()
@@ -2701,6 +2768,46 @@ class Smoke:
                     out.append(logits[keep, 0].float())
         return out
 
+    def engine_float32(self, cfg32, p32, reqs, tag, counters=None):
+        """The three ENGINE_RUNS of ``reqs`` at float32: identical greedy
+        tokens in all three, and the paged brainslug engine equal to the
+        static ``Server.generate`` on four equal-length prompts."""
+        from repro_torch.launch import serve
+        from repro_torch.launch.engine import Request
+        greedy = [i for i, r in enumerate(reqs) if r.temperature <= 0.0]
+        toks = {}
+        for layout, mode in ENGINE_RUNS:
+            _, comps, _, _ = self.engine_run(cfg32, p32, layout, mode, reqs,
+                                             counters=counters)
+            toks[(layout, mode)] = comps
+        base = toks[ENGINE_RUNS[0]]
+        for run, comps in toks.items():
+            for i in greedy:
+                if not np.array_equal(comps[i].tokens, base[i].tokens):
+                    raise PhaseError(f"engine f32: {run} differs from "
+                                     f"{ENGINE_RUNS[0]} on request {i}")
+        # against the static Server on four equal-length prompts
+        four = [list(reqs[i].prompt[:16]) for i in (2, 5, 8, 11)]
+        new = 16
+        static = serve.Server(serve.ServeConfig(
+            arch=cfg32.name, reduced=False, mode="brainslug", batch=4,
+            prompt_len=16, new_tokens=new, max_len=ENGINE["max_len"],
+            torch_device=self.dev.type),
+            params=p32, cfg=cfg32)
+        want = static.generate(np.asarray(four, np.int32))
+        _, comps, _, _ = self.engine_run(
+            cfg32, p32, "paged", "brainslug",
+            [Request(request_id=i, prompt=x, max_new_tokens=new)
+             for i, x in enumerate(four)], counters=counters)
+        for i, c in enumerate(comps):
+            if not np.array_equal(c.tokens, want[i]):
+                raise PhaseError(f"engine f32 vs static Server: request {i} "
+                                 f"differs")
+        print(f"[{tag} engine float32, {cfg32.n_layers} layers] identical "
+              f"greedy tokens in the three runs; the paged brainslug engine "
+              f"equals the static Server.generate on 4 prompts of 16 tokens "
+              f"x {new} new")
+
     def phase15_engine(self):
         torch = self.torch
         import dataclasses
@@ -2774,57 +2881,28 @@ class Smoke:
         # float32 at 4 layers: identical greedy tokens everywhere
         cfg32 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
         p32 = lm.init(1, cfg32, device=self.dev)
-        toks = {}
-        for layout, mode in ENGINE_RUNS:
-            _, comps, _, _ = self.engine_run(cfg32, p32, layout, mode, reqs)
-            toks[(layout, mode)] = comps
-        base = toks[ENGINE_RUNS[0]]
-        for run, comps in toks.items():
-            for i in greedy:
-                if not np.array_equal(comps[i].tokens, base[i].tokens):
-                    raise PhaseError(f"engine f32: {run} differs from "
-                                     f"{ENGINE_RUNS[0]} on request {i}")
-        # against the static Server on four equal-length prompts
-        from repro_torch.launch import serve
-        from repro_torch.launch.engine import Request
-        four = [list(reqs[i].prompt[:16]) for i in (2, 5, 8, 11)]
-        new = 16
-        static = serve.Server(serve.ServeConfig(
-            arch=cfg32.name, reduced=False, mode="brainslug", batch=4,
-            prompt_len=16, new_tokens=new, max_len=ENGINE["max_len"],
-            torch_device=self.dev.type),
-            params=p32, cfg=cfg32)
-        want = static.generate(np.asarray(four, np.int32))
-        _, comps, _, _ = self.engine_run(
-            cfg32, p32, "paged", "brainslug",
-            [Request(request_id=i, prompt=x, max_new_tokens=new)
-             for i, x in enumerate(four)])
-        for i, c in enumerate(comps):
-            if not np.array_equal(c.tokens, want[i]):
-                raise PhaseError(f"engine f32 vs static Server: request {i} "
-                                 f"differs")
-        print(f"[15 engine float32, 4 layers] identical greedy tokens in the "
-              f"three runs; the paged brainslug engine equals the static "
-              f"Server.generate on 4 prompts of 16 tokens x {new} new")
-        del p32, static
+        self.engine_float32(cfg32, p32, reqs, "15")
+        del p32
         torch.cuda.empty_cache()
 
-    def paged_bound(self, q, lens):
+    def paged_bound(self, q, lens, kv_heads=None):
         """The paged kernel's bound: :meth:`decode_bound` with the table
         entries the keys use."""
-        return self.decode_bound(q, lens, PAGED["block"])
+        return self.decode_bound(q, lens, PAGED["block"], kv_heads)
 
-    def decode_bound(self, q, lens, block=None):
+    def decode_bound(self, q, lens, block=None, kv_heads=None):
         """A decode kernel's bound on bf16 operands: q read and o written,
-        the valid keys' K and V rows, the table entries they use (paged,
+        the valid keys' K and V rows of the ``kv_heads`` KV heads (by
+        default one a query head), the table entries they use (paged,
         ``block`` rows a block) and the lengths, over HBM; or its operations
-        (a multiply-add a K and a V element) over the bf16 tensor-core
-        rate, whichever is larger."""
+        (a multiply-add a K and a V element a query head) over the bf16
+        tensor-core rate, whichever is larger."""
         from repro_torch.core.resource import H100
         heads, d = q.shape[1], q.shape[3]
+        kv_heads = kv_heads or heads
         valid = int(lens.sum())
         used = int(((lens + block - 1) // block).sum()) if block else 0
-        n_bytes = (2 * q.numel() * 2 + 2 * valid * heads * d * 2
+        n_bytes = (2 * q.numel() * 2 + 2 * valid * kv_heads * d * 2
                    + used * 4 + lens.numel() * 4)
         t_bytes = n_bytes / H100.hbm_bandwidth * 1e3
         t_ops = 4 * d * heads * valid / PEAK_BF16 * 1e3
@@ -3382,8 +3460,11 @@ class Smoke:
             else:
                 raise PhaseError("kill/resume: the injected failure at step 2 "
                                  "did not happen")
-            resumed, _, _, wall = self.train_lm("brainslug", L32, "float32",
-                                                ckpt_dir=d, ckpt_every=1)
+            # the resumed run writes only its final checkpoint (15 GB at
+            # 2 float32 layers with AdamW's moments)
+            resumed, _, _, wall = self.train_lm(
+                "brainslug", L32, "float32", ckpt_dir=d,
+                ckpt_every=TRAIN_LM["steps"])
         full = runs32["brainslug"][0]
         if [h["step"] for h in resumed] != [2] or \
                 resumed[-1]["loss"] != full[-1]["loss"]:
@@ -4001,11 +4082,12 @@ class Smoke:
                 touched[name] += len(hit)
             del ref
             with torch.no_grad():
-                resid, pending = lm._apply_sub("mamba", p, resid, pending,
-                                               cfg, rts["barrier"])
+                resid, pending, _ = lm._apply_sub("mamba", p, resid,
+                                                  pending, cfg,
+                                                  rts["barrier"])
         return dist, touched
 
-    def check_blocks(self, tag, what, dist, touched):
+    def check_blocks(self, tag, what, dist, touched, controls=SSM_CONTROLS):
         """brainslug's distance to the float32 block within
         SSM_BLOCK_FACTOR x barrier's in every block; each control's
         defect touched a call and is flagged in some block.  Prints the
@@ -4027,7 +4109,7 @@ class Smoke:
             raise PhaseError(f"{tag} blocks: brainslug at "
                              f"{max(ratio['brainslug']):.3f}x barrier's "
                              f"distance to the float32 block")
-        for name in SSM_CONTROLS:
+        for name in controls:
             if not touched[name]:
                 raise PhaseError(f"{tag} blocks: the control {name} touched "
                                  f"no call")
@@ -4267,21 +4349,26 @@ class Smoke:
               f"{self.relative(want, ref32):.3e}; counters {counts}")
         del ref32
 
-        # 21b: Server.generate, 4 requests, greedy
+        # 21b: Server.generate, 4 requests, greedy, at the first
+        # MAMBA_SERVE_LAYERS layers (views of the weights)
+        ls = MAMBA_SERVE_LAYERS
+        cfg_s = dataclasses.replace(cfg, n_layers=ls)
+        params_s, p32_s = ({**tree, "blocks": base.tree_map(
+            lambda a: a[:ls], tree["blocks"])} for tree in (params, p32))
         prompts = np.random.default_rng(2102).integers(
             0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
         ).astype(np.int32)
         t = time.perf_counter()
-        servers, gens, counts = self.serve_pair(cfg, params, prompts,
+        servers, gens, counts = self.serve_pair(cfg_s, params_s, prompts,
                                                 self.ssm_counters)
         steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
-        self.expect_ssm("mamba serving", counts, rmsnorm=steps * (L + 1),
-                        rows=steps * L)
+        self.expect_ssm("mamba serving", counts, rmsnorm=steps * (ls + 1),
+                        rows=steps * ls)
         serve_wall = {m: s.last_stats.wall_s for m, s in servers.items()}
         servers["float32"] = serve.Server(serve.ServeConfig(
             arch=cfg.name, reduced=False, mode="barrier",
             max_len=SERVE["prompt_len"] + SERVE["new_tokens"] + 1, **SERVE),
-            params=p32, cfg=cfg32)
+            params=p32_s, cfg=dataclasses.replace(cfg32, n_layers=ls))
         pairs = (("brainslug", "barrier"), ("brainslug", "float32"),
                  ("barrier", "float32"))
         logits = {}
@@ -4303,7 +4390,8 @@ class Smoke:
         agree = float((gens["brainslug"] == gens["barrier"]).mean())
         n_gen = servers["brainslug"].last_stats.generated_tokens
         d = errs[pairs[0]]
-        print(f"[21b Server.generate bf16] {SERVE['batch']} requests, prompt "
+        print(f"[21b Server.generate bf16] {ls} of the {L} layers, "
+              f"{SERVE['batch']} requests, prompt "
               f"{SERVE['prompt_len']}, {SERVE['new_tokens']} new tokens, "
               f"greedy: token agreement brainslug vs barrier {agree:.4f}; "
               f"teacher-forced logits max|d|/max per step, brainslug vs "
@@ -4315,15 +4403,22 @@ class Smoke:
               f"{time.perf_counter() - t:.1f} s")
         self.report_controls("21b", "barrier bf16 with a defect, teacher-"
                              "forced logits to the float32 run", controls)
-        del servers
+        del servers, params_s, p32_s
 
-        # 21c: Engine.run over a ragged queue, dense and paged
+        # 21c: Engine.run over a ragged queue, dense and paged, at the
+        # first MAMBA_ENGINE["layers"] layers (views of the weights)
+        le = MAMBA_ENGINE["layers"]
+        cfg_e = dataclasses.replace(cfg, n_layers=le)
+        cfg32_e = dataclasses.replace(cfg32, n_layers=le)
+        params_e, p32_e = ({**tree, "blocks": base.tree_map(
+            lambda a: a[:le], tree["blocks"])} for tree in (params, p32))
         reqs = self.ssm_queue(cfg.vocab_size)
         t = time.perf_counter()
         results = {}
         for layout, mode in ENGINE_RUNS:
             eng, comps, counts, wall = self.engine_run(
-                cfg, params, layout, mode, reqs, counters=self.ssm_counters)
+                cfg_e, params_e, layout, mode, reqs,
+                counters=self.ssm_counters)
             results[(layout, mode)] = (eng, comps, wall)
             if eng.report()["decode_path"] != "ssm-recurrent":
                 raise PhaseError(f"engine {layout} {mode}: decode path "
@@ -4331,7 +4426,7 @@ class Smoke:
             if mode == "brainslug":
                 e = self.evaluations(eng.last_stats)
                 self.expect_ssm(f"mamba engine {layout}", counts,
-                                rmsnorm=(L + 1) * e, rows=L * e)
+                                rmsnorm=(le + 1) * e, rows=le * e)
         pb = results[("paged", "brainslug")][1]
         db = results[("dense", "brainslug")][1]
         pr = results[("paged", "barrier")][1]
@@ -4345,17 +4440,18 @@ class Smoke:
         pick = list(range(4))
         seqs = [list(reqs[i].prompt) + pr[i].tokens.tolist() for i in pick]
         starts = [len(reqs[i].prompt) for i in pick]
-        forced = {m: self.forced_logits(cfg, params, m, seqs, starts)
+        forced = {m: self.forced_logits(cfg_e, params_e, m, seqs, starts)
                   for m in ("brainslug", "barrier")}
-        forced["float32"] = self.forced_logits(cfg32, p32, "barrier", seqs,
-                                               starts)
+        forced["float32"] = self.forced_logits(cfg32_e, p32_e, "barrier",
+                                               seqs, starts)
         errs = {(a, b): [self.relative(x, y) for x, y in zip(forced[a],
                                                              forced[b])]
                 for a, b in pairs}
         held = self.held_to_f32("mamba engine bf16", errs[pairs[1]],
                                 errs[pairs[2]])
         d = errs[pairs[0]]
-        print(f"[21c engine] {cfg.name} bf16, {L} layers, Engine(slots "
+        print(f"[21c engine] {cfg.name} bf16, {le} of its {L} layers, "
+              f"Engine(slots "
               f"{ENGINE['slots']}, max_len {ENGINE['max_len']}, prefill_chunk "
               f"{ENGINE['prefill_chunk']}, verify strict), "
               f"{len(reqs)} requests (prompts {MAMBA_ENGINE['prompt']}, new "
@@ -4373,7 +4469,7 @@ class Smoke:
                   f"{self.evaluations(st)} model evaluations, TTFT "
                   f"p50 {st.ttft_p50_ms:.1f} ms p99 {st.ttft_p99_ms:.1f} ms; "
                   f"ServeStats {json.dumps(st.as_dict())}")
-        del results, forced, p32
+        del results, forced, p32, params_e, p32_e
 
         # 21d: float32 at 4 layers, identical greedy tokens
         cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
@@ -5218,7 +5314,7 @@ class Smoke:
             if kind == "shared_attn":
                 seen[0] += 1
                 if seen[0] % n_super == 1 % n_super:
-                    return skip(resid, pending)
+                    return (*skip(resid, pending), None)
             return saved[0](kind, p, resid, pending, *a, **kw)
 
         def decode(kind, p, cache, resid, pending, *a, **kw):
@@ -5241,29 +5337,29 @@ class Smoke:
             -1).clamp_min(1e-30)
         return d.flatten().tolist()
 
-    def hybrid_kernels(self, cfg):
-        """24a: the three attention kernels at zamba2-7b's head dim 112,
-        the SSD kernel at its (112 heads, N 64) and the gated norm's rows
-        kernel (and its backward, and rmsnorm) at its widths, each against
-        its plain version; their times beside bound, plain version and a
-        library call."""
+    def attention_kernels(self, d, heads, kv_heads, tag, seed):
+        """The three attention kernels at head dim ``d`` against their plain
+        versions in bf16 and float32 (flash at (1, ``heads``, 2048) causal
+        and (2, ``heads``, 1000) both ways over ``kv_heads`` KV heads, two
+        launches bit for bit and bf16 within its P bound; dense and paged
+        decode at phase 14's ragged lengths, paged bit for bit with dense
+        at every split); their times at those shapes beside bound, plain
+        version and SDPA, kept as the kernels' ``head_dim_{d}`` entries."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.core.resource import H100
         from repro_torch.kernels.attention import decode, flash, ref
-        from repro_torch.kernels.ssd import ssd
         t = time.perf_counter()
-        d = cfg.head_dim
         bf, f32 = torch.bfloat16, torch.float32
         lines, flash_bound = [], []
         for dt in (bf, f32):
-            for (b, h_, s_), causals in (((1, 32, 2048), (True,)),
-                                         ((2, 32, 1000), (True, False))):
-                q = self.randn((b, h_, s_, d), 2400).to(dt)
-                k = self.randn((b, h_, s_, d), 2401).to(dt)
-                v = self.randn((b, h_, s_, d), 2402).to(dt)
+            for (b, s_), causals in (((1, 2048), (True,)),
+                                     ((2, 1000), (True, False))):
+                q = self.randn((b, heads, s_, d), seed).to(dt)
+                k = self.randn((b, kv_heads, s_, d), seed + 1).to(dt)
+                v = self.randn((b, kv_heads, s_, d), seed + 2).to(dt)
                 for causal in causals:
-                    what = f"D {d} {dt} {(b, h_, s_)} causal={causal}"
+                    what = f"D {d} {dt} {(b, heads, s_)} causal={causal}"
                     got = flash.flash_attention_fwd(q, k, v, causal=causal)
                     again = flash.flash_attention_fwd(q, k, v, causal=causal)
                     err = self.lm_check("flash_attention", what, got,
@@ -5271,7 +5367,7 @@ class Smoke:
                                             q, k, v, causal=causal))
                     self.same_bits("flash_attention", what, {"o": got},
                                    {"o": again})
-                    lines.append(f"flash {str(dt)[6:]} {(b, h_, s_, d)} "
+                    lines.append(f"flash {str(dt)[6:]} {(b, heads, s_, d)} "
                                  f"causal={causal} max|d| {err:.2e}")
                     if dt == bf:
                         top = max(float(got.float().abs().max()), 1e-30)
@@ -5283,10 +5379,10 @@ class Smoke:
                                              f"{bound:.3e}")
                         flash_bound.append(f"{err:.3e} (bound {bound:.3e})")
                 del q, k, v
-        # dense and paged decode at (8, 32, ragged up to 32768, 112)
+        # dense and paged decode at (8, heads, ragged up to 32768, d)
         for dt, pool_dt in ((bf, bf), (bf, f32), (f32, f32)):
             q, kp, vp, table, lens = self.paged_operands(
-                dt, pool_dt, PAGED["heads"], PAGED["heads"], 2410, d=d)
+                dt, pool_dt, heads, kv_heads, seed + 10, d=d)
             clipped = table.clamp(0, kp.shape[0] - 1)
             kd = ref.gather_paged(kp, clipped)
             vd = ref.gather_paged(vp, clipped)
@@ -5318,10 +5414,11 @@ class Smoke:
                          + (" at every split" if dt == bf == pool_dt else ""))
             del q, kp, vp, kd, vd, dense, got, clipped
         torch.cuda.empty_cache()
-        print(f"[24a kernels D {d}] against their plain versions (tol "
+        print(f"[{tag} kernels D {d}] against their plain versions (tol "
               f"{LM_TOL}; bf16 flash two launches bit for bit and within the "
               f"P bound: {', '.join(flash_bound)}), decode at ({PAGED['batch']}"
-              f", 32, lengths {lens.tolist()}, {d}), block {PAGED['block']}, "
+              f", {heads} heads over {kv_heads}, lengths {lens.tolist()}, {d})"
+              f", block {PAGED['block']}, "
               f"a shuffled table with sentinel tails, length 0 exactly zero: "
               + "; ".join(lines) + f"; {time.perf_counter() - t:.1f} s")
 
@@ -5330,48 +5427,53 @@ class Smoke:
             return sum(x.numel() * x.element_size() for x in ts)
 
         s2 = PREFILL[1]
-        q = self.randn((1, 32, s2, d), 2420).to(bf)
-        k = self.randn((1, 32, s2, d), 2421).to(bf)
-        v = self.randn((1, 32, s2, d), 2422).to(bf)
+        q = self.randn((1, heads, s2, d), seed + 20).to(bf)
+        k = self.randn((1, kv_heads, s2, d), seed + 21).to(bf)
+        v = self.randn((1, kv_heads, s2, d), seed + 22).to(bf)
         pairs = s2 * (s2 + 1) // 2
-        t_ops = 4 * d * 32 * pairs / PEAK_BF16 * 1e3
+        t_ops = 4 * d * heads * pairs / PEAK_BF16 * 1e3
         t_by = nbytes(q, k, v, q) / H100.hbm_bandwidth * 1e3
         rows = {}
         with torch.inference_mode():
             run = lambda: flash.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
             k_ms, how = self.kernel_ms(run, "flash_fwd_kernel")
             rows["flash_attention"] = dict(
-                shape=f"(1, 32, {s2}, {d}) bf16 causal", ms=k_ms, how=how,
+                shape=f"(1, {heads}, {s2}, {d}) bf16 causal"
+                + (f", {kv_heads} KV heads" if kv_heads != heads else ""),
+                ms=k_ms, how=how,
                 plain_ms=self.cuda_ms(lambda: flash.flash_attention_plain(
                     q, k, v, causal=True), reps=1, groups=3, warmup=1),
                 library_ms=self.cuda_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v,
-                                                           is_causal=True)),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True,
+                        enable_gqa=kv_heads != heads)),
                 bound_ms=max(t_ops, t_by),
                 bound_by="operations" if t_ops >= t_by else "bytes")
         del q, k, v
         q, kp, vp, table, lens = self.paged_operands(
-            bf, bf, PAGED["heads"], PAGED["heads"], 2430, d=d)
+            bf, bf, heads, kv_heads, seed + 30, d=d)
         clipped = table.clamp(0, kp.shape[0] - 1)
         kd, vd = ref.gather_paged(kp, clipped), ref.gather_paged(vp, clipped)
         mask = (torch.arange(kd.shape[2], device=self.dev)[None, :]
                 < lens[:, None])[:, None, None, :]
-        b_ms, b_by = self.paged_bound(q, lens)
-        shape = (f"({PAGED['batch']}, 32, lengths {lens.tolist()}, {d}) "
-                 f"bf16")
+        b_ms, b_by = self.paged_bound(q, lens, kv_heads)
+        shape = (f"({PAGED['batch']}, {heads}"
+                 + (f" over {kv_heads}" if kv_heads != heads else "")
+                 + f", lengths {lens.tolist()}, {d}) bf16")
         with torch.inference_mode():
             sdpa = self.cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, kd, vd, attn_mask=mask))
+                q, kd, vd, attn_mask=mask, enable_gqa=kv_heads != heads))
             run = lambda: decode.flash_decode(q, kd, vd, lens)  # noqa: E731
             k_ms, how = self.kernel_ms(run, "flash_decode_kernel")
-            db_ms, db_by = self.decode_bound(q, lens)
+            db_ms, db_by = self.decode_bound(q, lens, kv_heads=kv_heads)
             rows["flash_decode"] = dict(
                 shape=shape, ms=k_ms, how=how,
                 plain_ms=self.cuda_ms(lambda: decode.flash_decode_plain(
                     q, kd, vd, lens), reps=1, groups=3, warmup=1),
                 library_ms=sdpa, bound_ms=db_ms, bound_by=db_by,
                 plan=self.dense_plan_note(q, kd)
-                + f"; before the redesign {DENSE_PARENT_MS['ragged_112']} ms")
+                + (f"; before the redesign {DENSE_PARENT_MS['ragged_112']} "
+                   f"ms" if d == 112 else ""))
             run = lambda: decode.paged_flash_decode(  # noqa: E731
                 q, kp, vp, table, lens)
             k_ms, how = self.kernel_ms(run, "paged_flash_decode_kernel")
@@ -5383,7 +5485,7 @@ class Smoke:
                 bound_by=b_by, plan=self.paged_plan_note(q, table, kp))
         del q, kp, vp, kd, vd, mask, clipped
         torch.cuda.empty_cache()
-        print(f"[24a times D {d}] device time per launch (profiler), plain "
+        print(f"[{tag} times D {d}] device time per launch (profiler), plain "
               f"version and library call per call (events), bound (bytes "
               f"each input once and each output once, or operations at the "
               f"bf16 tensor-core rate counting {d} columns); {self.smi}:")
@@ -5396,7 +5498,7 @@ class Smoke:
                   f"{lib}  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
                   f"kernel/bound {r['ms'] / r['bound_ms']:.2f}"
                   + (f"; {r['plan']}" if "plan" in r else ""))
-            self.kernels[name]["head_dim_112"] = {
+            self.kernels.setdefault(name, {})[f"head_dim_{d}"] = {
                 k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                   "bound_ms", "bound_by")}
         for name, inst in (("flash_attention", self.flash_ptxas),
@@ -5406,8 +5508,19 @@ class Smoke:
                            ("fused_nhwc_bwd", self.nhwc_bwd_ptxas),
                            ("fused_ce", self.ce_ptxas),
                            ("ssd_intra_chunk", self.ssd_ptxas)):
-            self.kernels[name]["instances"] = inst
+            self.kernels.setdefault(name, {})["instances"] = inst
 
+    def hybrid_kernels(self, cfg):
+        """24a: the three attention kernels at zamba2-7b's head dim 112
+        (:meth:`attention_kernels`), the SSD kernel at its (112 heads, N 64)
+        and the gated norm's rows kernel (and its backward, and rmsnorm) at
+        its widths, each against its plain version; their times beside
+        bound, plain version and a library call."""
+        torch = self.torch
+        from repro_torch.core.resource import H100
+        from repro_torch.kernels.ssd import ssd
+        self.attention_kernels(cfg.head_dim, PAGED["heads"], PAGED["heads"],
+                               "24a", 2400)
         # the SSD kernel at zamba2's (1, 112 heads, 32 chunks, 64, 64), N 64
         shape_ = (1, cfg.ssm_heads, PREFILL[1] // 64, 64, cfg.ssm_head_dim,
                   cfg.ssm_state)
@@ -5502,8 +5615,8 @@ class Smoke:
                     out = lm._apply_sub(kind, p, resid, pending, cfg,
                                         rts["barrier"], shared)[1]
                     dist["control"].append(self.rel_l2([out], [ref]))
-                    resid, pending = apply(kind, p, resid, pending, cfg,
-                                           rts["barrier"], shared)
+                    resid, pending, _ = apply(kind, p, resid, pending, cfg,
+                                              rts["barrier"], shared)
                     dist["barrier"].append(self.rel_l2([pending], [ref]))
                     del ref, out, p32
         kinds = [k for k, _ in blocks]
@@ -5539,8 +5652,8 @@ class Smoke:
                              "application is not flagged")
 
     def hybrid_full_depth(self, cfg):
-        """24b, 24c and their times (24f): ``lm.prefill`` and
-        ``Server.generate`` at full width and depth."""
+        """24b, 24c and their times (24f): ``lm.prefill`` at full width and
+        depth, ``Server.generate`` at HYBRID["serve_layers"]."""
         torch = self.torch
         import dataclasses
         from repro_torch.configs.base import RuntimeConfig
@@ -5618,25 +5731,40 @@ class Smoke:
         del ref32, got, want
         self.hybrid_blocks(params, cfg, tokens)
 
-        # 24c: Server.generate, dense cache, teacher-forced
+        # 24c: Server.generate, dense cache, teacher-forced, at
+        # HYBRID["serve_layers"] (views of the first super-blocks and tail
+        # layers of the weights)
+        cfg_s = dataclasses.replace(cfg, n_layers=HYBRID["serve_layers"])
+        plan_s = lm.layer_plan(cfg_s)
+        s_attn = plan_s.n_super
+        s_mamba = (plan_s.n_super * (len(plan_s.superblock) - 1)
+                   + len(plan_s.tail))
+        s_rms = s_mamba + 2 * s_attn + 1
+        params_s, p32_s = ({
+            **tree,
+            "blocks": base.tree_map(lambda a: a[:plan_s.n_super],
+                                    tree["blocks"]),
+            "tail": base.tree_map(lambda a: a[:len(plan_s.tail)],
+                                  tree["tail"])} for tree in (params, p32))
         prompts = np.random.default_rng(2451).integers(
             0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
         ).astype(np.int32)
         t = time.perf_counter()
-        servers, gens, counts = self.serve_pair(cfg, params, prompts,
+        servers, gens, counts = self.serve_pair(cfg_s, params_s, prompts,
                                                 self.hybrid_counters)
         steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
         self.expect_hybrid("zamba2 serving", counts,
-                           flash_decode=n_attn * steps,
-                           rmsnorm=n_rms * steps, swiglu=n_attn * steps,
-                           fused_rows=n_mamba * steps)
+                           flash_decode=s_attn * steps,
+                           rmsnorm=s_rms * steps, swiglu=s_attn * steps,
+                           fused_rows=s_mamba * steps)
         self.hybrid_launches["decode_step"] = {k: v // steps
                                                for k, v in counts.items()}
         serve_wall = {m: s.last_stats.wall_s for m, s in servers.items()}
         servers["float32"] = serve.Server(serve.ServeConfig(
             arch=cfg.name, reduced=False, mode="barrier",
             max_len=SERVE["prompt_len"] + SERVE["new_tokens"] + 1, **SERVE),
-            params=p32, cfg=cfg32)
+            params=p32_s,
+            cfg=dataclasses.replace(cfg32, n_layers=cfg_s.n_layers))
         pairs = (("brainslug", "barrier"), ("brainslug", "float32"),
                  ("barrier", "float32"))
         logits = {}
@@ -5648,7 +5776,10 @@ class Smoke:
         agree = float((gens["brainslug"] == gens["barrier"]).mean())
         n_gen = servers["brainslug"].last_stats.generated_tokens
         d = errs[pairs[0]]
-        print(f"[24c Server.generate bf16] {SERVE['batch']} requests, prompt "
+        print(f"[24c Server.generate bf16] {cfg_s.n_layers} of the "
+              f"{cfg.n_layers} layers ({plan_s.n_super} super-block(s), a "
+              f"{len(plan_s.tail)}-layer tail), {SERVE['batch']} requests, "
+              f"prompt "
               f"{SERVE['prompt_len']}, {SERVE['new_tokens']} new tokens, "
               f"greedy, dense cache: token agreement brainslug vs barrier "
               f"{agree:.4f}; teacher-forced logits max|d|/max per step, "
@@ -5658,7 +5789,7 @@ class Smoke:
                   for m, w in serve_wall.items())
               + f"; brainslug counters {counts}; "
               f"{time.perf_counter() - t:.1f} s")
-        del servers, p32
+        del servers, p32, params_s, p32_s
 
         # 24f: prefill and a decode step per mode, in turns; a trace of each
         with torch.inference_mode():
@@ -6076,6 +6207,883 @@ class Smoke:
               f"{la['engine_evaluation']}; per training step "
               f"({HYBRID['train_layers']} layers) {la['train_step']}; phase "
               f"{time.perf_counter() - t:.1f} s")
+
+    # -- phase 25: the MoE family ---------------------------------------------
+    @contextlib.contextmanager
+    def moe_routing(self, replay=None, renorm=True):
+        """Patches ``moe.route``: every call's (token, choice) expert ids are
+        recorded in call order (the yielded list).  With ``replay`` (such a
+        list) each call takes the ids recorded at its turn, its gate weights
+        its own probabilities of them, renormalised: the run makes the
+        recorded run's discrete decisions and its own arithmetic.
+        ``renorm=False`` plants a defect: the gate weights are the raw
+        top-k probabilities."""
+        torch = self.torch
+        from repro_torch.layers import moe
+        saved = moe.route
+        seen = []
+
+        def route(router, xf, k):
+            probs, gate_w, idx = saved(router, xf, k)
+            if replay is not None:
+                want = replay[len(seen)]
+                if want.shape != idx.shape:
+                    raise PhaseError(f"routing replay: call {len(seen)} "
+                                     f"takes {tuple(idx.shape)}, the record "
+                                     f"holds {tuple(want.shape)}")
+                idx = want
+            if replay is not None or not renorm:
+                gate_w = torch.gather(probs, -1, idx)
+                if renorm:
+                    gate_w = gate_w / torch.clamp_min(
+                        gate_w.sum(-1, keepdim=True), 1e-9)
+            seen.append(idx)
+            return probs, gate_w, idx
+
+        moe.route = route
+        try:
+            yield seen
+        finally:
+            moe.route = saved
+
+    @contextlib.contextmanager
+    def moe_drop(self, layer, n_moe):
+        """The planted defect: the output of MoE block ``layer`` of every
+        forward or decode step (every ``n_moe`` calls of ``moe.apply``)
+        dropped, so the block adds nothing to the residual stream.  Yields a
+        list whose length counts the outputs dropped."""
+        torch = self.torch
+        from repro_torch.layers import moe
+        saved = moe.apply
+        calls, hit = [0], []
+
+        def apply(params, x, cfg, rt, **kw):
+            y, aux = saved(params, x, cfg, rt, **kw)
+            calls[0] += 1
+            if (calls[0] - 1) % n_moe == layer:
+                hit.append(1)
+                return torch.zeros_like(y), aux
+            return y, aux
+
+        moe.apply = apply
+        try:
+            yield hit
+        finally:
+            moe.apply = saved
+
+    @contextlib.contextmanager
+    def moe_control(self, name, n_moe, replay=None, layer=MOE["drop_layer"]):
+        """One of MOE_CONTROLS planted in a run whose routing is recorded
+        (or replayed from ``replay``); the dropped output is that of the
+        ``layer``-th of every ``n_moe`` calls.  Yields (a list whose length
+        counts the calls the defect touched, the routing record)."""
+        if name == MOE_CONTROLS[0]:
+            with self.moe_drop(layer, n_moe) as hit, \
+                    self.moe_routing(replay=replay) as rec:
+                yield hit, rec
+        else:
+            with self.moe_routing(replay=replay, renorm=False) as rec:
+                yield rec, rec
+
+    @contextlib.contextmanager
+    def decode_logits(self):
+        """Patches ``lm.decode_step``: every step's logits in float32, in
+        call order (the yielded list)."""
+        from repro_torch.models import lm
+        saved = lm.decode_step
+        seen = []
+
+        def step(*a, **kw):
+            logits, cache = saved(*a, **kw)
+            seen.append(logits[:, 0].float())
+            return logits, cache
+
+        lm.decode_step = step
+        try:
+            yield seen
+        finally:
+            lm.decode_step = saved
+
+    @staticmethod
+    def routing_agreement(a, b):
+        """Per call, the share of ``a``'s (token, choice) decisions that
+        ``b`` made too (a token's choices compared as sets)."""
+        return [float((x[..., :, None] == y[..., None, :]).any(-1).float()
+                      .mean()) for x, y in zip(a, b)]
+
+    @staticmethod
+    def agreement_note(per_call, n_moe):
+        """Per MoE layer (calls cycle over the layers), the mean share of
+        decisions that agree, as a phrase."""
+        layers = [statistics.mean(per_call[i::n_moe]) for i in range(n_moe)]
+        return (f"min {min(layers):.4f}, mean {statistics.mean(layers):.4f} "
+                f"over {n_moe} layers: "
+                + " ".join(f"{x:.4f}" for x in layers))
+
+    def moe_counts(self, cfg):
+        """(MoE layers, attention layers, rms norms, swiglu launches) of one
+        forward of ``cfg``: a swiglu for every dense MLP, every expert batch
+        and every shared expert."""
+        from repro_torch.models import lm
+        plan = lm.layer_plan(cfg)
+        n_moe = plan.n_super
+        n_attn = cfg.n_layers
+        n_swiglu = n_attn + (n_moe if cfg.shared_expert_ff else 0)
+        return n_moe, n_attn, 2 * n_attn + 1, n_swiglu
+
+    def moe_prefill(self, cfg, params, tag):
+        """``lm.prefill`` (1, 2048) per mode: counters, two brainslug
+        prefills bit for bit, the routing agreement per layer, drop
+        fractions; brainslug held to barrier at phase 12's direct limits
+        with barrier taking brainslug's routing decisions.  Returns the
+        tokens, both modes' decisions and brainslug's counters."""
+        torch = self.torch
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.models import lm
+        n_moe, n_attn, n_rms, n_swiglu = self.moe_counts(cfg)
+        rts = {m: RuntimeConfig(mode=m) for m in ("barrier", "brainslug")}
+        g = torch.Generator(device=self.dev).manual_seed(2500)
+        tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=g,
+                               device=self.dev)
+        batch = {"tokens": tokens}
+        t = time.perf_counter()
+        with torch.inference_mode():
+            with self.moe_routing() as rec_r:
+                want = lm.prefill(params, batch, cfg, rts["barrier"])
+            torch.cuda.synchronize()
+            self.hybrid_counters(zero=True)
+            with self.moe_routing() as rec_b:
+                got = lm.prefill(params, batch, cfg, rts["brainslug"])
+            torch.cuda.synchronize()
+            counts = self.hybrid_counters()
+            again = lm.prefill(params, batch, cfg, rts["brainslug"])
+            with self.moe_routing(replay=rec_b):
+                forced = lm.prefill(params, batch, cfg, rts["barrier"])
+            aux = {m: lm.hidden(params, batch, cfg, rts[m])[1]
+                   for m in rts}
+        self.expect_hybrid(f"{cfg.name} prefill", counts,
+                           flash_attention=n_attn, rmsnorm=n_rms,
+                           swiglu=n_swiglu)
+        if tuple(got.shape) != (1, 1, cfg.vocab_size) or not bool(
+                torch.isfinite(got).all()):
+            raise PhaseError(f"{cfg.name} prefill logits {tuple(got.shape)}")
+        if not torch.equal(got, again):
+            raise PhaseError(f"{cfg.name} prefill: two brainslug prefills "
+                             f"differ in bits")
+        rel = self.relative(got, forced)
+        same_top = bool(got.argmax() == forced.argmax())
+        if not (rel <= PATH_BF16_REL and same_top):
+            raise PhaseError(f"{cfg.name} prefill: brainslug vs barrier on "
+                             f"brainslug's routing max|d|/max {rel:.3e} (tol "
+                             f"{PATH_BF16_REL}), argmax equal {same_top}")
+        agree = self.routing_agreement(rec_b, rec_r)
+        drops = {m: float(a["drop_fraction"]) / n_moe for m, a in aux.items()}
+        print(f"[{tag} lm.prefill {PREFILL} bf16] {cfg.name}, "
+              f"{cfg.n_layers} layers: last-position logits brainslug vs "
+              f"barrier on brainslug's routing max|d|/max {rel:.3e} (tol "
+              f"{PATH_BF16_REL}), argmax equal {same_top}; on each mode's own "
+              f"routing {self.relative(got, want):.3e}, argmax equal "
+              f"{bool(got.argmax() == want.argmax())}; two brainslug "
+              f"prefills bit for bit; (token, choice) decisions brainslug and "
+              f"barrier share, per MoE layer: "
+              f"{self.agreement_note(agree, n_moe)}; drop_fraction a layer "
+              + ", ".join(f"{m} {v:.5f}" for m, v in drops.items())
+              + f" (router_aux_loss summed over the layers "
+              + ", ".join(f"{m} {float(a['router_aux_loss']):.4f}"
+                          for m, a in aux.items())
+              + f"); counters {counts}; {time.perf_counter() - t:.1f} s")
+        return tokens, rec_b, rec_r, counts
+
+    def moe_anchor(self, cfg, params, tokens, rec_b, rec_r):
+        """25b through float32: every position's logits of brainslug and of
+        barrier against the float32 run of the same weights taking that
+        mode's routing decisions; brainslug within SSM_F32_FACTOR x
+        barrier's distance, worst and median; the controls read the same
+        way (the dropped layer must be flagged here and by the direct
+        limit)."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        n_moe = self.moe_counts(cfg)[0]
+        rts = {m: RuntimeConfig(mode=m) for m in ("barrier", "brainslug")}
+        batch = {"tokens": tokens}
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = base.cast_tree(params, torch.float32)
+        dist, direct, notes = {}, {}, []
+        with torch.inference_mode():
+            got = lm.forward(params, batch, cfg, rts["brainslug"])[0]
+
+            def anchored(logits, rec):
+                with self.moe_routing(replay=rec):
+                    ref = lm.forward(p32, batch, cfg32, rts["barrier"])[0]
+                return self.per_position(logits, ref)
+
+            dist["brainslug"] = anchored(got, rec_b)
+            dist["barrier"] = anchored(lm.forward(params, batch, cfg,
+                                                  rts["barrier"])[0], rec_r)
+            with self.moe_routing(replay=rec_b):
+                forced = lm.forward(params, batch, cfg, rts["barrier"])[0]
+            direct["barrier"] = self.per_position(got, forced)
+            for name in MOE_CONTROLS:
+                with self.moe_control(name, n_moe) as (hit, rec_c):
+                    ctrl = lm.forward(params, batch, cfg, rts["barrier"])[0]
+                dist[name] = anchored(ctrl, rec_c)
+                with self.moe_control(name, n_moe, replay=rec_b):
+                    ctrl = lm.forward(params, batch, cfg,
+                                      rts["barrier"])[0]
+                direct[name] = self.per_position(got, ctrl)
+                notes.append((name, len(hit)))
+            del got, forced, ctrl
+        del p32
+        torch.cuda.empty_cache()
+        held = self.held_to_f32(f"{cfg.name} prefill bf16", dist["brainslug"],
+                                dist["barrier"])
+        d = direct["barrier"]
+        print(f"[25b through float32] every position of the (1, 2048) "
+              f"forward, max|d|/max per position: brainslug vs barrier on "
+              f"brainslug's routing worst {max(d):.3e} median "
+              f"{statistics.median(d):.3e}; each mode against the float32 "
+              f"run on its own routing decisions: {held}; "
+              f"{time.perf_counter() - t:.1f} s")
+        for name, n_hit in notes:
+            flagged, read = self.control_flagged(name, dist[name],
+                                                 dist["barrier"])
+            last = direct[name][-1]
+            print(f"[25b control] barrier with {name} ({n_hit} hit): to "
+                  f"float32 {read}, {'flagged' if flagged else 'not flagged'}"
+                  f" past {SSM_F32_FACTOR}x; to brainslug on brainslug's "
+                  f"routing, last position {last:.3e}, worst "
+                  f"{max(direct[name]):.3e}, "
+                  f"{'flagged' if last > PATH_BF16_REL else 'not flagged'} "
+                  f"past {PATH_BF16_REL}")
+            if name in MOE_END_TO_END and not (flagged
+                                               and last > PATH_BF16_REL):
+                raise PhaseError(f"25b: the control '{name}' is not flagged "
+                                 f"end to end")
+
+    def moe_blocks(self, params, cfg, tokens):
+        """25b blocks: every block alone on barrier's inputs to it, its
+        routing decisions barrier's there, in brainslug, barrier and
+        barrier with each planted defect, against the float32 block on the
+        same inputs and decisions: the relative L2 distance of the block's
+        MoE output (it carries the block's attention through the second
+        norm); brainslug within SSM_BLOCK_FACTOR x barrier's in every
+        block, each defect flagged past it."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        rts = {m: RuntimeConfig(mode=m) for m in ("brainslug", "barrier")}
+        plan = lm.layer_plan(cfg)
+        blocks = [(kind, p) for blk in lm._superblocks(params, plan)
+                  for kind, p in zip(plan.superblock, blk)]
+        apply = lm._apply_sub
+        dist = {r: [] for r in ("brainslug", "barrier") + MOE_CONTROLS}
+        touched = {name: 0 for name in MOE_CONTROLS}
+        with torch.inference_mode():
+            resid = lm.embed_inputs(params, {"tokens": tokens}, cfg)
+            pending = torch.zeros_like(resid)
+            for i, (kind, p) in enumerate(blocks):
+                with self.moe_routing() as rec:
+                    nxt = apply(kind, p, resid, pending, cfg,
+                                rts["barrier"])
+                with self.moe_routing(replay=rec):
+                    ref = apply(kind, base.cast_tree(p, torch.float32),
+                                resid.float(), pending.float(), cfg32,
+                                rts["barrier"])[1]
+                with self.moe_routing(replay=rec):
+                    out = apply(kind, p, resid, pending, cfg,
+                                rts["brainslug"])[1]
+                dist["brainslug"].append(self.rel_l2([out], [ref]))
+                dist["barrier"].append(self.rel_l2([nxt[1]], [ref]))
+                for name in MOE_CONTROLS:
+                    # each block calls moe.apply once: the drop hits block
+                    # MOE["drop_layer"] alone
+                    with self.moe_control(
+                            name, 1, replay=rec,
+                            layer=0 if i == MOE["drop_layer"] else -1
+                    ) as (hit, _):
+                        out = apply(kind, p, resid, pending, cfg,
+                                    rts["barrier"])[1]
+                    dist[name].append(self.rel_l2([out], [ref]))
+                    touched[name] += len(hit)
+                resid, pending = nxt[0], nxt[1]
+                del ref, out, nxt
+        self.check_blocks("25b", f"{cfg.name} bf16 prefill {PREFILL}", dist,
+                          touched, MOE_CONTROLS)
+        print(f"[25b blocks] {len(blocks)} blocks; "
+              f"{time.perf_counter() - t:.1f} s")
+
+    def moe_float32_cut(self, cfg):
+        """25b/25c at float32: the same widths at MOE["f32_layers"] layers,
+        the prefill's logits and ``Server.generate``'s teacher-forced
+        logits within PATH_F32_REL, identical greedy tokens."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        cfg4 = dataclasses.replace(cfg, n_layers=MOE["f32_layers"],
+                                   dtype="float32")
+        n_moe, n_attn, n_rms, n_swiglu = self.moe_counts(cfg4)
+        p4 = lm.init(1, cfg4, device=self.dev)
+        g = torch.Generator(device=self.dev).manual_seed(2502)
+        tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=g,
+                               device=self.dev)
+        with torch.inference_mode():
+            want, got = (lm.prefill(p4, {"tokens": tokens}, cfg4,
+                                    RuntimeConfig(mode=m))
+                         for m in ("barrier", "brainslug"))
+        pre = self.relative(got, want)
+        prompts = np.random.default_rng(2503).integers(
+            0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
+        ).astype(np.int32)
+        servers, gens, counts = self.serve_pair(cfg4, p4, prompts,
+                                                self.hybrid_counters)
+        steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
+        self.expect_hybrid(f"{cfg.name} f32 serving", counts,
+                           flash_decode=n_attn * steps, rmsnorm=n_rms * steps,
+                           swiglu=n_swiglu * steps)
+        if not np.array_equal(gens["brainslug"], gens["barrier"]):
+            raise PhaseError(f"{cfg.name} f32 serving: brainslug's tokens "
+                             f"differ from barrier's")
+        errs = self.teacher_forced(servers, prompts, gens["barrier"])[
+            ("brainslug", "barrier")]
+        if not max(errs + [pre]) <= PATH_F32_REL:
+            raise PhaseError(f"{cfg.name} f32: logits max|d|/max prefill "
+                             f"{pre:.3e}, serving worst {max(errs):.3e} > "
+                             f"{PATH_F32_REL}")
+        print(f"[25b/c float32, {cfg4.n_layers} layers] prefill logits "
+              f"max|d|/max {pre:.3e}; Server.generate brainslug == barrier "
+              f"tokens, teacher-forced logits worst {max(errs):.3e} (tol "
+              f"{PATH_F32_REL}); {time.perf_counter() - t:.1f} s")
+        del servers, p4
+
+    def moe_serving(self, cfg, params, tag, seed):
+        """``Server.generate`` of 4 x 64 + 32 new, greedy, dense cache:
+        counters a step; barrier teacher-forced on brainslug's tokens with
+        brainslug's routing decisions, its logits held to brainslug's at
+        every step (the prompts' positions too) at phase 12's direct
+        limit; the decisions the free modes share on the prompts."""
+        torch = self.torch
+        n_moe, n_attn, n_rms, n_swiglu = self.moe_counts(cfg)
+        prompts = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
+        ).astype(np.int32)
+        t = time.perf_counter()
+        steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
+        n = steps * n_moe
+        # barrier's run, then brainslug's: decisions and logits of each step
+        with self.moe_routing() as rec, self.decode_logits() as lo:
+            servers, gens, counts = self.serve_pair(cfg, params, prompts,
+                                                    self.hybrid_counters)
+        if len(rec) != 2 * n or len(lo) != 2 * steps:
+            raise PhaseError(f"{cfg.name} serving: {len(rec)} routing calls "
+                             f"and {len(lo)} steps, expected {2 * n} and "
+                             f"{2 * steps}")
+        self.expect_hybrid(f"{cfg.name} serving", counts,
+                           flash_decode=n_attn * steps, rmsnorm=n_rms * steps,
+                           swiglu=n_swiglu * steps)
+        # barrier fed brainslug's tokens, taking brainslug's decisions
+        with self.moe_routing(replay=rec[n:]), self.decode_logits() as lr:
+            self.forced_steps(servers["barrier"], prompts, gens["brainslug"])
+        errs = [self.relative(a, b) for a, b in zip(lo[steps:], lr)]
+        p = SERVE["prompt_len"] * n_moe     # the prompts' positions
+        agree = self.routing_agreement(rec[n:n + p], rec[:p])
+        if not max(errs) <= PATH_BF16_REL:
+            raise PhaseError(f"{cfg.name} serving bf16: teacher-forced "
+                             f"logits on brainslug's routing max|d|/max "
+                             f"{max(errs):.3e} > {PATH_BF16_REL}")
+        wall = {m: s.last_stats.wall_s for m, s in servers.items()}
+        n_gen = servers["brainslug"].last_stats.generated_tokens
+        print(f"[{tag} Server.generate bf16] {cfg.name}, {cfg.n_layers} "
+              f"layers, {SERVE['batch']} requests, prompt "
+              f"{SERVE['prompt_len']}, {SERVE['new_tokens']} new tokens, "
+              f"greedy, dense cache, MoE dropless: token agreement "
+              f"brainslug vs barrier "
+              f"{float((gens['brainslug'] == gens['barrier']).mean()):.4f}; "
+              f"logits max|d|/max at each of the {steps} steps, barrier fed "
+              f"brainslug's tokens on brainslug's routing: worst "
+              f"{max(errs):.3e}, median {statistics.median(errs):.3e} (tol "
+              f"{PATH_BF16_REL}); decisions the modes share on the prompts' "
+              f"positions, per MoE layer: "
+              f"{self.agreement_note(agree, n_moe)}; wall "
+              + ", ".join(f"{m} {w:.3f} s ({n_gen / w:.2f} tok/s)"
+                          for m, w in wall.items())
+              + f"; brainslug counters {counts}; "
+              f"{time.perf_counter() - t:.1f} s")
+        del servers
+        torch.cuda.empty_cache()
+        return {k: v // steps for k, v in counts.items()}
+
+    def moe_engine(self, cfg, params):
+        """25d: ``Engine.run`` of phase 15's 12 requests (8 share a 64-token
+        prefix) at full width cut to MOE["engine_layers"] (views of the
+        first layers of the 32-layer weights): paged brainslug, paged
+        barrier and dense brainslug, counters per model evaluation, prefix
+        sharing on (paged), paged == dense brainslug greedy tokens,
+        teacher-forced logits held to barrier on brainslug's routing;
+        float32 at MOE["f32_layers"] layers with identical tokens across
+        the three and against ``Server.generate``."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        n_layers = MOE["engine_layers"]
+        full = dataclasses.replace(cfg, n_layers=n_layers)
+        p8 = {**params, "blocks": base.tree_map(lambda a: a[:n_layers],
+                                                params["blocks"])}
+        n_moe, n_attn, n_rms, n_swiglu = self.moe_counts(full)
+        reqs = self.engine_queue(cfg.vocab_size)
+        greedy = [i for i, r in enumerate(reqs) if r.temperature <= 0.0]
+        results = {}
+        for layout, mode in ENGINE_RUNS:
+            eng, comps, counts, wall = self.engine_run(
+                full, p8, layout, mode, reqs, counters=self.hybrid_counters)
+            results[(layout, mode)] = (eng, comps, wall)
+            path = eng.report()["decode_path"]
+            want = (("cuda-paged-decode" if layout == "paged"
+                     else "cuda-flash-decode") if mode == "brainslug"
+                    else ("ref-paged-decode" if layout == "paged"
+                          else "ref-decode"))
+            if path != want:
+                raise PhaseError(f"{cfg.name} engine {layout} {mode}: decode "
+                                 f"path {path}, expected {want}")
+            if eng.prefix_sharing != (layout == "paged"):
+                raise PhaseError(f"{cfg.name} engine {layout}: prefix "
+                                 f"sharing {eng.prefix_sharing}")
+            if mode == "brainslug":
+                e = self.evaluations(eng.last_stats)
+                kw = {"paged_flash_decode" if layout == "paged"
+                      else "flash_decode": n_attn * e}
+                self.expect_hybrid(f"{cfg.name} engine {layout}", counts,
+                                   rmsnorm=n_rms * e, swiglu=n_swiglu * e,
+                                   **kw)
+                if layout == "paged":
+                    self.moe_launches["engine_evaluation"] = {
+                        k: v // e for k, v in counts.items()}
+        pb = results[("paged", "brainslug")][1]
+        db = results[("dense", "brainslug")][1]
+        pr = results[("paged", "barrier")][1]
+        for i in greedy:
+            if not np.array_equal(pb[i].tokens, db[i].tokens):
+                raise PhaseError(f"{cfg.name} engine: paged and dense "
+                                 f"brainslug differ on greedy request {i}")
+        n_tok = sum(len(pr[i].tokens) for i in greedy)
+        agree = sum(int((pb[i].tokens == pr[i].tokens).sum())
+                    for i in greedy) / max(n_tok, 1)
+        pick = [i for i in greedy if reqs[i].max_new_tokens > 0][:4]
+        seqs = [list(reqs[i].prompt) + pr[i].tokens.tolist() for i in pick]
+        starts = [len(reqs[i].prompt) for i in pick]
+        with self.moe_routing() as rec:
+            fb = self.forced_logits(full, p8, "brainslug", seqs, starts)
+        with self.moe_routing(replay=rec):
+            fr = self.forced_logits(full, p8, "barrier", seqs, starts)
+        errs = [self.relative(a, b) for a, b in zip(fb, fr)]
+        if not max(errs) <= PATH_BF16_REL:
+            raise PhaseError(f"{cfg.name} engine bf16: teacher-forced logits "
+                             f"on brainslug's routing max|d|/max "
+                             f"{max(errs):.3e} > {PATH_BF16_REL}")
+        st = results[("paged", "brainslug")][0].last_stats
+        print(f"[25d engine] {cfg.name} bf16, {n_layers} layers, Engine(slots "
+              f"{ENGINE['slots']}, max_len {ENGINE['max_len']}, prefill_chunk "
+              f"{ENGINE['prefill_chunk']}, paged blocks "
+              f"{ENGINE['kv_num_blocks']} x {ENGINE['kv_block_size']}, "
+              f"verify strict), 12 requests (8 share a 64-token prefix): "
+              f"every request completed in the three runs, no kv.* finding, "
+              f"the free list whole; prefix sharing on (paged): hits "
+              f"{st.prefix_hit_tokens} tokens, cow forks {st.cow_forks}; "
+              f"paged == dense brainslug greedy tokens; vs paged barrier "
+              f"token agreement {agree:.4f}, teacher-forced logits on "
+              f"brainslug's routing max|d|/max worst {max(errs):.3e}, median "
+              f"{statistics.median(errs):.3e} (tol {PATH_BF16_REL}); "
+              f"counters per model evaluation (paged brainslug) "
+              f"{self.moe_launches['engine_evaluation']}; "
+              f"{time.perf_counter() - t:.1f} s")
+        for (layout, mode), (eng, comps, wall) in results.items():
+            st = eng.last_stats
+            print(f"[25d engine {layout} {mode}] wall {wall:.3f} s, "
+                  f"{st.generated_tokens} tokens "
+                  f"({st.generated_tokens / wall:.2f} tok/s), "
+                  f"{self.evaluations(st)} model evaluations, TTFT p50 "
+                  f"{st.ttft_p50_ms:.1f} ms p99 {st.ttft_p99_ms:.1f} ms; "
+                  f"ServeStats {json.dumps(st.as_dict())}")
+        del results, fb, fr
+        cfg4 = dataclasses.replace(cfg, n_layers=MOE["f32_layers"],
+                                   dtype="float32")
+        self.engine_float32(cfg4, lm.init(1, cfg4, device=self.dev), reqs,
+                            "25d", self.hybrid_counters)
+        torch.cuda.empty_cache()
+
+    def moe_step1(self, mode, cfg, params, batch, replay=None):
+        """The step-1 loss and gradients of ``lm.loss_fn`` over every leaf,
+        with the routing decisions recorded (or replayed from ``replay``)."""
+        torch = self.torch
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        with torch.enable_grad(), self.moe_routing(replay=replay) as rec:
+            live = base.tree_map(lambda p: p.detach().requires_grad_(),
+                                 params)
+            loss, metrics = lm.loss_fn(live, batch, cfg,
+                                       RuntimeConfig(mode=mode))
+            grads = torch.autograd.grad(loss, base.tree_leaves(live))
+        return float(loss.detach()), grads, rec, {
+            k: float(v.detach()) for k, v in metrics.items()}
+
+    def moe_grad_anchor(self, arch, layers):
+        """25e: the step-1 gradient of the trainer's loss over every
+        parameter (the seed-0 weights, the first batch) per mode, its
+        relative L2 distance to the float32 gradient of the same weights
+        taking that mode's routing decisions; brainslug within
+        SSM_F32_FACTOR x barrier's.  brainslug's gradient twice from the
+        same state: identical bits."""
+        torch = self.torch
+        import dataclasses
+        import gc
+        from repro_torch.configs import LM_SHAPES, get_config
+        from repro_torch.data import pipeline
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        shape = dataclasses.replace(LM_SHAPES["train_4k"], global_batch=1,
+                                    seq_len=TRAIN_LM["seq"])
+        batch = {k: torch.from_numpy(x).to(self.dev) for k, x in
+                 pipeline.synth_batch(cfg, shape, 0, 0).items()}
+        params = lm.init(0, cfg, device=self.dev)
+        p32 = base.cast_tree(params, torch.float32)
+        dist, loss = {}, {}
+        for m in ("brainslug", "barrier"):
+            loss[m], g, rec, metrics = self.moe_step1(m, cfg, params, batch)
+            if m == "brainslug":
+                again = self.moe_step1(m, cfg, params, batch)[1]
+                if not all(torch.equal(a, b) for a, b in zip(g, again)):
+                    raise PhaseError(f"{arch} step 1: two brainslug gradients "
+                                     f"from the same state differ in bits")
+                del again
+            loss32, g32, _, _ = self.moe_step1("barrier", cfg32, p32, batch,
+                                               replay=rec)
+            dist[m] = (self.rel_l2(g, g32), loss32, metrics)
+            del g, g32
+            gc.collect()
+            torch.cuda.empty_cache()
+        del params, p32
+        ratio = dist["brainslug"][0] / dist["barrier"][0]
+        print(f"[25e step-1 gradient] {layers} layers bf16, every parameter, "
+              f"relative L2 distance to the float32 gradient of the same "
+              f"weights on the mode's routing decisions: " + "; ".join(
+                  f"{m} {dist[m][0]:.4e} (loss {loss[m]}, float32 "
+                  f"{dist[m][1]}, router_aux_loss "
+                  f"{dist[m][2]['router_aux_loss']:.4f}, drop_fraction "
+                  f"{dist[m][2]['drop_fraction']:.5f})" for m in dist)
+              + f"; brainslug at {ratio:.3f}x barrier's (tol "
+              f"{SSM_F32_FACTOR}x); brainslug's gradient twice from one "
+              f"state bit for bit; {time.perf_counter() - t:.1f} s")
+        if not ratio <= SSM_F32_FACTOR:
+            raise PhaseError(f"{arch} step-1 gradient: brainslug's distance "
+                             f"to float32 {dist['brainslug'][0]:.4e} > "
+                             f"{SSM_F32_FACTOR} x barrier's "
+                             f"{dist['barrier'][0]:.4e}")
+
+    def moe_train(self, cfg):
+        """25e: ``Trainer.run`` at full width cut to MOE["train_layers"],
+        4096 tokens, three AdamW steps per mode (losses, grad norms and the
+        MoE aux read; counters per step); the step-1 gradient against
+        float32; float32 at MOE["train_f32_layers"] (losses and step-1
+        gradients within 1e-4); kill at step 2 and resume bit for bit at
+        MOE["layers_resume"]."""
+        torch = self.torch
+        import dataclasses
+        import shutil
+        import tempfile
+        from repro_torch.distributed import fault_tolerance as ft
+        t = time.perf_counter()
+        L = MOE["train_layers"]
+        n_moe, n_attn, n_rms, n_swiglu = self.moe_counts(
+            dataclasses.replace(cfg, n_layers=L))
+        kw = dict(arch=MOE["arch"], counters=self.hybrid_counters)
+        runs = {}
+        for mode in ("brainslug", "barrier"):
+            hist, per_step, peak, wall = self.train_lm(mode, L, "bfloat16",
+                                                       **kw)
+            for i, got in enumerate(per_step):
+                if mode == "brainslug":
+                    self.expect_hybrid(f"{cfg.name} train step {i + 1}", got,
+                                       flash_attention=n_attn, rmsnorm=n_rms,
+                                       swiglu=n_swiglu, fused_ce=1)
+                else:
+                    self.expect_hybrid(f"{cfg.name} train barrier step "
+                                       f"{i + 1}", got)
+            runs[mode] = (hist, per_step, peak, wall)
+        self.moe_launches["train_step"] = runs["brainslug"][1][0]
+        keys = ("loss", "grad_norm", "router_aux_loss", "drop_fraction")
+        read = {m: {k: [h[k] for h in r[0]] for k in keys}
+                for m, r in runs.items()}
+        if not all(math.isfinite(x) for r in read.values()
+                   for v in r.values() for x in v):
+            raise PhaseError(f"{cfg.name} train: {read}")
+        print(f"[25e train bf16] {cfg.name} at full width, {L} layers, 1 x "
+              f"{TRAIN_LM['seq']} tokens, {TRAIN_LM['steps']} AdamW steps lr "
+              f"{TRAIN_LM['lr']} through build_trainer / Trainer.run: "
+              + "; ".join(f"{m} " + " ".join(f"{k} {v}" for k, v in r.items())
+                          + f" peak {runs[m][2]:.2f} GiB wall "
+                          f"{runs[m][3]:.1f} s" for m, r in read.items())
+              + f" (read, not held: agreement is held on the step-1 "
+              f"gradient); brainslug counters per step "
+              f"{runs['brainslug'][1][0]}")
+        self.moe_grad_anchor(MOE["arch"], L)
+
+        # float32 at 2 layers: losses and step-1 gradients
+        L2 = MOE["train_f32_layers"]
+        f32 = {m: self.train_lm(m, L2, "float32", **kw)[0]
+               for m in ("brainslug", "barrier")}
+        losses = {m: [h["loss"] for h in hist] for m, hist in f32.items()}
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["brainslug"],
+                                                      losses["barrier"]))
+        if not rel <= TRAIN_RTOL:
+            raise PhaseError(f"{cfg.name} train f32: losses {losses}")
+        import gc
+        from repro_torch.configs import LM_SHAPES, get_config
+        from repro_torch.data import pipeline
+        from repro_torch.models import lm
+        cfg2 = dataclasses.replace(get_config(MOE["arch"]), n_layers=L2,
+                                   dtype="float32")
+        shape = dataclasses.replace(LM_SHAPES["train_4k"], global_batch=1,
+                                    seq_len=TRAIN_LM["seq"])
+        batch = {k: torch.from_numpy(x).to(self.dev) for k, x in
+                 pipeline.synth_batch(cfg2, shape, 0, 0).items()}
+        p2 = lm.init(0, cfg2, device=self.dev)
+        gb = self.moe_step1("brainslug", cfg2, p2, batch)[1]
+        gr = self.moe_step1("barrier", cfg2, p2, batch)[1]
+        worst = 0.0
+        for a, b in zip(gb, gr):
+            lim = TRAIN_RTOL * float(b.abs().max())
+            err = float((a - b).abs().max())
+            if not bool(torch.allclose(a, b, rtol=TRAIN_RTOL, atol=lim)):
+                raise PhaseError(f"{cfg.name} train f32 step-1 gradient: "
+                                 f"max|d| {err:.3e} outside rtol "
+                                 f"{TRAIN_RTOL}, atol {lim:.3e}")
+            worst = max(worst, err / max(lim, 1e-30))
+        del gb, gr, p2
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[25e train float32] {L2} layers: losses brainslug "
+              f"{losses['brainslug']} barrier {losses['barrier']} (worst "
+              f"relative {rel:.3e}, tol {TRAIN_RTOL}); step-1 gradients of "
+              f"every parameter within rtol {TRAIN_RTOL} and atol "
+              f"{TRAIN_RTOL} x max|g| (worst max|d| at {worst:.3f} of atol)")
+
+        # kill at step 2, resume from the step-1 checkpoint, at
+        # MOE["layers_resume"] layers (the resumed run writes only its final
+        # checkpoint)
+        lr_ = MOE["layers_resume"]
+        full = self.train_lm("brainslug", lr_, "bfloat16", **kw)[0]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+            free = shutil.disk_usage(d).free / 2 ** 30
+            try:
+                self.train_lm("brainslug", lr_, "bfloat16",
+                              failure=ft.failure_injector({2}), ckpt_dir=d,
+                              ckpt_every=1, **kw)
+            except ft.SimulatedFailure:
+                pass
+            else:
+                raise PhaseError(f"{cfg.name} kill/resume: the injected "
+                                 f"failure at step 2 did not happen")
+            resumed, _, _, wall = self.train_lm(
+                "brainslug", lr_, "bfloat16", ckpt_dir=d,
+                ckpt_every=TRAIN_LM["steps"], **kw)
+        if [h["step"] for h in resumed] != [2] or \
+                resumed[-1]["loss"] != full[-1]["loss"]:
+            raise PhaseError(f"{cfg.name} kill/resume: resumed {resumed}, "
+                             f"uninterrupted step-3 loss {full[-1]['loss']}")
+        print(f"[25e kill/resume] bf16 {lr_} layers brainslug: killed at step "
+              f"2, resumed from the step-1 checkpoint ({free:.0f} GiB free in "
+              f"the temp dir): step-3 loss {resumed[-1]['loss']} equals the "
+              f"uninterrupted run's bit for bit; resume run {wall:.1f} s; "
+              f"{time.perf_counter() - t:.1f} s")
+
+    def moe_times(self, cfg, params, tokens):
+        """25f: the prefill and a decode step per mode in turns at 32
+        layers, the training step per mode in turns at
+        MOE["train_layers"]; a trace of each per mode (device time by
+        group, the MoE ranges among them, and the idle share)."""
+        torch = self.torch
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.launch import steps as steps_mod
+        from repro_torch.data import pipeline
+        from repro_torch.models import lm
+        from repro_torch.optim import adamw
+        rts = {m: RuntimeConfig(mode=m) for m in ("barrier", "brainslug")}
+        batch = {"tokens": tokens}
+        with torch.inference_mode():
+            cache = lm.init_decode_cache(cfg, SERVE["batch"], 97,
+                                         dtype=torch.float32, device=self.dev)
+        tok = tokens[:, :SERVE["batch"]].reshape(SERVE["batch"], 1)
+        pos = SERVE["prompt_len"]
+
+        def prefill(m):
+            return lm.prefill(params, batch, cfg, rts[m])
+
+        def step(m):
+            for c in lm._caches(cache):
+                c.length.fill_(pos)
+            return lm.decode_step(params, cache, tok, cfg, rts[m])
+
+        turns = ("barrier", "brainslug", "brainslug", "barrier")
+        with torch.inference_mode():
+            pre = [(m, self.cuda_ms(lambda m=m: prefill(m), reps=1, groups=3,
+                                    warmup=1)) for m in turns]
+            dec = [(m, self.cuda_ms(lambda m=m: step(m), reps=1, groups=5,
+                                    warmup=1)) for m in turns]
+        print(f"[25f path] {cfg.name} bf16, {cfg.n_layers} layers: "
+              f"lm.prefill {PREFILL}, median of 3 (CUDA events), in turns: "
+              + "  ".join(f"{m}={v:.3f} ms ({PREFILL[1] / v:.1f} tok/ms)"
+                          for m, v in pre))
+        print(f"[25f path] one decode step at batch {SERVE['batch']}, "
+              f"position {pos} (float32 cache as Server builds it; MoE "
+              f"dropless: a (1, {cfg.n_experts}, "
+              f"{max(8, SERVE['batch'])}, {cfg.d_model}) expert batch for "
+              f"{SERVE['batch'] * cfg.top_k} assignments), median of 5, in "
+              f"turns: " + "  ".join(f"{m}={v:.3f} ms "
+                                     f"({SERVE['batch'] / v * 1e3:.1f} tok/s)"
+                                     for m, v in dec))
+        with torch.inference_mode():
+            for what, fn in (("prefill", prefill), ("decode step", step)):
+                for m in ("barrier", "brainslug"):
+                    print(f"[25f trace {what} {m}] " + self.train_trace(
+                        lambda m=m: fn(m), classify=self.hybrid_group))
+        del cache
+        trainer = self.lm_trainer("brainslug", MOE["train_layers"],
+                                  "bfloat16", arch=MOE["arch"])
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_LM["lr"])
+        fns = {m: steps_mod.make_train_step(trainer.cfg, RuntimeConfig(mode=m),
+                                            opt_cfg)
+               for m in ("barrier", "brainslug")}
+        tbatch = {k: torch.from_numpy(x).to(self.dev) for k, x in
+                  pipeline.synth_batch(trainer.cfg, trainer.shape, 0,
+                                       0).items()}
+
+        def train_step(m):
+            trainer.params, trainer.opt_state, _ = fns[m](
+                trainer.params, trainer.opt_state, tbatch)
+
+        def timed(m):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(m)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        for m in fns:
+            train_step(m)                               # warm-up
+        tt = [(m, timed(m)) for m in turns]
+        print(f"[25f train step] {cfg.name} {MOE['train_layers']} layers "
+              f"bf16, 1 x {TRAIN_LM['seq']} tokens, forward + backward + "
+              f"AdamW, one step each (host clock around synchronised "
+              f"steps), in turns: "
+              + "  ".join(f"{m}={ms:.1f} ms ({TRAIN_LM['seq'] / ms:.2f} "
+                          f"tok/ms)" for m, ms in tt))
+        for m in ("barrier", "brainslug"):
+            print(f"[25f trace train step {m}] " + self.train_trace(
+                lambda m=m: train_step(m), classify=self.hybrid_group))
+        del trainer, fns, tbatch
+        torch.cuda.empty_cache()
+
+    def moe_llama4(self):
+        """25g: llama4-maverick-400b-a17b at full width cut to one
+        super-block (a dense block, then an MoE block of 128 experts, top-1,
+        with the shared expert): ``lm.prefill`` and ``Server.generate``,
+        brainslug against barrier at phase 12's direct limits on
+        brainslug's routing decisions."""
+        torch = self.torch
+        import dataclasses
+        import gc
+        from repro_torch.configs import get_config
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        cfg = dataclasses.replace(get_config(MOE["llama4"]),
+                                  n_layers=MOE["llama4_layers"])
+        params = lm.init(0, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        print(f"[25g model] {cfg.name} cut to {cfg.n_layers} layers "
+              f"({lm.layer_plan(cfg).superblock}), d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads of {cfg.head_dim} over {cfg.n_kv_heads}, "
+              f"d_ff {cfg.d_ff}, {cfg.n_experts} experts top-{cfg.top_k}, "
+              f"shared expert {cfg.shared_expert_ff}, vocab "
+              f"{cfg.vocab_size}, {cfg.dtype}: "
+              f"{base.param_count(params) / 1e9:.3f} B random parameters "
+              f"(seed 0) in {time.perf_counter() - t:.1f} s")
+        self.moe_launches["llama4_prefill"] = self.moe_prefill(
+            cfg, params, "25g")[3]
+        self.moe_launches["llama4_decode_step"] = self.moe_serving(
+            cfg, params, "25g", 2520)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def phase25_moe(self):
+        torch = self.torch
+        import gc
+        from repro_torch.configs import get_config
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t0 = time.perf_counter()
+        cfg = get_config(MOE["arch"])
+        self.moe_launches = {}          # per prefill, step, evaluation
+        self.attention_kernels(cfg.head_dim, cfg.n_heads, cfg.n_kv_heads,
+                               "25a", 2500)
+        t = time.perf_counter()
+        params = lm.init(0, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        n_moe, n_attn, n_rms, n_swiglu = self.moe_counts(cfg)
+        print(f"[25 model] {cfg.name}: {cfg.n_layers} layers, all MoE, "
+              f"d_model {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} "
+              f"over {cfg.n_kv_heads}, {cfg.n_experts} experts of d_ff "
+              f"{cfg.d_ff}, top-{cfg.top_k}, capacity factor "
+              f"{cfg.capacity_factor}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+              f"{base.param_count(params) / 1e9:.3f} B random parameters "
+              f"(seed 0) in {time.perf_counter() - t:.1f} s")
+        tokens, rec_b, rec_r, self.moe_launches["prefill"] = \
+            self.moe_prefill(cfg, params, "25b")
+        self.moe_anchor(cfg, params, tokens, rec_b, rec_r)
+        self.moe_blocks(params, cfg, tokens)
+        del rec_b, rec_r
+        self.moe_float32_cut(cfg)
+        self.moe_launches["decode_step"] = self.moe_serving(
+            cfg, params, "25c", 2501)
+        self.moe_engine(cfg, params)
+        self.moe_times(cfg, params, tokens)
+        del params, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.moe_train(cfg)
+        self.moe_llama4()
+        la = self.moe_launches
+        for name, where in (("flash_attention", ("prefill", "train_step")),
+                            ("flash_decode", ("decode_step",)),
+                            ("paged_flash_decode", ("engine_evaluation",))):
+            entry = self.kernels[name]["head_dim_64"]
+            entry["launches"] = {w: la[w][name] for w in where}
+            entry["max_abs_err"] = self.err[name]
+        print(f"[25 launches] {cfg.name} per prefill {la['prefill']}; per "
+              f"decode step {la['decode_step']}; per engine model evaluation "
+              f"(paged, {MOE['engine_layers']} layers) "
+              f"{la['engine_evaluation']}; per training step "
+              f"({MOE['train_layers']} layers) {la['train_step']}; "
+              f"{MOE['llama4']} ({MOE['llama4_layers']} layers) per decode "
+              f"step {la['llama4_decode_step']}; phase "
+              f"{time.perf_counter() - t0:.1f} s")
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -166,10 +166,15 @@ class RuntimeConfig:
     attn_block_q: int = 128
     attn_block_k: int = 128
     fused_loss_chunk: int = 0          # 0 = unchunked vocab loss
+    moe_dispatch: str = "grouped"      # 'grouped' (a group per batch row)
+                                       # | 'global' (one flat sort)
     attn_impl: str = "auto"            # 'auto' | 'skip_core' (cost probes:
                                        # bypass the quadratic core so the
                                        # attention share of a block's cost
                                        # can be measured by differencing)
+    # the JAX package's sharding hint for the MoE dispatch tensors; 'none'
+    # (the identity) is the one value on one device
+    moe_constraint: str = "none"
 
     def __post_init__(self) -> None:
         if self.mode not in ("brainslug", "xla", "barrier"):
@@ -186,6 +191,14 @@ class RuntimeConfig:
                              f"{self.kv_block_size}")
         if self.ssd_chunk < 1:
             raise ValueError(f"ssd_chunk must be >= 1, got {self.ssd_chunk}")
+        if self.moe_dispatch not in ("grouped", "global"):
+            raise ValueError(f"moe_dispatch must be grouped or global, got "
+                             f"{self.moe_dispatch!r}")
+        if self.moe_constraint != "none":
+            raise NotImplementedError(
+                f"moe_constraint={self.moe_constraint!r}: the dispatch "
+                f"layouts of a mesh come with the multi-device slice of the "
+                f"port (ROADMAP.md, queue 1); on one device it is 'none'")
 
 
 def _count_params(cfg: ModelConfig, active_only: bool) -> int:

@@ -7,6 +7,8 @@ baseline (``--static``); the twin of the JAX package's
         --mode brainslug --kv-layout paged
     python -m repro_torch.examples.serve_batch --device cpu --reduced
     python -m repro_torch.examples.serve_batch --arch mamba2-2.7b
+    python -m repro_torch.examples.serve_batch --arch granite-moe-3b-a800m \\
+        --reduced --device cpu
 
 It serves the full-width model on the card by default; ``--device cpu
 --reduced`` runs the config's small variant with the plain versions.

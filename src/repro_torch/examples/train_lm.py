@@ -4,7 +4,8 @@
 Without flags it trains deepseek-7b on the card at its published widths
 with the depth cut to fit one 80 GB card (8 layers, bf16, one sequence of
 4096 tokens, lr 3e-4 constant); ``--arch mamba2-2.7b`` trains all 64
-layers, each block recomputed in the backward (``remat="full"``).  ``--device cpu`` runs the reduced config
+layers, each block recomputed in the backward (``remat="full"``);
+``--arch granite-moe-3b-a800m`` trains 8 of its 32 MoE layers.  ``--device cpu`` runs the reduced config
 (a CPU-sized deepseek-family model, batch 4 x 64, lr 3e-3) on the kernels'
 plain versions.  Checkpoints go to ``--ckpt-dir`` every 50 steps (on the
 CPU, a fresh temporary directory by default; on the card none by default,
@@ -24,7 +25,8 @@ from repro_torch.optim import adamw
 #: depth cut and the remat policy (mamba2-2.7b's 2.7 G parameters need
 #: about 32 GB before activations).
 CARD = {"deepseek-7b": dict(config_overrides=(("n_layers", 8),)),
-        "mamba2-2.7b": dict(remat="full")}
+        "mamba2-2.7b": dict(remat="full"),
+        "granite-moe-3b-a800m": dict(config_overrides=(("n_layers", 8),))}
 
 
 def main() -> None:

@@ -380,11 +380,12 @@ int by_dtype(int splits, int q_dtype, int kv_dtype, F f) {
   return -1;
 }
 
-// D 112 or 128 (decode.py:HEAD_DIMS).
+// D 64, 112 or 128 (decode.py:HEAD_DIMS).
 template <class F>
 int by_head_dim(int D, int splits, int q_dtype, int kv_dtype, F f) {
   if (D == 128) return by_dtype<128>(splits, q_dtype, kv_dtype, f);
   if (D == 112) return by_dtype<112>(splits, q_dtype, kv_dtype, f);
+  if (D == 64) return by_dtype<64>(splits, q_dtype, kv_dtype, f);
   return -1;
 }
 

@@ -24,13 +24,14 @@
 // traffic, far above the card's ridge point, so the bound is operations at
 // the bf16 tensor-core rate (989 TFLOP/s).
 //
-// bfloat16 (flash_fwd_kernel_bf16_wgmma<D>, D = 112 or 128).  A CTA of two
-// warpgroups owns 128 query rows (64 each) and walks 128-key blocks:
+// bfloat16 (flash_fwd_kernel_bf16_wgmma<D>, D = 64, 112 or 128).  A CTA of
+// two warpgroups owns 128 query rows (64 each) and walks 128-key blocks:
 //   * S = Q K^T and O += P V run as wgmma (m64n64k16, float32 accumulators
 //     in registers): Q and K K-major from shared memory; P from registers
 //     (the S accumulator's layout is the A operand's, as bf16 pairs); V
-//     from shared memory MN-major (transposed B).  Each product is two
-//     independent n64 accumulator chains, issued interleaved;
+//     from shared memory MN-major (transposed B).  Q K^T is two
+//     independent n64 accumulator chains (keys 0-63, 64-127), issued
+//     interleaved; P V is one n64 chain a 64-column half of the output;
 //   * P enters the second product as two bf16 terms, hi = bf16(p) and lo =
 //     bf16(p - hi) (the remainder is exact in float32), so the product
 //     sees p to 2^-18 relative, and p is the accurate expf, not the
@@ -41,7 +42,7 @@
 //     in the step-3 grad norm.  Both cost time (a third more tensor-core
 //     work, a longer exp);
 //   * Q (once) and K / V (a ring of TC_STAGES stages) are loaded by TMA
-//     into 128-byte-swizzled shared memory, each 128-column tile as two
+//     into 128-byte-swizzled shared memory, each tile as NH = ceil(D / 64)
 //     64-column halves (the swizzle spans 128 bytes), completing on
 //     mbarriers; thread 0 keeps the next block's load in flight while both
 //     warpgroups compute on this one, and every thread releases a stage
@@ -49,16 +50,19 @@
 //   * a 3-D tensor map per operand ((D, S, batch x heads)) zero-fills rows
 //     past Sq and Sk, which the mask then removes; diagonal and tail blocks
 //     are masked, the others are not;
-//   * head dims below 128: the shared-memory tiles keep 128 columns (two
-//     64-column halves) and the tensor map's row is D elements, so TMA
-//     fills columns D..127 of the second half with zeros.  Q K^T then sums
-//     exact zeros there, and skips the k16 steps that hold only such
-//     columns (one of eight at D = 112); P V's output columns past D are
-//     computed as zeros and written nowhere.  The global row pitch, D * 2
-//     bytes, must be a multiple of 16 (TMA's stride rule) and the second
-//     half must start inside the row: the design admits every D that is a
-//     multiple of 8 in (64, 128], and this file builds D = 112 (zamba2-7b's
-//     3584 / 32) and 128;
+//   * head dims: a tile has NH 64-column halves, two for D in (64, 128],
+//     one for D = 64.  With two halves below 128 the tensor map's row is D
+//     elements, so TMA fills columns D..127 of the second half with zeros.
+//     Q K^T then sums exact zeros there, and skips the k16 steps that hold
+//     only such columns (one of eight at D = 112); P V's output columns
+//     past D are computed as zeros and written nowhere.  With one half (D
+//     = 64) the Q, K and V tiles are one swizzled half each, Q K^T takes
+//     its four k16 steps, P V runs one n64 chain (no second chain, no
+//     second half in the ring or the epilogue), and a stage is half the
+//     bytes.  The global row pitch, D * 2 bytes, must be a multiple of 16
+//     (TMA's stride rule): the design admits D = 64 and every multiple of 8
+//     in (64, 128], and this file builds D = 64 (granite-moe-3b's 1536 /
+//     24), 112 (zamba2-7b's 3584 / 32) and 128;
 //   * the grid runs the heaviest (last) query blocks of every head first,
 //     so the tail of a causal grid is short.
 // Forms tried on an H100 and found slower: one n128 chain for Q K^T (with
@@ -72,11 +76,11 @@
 // and |o - o_plain| <= 2^-18 max|v| plus one bf16 rounding of o (2^-9
 // max|v| with hi alone).
 //
-// float32 (flash_fwd_kernel<float, D>, D = 112 or 128): the CUDA cores in
-// float32, exact against the plain version's arithmetic: 128 threads, each
-// a 4 x 8 block of scores and a 4 x D / 8 block of the output; Q, K, V and
-// P tiles in padded shared memory (115,712 bytes for D = 128, 103,424 for
-// D = 112, so two CTAs an SM).
+// float32 (flash_fwd_kernel<float, D>, D = 64, 112 or 128): the CUDA cores
+// in float32, exact against the plain version's arithmetic: 128 threads,
+// each a 4 x 8 block of scores and a 4 x D / 8 block of the output; Q, K, V
+// and P tiles in padded shared memory (115,712 bytes for D = 128, 103,424
+// for D = 112, 66,560 for D = 64).
 #include "../../csrc/hopper.cuh"
 #include "attn_common.cuh"
 
@@ -258,13 +262,19 @@ constexpr int TC_THREADS = 256;  // two warpgroups
 constexpr int HALF = 64;         // columns of one 128-byte swizzled half
 constexpr uint32_t Q_HALF = TC_BQ * HALF * 2;         // 16,384 bytes
 constexpr uint32_t KV_HALF = TC_BK * HALF * 2;        // 16,384
-constexpr uint32_t Q_BYTES = 2 * Q_HALF;
-constexpr uint32_t KV_BYTES = 2 * KV_HALF;            // one K or V tile
-constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;        // K then V
 constexpr uint32_t BAR_BYTES = 8 * (1 + 2 * TC_STAGES);
-// 1 KB of slack aligns the swizzled tiles to 1024 bytes
-constexpr size_t SMEM = 1024 + Q_BYTES + TC_STAGES * STAGE_BYTES + BAR_BYTES;
-static_assert(SMEM <= 232448, "over the H100's shared memory a block");
+
+// The shared-memory layout of a tile of NH 64-column halves.
+template <int NH>
+struct Layout {
+  static constexpr uint32_t Q_BYTES = NH * Q_HALF;
+  static constexpr uint32_t KV_BYTES = NH * KV_HALF;  // one K or V tile
+  static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;  // K then V
+  // 1 KB of slack aligns the swizzled tiles to 1024 bytes
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + TC_STAGES * STAGE_BYTES + BAR_BYTES;
+  static_assert(SMEM <= 232448, "over the H100's shared memory a block");
+};
 
 using namespace hopper;   // mbarriers, TMA, descriptors, fences
 
@@ -317,11 +327,13 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
                                 const __grid_constant__ CUtensorMap vmap,
                                 __nv_bfloat16* __restrict__ o, int H, int G,
                                 int Sq, int Sk, float scale, int causal) {
+  constexpr int NH = (D + HALF - 1) / HALF;     // 64-column halves a tile
+  using L = Layout<NH>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t qs = base;                     // Q: half 0, half 1
-  const uint32_t ring = qs + Q_BYTES;           // stage: K0 K1 V0 V1
-  const uint32_t bars = ring + TC_STAGES * STAGE_BYTES;
+  const uint32_t qs = base;                     // Q: its NH halves
+  const uint32_t ring = qs + L::Q_BYTES;        // stage: K halves, V halves
+  const uint32_t bars = ring + TC_STAGES * L::STAGE_BYTES;
   const uint32_t q_full = bars;
   auto full = [&](int s) { return bars + 8u * (1 + s); };
   auto empty = [&](int s) { return bars + 8u * (1 + TC_STAGES + s); };
@@ -355,17 +367,21 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   auto load_kv = [&](int j) {
     const int s = j % TC_STAGES;
     if (j >= TC_STAGES) mbar_wait(empty(s), ((j / TC_STAGES) - 1) & 1);
-    const uint32_t dst = ring + s * STAGE_BYTES;
-    mbar_expect_tx(full(s), STAGE_BYTES);
-    tma_load(dst, &kmap, full(s), 0, j * TC_BK, bg);
-    tma_load(dst + KV_HALF, &kmap, full(s), HALF, j * TC_BK, bg);
-    tma_load(dst + KV_BYTES, &vmap, full(s), 0, j * TC_BK, bg);
-    tma_load(dst + KV_BYTES + KV_HALF, &vmap, full(s), HALF, j * TC_BK, bg);
+    const uint32_t dst = ring + s * L::STAGE_BYTES;
+    mbar_expect_tx(full(s), L::STAGE_BYTES);
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf)
+      tma_load(dst + hf * KV_HALF, &kmap, full(s), hf * HALF, j * TC_BK, bg);
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf)
+      tma_load(dst + L::KV_BYTES + hf * KV_HALF, &vmap, full(s), hf * HALF,
+               j * TC_BK, bg);
   };
   if (tid == 0) {
-    mbar_expect_tx(q_full, Q_BYTES);
-    tma_load(qs, &qmap, q_full, 0, q0, bh);
-    tma_load(qs + Q_HALF, &qmap, q_full, HALF, q0, bh);
+    mbar_expect_tx(q_full, L::Q_BYTES);
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf)
+      tma_load(qs + hf * Q_HALF, &qmap, q_full, hf * HALF, q0, bh);
     for (int j = 0; j < TC_STAGES - 1 && j < nk; ++j) load_kv(j);
   }
 
@@ -375,7 +391,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2);
   const int c0 = 2 * (lane & 3);
   const uint32_t qa = qs + wg * 64 * 128;       // the warpgroup's Q rows
-  float o_lo[32], o_hi[32];                     // output columns 0-63, 64-127
+  float o_lo[32], o_hi[32];   // output columns 0-63, 64-127 (NH == 2)
 #pragma unroll
   for (int i = 0; i < 32; ++i) o_lo[i] = o_hi[i] = 0.f;
   float m[2] = {attn::NEG_INF, attn::NEG_INF}, l[2] = {0.f, 0.f};
@@ -385,11 +401,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     if (tid == 0 && kb + TC_STAGES - 1 < nk) load_kv(kb + TC_STAGES - 1);
     const int s = kb % TC_STAGES;
     mbar_wait(full(s), (kb / TC_STAGES) & 1);
-    const uint32_t kt = ring + s * STAGE_BYTES;
-    const uint32_t vt = kt + KV_BYTES;
+    const uint32_t kt = ring + s * L::STAGE_BYTES;
+    const uint32_t vt = kt + L::KV_BYTES;
 
     // S = Q K^T: keys 0-63 into s_lo, 64-127 into s_hi; k16 steps over the
-    // two 64-column halves of the tile, those past D (all zeros) skipped.
+    // NH 64-column halves of the tile, those past D (all zeros) skipped.
     float s_lo[32], s_hi[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s_lo[i] = s_hi[i] = 0.f;   // overwritten
@@ -397,7 +413,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     hold(s_hi);
     wg_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
+    for (int half = 0; half < NH; ++half) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (half * HALF + 16 * j >= D) continue;
@@ -463,26 +479,27 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       o_lo[i] *= corr[(i >> 1) & 1];
-      o_hi[i] *= corr[(i >> 1) & 1];
+      if constexpr (NH == 2) o_hi[i] *= corr[(i >> 1) & 1];
     }
 
-    // O += P V: 8 k16 steps over the block's keys, V MN-major
+    // O += P V: 8 k16 steps over the block's keys, V MN-major; a chain a
+    // 64-column half of the output
     hold(o_lo);
-    hold(o_hi);
+    if constexpr (NH == 2) hold(o_hi);
     wg_fence();
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       const uint64_t v_lo = desc(vt + t * 16 * 128, KV_HALF, 1024);
       const uint64_t v_hi = desc(vt + t * 16 * 128 + KV_HALF, KV_HALF, 1024);
       mma_rs(o_lo, p_hi[t], v_lo);
-      mma_rs(o_hi, p_hi[t], v_hi);
+      if constexpr (NH == 2) mma_rs(o_hi, p_hi[t], v_hi);
       mma_rs(o_lo, p_lo[t], v_lo);
-      mma_rs(o_hi, p_lo[t], v_hi);
+      if constexpr (NH == 2) mma_rs(o_hi, p_lo[t], v_hi);
     }
     wg_commit();
     wg_wait();
     hold(o_lo);
-    hold(o_hi);
+    if constexpr (NH == 2) hold(o_hi);
     mbar_arrive(empty(s));
   }
 
@@ -502,7 +519,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     __nv_bfloat16* at = op + (int64_t)row * D + col;
     *reinterpret_cast<__nv_bfloat162*>(at) =
         __floats2bfloat162_rn(o_lo[i] / l[r], o_lo[i + 1] / l[r]);
-    if (col + HALF < D)       // D is even: the pair lies inside or past D
+    if (NH == 2 && col + HALF < D)   // D is even: the pair is in or past D
       *reinterpret_cast<__nv_bfloat162*>(at + HALF) =
           __floats2bfloat162_rn(o_hi[i] / l[r], o_hi[i + 1] / l[r]);
   }
@@ -533,8 +550,10 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int G, int Sq, int Sk, float scale, int causal,
            cudaStream_t stream) {
-  static_assert(D % 8 == 0 && D > HALF && D <= TC_D,
-                "a row pitch of 16-byte multiples; the second half in it");
+  constexpr int NH = (D + HALF - 1) / HALF;
+  static_assert(D % 8 == 0 && D <= TC_D && (NH == 2 || D == HALF),
+                "a row pitch of 16-byte multiples; one whole half, or the "
+                "second half starting inside the row");
   if (Sq == 0 || B * H == 0) return 0;
   if (Sk == 0)                  // no key: acc = 0, l = 0, o = 0
     return (int)cudaMemsetAsync(o, 0, (size_t)B * H * Sq * D * 2, stream);
@@ -543,6 +562,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
       tensor_map(&km, k, D, Sk, B * G, TC_BK) ||
       tensor_map(&vm, v, D, Sk, B * G, TC_BK))
     return TMA_ERROR;
+  constexpr size_t SMEM = Layout<NH>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel_bf16_wgmma<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
@@ -557,7 +577,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace tc
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores).  D must be
-// 112 or 128 (flash.py:HEAD_DIMS).  Returns a cudaError_t, -1 for a head
+// 64, 112 or 128 (flash.py:HEAD_DIMS).  Returns a cudaError_t, -1 for a head
 // dim or dtype this build has no instance of, -2 for a tensor map the
 // driver refuses.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -573,6 +593,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return tc::launch<128>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
   if (dtype == 1 && D == 112)
     return tc::launch<112>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
+  if (dtype == 0 && D == 64)
+    return launch<float, 64>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
+  if (dtype == 1 && D == 64)
+    return tc::launch<64>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
   return -1;
 }
 

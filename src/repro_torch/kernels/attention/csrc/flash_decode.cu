@@ -37,8 +37,8 @@
 // cache of a large batch passes 2^31 elements).  Query heads of one KV
 // head re-read the same rows (through L2); a CTA per KV head is later work.
 //
-// This file builds D = 112 and 128, each at the three dtype pairs and five
-// splits.
+// This file builds D = 64, 112 and 128, each at the three dtype pairs and
+// five splits.
 #include "decode_chain.cuh"
 
 namespace {
@@ -120,7 +120,7 @@ struct Occupancy {
 // lengths (B,) int32; o (B, H, 1, D).  splits: CTAs a (slot, head), one of
 // 1, 2, 4, 8, 16 (decode.py:launch_plan's).  q_dtype / kv_dtype: 0
 // float32, 1 bfloat16 (a float32 query reads a float32 cache; a bf16 query
-// either).  D must be 112 or 128 (decode.py:HEAD_DIMS).  Returns a
+// either).  D must be 64, 112 or 128 (decode.py:HEAD_DIMS).  Returns a
 // cudaError_t, or -1 for a shape, dtype or split this build has no
 // instance of.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,

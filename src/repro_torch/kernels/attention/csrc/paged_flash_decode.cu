@@ -32,8 +32,8 @@
 // once (a few operations a byte).  A CTA that serves all the query heads
 // of a KV head from one staged block is later work.
 //
-// This file builds D = 112 and 128, each at the three dtype pairs and five
-// splits.
+// This file builds D = 64, 112 and 128, each at the three dtype pairs and
+// five splits.
 #include "decode_chain.cuh"
 
 namespace {
@@ -162,7 +162,7 @@ struct Occupancy {
 // (B, MB) int32; lengths (B,) int32; o (B, H, 1, D).  splits: CTAs a (slot,
 // head), one of 1, 2, 4, 8, 16 (decode.py:launch_plan's).  q_dtype /
 // kv_dtype: 0 float32, 1 bfloat16 (a float32 query reads a float32 pool; a
-// bf16 query either).  D must be 112 or 128.  Returns a cudaError_t, or -1
+// bf16 query either).  D must be 64, 112 or 128.  Returns a cudaError_t, or -1
 // for a shape, dtype, split or geometry this build has no instance of.
 extern "C" int paged_flash_decode(const void* q, const void* k_pool,
                                   const void* v_pool, const int* table,

@@ -43,9 +43,10 @@ PAGED_SOURCE = _CSRC / "paged_flash_decode.cu"
 #: The chain walk both kernels include.
 CHAIN_SOURCE = _CSRC / "decode_chain.cuh"
 NEG_INF = -1e30
-#: Head dims both CUDA kernels are built for (zamba2-7b's 112 and 128): a
-#: lane holds 8 elements, and lanes past ``D / 8`` of the 16 hold zeros.
-HEAD_DIMS = (112, 128)
+#: Head dims both CUDA kernels are built for (granite-moe-3b's 64,
+#: zamba2-7b's 112, and 128): a lane holds 8 elements, and lanes past ``D /
+#: 8`` of the 16 hold zeros.
+HEAD_DIMS = (64, 112, 128)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 #: Online-softmax chains of one (slot, head): ``CHAINS`` in
 #: ``csrc/decode_chain.cuh``.

@@ -21,6 +21,8 @@ Usage (full width on the card; ``--reduced`` for the small config,
 
   python -m repro_torch.launch.serve --arch deepseek-7b --mode brainslug
   python -m repro_torch.launch.serve --arch mamba2-2.7b --mode brainslug
+  python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
+      --mode brainslug --reduced --device cpu
 """
 from __future__ import annotations
 

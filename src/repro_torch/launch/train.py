@@ -12,6 +12,12 @@ Usage:
       --device cpu --steps 100
   python -m repro_torch.launch.train --arch mamba2-2.7b --device cpu \\
       --steps 6
+  python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
+      --device cpu --steps 6
+
+For an MoE config each logged step carries the router's load-balance loss
+(``aux``, summed over the MoE layers) and the share of (token, choice)
+assignments dropped at capacity (``drop``, summed likewise).
 """
 from __future__ import annotations
 
@@ -97,11 +103,16 @@ class Trainer:
                 slow = self.watchdog.stop()
                 rec = {"step": step, "loss": loss,
                        "grad_norm": float(metrics["grad_norm"]),
+                       "router_aux_loss": float(metrics["router_aux_loss"]),
+                       "drop_fraction": float(metrics["drop_fraction"]),
                        "slow": bool(slow)}
                 self.history.append(rec)
                 if step % self.tc.log_every == 0:
+                    moe = (f" aux={rec['router_aux_loss']:.4f} "
+                           f"drop={rec['drop_fraction']:.4f}"
+                           if self.cfg.n_experts else "")
                     print(f"[train] step={step} loss={loss:.4f} "
-                          f"gnorm={rec['grad_norm']:.3f}", flush=True)
+                          f"gnorm={rec['grad_norm']:.3f}{moe}", flush=True)
                 if (self.checkpointer is not None and step > 0
                         and step % self.tc.ckpt_every == 0):
                     self.checkpointer.submit(

@@ -19,10 +19,10 @@ def is_gated(cfg: ModelConfig) -> bool:
 
 
 def init(g: torch.Generator, cfg: ModelConfig, n_layers: int,
-         dtype: torch.dtype) -> dict:
+         dtype: torch.dtype, *, d_ff: int | None = None) -> dict:
     """The MLP parameters of ``n_layers`` layers, stacked on a leading
-    layer axis."""
-    d, f, L = cfg.d_model, cfg.d_ff, n_layers
+    layer axis; ``d_ff`` replaces ``cfg.d_ff`` (an MoE's shared expert)."""
+    d, f, L = cfg.d_model, d_ff or cfg.d_ff, n_layers
     if is_gated(cfg):
         return {
             "wg": base.normal(g, (L, d, f), fan_in=d, dtype=dtype),

@@ -1,6 +1,8 @@
 """Language-model assembly, ported from ``repro/models/lm.py`` for the dense
-family (attention + MLP blocks), the SSM family (mamba2 blocks) and the
-hybrid family (zamba2: mamba blocks with one shared attention block):
+family (attention + MLP blocks), the MoE family (attention + top-k expert
+blocks, with dense blocks between them where ``moe_layer_period > 1``), the
+SSM family (mamba2 blocks) and the hybrid family (zamba2: mamba blocks with
+one shared attention block):
 embedding, a stack of super-blocks over the layer-stacked parameters, fused
 BrainSlug norm and activation chains, the final norm and the vocab head;
 prefill, decode and the training loss.
@@ -10,13 +12,18 @@ prefill, decode and the training loss.
   holds the parameters of the super-block's ``j``-th kind, each leaf
   carrying a leading axis over the super-blocks (``jax.lax.scan`` over
   that axis becomes a loop over it).  A dense block is ``{norm1, attn,
-  norm2, mlp}``, a mamba block ``{norm1, mixer}``.  The hybrid's
+  norm2, mlp}``, an MoE block ``{norm1, attn, norm2, moe}``, a mamba block
+  ``{norm1, mixer}``.  The hybrid's
   ``shared_attn`` (a dense block) is stored once, with no layer axis, and
   applied at the last position of every super-block, so its gradient is
   the sum over its applications; its remainder layers, ``tail/sub0``, are
   mamba blocks stacked over the tail.
 * The residual stream uses a (resid, pending) carry so every residual add
   fuses with the next norm.
+* MoE blocks drop tokens at capacity in the forward (``hidden``,
+  ``prefill``, ``loss_fn``), whose aux (``router_aux_loss``,
+  ``drop_fraction``) is the sum over the MoE layers, and run dropless in
+  ``decode_step`` (serving drops no live request's token).
 * Decode caches mirror the parameters: ``blocks/sub{j}`` stacked over the
   super-blocks (for the shared attention one KV cache per application) and
   ``tail/sub0``, updated in place: a KV cache (dense or paged) per
@@ -32,8 +39,8 @@ Plain twins for the traced frontend (:func:`repro_torch.api.optimize`):
 :func:`transformer_block_fn` and :func:`ce_loss_fn`, ordinary tensor code
 whose traced graph the kernel registry rewrites onto the dedicated kernels.
 
-MoE and the audio / vision frontends raise and name the slice of the port
-that brings them.  Entry points run on ``cuda`` unless the caller asks for the
+The audio / vision frontends raise and name the slice of the port that
+brings them.  Entry points run on ``cuda`` unless the caller asks for the
 CPU.
 """
 from __future__ import annotations
@@ -47,7 +54,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
 from repro_torch.kernels.vocab_ce import ops as ce_ops
-from repro_torch.layers import attention, base, dense, mamba2, stacks
+from repro_torch.layers import attention, base, dense, mamba2, moe, stacks
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -86,13 +93,9 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
 
 
 def _check_ported(cfg: ModelConfig) -> LayerPlan:
-    """The plan of a config the port runs: dense, mamba and shared
+    """The plan of a config the port runs: dense, MoE, mamba and shared
     attention blocks, token inputs."""
     plan = layer_plan(cfg)
-    kinds = set(plan.superblock) | set(plan.tail)
-    if "attn_moe" in kinds:
-        raise NotImplementedError(f"{cfg.name}: MoE layers come with the "
-                                  f"MoE slice of the port")
     if cfg.frontend:
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
                                   f"comes with the multimodal slice of the "
@@ -146,7 +149,10 @@ def _init_sub(g: torch.Generator, kind: str, cfg: ModelConfig, n: int,
         return sub
     sub["attn"] = attention.init(g, cfg, n, dtype)
     sub["norm2"] = dense.norm_init(cfg, n, dtype, dev)
-    sub["mlp"] = dense.init(g, cfg, n, dtype)
+    if kind == "attn_moe":
+        sub["moe"] = moe.init(g, cfg, n, dtype)
+    else:                               # attn_dense / shared_attn
+        sub["mlp"] = dense.init(g, cfg, n, dtype)
     return sub
 
 
@@ -172,20 +178,24 @@ def _unstack(tree: Any, n: int) -> list:
 def _apply_sub(kind: str, p: dict | None, resid: torch.Tensor,
                pending: torch.Tensor, cfg: ModelConfig, rt: RuntimeConfig,
                shared_params: dict | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One block of ``kind``; a ``shared_attn`` block applies
-    ``shared_params`` (``p`` is None there)."""
+               ) -> tuple[torch.Tensor, torch.Tensor, dict | None]:
+    """One block of ``kind``: (resid, pending, the MoE aux or None); a
+    ``shared_attn`` block applies ``shared_params`` (``p`` is None
+    there)."""
     if kind == "shared_attn":
         p = shared_params
     norm_kw = dict(norm=cfg.norm, mode=rt.mode)
     h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
                                 p["norm1"].get("bias"), **norm_kw)
     if kind == "mamba":
-        return resid, mamba2.apply(p["mixer"], h1, cfg, rt)
+        return resid, mamba2.apply(p["mixer"], h1, cfg, rt), None
     attn_out = attention.apply(p["attn"], h1, cfg, rt)
     h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
                                 p["norm2"].get("bias"), **norm_kw)
-    return resid, dense.apply(p["mlp"], h2, cfg, rt)
+    if "moe" in p:
+        out, aux = moe.apply(p["moe"], h2, cfg, rt)
+        return resid, out, aux
+    return resid, dense.apply(p["mlp"], h2, cfg, rt), None
 
 
 def _remat(fn, rt: RuntimeConfig):
@@ -241,26 +251,31 @@ def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
     x = embed_inputs(params, batch, cfg)
     resid, pending = x, torch.zeros_like(x)
     shared = params.get("shared_attn")
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def superblock(blk, shared, resid, pending):
+    def superblock(blk, shared, resid, pending, aux_loss, drop):
         for kind, p in zip(plan.superblock, blk):
-            resid, pending = _apply_sub(kind, p, resid, pending, cfg, rt,
-                                        shared)
-        return resid, pending
+            resid, pending, aux = _apply_sub(kind, p, resid, pending, cfg,
+                                             rt, shared)
+            if aux is not None:         # summed over the MoE layers
+                aux_loss = aux_loss + aux["router_aux_loss"]
+                drop = drop + aux["drop_fraction"]
+        return resid, pending, aux_loss, drop
 
     def tail_layer(p, resid, pending):
-        return _apply_sub("mamba", p, resid, pending, cfg, rt)
+        return _apply_sub("mamba", p, resid, pending, cfg, rt)[:2]
 
     body = _remat(superblock, rt)
+    aux_loss = drop = zero
     for blk in _superblocks(params, plan):
-        resid, pending = body(blk, shared, resid, pending)
+        resid, pending, aux_loss, drop = body(blk, shared, resid, pending,
+                                              aux_loss, drop)
     if plan.tail:
         tail = _remat(tail_layer, rt)
         for p in _unstack(params["tail"]["sub0"], len(plan.tail)):
             resid, pending = tail(p, resid, pending)
     h = _final_norm(params, resid + pending, cfg, rt)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return h, {"router_aux_loss": zero, "drop_fraction": zero}
+    return h, {"router_aux_loss": aux_loss, "drop_fraction": drop}
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
@@ -501,6 +516,11 @@ def _decode_sub(kind: str, p: dict | None, layer_cache: Any,
                                    max_keys=max_keys)
     h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
                                 p["norm2"].get("bias"), **norm_kw)
+    if "moe" in p:
+        # serving is dropless: dropping a live request's token to a
+        # capacity limit is a training-only trade-off
+        return resid, moe.apply(p["moe"], h2, cfg, rt, dropless=True,
+                                with_aux=False)[0]
     return resid, dense.apply(p["mlp"], h2, cfg, rt)
 
 

@@ -359,7 +359,7 @@ def test_dense_wrapper_checks_its_operands():
     with pytest.raises(ValueError, match="16-byte aligned"):
         tdecode.check_kernel_operands("flash decode", q, shifted, shifted,
                                       lens)
-    for dd in (64, 136):
+    for dd in (96, 136):
         qd, kd = torch.zeros(q.shape[:3] + (dd,)), torch.zeros(
             k.shape[:3] + (dd,))
         with pytest.raises(ValueError, match="head dim"):

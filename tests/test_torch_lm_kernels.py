@@ -10,9 +10,10 @@ CPU.
   ``triton.language`` with bf16 from ``ml_dtypes``;
 * the CUDA kernels (flash attention, flash decode) are held through
   transliterations of their loop order: tiles, causal block skipping, the
-  16 partial softmax states of a decode CTA and their merge; at head dim
-  112 (zamba2-7b's) too, with the bf16 kernel's zero-filled tiles, skipped
-  k16 steps and epilogue walked element by element.
+  16 partial softmax states of a decode CTA and their merge; at head dims
+  112 (zamba2-7b's) and 64 (granite-moe-3b's) too, with the bf16 kernel's
+  halves, zero-filled tiles, skipped k16 steps and epilogue walked element
+  by element.
 
 The kernels themselves run only on the card (``chip_smoke.py``)."""
 from __future__ import annotations
@@ -594,60 +595,108 @@ def test_cuda_wrappers_name_the_tpu_kernels_they_replace():
 # head dim 112 (zamba2-7b: 3584 / 32)
 # ---------------------------------------------------------------------------
 
+def _tc_halves(d):
+    """The 64-column halves of the bf16 kernel's tiles at head dim ``d``
+    (``NH`` in the source): one at 64, two above it."""
+    return -(-d // _cu_const(tflash.SOURCE, "HALF"))
+
+
 def _tc_steps(d):
     """The k16 steps of Q K^T the bf16 kernel issues at head dim ``d``:
-    (half, j) over the tile's two ``HALF``-column halves, those whose
-    columns all lie at or past ``d`` skipped."""
+    (half, j) over the tile's ``HALF``-column halves, those whose columns
+    all lie at or past ``d`` skipped."""
     half = _cu_const(tflash.SOURCE, "HALF")
-    return [(h, j) for h in range(2) for j in range(half // 16)
+    return [(h, j) for h in range(_tc_halves(d)) for j in range(half // 16)
             if h * half + 16 * j < d]
 
 
-@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
-def test_flash_tc_zero_fill_and_epilogue_cover_the_head_dim(d):
-    """The bf16 kernel's tiles keep ``TC_D`` columns; the tensor map's row
-    is ``d`` elements, so TMA zero-fills columns ``d .. TC_D - 1``.  The
-    issued k16 steps cover every column below ``d`` and skip only columns
-    at or past it (one of eight at 112); the row pitch ``2 d`` bytes is a
-    multiple of 16; the epilogue (each warpgroup's 64 rows, a thread's
-    pairs at column ``8 (i >> 2) + 2 (lane & 3)`` of both halves, the
-    second only below ``d``) writes every (row, column < d) of the CTA's
-    128 rows once and nothing past ``d``."""
-    tc_d = _cu_const(tflash.SOURCE, "TC_D")
+def _tc_written(d):
+    """(row, column) -> writes of the bf16 kernel's epilogue over a CTA:
+    each warpgroup's 64 rows, a thread's pairs at column ``8 (i >> 2) + 2
+    (lane & 3)`` of the first half and, with two halves, of the second
+    below ``d``."""
     half = _cu_const(tflash.SOURCE, "HALF")
-    bq = _cu_const(tflash.SOURCE, "TC_BQ")
-    assert tc_d == 2 * half and half < d <= tc_d and (2 * d) % 16 == 0
-    steps = _tc_steps(d)
-    cols = {h * half + 16 * j + c for h, j in steps for c in range(16)}
-    assert set(range(d)) <= cols and all(c < tc_d for c in cols)
-    skipped = {h * half + 16 * j + c for h in range(2)
-               for j in range(half // 16) for c in range(16)} - cols
-    assert all(c >= d for c in skipped)
-    assert len(steps) == -(-d // 16)
     written = {}
     for wg, warp, lane in itertools.product(range(2), range(4), range(32)):
         for i in range(0, 32, 2):
             row = wg * 64 + warp * 16 + lane // 4 + 8 * ((i >> 1) & 1)
             col = 8 * (i >> 2) + 2 * (lane & 3)
             targets = [col, col + 1]
-            if col + half < d:
+            if _tc_halves(d) == 2 and col + half < d:
                 targets += [col + half, col + half + 1]
             for c in targets:
                 written[(row, c)] = written.get((row, c), 0) + 1
+    return written
+
+
+@pytest.mark.parametrize("d", tflash.HEAD_DIMS)
+def test_flash_tc_zero_fill_and_epilogue_cover_the_head_dim(d):
+    """The bf16 kernel's tiles keep ``ceil(d / HALF)`` 64-column halves;
+    the tensor map's row is ``d`` elements, so TMA zero-fills columns past
+    ``d`` of the last half.  The issued k16 steps cover every column below
+    ``d`` and skip only columns at or past it (one of eight at 112, none at
+    64 and 128); the row pitch ``2 d`` bytes is a multiple of 16; the
+    epilogue writes every (row, column < d) of the CTA's 128 rows once and
+    nothing past ``d``."""
+    tc_d = _cu_const(tflash.SOURCE, "TC_D")
+    half = _cu_const(tflash.SOURCE, "HALF")
+    bq = _cu_const(tflash.SOURCE, "TC_BQ")
+    nh = _tc_halves(d)
+    assert tc_d == 2 * half and (2 * d) % 16 == 0
+    assert d == half if nh == 1 else half < d <= tc_d
+    steps = _tc_steps(d)
+    cols = {h * half + 16 * j + c for h, j in steps for c in range(16)}
+    assert set(range(d)) <= cols and all(c < nh * half for c in cols)
+    skipped = {h * half + 16 * j + c for h in range(nh)
+               for j in range(half // 16) for c in range(16)} - cols
+    assert all(c >= d for c in skipped)
+    assert len(steps) == -(-d // 16)
+    written = _tc_written(d)
     assert set(written) == {(r, c) for r in range(bq) for c in range(d)}
     assert set(written.values()) == {1}
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_attention_at_head_dim_112_matches_jax_kernel(dtype, causal):
-    """At D = 112 the plain version and the transliteration of the
-    instance the dtype launches against the Pallas kernel (interpret mode),
+def test_flash_tc_one_half_walk_at_head_dim_64():
+    """At D = 64 the bf16 kernel's tiles are one swizzled half: Q K^T takes
+    the four k16 steps of that half (keys 0-63 and 64-127 of the block
+    into two chains), P V one n64 chain, and the epilogue the first half
+    alone; a ring stage is one K and one V half, so the shared memory of
+    a CTA is half the two-half layout's tiles.  The walk over the tiles as
+    the kernel holds them (no column padding) equals the Pallas kernel."""
+    text = tflash.SOURCE.read_text()
+    half = _cu_const(tflash.SOURCE, "HALF")
+    bq = _cu_const(tflash.SOURCE, "TC_BQ")
+    bk = _cu_const(tflash.SOURCE, "TC_BK")
+    stages = _cu_const(tflash.SOURCE, "TC_STAGES")
+    assert _tc_halves(64) == 1 and _tc_steps(64) == [(0, j) for j in
+                                                      range(4)]
+    assert "if constexpr (NH == 2) mma_rs(o_hi" in text
+    assert "if (NH == 2 && col + HALF < D)" in text
+    # Layout<NH>::SMEM: 1 KB of alignment slack, Q, the ring, the barriers
+    smem = {nh: 1024 + nh * bq * half * 2 + stages * 2 * nh * bk * half * 2
+            + 8 * (1 + 2 * stages) for nh in (1, 2)}
+    assert smem[1] < smem[2] <= 232448 and smem[1] == 82984
+    rng = np.random.default_rng(64)
+    b, h, g, s, d = 1, 4, 2, 200, 64
+    q = _randn(rng, (b, h, s, d), "bfloat16")
+    k, v = (_randn(rng, (b, g, s, d), "bfloat16") for _ in range(2))
+    want = np.asarray(jattn_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True, 64, 64, True))
+    got = _flash_cuda_tc(*(_t(a, "bfloat16") for a in (q, k, v)), True,
+                         1.0 / d ** 0.5)
+    assert set(_tc_written(d)) == {(r, c) for r in range(bq)
+                                   for c in range(d)}
+    _close(got, want, "bfloat16", "one-half walk")
+
+
+def _flash_at_head_dim(d, dtype, causal, seed):
+    """The plain version and the transliteration of the instance the dtype
+    launches at head dim ``d`` against the Pallas kernel (interpret mode),
     GQA 8/2, a sequence not a multiple of any tile.  The bf16 walk runs on
-    tiles zero-filled to ``TC_D`` columns, as TMA fills them, and the
-    columns past 112 come out exactly zero (computed, never written)."""
-    rng = np.random.default_rng(112 + causal)
-    b, h, g, s, d = 1, 8, 2, 150, 112
+    tiles zero-filled to its halves' columns, as TMA fills them, and the
+    columns past ``d`` come out exactly zero (computed, never written)."""
+    rng = np.random.default_rng(seed)
+    b, h, g, s = 1, 8, 2, 150
     q = _randn(rng, (b, h, s, d), dtype)
     k, v = _randn(rng, (b, g, s, d), dtype), _randn(rng, (b, g, s, d), dtype)
     want = np.asarray(jattn_ops.flash_attention(
@@ -659,8 +708,8 @@ def test_flash_attention_at_head_dim_112_matches_jax_kernel(dtype, causal):
     _close(got, want, dtype, "plain")
     scale = 1.0 / d ** 0.5
     if dtype == "bfloat16":
-        tc_d = _cu_const(tflash.SOURCE, "TC_D")
-        pad = [torch.nn.functional.pad(t, (0, tc_d - d)) for t in (tq, tk,
+        cols = _tc_halves(d) * _cu_const(tflash.SOURCE, "HALF")
+        pad = [torch.nn.functional.pad(t, (0, cols - d)) for t in (tq, tk,
                                                                    tv)]
         full = _flash_cuda_tc(*pad, causal, scale)
         assert bool((full[..., d:] == 0).all())
@@ -670,13 +719,26 @@ def test_flash_attention_at_head_dim_112_matches_jax_kernel(dtype, causal):
     _close(cuda, want, dtype, "CUDA transliteration")
 
 
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_decode_at_head_dim_112_matches_jax_kernel(dtype):
-    """Ragged lengths (0, 1, mid, full) with garbage past them, at D =
-    112: the plain version and the transliteration against the Pallas
+def test_flash_attention_at_head_dim_112_matches_jax_kernel(dtype, causal):
+    """At D = 112 (two halves, the second zero-filled past 112)."""
+    _flash_at_head_dim(112, dtype, causal, 112 + causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_head_dim_64_matches_jax_kernel(dtype, causal):
+    """At D = 64 (granite-moe-3b's 1536 / 24: one half, no zero fill)."""
+    _flash_at_head_dim(64, dtype, causal, 64 + causal)
+
+
+def _decode_at_head_dim(d, dtype, seed):
+    """Ragged lengths (0, 1, mid, full) with garbage past them, at head dim
+    ``d``: the plain version and the transliteration against the Pallas
     kernel, exact zeros at length 0."""
-    rng = np.random.default_rng(1120)
-    b, h, g, s, d = 4, 8, 2, 100, 112
+    rng = np.random.default_rng(seed)
+    b, h, g, s = 4, 8, 2, 100
     q = _randn(rng, (b, h, 1, d), dtype)
     k, v = _randn(rng, (b, g, s, d), dtype), _randn(rng, (b, g, s, d), dtype)
     lengths = np.array([0, 1, 53, s], np.int32)
@@ -696,3 +758,17 @@ def test_flash_decode_at_head_dim_112_matches_jax_kernel(dtype):
         assert out.dtype == T_DTYPE[dtype] and bool(torch.isfinite(out).all())
         assert bool((out[0] == 0).all()), how
         _close(out, want, dtype, how)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_at_head_dim_112_matches_jax_kernel(dtype):
+    """At D = 112: 14 of the 16 lanes live."""
+    _decode_at_head_dim(112, dtype, 1120)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_at_head_dim_64_matches_jax_kernel(dtype):
+    """At D = 64: 8 of the 16 lanes live, the others read nothing and
+    hold exact zeros."""
+    _decode_at_head_dim(64, dtype, 640)
+

@@ -363,8 +363,8 @@ def test_trainer_matches_jax_trainer(mode):
 def test_hybrid_still_raises():
     """The hybrid no longer raises: its ``init`` and ``init_decode_cache``
     run (``tests/test_torch_hybrid.py`` holds them against the JAX
-    package); MoE still raises, naming its slice, and so does a zero SSD
-    chunk."""
+    package), and so do MoE's (``tests/test_torch_moe.py``); a frontend
+    still raises, naming its slice, and so does a zero SSD chunk."""
     cfg = tconfigs.get_config("zamba2-7b").reduced()
     params = tlm.init(0, cfg, device="cpu")
     assert {"blocks", "shared_attn"} <= set(params)
@@ -372,9 +372,13 @@ def test_hybrid_still_raises():
     assert set(cache["blocks"]) == {f"sub{j}" for j in range(
         cfg.attn_layer_period)}
     moe = tconfigs.get_config("granite-moe-3b-a800m").reduced()
-    for fn in (lambda: tlm.init(0, moe, device="cpu"),
-               lambda: tlm.init_decode_cache(moe, 1, 4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="MoE slice"):
+    assert "moe" in tlm.init(0, moe, device="cpu")["blocks"]["sub0"]
+    assert set(tlm.init_decode_cache(moe, 1, 4, device="cpu")["blocks"]) \
+        == {"sub0"}
+    audio = tconfigs.get_config("hubert-xlarge").reduced()
+    for fn in (lambda: tlm.init(0, audio, device="cpu"),
+               lambda: tlm.init_decode_cache(audio, 1, 4, device="cpu")):
+        with pytest.raises(NotImplementedError, match="multimodal slice"):
             fn()
     with pytest.raises(ValueError, match="ssd_chunk"):
         TRuntime(ssd_chunk=0)

@@ -13,10 +13,11 @@
   CTAs a (slot, head);
 * ``launch_plan``: every (slot, head, chain) once, no lengths read, the
   chain count the dense kernel's;
-* head dim 112 (zamba2-7b's): the plain version and the walk against the
-  Pallas kernel, paged bit for bit with dense on the gathered view, and the
-  lane layout both kernels share (8 elements a lane, lanes past ``D / 8``
-  zero) covering every element of a row once;
+* head dims 112 (zamba2-7b's) and 64 (granite-moe-3b's): the plain
+  version and the walk against the Pallas kernel, paged bit for bit with
+  dense on the gathered view, and the lane layout both kernels share (8
+  elements a lane, lanes past ``D / 8`` zero) covering every element of a
+  row once;
 * the layer's in-place paged write, ``lm.reset_slots`` and
   ``lm.copy_blocks`` against the JAX package's;
 * ``BlockAllocator``/``PrefixCache`` under one random op sequence in both
@@ -456,26 +457,25 @@ def test_paged_wrapper_checks_and_names_its_tpu_kernel():
 
 
 # ---------------------------------------------------------------------------
-# head dim 112 (zamba2-7b)
+# head dims 112 (zamba2-7b) and 64 (granite-moe-3b)
 # ---------------------------------------------------------------------------
 
 D112_CASES = ("ragged_f32", "bf16_q_f32_pool", "ragged_bf16")
 
 
-@pytest.mark.parametrize("name", D112_CASES)
-def test_paged_at_head_dim_112_matches_jax_kernel(name):
+def _paged_at_head_dim(name, d):
     """The plain version and the walk of ``csrc/paged_flash_decode.cu``
-    (14 of 16 lanes holding data) against the Pallas kernel at D = 112,
-    through a shuffled table with sentinel tails."""
-    q, kp, vp, table, lens, qdt = _paged_case(name, 112)
+    against the Pallas kernel at head dim ``d``, through a shuffled table
+    with sentinel tails; exact zeros at length 0."""
+    q, kp, vp, table, lens, qdt = _paged_case(name, d)
     want = _jax_paged(q, kp, vp, table, lens, qdt)
     pdt = PAGED_CASES[name][5]
     tq, tk, tv = _t(q, qdt), _t(kp, pdt), _t(vp, pdt)
     tbl, tl_ = torch.from_numpy(table), torch.from_numpy(lens)
-    assert tdecode.supports_head_dim(112)
+    assert tdecode.supports_head_dim(d)
     for got, how in ((tattn_ops.paged_flash_decode(tq, tk, tv, tbl, tl_),
                       "plain"),
-                     (_paged_cuda(tq, tk, tv, tbl, tl_, 112 ** -0.5),
+                     (_paged_cuda(tq, tk, tv, tbl, tl_, d ** -0.5),
                       "CUDA transliteration")):
         assert got.dtype == T_DTYPE[qdt] and bool(torch.isfinite(got).all())
         _close(got.float(), want, qdt, how)
@@ -483,19 +483,43 @@ def test_paged_at_head_dim_112_matches_jax_kernel(name):
             assert bool((got[i] == 0).all()), how
 
 
-@pytest.mark.parametrize("splits", [1, 2, 16])
-def test_paged_equals_dense_at_head_dim_112(splits):
-    """At D = 112 the two kernels' walks stay bit for bit on the gathered
-    view, at every split and whichever CTA merges."""
-    q, kp, vp, table, lens, qdt = _paged_case("bf16_q_f32_pool", 112)
+def _paged_equals_dense(d, splits):
+    """The two kernels' walks bit for bit on the gathered view at head dim
+    ``d`` and ``splits`` CTAs a (slot, head), whichever CTA merges."""
+    q, kp, vp, table, lens, qdt = _paged_case("bf16_q_f32_pool", d)
     tq, tk, tv = _t(q, qdt), _t(kp, "float32"), _t(vp, "float32")
     tbl, tl_ = torch.from_numpy(table), torch.from_numpy(lens)
     kd = tattn_ref.gather_paged(tk, tbl.clamp(0, N_BLOCKS - 1))
     vd = tattn_ref.gather_paged(tv, tbl.clamp(0, N_BLOCKS - 1))
-    dense = _dense_cuda(tq, kd, vd, tl_, 112 ** -0.5)
+    dense = _dense_cuda(tq, kd, vd, tl_, d ** -0.5)
     for arrival in range(2):
-        assert torch.equal(_paged_cuda(tq, tk, tv, tbl, tl_, 112 ** -0.5,
+        assert torch.equal(_paged_cuda(tq, tk, tv, tbl, tl_, d ** -0.5,
                                        splits, arrival), dense)
+
+
+@pytest.mark.parametrize("name", D112_CASES)
+def test_paged_at_head_dim_112_matches_jax_kernel(name):
+    """At D = 112: 14 of 16 lanes holding data."""
+    _paged_at_head_dim(name, 112)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 16])
+def test_paged_equals_dense_at_head_dim_112(splits):
+    """At D = 112, at every split and whichever CTA merges."""
+    _paged_equals_dense(112, splits)
+
+
+@pytest.mark.parametrize("name", D112_CASES)
+def test_paged_at_head_dim_64_matches_jax_kernel(name):
+    """At D = 64 (granite-moe-3b's): 8 of 16 lanes holding data, the
+    others zero-filled by their copies' source size 0."""
+    _paged_at_head_dim(name, 64)
+
+
+@pytest.mark.parametrize("splits", tdecode.SPLITS)
+def test_paged_equals_dense_at_head_dim_64(splits):
+    """At D = 64, at every split and whichever CTA merges."""
+    _paged_equals_dense(64, splits)
 
 
 @pytest.mark.parametrize("d", tdecode.HEAD_DIMS)
