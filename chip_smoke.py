@@ -118,8 +118,9 @@ Phases, one line each (plus tables):
    per mode; the gated norm's rows forward at (2048, 5120), (4096, 5120)
    and (4, 5120) bf16 timed beside its byte bound, plain version, launch
    plan, registers and spills;
-22. mamba2-2.7b training through ``Trainer.run``: full width and depth,
-   bf16, remat "full", one 4096-token sequence, three AdamW steps (lr
+22. mamba2-2.7b training through ``Trainer.run``: full width cut to 16
+   of the 64 layers (``MAMBA_TRAIN``; every block's VJP alone still runs
+   all 64), bf16, remat "full", one 4096-token sequence, three AdamW steps (lr
    3e-4), brainslug held to barrier through a float32 run on the same
    weights (SSM_F32_FACTOR), counters per step, peak memory; kill at step
    2 and resume from the step-1
@@ -194,6 +195,21 @@ Phases, one line each (plus tables):
    llama4-maverick-400b-a17b at full width cut to one super-block (2
    layers; 128 experts, top-1, the shared expert): ``lm.prefill`` and
    ``Server.generate`` at phase 12's limits on brainslug's routing;
+26. Slice F: (a) ``mode="xla"`` (each stack's plain function under
+   ``torch.compile``) on the VGG-16 cell against ``barrier``, forward
+   within 1e-4 and three SGD steps (step-1 gradients held through a
+   float64 run, ``XLA_F64_FLOOR``), compiled calls equal to the
+   sequences, no graph break; the three modes in turns with traces; each
+   VGG stage's inductor kernels beside ``fused_nhwc`` and
+   ``fused_nhwc_bwd``; the LM row chains in bf16; deepseek-7b
+   ``lm.prefill`` (1, 2048) bf16 at 8 layers (``XLA_LM``); (b)
+   ``autotune=True`` on the VGG-16 cell, forward and differentiable
+   (every decision with each candidate's ms, no candidate failure, a warm
+   disk cache with no measure run, the chosen net within 1e-4 of
+   barrier), the traced ``vgg_fn``'s function floor, the ``hopper`` /
+   ``ref`` decisions of the deepseek-width block; (c) ``remat`` none,
+   dots and full on deepseek-7b at 4 layers, 4096 tokens, bf16: peak
+   memory full <= dots <= none, dots gradients equal none's bit for bit;
 then the ``kernels`` JSON line (each CUDA kernel with its instances, the
 attention kernels' head-dim 112 and 64 entries and the SSD's zamba2
 shape), the card line, and the ``ok`` line last.
@@ -338,10 +354,13 @@ SSD_RAGGED = (2, 1000)                  # (batch, sequence) through ops.ssd
 # keep all 64.
 MAMBA_ENGINE = dict(requests=8, prompt=(16, 96), stops=(8, 32), layers=8)
 MAMBA_SERVE_LAYERS = 8
-# training: full depth with every block recomputed in the backward; the
-# kill/resume leg is cut to 4 layers (a 64-layer checkpoint with its AdamW
-# moments is 27 GB, written twice)
-MAMBA_TRAIN = dict(remat="full", layers_resume=4)
+# training: every block recomputed in the backward, at 16 of the 64 layers
+# (22a, 22b, 22d; 22e still takes every block alone): the step is half
+# idle on the host, and at 64 layers the three legs took 157 s of phase
+# 22's 191 on one H100 (PERF.md section 4), room phase 26 needs.  The kill/resume leg is cut
+# to 4 layers (a 64-layer checkpoint with its AdamW moments is 27 GB,
+# written twice).
+MAMBA_TRAIN = dict(remat="full", layers=16, layers_resume=4)
 # mamba2-2.7b in bf16 over 64 random layers rounds far noisier than
 # deepseek-7b: both modes' prefill logits lie 0.17 of max from the float32
 # logits of the same weights, and the two modes' teacher-forced decode
@@ -415,6 +434,25 @@ MOE = dict(arch="granite-moe-3b-a800m", engine_layers=4, train_layers=8,
 MOE_CONTROLS = ("layer 4's MoE output dropped",
                 "gate weights not renormalised")
 MOE_END_TO_END = ("layer 4's MoE output dropped",)
+# Slice F (phase 26): deepseek-7b at full width cut to 8 layers for the xla
+# prefill (each layer's three stacks compile once, whatever the depth), and
+# to 4 for the remat none / dots / full steps.
+XLA_LM = dict(layers=8, remat_layers=4)
+# xla's step-1 VGG gradients are held through a float64 run, not by phase
+# 9's element-wise rule against barrier.  Inductor contracts a batch norm's
+# x * scale + shift into one FMA, so pre-activations within a rounding of 0
+# take the other side of the ReLU: conv0_w's gradient, a sum over 1.6 M
+# positions that mostly cancel, lies 1.7e-4 (relative L2) from barrier's
+# on one H100, and 2 of its elements miss phase 9's rule.  Against barrier's
+# float64 gradient xla sits no farther than barrier in every parameter
+# (conv0_w 2.68e-4 against 2.92e-4), and with the FMA turned off
+# (inductor's emulate_precision_casts) it meets barrier within 2e-7
+# (PERF.md section 6; tools/xla_grads.py).  So xla is held within
+# SSM_F32_FACTOR of barrier's distance to float64, parameter by parameter,
+# or within XLA_F64_FLOOR where both sit at float32's rounding (about 8 of
+# its 1.19e-7 steps; there the ratio is noise: 4.7e-8 against 5.2e-8 for
+# bn4_o, brainslug 9.9e-8, on that run).
+XLA_F64_FLOOR = 1e-6
 
 
 class PhaseError(RuntimeError):
@@ -522,7 +560,7 @@ class Smoke:
               "phase16_engine_timing", "phase17_ce_kernel", "phase18_train",
               "phase19_train_timing", "phase20_ssd_kernel",
               "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced",
-              "phase24_hybrid", "phase25_moe")
+              "phase24_hybrid", "phase25_moe", "phase26_slice_f")
 
     def run(self):
         t0 = time.perf_counter()
@@ -1060,7 +1098,7 @@ class Smoke:
               f" glu_silu at {ROWS} x {D_MODEL}/{D_FF}] counters {stats}; "
               f"launches {launches_b}")
 
-    def device_spans(self, fn, reps=1):
+    def device_spans(self, fn, reps=1, spins=SPIN_KERNELS, counted=None):
         """(kernel name, start us, end us) of every device kernel ``reps``
         calls of ``fn`` launch, from a torch.profiler trace (after one
         untraced call); empty when the profiler records no device events.
@@ -1076,12 +1114,16 @@ class Smoke:
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                for _ in range(SPIN_KERNELS):
+                for _ in range(spins):
                     torch.cuda._sleep(1000)
                 torch.cuda.synchronize()
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+        if counted is not None:             # spin kernels the trace kept
+            counted.append(sum(e.device_type == DeviceType.CUDA
+                               and "spin_kernel" in e.name
+                               for e in prof.events()))
         return sorted(((e.name, e.time_range.start, e.time_range.end)
                        for e in prof.events()
                        if e.device_type == DeviceType.CUDA
@@ -1104,14 +1146,15 @@ class Smoke:
                     "device"
         return self.cuda_ms(fn), "events"
 
-    def trace(self, fn, expect=None, classify=None) -> str:
+    def trace(self, fn, expect=None, classify=None, spans=None) -> str:
         """Device time of one call by kernel group, the share of the traced
         window in which no kernel ran, and the largest kernels outside the
         named groups.  ``expect`` maps a kernel name fragment to the launches
         one call makes; a trace that holds fewer is reported as incomplete
         and its split is not given.  ``classify`` maps a lower-case kernel
-        name to its group (default: the CNN groups)."""
-        spans = self.device_spans(fn)
+        name to its group (default: the CNN groups).  ``spans`` are
+        :meth:`device_spans` taken already."""
+        spans = spans if spans is not None else self.device_spans(fn)
         if not spans:
             return "not measured (the profiler recorded no device events)"
         for frag, n in (expect or {}).items():
@@ -4648,7 +4691,7 @@ class Smoke:
         from repro_torch.configs import get_config
         from repro_torch.models import lm
         t = time.perf_counter()
-        L = get_config("mamba2-2.7b").n_layers
+        L = MAMBA_TRAIN["layers"]
         kw = dict(arch="mamba2-2.7b", remat=MAMBA_TRAIN["remat"],
                   counters=self.ssm_counters)
         runs = {}
@@ -4729,7 +4772,7 @@ class Smoke:
               f"equals the uninterrupted run's bit for bit; resume run "
               f"{wall:.1f} s; phase {time.perf_counter() - t:.1f} s")
 
-        # 22d: the full-depth step per mode, in turns, on one model and state
+        # 22d: the step per mode, in turns, on one model and state
         trainer = self.lm_trainer("brainslug", L, "bfloat16",
                                   arch="mamba2-2.7b",
                                   remat=MAMBA_TRAIN["remat"])
@@ -6778,13 +6821,15 @@ class Smoke:
             torch.cuda.empty_cache()
         del params, p32
         ratio = dist["brainslug"][0] / dist["barrier"][0]
+        n_moe = lm.n_moe_layers(cfg)
         print(f"[25e step-1 gradient] {layers} layers bf16, every parameter, "
               f"relative L2 distance to the float32 gradient of the same "
               f"weights on the mode's routing decisions: " + "; ".join(
                   f"{m} {dist[m][0]:.4e} (loss {loss[m]}, float32 "
                   f"{dist[m][1]}, router_aux_loss "
-                  f"{dist[m][2]['router_aux_loss']:.4f}, drop_fraction "
-                  f"{dist[m][2]['drop_fraction']:.5f})" for m in dist)
+                  f"{dist[m][2]['router_aux_loss']:.4f}, drop_fraction a "
+                  f"MoE layer {dist[m][2]['drop_fraction'] / n_moe:.5f})"
+                  for m in dist)
               + f"; brainslug at {ratio:.3f}x barrier's (tol "
               f"{SSM_F32_FACTOR}x); brainslug's gradient twice from one "
               f"state bit for bit; {time.perf_counter() - t:.1f} s")
@@ -6825,7 +6870,8 @@ class Smoke:
                                        f"{i + 1}", got)
             runs[mode] = (hist, per_step, peak, wall)
         self.moe_launches["train_step"] = runs["brainslug"][1][0]
-        keys = ("loss", "grad_norm", "router_aux_loss", "drop_fraction")
+        keys = ("loss", "grad_norm", "router_aux_loss",
+                "drop_fraction_per_moe_layer")
         read = {m: {k: [h[k] for h in r[0]] for k in keys}
                 for m, r in runs.items()}
         if not all(math.isfinite(x) for r in read.values()
@@ -7083,6 +7129,699 @@ class Smoke:
               f"{MOE['llama4']} ({MOE['llama4_layers']} layers) per decode "
               f"step {la['llama4_decode_step']}; phase "
               f"{time.perf_counter() - t0:.1f} s")
+
+
+    # -- phase 26: compiled xla, the autotuner and remat="dots" --------------
+    def xla_counts(self):
+        """The compiled-call counter and dynamo's graph and graph-break
+        counts."""
+        from torch._dynamo.utils import counters
+        from repro_torch.kernels.fused_stack import ops
+        return (ops.STATS.counts["fwd_xla_compiled"],
+                counters["stats"]["unique_graphs"],
+                sum(counters["graph_break"].values()))
+
+    @staticmethod
+    def xla_group(low):
+        """Kernel groups of a trace with inductor's kernels in it."""
+        if low.startswith("triton_") or "triton_" in low[:12]:
+            return "inductor"
+        return None
+
+    def xla_trace(self, fn, expect=None):
+        """:meth:`trace` with inductor's kernels as a group, taken again,
+        with more spin kernels, while the profiler lost every spin kernel
+        or a launch ``expect`` counts.  It loses the first events of a
+        session: late in the script 55-58 of them on one H100, past the
+        default spin kernels into a VGG forward's launches; a
+        trace that kept a spin kernel kept every launch after it."""
+        out = "incomplete: no trace"
+        for spins in (SPIN_KERNELS, 8 * SPIN_KERNELS, 64 * SPIN_KERNELS):
+            kept = []
+            spans = self.device_spans(fn, spins=spins, counted=kept)
+            if not kept or kept[0] == 0:
+                out = (f"incomplete: the profiler kept none of {spins} "
+                       f"spin kernels; not used")
+                continue
+            out = self.trace(fn, expect, spans=spans, classify=lambda low: (
+                self.xla_group(low) or (
+                    "fused_nhwc_bwd" if any(k in low for k in (
+                        "nhwc_bwd", "nhwc_overlap_add", "nhwc_reduce"))
+                    else "fused_nhwc" if "fused_nhwc" in low
+                    else "fused_rows_bwd" if any(k in low for k in (
+                        "fused_rows_bwd", "reduce_partials"))
+                    else "fused_rows" if "fused_rows" in low
+                    else "conv" if any(k in low for k in (
+                        "conv", "cudnn", "xmma", "implicit", "fft",
+                        "_complex"))
+                    else "gemm" if "gemm" in low else "other")))
+            if not out.startswith("incomplete"):
+                break
+        return out
+
+    def phase26_slice_f(self):
+        t = time.perf_counter()
+        spent = {}
+        for name, fn in (("26a", self.phase26_xla),
+                         ("26b", self.phase26_autotune),
+                         ("26c", self.phase26_remat)):
+            t1 = time.perf_counter()
+            fn()
+            spent[name] = round(time.perf_counter() - t1, 1)
+        print(f"[26 seconds] {json.dumps(spent)}; phase "
+              f"{time.perf_counter() - t:.1f} s")
+
+    def phase26_xla(self):
+        """26a: ``mode="xla"`` (each stack's plain function under
+        ``torch.compile``) on the main path, against ``barrier``."""
+        torch = self.torch
+        import gc
+
+        import torch.nn.functional as F
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.core import api, collapse, resource
+        from repro_torch.models import cnn, lm
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        graph, params = cnn.vgg_net(VGG16_STAGES, device=self.dev)
+        x = self.randn(VGG_INPUT, 7)
+        nets = {m: api.optimize_graph(graph, VGG_INPUT,
+                                      api.OptimizeConfig(mode=m))
+                for m in ("xla", "barrier", "brainslug")}
+        n_seq = nets["xla"].n_sequences
+        with torch.no_grad():
+            want = nets["barrier"](x, params)
+            c0 = self.xla_counts()
+            got = nets["xla"](x, params)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t
+            c1 = self.xla_counts()
+            again = nets["xla"](x, params)
+            c2 = self.xla_counts()
+        calls, graphs, breaks = (b - a for a, b in zip(c0, c1))
+        if calls != n_seq or c2[0] - c1[0] != n_seq or breaks \
+                or c2[1] != c1[1]:
+            raise PhaseError(f"26a VGG xla: {calls} compiled calls for "
+                             f"{n_seq} sequences, {breaks} graph breaks, "
+                             f"{c2[1] - c1[1]} graphs on the second call")
+        err = float((got - want).abs().max())
+        if tuple(got.shape) != (VGG_INPUT[0], 10) or not bool(
+                torch.isfinite(got).all()) or not torch.allclose(
+                    got, want, **PATH_TOL) or not torch.equal(got, again):
+            raise PhaseError(f"26a VGG xla vs barrier max|d|={err:.3e}")
+        print(f"[26a VGG-16 xla] optimize_graph {VGG_INPUT} float32, "
+              f"mode=xla (each sequence's plain function under torch.compile,"
+              f" inductor, fullgraph): against barrier max|d|={err:.3e} (tol "
+              f"{PATH_TOL}), a second call bit for bit; {calls} compiled "
+              f"calls for {n_seq} sequences, {graphs} graphs compiled, "
+              f"{breaks} graph breaks; first call {first:.1f} s (compile)")
+
+        # training: three SGD steps through the differentiable plans
+        labels = torch.randint(0, 10, (VGG_INPUT[0],), device=self.dev,
+                               generator=torch.Generator(
+                                   device=self.dev).manual_seed(8))
+        tnets = {m: api.optimize_graph(graph, VGG_INPUT, api.OptimizeConfig(
+            mode=m, differentiable=True)) for m in ("xla", "barrier",
+                                                    "brainslug")}
+        n_tseq = tnets["xla"].n_sequences
+        runs = {}
+        t1 = time.perf_counter()
+        for m in ("barrier", "xla"):
+            self.zero_counts()
+            runs[m] = self.sgd(lambda p, m=m: tnets[m](x, p), params,
+                               lambda y: F.cross_entropy(y, labels))
+        compile_s = time.perf_counter() - t1
+        (lx, gx, steps), (lb, gb, _) = runs["xla"], runs["barrier"]
+        # the float64 anchor: barrier's step-1 gradient in float64
+        with torch.enable_grad():
+            p64 = {k: v.detach().double().requires_grad_() for k, v in
+                   params.items()}
+            loss64 = F.cross_entropy(tnets["barrier"](x.double(), p64),
+                                     labels)
+            g64 = dict(zip(p64, torch.autograd.grad(loss64,
+                                                    list(p64.values()))))
+        del p64, loss64
+
+        def dist(a, b):
+            return float(torch.linalg.vector_norm(a.double() - b)
+                         / torch.linalg.vector_norm(b))
+
+        worst, ratios, outside = 0.0, {}, {}
+        for k, w in gb.items():
+            d = (gx[k] - w).abs()
+            scale = float(w.abs().max())
+            worst = max(worst, float(d.max()) / max(scale, 1e-30))
+            outside[k] = int((d > TRAIN_RTOL * (w.abs() + scale)).sum())
+            ratios[k] = (dist(gx[k], g64[k]), dist(w, g64[k]))
+            if not bool(torch.isfinite(gx[k]).all()) or not ratios[k][0] \
+                    <= max(SSM_F32_FACTOR * ratios[k][1], XLA_F64_FLOOR):
+                raise PhaseError(f"26a VGG xla training: step-1 gradient of "
+                                 f"{k}: relative L2 to float64 xla "
+                                 f"{ratios[k][0]:.3e}, barrier "
+                                 f"{ratios[k][1]:.3e} (tol {SSM_F32_FACTOR}x"
+                                 f" barrier's or {XLA_F64_FLOOR})")
+        del g64
+        for a, b in zip(lx, lb):
+            if not math.isfinite(a) or abs(a - b) > TRAIN_RTOL * abs(b):
+                raise PhaseError(f"26a VGG xla training: losses {lx} vs "
+                                 f"barrier {lb}")
+        for i, (stats, launches) in enumerate(steps):
+            if stats["fwd_xla_compiled"] != n_tseq or any(
+                    stats[k] for k in ("fwd_generated", "fwd_reference",
+                                       "bwd_generated", "bwd_reference")) \
+                    or any(launches.values()):
+                raise PhaseError(f"26a VGG xla training step {i + 1}: "
+                                 f"counters {stats}, launches {launches}")
+        print(f"[26a VGG-16 xla training] differentiable=True, "
+              f"{TRAIN_STEPS} SGD steps lr {TRAIN_LR}: losses xla {lx} "
+              f"barrier {lb}; step-1 gradient of every parameter, relative "
+              f"L2 to barrier's float64 gradient, xla within "
+              f"{SSM_F32_FACTOR}x barrier's or {XLA_F64_FLOOR}: worst ratio "
+              f"{max(a / b for a, b in ratios.values()):.3f} (conv0_w xla "
+              f"{ratios['conv0_w'][0]:.3e}, barrier {ratios['conv0_w'][1]:.3e})"
+              f"; against barrier max|d|/max|g| = {worst:.3e}, elements past "
+              f"phase 9's rule (rtol {TRAIN_RTOL}, atol {TRAIN_RTOL}*max|g|) "
+              f"{ {k: v for k, v in outside.items() if v} } of "
+              f"{sum(w.numel() for w in gb.values())}; per step "
+              f"{n_tseq} compiled calls, no hand kernel launched; "
+              f"{compile_s:.1f} s with the compiles; graph breaks "
+              f"{self.xla_counts()[2]}")
+
+        # the three modes in turns, forward and training step, and traces
+        def step(m):
+            with torch.enable_grad():
+                leaves = {k: v.detach().requires_grad_() for k, v in
+                          params.items()}
+                loss = F.cross_entropy(tnets[m](x, leaves), labels)
+                return torch.autograd.grad(loss, list(leaves.values()))
+
+        turns = ("barrier", "xla", "brainslug", "brainslug", "xla",
+                 "barrier")
+        with torch.no_grad():
+            fwd = [(m, self.cuda_ms(lambda m=m: nets[m](x, params), reps=1,
+                                    groups=10)) for m in turns]
+        trn = [(m, self.cuda_ms(lambda m=m: step(m), reps=1, groups=5,
+                                warmup=1)) for m in turns]
+        print(f"[26a VGG-16 times] {self.smi}; forward, median of 10 (CUDA "
+              f"events), in turns: "
+              + "  ".join(f"{m}={v:.3f} ms" for m, v in fwd)
+              + "; training step (forward + backward), median of 5: "
+              + "  ".join(f"{m}={v:.3f} ms" for m, v in trn))
+        n_stage = len(VGG16_STAGES)
+        expect = {"barrier": ({"max_pool_forward_nhwc": n_stage},
+                              {"max_pool_backward_nhwc": n_stage}),
+                  "xla": (None, None),
+                  "brainslug": ({"fused_nhwc_kernel": n_stage},
+                                {"fused_nhwc_bwd_kernel": n_stage})}
+        for m in ("barrier", "xla", "brainslug"):
+            print(f"[26a trace forward {m}] " + self.xla_trace(
+                lambda m=m: nets[m](x, params), expect[m][0]))
+            print(f"[26a trace step {m}] " + self.xla_trace(
+                lambda m=m: step(m), expect[m][1]))
+
+        # each VGG stage's stack: inductor's kernels against fused_nhwc and
+        # fused_nhwc_bwd, forward and backward alone, on the stage's input
+        from repro_torch.core import codegen, ir
+        lines = []
+        env = {graph.input: x}
+        for seg in nets["barrier"].segments:
+            if not seg.is_stack:
+                if seg.op.kind == ir.OpKind.MATMUL:
+                    break
+                with torch.no_grad():
+                    env[seg.op.output] = ir.apply_op(seg.op, env, params)
+                continue
+            h = env[seg.stack.inputs[0]]
+            stack = seg.stack
+            in_shapes = {stack.inputs[0]: tuple(h.shape)}
+            plan = collapse.collapse(stack, in_shapes, resource.H100,
+                                     differentiable=True)
+            exes = {m: codegen.compile_plan(plan, mode=m)
+                    for m in ("xla", "brainslug")}
+            sp = {k: params[k] for k in stack.param_names}
+            with torch.no_grad():
+                ys = {m: e({stack.inputs[0]: h}, sp) for m, e in
+                      exes.items()}
+                fw = {m: self.device_ms(lambda m=m: exes[m](
+                    {stack.inputs[0]: h}, sp))[0] for m in exes}
+
+            def train_call(m, backward, h=h, sp=sp, exes=exes, stack=stack):
+                with torch.enable_grad():
+                    xi = h.detach().requires_grad_()
+                    pi = {k: v.detach().requires_grad_() for k, v in
+                          sp.items()}
+                    y = exes[m]({stack.inputs[0]: xi}, pi)[stack.outputs[0]]
+                    if backward:
+                        torch.autograd.grad(y, [xi, *pi.values()],
+                                            torch.ones_like(y))
+
+            # the backward alone: forward + backward less the training
+            # forward (the compiled backward takes no retained graph)
+            bw = {m: self.device_ms(lambda m=m: train_call(m, True),
+                                    reps=5)[0]
+                  - self.device_ms(lambda m=m: train_call(m, False),
+                                   reps=5)[0] for m in exes}
+            d = float((ys["xla"][stack.outputs[0]]
+                       - ys["brainslug"][stack.outputs[0]]).abs().max())
+            ratio = {k: (f"{v['xla'] / v['brainslug']:.2f}x"
+                         if v["brainslug"] > 0 else "n/a")
+                     for k, v in (("fw", fw), ("bw", bw))}
+            lines.append(f"  {stack.name} {tuple(h.shape)}: forward inductor "
+                         f"{fw['xla']:.4f} ms, fused_nhwc {fw['brainslug']:.4f}"
+                         f" ms ({ratio['fw']}); backward inductor "
+                         f"{bw['xla']:.4f} ms, fused_nhwc_bwd "
+                         f"{bw['brainslug']:.4f} ms ({ratio['bw']}); outputs "
+                         f"max|d| {d:.2e}")
+            env.update(ys["brainslug"])
+        print("[26a VGG stages] each stage's stack (differentiable plan) "
+              "alone on its input, device time (profiler) of the compiled "
+              "plain function's inductor kernels against the hand kernel, "
+              "forward and the backward alone (a training forward and "
+              "backward over every input and parameter, less the training "
+              "forward):\n" + "\n".join(lines))
+        del nets, tnets, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the LM block's row chains at deepseek-7b widths, in bf16 (the
+        # prefill below reuses their compiled graphs: rows compile dynamic)
+        cases = {c[0]: c for c in self.rows_cases()}
+        row_lines = []
+        tol = LM_TOL["bfloat16"]
+        for k, name in enumerate(("rms", "addnorm_rms", "glu_silu")):
+            _, program, in_shapes, p_shapes, _ = cases[name]
+            inputs, p = self.rows_inputs(name, in_shapes, p_shapes,
+                                         900 + 100 * k)
+            inputs = {n: v.bfloat16() for n, v in inputs.items()}
+            p = {n: v.bfloat16() for n, v in p.items()}
+            exes = {m: api.optimize_stack(program, in_shapes,
+                                          api.OptimizeConfig(mode=m))
+                    for m in ("xla", "brainslug", "barrier")}
+            with torch.no_grad():
+                c0 = self.xla_counts()
+                out = exes["xla"](inputs, p)
+                c1 = self.xla_counts()
+                want = exes["barrier"](inputs, p)
+                ms = {m: self.device_ms(lambda m=m: exes[m](inputs, p))[0]
+                      for m in exes}
+            if c1[0] - c0[0] != 1 or c1[2] != c0[2]:
+                raise PhaseError(f"26a {name} xla: counters {c0} -> {c1}")
+            self.check("fused_rows_bf16", f"26a {name} xla vs barrier",
+                       {v: out[v].float() for v in program.outputs},
+                       {v: t.float() for v, t in want.items()}, tol)
+            row_lines.append(f"{name} inductor {ms['xla']:.4f} ms, "
+                             f"fused_rows {ms['brainslug']:.4f} ms, barrier "
+                             f"{ms['barrier']:.4f} ms")
+        print(f"[26a LM row chains] optimize_stack at {ROWS} x "
+              f"{D_MODEL}/{D_FF} bf16, xla against barrier within {tol}, one "
+              f"compiled call each; device time: "
+              + "; ".join(row_lines))
+
+        # deepseek-7b lm.prefill at a cut depth, bf16
+        import dataclasses
+        cfg = dataclasses.replace(get_config("deepseek-7b"),
+                                  n_layers=XLA_LM["layers"])
+        lp = lm.init(0, cfg, device=self.dev)
+        g = torch.Generator(device=self.dev).manual_seed(2600)
+        tokens = torch.randint(0, cfg.vocab_size, PREFILL, generator=g,
+                               device=self.dev)
+        out = {}
+        with torch.inference_mode():
+            for m in ("barrier", "xla"):
+                c0 = self.xla_counts()
+                t1 = time.perf_counter()
+                out[m] = lm.prefill(lp, {"tokens": tokens}, cfg,
+                                    RuntimeConfig(mode=m))
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t1
+                c1 = self.xla_counts()
+            n_stacks = 3 * cfg.n_layers + 1
+            if c1[0] - c0[0] != n_stacks or c1[2] != c0[2]:
+                raise PhaseError(f"26a prefill xla: counters {c0} -> {c1}, "
+                                 f"{n_stacks} stacks")
+            rel = self.relative(out["xla"], out["barrier"])
+            if not bool(torch.isfinite(out["xla"]).all()) or \
+                    not rel <= PATH_BF16_REL:
+                raise PhaseError(f"26a prefill xla vs barrier max|d|/max "
+                                 f"{rel:.3e}")
+            pms = [(m, self.cuda_ms(lambda m=m: lm.prefill(
+                lp, {"tokens": tokens}, cfg, RuntimeConfig(mode=m)), reps=1,
+                groups=5)) for m in ("barrier", "xla", "brainslug",
+                                     "brainslug", "xla", "barrier")]
+            # one decode step, host-bound: what xla's own host cost adds
+            cache = lm.init_decode_cache(cfg, SERVE["batch"], 97,
+                                         dtype=torch.float32, device=self.dev)
+            tok = tokens[:, :SERVE["batch"]].reshape(SERVE["batch"], 1)
+
+            def step(m):
+                cache["blocks"]["sub0"].length.fill_(SERVE["prompt_len"])
+                return lm.decode_step(lp, cache, tok, cfg,
+                                      RuntimeConfig(mode=m))
+
+            c0 = self.xla_counts()
+            step("xla")
+            c1 = self.xla_counts()
+            if c1[0] - c0[0] != n_stacks or c1[2] != c0[2]:
+                raise PhaseError(f"26a decode step xla: counters {c0} -> "
+                                 f"{c1}, {n_stacks} stacks")
+            dms = [(m, self.cuda_ms(lambda m=m: step(m), reps=1, groups=20))
+                   for m in ("barrier", "xla", "brainslug", "brainslug",
+                             "xla", "barrier")]
+        print(f"[26a lm.prefill {PREFILL} bf16] deepseek-7b at full width cut "
+              f"to {cfg.n_layers} layers: xla against barrier last-position "
+              f"logits max|d|/max {rel:.3e} (tol {PATH_BF16_REL}), argmax "
+              f"equal {bool(out['xla'].argmax() == out['barrier'].argmax())};"
+              f" {n_stacks} compiled calls for {n_stacks} stacks, graph "
+              f"breaks {c1[2]}; first xla call {first:.1f} s; median of 5 "
+              f"(CUDA events), in turns: "
+              + "  ".join(f"{m}={v:.3f} ms" for m, v in pms))
+        print(f"[26a decode step] the same model, one lm.decode_step at batch "
+              f"{SERVE['batch']}, position {SERVE['prompt_len']} (float32 "
+              f"cache), {n_stacks} compiled calls a step in xla; median of 20 "
+              f"(CUDA events), in turns: "
+              + "  ".join(f"{m}={v:.3f} ms" for m, v in dms))
+        del lp, out, cache
+
+        # where a decode step's xla host time goes: one addnorm stack at the
+        # step's shape, host time a call over 200 issued calls (one
+        # synchronisation at the end), the compiled callable alone beside
+        # run_xla around it, barrier's eager ops and the rmsnorm kernel
+        from repro_torch.kernels.fused_stack import ops as fops
+        from repro_torch.kernels.rmsnorm import ops as rms_ops
+        from repro_torch.layers import stacks as lstacks
+        shape = (SERVE["batch"], 1, cfg.d_model)
+        hx, hr = (self.randn(shape, 31 + i).bfloat16() for i in range(2))
+        hs = self.randn((cfg.d_model,), 33).bfloat16()
+        an = lstacks.addnorm_program(cfg.norm, 1e-6, False)
+        ins, ps = {"x": hx, "res": hr}, {"scale": hs}
+        calls = {
+            "run_xla": lambda: fops.fused_stack_apply(an, ins, ps,
+                                                      mode="xla"),
+            "compiled callable": lambda: xfn(hx, hr, hs),
+            "barrier": lambda: fops.fused_stack_apply(an, ins, ps,
+                                                      mode="barrier"),
+            "brainslug rmsnorm": lambda: rms_ops.rmsnorm(hx, hs, hr, 1e-6)}
+
+        def host_us(fn, n=200):
+            fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t1) / n * 1e6
+
+        with torch.inference_mode():
+            calls["run_xla"]()
+            xfn = fops.xla_callable(an, [hx, hr, hs])
+            host = {k: [host_us(f) for _ in range(3)]
+                    for k, f in calls.items()}
+        print(f"[26a xla host cost] one addnorm stack at {shape} bf16, host "
+              f"us a call over 200 issued calls, 3 times: "
+              + "  ".join(f"{k}={'/'.join(f'{v:.1f}' for v in vs)}"
+                          for k, vs in host.items()))
+
+        # a recompile-limit hit raises on the card's torch too, never eager
+        import torch._dynamo
+        from repro_torch.core import ir as rir
+        prog = rir.StackProgram(
+            name="pool_relu", inputs=("x",), outputs=("y",), layout="nhwc",
+            ops=(rir.OpNode(rir.OpKind.POOL2D, "p", ("x",), "h", fn="max",
+                            attrs={"window": (2, 2), "stride": (2, 2),
+                                   "padding": (0, 0)}),
+                 rir.OpNode(rir.OpKind.EW_UNARY, "r", ("h",), "y",
+                            fn="relu")))
+        with torch.no_grad():
+            fops.fused_stack_apply(prog, {"x": self.randn((1, 8, 8, 4), 5)},
+                                   {}, mode="xla")
+            c0 = self.xla_counts()
+            try:
+                with torch._dynamo.config.patch(recompile_limit=1):
+                    fops.fused_stack_apply(
+                        prog, {"x": self.randn((1, 12, 12, 4), 6)}, {},
+                        mode="xla")
+            except torch._dynamo.exc.FailOnRecompileLimitHit as e:
+                hit = str(e)
+            else:
+                raise PhaseError("26a: a second shape past recompile_limit=1 "
+                                 "ran without raising")
+        if self.xla_counts()[0] != c0[0]:
+            raise PhaseError("26a: a call past the recompile limit counted")
+        print(f"[26a recompile limit] a second nhwc shape past "
+              f"recompile_limit=1 raised FailOnRecompileLimitHit ({hit!r}); "
+              f"no call counted")
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[26a xla] graph breaks over the phase {self.xla_counts()[2]};"
+              f" {time.perf_counter() - t:.1f} s")
+
+    def phase26_autotune(self):
+        """26b: ``OptimizeConfig(autotune=True)`` on the main path."""
+        torch = self.torch
+        import dataclasses
+        import gc
+        import os
+        import tempfile
+
+        from repro_torch import api as tapi
+        from repro_torch.core import api, autotune
+        from repro_torch.models import cnn, lm
+        t = time.perf_counter()
+        graph, params = cnn.vgg_net(VGG16_STAGES, device=self.dev)
+        x = self.randn(VGG_INPUT, 7)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_") as d:
+            for diff in (False, True):
+                cfg = api.OptimizeConfig(mode="brainslug", autotune=True,
+                                         autotune_cache_dir=d,
+                                         differentiable=diff)
+                autotune.clear_memory_cache()
+                before = autotune.STATS.snapshot()
+                t1 = time.perf_counter()
+                net = api.optimize_graph(graph, VGG_INPUT, cfg)
+                tuned_s = time.perf_counter() - t1
+                delta = autotune.STATS.delta(before)
+                rep = net.report()
+                if delta["candidate_failures"] or len(rep.autotune) != \
+                        net.n_stacks:
+                    raise PhaseError(f"26b VGG autotune: {delta}\n{rep}")
+                lines = [f"  {a.name}: {a.requested} -> {a.chosen}"
+                         f"{' (guardrail)' if a.guardrail_tripped else ''}; "
+                         + "  ".join(f"{v}/{p}={ms:.3f} ms"
+                                     for v, p, ms in a.measured_ms)
+                         for a in rep.autotune]
+                # the same search again, cold, into a cache of its own: how
+                # far a choice holds from one measurement to the next
+                autotune.clear_memory_cache()
+                again = api.optimize_graph(graph, VGG_INPUT, dataclasses.replace(
+                    cfg, autotune_cache_dir=os.path.join(d, f"again{diff}")))
+                rep2 = again.report()
+                if len(rep2.autotune) != len(rep.autotune):
+                    raise PhaseError(f"26b second tune: {rep2}")
+                agree = [(a.name, a.chosen, b.chosen) for a, b in
+                         zip(rep.autotune, rep2.autotune)]
+                del again
+                autotune.clear_memory_cache()
+                before = autotune.STATS.snapshot()
+                warm = api.optimize_graph(graph, VGG_INPUT, cfg)
+                wdelta = autotune.STATS.delta(before)
+                if wdelta["cache_hit_disk"] != len(rep.autotune) or \
+                        wdelta["measure_runs"] or wdelta["cache_miss"]:
+                    raise PhaseError(f"26b warm cache: {wdelta}")
+                plain = api.optimize_graph(graph, VGG_INPUT,
+                                           api.OptimizeConfig(mode="barrier"))
+                with torch.no_grad():
+                    got, want = warm(x, params), plain(x, params)
+                err = float((got - want).abs().max())
+                if not torch.allclose(got, want, **PATH_TOL):
+                    raise PhaseError(f"26b autotuned VGG vs barrier "
+                                     f"max|d|={err:.3e}")
+                print(f"[26b VGG-16 autotune{' differentiable' if diff else ''}"
+                      f"] optimize_graph {VGG_INPUT} mode=brainslug "
+                      f"autotune=True: {delta['decisions']} decisions, "
+                      f"{delta['measure_runs']} measure runs, "
+                      f"{delta['candidate_failures']} candidate failures, "
+                      f"{delta['guardrail_trips']} guardrail trips, "
+                      f"{tuned_s:.1f} s; again after clear_memory_cache(): "
+                      f"cache_hit_disk {wdelta['cache_hit_disk']}, "
+                      f"measure_runs {wdelta['measure_runs']}; the chosen "
+                      f"net against barrier max|d|={err:.3e} (tol "
+                      f"{PATH_TOL}); per stack, the choice and each "
+                      f"candidate's median ms a call (CUDA events over "
+                      f"back-to-back calls):\n" + "\n".join(lines)
+                      + f"\n  a second cold tune agrees on "
+                      f"{sum(a == b for _, a, b in agree)} of {len(agree)}: "
+                      + "  ".join(f"{n} {a}/{b}" for n, a, b in agree))
+                del net, warm, plain
+            # the traced VGG: the function-level floor
+            autotune.clear_memory_cache()
+            before = autotune.STATS.snapshot()
+            tnet = tapi.optimize(cnn.vgg_fn, x, params, config=tapi.
+                                 OptimizeConfig(mode="brainslug",
+                                                autotune=True,
+                                                autotune_cache_dir=d))
+            delta = autotune.STATS.delta(before)
+            floor = tnet.autotune_decisions.get(-1)
+            if floor is None or delta["candidate_failures"]:
+                raise PhaseError(f"26b traced VGG autotune: {delta}, floor "
+                                 f"{floor}")
+            with torch.no_grad():
+                got, want = tnet(x, params), cnn.vgg_fn(x, params)
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, **PATH_TOL):
+                raise PhaseError(f"26b traced VGG vs vgg_fn max|d|={err:.3e}")
+            print(f"[26b traced VGG-16 floor] api.optimize(vgg_fn) "
+                  f"autotune=True: {len(tnet.autotune_decisions)} decisions; "
+                  f"function floor {floor.requested} -> {floor.variant} "
+                  f"({'passthrough to vgg_fn' if tnet.passthrough else 'the rewrite runs'}): "
+                  + "  ".join(f"{v}={ms:.3f} ms"
+                              for v, _, ms in floor.measured_ms)
+                  + f"; against vgg_fn max|d|={err:.3e}")
+            del tnet
+            # the registry kernels: hopper against ref
+            heads, seq = 32, PREFILL[1]
+            dt = torch.bfloat16
+            p = lm.transformer_block_params(
+                D_MODEL, heads, D_FF, generator=torch.Generator(
+                    device=self.dev).manual_seed(23), dtype=dt,
+                device=self.dev)
+            xb = self.randn((1, seq, D_MODEL), 24).to(dt)
+            autotune.clear_memory_cache()
+            before = autotune.STATS.snapshot()
+
+            def block(x, p):
+                return lm.transformer_block_fn(x, p, n_heads=heads)
+
+            bnet = tapi.optimize(
+                block, xb, p, config=tapi.OptimizeConfig(
+                    mode="brainslug", autotune=True, autotune_cache_dir=d))
+            delta = autotune.STATS.delta(before)
+            kern = [a for a in bnet.report().autotune if a.kind == "kernel"]
+            if len(kern) != 4 or delta["candidate_failures"]:
+                raise PhaseError(f"26b block autotune: {delta}\n"
+                                 f"{bnet.report()}")
+            print(f"[26b registry kernels] transformer_block_fn (1, {seq}, "
+                  f"{D_MODEL}) bf16, autotune=True: "
+                  + "; ".join(f"{a.name} {a.requested} -> {a.chosen} ("
+                              + "  ".join(f"{v}={ms:.4f} ms"
+                                          for v, _, ms in a.measured_ms)
+                              + ")" for a in kern)
+                  + f"; {delta['decisions']} decisions in all, "
+                  f"{delta['candidate_failures']} candidate failures; "
+                  f"{time.perf_counter() - t:.1f} s")
+            del bnet, p, xb
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def phase26_remat(self):
+        """26c: ``remat`` none / dots / full on one set of weights."""
+        torch = self.torch
+        import dataclasses
+        import gc
+
+        from repro_torch.configs import LM_SHAPES, get_config
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.data import pipeline
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        cfg = dataclasses.replace(get_config("deepseek-7b"),
+                                  n_layers=XLA_LM["remat_layers"])
+        shape = dataclasses.replace(LM_SHAPES["train_4k"], global_batch=1,
+                                    seq_len=TRAIN_LM["seq"])
+        batch = {k: torch.from_numpy(a).to(self.dev) for k, a in
+                 pipeline.synth_batch(cfg, shape, 0, 0).items()}
+        params = lm.init(0, cfg, device=self.dev)
+        res = {}
+        for remat in ("none", "dots", "full", "dots", "none"):
+            live = base.tree_map(lambda q: q.detach().requires_grad_(),
+                                 params)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_gib = torch.cuda.memory_allocated() / 2 ** 30
+            t1 = time.perf_counter()
+            with torch.enable_grad():
+                loss, _ = lm.loss_fn(live, batch, cfg, RuntimeConfig(
+                    mode="brainslug", remat=remat))
+                grads = torch.autograd.grad(loss, base.tree_leaves(live))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t1)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if remat in res:
+                res[remat]["ms"].append(ms)
+                if not all(torch.equal(a, b) for a, b in zip(
+                        grads, res[remat]["grads"])):
+                    raise PhaseError(f"26c remat={remat}: two steps from one "
+                                     f"state differ in bits")
+            else:
+                res[remat] = dict(loss=float(loss.detach()), grads=grads,
+                                  ms=[ms],
+                                  peak=peak - base_gib, base=base_gib)
+            del live, loss, grads
+        same = all(torch.equal(a, b) for a, b in zip(res["dots"]["grads"],
+                                                     res["none"]["grads"]))
+        peaks = {r: v["peak"] for r, v in res.items()}
+        if not peaks["full"] <= peaks["dots"] <= peaks["none"]:
+            raise PhaseError(f"26c peak memory above the weights {peaks} GiB:"
+                             f" not full <= dots <= none")
+        if not same or res["dots"]["loss"] != res["none"]["loss"]:
+            raise PhaseError("26c remat=dots: gradients differ from "
+                             "remat=none's in bits")
+
+        # which products the backward recomputes: aten's mm / addmm / bmm
+        # counted while the backward runs (the hand kernels are no aten ops)
+        from torch.utils._python_dispatch import TorchDispatchMode
+        aten = torch.ops.aten
+        products = {"mm": aten.mm.default, "addmm": aten.addmm.default,
+                    "bmm": aten.bmm.default}
+
+        class Products(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.counts = dict.fromkeys(products, 0)
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                for name, op in products.items():
+                    if func is op:
+                        self.counts[name] += 1
+                return func(*args, **(kwargs or {}))
+
+        counts = {}
+        for remat in ("none", "dots", "full"):
+            live = base.tree_map(lambda q: q.detach().requires_grad_(),
+                                 params)
+            with torch.enable_grad():
+                loss, _ = lm.loss_fn(live, batch, cfg, RuntimeConfig(
+                    mode="brainslug", remat=remat))
+                with Products() as bwd:
+                    torch.autograd.grad(loss, base.tree_leaves(live))
+            counts[remat] = bwd.counts
+            del live, loss
+        mms = {r: c["mm"] + c["addmm"] for r, c in counts.items()}
+        if mms["dots"] != mms["none"] or \
+                mms["full"] < mms["none"] + cfg.n_layers:
+            raise PhaseError(f"26c backward products {counts}: dots must "
+                             f"recompute no mm/addmm, full at least one a "
+                             f"layer")
+        print(f"[26c remat] deepseek-7b at full width cut to {cfg.n_layers} "
+              f"layers, bf16, 1 x {TRAIN_LM['seq']} tokens, brainslug, one "
+              f"forward + backward from one set of weights each: peak memory "
+              f"above the {res['none']['base']:.2f} GiB held before the step"
+              f" (max_memory_allocated after reset_peak_memory_stats) "
+              + "  ".join(f"{r}={v:.2f} GiB" for r, v in peaks.items())
+              + " (full <= dots <= none holds); step wall (host clock around "
+              f"synchronised steps, in turns none dots full dots none) "
+              + "  ".join(f"{r}={'/'.join(f'{m:.1f}' for m in v['ms'])} ms"
+                          for r, v in res.items())
+              + f"; loss {res['none']['loss']}; dots gradients equal none's "
+              f"bit for bit; aten products run in the backward "
+              + "  ".join(f"{r}={c}" for r, c in counts.items())
+              + f": dots recomputes {mms['dots'] - mms['none']} mm/addmm, "
+              f"full {mms['full'] - mms['none']}")
+        del params, res, batch
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

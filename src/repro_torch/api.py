@@ -37,11 +37,13 @@ import torch.utils._pytree as pytree
 
 from repro_torch.core import analyzer, codegen, collapse, ir
 from repro_torch.core import api as core_api
+from repro_torch.core import autotune as autotune_mod
 from repro_torch.core import registry as registry_mod
 from repro_torch.core import trace as trace_mod
 
 OptimizeConfig = core_api.OptimizeConfig
 CoverageReport = core_api.CoverageReport
+AutotuneCoverage = core_api.AutotuneCoverage
 StackCoverage = core_api.StackCoverage
 KernelCoverage = core_api.KernelCoverage
 OptimizedNet = core_api.OptimizedNet
@@ -54,8 +56,9 @@ KernelVeto = registry_mod.KernelVeto
 
 __all__ = [
     "optimize", "OptimizedFn", "OptimizeConfig", "CoverageReport",
-    "StackCoverage", "KernelCoverage", "KernelType", "KernelDispatch",
-    "KernelVeto", "TraceResult", "MODES", "LAYOUTS", "optimize_graph", "optimize_stack",
+    "AutotuneCoverage", "StackCoverage", "KernelCoverage", "KernelType",
+    "KernelDispatch", "KernelVeto", "TraceResult", "MODES", "LAYOUTS",
+    "optimize_graph", "optimize_stack",
 ]
 
 
@@ -76,6 +79,14 @@ class OptimizedFn:
         dataclasses.field(default_factory=dict)
     kernel_matches: tuple = ()
     kernel_vetoes: tuple = ()
+    #: Committed autotune decisions by segment index; -1 is the
+    #: function-level floor (the rewrite against the function as given).
+    autotune_decisions: dict[int, autotune_mod.Decision] = \
+        dataclasses.field(default_factory=dict)
+    #: Set when the function-level floor measured the whole rewrite slower
+    #: than the function as given: ``__call__`` checks its arguments and
+    #: then calls that function.
+    passthrough: Callable | None = None
 
     def __call__(self, *args):
         tr = self.trace_result
@@ -97,6 +108,8 @@ class OptimizedFn:
                     f"re-run optimize() for new shapes or dtypes")
         core_api._check_device(self.device, {
             f"arg{i}": leaf for i, leaf in enumerate(leaves)})
+        if self.passthrough is not None:
+            return self.passthrough(*args)
         env = core_api.run_segments(self.segments, self.executors,
                                     {tr.input_name: leaves[0]},
                                     tr.bind_params(leaves))
@@ -125,7 +138,8 @@ class OptimizedFn:
         return core_api.coverage_report(
             self.segments, self.plans, self.trace_result.shapes,
             self.config.itemsize, kernel_dispatch=self.kernel_dispatches,
-            vetoes=self.kernel_vetoes)
+            vetoes=self.kernel_vetoes,
+            autotune_decisions=self.autotune_decisions)
 
     def explain(self) -> str:
         """Human-readable :meth:`report`."""
@@ -139,7 +153,11 @@ def optimize(fn: Callable, *example_args: Any,
     ``example_args`` is any pytree of tensors on the config's device; the
     result is specialised to their shapes and dtypes.  Unrecognised ops
     stay opaque: ``optimize`` never rejects a function, it captures less of
-    it (see :meth:`OptimizedFn.report`)."""
+    it (see :meth:`OptimizedFn.report`).
+
+    With ``config.autotune`` every stack and registry kernel is measured
+    and floored at its baseline, and then the whole rewrite is floored at
+    the function as given (:func:`_floor_whole_function`)."""
     device = core_api.resolve_device(config)
     leaves = pytree.tree_leaves(example_args)
     core_api._check_device(device, {
@@ -154,12 +172,77 @@ def optimize(fn: Callable, *example_args: Any,
     # executor materialises only its declared outputs)
     keep = frozenset(ref for kind, ref in tr.out_refs if kind == "env")
     segments = analyzer.analyze(tr.graph, layout="auto", keep=keep)
-    executors, plans, dispatches = core_api.compile_stacks(
-        segments, tr.shapes, config)
-    return OptimizedFn(trace_result=tr, segments=segments,
-                       executors=executors, plans=plans, config=config,
-                       device=device, kernel_dispatches=dispatches,
-                       kernel_matches=matches, kernel_vetoes=vetoes)
+    tuner = (autotune_mod.Autotuner.from_config(config) if config.autotune
+             else None)
+    executors, plans, dispatches, tuned = core_api.compile_stacks(
+        segments, tr.shapes, config, param_shapes=tr.param_shapes,
+        dtypes={**tr.dtypes, **tr.param_dtypes}, tuner=tuner)
+    net = OptimizedFn(trace_result=tr, segments=segments,
+                      executors=executors, plans=plans, config=config,
+                      device=device, kernel_dispatches=dispatches,
+                      kernel_matches=matches, kernel_vetoes=vetoes,
+                      autotune_decisions=tuned)
+    if tuner is not None:
+        _floor_whole_function(tuner, net, fn, example_args, config)
+    return net
+
+
+def _sig_value(v):
+    """Stable attr freeze for cache keys: opaque ops hold replay closures
+    whose default repr embeds a memory address — key on their qualname."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_sig_value(x) for x in v)
+    if isinstance(v, dict):
+        return tuple(sorted((k, _sig_value(x)) for k, x in v.items()))
+    if isinstance(v, torch.Tensor):
+        return (tuple(v.shape), str(v.dtype))
+    if callable(v):
+        return getattr(v, "__qualname__", type(v).__name__)
+    return ir._freeze(v)
+
+
+def _graph_signature(graph: ir.NetGraph) -> str:
+    return repr(tuple(
+        (op.kind.value, op.fn, op.inputs, op.output, op.params,
+         tuple(sorted((k, _sig_value(v)) for k, v in op.attrs.items())))
+        for op in graph.ops))
+
+
+def _floor_whole_function(tuner, net: OptimizedFn, fn: Callable,
+                          example_args: tuple,
+                          config: OptimizeConfig) -> None:
+    """The end-to-end guardrail: time the whole rewritten callable
+    (``optimized``) against ``raw``, the user's function as given: the
+    eager PyTorch they would run without ``optimize``.  When the rewrite
+    loses, ``net`` delegates to the function (per-segment wins do not
+    always survive end to end).  On the card an error of the rewrite
+    propagates (it runs the hand-written kernels); elsewhere it is
+    recorded and the function as given is kept."""
+    tr = net.trace_result
+    key_obj = {
+        "kind": "function", "name": tr.graph.name,
+        "sig": _graph_signature(tr.graph),
+        "avals": [[list(s), str(d)] for s, d in tr.leaf_avals],
+        "mode": config.mode,
+        "differentiable": config.differentiable,
+        "kernel_registry": config.kernel_registry,
+        "torch_device": autotune_mod.device_key(net.device),
+    }
+
+    def optimized() -> list:
+        net(*example_args)              # anything still to build, untimed
+        return [("fwd", net, example_args)]
+
+    builders = {"raw": lambda: [("fwd", fn, example_args)],
+                "optimized": optimized}
+    decision = tuner.decide(
+        key_obj, kind="function", name=tr.graph.name,
+        requested="optimized", baseline="raw", builders=builders,
+        must_run=autotune_mod.hand_written({"optimized": config.mode},
+                                           net.device))
+    net.autotune_decisions[-1] = decision
+    if decision.variant == "raw":
+        net.passthrough = fn
 
 
 # ---------------------------------------------------------------------------

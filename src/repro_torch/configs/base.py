@@ -153,7 +153,7 @@ class RuntimeConfig:
     of the JAX package's ``RuntimeConfig`` that the ported serving and
     training paths read, with the same defaults."""
     mode: str = "xla"                  # 'brainslug' | 'xla' | 'barrier'
-    remat: str = "none"                # 'none' | 'full' ('dots' comes later)
+    remat: str = "none"                # 'none' | 'dots' | 'full'
     # --- serving KV-cache layout ------------------------------------------
     # 'dense'  — every batch slot reserves max_len contiguous KV columns
     # 'paged'  — a fixed pool of kv_block_size-token blocks addressed

@@ -15,6 +15,15 @@ function, shares :func:`compile_stacks`, :func:`run_segments` and
 :func:`coverage_report` with them; its graphs also hold registry ``KERNEL``
 ops (:mod:`repro_torch.core.registry`).
 
+Modes: ``brainslug`` runs the hand-written Hopper kernels, ``xla`` each
+stack's plain function under ``torch.compile`` (the compiler-fusion
+comparison point, as XLA's fusion is in the JAX package), ``barrier`` the
+eager plain function op by op.  ``OptimizeConfig(autotune=True)`` times
+each stack's candidates (``brainslug`` and its tile and split variants,
+``xla``, ``barrier``) and each registry kernel's (``hopper``, ``ref``) on
+the traced shapes and commits the fastest that is no slower than the
+baseline (:mod:`repro_torch.core.autotune`).
+
 All run on ``cuda`` unless the config asks for ``cpu``
 (``OptimizeConfig(torch_device="cpu")``); asking for ``cuda`` without a GPU
 raises ``RuntimeError``.
@@ -26,8 +35,8 @@ from typing import Mapping
 
 import torch
 
-from repro_torch.core import (analyzer, codegen, collapse, ir, registry,
-                              resource)
+from repro_torch.core import (analyzer, autotune, codegen, collapse, ir,
+                              registry, resource)
 
 #: Execution modes an OptimizeConfig accepts.
 MODES = ("brainslug", "xla", "barrier")
@@ -53,6 +62,24 @@ class OptimizeConfig:
     # The traced path: rewrite attention / rmsnorm / swiglu / vocab-CE
     # clusters onto the dedicated kernels (repro_torch.core.registry).
     kernel_registry: bool = True
+    # Measured autotuning (repro_torch.core.autotune): time the candidate
+    # execution variants per segment on the traced shapes and commit the
+    # winner, hard-floored at the barrier / ref baseline so a losing
+    # variant degrades gracefully.  Off by default: the static planner
+    # stays deterministic and compile stays cheap unless the never-slower
+    # contract is asked for.
+    autotune: bool = False
+    # Decision-cache directory (None -> $REPRO_TORCH_AUTOTUNE_CACHE, else
+    # ~/.cache/repro_torch/autotune).  Entries are checksummed and
+    # version-keyed; corrupt or stale files are quarantined, never fatal.
+    autotune_cache_dir: str | None = None
+    autotune_repeats: int = 3        # median-of-k timing
+    autotune_warmup: int = 1         # untimed calls before the k
+    # Per-candidate budget: a non-baseline candidate whose first timed call
+    # (after its untimed build and compile) exceeds this is disqualified
+    # with a recorded reason.  The baseline is exempt: the floor must
+    # always exist.
+    autotune_timeout_ms: float | None = 2000.0
 
     def __post_init__(self) -> None:
         if self.mode not in MODES:
@@ -66,7 +93,17 @@ class OptimizeConfig:
             raise ValueError(
                 f"code_cache_size must be a positive int, got "
                 f"{self.code_cache_size!r}")
-        for flag in ("differentiable", "kernel_registry"):
+        if not isinstance(self.autotune_repeats, int) \
+                or self.autotune_repeats < 1:
+            raise ValueError(
+                f"autotune_repeats must be a positive int, got "
+                f"{self.autotune_repeats!r}")
+        if not isinstance(self.autotune_warmup, int) \
+                or self.autotune_warmup < 0:
+            raise ValueError(
+                f"autotune_warmup must be a non-negative int, got "
+                f"{self.autotune_warmup!r}")
+        for flag in ("differentiable", "kernel_registry", "autotune"):
             if not isinstance(getattr(self, flag), bool):
                 raise ValueError(f"{flag} must be a bool, got "
                                  f"{getattr(self, flag)!r}")
@@ -120,6 +157,22 @@ class KernelCoverage:
 
 
 @dataclasses.dataclass(frozen=True)
+class AutotuneCoverage:
+    """One committed autotune decision in the ``report()`` payload."""
+
+    name: str                 # stack / kernel / function label
+    kind: str                 # 'stack' | 'kernel' | 'function' | 'callable'
+    requested: str            # statically configured variant
+    baseline: str             # never-slower floor
+    chosen: str               # what actually runs
+    guardrail_tripped: bool   # the floor overrode the requested variant
+    source: str               # 'measured' | 'cache-mem' | 'cache-disk'
+    measured_ms: tuple = ()   # ((variant, phase, ms), ...)
+    events: tuple = ()        # cache hit/miss/quarantine notes
+    failures: tuple = ()      # ((variant, reason), ...)
+
+
+@dataclasses.dataclass(frozen=True)
 class CoverageReport:
     """What the optimizer captured — the ``report()``/``explain()`` payload.
 
@@ -145,6 +198,18 @@ class CoverageReport:
     n_kernel: int = 0
     kernels: tuple[KernelCoverage, ...] = ()
     vetoes: tuple[registry.KernelVeto, ...] = ()
+    autotune: tuple[AutotuneCoverage, ...] = ()
+
+    @property
+    def guardrail_trips(self) -> int:
+        """Decisions where the never-slower floor overrode the requested
+        variant."""
+        return sum(1 for a in self.autotune if a.guardrail_tripped)
+
+    @property
+    def autotune_cache_hits(self) -> int:
+        return sum(1 for a in self.autotune
+                   if a.source in ("cache-mem", "cache-disk"))
 
     @property
     def kernel_hits(self) -> dict[str, int]:
@@ -189,6 +254,18 @@ class CoverageReport:
         for v in self.vetoes:
             lines.append(f"  kernel {v.kernel:12s} {v.op_name:28s} "
                          f"vetoed, runs as traced ({v.reason})")
+        for a in self.autotune:
+            trip = "  GUARDRAIL" if a.guardrail_tripped else ""
+            times = "  ".join(f"{v}/{p}={ms:.3f}ms"
+                              for v, p, ms in a.measured_ms)
+            lines.append(
+                f"  autotune {a.kind:8s} {a.name:24s} "
+                f"{a.requested} -> {a.chosen} [{a.source}]{trip}"
+                + (f"  {times}" if times else ""))
+            for ev in a.events:
+                lines.append(f"    note: {ev}")
+            for variant, why in a.failures:
+                lines.append(f"    candidate {variant} failed: {why}")
         return "\n".join(lines)
 
 
@@ -204,12 +281,23 @@ def coverage_report(segments, plans: Mapping[int, collapse.CollapsePlan],
                     itemsize: int,
                     kernel_dispatch: Mapping[int, registry.KernelDispatch]
                     | None = None,
-                    vetoes: tuple[registry.KernelVeto, ...] = ()
+                    vetoes: tuple[registry.KernelVeto, ...] = (),
+                    autotune_decisions: Mapping[int, autotune.Decision]
+                    | None = None
                     ) -> CoverageReport:
     """Per-stack coverage + planned HBM traffic (analytic bytes from shapes,
-    not measured) of a rewritten network, its registry dispatches and the
-    registry's vetoed matches."""
+    not measured) of a rewritten network, its registry dispatches, the
+    registry's vetoed matches and the committed autotune decisions (keyed
+    by segment index, -1 for the function-level floor)."""
     kernel_dispatch = kernel_dispatch or {}
+    tuned = tuple(
+        AutotuneCoverage(
+            name=d.name, kind=d.kind, requested=d.requested,
+            baseline=d.baseline, chosen=d.variant,
+            guardrail_tripped=d.guardrail_tripped, source=d.source,
+            measured_ms=d.measured_ms, events=d.events,
+            failures=d.failures)
+        for _, d in sorted((autotune_decisions or {}).items()))
     n_captured = n_opaque = n_backbone = n_synthetic = 0
     stacks: list[StackCoverage] = []
     kernels: list[KernelCoverage] = []
@@ -249,7 +337,8 @@ def coverage_report(segments, plans: Mapping[int, collapse.CollapsePlan],
         n_backbone=n_backbone, n_stacks=len(stacks),
         capture_ratio=n_captured / eligible if eligible else 1.0,
         stacks=tuple(stacks), n_synthetic=n_synthetic,
-        n_kernel=len(kernels), kernels=tuple(kernels), vetoes=tuple(vetoes))
+        n_kernel=len(kernels), kernels=tuple(kernels), vetoes=tuple(vetoes),
+        autotune=tuned)
 
 
 def run_segments(segments, executors: Mapping[int, codegen.Executor],
@@ -284,6 +373,8 @@ class OptimizedNet:
         default_factory=dict)   # value name -> inferred shape
     kernel_dispatches: dict[int, registry.KernelDispatch] = \
         dataclasses.field(default_factory=dict)
+    autotune_decisions: dict[int, autotune.Decision] = dataclasses.field(
+        default_factory=dict)
 
     def __call__(self, x: torch.Tensor,
                  params: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -304,7 +395,8 @@ class OptimizedNet:
         """Per-stack coverage + planned HBM traffic of this rewrite."""
         return coverage_report(self.segments, self.plans, self.shapes,
                                self.config.itemsize,
-                               kernel_dispatch=self.kernel_dispatches)
+                               kernel_dispatch=self.kernel_dispatches,
+                               autotune_decisions=self.autotune_decisions)
 
     def explain(self) -> str:
         """Human-readable :meth:`report`."""
@@ -312,31 +404,56 @@ class OptimizedNet:
 
 
 def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
-                   config: OptimizeConfig
+                   config: OptimizeConfig, *,
+                   param_shapes: Mapping[str, tuple[int, ...]] | None = None,
+                   dtypes: Mapping[str, torch.dtype] | None = None,
+                   tuner: autotune.Autotuner | None = None
                    ) -> tuple[dict[int, codegen.Executor],
                               dict[int, collapse.CollapsePlan],
-                              dict[int, registry.KernelDispatch]]:
+                              dict[int, registry.KernelDispatch],
+                              dict[int, autotune.Decision]]:
     """Collapse + compile every stack segment, and compile every registry
-    KERNEL segment, against ``config``.  Returns (executors, plans, kernel
-    dispatch records), each keyed by segment index."""
+    KERNEL segment, against ``config``.  With ``config.autotune`` (or an
+    explicit ``tuner``) each segment's variant is measured and hard-floored
+    at its baseline (:mod:`repro_torch.core.autotune`); ``param_shapes``
+    and ``dtypes`` (the trace's, where there is one) shape the measured
+    operands.  Returns (executors, plans, kernel dispatch records, autotune
+    decisions), each keyed by segment index."""
+    if tuner is None and config.autotune:
+        tuner = autotune.Autotuner.from_config(config)
     executors: dict[int, codegen.Executor] = {}
     plans: dict[int, collapse.CollapsePlan] = {}
     dispatches: dict[int, registry.KernelDispatch] = {}
+    decisions: dict[int, autotune.Decision] = {}
     for idx, seg in enumerate(segments):
         if not seg.is_stack:
             if seg.op.kind == ir.OpKind.KERNEL:
+                backend = reason = None
+                if tuner is not None:
+                    tuned = autotune.tune_kernel(tuner, seg.op, config)
+                    if tuned is not None:
+                        decisions[idx], backend, reason = tuned
                 executors[idx], dispatches[idx] = codegen.compile_kernel_op(
                     seg.op, mode=config.mode,
-                    cache_size=config.code_cache_size)
+                    cache_size=config.code_cache_size, backend=backend,
+                    reason=reason)
             continue
         in_shapes = {v: tuple(shapes[v]) for v in seg.stack.inputs}
-        plans[idx] = collapse.collapse(
-            seg.stack, in_shapes, config.device, itemsize=config.itemsize,
-            max_steps_per_sequence=config.max_steps_per_sequence,
-            differentiable=config.differentiable)
+        mode = config.mode
+        if tuner is not None and config.mode != "barrier":
+            # barrier IS the floor: nothing to measure against
+            decisions[idx], mode, plans[idx] = autotune.tune_stack(
+                tuner, seg.stack, in_shapes, config,
+                param_shapes=param_shapes, dtypes=dtypes)
+        else:
+            plans[idx] = collapse.collapse(
+                seg.stack, in_shapes, config.device,
+                itemsize=config.itemsize,
+                max_steps_per_sequence=config.max_steps_per_sequence,
+                differentiable=config.differentiable)
         executors[idx] = codegen.compile_plan(
-            plans[idx], mode=config.mode, cache_size=config.code_cache_size)
-    return executors, plans, dispatches
+            plans[idx], mode=mode, cache_size=config.code_cache_size)
+    return executors, plans, dispatches, decisions
 
 
 def optimize_graph(graph: ir.NetGraph,
@@ -353,10 +470,12 @@ def optimize_graph(graph: ir.NetGraph,
             shapes.update(ir.infer_shapes(seg.stack, in_shapes))
         else:
             _infer_opaque_shape(seg.op, shapes)
-    executors, plans, dispatches = compile_stacks(segments, shapes, config)
+    executors, plans, dispatches, decisions = compile_stacks(
+        segments, shapes, config)
     return OptimizedNet(graph=graph, segments=segments, executors=executors,
                         plans=plans, config=config, device=device,
-                        shapes=shapes, kernel_dispatches=dispatches)
+                        shapes=shapes, kernel_dispatches=dispatches,
+                        autotune_decisions=decisions)
 
 
 def optimize_stack(program: ir.StackProgram,

@@ -7,7 +7,8 @@ Sequences run serially, communicating through materialised boundary values
 * ``brainslug`` — the hand-written depth-first kernels (one forward and
   one backward launch per sequence; see
   :mod:`repro_torch.kernels.fused_stack.ops`);
-* ``xla``       — the eager interpreter;
+* ``xla``       — each sequence's plain function under ``torch.compile``
+  (inductor fuses it, as XLA fuses the plain path in the JAX package);
 * ``barrier``   — per-op materialisation (the paper's framework baseline).
 
 Registry ``KERNEL`` ops compile through :func:`compile_kernel_op`: the
@@ -84,7 +85,10 @@ def _cache_put(key: tuple, value) -> None:
 
 def compile_plan(plan: collapse_mod.CollapsePlan, *, mode: str = "xla",
                  cache_size: int | None = None) -> Executor:
-    """Compile a collapse plan into ``executor(inputs, params) -> outputs``."""
+    """Compile a collapse plan into ``executor(inputs, params) -> outputs``.
+    In ``xla`` mode each sequence runs compiled, one compiled callable a
+    sequence signature (:func:`~repro_torch.kernels.fused_stack.ops.
+    xla_callable`), built at its first call."""
     if cache_size is not None:
         _raise_cache_limit_to(cache_size)
     key = (plan.program.signature(), mode, plan.input_shapes,
@@ -136,7 +140,8 @@ def kernel_inner(op: ir.OpNode, *, backend: registry_mod.KernelType,
     share one entry.  Each call counts ``<kernel>_hopper`` (the kernel
     launched on a CUDA tensor), ``<kernel>_plain`` (its wrapper on a CPU
     tensor, which runs the kernel's plain version) or ``<kernel>_ref`` in
-    ``registry.STATS``."""
+    ``registry.STATS``.  The autotuner calls it directly to time ``hopper``
+    against ``ref`` on the same operands before it commits a dispatch."""
     if cache_size is not None:
         _raise_cache_limit_to(cache_size)
     entry = registry_mod.get(op.attrs["kernel"])
@@ -162,13 +167,21 @@ def kernel_inner(op: ir.OpNode, *, backend: registry_mod.KernelType,
 
 
 def compile_kernel_op(op: ir.OpNode, *, mode: str = "xla",
-                      cache_size: int | None = None
+                      cache_size: int | None = None,
+                      backend: registry_mod.KernelType | None = None,
+                      reason: str | None = None
                       ) -> tuple[Executor, registry_mod.KernelDispatch]:
     """Compile one registry KERNEL op; returns (executor, dispatch record).
     The backend (the hand-written kernel or its plain version) is decided
     here, once, from the traced shapes and the mode, and returned so that
-    ``report()`` shows a fallback."""
-    dispatch = registry_mod.plan_dispatch(op, mode)
+    ``report()`` shows a fallback.  An explicit ``backend`` (with its
+    ``reason``) overrides the static planner: the autotuner's measured
+    dispatch arrives through it."""
+    if backend is None:
+        dispatch = registry_mod.plan_dispatch(op, mode)
+    else:
+        dispatch = registry_mod.KernelDispatch(op.attrs["kernel"], backend,
+                                               reason)
     inner = kernel_inner(op, backend=dispatch.backend, cache_size=cache_size)
 
     def executor(inputs: Mapping[str, torch.Tensor],

@@ -14,18 +14,24 @@
   it: nhwc stacks whose extra inputs are spatially extended run the plain
   forward and differentiate it with autograd, and so does the backward of a
   program with an op outside ``autodiff.supports``.
-* ``xla``     — the eager interpreter (PyTorch runs one kernel per op).
-* ``barrier`` — the interpreter with every op output materialised (the
-  paper's breadth-first baseline).
+* ``xla``     — the interpreter under ``torch.compile`` (inductor,
+  ``fullgraph=True``): the compiler-fusion comparison point, as XLA's
+  fusion of the plain path is in the JAX package (:func:`xla_callable`).
+* ``barrier`` — the eager interpreter with every op output materialised
+  (the paper's breadth-first baseline).
 
-Both non-brainslug modes differentiate natively through autograd.
-Executables are built once per structural signature + tile geometry and
-cached (paper: "If there are multiple equivalent stacks, BRAINSLUG only
-generates the code once"); one entry holds the forward and the backward.
+Both non-brainslug modes differentiate through autograd (``xla`` through
+AOTAutograd's compiled backward).  Executables are built once per
+structural signature + tile geometry and cached (paper: "If there are
+multiple equivalent stacks, BRAINSLUG only generates the code once"); one
+entry holds the forward and the backward.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
+import types
 from collections import OrderedDict
 from typing import Callable, Mapping
 
@@ -48,7 +54,7 @@ class DispatchStats:
     or :meth:`reset` at phase boundaries."""
 
     BASE_KEYS = ("fwd_generated", "fwd_reference",
-                 "bwd_generated", "bwd_reference")
+                 "bwd_generated", "bwd_reference", "fwd_xla_compiled")
 
     def __init__(self, keys: tuple[str, ...] = BASE_KEYS) -> None:
         self._keys = tuple(keys)
@@ -109,8 +115,9 @@ def set_cache_limit(n: int) -> None:
     if n < 1:
         raise ValueError(f"cache limit must be >= 1, got {n}")
     _CACHE_LIMIT = n
-    while len(_EXEC_CACHE) > _CACHE_LIMIT:
-        _EXEC_CACHE.popitem(last=False)
+    for cache in (_EXEC_CACHE, _XLA_CACHE, _POSITIONAL):
+        while len(cache) > _CACHE_LIMIT:
+            cache.popitem(last=False)
 
 
 def get_executable(program: ir.StackProgram, *, tile_rows: int = 256,
@@ -232,6 +239,170 @@ def _build_executable(program: ir.StackProgram, tile_rows: int,
                            f_chunk=f_chunk)
 
 
+# ---------------------------------------------------------------------------
+# xla mode: the plain interpreter under torch.compile.
+# ---------------------------------------------------------------------------
+
+#: LRU over compiled xla callables, bounded with the executables.  Kept
+#: across clear_executable_cache(): they hold no plan state, and dropping
+#: one only makes dynamo and inductor compile it again.
+_XLA_CACHE: "OrderedDict[tuple, Callable]" = OrderedDict()
+_XLA_IDS = itertools.count()
+
+#: ``id(program)`` -> (program, its positional program, that one's
+#: signature): the stacks a process calls again and again are long-lived
+#: objects (the LM's are cached, a plan's are held by its executor), so a
+#: warm ``xla`` call rebuilds no program and computes no signature.  The
+#: entry holds its program, so the id cannot be reused while it lives.
+#: Bounded with the caches above.
+_POSITIONAL: "OrderedDict[int, tuple]" = OrderedDict()
+
+
+def _positional(program: ir.StackProgram) -> ir.StackProgram:
+    """``program`` with its values and parameters renamed by position
+    (inputs ``x{i}``, parameters ``p{j}``, op outputs ``v{k}``): stacks that
+    differ only in names (the traced graph's and ``optimize_graph``'s
+    VGG stages, one LM stack in several models) compile once."""
+    names = {v: f"x{i}" for i, v in enumerate(program.inputs)}
+    pnames = {q: f"p{j}" for j, q in enumerate(program.param_names)}
+    ops = []
+    for k, op in enumerate(program.ops):
+        names[op.output] = f"v{k}"
+        ops.append(dataclasses.replace(
+            op, name=f"op{k}", output=f"v{k}",
+            inputs=tuple(names[v] for v in op.inputs),
+            params=tuple(pnames[q] for q in op.params)))
+    return ir.StackProgram(
+        name="xla", inputs=tuple(names[v] for v in program.inputs),
+        outputs=tuple(names[v] for v in program.outputs), ops=tuple(ops),
+        layout=program.layout)
+
+
+def _positional_of(program: ir.StackProgram
+                   ) -> tuple[ir.StackProgram, tuple]:
+    """The memoised :func:`_positional` of ``program`` and its
+    signature."""
+    held = _POSITIONAL.get(id(program))
+    if held is None or held[0] is not program:
+        pos = _positional(program)
+        held = _POSITIONAL[id(program)] = (program, pos, pos.signature())
+        while len(_POSITIONAL) > _CACHE_LIMIT:
+            _POSITIONAL.popitem(last=False)
+    return held[1], held[2]
+
+
+def _xla_key(pos_sig: tuple, tensors) -> tuple:
+    """One compiled callable per positional signature, operand dtypes,
+    device type and whether autograd records it.  Each gets a code object
+    of its own, so dynamo's recompile limit (8 entries a code object) is
+    spent only on the shapes of one such class: the first shape, the
+    dynamic graph after it, and dynamo's 0/1 specialisations.  The limit
+    itself stays at its default, and hitting it raises: under
+    ``fullgraph=True`` dynamo refuses to run a frame eager."""
+    training = torch.is_grad_enabled() and any(t.requires_grad
+                                               for t in tensors)
+    return (pos_sig, tuple(t.dtype for t in tensors),
+            tensors[0].device.type, training)
+
+
+def xla_callable(program: ir.StackProgram, tensors) -> Callable:
+    """The compiled plain function of ``program`` for operands like
+    ``tensors`` (inputs in ``program.inputs`` order, then parameters in
+    ``program.param_names`` order): ``fn(*tensors) -> outputs tuple`` in
+    ``program.outputs`` order.
+
+    The plain interpreter (:func:`ref.fused_stack_ref`) of the program
+    renamed by position (:func:`_positional`) runs through
+    ``torch.compile(backend="inductor", fullgraph=True)``.  A graph break
+    raises; so does the recompile limit.  Row programs mark every dim but
+    the feature dim dynamic on their first call, so prefill lengths, the
+    engine's mixed step and the MoE expert batch reuse one graph; nhwc
+    programs compile static and turn dynamic only if a second shape
+    comes (dynamo's automatic dynamic shapes)."""
+    return _xla_entry(program, tensors)[0]
+
+
+def _xla_entry(program: ir.StackProgram, tensors
+               ) -> tuple[Callable, bool]:
+    """:func:`xla_callable`'s callable, and whether it was made by this
+    call (its first call compiles)."""
+    program, pos_sig = _positional_of(program)
+    key = _xla_key(pos_sig, tensors)
+    fn = _XLA_CACHE.get(key)
+    fresh = fn is None
+    if fresh:
+        names, pnames = tuple(program.inputs), tuple(program.param_names)
+        n_in = len(names)
+
+        def xla_stack(*ts):
+            out = ref.fused_stack_ref(program, dict(zip(names, ts[:n_in])),
+                                      dict(zip(pnames, ts[n_in:])))
+            return tuple(out[v] for v in program.outputs)
+
+        # a code object of its own (see _xla_key); closures made by one
+        # ``def`` share theirs, and dynamo keeps its cache on the code
+        name = f"xla_stack_{next(_XLA_IDS)}"
+        code = xla_stack.__code__.replace(co_name=name, co_qualname=name)
+        fn = torch.compile(
+            types.FunctionType(code, xla_stack.__globals__, name, None,
+                               xla_stack.__closure__),
+            backend="inductor", fullgraph=True)
+        _XLA_CACHE[key] = fn
+    _XLA_CACHE.move_to_end(key)
+    while len(_XLA_CACHE) > _CACHE_LIMIT:
+        _XLA_CACHE.popitem(last=False)
+    return fn, fresh
+
+
+def _checkpoint_modes_only() -> bool:
+    """True when every active TorchDispatchMode is one of
+    ``torch.utils.checkpoint``'s selective-checkpoint modes (the
+    ``remat="dots"`` policy of :mod:`repro_torch.models.lm`)."""
+    from torch.utils import checkpoint as ckpt
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    sac = tuple(getattr(ckpt, n) for n in ("_CachingTorchDispatchMode",
+                                          "_CachedTorchDispatchMode")
+                if hasattr(ckpt, n))
+    return all(isinstance(m, sac) for m in _get_current_dispatch_mode_stack())
+
+
+def run_xla(program: ir.StackProgram, inputs: Mapping[str, torch.Tensor],
+            params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """One compiled ``xla`` call of ``program``; counts ``fwd_xla_compiled``.
+
+    Under ``remat="dots"`` the forward and its recomputation run inside
+    selective checkpointing's dispatch modes.  Every op of a stack is one
+    that policy recomputes, so the compiled call runs with those modes
+    set aside: the modes would otherwise see the ops the compiled code
+    dispatches, and record nothing the policy keeps.  Autograd's saved-
+    tensor hooks, which drop and recompute what the call saves, stay on.
+    Any other active dispatch mode raises: compiling under it is untried,
+    and xla never falls back to eager in silence."""
+    tensors = ([inputs[n] for n in program.inputs]
+               + [params[p] for p in program.param_names])
+    fn, fresh = _xla_entry(program, tensors)
+    if fresh and program.layout == "rows":
+        # the marks matter to the compile the first call makes; later
+        # calls meet the graph's own guards
+        from torch._dynamo import maybe_mark_dynamic
+        for t in tensors:
+            for d in range(t.dim() - 1):
+                maybe_mark_dynamic(t, d)
+    modes = contextlib.nullcontext()
+    if torch._C._len_torch_dispatch_stack():
+        from torch.utils._python_dispatch import _disable_current_modes
+        if not _checkpoint_modes_only():
+            raise NotImplementedError(
+                "mode='xla' cannot run its compiled stacks under an active "
+                "TorchDispatchMode other than selective checkpointing's; "
+                "use mode='barrier' for the eager plain path")
+        modes = _disable_current_modes()
+    with modes:
+        outs = fn(*tensors)
+    STATS.record("fwd_xla_compiled")
+    return dict(zip(program.outputs, outs))
+
+
 def fused_stack_apply(program: ir.StackProgram,
                       inputs: Mapping[str, torch.Tensor],
                       params: Mapping[str, torch.Tensor],
@@ -248,7 +419,7 @@ def fused_stack_apply(program: ir.StackProgram,
     if mode == "barrier":
         return ref.fused_stack_ref(program, inputs, params, barrier=True)
     if mode == "xla":
-        return ref.fused_stack_ref(program, inputs, params)
+        return run_xla(program, inputs, params)
     exe = get_executable(program, tile_rows=tile_rows, tile_out_h=tile_out_h,
                          tile_out_w=tile_out_w, f_chunk=f_chunk,
                          differentiable=differentiable)

@@ -104,12 +104,16 @@ class Trainer:
                 rec = {"step": step, "loss": loss,
                        "grad_norm": float(metrics["grad_norm"]),
                        "router_aux_loss": float(metrics["router_aux_loss"]),
-                       "drop_fraction": float(metrics["drop_fraction"]),
+                       # the loss's aux sums over the MoE layers (as the
+                       # JAX package's); a fraction is read a layer
+                       "drop_fraction_per_moe_layer":
+                           float(metrics["drop_fraction"])
+                           / max(1, lm.n_moe_layers(self.cfg)),
                        "slow": bool(slow)}
                 self.history.append(rec)
                 if step % self.tc.log_every == 0:
-                    moe = (f" aux={rec['router_aux_loss']:.4f} "
-                           f"drop={rec['drop_fraction']:.4f}"
+                    moe = (f" aux={rec['router_aux_loss']:.4f} drop/layer="
+                           f"{rec['drop_fraction_per_moe_layer']:.4f}"
                            if self.cfg.n_experts else "")
                     print(f"[train] step={step} loss={loss:.4f} "
                           f"gnorm={rec['grad_norm']:.3f}{moe}", flush=True)

@@ -33,7 +33,10 @@ prefill, decode and the training loss.
   kernel in ``brainslug`` mode for an untied head (a tied head, as mamba2's,
   takes the plain loss in every mode, as the JAX package does);
   ``remat="full"`` recomputes each super-block and each tail layer in the
-  backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does.
+  backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` does;
+  ``remat="dots"`` keeps their unbatched products' outputs and recomputes
+  the rest (selective checkpointing), as JAX's
+  ``dots_with_no_batch_dims_saveable`` policy does.
 
 Plain twins for the traced frontend (:func:`repro_torch.api.optimize`):
 :func:`transformer_block_fn` and :func:`ce_loss_fn`, ordinary tensor code
@@ -90,6 +93,12 @@ def layer_plan(cfg: ModelConfig) -> LayerPlan:
         return LayerPlan(("attn_dense",) * (p - 1) + ("attn_moe",),
                          cfg.n_layers // p, ())
     return LayerPlan(("attn_dense",), cfg.n_layers, ())
+
+
+def n_moe_layers(cfg: ModelConfig) -> int:
+    """How many MoE layers ``hidden``'s aux sums over."""
+    plan = layer_plan(cfg)
+    return plan.n_super * plan.superblock.count("attn_moe")
 
 
 def _check_ported(cfg: ModelConfig) -> LayerPlan:
@@ -198,21 +207,48 @@ def _apply_sub(kind: str, p: dict | None, resid: torch.Tensor,
     return resid, dense.apply(p["mlp"], h2, cfg, rt), None
 
 
+#: The unbatched products ``remat="dots"`` keeps: what ``x @ w`` and
+#: ``F.linear`` reach with a 2-D weight, at any number of leading dims.
+#: Batched products (``bmm``: the plain attention's QK^T and PV, the MoE
+#: expert products batched over experts) carry batch dims, as their
+#: ``einsum``s do in the JAX package, and are recomputed.
+DOTS_SAVED = frozenset({torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` as a
+    selective-checkpoint policy.  The hand-written kernels are not
+    dispatcher ops (a cpp extension or a Triton launch), so the policy
+    never sees them and they are recomputed, as the JAX package recomputes
+    its ``pallas_call``s.  On the CPU the wrappers run their plain
+    versions, whose ops the policy treats as any other."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _remat(fn, rt: RuntimeConfig):
-    """``fn`` as the backward should see it: ``remat="full"`` recomputes
-    it from its inputs (``torch.utils.checkpoint``, non-reentrant) instead
-    of saving what it makes."""
-    if rt.remat == "full":
-        def recomputed(*args):
-            return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                     use_reentrant=False)
-        return recomputed
-    if rt.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (keep only the matmul outputs) has no PyTorch "
-            "counterpart yet; it comes with a later slice of the port "
-            "(ROADMAP.md, queue 1)")
-    return fn
+    """``fn`` as the backward should see it (``torch.utils.checkpoint``,
+    non-reentrant): ``remat="full"`` recomputes it from its inputs instead
+    of saving what it makes; ``remat="dots"`` keeps the outputs of its
+    unbatched products (:data:`DOTS_SAVED`) and recomputes the rest, as
+    ``jax.checkpoint`` with ``dots_with_no_batch_dims_saveable`` does.
+    ``xla`` stacks under ``dots`` run compiled
+    (:func:`repro_torch.kernels.fused_stack.ops.run_xla`)."""
+    if rt.remat == "none":
+        return fn
+    kw = {"context_fn": _dots_context} if rt.remat == "dots" else {}
+
+    def recomputed(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False, **kw)
+    return recomputed
 
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig

@@ -58,6 +58,9 @@ def test_optimize_graph_matches_jax(net, mode):
     if mode == "brainslug":        # an explicit CPU run is never coverage
         assert delta["fwd_generated"] == 0
         assert delta["fwd_reference"] == tnet.n_sequences
+    elif mode == "xla":            # every sequence one compiled call
+        assert delta == {**dict.fromkeys(delta, 0),
+                         "fwd_xla_compiled": tnet.n_sequences}
     else:
         assert sum(delta.values()) == 0
     report = tnet.report()

@@ -192,11 +192,15 @@ def loss_case(model):
 
 
 @pytest.mark.parametrize("mode,remat", [("brainslug", "none"),
+                                        ("brainslug", "dots"),
                                         ("brainslug", "full"),
+                                        ("xla", "dots"),
                                         ("xla", "full")])
 def test_loss_and_grads_match_jax(model, loss_case, mode, remat):
     """The fused CE loss (brainslug: the head is untied) and the plain one;
-    ``remat="full"`` recomputes each super-block and tail layer.  The
+    ``remat="full"`` recomputes each super-block and tail layer, and
+    ``remat="dots"`` all but their unbatched products, bit for bit with
+    ``remat="none"``.  The
     shared block's gradient sums its applications, as ``jax.grad``'s."""
     tcfg, tok = model["tcfg"], model["tokens"]
     labels, res = loss_case
@@ -209,7 +213,17 @@ def test_loss_and_grads_match_jax(model, loss_case, mode, remat):
              "labels": torch.from_numpy(labels).long()}
     loss, _ = tlm.loss_fn(params, batch, tcfg,
                           TRuntime(mode=mode, remat=remat))
-    it = iter(torch.autograd.grad(loss, leaves))
+    grads = torch.autograd.grad(loss, leaves)
+    if remat == "dots":                 # bit for bit with remat="none"
+        ref = _tparams(model)
+        ref_leaves = tbase.tree_leaves(ref)
+        for p in ref_leaves:
+            p.requires_grad_()
+        loss0, _ = tlm.loss_fn(ref, batch, tcfg, TRuntime(mode=mode))
+        assert torch.equal(loss.detach(), loss0.detach())
+        assert all(torch.equal(a, b) for a, b in zip(
+            grads, torch.autograd.grad(loss0, ref_leaves)))
+    it = iter(grads)
     got = convert.grads_to_numpy(tbase.tree_map(lambda _: next(it), params),
                                  like=model["np_params"])
     np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=REL)

@@ -71,3 +71,13 @@ def test_ssm_slice_modules_import_neither_jax_nor_repro():
                  "kernels.ssd.ops", "layers.mamba2", "configs.mamba2_2p7b"):
         assert f"repro_torch.{name}" in result["modules"]
     assert result["bad"] == []
+
+
+def test_slice_f_modules_import_neither_jax_nor_repro():
+    """Slice F: the autotuner and the compiled ``xla`` path (``torch``'s
+    dynamo and inductor are imported when a stack first compiles)."""
+    result = _probe()
+    for name in ("core.autotune", "core.api", "api",
+                 "kernels.fused_stack.ops"):
+        assert f"repro_torch.{name}" in result["modules"]
+    assert result["bad"] == []

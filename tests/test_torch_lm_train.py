@@ -6,7 +6,9 @@
 * ``lm.loss_fn`` and every parameter gradient against
   ``jax.value_and_grad(repro.models.lm.loss_fn)`` at reduced deepseek-7b
   (float32, the same weights via ``convert``), in all three modes, with
-  ``fused_loss_chunk`` 0 and 16 and ``remat`` "none" and "full": losses
+  ``fused_loss_chunk`` 0 and 16 and ``remat`` "none", "dots" and "full"
+  (``dots`` against the JAX package's ``dots``, and bit for bit against
+  the port's ``none``): losses
   within 1e-4 relative, gradients within rtol 1e-4 and atol 1e-4 x max|g|
   per leaf (float32 sums in another order through 4 layers);
 * ``adamw.update`` with ``warmup_cosine`` against the JAX functions over
@@ -146,12 +148,16 @@ def lm_case():
     res = {}
     for mode, chunk in (("brainslug", 0), ("xla", 0), ("xla", 16),
                         ("barrier", 0), ("barrier", 16)):
-        rt = JRuntime(mode=mode, interpret=True, fused_loss_chunk=chunk)
-        fn = jax.jit(jax.value_and_grad(
-            lambda p, b, rt=rt: jlm.loss_fn(p, b, jcfg, rt), has_aux=True))
-        (loss, metrics), grads = fn(jparams, jbatch)
-        res[(mode, chunk)] = (float(loss), float(metrics["nll"]),
-                              jax.tree_util.tree_map(np.asarray, grads))
+        for remat in ("none", "dots"):
+            rt = JRuntime(mode=mode, interpret=True, fused_loss_chunk=chunk,
+                          remat=remat)
+            fn = jax.jit(jax.value_and_grad(
+                lambda p, b, rt=rt: jlm.loss_fn(p, b, jcfg, rt),
+                has_aux=True))
+            (loss, metrics), grads = fn(jparams, jbatch)
+            res[(mode, chunk, remat)] = (
+                float(loss), float(metrics["nll"]),
+                jax.tree_util.tree_map(np.asarray, grads))
     return dict(tcfg=tconfigs.get_config("deepseek-7b").reduced(),
                 np_params=np_params, batch=batch, res=res)
 
@@ -167,45 +173,102 @@ def _assert_grads(got, want, what):
                                atol=TRAIN_RTOL * scale, err_msg=what)
 
 
-@pytest.mark.parametrize("remat", ["none", "full"])
-@pytest.mark.parametrize("chunk", [0, 16])
-@pytest.mark.parametrize("mode", ["brainslug", "xla", "barrier"])
-def test_loss_and_grads_match_jax(lm_case, mode, chunk, remat):
-    """``brainslug`` takes the fused CE kernel whatever the chunk (its JAX
-    reference too); the other modes take ``_nll_from_hidden``, chunked
-    under ``torch.utils.checkpoint`` at 16."""
+def _loss_and_grads(lm_case, rt):
     params = convert.lm_params_from_numpy(lm_case["np_params"], "cpu")
     leaves = tbase.tree_leaves(params)
     for p in leaves:
         p.requires_grad_()
     batch = {k: torch.from_numpy(v) for k, v in lm_case["batch"].items()}
-    rt = TRuntime(mode=mode, remat=remat, fused_loss_chunk=chunk)
     loss, metrics = tlm.loss_fn(params, batch, lm_case["tcfg"], rt)
+    return params, leaves, loss, metrics, torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+@pytest.mark.parametrize("chunk", [0, 16])
+@pytest.mark.parametrize("mode", ["brainslug", "xla", "barrier"])
+def test_loss_and_grads_match_jax(lm_case, mode, chunk, remat):
+    """``brainslug`` takes the fused CE kernel whatever the chunk (its JAX
+    reference too); the other modes take ``_nll_from_hidden``, chunked
+    under ``torch.utils.checkpoint`` at 16.  ``remat="dots"`` is held
+    against the JAX package's own ``dots``, and against the port's
+    ``remat="none"`` bit for bit."""
+    rt = TRuntime(mode=mode, remat=remat, fused_loss_chunk=chunk)
+    params, _, loss, metrics, grads = _loss_and_grads(lm_case, rt)
     assert set(metrics) == {"loss", "nll", "router_aux_loss",
                             "drop_fraction"}
-    grads = torch.autograd.grad(loss, leaves)
     it = iter(grads)
     gtree = convert.grads_to_numpy(tbase.tree_map(lambda _: next(it), params),
                                    like=lm_case["np_params"])
     want_loss, want_nll, want_grads = lm_case["res"][
-        (mode, 0 if mode == "brainslug" else chunk)]
+        (mode, 0 if mode == "brainslug" else chunk,
+         "dots" if remat == "dots" else "none")]
     np.testing.assert_allclose(float(loss.detach()), want_loss,
                                rtol=TRAIN_RTOL)
     np.testing.assert_allclose(float(metrics["nll"].detach()), want_nll,
                                rtol=TRAIN_RTOL)
     _assert_grads(gtree, want_grads, f"{mode} chunk={chunk} remat={remat}")
+    if remat == "dots":
+        _, _, loss0, _, grads0 = _loss_and_grads(
+            lm_case, TRuntime(mode=mode, fused_loss_chunk=chunk))
+        assert torch.equal(loss.detach(), loss0.detach())
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads0))
 
 
-def test_remat_dots_raises():
-    params = convert.lm_params_from_numpy(
-        jax.tree_util.tree_map(np.asarray, jlm.init(
-            jax.random.PRNGKey(0),
-            jconfigs.get_config("deepseek-7b").reduced())[0]), "cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="dots"):
-        tlm.loss_fn(params, batch, tconfigs.get_config("deepseek-7b")
-                    .reduced(), TRuntime(remat="dots"))
+class _OpCounter(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the aten products that run while it is active."""
+
+    OPS = {"mm": torch.ops.aten.mm.default,
+           "addmm": torch.ops.aten.addmm.default,
+           "bmm": torch.ops.aten.bmm.default}
+
+    def __init__(self):
+        super().__init__()
+        self.counts = dict.fromkeys(self.OPS, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        for name, op in self.OPS.items():
+            if func is op:
+                self.counts[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _products(lm_case, remat):
+    """The products of the forward, and of the backward (where the
+    recomputation runs), at ``mode="barrier"``: the plain attention's
+    QK^T and PV are ``bmm``s, the projections and the MLP ``mm``s."""
+    params = convert.lm_params_from_numpy(lm_case["np_params"], "cpu")
+    leaves = tbase.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_()
+    batch = {k: torch.from_numpy(v) for k, v in lm_case["batch"].items()}
+    with _OpCounter() as fwd:
+        loss, _ = tlm.loss_fn(params, batch, lm_case["tcfg"],
+                              TRuntime(mode="barrier", remat=remat))
+    with _OpCounter() as bwd:
+        torch.autograd.grad(loss, leaves)
+    return fwd.counts, bwd.counts
+
+
+def test_remat_dots_saves_unbatched_products_only(lm_case):
+    """During the backward ``dots`` recomputes no ``mm`` / ``addmm`` (they
+    are as many as under ``none``) and recomputes every ``bmm`` of the
+    blocks; ``full`` recomputes the blocks' products too.  The vocab head
+    sits outside the remat'd blocks and is not recomputed; nor is a
+    block's last product (the MLP's down projection): non-reentrant
+    checkpointing stops recomputing once it has every tensor the backward
+    saved, and that product's output is not one."""
+    fwd, none = _products(lm_case, "none")
+    _, dots = _products(lm_case, "dots")
+    _, full = _products(lm_case, "full")
+    layers = lm_case["tcfg"].n_layers
+    assert fwd["bmm"] == 2 * layers and fwd["mm"] == 7 * layers + 1
+    assert dots["mm"] == none["mm"] and dots["addmm"] == none["addmm"]
+    assert dots["bmm"] == none["bmm"] + fwd["bmm"]
+    assert full["mm"] == none["mm"] + 6 * layers
+    assert full["bmm"] == dots["bmm"]
+
+
+def test_remat_rejects_unknown_policies():
     with pytest.raises(ValueError, match="remat"):
         TRuntime(remat="some")
 

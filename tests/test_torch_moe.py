@@ -385,13 +385,16 @@ def loss_case(model):
 
 
 @pytest.mark.parametrize("mode,remat", [("brainslug", "none"),
+                                        ("brainslug", "dots"),
                                         ("brainslug", "full"),
+                                        ("xla", "dots"),
                                         ("xla", "full")])
 def test_loss_and_grads_match_jax(model, loss_case, mode, remat):
     """The loss carries ``router_aux_weight x router_aux_loss``; its
     gradient reaches the routers through the aux and the gate weights, and
     the experts through the deterministic dispatch and combine;
-    ``remat="full"`` recomputes the MoE blocks."""
+    ``remat="full"`` recomputes the MoE blocks, and ``remat="dots"`` all
+    but their unbatched products, bit for bit with ``remat="none"``."""
     tcfg, tok = model["tcfg"], model["tokens"]
     labels, res = loss_case
     want_loss, jmetrics, want = res[mode]
@@ -403,7 +406,17 @@ def test_loss_and_grads_match_jax(model, loss_case, mode, remat):
              "labels": torch.from_numpy(labels).long()}
     loss, metrics = tlm.loss_fn(params, batch, tcfg,
                                 TRuntime(mode=mode, remat=remat))
-    it = iter(torch.autograd.grad(loss, leaves))
+    grads = torch.autograd.grad(loss, leaves)
+    if remat == "dots":                 # bit for bit with remat="none"
+        ref = _tparams(model)
+        ref_leaves = tbase.tree_leaves(ref)
+        for p in ref_leaves:
+            p.requires_grad_()
+        loss0, _ = tlm.loss_fn(ref, batch, tcfg, TRuntime(mode=mode))
+        assert torch.equal(loss.detach(), loss0.detach())
+        assert all(torch.equal(a, b) for a, b in zip(
+            grads, torch.autograd.grad(loss0, ref_leaves)))
+    it = iter(grads)
     metrics = {k: v.detach() for k, v in metrics.items()}
     got = convert.grads_to_numpy(tbase.tree_map(lambda _: next(it), params),
                                  like=model["np_params"])
@@ -555,8 +568,39 @@ def test_trainer_matches_jax_trainer(arch, mode):
                                [h["loss"] for h in want], rtol=REL)
     np.testing.assert_allclose([h["grad_norm"] for h in got],
                                [h["grad_norm"] for h in want], rtol=1e-3)
-    assert all(h["router_aux_loss"] > 0 and 0 <= h["drop_fraction"]
-               for h in got)
+    assert all(h["router_aux_loss"] > 0
+               and 0 <= h["drop_fraction_per_moe_layer"] <= 1 for h in got)
+
+
+def test_trainer_logs_drop_fraction_a_moe_layer(capsys):
+    """The loss's ``drop_fraction`` sums over the MoE layers, as the JAX
+    package's does; the ``Trainer`` records and logs it a MoE layer.  At
+    capacity factor 0.25 (256 tokens) over granite's 4 MoE layers the sum
+    passes 1 and the logged value stays the sum / 4."""
+    kw = dict(arch=GRANITE, reduced=True, batch_override=2, seq_override=128,
+              steps=2, mode="barrier", log_every=1, device="cpu",
+              config_overrides=(("capacity_factor", 0.25),))
+    trainer = ttrain.build_trainer(ttrain.TrainerConfig(**kw))
+    n_moe = tlm.n_moe_layers(trainer.cfg)
+    assert n_moe == trainer.cfg.n_layers == 4
+    sums = []
+    step_fn = trainer.step_fn
+
+    def recording(params, opt_state, batch):
+        out = step_fn(params, opt_state, batch)
+        sums.append(float(out[2]["drop_fraction"]))
+        return out
+
+    trainer.step_fn = recording
+    hist = trainer.run()
+    assert len(hist) == len(sums) == 2
+    assert max(sums) > 1
+    for h, s in zip(hist, sums):
+        assert h["drop_fraction_per_moe_layer"] == s / n_moe
+        assert 0 < h["drop_fraction_per_moe_layer"] <= 1
+    log = capsys.readouterr().out
+    assert [f"drop/layer={h['drop_fraction_per_moe_layer']:.4f}" in log
+            for h in hist] == [True, True]
 
 
 def test_checkpoints_cross_and_resume(tmp_path):
