@@ -10,9 +10,10 @@ Phases, one line each (plus tables):
 1. build the kernels from the sources in this tree (nvcc for the CUDA
    source, Triton for the generated rows kernels at first launch), with
    ptxas's registers and spills of the tensor-core kernels and the float32
-   flash kernel (an instance per head dim, 64, 112 and 128), the SSD
-   kernel, the nhwc kernels forward and backward and the two decode
-   kernels' 45 instances (dtypes x splits x head dims);
+   flash kernel (an instance per head dim, 64, 80, 112, 128 and 256), the
+   SSD kernel, the nhwc kernels forward and backward and the two decode
+   kernels' 60 instances each (dtypes x splits x head dims 64, 112, 128
+   and 256);
 2. the nhwc CUDA kernel against its plain version (max |d| <= 1e-5); its
    fused path (batch norm, ReLU, a 2x2/s2 max pool) at VGG-16's five stage
    shapes at batch 8 and at two odd extents, bit for bit;
@@ -164,12 +165,13 @@ Phases, one line each (plus tables):
    shared-attention application planted in barrier's run must be
    flagged), and a float32 run at the CPU tests' cut (attention every
    3rd layer, 8 layers) with identical tokens; (c) ``Server.generate`` (4
-   x 64 + 32 new) at HYBRID's 17 layers, dense cache, teacher-forced
+   x 64 + 32 new) at HYBRID's 15 layers, dense cache, teacher-forced
    against barrier and float32, flash decode 1 launch a step; (d)
    ``Engine.run``
    of 8 ragged requests, dense and paged, and (e) ``Trainer.run`` (remat
    full, 4096 tokens, three AdamW steps; the step-1 gradient against
-   float32; kill at step 2 and resume), both at HYBRID's 17 layers; (f)
+   float32; kill at step 2 and resume at 4 layers), both at HYBRID's 15
+   layers; (f)
    the prefill, a decode step and the training step per mode in turns,
    with a trace of each;
 25. the MoE family, granite-moe-3b-a800m at full width (d_model 1536, 24
@@ -210,9 +212,31 @@ Phases, one line each (plus tables):
    ``ref`` decisions of the deepseek-width block; (c) ``remat`` none,
    dots and full on deepseek-7b at 4 layers, 4096 tokens, bf16: peak
    memory full <= dots <= none, dots gradients equal none's bit for bit;
+27. the multimodal frontends: (a) flash attention at head dim 80 (1, 16,
+   2048) and (1, 16, 1000), causal and not, and at 256 (1, 8 over 1,
+   2048) and (1, 8, 1000) causal, bf16 and float32, two launches bit for
+   bit and bf16 within the P bound; both decode kernels at D 256, 8 heads
+   over 1, phase 14's ragged lengths, paged bit for bit with dense at
+   every split of every dtype pair; their times beside bound, plain and
+   SDPA; (b) hubert-xlarge at full width (48 layers, 16 heads of 80,
+   non-causal, layer norm, plain gelu MLP, bf16): ``lm.forward`` of 2048
+   frames, float32 frames within 1e-4 and bf16 frames within 5e-2 of
+   barrier (a dropped-layer control flagged), every flash launch
+   non-causal; ``Trainer.run`` at 8 layers on the pipeline's float32
+   frames (losses and grad norms at 18a's limits, the control flagged,
+   the step-1 ``frontend_proj`` gradient within 1e-4 in relative L2);
+   ``Server`` and ``Engine`` raising; (c) paligemma-3b at full width (18
+   layers, 8 heads of 256 over 1, gated gelu, tied vocab 257216, 256
+   patches of 1152, bf16): ``lm.prefill`` of 256 patches and 1792
+   tokens within 5e-2 of barrier (a dropped-layer control flagged),
+   ``Server.generate`` teacher-forced against barrier, the paged engine
+   at 4 layers, float32 at 2 layers with identical tokens, ``Trainer.run``
+   at 6 layers with the loss on the text positions (its step-1 embed
+   gradient held through a float32 run);
 then the ``kernels`` JSON line (each CUDA kernel with its instances, the
-attention kernels' head-dim 112 and 64 entries and the SSD's zamba2
-shape), the card line, and the ``ok`` line last.
+attention kernels' head-dim 112, 64, 80 and 256 entries, the SSD's zamba2
+shape and the multimodal paths' launches), the card line, and the ``ok``
+line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
 when any phase fails.
@@ -393,19 +417,24 @@ SSM_END_TO_END = ("layer 4's mixer dropped",)
 SSM_BLOCK_FACTOR = 1.05
 # The hybrid slice (phase 24): zamba2-7b at full width (d_model 3584, 32
 # heads of 112, mamba N 64 and 112 heads of 64).  Prefill runs all 81
-# layers.  The engine and the trainer (kill/resume included) are cut
-# to 17 layers: one super-block and a 3-layer tail, so both cache kinds,
+# layers.  The engine and the trainer are cut
+# to 15 layers: one super-block and a 1-layer tail, so both cache kinds,
 # the shared block and the tail are present.  At 31 layers (two
 # super-blocks) phase 24 took 371 s on one H100 and the script would have
-# run past its 1050 s aim; 17 layers save about 115 s.  The CPU tests hold the shared
-# block's gradient summed over two applications.  bf16 is held to barrier
-# through a float32 run (SSM_F32_FACTOR).
-# Serving (24c) runs at 17 layers too: it is host-bound (launches grow with
+# run past its 1050 s aim; 17 layers saved about 115 s, and 15 (for
+# phase 27's room) about 8 s a layer more.  The CPU tests hold the
+# shared block's gradient summed over two applications.  bf16 is held to
+# barrier through a float32 run (SSM_F32_FACTOR).
+# Serving (24c) runs at 15 layers too: it is host-bound (launches grow with
 # depth), took 51 s at 81 layers on one H100, and its checks (counters,
 # teacher forcing against barrier and float32) need one application of the
 # shared block and the tail, not five.
-HYBRID = dict(arch="zamba2-7b", engine_layers=17, train_layers=17,
-              serve_layers=17, remat="full")
+# The kill/resume leg (24e) runs 4 layers (the tail's mamba blocks, as
+# phases 22 and 25 do): at 15 it wrote two 13 GB checkpoints and took 63.9
+# s of phase 24's 188.3 on one H100; the shared block's checkpoint round
+# trip is held on the CPU (tests/test_torch_hybrid.py).
+HYBRID = dict(arch="zamba2-7b", engine_layers=15, train_layers=15,
+              serve_layers=15, resume_layers=4, remat="full")
 # The MoE slice (phase 25): granite-moe-3b-a800m at full width (d_model
 # 1536, 24 heads of 64 over 8 KV heads, 40 experts of d_ff 512, top-8, vocab
 # 49155, bf16).  Prefill and serving run all 32 layers; the trainer is cut
@@ -453,6 +482,26 @@ XLA_LM = dict(layers=8, remat_layers=4)
 # its 1.19e-7 steps; there the ratio is noise: 4.7e-8 against 5.2e-8 for
 # bn4_o, brainslug 9.9e-8, on that run).
 XLA_F64_FLOOR = 1e-6
+# The multimodal slice (phase 27): hubert-xlarge (48 layers, d_model 1280,
+# 16 heads of 80, d_ff 5120 plain gelu MLP with biases, layer norm, vocab
+# 504, frontend 512, bf16) and paligemma-3b (18 layers, d_model 2048, 8
+# heads of 256 over 1, d_ff 16384 gated gelu, vocab 257216 tied, 256
+# patches of 1152, bf16).  hubert's forward runs all 48 layers on 2048
+# frames; its trainer is cut to 8 layers (4096 frames, three AdamW steps),
+# paligemma's prefill and Server.generate run all 18, its engine 4, its
+# trainer 6 (256 patches and 4096 tokens; the tied head takes the plain
+# loss, its logits in chunks of 512 positions), float32 legs 2: for the
+# script's time, every check kept.  A dropped-layer control (the block at
+# drop_layer adds nothing) must be flagged by each bf16 limit it stands
+# beside.  The step-1 gradients are bf16 (the weights' dtype), so two
+# modes' float32 sums part by a bf16 step wherever they straddle a
+# rounding boundary: hubert's frontend_proj gradient is held in relative
+# L2 distance, paligemma's embed gradient through a float32 run
+# (SSM_F32_FACTOR).
+MULTIMODAL = dict(hubert="hubert-xlarge", paligemma="paligemma-3b",
+                  frames=2048, text=1792, hubert_train_layers=8,
+                  pali_train_layers=6, pali_engine_layers=4, f32_layers=2,
+                  loss_chunk=512, drop_layer=4, grad_l2=1e-4)
 
 
 class PhaseError(RuntimeError):
@@ -560,7 +609,8 @@ class Smoke:
               "phase16_engine_timing", "phase17_ce_kernel", "phase18_train",
               "phase19_train_timing", "phase20_ssd_kernel",
               "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced",
-              "phase24_hybrid", "phase25_moe", "phase26_slice_f")
+              "phase24_hybrid", "phase25_moe", "phase26_slice_f",
+              "phase27_multimodal")
 
     def run(self):
         t0 = time.perf_counter()
@@ -569,9 +619,11 @@ class Smoke:
             t = time.perf_counter()
             getattr(self, name)()
             spent[name.split("_")[0][5:]] = round(time.perf_counter() - t, 1)
+        # the kernels line first: it runs to tens of kilobytes, and the
+        # phase times stay readable in the end of the output
+        print(json.dumps({"kernels": [self.kernels[k] for k in KERNELS]}))
         print(f"[phases] seconds each {json.dumps(spent)}")
         print(f"[total] {time.perf_counter() - t0:.1f} s")
-        print(json.dumps({"kernels": [self.kernels[k] for k in KERNELS]}))
         print(self.smi)
         torch = self.torch
         print(json.dumps({"ok": True, "device": {
@@ -3261,10 +3313,15 @@ class Smoke:
         return out
 
     def lm_trainer(self, mode, layers, dtype, arch="deepseek-7b",
-                   init_dtype=None, **tc_kw):
+                   init_dtype=None, loss_chunk=0, **tc_kw):
         """``build_trainer`` of ``arch`` at full width cut to ``layers``,
         one 4096-token sequence, lr 3e-4 constant, weights from seed 0
-        (drawn in ``init_dtype`` when given, then cast to ``dtype``)."""
+        (drawn in ``init_dtype`` when given, then cast to ``dtype``);
+        ``loss_chunk`` > 0 steps with ``RuntimeConfig.fused_loss_chunk``
+        set to it (the plain loss's logits in chunks of that many
+        positions)."""
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.launch import steps as steps_mod
         from repro_torch.launch import train as train_mod
         from repro_torch.models import lm
         from repro_torch.optim import adamw
@@ -3282,8 +3339,15 @@ class Smoke:
                             device=dev)
             return base.cast_tree(drawn, lm.DTYPES[dtype])
 
-        return train_mod.build_trainer(
-            tc, init_params=init, opt_cfg=adamw.AdamWConfig(lr=TRAIN_LM["lr"]))
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_LM["lr"])
+        trainer = train_mod.build_trainer(tc, init_params=init,
+                                          opt_cfg=opt_cfg)
+        if loss_chunk:
+            trainer.step_fn = steps_mod.make_train_step(
+                trainer.cfg, RuntimeConfig(mode=mode, remat=tc.remat,
+                                           fused_loss_chunk=loss_chunk),
+                opt_cfg)
+        return trainer
 
     def train_lm(self, mode, layers, dtype, failure=None, counters=None,
                  **tc_kw):
@@ -3335,24 +3399,31 @@ class Smoke:
                 raise PhaseError(f"{what} step {i + 1}: counters {got}, "
                                  f"expected {want}")
 
-    def lm_step1_grads(self, mode, layers, dtype):
+    def lm_step1_grads(self, mode, layers, dtype, names=None, loss_chunk=0,
+                       **kw):
         """Step-1 gradients of the trainer's loss: ``lm.loss_fn`` on the
         seed-0 weights and the first batch, ``torch.autograd.grad`` over
-        every leaf (what ``make_train_step`` hands AdamW)."""
+        every leaf (what ``make_train_step`` hands AdamW); with ``names``,
+        those top-level leaves' gradients alone, by name (``kw``: the
+        trainer's, as :meth:`lm_trainer` takes)."""
         torch = self.torch
         from repro_torch.configs.base import RuntimeConfig
         from repro_torch.data import pipeline
         from repro_torch.layers import base
         from repro_torch.models import lm
-        trainer = self.lm_trainer(mode, layers, dtype)
+        trainer = self.lm_trainer(mode, layers, dtype, **kw)
         params, cfg = trainer.params, trainer.cfg
         batch = {k: torch.from_numpy(x).to(self.dev) for k, x in
                  pipeline.synth_batch(cfg, trainer.shape, 0, 0).items()}
         del trainer
+        rt = RuntimeConfig(mode=mode, fused_loss_chunk=loss_chunk)
         with torch.enable_grad():
             live = base.tree_map(lambda p: p.detach().requires_grad_(),
                                  params)
-            loss, _ = lm.loss_fn(live, batch, cfg, RuntimeConfig(mode=mode))
+            loss, _ = lm.loss_fn(live, batch, cfg, rt)
+            if names is not None:
+                return dict(zip(names, torch.autograd.grad(
+                    loss, [live[n] for n in names])))
             grads = torch.autograd.grad(loss, base.tree_leaves(live))
         return grads
 
@@ -5380,24 +5451,30 @@ class Smoke:
             -1).clamp_min(1e-30)
         return d.flatten().tolist()
 
-    def attention_kernels(self, d, heads, kv_heads, tag, seed):
-        """The three attention kernels at head dim ``d`` against their plain
-        versions in bf16 and float32 (flash at (1, ``heads``, 2048) causal
-        and (2, ``heads``, 1000) both ways over ``kv_heads`` KV heads, two
-        launches bit for bit and bf16 within its P bound; dense and paged
-        decode at phase 14's ragged lengths, paged bit for bit with dense
-        at every split); their times at those shapes beside bound, plain
-        version and SDPA, kept as the kernels' ``head_dim_{d}`` entries."""
+    def attention_kernels(self, d, heads, kv_heads, tag, seed,
+                          full_causal=(True,), ragged=(2, 1000),
+                          ragged_causal=(True, False), with_decode=True,
+                          timed_causal=True, every_split=False):
+        """The attention kernels at head dim ``d`` against their plain
+        versions in bf16 and float32 (flash at (1, ``heads``, 2048) with
+        ``full_causal`` and at ``ragged`` (batch, length) with
+        ``ragged_causal`` over ``kv_heads`` KV heads, two launches bit for
+        bit and bf16 within its P bound; with ``with_decode``, dense and
+        paged decode at phase 14's ragged lengths, paged bit for bit with
+        dense at every split: of the bf16 pair, or of every dtype pair with
+        ``every_split``); their times at those shapes (flash at 2048,
+        ``timed_causal``) beside bound, plain version and SDPA, kept as the
+        kernels' ``head_dim_{d}`` entries."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.core.resource import H100
         from repro_torch.kernels.attention import decode, flash, ref
         t = time.perf_counter()
         bf, f32 = torch.bfloat16, torch.float32
-        lines, flash_bound = [], []
+        lines, flash_bound, lens = [], [], None
         for dt in (bf, f32):
-            for (b, s_), causals in (((1, 2048), (True,)),
-                                     ((2, 1000), (True, False))):
+            for (b, s_), causals in (((1, 2048), full_causal),
+                                     (ragged, ragged_causal)):
                 q = self.randn((b, heads, s_, d), seed).to(dt)
                 k = self.randn((b, kv_heads, s_, d), seed + 1).to(dt)
                 v = self.randn((b, kv_heads, s_, d), seed + 2).to(dt)
@@ -5423,7 +5500,8 @@ class Smoke:
                         flash_bound.append(f"{err:.3e} (bound {bound:.3e})")
                 del q, k, v
         # dense and paged decode at (8, heads, ragged up to 32768, d)
-        for dt, pool_dt in ((bf, bf), (bf, f32), (f32, f32)):
+        for dt, pool_dt in ((bf, bf), (bf, f32), (f32, f32)) \
+                if with_decode else ():
             q, kp, vp, table, lens = self.paged_operands(
                 dt, pool_dt, heads, kv_heads, seed + 10, d=d)
             clipped = table.clamp(0, kp.shape[0] - 1)
@@ -5441,7 +5519,8 @@ class Smoke:
             if not (bool((got[0] == 0).all()) and bool((dense[0] == 0).all())):
                 raise PhaseError(f"decode at D {d}: a length-0 slot is not "
                                  f"exactly zero")
-            for s in (None,) + (decode.SPLITS if dt == bf == pool_dt else ()):
+            all_splits = every_split or dt == bf == pool_dt
+            for s in (None,) + (decode.SPLITS if all_splits else ()):
                 other = decode.paged_flash_decode(q, kp, vp, table, lens,
                                                   splits=s)
                 torch.cuda.synchronize()
@@ -5454,16 +5533,18 @@ class Smoke:
             lines.append(f"decode q {str(dt)[6:]} cache {str(pool_dt)[6:]} "
                          f"max|d| dense {err_d:.2e} paged {err_p:.2e}, paged "
                          f"== dense bit for bit"
-                         + (" at every split" if dt == bf == pool_dt else ""))
+                         + (" at every split" if all_splits else ""))
             del q, kp, vp, kd, vd, dense, got, clipped
         torch.cuda.empty_cache()
         print(f"[{tag} kernels D {d}] against their plain versions (tol "
               f"{LM_TOL}; bf16 flash two launches bit for bit and within the "
-              f"P bound: {', '.join(flash_bound)}), decode at ({PAGED['batch']}"
-              f", {heads} heads over {kv_heads}, lengths {lens.tolist()}, {d})"
-              f", block {PAGED['block']}, "
-              f"a shuffled table with sentinel tails, length 0 exactly zero: "
-              + "; ".join(lines) + f"; {time.perf_counter() - t:.1f} s")
+              f"P bound: {', '.join(flash_bound)})"
+              + (f", decode at ({PAGED['batch']}, {heads} heads over "
+                 f"{kv_heads}, lengths {lens.tolist()}, {d}), block "
+                 f"{PAGED['block']}, a shuffled table with sentinel tails, "
+                 f"length 0 exactly zero" if with_decode else "")
+              + ": " + "; ".join(lines)
+              + f"; {time.perf_counter() - t:.1f} s")
 
         # times beside bound, plain version and SDPA
         def nbytes(*ts):
@@ -5473,26 +5554,31 @@ class Smoke:
         q = self.randn((1, heads, s2, d), seed + 20).to(bf)
         k = self.randn((1, kv_heads, s2, d), seed + 21).to(bf)
         v = self.randn((1, kv_heads, s2, d), seed + 22).to(bf)
-        pairs = s2 * (s2 + 1) // 2
+        causal = timed_causal
+        pairs = s2 * (s2 + 1) // 2 if causal else s2 * s2
         t_ops = 4 * d * heads * pairs / PEAK_BF16 * 1e3
         t_by = nbytes(q, k, v, q) / H100.hbm_bandwidth * 1e3
         rows = {}
         with torch.inference_mode():
-            run = lambda: flash.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+            run = lambda: flash.flash_attention_fwd(q, k, v, causal=causal)  # noqa: E731
             k_ms, how = self.kernel_ms(run, "flash_fwd_kernel")
             rows["flash_attention"] = dict(
-                shape=f"(1, {heads}, {s2}, {d}) bf16 causal"
+                shape=f"(1, {heads}, {s2}, {d}) bf16 "
+                + ("causal" if causal else "non-causal")
                 + (f", {kv_heads} KV heads" if kv_heads != heads else ""),
                 ms=k_ms, how=how,
                 plain_ms=self.cuda_ms(lambda: flash.flash_attention_plain(
-                    q, k, v, causal=True), reps=1, groups=3, warmup=1),
+                    q, k, v, causal=causal), reps=1, groups=3, warmup=1),
                 library_ms=self.cuda_ms(
                     lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=True,
+                        q, k, v, is_causal=causal,
                         enable_gqa=kv_heads != heads)),
                 bound_ms=max(t_ops, t_by),
                 bound_by="operations" if t_ops >= t_by else "bytes")
         del q, k, v
+        if not with_decode:
+            self.print_times(tag, d, rows)
+            return
         q, kp, vp, table, lens = self.paged_operands(
             bf, bf, heads, kv_heads, seed + 30, d=d)
         clipped = table.clamp(0, kp.shape[0] - 1)
@@ -5528,6 +5614,12 @@ class Smoke:
                 bound_by=b_by, plan=self.paged_plan_note(q, table, kp))
         del q, kp, vp, kd, vd, mask, clipped
         torch.cuda.empty_cache()
+        self.print_times(tag, d, rows)
+
+    def print_times(self, tag, d, rows):
+        """The ``[tag times D d]`` lines of :meth:`attention_kernels`, each
+        row kept as its kernel's ``head_dim_{d}`` entry, and every CUDA
+        kernel's ptxas instances."""
         print(f"[{tag} times D {d}] device time per launch (profiler), plain "
               f"version and library call per call (events), bound (bytes "
               f"each input once and each output once, or operations at the "
@@ -6159,14 +6251,15 @@ class Smoke:
               f"{runs['brainslug'][1][0]}")
         self.hybrid_grad_anchor(L)
 
-        # kill at step 2, resume from the step-1 checkpoint; the brainslug
-        # run above is the uninterrupted one (the resumed run writes only
-        # its final checkpoint: each is 17 GB at 17 layers)
-        full = runs["brainslug"][0]
+        # kill at step 2, resume from the step-1 checkpoint, at
+        # HYBRID["resume_layers"] (the resumed run writes only its final
+        # checkpoint)
+        Lr = HYBRID["resume_layers"]
+        full = self.train_lm("brainslug", Lr, "bfloat16", **kw)[0]
         with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
             free = shutil.disk_usage(d).free / 2 ** 30
             try:
-                self.train_lm("brainslug", L, "bfloat16",
+                self.train_lm("brainslug", Lr, "bfloat16",
                               failure=ft.failure_injector({2}), ckpt_dir=d,
                               ckpt_every=1, **kw)
             except ft.SimulatedFailure:
@@ -6175,13 +6268,13 @@ class Smoke:
                 raise PhaseError("zamba2 kill/resume: the injected failure "
                                  "at step 2 did not happen")
             resumed, _, _, wall = self.train_lm(
-                "brainslug", L, "bfloat16", ckpt_dir=d,
+                "brainslug", Lr, "bfloat16", ckpt_dir=d,
                 ckpt_every=TRAIN_LM["steps"], **kw)
         if [h["step"] for h in resumed] != [2] or \
                 resumed[-1]["loss"] != full[-1]["loss"]:
             raise PhaseError(f"zamba2 kill/resume: resumed {resumed}, "
                              f"uninterrupted step-3 loss {full[-1]['loss']}")
-        print(f"[24e kill/resume] bf16 {L} layers brainslug: killed at step "
+        print(f"[24e kill/resume] bf16 {Lr} layers brainslug: killed at step "
               f"2, resumed from the step-1 checkpoint ({free:.0f} GiB free in "
               f"the temp dir): step-3 loss {resumed[-1]['loss']} equals the "
               f"uninterrupted run's bit for bit; resume run {wall:.1f} s; "
@@ -7822,6 +7915,501 @@ class Smoke:
         del params, res, batch
         gc.collect()
         torch.cuda.empty_cache()
+
+    # -- phase 27: the multimodal frontends ---------------------------------
+    @contextlib.contextmanager
+    def flash_causal_flags(self):
+        """Records the ``causal`` flag of every flash attention launch on a
+        CUDA tensor while it is held.  The wrapper counts its launches on
+        the module's name, so the count rides on the stand-in while it is
+        held and goes back to the wrapper after: read the counters after
+        leaving."""
+        from repro_torch.kernels.attention import flash
+        orig, flags = flash.flash_attention_fwd, []
+
+        def recorded(q, k, v, *, causal=True, **kw):
+            if q.is_cuda:
+                flags.append(causal)
+            return orig(q, k, v, causal=causal, **kw)
+
+        recorded.launches = orig.launches
+        flash.flash_attention_fwd = recorded
+        try:
+            yield flags
+        finally:
+            flash.flash_attention_fwd = orig
+            orig.launches = recorded.launches
+
+    @contextlib.contextmanager
+    def block_drop(self, n_layers, layer):
+        """The planted defect: the block at ``layer`` of every forward of
+        ``n_layers`` blocks adds nothing to the residual stream (its
+        attention and MLP outputs dropped).  Yields a list whose length
+        counts the blocks dropped."""
+        from repro_torch.models import lm
+        saved, seen, dropped = lm._apply_sub, [0], []
+
+        def apply(kind, p, resid, pending, *a, **kw):
+            seen[0] += 1
+            if seen[0] % n_layers == layer % n_layers:
+                dropped.append(1)
+                return resid + pending, self.torch.zeros_like(pending), None
+            return saved(kind, p, resid, pending, *a, **kw)
+
+        lm._apply_sub = apply
+        try:
+            yield dropped
+        finally:
+            lm._apply_sub = saved
+
+    def mm_train(self, tag, arch, layers, per_step, control=True, **kw):
+        """Three AdamW steps per mode through ``Trainer.run`` (brainslug's
+        counters per step as ``per_step`` says, barrier's all 0), and with
+        ``control`` a barrier run with one block dropped; returns {run:
+        (losses, grad norms)} and the phrases of the peaks and walls."""
+        kw = dict(arch=arch, counters=self.hybrid_counters, **kw)
+        runs, notes = {}, []
+        for mode in ("brainslug", "barrier"):
+            hist, steps, peak, wall = self.train_lm(mode, layers, "bfloat16",
+                                                    **kw)
+            for i, got in enumerate(steps):
+                self.expect_hybrid(f"{tag} {arch} train {mode} step {i + 1}",
+                                   got, **(per_step if mode == "brainslug"
+                                           else {}))
+            runs[mode] = ([h["loss"] for h in hist],
+                          [h["grad_norm"] for h in hist])
+            notes.append(f"{mode} peak {peak:.2f} GiB wall {wall:.1f} s")
+            if mode == "brainslug":
+                self.mm_launches[f"{arch} train_step"] = steps[0]
+        if control:
+            with self.block_drop(layers,
+                                 MULTIMODAL["drop_layer"]) as dropped:
+                hist = self.train_lm("barrier", layers, "bfloat16", **kw)[0]
+            if not dropped:
+                raise PhaseError(f"{tag} control: no block was dropped")
+            runs["dropped"] = ([h["loss"] for h in hist],
+                               [h["grad_norm"] for h in hist])
+        for run in runs.values():
+            if not all(math.isfinite(x) for v in run for x in v):
+                raise PhaseError(f"{tag} {arch} train: {runs}")
+        return runs, notes
+
+    def mm_gaps(self, runs, other):
+        """Per step, brainslug's (or ``other``'s) relative loss and grad
+        norm gaps to barrier, and the limits of 18a each breaks."""
+        ref_l, ref_g = runs["barrier"]
+        gl = [abs(a - b) / abs(b) for a, b in zip(runs[other][0], ref_l)]
+        gg = [abs(a - b) / abs(b) for a, b in zip(runs[other][1], ref_g)]
+        broken = [f"step-{i + 1} loss" for i, (g, lim) in enumerate(
+            zip(gl, TRAIN_BF16_LOSS_REL)) if g > lim] + [
+            f"step-{i + 1} grad_norm" for i, g in enumerate(gg)
+            if g > TRAIN_BF16_GNORM_REL]
+        return gl, gg, broken
+
+    def hubert(self):
+        """27b: hubert-xlarge at full width: the forward of 2048 frames at
+        all 48 layers (float32 and bf16 frames), three training steps at
+        MULTIMODAL's 8 layers, the Server and the Engine refusing it."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.launch import engine, serve
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        cfg = get_config(MULTIMODAL["hubert"])
+        L = cfg.n_layers
+        params = lm.init(0, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        print(f"[27 model] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads of {cfg.head_dim} (non-causal), d_ff "
+              f"{cfg.d_ff} ({cfg.act}, biases), {cfg.norm} norm, vocab "
+              f"{cfg.vocab_size}, frames of {cfg.frontend_dim}, {cfg.dtype}: "
+              f"{base.param_count(params) / 1e9:.3f} B random parameters "
+              f"(seed 0)")
+        frames = self.randn((1, MULTIMODAL["frames"], cfg.frontend_dim), 2710)
+        lines, logits = [], {}
+        with torch.inference_mode():
+            for name, batch, lim in (
+                    ("float32", {"frames": frames}, PATH_F32_REL),
+                    ("bfloat16", {"frames": frames.bfloat16()},
+                     PATH_BF16_REL)):
+                want = lm.forward(params, batch, cfg,
+                                  RuntimeConfig(mode="barrier"))[0]
+                torch.cuda.synchronize()
+                self.hybrid_counters(zero=True)
+                with self.flash_causal_flags() as flags:
+                    got = lm.forward(params, batch, cfg,
+                                     RuntimeConfig(mode="brainslug"))[0]
+                    torch.cuda.synchronize()
+                counts = self.hybrid_counters()
+                self.expect_hybrid(f"27b hubert forward, {name} frames",
+                                   counts, flash_attention=L,
+                                   fused_rows=3 * L + 1)
+                if flags != [False] * L:
+                    raise PhaseError(f"27b hubert: flash launches' causal "
+                                     f"flags {flags}, expected {L} False")
+                shape = (1, MULTIMODAL["frames"], cfg.vocab_size)
+                dt = getattr(torch, name)
+                if tuple(got.shape) != shape or got.dtype != dt or \
+                        want.dtype != dt or not bool(
+                            torch.isfinite(got).all()):
+                    raise PhaseError(f"27b hubert {name} frames: logits "
+                                     f"{tuple(got.shape)} {got.dtype} "
+                                     f"(barrier {want.dtype}), expected "
+                                     f"{shape} {dt}, finite")
+                rel = self.relative(got, want)
+                if not rel <= lim:
+                    raise PhaseError(f"27b hubert {name} frames: brainslug "
+                                     f"vs barrier max|d|/max {rel:.3e} > "
+                                     f"{lim}")
+                logits[name] = want
+                lines.append(f"{name} frames: {dt} logits {shape}, "
+                             f"max|d|/max|logits| {rel:.3e} (tol {lim})")
+            self.mm_launches["hubert forward"] = counts
+            with self.block_drop(L, MULTIMODAL["drop_layer"]) as dropped:
+                bad = lm.forward(params, {"frames": frames.bfloat16()}, cfg,
+                                 RuntimeConfig(mode="barrier"))[0]
+            rel_c = self.relative(bad, logits["bfloat16"])
+            if len(dropped) != 1 or not rel_c > PATH_BF16_REL:
+                raise PhaseError(f"27b hubert control: layer "
+                                 f"{MULTIMODAL['drop_layer']} dropped "
+                                 f"({len(dropped)} blocks) reads "
+                                 f"{rel_c:.3e}, within {PATH_BF16_REL}")
+        print(f"[27b hubert forward] lm.forward of (1, "
+              f"{MULTIMODAL['frames']}) frames at all {L} layers, brainslug "
+              f"vs barrier: " + "; ".join(lines) + f"; every flash launch "
+              f"causal=False; counters (bf16 frames) {counts}; control: "
+              f"barrier with layer {MULTIMODAL['drop_layer']}'s block "
+              f"dropped reads {rel_c:.3e} against the sound barrier, "
+              f"flagged by {PATH_BF16_REL}; {time.perf_counter() - t:.1f} s")
+        del params, logits, want, got, bad, frames
+        torch.cuda.empty_cache()
+
+        # training: float32 frames from the pipeline over bf16 weights, so
+        # the stream, flash attention and the CE kernel run in float32
+        t = time.perf_counter()
+        Lt = MULTIMODAL["hubert_train_layers"]
+        rows = 3 * Lt + 1
+        runs, notes = self.mm_train(
+            "27b", cfg.name, Lt, dict(flash_attention=Lt, fused_rows=rows,
+                                      fused_rows_bwd=rows, fused_ce=1))
+        gl, gg, broken = self.mm_gaps(runs, "brainslug")
+        if broken:
+            raise PhaseError(f"27b hubert train: brainslug vs barrier loss "
+                             f"gaps {gl}, grad_norm gaps {gg} break "
+                             f"{broken}")
+        cl, cg, flagged = self.mm_gaps(runs, "dropped")
+        if not flagged:
+            raise PhaseError(f"27b hubert train control (layer "
+                             f"{MULTIMODAL['drop_layer']} dropped): loss gaps "
+                             f"{cl}, grad_norm gaps {cg} within every limit")
+        grads = {m: self.lm_step1_grads(m, Lt, "bfloat16",
+                                        names=("frontend_proj",),
+                                        arch=cfg.name)["frontend_proj"]
+                 for m in ("brainslug", "barrier")}
+        g_rel = self.rel_l2([grads["brainslug"]], [grads["barrier"]])
+        g_max = float(grads["brainslug"].float().abs().max())
+        if grads["brainslug"].dtype != torch.bfloat16 or not g_max > 0 or \
+                not g_rel <= MULTIMODAL["grad_l2"]:
+            raise PhaseError(f"27b hubert step-1 frontend_proj gradient: "
+                             f"{grads['brainslug'].dtype}, max|g| {g_max}, "
+                             f"relative L2 to barrier's {g_rel:.3e} (tol "
+                             f"{MULTIMODAL['grad_l2']})")
+        del grads
+        for what, make in (
+                ("Server", lambda: serve.Server(serve.ServeConfig(
+                    arch=cfg.name, reduced=False, torch_device="cuda"))),
+                ("Engine", lambda: engine.Engine(
+                    cfg, {"embed": torch.zeros(1, device=self.dev)},
+                    RuntimeConfig(), slots=1, max_len=8))):
+            try:
+                make()
+            except ValueError as e:
+                if "encoder-only" not in str(e):
+                    raise PhaseError(f"27b hubert {what}: {e}") from e
+            else:
+                raise PhaseError(f"27b hubert: {what} took an encoder")
+        print(f"[27b hubert train] {cfg.name} at full width cut to {Lt} "
+              f"layers, bf16 weights, 1 x {TRAIN_LM['seq']} float32 frames "
+              f"(the pipeline's), {TRAIN_LM['steps']} AdamW steps lr "
+              f"{TRAIN_LM['lr']} through build_trainer / Trainer.run: "
+              f"brainslug losses {runs['brainslug'][0]} grad_norm "
+              f"{runs['brainslug'][1]}; barrier losses {runs['barrier'][0]} "
+              f"grad_norm {runs['barrier'][1]}; gaps loss "
+              f"{[f'{g:.2e}' for g in gl]} (tol {TRAIN_BF16_LOSS_REL}) "
+              f"grad_norm {[f'{g:.2e}' for g in gg]} (tol "
+              f"{TRAIN_BF16_GNORM_REL}); control (layer "
+              f"{MULTIMODAL['drop_layer']}'s block dropped in barrier) gaps "
+              f"loss {[f'{g:.2e}' for g in cl]} grad_norm "
+              f"{[f'{g:.2e}' for g in cg]}, flagged by "
+              f"{', '.join(flagged)}; brainslug counters per step "
+              f"{self.mm_launches[cfg.name + ' train_step']}; step-1 "
+              f"frontend_proj gradient (bf16) max|g| {g_max:.3e}, relative L2 "
+              f"to barrier's {g_rel:.3e} (tol {MULTIMODAL['grad_l2']}); "
+              + "; ".join(notes) + "; Server and Engine raise ValueError "
+              f"(encoder-only); {time.perf_counter() - t:.1f} s")
+
+    def paligemma(self):
+        """27c: paligemma-3b at full width: lm.prefill of 256 patches and
+        1792 tokens and Server.generate at all 18 layers, the paged engine
+        at 4, float32 serving at 2, three training steps at 6."""
+        torch = self.torch
+        import dataclasses
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        t = time.perf_counter()
+        cfg = get_config(MULTIMODAL["paligemma"])
+        L = cfg.n_layers
+        params = lm.init(0, cfg, device=self.dev)
+        torch.cuda.synchronize()
+        print(f"[27 model] {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads of {cfg.head_dim} over {cfg.n_kv_heads}, "
+              f"d_ff {cfg.d_ff} (gated {cfg.act}), vocab {cfg.vocab_size} "
+              f"tied, {cfg.n_prefix_tokens} patches of {cfg.frontend_dim}, "
+              f"{cfg.dtype}: {base.param_count(params) / 1e9:.3f} B random "
+              f"parameters (seed 0)")
+        g = torch.Generator(device=self.dev).manual_seed(2720)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                         (1, MULTIMODAL["text"]),
+                                         generator=g, device=self.dev),
+                 "patches": self.randn((1, cfg.n_prefix_tokens,
+                                        cfg.frontend_dim), 2721)}
+        with torch.inference_mode():
+            want = lm.prefill(params, batch, cfg,
+                              RuntimeConfig(mode="barrier"))
+            torch.cuda.synchronize()
+            self.hybrid_counters(zero=True)
+            got = lm.prefill(params, batch, cfg,
+                             RuntimeConfig(mode="brainslug"))
+            torch.cuda.synchronize()
+            counts = self.hybrid_counters()
+            self.expect_hybrid("27c paligemma prefill", counts,
+                               flash_attention=L, rmsnorm=2 * L + 1,
+                               swiglu=L)
+            self.mm_launches["paligemma prefill"] = counts
+            if tuple(got.shape) != (1, 1, cfg.vocab_size) or \
+                    got.dtype != torch.bfloat16 or not bool(
+                        torch.isfinite(got).all()):
+                raise PhaseError(f"27c paligemma prefill: logits "
+                                 f"{tuple(got.shape)} {got.dtype}")
+            rel = self.relative(got, want)
+            if not rel <= PATH_BF16_REL:
+                raise PhaseError(f"27c paligemma prefill: brainslug vs "
+                                 f"barrier max|d|/max {rel:.3e} > "
+                                 f"{PATH_BF16_REL}")
+            with self.block_drop(L, MULTIMODAL["drop_layer"]) as dropped:
+                bad = lm.prefill(params, batch, cfg,
+                                 RuntimeConfig(mode="barrier"))
+            rel_c = self.relative(bad, want)
+            if len(dropped) != 1 or not rel_c > PATH_BF16_REL:
+                raise PhaseError(f"27c paligemma control: layer "
+                                 f"{MULTIMODAL['drop_layer']} dropped reads "
+                                 f"{rel_c:.3e}, within {PATH_BF16_REL}")
+        print(f"[27c paligemma prefill] lm.prefill of {cfg.n_prefix_tokens} "
+              f"float32 patches and {MULTIMODAL['text']} tokens at all {L} "
+              f"layers (causal over {cfg.n_prefix_tokens + MULTIMODAL['text']}"
+              f" positions), brainslug vs barrier last-position logits: "
+              f"max|d|/max|logits| {rel:.3e} (tol {PATH_BF16_REL}), argmax "
+              f"equal {bool(got.argmax() == want.argmax())}; control: layer "
+              f"{MULTIMODAL['drop_layer']}'s block dropped in barrier reads "
+              f"{rel_c:.3e}, flagged; counters {counts}; "
+              f"{time.perf_counter() - t:.1f} s")
+        del want, got, bad, batch
+        torch.cuda.empty_cache()
+
+        # Server.generate: text only (the Server drops the frontend)
+        t = time.perf_counter()
+        prompts = np.random.default_rng(2722).integers(
+            0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
+        ).astype(np.int32)
+        servers, gens, counts = self.serve_pair(cfg, params, prompts)
+        steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
+        self.expect_counters("27c paligemma serving", counts, {
+            "rmsnorm": steps * (2 * L + 1), "swiglu": steps * L,
+            "flash_attention": 0, "flash_decode": steps * L})
+        self.mm_launches["paligemma decode_step"] = {
+            k: counts[k] // steps for k in ("rmsnorm", "swiglu",
+                                            "flash_decode")}
+        if servers["brainslug"].cfg.frontend is not None:
+            raise PhaseError("27c paligemma Server kept its frontend")
+        errs = self.teacher_forced(servers, prompts, gens["barrier"])[
+            ("brainslug", "barrier")]
+        if not max(errs) <= PATH_BF16_REL:
+            raise PhaseError(f"27c paligemma serving: teacher-forced logits "
+                             f"max|d|/max {max(errs):.3e} > {PATH_BF16_REL}")
+        agree = float((gens["brainslug"] == gens["barrier"]).mean())
+        print(f"[27c paligemma Server.generate] text only (the Server drops "
+              f"the vision frontend), {L} layers, {SERVE['batch']} requests, "
+              f"prompt {SERVE['prompt_len']}, {SERVE['new_tokens']} new, "
+              f"greedy: token agreement {agree:.4f}; teacher-forced logits "
+              f"max|d|/max worst {max(errs):.3e}, median "
+              f"{statistics.median(errs):.3e} (tol {PATH_BF16_REL}); "
+              f"counters {counts}; {time.perf_counter() - t:.1f} s")
+        del servers
+
+        # the paged engine at 4 layers, text only
+        t = time.perf_counter()
+        Le = MULTIMODAL["pali_engine_layers"]
+        text = dataclasses.replace(cfg, n_layers=Le, frontend=None,
+                                   n_prefix_tokens=0)
+        p_e = {**params, "blocks": base.tree_map(lambda a: a[:Le],
+                                                 params["blocks"])}
+        reqs = self.engine_queue(cfg.vocab_size)
+        res = {}
+        for mode in ("brainslug", "barrier"):
+            eng, comps, counts, wall = self.engine_run(text, p_e, "paged",
+                                                       mode, reqs)
+            res[mode] = (eng, comps, wall)
+            if mode == "brainslug":
+                e = self.evaluations(eng.last_stats)
+                self.expect_counters("27c paligemma engine", counts, {
+                    "rmsnorm": (2 * Le + 1) * e, "swiglu": Le * e,
+                    "flash_attention": 0, "flash_decode": 0,
+                    "paged_flash_decode": Le * e})
+                self.mm_launches["paligemma engine_evaluation"] = {
+                    k: counts[k] // e for k in ("rmsnorm", "swiglu",
+                                                "paged_flash_decode")}
+        greedy = [i for i, r in enumerate(reqs) if r.temperature <= 0.0]
+        pb, pr = res["brainslug"][1], res["barrier"][1]
+        n_tok = sum(len(pr[i].tokens) for i in greedy)
+        agree = sum(int((pb[i].tokens == pr[i].tokens).sum())
+                    for i in greedy) / max(n_tok, 1)
+        pick = [i for i in greedy if reqs[i].max_new_tokens > 0][:4]
+        seqs = [list(reqs[i].prompt) + pr[i].tokens.tolist() for i in pick]
+        starts = [len(reqs[i].prompt) for i in pick]
+        forced = {m: self.forced_logits(text, p_e, m, seqs, starts)
+                  for m in ("brainslug", "barrier")}
+        errs = [self.relative(a, b) for a, b in zip(forced["brainslug"],
+                                                   forced["barrier"])]
+        if not max(errs) <= PATH_BF16_REL:
+            raise PhaseError(f"27c paligemma engine: teacher-forced logits "
+                             f"max|d|/max {max(errs):.3e} > {PATH_BF16_REL}")
+        st = res["brainslug"][0].last_stats
+        print(f"[27c paligemma engine] Server.engine(kv_layout='paged').run "
+              f"of phase 15's 12 requests at {Le} layers, text only: every "
+              f"request completed in both modes, no kv.* finding, the free "
+              f"list whole; per model evaluation "
+              f"{self.mm_launches['paligemma engine_evaluation']}, plain 0; "
+              f"greedy token agreement vs barrier {agree:.4f}; teacher-forced "
+              f"logits max|d|/max worst {max(errs):.3e} (tol "
+              f"{PATH_BF16_REL}); prefix hits {st.prefix_hit_tokens} tokens; "
+              f"wall brainslug {res['brainslug'][2]:.1f} s, barrier "
+              f"{res['barrier'][2]:.1f} s; {time.perf_counter() - t:.1f} s")
+        del res, forced, p_e, params
+        torch.cuda.empty_cache()
+
+        # float32 at 2 layers: identical greedy tokens
+        t = time.perf_counter()
+        L32 = MULTIMODAL["f32_layers"]
+        cfg32 = dataclasses.replace(cfg, n_layers=L32, dtype="float32")
+        p32 = lm.init(1, cfg32, device=self.dev)
+        servers, gens, counts = self.serve_pair(cfg32, p32, prompts)
+        self.expect_counters("27c paligemma serving f32", counts, {
+            "rmsnorm": steps * (2 * L32 + 1), "swiglu": steps * L32,
+            "flash_attention": 0, "flash_decode": steps * L32})
+        if not np.array_equal(gens["brainslug"], gens["barrier"]):
+            raise PhaseError("27c paligemma serving f32: brainslug's tokens "
+                             "differ from barrier's")
+        errs = self.teacher_forced(servers, prompts, gens["barrier"])[
+            ("brainslug", "barrier")]
+        if not max(errs) <= PATH_F32_REL:
+            raise PhaseError(f"27c paligemma serving f32: logits max|d|/max "
+                             f"{max(errs):.3e} > {PATH_F32_REL}")
+        print(f"[27c paligemma float32, {L32} layers] Server.generate: "
+              f"identical tokens; logits max|d|/max worst {max(errs):.3e} "
+              f"(tol {PATH_F32_REL}); {time.perf_counter() - t:.1f} s")
+        del servers, p32
+        torch.cuda.empty_cache()
+
+        # training: patches in front, the loss on the text positions, the
+        # tied head on the plain chunked loss in every mode
+        t = time.perf_counter()
+        Lt = MULTIMODAL["pali_train_layers"]
+        chunk = MULTIMODAL["loss_chunk"]
+        runs, notes = self.mm_train(
+            "27c", cfg.name, Lt, dict(flash_attention=Lt, rmsnorm=2 * Lt + 1,
+                                      swiglu=Lt), control=False,
+            loss_chunk=chunk)
+        gl, gg, _ = self.mm_gaps(runs, "brainslug")
+        grads = {run: self.lm_step1_grads(m, Lt, dt, names=("embed",),
+                                          loss_chunk=chunk, arch=cfg.name,
+                                          **kw)["embed"]
+                 for run, m, dt, kw in (
+                     ("brainslug", "brainslug", "bfloat16", {}),
+                     ("barrier", "barrier", "bfloat16", {}),
+                     ("float32", "barrier", "float32",
+                      dict(init_dtype="bfloat16")))}
+        d_b = self.rel_l2([grads["brainslug"]], [grads["float32"]])
+        d_r = self.rel_l2([grads["barrier"]], [grads["float32"]])
+        if not (float(grads["brainslug"].float().abs().max()) > 0
+                and d_b <= SSM_F32_FACTOR * d_r):
+            raise PhaseError(f"27c paligemma step-1 embed gradient: relative "
+                             f"L2 to the float32 run's brainslug {d_b:.3e}, "
+                             f"barrier {d_r:.3e} (factor {SSM_F32_FACTOR})")
+        del grads
+        print(f"[27c paligemma train] {cfg.name} at full width cut to {Lt} "
+              f"layers, bf16, 1 x {cfg.n_prefix_tokens} float32 patches + "
+              f"{TRAIN_LM['seq']} tokens, the loss on the {TRAIN_LM['seq']} "
+              f"text positions (fused_loss_chunk {chunk}), "
+              f"{TRAIN_LM['steps']} AdamW steps lr {TRAIN_LM['lr']} through "
+              f"Trainer.run: brainslug losses {runs['brainslug'][0]} "
+              f"grad_norm {runs['brainslug'][1]}; barrier losses "
+              f"{runs['barrier'][0]} grad_norm {runs['barrier'][1]} (read: "
+              f"gaps loss {[f'{g:.2e}' for g in gl]} grad_norm "
+              f"{[f'{g:.2e}' for g in gg]}); "
+              f"counters per step "
+              f"{self.mm_launches[cfg.name + ' train_step']} (fused_ce 0: "
+              f"the head is tied); step-1 embed gradient (bf16) relative L2 "
+              f"to the float32 run's: brainslug {d_b:.3e}, barrier "
+              f"{d_r:.3e} (brainslug within {SSM_F32_FACTOR}x barrier's); "
+              + "; ".join(notes) + f"; {time.perf_counter() - t:.1f} s")
+
+    def phase27_multimodal(self):
+        """27a the attention kernels at head dims 80 and 256, 27b
+        hubert-xlarge, 27c paligemma-3b; the launches of each path folded
+        into the kernels line."""
+        t0 = time.perf_counter()
+        self.mm_launches = {}
+        self.attention_kernels(80, 16, 16, "27a", 2700,
+                               full_causal=(True, False), ragged=(1, 1000),
+                               ragged_causal=(True, False),
+                               with_decode=False, timed_causal=False)
+        self.attention_kernels(256, 8, 1, "27a", 2760, ragged=(1, 1000),
+                               ragged_causal=(True,), every_split=True)
+        self.hubert()
+        self.paligemma()
+        la = self.mm_launches
+        hub, pali = MULTIMODAL["hubert"], MULTIMODAL["paligemma"]
+        for name, d, where in (
+                ("flash_attention", 80, {"hubert forward": la[
+                    "hubert forward"], "hubert train_step": la[
+                        hub + " train_step"]}),
+                ("flash_attention", 256, {"paligemma prefill": la[
+                    "paligemma prefill"], "paligemma train_step": la[
+                        pali + " train_step"]}),
+                ("flash_decode", 256, {"paligemma decode_step": la[
+                    "paligemma decode_step"]}),
+                ("paged_flash_decode", 256, {
+                    "paligemma engine_evaluation": la[
+                        "paligemma engine_evaluation"]})):
+            entry = self.kernels[name][f"head_dim_{d}"]
+            entry["launches"] = {w: c[name] for w, c in where.items()}
+            entry["max_abs_err"] = self.err[name]
+        for name, where in (
+                ("fused_rows", ("hubert forward", hub + " train_step")),
+                ("fused_rows_bwd", (hub + " train_step",)),
+                ("rmsnorm", ("paligemma prefill", "paligemma decode_step",
+                             pali + " train_step")),
+                ("swiglu", ("paligemma prefill", "paligemma decode_step",
+                            pali + " train_step")),
+                ("fused_ce", (hub + " train_step", pali + " train_step"))):
+            self.kernels.setdefault(name, {})["multimodal"] = {
+                "launches": {w: la[w][name] for w in where}}
+        print(f"[27 launches] " + "; ".join(f"{w} {c}" for w, c in la.items())
+              + f"; phase {time.perf_counter() - t0:.1f} s")
 
 
 if __name__ == "__main__":

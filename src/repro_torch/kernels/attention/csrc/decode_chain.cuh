@@ -25,7 +25,8 @@
 // cache's length, pay it on a walk of a few microseconds.
 //
 // How key rows arrive: each lane copies its own 16 bytes (32 for a float32
-// cache) of every K and V row its chain needs into a ring of RING keys in
+// cache; twice that at D 256) of every K and V row its chain needs into a
+// ring of RING keys in
 // shared memory with cp.async, RING - U keys ahead of the ones it works on,
 // and waits for them with cp.async.wait_group.  A lane consumes only the
 // bytes it copied itself, so neither an mbarrier nor a CTA barrier sits in
@@ -42,11 +43,18 @@
 // The merge reads every chain's state from shared memory: after the walk
 // the ring is free and holds a table of the CHAINS rows of acc.
 //
-// Head dims: a lane keeps 8 elements (16 bytes of a bf16 row, 32 of a
-// float32 one).  Lanes with lane * 8 >= D read nothing: their copies have
-// a source size of 0, which fills their ring slots with zeros, so the loop
-// has no branch on the lane, their dot products are exactly 0 and the
-// xor-shuffle order is the same at every D.
+// Head dims: a lane keeps E = 8 elements (16 bytes of a bf16 row, 32 of a
+// float32 one) up to D = 128, and 2E = 16 past it (D = 256: two 16-byte
+// copies a row for bf16, four for float32); lane_elems<D>() says which.
+// Lanes with lane * elems >= D read nothing: their copies have a source
+// size of 0, which fills their ring slots with zeros, so the loop has no
+// branch on the lane, their dot products are exactly 0 and the
+// xor-shuffle order is the same at every D.  A lane sums its elements in
+// order, then the 16 lanes' sums go through the shuffles 8, 4, 2, 1: one
+// arithmetic order a D.  At 16 elements a lane the ring keeps the same
+// keys a chain as at 8, so its bytes double (64 KB a CTA at most, beside
+// the paged kernel's table row), and the merge's table (16 x 256 floats)
+// still fits it.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -62,19 +70,27 @@ namespace chain {
 
 constexpr int CHAINS = 16;                // chains a (slot, head)
 constexpr int LANES = 16;                 // lanes a key row
-constexpr int E = 8;                      // elements a lane
-constexpr int RING_BYTES = 32768;         // a CTA's ring of staged keys
+constexpr int E = 8;                      // elements a lane, D <= 128
+constexpr int RING_BYTES = 32768;         // a CTA's ring at E elements
 
-// Bytes a lane stages of one K or V row: 16 (bf16) or 32 (float32).
-template <typename TKV>
-__host__ __device__ constexpr int lane_bytes() {
-  return (int)sizeof(TKV) * E;
+// Elements a lane holds at head dim D: E up to LANES * E, else 2 E.
+template <int D>
+__host__ __device__ constexpr int lane_elems() {
+  return D <= LANES * E ? E : 2 * E;
 }
 
-// Keys a chain keeps staged: RING_BYTES over the CTA's chains, 2 to 16.
+// Bytes a lane stages of one K or V row: 16 (bf16) or 32 (float32) a
+// group of E elements.
+template <typename TKV, int D>
+__host__ __device__ constexpr int lane_bytes() {
+  return (int)sizeof(TKV) * lane_elems<D>();
+}
+
+// Keys a chain keeps staged: RING_BYTES over the CTA's chains at E
+// elements a lane, 2 to 16 (the same keys at every D).
 template <typename TKV, int CPS>
 __host__ __device__ constexpr int ring_keys() {
-  constexpr int r = RING_BYTES / (CPS * LANES * 2 * lane_bytes<TKV>());
+  constexpr int r = RING_BYTES / (CPS * LANES * 2 * (int)sizeof(TKV) * E);
   return r < 2 ? 2 : (r > 16 ? 16 : r);
 }
 
@@ -86,9 +102,10 @@ __host__ __device__ constexpr int step_keys() {
 }
 
 // Bytes of a CTA's ring.
-template <typename TKV, int CPS>
+template <typename TKV, int CPS, int D>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return (size_t)CPS * ring_keys<TKV, CPS>() * LANES * 2 * lane_bytes<TKV>();
+  return (size_t)CPS * ring_keys<TKV, CPS>() * LANES * 2 *
+         lane_bytes<TKV, D>();
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -117,7 +134,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// A lane's eight staged elements as float32, each first rounded to T:
+// Eight staged elements as float32, each first rounded to T:
 // attn::load8's conversions, from shared memory.
 template <typename T>
 __device__ __forceinline__ void unpack8(const float* p, float out[8]) {
@@ -137,6 +154,13 @@ __device__ __forceinline__ void unpack8(const __nv_bfloat16* p,
   for (int e = 0; e < 8; ++e)   // a bf16 value rounds to itself in bf16
     out[e] = std::is_same<T, __nv_bfloat16>::value ? attn::to_f(v[e])
                                                     : attn::as_f<T>(v[e]);
+}
+
+// A lane's N staged elements (N a multiple of 8), eight at a time.
+template <typename T, int N, typename TKV>
+__device__ __forceinline__ void unpack(const TKV* p, float (&out)[N]) {
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) unpack8<T>(p + 8 * c, out + 8 * c);
 }
 
 // CTAs of a (slot, head) that hold keys of a slot of ``len`` keys: split j
@@ -174,9 +198,10 @@ __device__ __forceinline__ void walk(const TQ* __restrict__ q,
   constexpr int S = CHAINS / CPS;         // CTAs a (slot, head)
   constexpr int RING = ring_keys<TKV, CPS>();
   constexpr int U = step_keys<TKV, CPS>();
-  constexpr int NV = lane_bytes<TKV>() / 16;   // a lane's 16-byte copies
-  static_assert(D % E == 0 && D <= LANES * E, "whole 8-element lanes");
-  static_assert(ring_bytes<TKV, CPS>() >= sizeof(float) * CHAINS * D,
+  constexpr int EL = lane_elems<D>();     // elements a lane
+  constexpr int NV = lane_bytes<TKV, D>() / 16;   // a lane's 16-byte copies
+  static_assert(D % EL == 0 && D <= LANES * EL, "whole lanes");
+  static_assert(ring_bytes<TKV, CPS, D>() >= sizeof(float) * CHAINS * D,
                 "the merge's table fits the ring");
   __shared__ float tm[CHAINS], tl[CHAINS];
 
@@ -184,17 +209,17 @@ __device__ __forceinline__ void walk(const TQ* __restrict__ q,
   const int grp = threadIdx.x / LANES;
   const int c0 = blockIdx.x * CPS;        // the CTA's first chain
   const int chain = c0 + grp;
-  const bool live = lane * E < D;         // the lane holds 8 of D elements
-  const TQ* qp = q + (int64_t)bh * D + lane * E;
-  float qv[E];
+  const bool live = lane * EL < D;        // the lane holds EL of D elements
+  const TQ* qp = q + (int64_t)bh * D + lane * EL;
+  float qv[EL];
 #pragma unroll
-  for (int e = 0; e < E; ++e) qv[e] = live ? attn::to_f(qp[e]) : 0.f;
+  for (int e = 0; e < EL; ++e) qv[e] = live ? attn::to_f(qp[e]) : 0.f;
 
   // the chain's keys t = chain + CHAINS * i, i < n, staged RING - U ahead
   const int n = chain < len ? (len - chain + CHAINS - 1) / CHAINS : 0;
   // the lane's slot of key i, tensor kv (0: K, 1: V)
   auto slot = [&](int i, int kv) {
-    return ring + (((grp * RING + i % RING) * 2 + kv) * LANES + lane) * E;
+    return ring + (((grp * RING + i % RING) * 2 + kv) * LANES + lane) * EL;
   };
   const int bytes = live ? 16 : 0;        // a lane past D reads nothing
   int staged = 0;                         // keys staged (or skipped) so far
@@ -223,18 +248,18 @@ __device__ __forceinline__ void walk(const TQ* __restrict__ q,
   // the two groups of a warp stop at different keys: each shuffles only
   // among its own 16 lanes
   const unsigned half = 0xffffu << (threadIdx.x & 16);
-  float m = attn::NEG_INF, l = 0.f, acc[E];
+  float m = attn::NEG_INF, l = 0.f, acc[EL];
 #pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  for (int e = 0; e < EL; ++e) acc[e] = 0.f;
   // the online softmax of one key
-  auto update = [&](float dot, const float (&vv)[E]) {
+  auto update = [&](float dot, const float (&vv)[EL]) {
     const float s = dot * scale;
     const float m_new = fmaxf(m, s);
     const float corr = expf(m - m_new);
     const float p = expf(s - m_new);
     l = l * corr + p;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[e] = fmaf(p, vv[e], acc[e] * corr);
+    for (int e = 0; e < EL; ++e) acc[e] = fmaf(p, vv[e], acc[e] * corr);
     m = m_new;
   };
 
@@ -247,15 +272,15 @@ __device__ __forceinline__ void walk(const TQ* __restrict__ q,
     // the U keys' dot products, independent of each other (a slot past
     // the chain's last key holds stale values, never used; a lane past D
     // reads its zero-filled slots)
-    float dot[U], vv[U][E];
+    float dot[U], vv[U][EL];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kv[E];
-      unpack8<TQ>(slot(i0 + u, 0), kv);
-      unpack8<TQ>(slot(i0 + u, 1), vv[u]);
+      float kv[EL];
+      unpack<TQ>(slot(i0 + u, 0), kv);
+      unpack<TQ>(slot(i0 + u, 1), vv[u]);
       float d = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) d = fmaf(qv[e], kv[e], d);
+      for (int e = 0; e < EL; ++e) d = fmaf(qv[e], kv[e], d);
       // xor 8, 4, 2, 1 stays inside the group's 16 adjacent lanes
       d += __shfl_xor_sync(half, d, 8);
       d += __shfl_xor_sync(half, d, 4);
@@ -282,7 +307,7 @@ __device__ __forceinline__ void walk(const TQ* __restrict__ q,
   float* tacc = reinterpret_cast<float*>(ring);   // [CHAINS][D]
   if (live) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) tacc[chain * D + lane * E + e] = acc[e];
+    for (int e = 0; e < EL; ++e) tacc[chain * D + lane * EL + e] = acc[e];
   }
   if (lane == 0) {
     tm[chain] = m;
@@ -380,12 +405,13 @@ int by_dtype(int splits, int q_dtype, int kv_dtype, F f) {
   return -1;
 }
 
-// D 64, 112 or 128 (decode.py:HEAD_DIMS).
+// D 64, 112, 128 or 256 (decode.py:HEAD_DIMS).
 template <class F>
 int by_head_dim(int D, int splits, int q_dtype, int kv_dtype, F f) {
   if (D == 128) return by_dtype<128>(splits, q_dtype, kv_dtype, f);
   if (D == 112) return by_dtype<112>(splits, q_dtype, kv_dtype, f);
   if (D == 64) return by_dtype<64>(splits, q_dtype, kv_dtype, f);
+  if (D == 256) return by_dtype<256>(splits, q_dtype, kv_dtype, f);
   return -1;
 }
 

@@ -24,14 +24,16 @@
 // traffic, far above the card's ridge point, so the bound is operations at
 // the bf16 tensor-core rate (989 TFLOP/s).
 //
-// bfloat16 (flash_fwd_kernel_bf16_wgmma<D>, D = 64, 112 or 128).  A CTA of
-// two warpgroups owns 128 query rows (64 each) and walks 128-key blocks:
+// bfloat16 (flash_fwd_kernel_bf16_wgmma<D>, D = 64, 80, 112, 128 or 256).
+// A CTA of two warpgroups owns 128 query rows (64 each) and walks key
+// blocks of 128 (64 at D 256, below):
 //   * S = Q K^T and O += P V run as wgmma (m64n64k16, float32 accumulators
 //     in registers): Q and K K-major from shared memory; P from registers
 //     (the S accumulator's layout is the A operand's, as bf16 pairs); V
 //     from shared memory MN-major (transposed B).  Q K^T is two
 //     independent n64 accumulator chains (keys 0-63, 64-127), issued
-//     interleaved; P V is one n64 chain a 64-column half of the output;
+//     interleaved (one chain for a 64-key block); P V is one n64 chain a
+//     64-column half of the output;
 //   * P enters the second product as two bf16 terms, hi = bf16(p) and lo =
 //     bf16(p - hi) (the remainder is exact in float32), so the product
 //     sees p to 2^-18 relative, and p is the accurate expf, not the
@@ -50,19 +52,27 @@
 //   * a 3-D tensor map per operand ((D, S, batch x heads)) zero-fills rows
 //     past Sq and Sk, which the mask then removes; diagonal and tail blocks
 //     are masked, the others are not;
-//   * head dims: a tile has NH 64-column halves, two for D in (64, 128],
-//     one for D = 64.  With two halves below 128 the tensor map's row is D
-//     elements, so TMA fills columns D..127 of the second half with zeros.
-//     Q K^T then sums exact zeros there, and skips the k16 steps that hold
-//     only such columns (one of eight at D = 112); P V's output columns
+//   * head dims: a tile has NH = ceil(D / 64) 64-column halves: one for D
+//     = 64, two for D in (64, 128], four for D = 256.  Where D is not a
+//     multiple of 64 the tensor map's row is D elements, so TMA fills the
+//     last half's columns past D with zeros.  Q K^T then sums exact zeros
+//     there, and skips the k16 steps that hold only such columns (one of
+//     eight at D = 112, three of eight at D = 80); P V's output columns
 //     past D are computed as zeros and written nowhere.  With one half (D
 //     = 64) the Q, K and V tiles are one swizzled half each, Q K^T takes
-//     its four k16 steps, P V runs one n64 chain (no second chain, no
-//     second half in the ring or the epilogue), and a stage is half the
+//     its four k16 steps, P V runs one n64 chain, and a stage is half the
 //     bytes.  The global row pitch, D * 2 bytes, must be a multiple of 16
-//     (TMA's stride rule): the design admits D = 64 and every multiple of 8
-//     in (64, 128], and this file builds D = 64 (granite-moe-3b's 1536 /
-//     24), 112 (zamba2-7b's 3584 / 32) and 128;
+//     (TMA's stride rule).  This file builds D = 64 (granite-moe-3b's 1536
+//     / 24), 80 (hubert-xlarge's 1280 / 16), 112 (zamba2-7b's 3584 / 32),
+//     128 and 256 (paligemma-3b's 2048 / 8);
+//   * D = 256 takes 64-key blocks (TC_BK_WIDE): four halves make Q 64 KB
+//     and a K + V stage of 128 keys 128 KB, 320 KB in all with two stages,
+//     past the SM's 227 KB; with 64 keys a stage is 64 KB and the CTA
+//     holds 193 KB.  The registers a thread follow: the output of its
+//     warpgroup's 64 rows x 256 columns is four n64 chains, 128 float32
+//     registers, beside one S chain (32) and P's hi / lo terms of four k16
+//     steps (32), where a 128-key block would add 64 more.  Q K^T is then
+//     one chain of 16 k16 steps, P V four chains of 4 steps;
 //   * the grid runs the heaviest (last) query blocks of every head first,
 //     so the tail of a causal grid is short.
 // Forms tried on an H100 and found slower: one n128 chain for Q K^T (with
@@ -76,11 +86,12 @@
 // and |o - o_plain| <= 2^-18 max|v| plus one bf16 rounding of o (2^-9
 // max|v| with hi alone).
 //
-// float32 (flash_fwd_kernel<float, D>, D = 64, 112 or 128): the CUDA cores
-// in float32, exact against the plain version's arithmetic: 128 threads,
-// each a 4 x 8 block of scores and a 4 x D / 8 block of the output; Q, K, V
-// and P tiles in padded shared memory (115,712 bytes for D = 128, 103,424
-// for D = 112, 66,560 for D = 64).
+// float32 (flash_fwd_kernel<float, D>, D = 64, 80, 112, 128 or 256): the
+// CUDA cores in float32, exact against the plain version's arithmetic: 128
+// threads, each a 4 x 8 block of scores and a 4 x D / 8 block of the
+// output; Q, K, V and P tiles in padded shared memory (66,560 bytes for D
+// = 64, 78,848 for 80, 103,424 for 112, 115,712 for 128, 214,016 for 256;
+// at 256 a thread's 4 x 32 outputs are 128 registers).
 #include "../../csrc/hopper.cuh"
 #include "attn_common.cuh"
 
@@ -255,18 +266,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 namespace tc {
 
 constexpr int TC_BQ = 128;       // query rows a CTA (two warpgroups of 64)
-constexpr int TC_BK = 128;       // keys a step
-constexpr int TC_D = 128;        // columns of a tile (the largest head dim)
+constexpr int TC_BK = 128;       // keys a step, D <= 128
+constexpr int TC_BK_WIDE = 64;   // keys a step, D > 128
+constexpr int TC_D = 256;        // columns of a tile (the largest head dim)
 constexpr int TC_STAGES = 2;     // K / V ring depth
 constexpr int TC_THREADS = 256;  // two warpgroups
 constexpr int HALF = 64;         // columns of one 128-byte swizzled half
 constexpr uint32_t Q_HALF = TC_BQ * HALF * 2;         // 16,384 bytes
-constexpr uint32_t KV_HALF = TC_BK * HALF * 2;        // 16,384
 constexpr uint32_t BAR_BYTES = 8 * (1 + 2 * TC_STAGES);
 
-// The shared-memory layout of a tile of NH 64-column halves.
+// The shared-memory layout of a tile of NH 64-column halves: BK keys a
+// block, the 64-key chains of S (NK) and P V's k16 steps (KT) a block.
 template <int NH>
 struct Layout {
+  static constexpr int BK = NH > 2 ? TC_BK_WIDE : TC_BK;
+  static constexpr int NK = BK / 64;
+  static constexpr int KT = BK / 16;
+  static constexpr uint32_t KV_HALF = BK * HALF * 2;  // 16,384 or 8,192
   static constexpr uint32_t Q_BYTES = NH * Q_HALF;
   static constexpr uint32_t KV_BYTES = NH * KV_HALF;  // one K or V tile
   static constexpr uint32_t STAGE_BYTES = 2 * KV_BYTES;  // K then V
@@ -329,6 +345,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
                                 int Sq, int Sk, float scale, int causal) {
   constexpr int NH = (D + HALF - 1) / HALF;     // 64-column halves a tile
   using L = Layout<NH>;
+  constexpr int BK = L::BK, NK = L::NK, KT = L::KT;
+  constexpr uint32_t KV_HALF = L::KV_HALF;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t qs = base;                     // Q: its NH halves
@@ -343,8 +361,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int b = bh / H, h = bh - b * H;
   const int bg = b * G + h / (H / G);
   const int q0 = qb * TC_BQ;
-  int nk = (Sk + TC_BK - 1) / TC_BK;
-  if (causal) nk = min(nk, (q0 + TC_BQ - 1) / TC_BK + 1);
+  int nk = (Sk + BK - 1) / BK;
+  if (causal) nk = min(nk, (q0 + TC_BQ - 1) / BK + 1);
 
   const int tid = threadIdx.x;
   const int wg = tid >> 7;                      // consumer warpgroup
@@ -371,11 +389,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     mbar_expect_tx(full(s), L::STAGE_BYTES);
 #pragma unroll
     for (int hf = 0; hf < NH; ++hf)
-      tma_load(dst + hf * KV_HALF, &kmap, full(s), hf * HALF, j * TC_BK, bg);
+      tma_load(dst + hf * KV_HALF, &kmap, full(s), hf * HALF, j * BK, bg);
 #pragma unroll
     for (int hf = 0; hf < NH; ++hf)
       tma_load(dst + L::KV_BYTES + hf * KV_HALF, &vmap, full(s), hf * HALF,
-               j * TC_BK, bg);
+               j * BK, bg);
   };
   if (tid == 0) {
     mbar_expect_tx(q_full, L::Q_BYTES);
@@ -391,9 +409,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
   const int r0 = q0 + wg * 64 + warp * 16 + (lane >> 2);
   const int c0 = 2 * (lane & 3);
   const uint32_t qa = qs + wg * 64 * 128;       // the warpgroup's Q rows
-  float o_lo[32], o_hi[32];   // output columns 0-63, 64-127 (NH == 2)
+  float oc[NH][32];           // output columns 64 hf .. 64 hf + 63
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o_lo[i] = o_hi[i] = 0.f;
+  for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) oc[hf][i] = 0.f;
   float m[2] = {attn::NEG_INF, attn::NEG_INF}, l[2] = {0.f, 0.f};
   mbar_wait(q_full, 0);
 
@@ -404,13 +424,15 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     const uint32_t kt = ring + s * L::STAGE_BYTES;
     const uint32_t vt = kt + L::KV_BYTES;
 
-    // S = Q K^T: keys 0-63 into s_lo, 64-127 into s_hi; k16 steps over the
-    // NH 64-column halves of the tile, those past D (all zeros) skipped.
-    float s_lo[32], s_hi[32];
+    // S = Q K^T: keys 64 c .. 64 c + 63 into sc[c]; k16 steps over the NH
+    // 64-column halves of the tile, those past D (all zeros) skipped.
+    float sc[NK][32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) s_lo[i] = s_hi[i] = 0.f;   // overwritten
-    hold(s_lo);
-    hold(s_hi);
+    for (int c = 0; c < NK; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[c][i] = 0.f;          // overwritten
+      hold(sc[c]);
+    }
     wg_fence();
 #pragma unroll
     for (int half = 0; half < NH; ++half) {
@@ -419,24 +441,26 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
         if (half * HALF + 16 * j >= D) continue;
         const uint64_t a = desc(qa + half * Q_HALF + 32 * j, 16, 1024);
         const uint32_t kh = kt + half * KV_HALF + 32 * j;
-        mma_ss(s_lo, a, desc(kh, 16, 1024), half + j == 0);
-        mma_ss(s_hi, a, desc(kh + 64 * 128, 16, 1024), half + j == 0);
+#pragma unroll
+        for (int c = 0; c < NK; ++c)
+          mma_ss(sc[c], a, desc(kh + c * 64 * 128, 16, 1024),
+                 half + j == 0);
       }
     }
     wg_commit();
     wg_wait();
-    hold(s_lo);
-    hold(s_hi);
+#pragma unroll
+    for (int c = 0; c < NK; ++c) hold(sc[c]);
 
     // online softmax on the float32 scores; only diagonal and tail blocks
     // are masked
-    const int k0 = kb * TC_BK;
-    const bool masked = k0 + TC_BK > Sk ||
-                        (causal && k0 + TC_BK - 1 > q0 + wg * 64);
+    const int k0 = kb * BK;
+    const bool masked = k0 + BK > Sk ||
+                        (causal && k0 + BK - 1 > q0 + wg * 64);
     float mx[2] = {attn::NEG_INF, attn::NEG_INF};
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      float& x = i < 32 ? s_lo[i] : s_hi[i & 31];
+    for (int i = 0; i < 32 * NK; ++i) {
+      float& x = sc[i >> 5][i & 31];
       const int row = r0 + 8 * ((i >> 1) & 1);
       const int key = k0 + 8 * (i >> 2) + c0 + (i & 1);
       float v = x * scale;
@@ -447,7 +471,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     float corr[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      // a row's 16 column pairs sit in the 4 lanes of a quad
+      // a row's column pairs sit in the 4 lanes of a quad
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m[r], mx[r]);
@@ -458,15 +482,15 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     // P in the A operand's layout: k16 step t holds keys 16t..16t+15, the
     // accumulator's column tiles 2t and 2t + 1
     // (p = hi + lo, both bf16: hi is p rounded, lo its rounded remainder)
-    uint32_t p_hi[8][4], p_lo[8][4];
+    uint32_t p_hi[KT][4], p_lo[KT][4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
+    for (int t = 0; t < KT; ++t) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = 8 * t + 2 * e;            // element of the 64 columns
+        const int i = 8 * t + 2 * e;            // element of the BK columns
         const int r = e & 1;
-        float& x0 = i < 32 ? s_lo[i] : s_hi[i & 31];
-        float& x1 = i < 32 ? s_lo[i + 1] : s_hi[(i + 1) & 31];
+        const float& x0 = sc[i >> 5][i & 31];
+        const float& x1 = sc[(i + 1) >> 5][(i + 1) & 31];
         const float p0 = expf(x0 - m[r]);
         const float p1 = expf(x1 - m[r]);
         l[r] += p0 + p1;                        // the float32 p
@@ -477,29 +501,30 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       }
     }
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      o_lo[i] *= corr[(i >> 1) & 1];
-      if constexpr (NH == 2) o_hi[i] *= corr[(i >> 1) & 1];
-    }
+    for (int hf = 0; hf < NH; ++hf)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) oc[hf][i] *= corr[(i >> 1) & 1];
 
-    // O += P V: 8 k16 steps over the block's keys, V MN-major; a chain a
+    // O += P V: KT k16 steps over the block's keys, V MN-major; a chain a
     // 64-column half of the output
-    hold(o_lo);
-    if constexpr (NH == 2) hold(o_hi);
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) hold(oc[hf]);
     wg_fence();
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const uint64_t v_lo = desc(vt + t * 16 * 128, KV_HALF, 1024);
-      const uint64_t v_hi = desc(vt + t * 16 * 128 + KV_HALF, KV_HALF, 1024);
-      mma_rs(o_lo, p_hi[t], v_lo);
-      if constexpr (NH == 2) mma_rs(o_hi, p_hi[t], v_hi);
-      mma_rs(o_lo, p_lo[t], v_lo);
-      if constexpr (NH == 2) mma_rs(o_hi, p_lo[t], v_hi);
+    for (int t = 0; t < KT; ++t) {
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf)
+        mma_rs(oc[hf], p_hi[t],
+               desc(vt + t * 16 * 128 + hf * KV_HALF, KV_HALF, 1024));
+#pragma unroll
+      for (int hf = 0; hf < NH; ++hf)
+        mma_rs(oc[hf], p_lo[t],
+               desc(vt + t * 16 * 128 + hf * KV_HALF, KV_HALF, 1024));
     }
     wg_commit();
     wg_wait();
-    hold(o_lo);
-    if constexpr (NH == 2) hold(o_hi);
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf) hold(oc[hf]);
     mbar_arrive(empty(s));
   }
 
@@ -517,11 +542,11 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     if (row >= Sq) continue;
     const int col = 8 * (i >> 2) + c0;
     __nv_bfloat16* at = op + (int64_t)row * D + col;
-    *reinterpret_cast<__nv_bfloat162*>(at) =
-        __floats2bfloat162_rn(o_lo[i] / l[r], o_lo[i + 1] / l[r]);
-    if (NH == 2 && col + HALF < D)   // D is even: the pair is in or past D
-      *reinterpret_cast<__nv_bfloat162*>(at + HALF) =
-          __floats2bfloat162_rn(o_hi[i] / l[r], o_hi[i + 1] / l[r]);
+#pragma unroll
+    for (int hf = 0; hf < NH; ++hf)
+      if (hf * HALF + col < D)   // D is even: the pair is in or past D
+        *reinterpret_cast<__nv_bfloat162*>(at + hf * HALF) =
+            __floats2bfloat162_rn(oc[hf][i] / l[r], oc[hf][i + 1] / l[r]);
   }
 }
 
@@ -551,16 +576,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int G, int Sq, int Sk, float scale, int causal,
            cudaStream_t stream) {
   constexpr int NH = (D + HALF - 1) / HALF;
-  static_assert(D % 8 == 0 && D <= TC_D && (NH == 2 || D == HALF),
+  static_assert(D % 8 == 0 && D <= TC_D && (NH > 1 || D == HALF),
                 "a row pitch of 16-byte multiples; one whole half, or the "
-                "second half starting inside the row");
+                "last half starting inside the row");
   if (Sq == 0 || B * H == 0) return 0;
   if (Sk == 0)                  // no key: acc = 0, l = 0, o = 0
     return (int)cudaMemsetAsync(o, 0, (size_t)B * H * Sq * D * 2, stream);
   CUtensorMap qm, km, vm;
   if (tensor_map(&qm, q, D, Sq, B * H, TC_BQ) ||
-      tensor_map(&km, k, D, Sk, B * G, TC_BK) ||
-      tensor_map(&vm, v, D, Sk, B * G, TC_BK))
+      tensor_map(&km, k, D, Sk, B * G, Layout<NH>::BK) ||
+      tensor_map(&vm, v, D, Sk, B * G, Layout<NH>::BK))
     return TMA_ERROR;
   constexpr size_t SMEM = Layout<NH>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
@@ -577,26 +602,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 }  // namespace tc
 
 // dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores).  D must be
-// 64, 112 or 128 (flash.py:HEAD_DIMS).  Returns a cudaError_t, -1 for a head
-// dim or dtype this build has no instance of, -2 for a tensor map the
-// driver refuses.
+// 64, 80, 112, 128 or 256 (flash.py:HEAD_DIMS).  Returns a cudaError_t, -1
+// for a head dim or dtype this build has no instance of, -2 for a tensor
+// map cuTensorMapEncodeTiled refuses.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int G, int Sq, int Sk, int D, float scale,
                                    int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
-  if (dtype == 0 && D == 112)
-    return launch<float, 112>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
-  if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
-  if (dtype == 1 && D == 112)
-    return tc::launch<112>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
-  if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
+#define FLASH_HEAD_DIM(d)                                                    \
+  if (D == d)                                                                \
+    return dtype == 0                                                        \
+               ? launch<float, d>(q, k, v, o, B, H, G, Sq, Sk, scale,       \
+                                  causal, s)                                 \
+               : tc::launch<d>(q, k, v, o, B, H, G, Sq, Sk, scale, causal, s);
+  if (dtype != 0 && dtype != 1) return -1;
+  FLASH_HEAD_DIM(128)
+  FLASH_HEAD_DIM(112)
+  FLASH_HEAD_DIM(64)
+  FLASH_HEAD_DIM(80)
+  FLASH_HEAD_DIM(256)
+#undef FLASH_HEAD_DIM
   return -1;
 }
 

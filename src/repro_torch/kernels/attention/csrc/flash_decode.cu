@@ -37,14 +37,13 @@
 // cache of a large batch passes 2^31 elements).  Query heads of one KV
 // head re-read the same rows (through L2); a CTA per KV head is later work.
 //
-// This file builds D = 64, 112 and 128, each at the three dtype pairs and
-// five splits.
+// This file builds D = 64, 112, 128 and 256, each at the three dtype pairs
+// and five splits.
 #include "decode_chain.cuh"
 
 namespace {
 
 using chain::CHAINS;
-using chain::E;
 using chain::LANES;
 
 // A chain's rows in the dense cache: this lane's elements of its next key.
@@ -81,7 +80,8 @@ __global__ void __launch_bounds__(CPS * LANES)
   const int lane = threadIdx.x % LANES;
   const int c = blockIdx.x * CPS + threadIdx.x / LANES;   // the chain
   // a lane past D reads nothing; its address stays inside the row
-  const int col = lane * E < D ? lane * E : 0;
+  constexpr int EL = chain::lane_elems<D>();
+  const int col = lane * EL < D ? lane * EL : 0;
   const int64_t at = (((int64_t)b * G + g) * S + c) * D + col;
   chain::walk<TQ, TKV, CPS, D>(q, o, bh, len, scale,
                                reinterpret_cast<TKV*>(smem),
@@ -100,7 +100,7 @@ struct Launch {
   int operator()() const {
     return chain::launch_clusters<CPS>(
         flash_decode_kernel<TQ, TKV, CPS, D>, dim3(CHAINS / CPS, H, B),
-        chain::ring_bytes<TKV, CPS>(), s, static_cast<const TQ*>(q),
+        chain::ring_bytes<TKV, CPS, D>(), s, static_cast<const TQ*>(q),
         static_cast<const TKV*>(k), static_cast<const TKV*>(v), lengths,
         static_cast<TQ*>(o), H, G, S, scale);
   }
@@ -110,7 +110,7 @@ struct Occupancy {
   template <typename TQ, typename TKV, int CPS, int D>
   int operator()() const {
     return chain::ctas_per_sm<CPS>(flash_decode_kernel<TQ, TKV, CPS, D>,
-                                   chain::ring_bytes<TKV, CPS>());
+                                   chain::ring_bytes<TKV, CPS, D>());
   }
 };
 
@@ -120,7 +120,7 @@ struct Occupancy {
 // lengths (B,) int32; o (B, H, 1, D).  splits: CTAs a (slot, head), one of
 // 1, 2, 4, 8, 16 (decode.py:launch_plan's).  q_dtype / kv_dtype: 0
 // float32, 1 bfloat16 (a float32 query reads a float32 cache; a bf16 query
-// either).  D must be 64, 112 or 128 (decode.py:HEAD_DIMS).  Returns a
+// either).  D must be 64, 112, 128 or 256 (decode.py:HEAD_DIMS).  Returns a
 // cudaError_t, or -1 for a shape, dtype or split this build has no
 // instance of.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,

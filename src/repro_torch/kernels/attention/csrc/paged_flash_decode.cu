@@ -32,14 +32,13 @@
 // once (a few operations a byte).  A CTA that serves all the query heads
 // of a KV head from one staged block is later work.
 //
-// This file builds D = 64, 112 and 128, each at the three dtype pairs and
-// five splits.
+// This file builds D = 64, 112, 128 and 256, each at the three dtype pairs
+// and five splits.
 #include "decode_chain.cuh"
 
 namespace {
 
 using chain::CHAINS;
-using chain::E;
 using chain::LANES;
 
 __host__ __device__ constexpr size_t table_bytes(int MB) {
@@ -47,9 +46,9 @@ __host__ __device__ constexpr size_t table_bytes(int MB) {
 }
 
 // Dynamic shared memory: the table row, then the ring.
-template <typename TKV, int CPS>
+template <typename TKV, int CPS, int D>
 size_t smem_bytes(int MB) {
-  return table_bytes(MB) + chain::ring_bytes<TKV, CPS>();
+  return table_bytes(MB) + chain::ring_bytes<TKV, CPS, D>();
 }
 
 // A chain's rows through the staged table row: block pj, row pr of its next
@@ -121,7 +120,8 @@ __global__ void __launch_bounds__(CPS * LANES)
   const int lane = threadIdx.x % LANES;
   const int c = blockIdx.x * CPS + threadIdx.x / LANES;   // the chain
   // a lane past D reads nothing; its address stays inside the row
-  const int col = lane * E < D ? lane * E : 0;
+  constexpr int EL = chain::lane_elems<D>();
+  const int col = lane * EL < D ? lane * EL : 0;
   PagedRows<TKV, D> rows{tbl, k_pool, v_pool, (int64_t)G * bs * D,
                          (int64_t)g * bs * D + col, N, bs,
                          CHAINS / bs, CHAINS % bs, c / bs, c % bs, -1,
@@ -141,7 +141,7 @@ struct Launch {
   int operator()() const {
     return chain::launch_clusters<CPS>(
         paged_flash_decode_kernel<TQ, TKV, CPS, D>, dim3(CHAINS / CPS, H, B),
-        smem_bytes<TKV, CPS>(MB), s, static_cast<const TQ*>(q),
+        smem_bytes<TKV, CPS, D>(MB), s, static_cast<const TQ*>(q),
         static_cast<const TKV*>(k), static_cast<const TKV*>(v), table,
         lengths, static_cast<TQ*>(o), H, N, G, bs, MB, scale);
   }
@@ -152,7 +152,8 @@ struct Occupancy {
   template <typename TQ, typename TKV, int CPS, int D>
   int operator()() const {
     return chain::ctas_per_sm<CPS>(
-        paged_flash_decode_kernel<TQ, TKV, CPS, D>, smem_bytes<TKV, CPS>(MB));
+        paged_flash_decode_kernel<TQ, TKV, CPS, D>,
+        smem_bytes<TKV, CPS, D>(MB));
   }
 };
 
@@ -162,8 +163,9 @@ struct Occupancy {
 // (B, MB) int32; lengths (B,) int32; o (B, H, 1, D).  splits: CTAs a (slot,
 // head), one of 1, 2, 4, 8, 16 (decode.py:launch_plan's).  q_dtype /
 // kv_dtype: 0 float32, 1 bfloat16 (a float32 query reads a float32 pool; a
-// bf16 query either).  D must be 64, 112 or 128.  Returns a cudaError_t, or -1
-// for a shape, dtype, split or geometry this build has no instance of.
+// bf16 query either).  D must be 64, 112, 128 or 256.  Returns a
+// cudaError_t, or -1 for a shape, dtype, split or geometry this build has
+// no instance of.
 extern "C" int paged_flash_decode(const void* q, const void* k_pool,
                                   const void* v_pool, const int* table,
                                   const int* lengths, void* o, int B, int H,

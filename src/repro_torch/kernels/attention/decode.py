@@ -44,9 +44,10 @@ PAGED_SOURCE = _CSRC / "paged_flash_decode.cu"
 CHAIN_SOURCE = _CSRC / "decode_chain.cuh"
 NEG_INF = -1e30
 #: Head dims both CUDA kernels are built for (granite-moe-3b's 64,
-#: zamba2-7b's 112, and 128): a lane holds 8 elements, and lanes past ``D /
-#: 8`` of the 16 hold zeros.
-HEAD_DIMS = (64, 112, 128)
+#: zamba2-7b's 112, 128 and paligemma-3b's 256): a lane holds 8 elements up
+#: to 128 and lanes past ``D / 8`` of the 16 hold zeros; at 256 a lane
+#: holds 16.
+HEAD_DIMS = (64, 112, 128, 256)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 #: Online-softmax chains of one (slot, head): ``CHAINS`` in
 #: ``csrc/decode_chain.cuh``.

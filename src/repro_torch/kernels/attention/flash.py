@@ -8,7 +8,8 @@ query head and 128-query block), float32 on the CUDA cores (64-query
 blocks), each an online softmax over key blocks; its note gives the bound,
 the design, the bf16 instance's one numerical change (P fed to the
 second product as two bf16 terms) and how a head dim fills the tiles'
-64-column halves (one at 64, two above it).
+64-column halves (one at 64, two up to 128, four at 256, where a key block
+is 64 keys in place of 128).
 The plain version, :func:`flash_attention_plain`, is the Pallas kernel's
 algorithm on whole tensors: ``(block_q, block_k)`` tiles, the running
 max / denominator / accumulator carried across key blocks in float32, the
@@ -26,9 +27,9 @@ from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 NEG_INF = -1e30
-#: Head dims the CUDA kernel is built for (granite-moe-3b's 64, zamba2-7b's
-#: 112, and 128).
-HEAD_DIMS = (64, 112, 128)
+#: Head dims the CUDA kernel is built for (granite-moe-3b's 64,
+#: hubert-xlarge's 80, zamba2-7b's 112, 128 and paligemma-3b's 256).
+HEAD_DIMS = (64, 80, 112, 128, 256)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
 

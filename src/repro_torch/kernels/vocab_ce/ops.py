@@ -22,6 +22,7 @@ import torch.profiler
 
 from repro_torch.kernels.fused_stack.ops import DispatchStats
 from repro_torch.kernels.vocab_ce import ce as kernel_mod
+from repro_torch.layers import base
 
 STATS = DispatchStats(keys=("kernel", "plain"))
 
@@ -111,7 +112,10 @@ class _FusedGoldLogp(torch.autograd.Function):
 def fused_nll(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
               ) -> torch.Tensor:
     """Mean masked NLL (labels < 0 masked) of ``(T, D)`` hidden states
-    against a ``(D, V)`` head, a float32 scalar."""
+    against a ``(D, V)`` head, a float32 scalar; ``h`` and ``w`` meet in
+    their promoted dtype (a float32 ``h`` against a bf16 head runs the
+    float32 kernel, and ``w``'s gradient comes back in bf16)."""
+    h, w = base.promote(h, w)
     return _FusedNll.apply(h, w, labels)
 
 

@@ -14,6 +14,13 @@ Usage:
       --steps 6
   python -m repro_torch.launch.train --arch granite-moe-3b-a800m \\
       --device cpu --steps 6
+  python -m repro_torch.launch.train --arch hubert-xlarge --device cpu \\
+      --steps 6
+
+A frontend's batch (hubert's frames, paligemma's patches) reaches the
+device as the pipeline gives it, float32, as the JAX package's does: over
+bf16 weights hubert's stream then runs in float32 (jnp's promotion), and
+paligemma casts its projected patches to the token embeddings' dtype.
 
 For an MoE config each logged step carries the router's load-balance loss
 (``aux``, summed over the MoE layers) and the share of (token, choice)

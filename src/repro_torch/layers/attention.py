@@ -137,9 +137,9 @@ def _project(params: dict, x: torch.Tensor, cfg: ModelConfig
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
     h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = base.matmul(x, params["wq"])
+    k = base.matmul(x, params["wk"])
+    v = base.matmul(x, params["wv"])
     if cfg.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -175,7 +175,7 @@ def apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         o = _chunked_attention(q, k, v, causal)
 
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return o @ params["wo"]
+    return base.matmul(o, params["wo"])
 
 
 @dataclasses.dataclass
@@ -281,7 +281,7 @@ def _decode_paged(params: dict, x_t: torch.Tensor, cache: PagedKVCache,
             attn_ref.gather_paged(cache.v_pool, table).to(q.dtype),
             causal=False, lengths=lengths)
     o = o.transpose(1, 2).reshape(b, 1, h * hd)
-    return o @ params["wo"], cache
+    return base.matmul(o, params["wo"]), cache
 
 
 def decode(params: dict, x_t: torch.Tensor,
@@ -341,4 +341,4 @@ def decode(params: dict, x_t: torch.Tensor,
         o = attn_ref.decode_ref(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
                                 lengths)
     o = o.transpose(1, 2).reshape(b, 1, h * hd)
-    return o @ params["wo"], cache
+    return base.matmul(o, params["wo"]), cache

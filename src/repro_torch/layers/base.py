@@ -8,9 +8,17 @@ same weights on one device type, not the JAX package's weights (carry
 those over with :func:`repro_torch.convert.lm_params_from_numpy`).
 Logical axes (the JAX package's sharding annotations) wait for the
 multi-device slice.
+
+:func:`promote` and :func:`matmul` carry jnp's type promotion over to the
+places where an activation meets a parameter: a float32 activation against
+bf16 weights (hubert's float32 frames over a bf16 model) computes in
+float32, as ``jnp.einsum`` and jnp's arithmetic do, where ``torch.matmul``
+and the kernels refuse mixed dtypes.  Operands of one dtype pass through
+untouched, and autograd returns each gradient in its own operand's dtype.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import torch
@@ -45,6 +53,20 @@ def normal(g: torch.Generator, shape: tuple[int, ...], *,
         scale = 1.0 / ((fan_in if fan_in is not None else shape[0]) ** 0.5)
     x = torch.randn(shape, generator=g, dtype=dtype, device=g.device)
     return x * torch.tensor(scale, dtype=dtype, device=g.device)
+
+
+def promote(*ts: torch.Tensor | None) -> tuple[torch.Tensor | None, ...]:
+    """The tensors in ``torch.promote_types`` of their dtypes (None passes
+    through), as jnp promotes mixed operands."""
+    dt = functools.reduce(torch.promote_types,
+                          [t.dtype for t in ts if t is not None])
+    return tuple(t if t is None else t.to(dt) for t in ts)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two."""
+    x, w = promote(x, w)
+    return x @ w
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree: Tree) -> Tree:

@@ -1,7 +1,8 @@
 """Dense MLP blocks (gated and plain) and norm parameters, ported from
 ``repro/layers/dense.py``.  The matmuls are ``torch.matmul`` (the JAX
-package leaves them to XLA); the chains between them go through
-:mod:`repro_torch.layers.stacks`."""
+package leaves them to XLA), in the promoted dtype of activation and
+weight (:func:`repro_torch.layers.base.matmul`); the chains between them go
+through :mod:`repro_torch.layers.stacks`."""
 from __future__ import annotations
 
 import torch
@@ -41,13 +42,13 @@ def init(g: torch.Generator, cfg: ModelConfig, n_layers: int,
 def apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
           rt: RuntimeConfig) -> torch.Tensor:
     if "wg" in params:
-        gate = x @ params["wg"]
-        up = x @ params["wu"]
+        gate = base.matmul(x, params["wg"])
+        up = base.matmul(x, params["wu"])
         h = stacks.glu(gate, up, act=cfg.act, mode=rt.mode)
-        return h @ params["wd"]
-    h = x @ params["wu"] + params["bu"]
+        return base.matmul(h, params["wd"])
+    h = base.matmul(x, params["wu"]) + params["bu"]
     h = stacks.activation(h, act=cfg.act, mode=rt.mode)
-    return h @ params["wd"] + params["bd"]
+    return base.matmul(h, params["wd"]) + params["bd"]
 
 
 def norm_init(cfg: ModelConfig, n_layers: int | None, dtype: torch.dtype,

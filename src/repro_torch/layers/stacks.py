@@ -11,6 +11,10 @@ schedule, with the JAX package's routing:
   kernel otherwise (float32 or bfloat16);
 * ``xla``       — the eager interpreter;
 * ``barrier``   — the interpreter with every op output materialised.
+
+A norm's scale and bias enter in the promoted dtype of the stream and
+themselves (:func:`repro_torch.layers.base.promote`): a float32 stream
+over bf16 parameters normalises in float32, as jnp's arithmetic does.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from repro_torch.core import ir
 from repro_torch.kernels.fused_stack import ops as fused_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.swiglu import ops as swiglu_ops
+from repro_torch.layers import base
 
 
 @functools.lru_cache(maxsize=None)
@@ -78,6 +83,7 @@ def add_norm(x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6, mode: str = "xla"
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused residual add + norm.  Returns (normed, new_residual)."""
+    x, residual, scale, bias = base.promote(x, residual, scale, bias)
     if mode == "brainslug" and norm == "rms" and bias is None:
         return rms_ops.rmsnorm(x, scale, residual, eps)
     params = {"scale": scale}
@@ -92,6 +98,7 @@ def add_norm(x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor,
 def apply_norm(x: torch.Tensor, scale: torch.Tensor,
                bias: torch.Tensor | None = None, *, norm: str = "rms",
                eps: float = 1e-6, mode: str = "xla") -> torch.Tensor:
+    x, scale, bias = base.promote(x, scale, bias)
     if mode == "brainslug" and norm == "rms" and bias is None:
         return rms_ops.rmsnorm(x, scale, None, eps)[0]
     params = {"scale": scale}

@@ -42,9 +42,14 @@ Plain twins for the traced frontend (:func:`repro_torch.api.optimize`):
 :func:`transformer_block_fn` and :func:`ce_loss_fn`, ordinary tensor code
 whose traced graph the kernel registry rewrites onto the dedicated kernels.
 
-The audio / vision frontends raise and name the slice of the port that
-brings them.  Entry points run on ``cuda`` unless the caller asks for the
-CPU.
+The frontends are the JAX package's stubs: ``audio_frames`` (hubert: an
+encoder over frame embeddings, ``frames @ frontend_proj``, no causal mask,
+no decode path) and ``vision_patches`` (paligemma: image patches projected
+by ``frontend_proj`` and put in front of the text tokens under the plain
+causal mask; the loss reads the text positions).  Float32 frames over bf16
+weights run the stream in float32, as jnp promotes
+(:func:`repro_torch.layers.base.promote`).  Entry points run on ``cuda``
+unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -101,17 +106,6 @@ def n_moe_layers(cfg: ModelConfig) -> int:
     return plan.n_super * plan.superblock.count("attn_moe")
 
 
-def _check_ported(cfg: ModelConfig) -> LayerPlan:
-    """The plan of a config the port runs: dense, MoE, mamba and shared
-    attention blocks, token inputs."""
-    plan = layer_plan(cfg)
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  f"comes with the multimodal slice of the "
-                                  f"port")
-    return plan
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -121,7 +115,7 @@ def init(seed: int, cfg: ModelConfig, *,
     """Random parameters from ``seed`` with the JAX package's tree, shapes
     and scales (not its values: carry those over with
     :func:`repro_torch.convert.lm_params_from_numpy`)."""
-    plan = _check_ported(cfg)
+    plan = layer_plan(cfg)
     dev = base.device(device)
     dtype = DTYPES[cfg.dtype]
     g = base.generator(seed, dev)
@@ -133,6 +127,9 @@ def init(seed: int, cfg: ModelConfig, *,
     if not cfg.tie_embeddings:
         tree["out_head"] = base.normal(g, (cfg.d_model, cfg.vocab_size),
                                        dtype=dtype)
+    if cfg.frontend:
+        tree["frontend_proj"] = base.normal(
+            g, (cfg.frontend_dim, cfg.d_model), dtype=dtype)
     tree["final_norm"] = dense.norm_init(cfg, None, dtype, dev)
     blocks = {f"sub{j}": _init_sub(g, kind, cfg, L, dtype, dev)
               for j, kind in enumerate(plan.superblock)
@@ -253,11 +250,19 @@ def _remat(fn, rt: RuntimeConfig):
 
 def embed_inputs(params: dict, batch: dict, cfg: ModelConfig
                  ) -> torch.Tensor:
-    _check_ported(cfg)
+    """The stream's input: ``frames @ frontend_proj`` (audio, in the
+    promoted dtype of the two), or the token embeddings (scaled by
+    ``sqrt(d_model)`` where tied) with the projected patches cast to their
+    dtype in front (vision)."""
+    if cfg.frontend == "audio_frames":
+        return base.matmul(batch["frames"], params["frontend_proj"])
     x = params["embed"][batch["tokens"]]
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    if cfg.frontend == "vision_patches":
+        pre = base.matmul(batch["patches"], params["frontend_proj"])
+        x = torch.cat([pre.to(x.dtype), x], dim=1)
     return x
 
 
@@ -271,7 +276,10 @@ def _final_norm(params: dict, h: torch.Tensor, cfg: ModelConfig,
 def _superblocks(params: dict, plan: LayerPlan) -> list[list]:
     """Per super-block, the parameters of each of its blocks (None where
     the block is the shared attention), each stacked leaf taken apart once
-    (:func:`_unstack`)."""
+    (:func:`_unstack`); none for a hybrid cut below its period (no
+    ``blocks``, only the tail), as the JAX package skips the scan."""
+    if not plan.n_super:
+        return []
     subs = {j: _unstack(params["blocks"][f"sub{j}"], plan.n_super)
             for j, kind in enumerate(plan.superblock)
             if kind != "shared_attn"}
@@ -283,7 +291,7 @@ def _superblocks(params: dict, plan: LayerPlan) -> list[list]:
 def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
            ) -> tuple[torch.Tensor, dict]:
     """Backbone only: returns (final-normed hidden states, aux)."""
-    plan = _check_ported(cfg)
+    plan = layer_plan(cfg)
     x = embed_inputs(params, batch, cfg)
     resid, pending = x, torch.zeros_like(x)
     shared = params.get("shared_attn")
@@ -332,8 +340,8 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["out_head"]
+        return base.matmul(h, params["embed"].T)
+    return base.matmul(h, params["out_head"])
 
 
 def _nll_from_hidden(params: dict, h: torch.Tensor, labels: torch.Tensor,
@@ -365,10 +373,13 @@ def _nll_from_hidden(params: dict, h: torch.Tensor, labels: torch.Tensor,
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
             ) -> tuple[torch.Tensor, dict]:
-    """Next-token cross entropy; labels < 0 are masked.  Returns ``(loss,
-    {"loss", "nll", "router_aux_loss", "drop_fraction"})``."""
+    """Next-token (or frame-label) cross entropy; labels < 0 are masked;
+    a vision model's loss reads the text positions only.  Returns
+    ``(loss, {"loss", "nll", "router_aux_loss", "drop_fraction"})``."""
     h, aux = hidden(params, batch, cfg, rt)
     labels = batch["labels"]
+    if cfg.frontend == "vision_patches":
+        h = h[:, -labels.shape[1]:]             # text positions only
     if rt.mode == "brainslug" and not cfg.tie_embeddings:
         # the fused CE kernel: the (T, V) logits never reach device memory
         nll = ce_ops.fused_nll(h.reshape(-1, h.shape[-1]), params["out_head"],
@@ -404,7 +415,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
     per-slot :class:`~repro_torch.layers.mamba2.MambaCache` either way (conv
     ``(L, B, cw-1, di+2n)`` in ``dtype``, state ``(L, B, H, N, P)`` in
     float32): a recurrent state has no block structure to share."""
-    plan = _check_ported(cfg)
+    plan = layer_plan(cfg)
     if kv_layout not in ("dense", "paged"):
         raise ValueError(f"unknown kv_layout {kv_layout!r}; "
                          f"allowed: 'dense' | 'paged'")
@@ -504,7 +515,7 @@ def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
     where the caller knows one (the Server's step, the Engine's slots); it
     picks the dense decode kernel's plan and changes no result.  The cache
     is updated in place and returned."""
-    plan = _check_ported(cfg)
+    plan = layer_plan(cfg)
     x = params["embed"][tokens_t]
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,

@@ -12,7 +12,7 @@ cluster's first CTA.  Here a transliteration of that walk:
   (``test_torch_paged._dense_cuda``) and the paged kernel's walk on a
   pooled view of the same cache (``test_torch_paged._paged_cuda``, merged
   by its first and by its second CTA), at splits 1, 2, 4, 8 and 16, at D
-  112 and 128,
+  64, 112 and 128 (1, 2 and 16 at D 256),
   over ragged lengths with a 0 and one above ``S`` (clamped), GQA at
   qwen2.5-14b's 40/8 heads, a bf16 query over a float32 cache, ``S`` below
   16 and ``S`` not a multiple of 16;
@@ -171,8 +171,14 @@ def _dense_split_cuda(q, k, v, lengths, scale, splits=None):
     return out.to(q.dtype)
 
 
-@pytest.mark.parametrize("splits", tdecode.SPLITS)
-@pytest.mark.parametrize("d", tdecode.HEAD_DIMS)
+#: (head dim, splits): every split at every head dim but 256, whose 16
+#: elements a lane make the walk dearer on the CPU: there the unsplit,
+#: the first split and the widest.
+DIM_SPLITS = [(d, s) for d in tdecode.HEAD_DIMS for s in tdecode.SPLITS
+              if d != 256 or s in (1, 2, 16)]
+
+
+@pytest.mark.parametrize("d,splits", DIM_SPLITS)
 @pytest.mark.parametrize("name", sorted(DENSE_CASES))
 def test_dense_walk_equals_the_unsplit_walk_and_paged(name, d, splits):
     """Every split gives the bits of the walk with one CTA of all chains

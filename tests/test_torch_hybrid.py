@@ -173,6 +173,32 @@ def test_forward_and_prefill_match_jax(model, mode):
                 np.asarray(want)[:, -1:]) <= REL
 
 
+def test_cut_below_the_period_matches_jax():
+    """A hybrid cut below its attention period (2 layers at period 3: no
+    whole super-block, the tail alone, ``shared_attn`` initialised and
+    unused) runs as the JAX package's: logits and loss within 1e-4."""
+    jcfg, tcfg = (dataclasses.replace(c, attn_layer_period=3, n_layers=2)
+                  for c in _cfgs(cut=False))
+    assert tlm.layer_plan(tcfg).n_super == 0
+    jparams, _ = jlm.init(jax.random.PRNGKey(3), jcfg)
+    params = convert.lm_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    assert "blocks" not in params and "shared_attn" in params
+    tok = np.random.default_rng(3).integers(
+        0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    labels = np.roll(tok, -1, axis=1)
+    rt_j, rt_t = JRuntime(mode="barrier", interpret=True), \
+        TRuntime(mode="barrier")
+    jb = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(labels)}
+    tb = {"tokens": torch.from_numpy(tok).long(),
+          "labels": torch.from_numpy(labels).long()}
+    assert _rel(tlm.forward(params, tb, tcfg, rt_t)[0],
+                jlm.forward(jparams, jb, jcfg, rt_j)[0]) <= REL
+    np.testing.assert_allclose(
+        float(tlm.loss_fn(params, tb, tcfg, rt_t)[0]),
+        float(jlm.loss_fn(jparams, jb, jcfg, rt_j)[0]), rtol=REL)
+
+
 @pytest.fixture(scope="module")
 def loss_case(model):
     """The batch (labels shifted, every 7th masked) and the JAX loss and

@@ -173,9 +173,25 @@ def test_init_matches_jax_tree_and_scales():
 
 
 def test_unported_families_and_layouts_raise():
+    # the frontends are ported (tests/test_torch_multimodal.py holds them):
+    # init, the decode cache and the backbone run
     for arch in ("hubert-xlarge", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tlm.init(0, tconfigs.get_config(arch).reduced(), device="cpu")
+        mm = tconfigs.get_config(arch).reduced()
+        params = tlm.init(0, mm, device="cpu")
+        assert tuple(params["frontend_proj"].shape) == (mm.frontend_dim,
+                                                        mm.d_model)
+        assert "sub0" in tlm.init_decode_cache(mm, 1, 4,
+                                               device="cpu")["blocks"]
+        rng = np.random.default_rng(0)
+        batch = ({"frames": torch.from_numpy(rng.standard_normal(
+            (1, 6, mm.frontend_dim)).astype(np.float32))}
+            if mm.frontend == "audio_frames" else
+            {"tokens": torch.arange(6)[None],
+             "patches": torch.from_numpy(rng.standard_normal(
+                 (1, mm.n_prefix_tokens, mm.frontend_dim)).astype(
+                     np.float32))})
+        h, _ = tlm.hidden(params, batch, mm, TRuntime(mode="barrier"))
+        assert tuple(h.shape) == (1, 6 + mm.n_prefix_tokens, mm.d_model)
     # the MoE family is ported (tests/test_torch_moe.py holds it)
     assert "moe" in tlm.init(0, tconfigs.get_config(
         "granite-moe-3b-a800m").reduced(), device="cpu")["blocks"]["sub0"]

@@ -335,13 +335,13 @@ def _flash_cuda(q, k, v, causal, scale):
 def _flash_cuda_tc(q, k, v, causal, scale):
     """The bfloat16 instance of ``csrc/flash_attention.cu`` (wgmma) in torch
     float32, CTA by CTA: ``TC_BQ`` query rows in two warpgroups of half as
-    many, ``TC_BK``-key blocks (both read from the source), tails
-    zero-filled as TMA fills them, key blocks above the diagonal skipped,
-    the mask applied only on a warpgroup's diagonal and tail blocks, and P
-    fed to the second product as two bf16 terms, hi = bf16(p) and lo =
-    bf16(p - hi), while ``l`` sums the float32 P."""
+    many, key blocks of :func:`_tc_block_keys` (read from the source),
+    tails zero-filled as TMA fills them, key blocks above the diagonal
+    skipped, the mask applied only on a warpgroup's diagonal and tail
+    blocks, and P fed to the second product as two bf16 terms, hi = bf16(p)
+    and lo = bf16(p - hi), while ``l`` sums the float32 P."""
     BQ = _cu_const(tflash.SOURCE, "TC_BQ")
-    BK = _cu_const(tflash.SOURCE, "TC_BK")
+    BK = _tc_block_keys(q.shape[-1])
     WG = BQ // 2
     b, h, sq, d = q.shape
     g, sk = k.shape[1], k.shape[2]
@@ -597,8 +597,15 @@ def test_cuda_wrappers_name_the_tpu_kernels_they_replace():
 
 def _tc_halves(d):
     """The 64-column halves of the bf16 kernel's tiles at head dim ``d``
-    (``NH`` in the source): one at 64, two above it."""
+    (``NH`` in the source): one at 64, two up to 128, four at 256."""
     return -(-d // _cu_const(tflash.SOURCE, "HALF"))
+
+
+def _tc_block_keys(d):
+    """Keys a block of the bf16 kernel at head dim ``d`` (``Layout<NH>::BK``
+    in the source): ``TC_BK`` up to two halves, ``TC_BK_WIDE`` past."""
+    return _cu_const(tflash.SOURCE, "TC_BK_WIDE" if _tc_halves(d) > 2
+                     else "TC_BK")
 
 
 def _tc_steps(d):
@@ -613,17 +620,16 @@ def _tc_steps(d):
 def _tc_written(d):
     """(row, column) -> writes of the bf16 kernel's epilogue over a CTA:
     each warpgroup's 64 rows, a thread's pairs at column ``8 (i >> 2) + 2
-    (lane & 3)`` of the first half and, with two halves, of the second
-    below ``d``."""
+    (lane & 3)`` of each half, where it lies below ``d``."""
     half = _cu_const(tflash.SOURCE, "HALF")
     written = {}
     for wg, warp, lane in itertools.product(range(2), range(4), range(32)):
         for i in range(0, 32, 2):
             row = wg * 64 + warp * 16 + lane // 4 + 8 * ((i >> 1) & 1)
             col = 8 * (i >> 2) + 2 * (lane & 3)
-            targets = [col, col + 1]
-            if _tc_halves(d) == 2 and col + half < d:
-                targets += [col + half, col + half + 1]
+            targets = [c for hf in range(_tc_halves(d))
+                       if hf * half + col < d
+                       for c in (hf * half + col, hf * half + col + 1)]
             for c in targets:
                 written[(row, c)] = written.get((row, c), 0) + 1
     return written
@@ -634,16 +640,23 @@ def test_flash_tc_zero_fill_and_epilogue_cover_the_head_dim(d):
     """The bf16 kernel's tiles keep ``ceil(d / HALF)`` 64-column halves;
     the tensor map's row is ``d`` elements, so TMA zero-fills columns past
     ``d`` of the last half.  The issued k16 steps cover every column below
-    ``d`` and skip only columns at or past it (one of eight at 112, none at
-    64 and 128); the row pitch ``2 d`` bytes is a multiple of 16; the
-    epilogue writes every (row, column < d) of the CTA's 128 rows once and
-    nothing past ``d``."""
+    ``d`` and skip only columns at or past it (one of eight at 112, three
+    of eight at 80, none at 64, 128 and 256); the row pitch ``2 d`` bytes
+    is a multiple of 16; the epilogue writes every (row, column < d) of the
+    CTA's 128 rows once and nothing past ``d``; the CTA's shared memory
+    (Q, two K + V stages of :func:`_tc_block_keys` keys, barriers and 1 KB
+    of alignment) fits the H100's 232,448 bytes."""
     tc_d = _cu_const(tflash.SOURCE, "TC_D")
     half = _cu_const(tflash.SOURCE, "HALF")
     bq = _cu_const(tflash.SOURCE, "TC_BQ")
+    stages = _cu_const(tflash.SOURCE, "TC_STAGES")
     nh = _tc_halves(d)
-    assert tc_d == 2 * half and (2 * d) % 16 == 0
-    assert d == half if nh == 1 else half < d <= tc_d
+    assert tc_d == 4 * half and (2 * d) % 16 == 0
+    assert d == half if nh == 1 else (nh - 1) * half < d <= tc_d
+    smem = (1024 + nh * bq * half * 2
+            + stages * 2 * nh * _tc_block_keys(d) * half * 2
+            + 8 * (1 + 2 * stages))
+    assert smem <= 232448
     steps = _tc_steps(d)
     cols = {h * half + 16 * j + c for h, j in steps for c in range(16)}
     assert set(range(d)) <= cols and all(c < nh * half for c in cols)
@@ -670,8 +683,10 @@ def test_flash_tc_one_half_walk_at_head_dim_64():
     stages = _cu_const(tflash.SOURCE, "TC_STAGES")
     assert _tc_halves(64) == 1 and _tc_steps(64) == [(0, j) for j in
                                                       range(4)]
-    assert "if constexpr (NH == 2) mma_rs(o_hi" in text
-    assert "if (NH == 2 && col + HALF < D)" in text
+    assert _tc_block_keys(64) == bk
+    # P V runs one chain a half, the epilogue writes a half below D only
+    assert "for (int hf = 0; hf < NH; ++hf)\n        mma_rs(oc[hf]" in text
+    assert "if (hf * HALF + col < D)" in text
     # Layout<NH>::SMEM: 1 KB of alignment slack, Q, the ring, the barriers
     smem = {nh: 1024 + nh * bq * half * 2 + stages * 2 * nh * bk * half * 2
             + 8 * (1 + 2 * stages) for nh in (1, 2)}
@@ -689,14 +704,15 @@ def test_flash_tc_one_half_walk_at_head_dim_64():
     _close(got, want, "bfloat16", "one-half walk")
 
 
-def _flash_at_head_dim(d, dtype, causal, seed):
+def _flash_at_head_dim(d, dtype, causal, seed, h=8, g=2, s=150):
     """The plain version and the transliteration of the instance the dtype
     launches at head dim ``d`` against the Pallas kernel (interpret mode),
-    GQA 8/2, a sequence not a multiple of any tile.  The bf16 walk runs on
-    tiles zero-filled to its halves' columns, as TMA fills them, and the
-    columns past ``d`` come out exactly zero (computed, never written)."""
+    GQA ``h``/``g`` (8/2 by default), a sequence not a multiple of any
+    tile.  The bf16 walk runs on tiles zero-filled to its halves' columns,
+    as TMA fills them, and the columns past ``d`` come out exactly zero
+    (computed, never written)."""
     rng = np.random.default_rng(seed)
-    b, h, g, s = 1, 8, 2, 150
+    b = 1
     q = _randn(rng, (b, h, s, d), dtype)
     k, v = _randn(rng, (b, g, s, d), dtype), _randn(rng, (b, g, s, d), dtype)
     want = np.asarray(jattn_ops.flash_attention(
@@ -733,12 +749,12 @@ def test_flash_attention_at_head_dim_64_matches_jax_kernel(dtype, causal):
     _flash_at_head_dim(64, dtype, causal, 64 + causal)
 
 
-def _decode_at_head_dim(d, dtype, seed):
+def _decode_at_head_dim(d, dtype, seed, g=2):
     """Ragged lengths (0, 1, mid, full) with garbage past them, at head dim
-    ``d``: the plain version and the transliteration against the Pallas
-    kernel, exact zeros at length 0."""
+    ``d`` and 8 query heads over ``g``: the plain version and the
+    transliteration against the Pallas kernel, exact zeros at length 0."""
     rng = np.random.default_rng(seed)
-    b, h, g, s = 4, 8, 2, 100
+    b, h, s = 4, 8, 100
     q = _randn(rng, (b, h, 1, d), dtype)
     k, v = _randn(rng, (b, g, s, d), dtype), _randn(rng, (b, g, s, d), dtype)
     lengths = np.array([0, 1, 53, s], np.int32)
@@ -772,3 +788,30 @@ def test_flash_decode_at_head_dim_64_matches_jax_kernel(dtype):
     hold exact zeros."""
     _decode_at_head_dim(64, dtype, 640)
 
+
+
+# ---------------------------------------------------------------------------
+# head dims 80 (hubert-xlarge: 1280 / 16) and 256 (paligemma-3b: 2048 / 8)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_head_dim_80_matches_jax_kernel(dtype, causal):
+    """At D = 80 (two halves, the second zero-filled past 80, three of its
+    k16 steps skipped); hubert's encoder runs it non-causal."""
+    _flash_at_head_dim(80, dtype, causal, 80 + causal, h=4, g=4, s=130)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_head_dim_256_matches_jax_kernel(dtype):
+    """At D = 256, causal, 8 query heads over 1 KV head (paligemma's): four
+    halves, 64-key blocks in the bf16 instance."""
+    assert _tc_halves(256) == 4 and _tc_block_keys(256) == 64
+    _flash_at_head_dim(256, dtype, True, 256, h=8, g=1, s=130)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_at_head_dim_256_matches_jax_kernel(dtype):
+    """At D = 256, 8 query heads over 1: 16 elements a lane, every lane
+    live."""
+    _decode_at_head_dim(256, dtype, 2560, g=1)

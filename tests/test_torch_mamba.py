@@ -363,8 +363,9 @@ def test_trainer_matches_jax_trainer(mode):
 def test_hybrid_still_raises():
     """The hybrid no longer raises: its ``init`` and ``init_decode_cache``
     run (``tests/test_torch_hybrid.py`` holds them against the JAX
-    package), and so do MoE's (``tests/test_torch_moe.py``); a frontend
-    still raises, naming its slice, and so does a zero SSD chunk."""
+    package), and so do MoE's (``tests/test_torch_moe.py``) and the
+    frontends' (``tests/test_torch_multimodal.py``): hubert's ``init``,
+    ``init_decode_cache`` and ``hidden`` run; a zero SSD chunk raises."""
     cfg = tconfigs.get_config("zamba2-7b").reduced()
     params = tlm.init(0, cfg, device="cpu")
     assert {"blocks", "shared_attn"} <= set(params)
@@ -376,9 +377,13 @@ def test_hybrid_still_raises():
     assert set(tlm.init_decode_cache(moe, 1, 4, device="cpu")["blocks"]) \
         == {"sub0"}
     audio = tconfigs.get_config("hubert-xlarge").reduced()
-    for fn in (lambda: tlm.init(0, audio, device="cpu"),
-               lambda: tlm.init_decode_cache(audio, 1, 4, device="cpu")):
-        with pytest.raises(NotImplementedError, match="multimodal slice"):
-            fn()
+    params = tlm.init(0, audio, device="cpu")
+    assert "frontend_proj" in params
+    assert set(tlm.init_decode_cache(audio, 1, 4, device="cpu")["blocks"]) \
+        == {"sub0"}
+    frames = torch.zeros((1, 3, audio.frontend_dim))
+    h, _ = tlm.hidden(params, {"frames": frames}, audio,
+                      TRuntime(mode="barrier"))
+    assert tuple(h.shape) == (1, 3, audio.d_model)
     with pytest.raises(ValueError, match="ssd_chunk"):
         TRuntime(ssd_chunk=0)

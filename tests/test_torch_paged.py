@@ -13,11 +13,11 @@
   CTAs a (slot, head);
 * ``launch_plan``: every (slot, head, chain) once, no lengths read, the
   chain count the dense kernel's;
-* head dims 112 (zamba2-7b's) and 64 (granite-moe-3b's): the plain
-  version and the walk against the Pallas kernel, paged bit for bit with
-  dense on the gathered view, and the lane layout both kernels share (8
-  elements a lane, lanes past ``D / 8`` zero) covering every element of a
-  row once;
+* head dims 112 (zamba2-7b's), 64 (granite-moe-3b's) and 256
+  (paligemma-3b's): the plain version and the walk against the Pallas
+  kernel, paged bit for bit with dense on the gathered view, and the lane
+  layout both kernels share (8 elements a lane up to D 128, lanes past ``D
+  / 8`` zero; 16 a lane at D 256) covering every element of a row once;
 * the layer's in-place paged write, ``lm.reset_slots`` and
   ``lm.copy_blocks`` against the JAX package's;
 * ``BlockAllocator``/``PrefixCache`` under one random op sequence in both
@@ -125,29 +125,36 @@ def _cu_const(path, name):
 GROUPS = _cu_const(tdecode.CHAIN_SOURCE, "CHAINS")
 #: A card of (SMs, CTAs an SM at every split) for the plan in these tests.
 CARD = (3, lambda splits: 2)
-#: Lanes a key row and elements a lane, in both kernels.
+#: Lanes a key row and elements a lane up to D 128, in both kernels.
 LANES = _cu_const(tdecode.CHAIN_SOURCE, "LANES")
 E = _cu_const(tdecode.CHAIN_SOURCE, "E")
 
 
+def _elems(d):
+    """``lane_elems<D>()`` of ``decode_chain.cuh``: elements a lane holds
+    at head dim ``d``, ``E`` up to ``LANES * E``, else ``2 E``."""
+    return E if d <= LANES * E else 2 * E
+
+
 def _lanes(x):
-    """(..., D) as (..., LANES, E): lane ``i`` holds elements ``E*i ..
-    E*i + E - 1``; lanes at or past ``D / E`` hold zeros (they read
-    nothing)."""
+    """(..., D) as (..., LANES, e), e = :func:`_elems`: lane ``i`` holds
+    elements ``e*i .. e*i + e - 1``; lanes at or past ``D / e`` hold zeros
+    (they read nothing)."""
     d = x.shape[-1]
-    assert d % E == 0 and d <= LANES * E
-    pad = torch.zeros(x.shape[:-1] + (LANES * E - d,), dtype=x.dtype)
-    return torch.cat([x, pad], -1).view(x.shape[:-1] + (LANES, E))
+    e = _elems(d)
+    assert d % e == 0 and d <= LANES * e
+    pad = torch.zeros(x.shape[:-1] + (LANES * e - d,), dtype=x.dtype)
+    return torch.cat([x, pad], -1).view(x.shape[:-1] + (LANES, e))
 
 
 def _chain_step(q, k, v, m, l, acc, act, scale):
     """One key of every chain at once (``CHAINS`` wide, whatever subset
-    advances): the kernels' dot product, each lane's ``E`` elements in
-    order (exact zeros in a lane past ``D / E``), then the xor-shuffle tree
-    8, 4, 2, 1 over the 16 lanes; then the online-softmax update.
-    Elementwise over the chains, so a chain's bits do not depend on which
-    others advance."""
-    lanes, e = LANES, E
+    advances): the kernels' dot product, each lane's elements in order
+    (exact zeros in a lane past ``D``), then the xor-shuffle tree 8, 4, 2,
+    1 over the 16 lanes; then the online-softmax update.  Elementwise over
+    the chains, so a chain's bits do not depend on which others
+    advance."""
+    lanes, e = LANES, _elems(q.shape[-1])
     qv, kv = _lanes(q), _lanes(k)
     dot = torch.zeros(k.shape[0], lanes)
     for i in range(e):
@@ -183,7 +190,8 @@ def _seed(d):
 
 def _ring_keys(pool_dtype, chains):
     """``ring_keys<TKV, CPS>()`` and ``step_keys<TKV, CPS>()`` of
-    ``decode_chain.cuh``: keys a chain stages, and keys it takes a step."""
+    ``decode_chain.cuh``: keys a chain stages, and keys it takes a step
+    (the same at every head dim: counted at ``E`` elements a lane)."""
     lane_bytes = (4 if pool_dtype == torch.float32 else 2) * 8
     r = (_cu_const(tdecode.CHAIN_SOURCE, "RING_BYTES")
          // (chains * 16 * 2 * lane_bytes))
@@ -457,7 +465,7 @@ def test_paged_wrapper_checks_and_names_its_tpu_kernel():
 
 
 # ---------------------------------------------------------------------------
-# head dims 112 (zamba2-7b) and 64 (granite-moe-3b)
+# head dims 112 (zamba2-7b), 64 (granite-moe-3b) and 256 (paligemma-3b)
 # ---------------------------------------------------------------------------
 
 D112_CASES = ("ragged_f32", "bf16_q_f32_pool", "ragged_bf16")
@@ -522,35 +530,50 @@ def test_paged_equals_dense_at_head_dim_64(splits):
     _paged_equals_dense(64, splits)
 
 
+@pytest.mark.parametrize("name", D112_CASES)
+def test_paged_at_head_dim_256_matches_jax_kernel(name):
+    """At D = 256 (paligemma-3b's 2048 / 8): 16 elements a lane, every
+    lane live."""
+    _paged_at_head_dim(name, 256)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 16])
+def test_paged_equals_dense_at_head_dim_256(splits):
+    """At D = 256, at every split and whichever CTA merges."""
+    _paged_equals_dense(256, splits)
+
+
 @pytest.mark.parametrize("d", tdecode.HEAD_DIMS)
 @pytest.mark.parametrize("pool_bytes", [2, 4])
 def test_lane_layout_covers_each_row_once(d, pool_bytes):
     """The index arithmetic both decode kernels share, element by element
-    at every head dim they are built for: a lane is live iff ``lane * E <
-    D``; the live lanes' elements ``lane * E + e`` cover ``0 .. D - 1``
-    once; each 16-byte copy of a live lane (one for bf16, two for float32)
+    at every head dim they are built for: a lane holds ``E`` elements
+    (``2 E`` at D 256) and is live iff ``lane * E < D``; the live lanes'
+    elements ``lane * E + e`` cover ``0 .. D - 1`` once; each 16-byte copy
+    of a live lane (one for bf16, two for float32, twice as many at D 256)
     lies inside its row of the pool at a 16-byte aligned address, for the
     row address ``((tbl * G + g) * bs + r) * D`` of logical key ``p`` (``r
     = p % bs``); a lane's staged slot ``(((grp * RING + i % RING) * 2 + kv)
     * LANES + lane) * E`` lies inside the ring, one slot a (key, tensor,
-    lane); the merge's table row of a chain is ``D`` floats, the live
-    lanes' columns."""
+    lane), and the ring holds the merge's table of 16 rows of ``D``
+    floats."""
     assert f"constexpr int E = {E};" in tdecode.CHAIN_SOURCE.read_text()
     text = tdecode.PAGED_SOURCE.read_text()
     assert "paged_flash_decode_kernel<TQ, TKV, CPS, D>" in text
     n, g_kv, bs = 5, 3, 4
     shape = (n, g_kv, bs, d)
-    live = [lane for lane in range(LANES) if lane * E < d]
-    assert len(live) == d // E
-    cols = sorted(lane * E + e for lane in live for e in range(E))
+    el = _elems(d)
+    live = [lane for lane in range(LANES) if lane * el < d]
+    assert len(live) == d // el
+    cols = sorted(lane * el + e for lane in live for e in range(el))
     assert cols == list(range(d))
     row_bytes = d * pool_bytes
     for tbl, g, r in itertools.product(range(n), range(g_kv), range(bs)):
         row = ((tbl * g_kv + g) * bs + r) * d
         assert row == np.ravel_multi_index((tbl, g, r, 0), shape)
         for lane in live:
-            start = (row + lane * E) * pool_bytes
-            for v in range(E * pool_bytes // 16):
+            start = (row + lane * el) * pool_bytes
+            for v in range(el * pool_bytes // 16):
                 at = start + 16 * v
                 assert at % 16 == 0
                 assert row * pool_bytes <= at
@@ -558,12 +581,13 @@ def test_lane_layout_covers_each_row_once(d, pool_bytes):
     for chains in (16, 8, 1):
         ring, _ = _ring_keys(torch.float32 if pool_bytes == 4
                              else torch.bfloat16, chains)
-        size = chains * ring * 2 * LANES * E
-        slots = {(((grp * ring + i % ring) * 2 + kv) * LANES + lane) * E
+        size = chains * ring * 2 * LANES * el
+        slots = {(((grp * ring + i % ring) * 2 + kv) * LANES + lane) * el
                  for grp in range(chains) for i in range(2 * ring)
                  for kv in (0, 1) for lane in live}
-        assert max(slots) + E <= size and min(slots) >= 0
+        assert max(slots) + el <= size and min(slots) >= 0
         assert len(slots) == chains * ring * 2 * len(live)
+        assert size * pool_bytes >= 4 * GROUPS * d
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The kernel registry of the port (``repro_torch.core.registry``) on the
 traced LM twins, against the JAX package on the CPU: the transformer block
-at head dim 128, 112 and 64 (every kernel dispatches) and 16 and 136
+at head dim 128, 112 and 64 (every kernel dispatches) and 16, 96 and 136
 (attention falls back to its plain version, the reason in ``report()``),
 the CE tail, their
 gradients against ``jax.grad``; the probe's fence veto, a vetoed match
@@ -107,9 +107,9 @@ def test_block_at_head_dim_16_falls_back_with_its_reason():
     assert report.kernel_fallbacks == {"attention": 1}
     (att,) = [k for k in report.kernels if k.kernel == "attention"]
     assert att.backend == "ref" and att.fallback_reason == \
-        "head_dim 16 is not one of the kernel's (64, 112, 128)"
+        "head_dim 16 is not one of the kernel's (64, 80, 112, 128, 256)"
     assert ("(fallback: head_dim 16 is not one of the kernel's "
-            "(64, 112, 128))") in net.explain()
+            "(64, 80, 112, 128, 256))") in net.explain()
     assert delta["attention_ref"] == 1 and delta["attention_plain"] == 0
     assert report.kernel_hits == {"attention": 1, "rmsnorm": 2, "swiglu": 1}
 
@@ -135,7 +135,13 @@ def test_block_at_head_dim_112_dispatches_attention_to_the_kernel():
     np.testing.assert_allclose(y.detach().numpy(), jy, rtol=TOL, atol=TOL)
     (att,) = [k for k in net.report().kernels if k.kernel == "attention"]
     assert att.backend == "ref" and att.fallback_reason == \
-        "head_dim 136 is not one of the kernel's (64, 112, 128)"
+        "head_dim 136 is not one of the kernel's (64, 80, 112, 128, 256)"
+    params, x, cot, jy, jgx, jgp = _block_case(192, 2, 64, 8, seed=5)
+    net, y, gx, gp, delta = _run_block(params, x, cot, 2, "brainslug")
+    np.testing.assert_allclose(y.detach().numpy(), jy, rtol=TOL, atol=TOL)
+    (att,) = [k for k in net.report().kernels if k.kernel == "attention"]
+    assert att.backend == "ref" and att.fallback_reason == \
+        "head_dim 96 is not one of the kernel's (64, 80, 112, 128, 256)"
 
 
 def test_block_at_head_dim_64_dispatches_attention_to_the_kernel():

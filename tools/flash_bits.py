@@ -8,7 +8,7 @@ Each TREE (a checkout of this repository: ``TREE/src/repro_torch``) runs
 in a process of its own, builds its kernels from its own sources and
 calls only ``flash.flash_attention_fwd``, on the same inputs: q (2, 32,
 1000, D) over 8 KV heads, random from a CUDA generator seeded with D, at
-D 112 and 128, bf16 (the tensor-core instance) and float32 (the CUDA-core
+D 64, 112 and 128, bf16 (the tensor-core instance) and float32 (the CUDA-core
 instance), causal and not.  The outputs go to ``build/flash_bits_*.pt``
 beside this repository's ``build/``; the script prints, per case, whether
 the two trees' outputs are equal, and exits non-zero unless all are.
@@ -17,7 +17,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-HEAD_DIMS = (112, 128)
+HEAD_DIMS = (64, 112, 128)
 BUILD = Path(__file__).resolve().parents[1] / "build"
 
 
