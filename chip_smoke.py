@@ -233,10 +233,29 @@ Phases, one line each (plus tables):
    at 4 layers, float32 at 2 layers with identical tokens, ``Trainer.run``
    at 6 layers with the loss on the text positions (its step-1 embed
    gradient held through a float32 run);
+28. the static verifier: (a) ``python -m repro_torch.lint --device
+   h100`` exits 0 over every default arch; (b) ``optimize_graph`` of
+   VGG-16 at (32, 224, 224, 3), forward and ``differentiable=True``, and
+   ``api.optimize`` of ``vgg_fn``, of ``block_fn`` at (32, 56, 56, 32)
+   (training), of ``transformer_block_fn`` at deepseek-7b widths (bf16)
+   and of ``ce_loss_fn`` at CE_SHAPE (bf16), all under
+   ``verify="strict"``: no error finding, every dispatch on a hand-written
+   kernel, outputs held to ``barrier`` or the plain functions at phases 4
+   and 23's limits, the verifier's host seconds beside each call's; (c)
+   the write models of the four fused-stack kernels (``write_model``,
+   from the launch plans on this card) against one launch each, every
+   buffer the kernels write filled with NaN first: ``fused_nhwc`` at VGG
+   stage 1 and a block_net chain, ``fused_nhwc_bwd`` on its fused path and
+   on patch slots, ``fused_rows`` at deepseek's addnorm (2048 rows) and
+   mamba2's gated norm (2048, 5120) bf16, ``fused_rows_bwd`` with
+   parameter partials: every element inside the models' blocks written
+   and finite, every other still NaN, results at phases 2-3 and 7-8's
+   limits, and a model with a block dropped flagged by the verifier and by
+   the buffers;
 then the ``kernels`` JSON line (each CUDA kernel with its instances, the
 attention kernels' head-dim 112, 64, 80 and 256 entries, the SSD's zamba2
-shape and the multimodal paths' launches), the card line, and the ``ok``
-line last.
+shape, the multimodal paths' launches and the fused-stack kernels' write
+model checks), the card line, and the ``ok`` line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
 when any phase fails.
@@ -244,6 +263,8 @@ when any phase fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import io
 import itertools
 import json
 import math
@@ -610,7 +631,7 @@ class Smoke:
               "phase19_train_timing", "phase20_ssd_kernel",
               "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced",
               "phase24_hybrid", "phase25_moe", "phase26_slice_f",
-              "phase27_multimodal")
+              "phase27_multimodal", "phase28_verify")
 
     def run(self):
         t0 = time.perf_counter()
@@ -8410,6 +8431,403 @@ class Smoke:
                 "launches": {w: la[w][name] for w in where}}
         print(f"[27 launches] " + "; ".join(f"{w} {c}" for w, c in la.items())
               + f"; phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 28: the static verifier ----------------------------------------
+    def phase28_verify(self):
+        """(a) the lint CLI on the H100 spec; (b) ``optimize`` at full width
+        under ``verify="strict"``; (c) the four fused-stack kernels' write
+        models against what the kernels write on the card."""
+        t0 = time.perf_counter()
+        from repro_torch import lint
+        t = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rc = lint.main(["--device", "h100"])
+        if rc != 0:
+            print(log.getvalue())
+            raise PhaseError(f"28a: python -m repro_torch.lint --device h100 "
+                             f"exited {rc}")
+        print(f"[28a lint] python -m repro_torch.lint --device h100: exit 0 "
+              f"over every default arch in {time.perf_counter() - t:.2f} s")
+        self.phase28_optimize()
+        self.phase28_write_models()
+        print(f"[28] phase {time.perf_counter() - t0:.1f} s")
+
+    def strict_net(self, what, build):
+        """``build(verify)`` under ``"strict"``: zero error findings (a
+        strict compile raises on one), the verifier's host seconds and its
+        share of the whole ``optimize`` call."""
+        from repro_torch.core import verify
+        t = time.perf_counter()
+        net = build("strict")
+        total = time.perf_counter() - t
+        errs = verify.errors(net.verify_findings)
+        if errs:
+            raise PhaseError(f"28b {what}: {len(errs)} error findings under "
+                             f"strict: {errs[0]}")
+        rep = net.report()
+        if rep.verify_errors or rep.kernel_fallbacks or any(
+                k.backend != "hopper" for k in rep.kernels):
+            raise PhaseError(f"28b {what}: {rep}")
+        self.verify_seconds[what] = (net.verify_seconds, total,
+                                     rep.verify_warnings)
+        return net
+
+    def phase28_optimize(self):
+        """28b: the main paths' ``optimize`` calls of phases 4 and 23 at full
+        width under ``verify="strict"``, each held to ``barrier`` at those
+        phases' limits with every dispatch on a hand-written kernel."""
+        torch = self.torch
+        import gc
+
+        from repro_torch import api
+        from repro_torch.core import api as core_api
+        from repro_torch.models import cnn, lm
+        t = time.perf_counter()
+        self.verify_seconds = {}
+        lines = []
+
+        def held(what, got, want, tol, n_seq, **launches):
+            rel = float((got.float() - want.float()).abs().max()) / max(
+                float(want.float().abs().max()), 1e-30)
+            if not bool(torch.isfinite(got).all()) or got.shape != want.shape \
+                    or not torch.allclose(got.float(), want.float(), **tol):
+                raise PhaseError(f"28b {what}: max|d|/max|y| {rel:.3e} "
+                                 f"outside {tol}")
+            lines.append(f"{what} max|d|/max|y| {rel:.2e}")
+
+        graph, params = cnn.vgg_net(VGG16_STAGES, device=self.dev)
+        x = self.randn(VGG_INPUT, 7)
+        with torch.no_grad():
+            want = core_api.optimize_graph(
+                graph, VGG_INPUT, core_api.OptimizeConfig(mode="barrier"))(
+                    x, params)
+            for diff in (False, True):
+                what = f"optimize_graph VGG-16{' train' if diff else ''}"
+                net = self.strict_net(what, lambda v: core_api.optimize_graph(
+                    graph, VGG_INPUT, core_api.OptimizeConfig(
+                        mode="brainslug", differentiable=diff, verify=v)))
+                self.traced_counts(zero=True)
+                got = net(x, params)
+                torch.cuda.synchronize()
+                self.expect_traced(what, self.traced_counts(),
+                                   net.n_sequences,
+                                   fused_nhwc=net.n_sequences)
+                held(what, got, want, PATH_TOL, net.n_sequences)
+            net = self.strict_net("optimize(vgg_fn)", lambda v: api.optimize(
+                cnn.vgg_fn, x, params, config=api.OptimizeConfig(
+                    mode="brainslug", verify=v)))
+            self.traced_counts(zero=True)
+            got = net(x, params)
+            torch.cuda.synchronize()
+            self.expect_traced("optimize(vgg_fn)", self.traced_counts(),
+                               net.n_sequences, fused_nhwc=net.n_sequences)
+            held("optimize(vgg_fn)", got, cnn.vgg_fn(x, params), PATH_TOL,
+                 net.n_sequences)
+        del graph, params, x, want, got, net
+        _, bparams = cnn.block_net(8, 32, device=self.dev)
+        bx = self.randn(BLOCK_INPUT, 11)
+        net = self.strict_net("optimize(block_fn) train", lambda v:
+                              api.optimize(cnn.block_fn, bx, bparams,
+                                           config=api.OptimizeConfig(
+                                               mode="brainslug",
+                                               differentiable=True,
+                                               verify=v)))
+        with torch.no_grad():
+            self.traced_counts(zero=True)
+            got = net(bx, bparams)
+            torch.cuda.synchronize()
+            self.expect_traced("optimize(block_fn) train",
+                               self.traced_counts(), net.n_sequences,
+                               fused_nhwc=net.n_sequences)
+            held("optimize(block_fn) train", got, cnn.block_fn(bx, bparams),
+                 PATH_TOL, net.n_sequences)
+        del bparams, bx, got, net
+        heads, seq = 32, PREFILL[1]
+        p = lm.transformer_block_params(
+            D_MODEL, heads, D_FF, generator=torch.Generator(
+                device=self.dev).manual_seed(23), dtype=torch.bfloat16,
+            device=self.dev)
+        xb = self.randn((1, seq, D_MODEL), 24).to(torch.bfloat16)
+
+        def block(x, p):
+            return lm.transformer_block_fn(x, p, n_heads=heads)
+
+        net = self.strict_net("optimize(transformer_block_fn) bf16", lambda v:
+                              api.optimize(block, xb, p,
+                                           config=api.OptimizeConfig(
+                                               mode="brainslug", verify=v)))
+        with torch.no_grad():
+            want = api.optimize(block, xb, p, config=api.OptimizeConfig(
+                mode="barrier", verify="off"))(xb, p)
+            self.traced_counts(zero=True)
+            got = net(xb, p)
+            torch.cuda.synchronize()
+            self.expect_traced("transformer_block_fn", self.traced_counts(),
+                               net.n_sequences, fused_rows=net.n_sequences,
+                               flash_attention=1, rmsnorm=2, swiglu=1)
+            rel = float((got.float() - want.float()).abs().max()) / float(
+                want.float().abs().max())
+            if not bool(torch.isfinite(got).all()) or rel > 2e-2:
+                raise PhaseError(f"28b transformer_block_fn: max|d|/max|y| "
+                                 f"{rel:.3e} (tol 2e-2)")
+            lines.append(f"transformer_block_fn bf16 max|d|/max|y| "
+                         f"{rel:.2e}")
+        del p, xb, got, want, net
+        gc.collect()
+        torch.cuda.empty_cache()
+        tt, d, v = CE_SHAPE
+        g = torch.Generator(device=self.dev).manual_seed(2330)
+        labels = torch.randint(0, v, (tt,), generator=g, device=self.dev)
+        labels[torch.rand(tt, generator=g, device=self.dev) < 0.1] = -1
+        h = self.randn((tt, d), 31).to(torch.bfloat16)
+        w = (self.randn((d, v), 32) / d ** 0.5).to(torch.bfloat16)
+        net = self.strict_net("optimize(ce_loss_fn) bf16", lambda v:
+                              api.optimize(lm.ce_loss_fn, h, w, labels,
+                                           config=api.OptimizeConfig(
+                                               mode="brainslug", verify=v)))
+        with torch.no_grad():
+            self.traced_counts(zero=True)
+            loss = float(net(h, w, labels))
+            torch.cuda.synchronize()
+            self.expect_traced("ce_loss_fn", self.traced_counts(),
+                               net.n_sequences, fused_ce=1,
+                               fused_rows=net.n_sequences)
+            want = float(api.optimize(
+                lm.ce_loss_fn, h, w, labels, config=api.OptimizeConfig(
+                    mode="barrier", verify="off"))(h, w, labels))
+        if not math.isfinite(loss) or abs(loss - want) > 1e-4 * abs(want):
+            raise PhaseError(f"28b ce_loss_fn: loss {loss} vs barrier {want}"
+                             f" (tol 1e-4 relative)")
+        lines.append(f"ce_loss_fn bf16 loss {loss} (barrier {want})")
+        del h, w, labels, net
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[28b optimize, verify='strict', full width] 0 error findings"
+              f" on every net; every dispatch hopper; " + "; ".join(lines)
+              + f"; {time.perf_counter() - t:.1f} s")
+        print("[28b verifier host time] " + "; ".join(
+            f"{what}: {s * 1e3:.1f} ms of {tot * 1e3:.1f} ms ({s / tot:.1%}),"
+            f" {n} warning(s)"
+            for what, (s, tot, n) in self.verify_seconds.items()))
+
+    def write_model_check(self, kernel, what, models, buffers):
+        """Each write model against the buffers one launch wrote, every one
+        of them filled with NaN before it: every element inside the model's
+        blocks written and finite, every element outside still NaN; the
+        verifier finds nothing.  Then a planted model, one block dropped:
+        the verifier and the buffers must both flag it.  Returns the
+        counts of the kernel's entry."""
+        torch = self.torch
+        from repro_torch.core import verify
+        findings, elements, checked = 0, 0, []
+        planted = None
+        # a buffer the wrapper fills itself (dx zeroed where the kernel's
+        # regions leave gaps) holds that fill outside the kernel's blocks
+        filled = {m["name"].split(":")[0] for m in models
+                  if m["launch"].startswith("torch.")}
+        for m in models:
+            spec = verify.WriteSpec.from_model(kernel, m)
+            findings += len(verify.errors(verify.check_write_spec(spec)))
+            if m["launch"].startswith("torch."):
+                continue            # the wrapper's own fill, not a launch
+            buf = buffers[m["name"]].reshape(spec.array_shape)
+            mask = torch.from_numpy(verify.write_mask(spec)).to(self.dev)
+            inside = buf[mask]
+            if not bool(torch.isfinite(inside).all()):
+                raise PhaseError(f"28c {kernel} {what}: model {m['name']}: "
+                                 f"{int((~torch.isfinite(inside)).sum())} "
+                                 f"elements inside its blocks unwritten or "
+                                 f"not finite")
+            rest = buf[~mask]
+            untouched = (rest == 0 if m["name"] in filled
+                         else torch.isnan(rest))
+            if not bool(untouched.all()):
+                raise PhaseError(f"28c {kernel} {what}: model {m['name']}: "
+                                 f"{int((~untouched).sum())} elements "
+                                 f"outside its blocks written")
+            elements += buf.numel()
+            checked.append(m["name"])
+            if planted is None and spec.covers and m["name"] not in filled \
+                    and int(np.prod(spec.grid)) > 1:
+                planted = (spec, buf)
+        if findings:
+            raise PhaseError(f"28c {kernel} {what}: {findings} error "
+                             f"findings on its write models")
+        spec, buf = planted
+        live = spec.live
+
+        def dropped(*p):
+            keep = (np.ones(np.broadcast(*p).shape, bool) if live is None
+                    else np.asarray(live(*p), bool))
+            first = np.ones_like(keep)
+            for c in p:
+                first &= np.asarray(c) == 0
+            return keep & ~first
+
+        bad = dataclasses.replace(spec, live=dropped)
+        flagged = [f.invariant for f in verify.check_write_spec(bad)]
+        mask = torch.from_numpy(verify.write_mask(bad)).to(self.dev)
+        written_outside = int((~torch.isnan(buf[~mask])).sum())
+        if flagged != ["grid.coverage"] or not written_outside:
+            raise PhaseError(f"28c {kernel} {what}: a model with a block "
+                             f"dropped was not flagged ({flagged}, "
+                             f"{written_outside} elements written outside)")
+        return {"models": checked, "findings": findings,
+                "elements": elements, "planted": {
+                    "model": spec.name, "verifier": flagged,
+                    "written_outside": written_outside}}
+
+    def phase28_write_models(self):
+        """28c: the write models of the four fused-stack kernels, built
+        from the launch plans on this card (its SMs, the occupancy API's
+        CTAs an SM), against what each kernel writes, and the results
+        against the plain versions at phases 2-3 and 7-8's limits."""
+        torch = self.torch
+        from repro_torch.core import collapse, ir, resource
+        from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd, ref, rows
+        from repro_torch.kernels.fused_stack import rows_bwd
+        from repro_torch.layers import mamba2, stacks
+        t = time.perf_counter()
+        sm = self.sm_count
+        out = {k: [] for k in ("fused_nhwc", "fused_nhwc_bwd", "fused_rows",
+                               "fused_rows_bwd")}
+        cases, bparams = self.nhwc_cases()
+        fused_name, stage1, _ = self.nhwc_fused_cases()[0]
+        block = next(c for c in cases if c[0] == "block_net8_seq0")
+        # fused_nhwc: VGG stage 1 (the fused path), a generic chain
+        for name, program, shape, tile in (
+                (fused_name, stage1, (8,) + VGG_INPUT[1:3] + (64,), 8),
+                (block[0], block[1], block[2], block[3])):
+            x, params, _ = self.nhwc_operands(
+                program, shape, "block" if program is block[1] else {},
+                bparams, 70)
+            bufs = {}
+            got = nhwc.fused_nhwc(program, x, params, tile_out_h=tile,
+                                  tile_out_w=tile, nan_buffers=bufs)
+            torch.cuda.synchronize()
+            models = nhwc.write_model(program, tuple(shape), (), tile, tile,
+                                      sm, nhwc.fused_ctas_per_sm())
+            entry = self.write_model_check("fused_nhwc", name, models, bufs)
+            want = ref.fused_stack_ref(program, {program.inputs[0]: x},
+                                       params)
+            self.check("fused_nhwc", f"28c {name}",
+                       {program.outputs[0]: got}, want, NHWC_TOL)
+            out["fused_nhwc"].append((name, entry))
+        # fused_nhwc_bwd: VGG stage 1's fused path, block_net's patch slots
+        lib = nhwc_bwd._library()
+        xb = self.randn(BLOCK_INPUT, 150, 2.0)
+        train = collapse.collapse(block[1], {"x": BLOCK_INPUT}, resource.H100,
+                                  differentiable=True)
+        for name, program, x, params, tile in (
+                (fused_name, stage1,
+                 self.randn((8,) + VGG_INPUT[1:3] + (64,), 71, 2.0),
+                 self.nhwc_operands(stage1, (1, 1, 1, 64), {}, bparams,
+                                    72)[1], (8, 8)),
+                ("block_net8_train_seq0", train.subprogram(0), xb, bparams,
+                 (train.sequences[0].tile_out_h,
+                  train.sequences[0].tile_out_w))):
+            shapes = {program.inputs[0]: tuple(x.shape)}
+            g = self.randn(ir.infer_shapes(program, shapes)[
+                program.outputs[0]], 73)
+            bufs = {}
+            dx, dext, dpar = nhwc_bwd.fused_nhwc_bwd(
+                program, x, {}, params, g, tile_out_h=tile[0],
+                tile_out_w=tile[1], nan_buffers=bufs)
+            torch.cuda.synchronize()
+            b = nhwc_bwd.NhwcBwdDesc.from_buffer_copy(nhwc_bwd.bwd_template(
+                program, tuple(x.shape), (), (1,) * len(program.param_names),
+                *tile))
+            models = nhwc_bwd.write_model(program, tuple(x.shape), (), *tile,
+                                          sm, nhwc_bwd._ctas_per_sm(lib, b))
+            entry = self.write_model_check("fused_nhwc_bwd", name, models,
+                                           bufs)
+            rdx, rext, rpar = nhwc_bwd.fused_nhwc_bwd_ref(program, x, {},
+                                                          params, g)
+            self.check_bwd("fused_nhwc_bwd", f"28c {name}",
+                           {"dx": dx, **{f"d{k}": v for k, v in dpar.items()}},
+                           {"dx": rdx, **{f"d{k}": v
+                                          for k, v in rpar.items()}},
+                           reduced={f"d{k}" for k in rpar})
+            out["fused_nhwc_bwd"].append((name, entry))
+        # fused_rows: deepseek's addnorm at 2048 rows, mamba2's gated norm
+        di = 5120
+        addnorm = stacks.addnorm_program("rms", 1e-6, False)
+        gated = mamba2._gated_norm_program(1e-6)
+        bf = torch.bfloat16
+        for name, program, inputs, params, tol in (
+                ("addnorm_rms_2048", addnorm,
+                 {"x": self.randn((2048, D_MODEL), 80),
+                  "res": self.randn((2048, D_MODEL), 81)},
+                 {"scale": 1.0 + 0.1 * self.randn((D_MODEL,), 82)},
+                 ROWS_NORM_TOL),
+                ("mamba2_gated_norm_bf16", gated,
+                 {"y": self.randn((2048, di), 83).to(bf),
+                  "z": self.randn((2048, di), 84).to(bf)},
+                 {"scale": (1.0 + 0.1 * self.randn((di,), 85)).to(bf)},
+                 None)):
+            bufs = {}
+            got = rows.fused_rows(program, inputs, params, nan_buffers=bufs)
+            torch.cuda.synchronize()
+            in_w = {v: t_.shape[-1] for v, t_ in inputs.items()}
+            feats = max([*in_w.values(), *(p.numel() for p in params.values())])
+            widths = rows.value_widths(program, in_w, {
+                p: params[p].numel() for p in program.param_names})
+            row_bytes = sum(t_.element_size() for t_ in inputs.values())
+            models = rows.write_model(program, widths, 2048,
+                                      rows.forward_plan(2048, feats, sm,
+                                                        row_bytes))
+            entry = self.write_model_check("fused_rows", name, models, bufs)
+            want = ref.fused_stack_ref(program, inputs, params)
+            for v in program.outputs:
+                if tol is None:
+                    self.lm_check("fused_rows_bf16", f"28c {name}", got[v],
+                                  want[v])
+                else:
+                    self.check("fused_rows", f"28c {name}", {v: got[v]},
+                               {v: want[v]}, tol)
+            out["fused_rows"].append((name, entry))
+        # fused_rows_bwd: a layer norm with bias (two parameter partials)
+        layer = stacks.addnorm_program("layer", 1e-5, True)
+        inputs = {"x": self.randn((2048, D_MODEL), 86),
+                  "res": self.randn((2048, D_MODEL), 87)}
+        params = {"scale": 1.0 + 0.1 * self.randn((D_MODEL,), 88),
+                  "bias": 0.1 * self.randn((D_MODEL,), 89)}
+        cot = self.rows_cotangents(layer, inputs, params, 90)
+        bufs = {}
+        dins, dpar = rows_bwd.fused_rows_bwd(layer, inputs, params, cot,
+                                             nan_buffers=bufs)
+        torch.cuda.synchronize()
+        in_w = {v: D_MODEL for v in inputs}
+        pw = {p: D_MODEL for p in params}
+        f_block = resource.feature_block(layer, D_MODEL,
+                                         resource.H100.f_chunk)
+        row_bytes = sum(4 for _ in [*inputs, *cot])
+        models = rows_bwd.write_model(layer, in_w, pw, 2048,
+                                      rows_bwd.launch_plan(
+                                          2048, D_MODEL, f_block, sm,
+                                          row_bytes))
+        entry = self.write_model_check("fused_rows_bwd", "addnorm_layer_bias",
+                                       models, bufs)
+        rin, rpar = rows_bwd.fused_rows_bwd_ref(layer, inputs, params, cot)
+        self.check_bwd("fused_rows_bwd", "28c addnorm_layer_bias",
+                       {f"d{k}": v for k, v in {**dins, **dpar}.items()},
+                       {f"d{k}": v for k, v in {**rin, **rpar}.items()},
+                       reduced={f"d{p}" for p in params})
+        out["fused_rows_bwd"].append(("addnorm_layer_bias", entry))
+        for kernel, runs in out.items():
+            self.kernels.setdefault(kernel, {})["write_model"] = {
+                name: entry for name, entry in runs}
+            print(f"[28c {kernel}] " + "; ".join(
+                f"{name}: models {e['models']} held on {e['elements']} "
+                f"elements (every element inside written and finite, every "
+                f"other still NaN), {e['findings']} findings; planted "
+                f"{e['planted']['model']} with a block dropped: "
+                f"{e['planted']['verifier']}, "
+                f"{e['planted']['written_outside']} elements written outside"
+                for name, e in runs))
+        print(f"[28c] write models on {sm} SMs against the kernels: "
+              f"{time.perf_counter() - t:.1f} s")
 
 
 if __name__ == "__main__":

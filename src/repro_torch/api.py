@@ -40,6 +40,7 @@ from repro_torch.core import api as core_api
 from repro_torch.core import autotune as autotune_mod
 from repro_torch.core import registry as registry_mod
 from repro_torch.core import trace as trace_mod
+from repro_torch.core import verify as verify_mod
 
 OptimizeConfig = core_api.OptimizeConfig
 CoverageReport = core_api.CoverageReport
@@ -87,6 +88,11 @@ class OptimizedFn:
     #: than the function as given: ``__call__`` checks its arguments and
     #: then calls that function.
     passthrough: Callable | None = None
+    #: The static verifier's findings (:mod:`repro_torch.core.verify`):
+    #: under verify='warn' the waived error findings stay readable here and
+    #: in ``report()``; and the host seconds its passes took.
+    verify_findings: tuple = ()
+    verify_seconds: float = 0.0
 
     def __call__(self, *args):
         tr = self.trace_result
@@ -139,7 +145,8 @@ class OptimizedFn:
             self.segments, self.plans, self.trace_result.shapes,
             self.config.itemsize, kernel_dispatch=self.kernel_dispatches,
             vetoes=self.kernel_vetoes,
-            autotune_decisions=self.autotune_decisions)
+            autotune_decisions=self.autotune_decisions,
+            verify=self.verify_findings, verify_seconds=self.verify_seconds)
 
     def explain(self) -> str:
         """Human-readable :meth:`report`."""
@@ -171,17 +178,28 @@ def optimize(fn: Callable, *example_args: Any,
     # every traced output must survive, even one made mid-stack (a stack
     # executor materialises only its declared outputs)
     keep = frozenset(ref for kind, ref in tr.out_refs if kind == "env")
+    # graph-level verification (SSA, dead values, recorded shapes) before
+    # segmentation; plan and kernel checks run inside compile_stacks,
+    # between planning and codegen
+    spent = verify_mod.STATS.seconds
+    graph_findings: tuple = ()
+    if config.verify != "off":
+        graph_findings = tuple(verify_mod.verify_trace(tr))
+        verify_mod.enforce(graph_findings, config.verify,
+                           subject=tr.graph.name)
     segments = analyzer.analyze(tr.graph, layout="auto", keep=keep)
     tuner = (autotune_mod.Autotuner.from_config(config) if config.autotune
              else None)
-    executors, plans, dispatches, tuned = core_api.compile_stacks(
+    executors, plans, dispatches, tuned, findings = core_api.compile_stacks(
         segments, tr.shapes, config, param_shapes=tr.param_shapes,
         dtypes={**tr.dtypes, **tr.param_dtypes}, tuner=tuner)
     net = OptimizedFn(trace_result=tr, segments=segments,
                       executors=executors, plans=plans, config=config,
                       device=device, kernel_dispatches=dispatches,
                       kernel_matches=matches, kernel_vetoes=vetoes,
-                      autotune_decisions=tuned)
+                      autotune_decisions=tuned,
+                      verify_findings=graph_findings + findings,
+                      verify_seconds=verify_mod.STATS.seconds - spent)
     if tuner is not None:
         _floor_whole_function(tuner, net, fn, example_args, config)
     return net

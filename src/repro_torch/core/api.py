@@ -37,6 +37,7 @@ import torch
 
 from repro_torch.core import (analyzer, autotune, codegen, collapse, ir,
                               registry, resource)
+from repro_torch.core import verify as verify_mod
 
 #: Execution modes an OptimizeConfig accepts.
 MODES = ("brainslug", "xla", "barrier")
@@ -80,11 +81,21 @@ class OptimizeConfig:
     # with a recorded reason.  The baseline is exempt: the floor must
     # always exist.
     autotune_timeout_ms: float | None = 2000.0
+    # Static plan verification (repro_torch.core.verify): re-derive every
+    # compile artifact's invariants between planning and codegen.
+    # 'strict' raises VerifyError on any violation before anything
+    # compiles; 'warn' (the default) records the findings on the optimized
+    # net and emits one UserWarning; 'off' skips the pass.
+    verify: str = "warn"
 
     def __post_init__(self) -> None:
         if self.mode not in MODES:
             raise ValueError(
                 f"unknown mode {self.mode!r}; allowed modes: {MODES}")
+        if self.verify not in verify_mod.VERIFY_MODES:
+            raise ValueError(
+                f"unknown verify mode {self.verify!r}; allowed: "
+                f"{verify_mod.VERIFY_MODES}")
         if not isinstance(self.itemsize, int) or self.itemsize <= 0:
             raise ValueError(
                 f"itemsize must be a positive int, got {self.itemsize!r}")
@@ -199,6 +210,20 @@ class CoverageReport:
     kernels: tuple[KernelCoverage, ...] = ()
     vetoes: tuple[registry.KernelVeto, ...] = ()
     autotune: tuple[AutotuneCoverage, ...] = ()
+    #: The static verifier's compile-time findings: under verify='warn'
+    #: the waived violations, readable long after the warning scrolled
+    #: away; and the host seconds its passes took.
+    verify: tuple = ()
+    verify_seconds: float = 0.0
+
+    @property
+    def verify_errors(self) -> int:
+        """Error-severity findings the verify='warn' run waived."""
+        return sum(1 for f in self.verify if f.severity == "error")
+
+    @property
+    def verify_warnings(self) -> int:
+        return sum(1 for f in self.verify if f.severity != "error")
 
     @property
     def guardrail_trips(self) -> int:
@@ -266,6 +291,9 @@ class CoverageReport:
                 lines.append(f"    note: {ev}")
             for variant, why in a.failures:
                 lines.append(f"    candidate {variant} failed: {why}")
+        for f in self.verify:
+            lines.append(f"  verify [{f.severity}] {f.invariant} "
+                         f"@ {f.subject}: {f.detail}")
         return "\n".join(lines)
 
 
@@ -283,12 +311,14 @@ def coverage_report(segments, plans: Mapping[int, collapse.CollapsePlan],
                     | None = None,
                     vetoes: tuple[registry.KernelVeto, ...] = (),
                     autotune_decisions: Mapping[int, autotune.Decision]
-                    | None = None
+                    | None = None,
+                    verify: tuple = (), verify_seconds: float = 0.0
                     ) -> CoverageReport:
     """Per-stack coverage + planned HBM traffic (analytic bytes from shapes,
     not measured) of a rewritten network, its registry dispatches, the
-    registry's vetoed matches and the committed autotune decisions (keyed
-    by segment index, -1 for the function-level floor)."""
+    registry's vetoed matches, the committed autotune decisions (keyed
+    by segment index, -1 for the function-level floor) and the static
+    verifier's findings."""
     kernel_dispatch = kernel_dispatch or {}
     tuned = tuple(
         AutotuneCoverage(
@@ -338,7 +368,7 @@ def coverage_report(segments, plans: Mapping[int, collapse.CollapsePlan],
         capture_ratio=n_captured / eligible if eligible else 1.0,
         stacks=tuple(stacks), n_synthetic=n_synthetic,
         n_kernel=len(kernels), kernels=tuple(kernels), vetoes=tuple(vetoes),
-        autotune=tuned)
+        autotune=tuned, verify=tuple(verify), verify_seconds=verify_seconds)
 
 
 def run_segments(segments, executors: Mapping[int, codegen.Executor],
@@ -375,6 +405,11 @@ class OptimizedNet:
         dataclasses.field(default_factory=dict)
     autotune_decisions: dict[int, autotune.Decision] = dataclasses.field(
         default_factory=dict)
+    #: The static verifier's findings at compile time (verify='warn' waives
+    #: error findings but keeps them here and in report()), and its host
+    #: seconds.
+    verify_findings: tuple = ()
+    verify_seconds: float = 0.0
 
     def __call__(self, x: torch.Tensor,
                  params: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -396,7 +431,9 @@ class OptimizedNet:
         return coverage_report(self.segments, self.plans, self.shapes,
                                self.config.itemsize,
                                kernel_dispatch=self.kernel_dispatches,
-                               autotune_decisions=self.autotune_decisions)
+                               autotune_decisions=self.autotune_decisions,
+                               verify=self.verify_findings,
+                               verify_seconds=self.verify_seconds)
 
     def explain(self) -> str:
         """Human-readable :meth:`report`."""
@@ -411,38 +448,39 @@ def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
                    ) -> tuple[dict[int, codegen.Executor],
                               dict[int, collapse.CollapsePlan],
                               dict[int, registry.KernelDispatch],
-                              dict[int, autotune.Decision]]:
+                              dict[int, autotune.Decision], tuple]:
     """Collapse + compile every stack segment, and compile every registry
     KERNEL segment, against ``config``.  With ``config.autotune`` (or an
     explicit ``tuner``) each segment's variant is measured and hard-floored
     at its baseline (:mod:`repro_torch.core.autotune`); ``param_shapes``
     and ``dtypes`` (the trace's, where there is one) shape the measured
-    operands.  Returns (executors, plans, kernel dispatch records, autotune
-    decisions), each keyed by segment index."""
+    operands.
+
+    Three stages: every stack is planned (collapsed, or measured and
+    committed); then, unless ``config.verify == 'off'``,
+    :func:`repro_torch.core.verify.verify_segments` re-derives each plan's
+    invariants, and under ``'strict'`` a violation raises
+    :class:`~repro_torch.core.verify.VerifyError` before anything
+    compiles; then codegen.  Returns (executors, plans, kernel dispatch
+    records, autotune decisions), each keyed by segment index, and the
+    verifier's findings."""
     if tuner is None and config.autotune:
         tuner = autotune.Autotuner.from_config(config)
     executors: dict[int, codegen.Executor] = {}
     plans: dict[int, collapse.CollapsePlan] = {}
+    modes: dict[int, str] = {}
     dispatches: dict[int, registry.KernelDispatch] = {}
     decisions: dict[int, autotune.Decision] = {}
+
+    # Stage 1: plan every stack (collapse, or measure and commit).
     for idx, seg in enumerate(segments):
         if not seg.is_stack:
-            if seg.op.kind == ir.OpKind.KERNEL:
-                backend = reason = None
-                if tuner is not None:
-                    tuned = autotune.tune_kernel(tuner, seg.op, config)
-                    if tuned is not None:
-                        decisions[idx], backend, reason = tuned
-                executors[idx], dispatches[idx] = codegen.compile_kernel_op(
-                    seg.op, mode=config.mode,
-                    cache_size=config.code_cache_size, backend=backend,
-                    reason=reason)
             continue
         in_shapes = {v: tuple(shapes[v]) for v in seg.stack.inputs}
-        mode = config.mode
+        modes[idx] = config.mode
         if tuner is not None and config.mode != "barrier":
             # barrier IS the floor: nothing to measure against
-            decisions[idx], mode, plans[idx] = autotune.tune_stack(
+            decisions[idx], modes[idx], plans[idx] = autotune.tune_stack(
                 tuner, seg.stack, in_shapes, config,
                 param_shapes=param_shapes, dtypes=dtypes)
         else:
@@ -451,9 +489,32 @@ def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
                 itemsize=config.itemsize,
                 max_steps_per_sequence=config.max_steps_per_sequence,
                 differentiable=config.differentiable)
-        executors[idx] = codegen.compile_plan(
-            plans[idx], mode=mode, cache_size=config.code_cache_size)
-    return executors, plans, dispatches, decisions
+
+    # Stage 2: the static verifier, between planning and codegen.
+    findings: tuple = ()
+    if config.verify != "off":
+        findings = tuple(verify_mod.verify_segments(
+            segments, plans, shapes, config, dtypes=dtypes,
+            param_shapes=param_shapes))
+        verify_mod.enforce(findings, config.verify)
+
+    # Stage 3: codegen (reached when verification passed or was waived).
+    for idx, seg in enumerate(segments):
+        if seg.is_stack:
+            executors[idx] = codegen.compile_plan(
+                plans[idx], mode=modes[idx],
+                cache_size=config.code_cache_size)
+        elif seg.op.kind == ir.OpKind.KERNEL:
+            backend = reason = None
+            if tuner is not None:
+                tuned = autotune.tune_kernel(tuner, seg.op, config)
+                if tuned is not None:
+                    decisions[idx], backend, reason = tuned
+            executors[idx], dispatches[idx] = codegen.compile_kernel_op(
+                seg.op, mode=config.mode,
+                cache_size=config.code_cache_size, backend=backend,
+                reason=reason)
+    return executors, plans, dispatches, decisions, findings
 
 
 def optimize_graph(graph: ir.NetGraph,
@@ -470,12 +531,20 @@ def optimize_graph(graph: ir.NetGraph,
             shapes.update(ir.infer_shapes(seg.stack, in_shapes))
         else:
             _infer_opaque_shape(seg.op, shapes)
-    executors, plans, dispatches, decisions = compile_stacks(
+    spent = verify_mod.STATS.seconds
+    graph_findings: tuple = ()
+    if config.verify != "off":
+        graph_findings = tuple(verify_mod.verify_graph(graph, shapes))
+        verify_mod.enforce(graph_findings, config.verify,
+                           subject=graph.name)
+    executors, plans, dispatches, decisions, findings = compile_stacks(
         segments, shapes, config)
     return OptimizedNet(graph=graph, segments=segments, executors=executors,
                         plans=plans, config=config, device=device,
                         shapes=shapes, kernel_dispatches=dispatches,
-                        autotune_decisions=decisions)
+                        autotune_decisions=decisions,
+                        verify_findings=graph_findings + findings,
+                        verify_seconds=verify_mod.STATS.seconds - spent)
 
 
 def optimize_stack(program: ir.StackProgram,

@@ -32,6 +32,7 @@ import torch
 from repro_torch.core import ir
 from repro_torch.core import collapse as collapse_mod
 from repro_torch.core import registry as registry_mod
+from repro_torch.core import verify as verify_mod
 from repro_torch.kernels.fused_stack import ops as fused_ops
 
 Executor = Callable[[Mapping[str, torch.Tensor], Mapping[str, torch.Tensor]],
@@ -129,6 +130,15 @@ def compile_plan(plan: collapse_mod.CollapsePlan, *, mode: str = "xla",
     return run_body
 
 
+def _unknown_kernel_error(op: ir.OpNode) -> verify_mod.VerifyError:
+    """A bare KeyError from inside codegen names nothing: raise the
+    verifier's error, naming the op and the invariant."""
+    return verify_mod.VerifyError([verify_mod.Finding(
+        "kernel.unknown", "error", op.name,
+        f"kernel id {op.attrs.get('kernel')!r} has no registry entry "
+        f"(known: {sorted(registry_mod.REGISTRY)})")])
+
+
 #: KERNEL attrs that locate operands rather than shape the computation.
 _KERNEL_PLUMBING_ATTRS = frozenset({"slots", "kernel"})
 
@@ -144,6 +154,8 @@ def kernel_inner(op: ir.OpNode, *, backend: registry_mod.KernelType,
     against ``ref`` on the same operands before it commits a dispatch."""
     if cache_size is not None:
         _raise_cache_limit_to(cache_size)
+    if op.attrs.get("kernel") not in registry_mod.REGISTRY:
+        raise _unknown_kernel_error(op)
     entry = registry_mod.get(op.attrs["kernel"])
     static = {k: v for k, v in op.attrs.items()
               if k not in _KERNEL_PLUMBING_ATTRS}
@@ -177,6 +189,8 @@ def compile_kernel_op(op: ir.OpNode, *, mode: str = "xla",
     ``report()`` shows a fallback.  An explicit ``backend`` (with its
     ``reason``) overrides the static planner: the autotuner's measured
     dispatch arrives through it."""
+    if op.attrs.get("kernel") not in registry_mod.REGISTRY:
+        raise _unknown_kernel_error(op)
     if backend is None:
         dispatch = registry_mod.plan_dispatch(op, mode)
     else:

@@ -58,7 +58,8 @@ from repro_torch.kernels.vocab_ce import ops as ce_ops
 from repro_torch.kernels.vocab_ce import ref as ce_ref
 
 __all__ = ["KernelType", "KernelDispatch", "KernelEntry", "KernelMatch",
-           "KernelVeto", "REGISTRY", "STATS", "rewrite", "plan_dispatch"]
+           "KernelVeto", "REGISTRY", "STATS", "rewrite", "plan_dispatch",
+           "expected_out_shape"]
 
 
 class KernelType(enum.Enum):
@@ -82,14 +83,17 @@ class KernelEntry:
     """One registry row.  ``hopper(args, attrs)`` and ``ref(args, attrs)``
     take the operand tensors in the slot order the matcher recorded;
     ``constraints(arg_shapes, arg_dtypes, attrs)`` returns why the kernel
-    cannot take these operands, or None.  The backward comes from the
-    kernel wrapper's own ``autograd.Function``."""
+    cannot take these operands, or None.  ``vjp`` says where the backward
+    comes from: ``"custom"``, the kernel wrapper's own
+    ``autograd.Function`` (every entry here), or ``"ref"``, autograd of the
+    plain version (``autodiff.with_ref_vjp``)."""
 
     name: str
     hopper: Callable[[list, Mapping], torch.Tensor]
     ref: Callable[[list, Mapping], torch.Tensor]
     constraints: Callable[[tuple, tuple, Mapping], str | None]
     stack_absorbable: bool = False
+    vjp: str | None = "custom"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,6 +223,20 @@ REGISTRY: dict[str, KernelEntry] = {
 STATS = DispatchStats(keys=tuple(
     f"{name}_{kind}" for name in REGISTRY
     for kind in ("hopper", "plain", "ref")))
+
+
+def expected_out_shape(kernel: str, arg_shapes: tuple) -> tuple | None:
+    """Each kernel's output-shape contract, re-derived from its argument
+    shapes: the static verifier's independent check on a KERNEL op's
+    recorded ``out_shape``.  None means the contract fixes only the element
+    count (vocab_ce emits one loss per gathered index; the traced gather
+    decides the layout)."""
+    if kernel in ("rmsnorm", "swiglu") and arg_shapes:
+        return tuple(arg_shapes[0])
+    if kernel == "attention" and len(arg_shapes) == 3:
+        # softmax(q k^T) v: q's leading and sequence dims, v's head dim
+        return tuple(arg_shapes[0][:-1]) + (arg_shapes[2][-1],)
+    return None
 
 
 def get(name: str) -> KernelEntry:

@@ -163,9 +163,10 @@ def pick_row_tile(program: ir.StackProgram, features: int, itemsize: int,
                   spec: DeviceSpec, *, differentiable: bool = False) -> int:
     """The largest ``sublane * 2**k`` row tile (at most 4096 rows) whose
     live buffers fit the budget (paper: "if the cache size limit is not
-    reached, we increase the size").  ``differentiable`` sizes against the
-    joint forward + backward working set, so one geometry serves both
-    kernels."""
+    reached, we increase the size"); a row that the budget cannot hold
+    takes a tile of one sublane if that fits :func:`rows_tile_limit`.
+    ``differentiable`` sizes against the joint forward + backward working
+    set, so one geometry serves both kernels."""
     n_live = (max_live_values_bwd(program) if differentiable
               else max_live_values(program))
     features = planned_features(program, features, spec, differentiable)
@@ -178,12 +179,25 @@ def pick_row_tile(program: ir.StackProgram, features: int, itemsize: int,
         if nxt > 4096:                      # diminishing returns past this
             break
         rows = nxt
-    if rows_tile_bytes(n_live, rows, features, itemsize, spec) > budget:
+    need = rows_tile_bytes(n_live, rows, features, itemsize, spec)
+    if need > rows_tile_limit(spec, rows):
         raise ResourceError(
-            f"{program.name}: even a {spec.sublane}-row tile "
-            f"({rows_tile_bytes(n_live, spec.sublane, features, itemsize, spec)}B "
-            f"for {n_live} buffers) exceeds budget {budget}B on {spec.name}")
+            f"{program.name}: even a {spec.sublane}-row tile ({need}B for "
+            f"{n_live} buffers) exceeds {rows_tile_limit(spec, rows)}B on "
+            f"{spec.name}")
     return rows
+
+
+def rows_tile_limit(spec: DeviceSpec, tile_rows: int) -> int:
+    """The fast memory a rows tile may take: the budget, or, for a tile of
+    one sublane (the least there is), all of ``fast_bytes``, so that a row
+    wider than the budget's margin still plans where a CTA can hold it
+    (qwen2.5-32b's glu at d_ff 27648 in bf16: 3 x 27648 x 2 B = 165,888 B
+    a row on the ``H100``).  On a spec that budgets all of its fast memory
+    (``TINY_DEVICE``) the two are one, and plans equal the JAX
+    package's."""
+    return spec.fast_bytes if tile_rows <= spec.sublane \
+        else spec.resource_limit
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,7 @@ import ctypes
 import dataclasses
 from collections import OrderedDict
 from pathlib import Path
-from typing import Mapping
+from typing import Callable, Mapping
 
 import torch
 
@@ -428,6 +428,71 @@ def fused_plan(program: ir.StackProgram, x_shape: tuple[int, ...],
                      THREADS // (cb // 4))
 
 
+#: CTAs of ``fused_nhwc_kernel_fused`` an SM holds on an H100 (the
+#: occupancy API's answer there, PERF.md row 1): what a write model takes
+#: where no card is asked.
+MODEL_CTAS_PER_SM = 3
+
+
+def item_model(spatial: int, n_cb: int, tiles: tuple[int, int],
+               programs: int) -> tuple[tuple[int, int], Callable, Callable]:
+    """The persistent walk of the fused paths (and of the backward) as a
+    grid: point ``(p, k)`` is CTA ``p``'s ``k``-th item, channel block ``p
+    % n_cb`` of spatial item ``p // n_cb + k * (programs // n_cb)``, live
+    while that is below ``spatial``; a spatial item ``s`` is image ``s //
+    (tiles_h * tiles_w)``, tile row ``(s // tiles_w) % tiles_h``, tile
+    column ``s % tiles_w`` (``decode_item`` of ``csrc/fused_nhwc.cuh``).
+    Returns ``(grid, block(p, k) -> (n, ti, tj, cblk), live(p, k))``."""
+    per = programs // n_cb
+    tiles_h, tiles_w = tiles
+    iters = -(-spatial // per)
+
+    def block(p, k):
+        s = p // n_cb + k * per
+        return (s // (tiles_w * tiles_h), (s // tiles_w) % tiles_h,
+                s % tiles_w, p % n_cb)
+
+    def live(p, k):
+        return p // n_cb + k * per < spatial
+
+    return (programs, iters), block, live
+
+
+def write_model(program: ir.StackProgram, x_shape: tuple[int, ...],
+                extra_shapes: tuple[tuple[str, tuple[int, ...]], ...],
+                tile_out_h: int, tile_out_w: int, sm_count: int,
+                ctas_per_sm: int = MODEL_CTAS_PER_SM) -> list[dict]:
+    """The forward kernel's writes, as data, for the static verifier,
+    from the descriptor :func:`fused_nhwc` launches (:func:`_template`):
+    one ``(1, th, tw, cb)`` output patch an item, clipped to the output.
+    The fused path walks :func:`fused_plan`'s items on
+    :func:`launch_programs`' persistent CTAs (:func:`item_model`); the
+    generic kernel takes one CTA an item on a ``(tiles_h * tiles_w * n_cb,
+    N)`` grid, channel block fastest."""
+    n_vecs = len(program.inputs) - 1 + len(program.param_names)
+    _, blob = _template(program, tuple(x_shape), tuple(extra_shapes),
+                        (1,) * n_vecs, tile_out_h, tile_out_w)
+    d = NhwcDesc.from_buffer_copy(blob)
+    model = {"name": "out", "block_shape": (1, d.th, d.tw, d.cb),
+             "array_shape": (d.N, d.OH, d.OW, d.C), "accumulate": None,
+             "covers": True}
+    if fused_chain(program):
+        grid, block, live = item_model(
+            d.N * d.tiles_h * d.tiles_w, d.n_cb, (d.tiles_h, d.tiles_w),
+            launch_programs(d.N * d.tiles_h * d.tiles_w, d.n_cb, sm_count,
+                            ctas_per_sm))
+        model.update(launch="fused_nhwc_kernel_fused", grid=grid,
+                     index_map=block, live=live)
+    else:
+        n_cb, tiles_w = d.n_cb, d.tiles_w
+        model.update(
+            launch="fused_nhwc_kernel",
+            grid=(d.tiles_h * d.tiles_w * d.n_cb, d.N),
+            index_map=lambda b, n: (n, b // n_cb // tiles_w,
+                                    b // n_cb % tiles_w, b % n_cb))
+    return [model]
+
+
 def launch_programs(plan_spatial: int, n_cb: int, sm_count: int,
                     ctas_per_sm: int) -> int:
     """The persistent grid: a multiple of ``n_cb`` (CTA ``p`` keeps channel
@@ -540,7 +605,8 @@ def _vec_operand(name: str, v: torch.Tensor, channels: int) -> torch.Tensor:
 def fused_nhwc(program: ir.StackProgram, x: torch.Tensor,
                params: Mapping[str, torch.Tensor], *,
                extras: Mapping[str, torch.Tensor] | None = None,
-               tile_out_h: int = 8, tile_out_w: int = 8) -> torch.Tensor:
+               tile_out_h: int = 8, tile_out_w: int = 8,
+               nan_buffers: dict | None = None) -> torch.Tensor:
     """Run an nhwc sequence as one fused CUDA kernel launch.
 
     ``x`` is the spatial input (``program.inputs[0]``, ``(N, H, W, C)``
@@ -549,7 +615,10 @@ def fused_nhwc(program: ir.StackProgram, x: torch.Tensor,
     version; a CUDA tensor launches the kernel or raises.  A
     :func:`fused_chain` program takes the fused path with
     :func:`fused_plan`'s items (the planner's tile is not read), any other
-    the descriptor walk on ``tile_out_h`` x ``tile_out_w`` tiles."""
+    the descriptor walk on ``tile_out_h`` x ``tile_out_w`` tiles.
+    ``nan_buffers`` serves only the check of :func:`write_model` on the
+    card: given a dict, the output is filled with NaN before the launch
+    and put in it as ``"out"``."""
     extras = dict(extras or {})
     missing = [v for v in program.inputs[1:] if v not in extras]
     if missing:
@@ -582,6 +651,8 @@ def fused_nhwc(program: ir.StackProgram, x: torch.Tensor,
         desc.vecs[i] = v.data_ptr()
     out = torch.empty((x.shape[0], desc.OH, desc.OW, c), device=x.device,
                       dtype=x.dtype)
+    if nan_buffers is not None:
+        nan_buffers["out"] = out.fill_(float("nan"))
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

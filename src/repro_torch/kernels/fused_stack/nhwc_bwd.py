@@ -348,6 +348,96 @@ def direct_covers(b: NhwcBwdDesc) -> bool:
             and f.tiles_w * sw - L.off_w >= f.W)
 
 
+#: Backward CTAs an SM on an H100 where no card is asked: the kernels'
+#: ``__launch_bounds__(THREADS, 2)`` and :data:`SMEM_BWD`'s aim.
+MODEL_CTAS_PER_SM = 2
+#: Threads a block of the overlap-add and reduce kernels, and the most
+#: blocks the overlap-add launches (``fused_nhwc_bwd_launch``).
+AUX_THREADS = 256
+AUX_MAX_BLOCKS = 65536
+
+
+def write_model(program: ir.StackProgram, x_shape: tuple[int, ...],
+                extra_shapes: tuple[tuple[str, tuple[int, ...]], ...],
+                tile_out_h: int, tile_out_w: int, sm_count: int,
+                ctas_per_sm: int = MODEL_CTAS_PER_SM) -> list[dict]:
+    """The backward's writes, as data, for the static verifier, from the
+    descriptor :func:`fused_nhwc_bwd` launches (:func:`bwd_template`) on
+    :func:`launch_programs`' persistent CTAs (``nhwc.item_model``):
+
+    * the input cotangent: where tiles' input regions do not overlap, each
+      item writes its level-0 region ``(1, eh, ew, cb)`` of ``dx`` (origin
+      ``t * tile * mul - off``, clipped to the image); where the regions
+      do not reach every element, the wrapper zeroes ``dx`` first
+      (``"dx:zero"``).  Where they overlap, each item writes its private
+      patch slot (``"overlap-slot"``) and ``nhwc_overlap_add_kernel``
+      writes every element of ``dx`` once, a grid-stride loop of blocks of
+      :data:`AUX_THREADS`;
+    * the per-CTA gradient partials of the broadcast extras and parameters,
+      row ``p`` for CTA ``p`` (``"partials"``), and ``nhwc_reduce_kernel``'s
+      sums."""
+    n_vecs = len(program.inputs) - 1 + len(program.param_names)
+    b = NhwcBwdDesc.from_buffer_copy(bwd_template(
+        program, tuple(x_shape), tuple(extra_shapes), (1,) * n_vecs,
+        tile_out_h, tile_out_w))
+    f = b.f
+    L0 = f.levels[0]
+    dx_shape = (f.N, f.H, f.W, f.C)
+    whole = {"grid": (1,), "block_shape": dx_shape,
+             "index_map": lambda i: (0, 0, 0, 0), "array_shape": dx_shape,
+             "accumulate": None, "covers": True}
+    if not b.work:
+        return [dict(whole, name="dx", launch="torch.zero_")]
+    programs = launch_programs(b.spatial, f.n_cb, sm_count, ctas_per_sm)
+    grid, block, live = nhwc.item_model(b.spatial, f.n_cb,
+                                        (f.tiles_h, f.tiles_w), programs)
+    item = {"launch": ("fused_nhwc_bwd_kernel_fused" if b.fused
+                       else "fused_nhwc_bwd_kernel"), "grid": grid,
+            "live": live}
+    models = []
+    if b.patches:
+        n_blk = -(-f.N * f.H * f.W * f.C // AUX_THREADS)
+        blocks = min(n_blk, AUX_MAX_BLOCKS)
+        models.append(dict(
+            item, name="patches", accumulate="overlap-slot", covers=True,
+            block_shape=(1, 1, 1, L0.eh, L0.ew, f.cb),
+            array_shape=(f.N, f.tiles_h, f.tiles_w, L0.eh, L0.ew, f.C),
+            index_map=lambda p, k: (*block(p, k)[:3], 0, 0,
+                                    block(p, k)[3])))
+        models.append({
+            "name": "dx", "launch": "nhwc_overlap_add_kernel",
+            "grid": (blocks, -(-n_blk // blocks)),
+            "block_shape": (AUX_THREADS,),
+            "index_map": lambda i, k: (i + k * blocks,),
+            "live": lambda i, k: i + k * blocks < n_blk,
+            "array_shape": (f.N * f.H * f.W * f.C,), "accumulate": None,
+            "covers": True})
+    else:
+        covers = direct_covers(b)
+        if not covers:
+            models.append(dict(whole, name="dx:zero",
+                               launch="torch.zeros_like"))
+        models.append(dict(
+            item, name="dx", accumulate=None, covers=covers,
+            block_shape=(1, L0.eh, L0.ew, f.cb), array_shape=dx_shape,
+            stride=(1, f.th * L0.mul_h, f.tw * L0.mul_w, f.cb),
+            offset=(0, -L0.off_h, -L0.off_w, 0), index_map=block))
+    if b.n_vecs:
+        n_out = b.n_vecs * f.C
+        models.append(dict(
+            item, name="partials", live=None, grid=(programs,),
+            block_shape=(1, b.n_vecs * f.cb),
+            array_shape=(programs, b.n_vecs * f.cb),
+            index_map=lambda p: (p, 0), accumulate="partials",
+            covers=True))
+        models.append({
+            "name": "dvecs", "launch": "nhwc_reduce_kernel",
+            "grid": (-(-n_out // AUX_THREADS),),
+            "block_shape": (AUX_THREADS,), "index_map": lambda i: (i,),
+            "array_shape": (n_out,), "accumulate": None, "covers": True})
+    return models
+
+
 def fused_nhwc_bwd_ref(program: ir.StackProgram, x: torch.Tensor,
                        extras: Mapping[str, torch.Tensor],
                        params: Mapping[str, torch.Tensor], g: torch.Tensor
@@ -366,13 +456,18 @@ def fused_nhwc_bwd_ref(program: ir.StackProgram, x: torch.Tensor,
 def fused_nhwc_bwd(program: ir.StackProgram, x: torch.Tensor,
                    extras: Mapping[str, torch.Tensor],
                    params: Mapping[str, torch.Tensor], g: torch.Tensor, *,
-                   tile_out_h: int = 8, tile_out_w: int = 8
+                   tile_out_h: int = 8, tile_out_w: int = 8,
+                   nan_buffers: dict | None = None
                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor],
                               dict[str, torch.Tensor]]:
     """The backward of one nhwc sequence: ``g`` is the cotangent of its one
     output, ``extras`` the broadcast side operands.  Returns ``(dx,
     dextras, dparams)`` shaped as the primals.  CPU tensors run the plain
-    version; CUDA tensors launch the kernels or raise."""
+    version; CUDA tensors launch the kernels or raise.  ``nan_buffers``
+    serves only the check of :func:`write_model` on the card: given a dict,
+    every buffer the kernels write (``dx`` unless the wrapper zeroes it,
+    the patches, the partials, the summed gradients) is filled with NaN
+    before the launch and put in it under its model's name."""
     extras = dict(extras or {})
     missing = [v for v in program.inputs[1:] if v not in extras]
     if missing:
@@ -415,9 +510,14 @@ def fused_nhwc_bwd(program: ir.StackProgram, x: torch.Tensor,
     with torch.cuda.device(x.device):
         dx = (torch.empty_like(x) if b.patches or direct_covers(b)
               else torch.zeros_like(x))
+        nan = nan_buffers is not None
+        if nan and (b.patches or direct_covers(b)):
+            dx.fill_(float("nan"))
         b.vec4 = int(c % 4 == 0 and all(t.data_ptr() % 16 == 0
                                         for t in (x, g, dx)))
         dvecs = torch.zeros(n_vec, device=x.device, dtype=torch.float32)
+        if nan and b.work and b.n_vecs:
+            dvecs.fill_(float("nan"))
         if b.work:
             sms = torch.cuda.get_device_properties(
                 x.device).multi_processor_count
@@ -429,6 +529,10 @@ def fused_nhwc_bwd(program: ir.StackProgram, x: torch.Tensor,
                  if b.patches else 1), device=x.device, dtype=torch.float32)
             partials = torch.empty(programs * max(b.n_vecs, 1) * f.cb,
                                    device=x.device, dtype=torch.float32)
+            if nan:
+                nan_buffers.update(dx=dx, dvecs=dvecs,
+                                   patches=patches.fill_(float("nan")),
+                                   partials=partials.fill_(float("nan")))
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = lib.fused_nhwc_bwd_launch(
                 ctypes.byref(b), programs, x.data_ptr(), g.data_ptr(),

@@ -414,6 +414,49 @@ def launch_plan(n_rows: int, features: int, f_block: int, sm_count: int,
                       max(1, min(n_sub, target)), stages)
 
 
+def forward_plan(n_rows: int, features: int, sm_count: int,
+                 row_bytes: int = 0) -> LaunchPlan:
+    """The forward's grid (:func:`launch_plan` at :data:`PROGRAMS_PER_SM`,
+    the whole row a sub-block): what :func:`fused_rows` launches and
+    :func:`write_model` models."""
+    return launch_plan(n_rows, features, features, sm_count, row_bytes,
+                       programs_per_sm=PROGRAMS_PER_SM)
+
+
+def sub_block_model(plan: LaunchPlan) -> tuple[tuple[int, int], Callable,
+                                               Callable]:
+    """The persistent walk of ``plan`` as a grid: point ``(p, k)`` is
+    program ``p``'s ``k``-th sub-block, ``p + k * n_prog``, live while
+    below ``n_sub``.  Returns ``(grid, sub_block(p, k), live(p, k))``."""
+    iters = -(-plan.n_sub // plan.n_prog)
+
+    def sub_block(p, k):
+        return p + k * plan.n_prog
+
+    def live(p, k):
+        return p + k * plan.n_prog < plan.n_sub
+
+    return (plan.n_prog, iters), sub_block, live
+
+
+def write_model(program: ir.StackProgram, widths: Mapping[str, int],
+                n_rows: int, plan: LaunchPlan) -> list[dict]:
+    """The forward kernel's writes, as data, for the static verifier
+    (``repro_torch.core.verify``): one entry per program output, the
+    ``(n_rows, width)`` buffer :func:`fused_rows` allocates, written by
+    program ``p`` one ``(R_SUB, BLOCK_F)`` block a sub-block ``p, p +
+    n_prog, ...`` of ``plan`` (:func:`forward_plan`; masked past the last
+    row and column).  ``widths`` gives every value's width
+    (:func:`value_widths`)."""
+    grid, sub_block, live = sub_block_model(plan)
+    return [{
+        "name": f"out:{v}", "launch": "fused_rows_kernel", "grid": grid,
+        "block_shape": (plan.r_sub, 1 if widths[v] == 1 else plan.block_f),
+        "index_map": lambda p, k: (sub_block(p, k), 0), "live": live,
+        "array_shape": (n_rows, widths[v]), "accumulate": None,
+        "covers": True} for v in program.outputs]
+
+
 #: Generated kernels by (signature, widths, F): the imported jit function.
 _KERNELS: "OrderedDict[tuple, object]" = OrderedDict()
 _KERNEL_LIMIT = 256
@@ -469,7 +512,8 @@ def fused_rows(program: ir.StackProgram,
                inputs: Mapping[str, torch.Tensor],
                params: Mapping[str, torch.Tensor],
                *,
-               tile_rows: int = 256) -> dict[str, torch.Tensor]:
+               tile_rows: int = 256,
+               nan_buffers: dict | None = None) -> dict[str, torch.Tensor]:
     """Run a rows-layout sequence as one fused Triton kernel launch.
 
     Every input shares one leading shape ``(..., F_i)``, flattened to rows;
@@ -478,7 +522,11 @@ def fused_rows(program: ir.StackProgram,
     interpreter gives it.  ``tile_rows`` is the plan's row tile, which no
     longer sets the launch (:func:`launch_plan` takes it from the rows and
     the card).  A CPU tensor runs the plain version; a CUDA tensor launches
-    the kernel or raises."""
+    the kernel or raises.
+
+    ``nan_buffers`` serves only the check of :func:`write_model` against
+    the card: given a dict, every buffer the kernel writes is filled with
+    NaN before the launch and put in it under its model's name."""
     device = inputs[program.inputs[0]].device
     if device.type == "cpu":
         return ref.fused_stack_ref(program, inputs, params)
@@ -509,14 +557,13 @@ def fused_rows(program: ir.StackProgram,
     widths = value_widths(program, in_widths, param_widths)
     out_dt = {**{n: inputs[n].dtype for n in program.inputs},
               **{v: st[-1] for v, st in steps.items()}}
-    outs = [torch.empty((rows, widths[v]), device=device, dtype=out_dt[v])
-            for v in program.outputs]
+    outs = [_empty((rows, widths[v]), device, out_dt[v], nan_buffers,
+                   f"out:{v}") for v in program.outputs]
     kernel = _kernel(program, in_widths, param_widths, features, dtypes,
                      steps)
     sm = torch.cuda.get_device_properties(device).multi_processor_count
     row_bytes = sum(a.element_size() for a in flat if a.shape[-1] != 1)
-    plan = launch_plan(rows, features, features, sm, row_bytes,
-                       programs_per_sm=PROGRAMS_PER_SM)
+    plan = forward_plan(rows, features, sm, row_bytes)
     with torch.cuda.device(device):
         kernel[(plan.n_prog,)](
             *flat, *pflat, *outs, rows, plan.n_sub, plan.n_prog, F=features,
@@ -528,3 +575,14 @@ def fused_rows(program: ir.StackProgram,
 
 
 fused_rows.launches = 0
+
+
+def _empty(shape: tuple[int, ...], device: torch.device, dtype: torch.dtype,
+           nan_buffers: dict | None, name: str) -> torch.Tensor:
+    """An uninitialised buffer, or (under ``nan_buffers``) one full of NaN,
+    recorded under ``name``."""
+    if nan_buffers is None:
+        return torch.empty(shape, device=device, dtype=dtype)
+    t = nan_buffers[name] = torch.full(shape, float("nan"), device=device,
+                                       dtype=dtype)
+    return t

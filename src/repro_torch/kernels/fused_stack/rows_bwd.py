@@ -517,6 +517,55 @@ def launch_plan(n_rows: int, features: int, f_block: int, sm_count: int,
                             launch_config, PROGRAMS_PER_SM)
 
 
+def write_model(program: ir.StackProgram, in_widths: Mapping[str, int],
+                param_widths: Mapping[str, int], n_rows: int,
+                plan: rows.LaunchPlan) -> list[dict]:
+    """The backward's writes, as data, for the static verifier: on
+    ``plan`` (:func:`launch_plan`), program ``p`` writes the input
+    cotangents of its sub-blocks ``p, p + n_prog, ...``, one ``(R_SUB,
+    BLOCK_F)`` block a feature chunk (a width-1 input's one ``(R_SUB, 1)``
+    block, added into chunk by chunk by the same program), and row ``p`` of
+    the ``(n_prog, P_W)`` parameter partials (``"partials"``); the second
+    kernel, ``reduce_partials_kernel``, writes the summed parameter
+    gradients, :data:`REDUCE_BLOCK` columns a program."""
+    if not n_rows:
+        return []
+    features = max([*in_widths.values(), *param_widths.values()])
+    grid, sub_block, live = rows.sub_block_model(plan)
+    n_prog, iters = grid
+    chunks = -(-features // plan.block_f)
+    models = []
+    for v in program.inputs:
+        if in_widths[v] == 1:
+            models.append({
+                "name": f"din:{v}", "launch": "fused_rows_bwd_kernel",
+                "grid": grid, "block_shape": (plan.r_sub, 1),
+                "index_map": lambda p, k: (sub_block(p, k), 0),
+                "live": live})
+        else:
+            models.append({
+                "name": f"din:{v}", "launch": "fused_rows_bwd_kernel",
+                "grid": (n_prog, chunks, iters),
+                "block_shape": (plan.r_sub, plan.block_f),
+                "index_map": lambda p, c, k: (sub_block(p, k), c),
+                "live": lambda p, c, k: live(p, k)})
+        models[-1].update(array_shape=(n_rows, in_widths[v]),
+                          accumulate=None, covers=True)
+    p_w = sum(param_widths.values())
+    if p_w:
+        models.append({
+            "name": "partials", "launch": "fused_rows_bwd_kernel",
+            "grid": (n_prog,), "block_shape": (1, p_w),
+            "index_map": lambda p: (p, 0), "array_shape": (n_prog, p_w),
+            "accumulate": "partials", "covers": True})
+        models.append({
+            "name": "dparams", "launch": "reduce_partials_kernel",
+            "grid": (-(-p_w // REDUCE_BLOCK),),
+            "block_shape": (REDUCE_BLOCK,), "index_map": lambda i: (i,),
+            "array_shape": (p_w,), "accumulate": None, "covers": True})
+    return models
+
+
 #: Generated modules by (signature, widths, F, features held).
 _MODULES: "OrderedDict[tuple, object]" = OrderedDict()
 _MODULE_LIMIT = 256
@@ -559,7 +608,8 @@ def fused_rows_bwd(program: ir.StackProgram,
                    cotangents: Mapping[str, torch.Tensor],
                    *,
                    tile_rows: int = 256,
-                   f_chunk: int = resource.H100.f_chunk
+                   f_chunk: int = resource.H100.f_chunk,
+                   nan_buffers: dict | None = None
                    ) -> tuple[dict[str, torch.Tensor],
                               dict[str, torch.Tensor]]:
     """The backward of one rows sequence.  ``cotangents`` maps each program
@@ -569,7 +619,8 @@ def fused_rows_bwd(program: ir.StackProgram,
     longer sets the launch (:func:`launch_plan` takes it from the rows and
     the card); ``f_chunk`` is the plan's device's (0: hold whole rows).
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise.  ``nan_buffers``: as :func:`rows.fused_rows`' (the check of
+    :func:`write_model` on the card)."""
     device = inputs[program.inputs[0]].device
     if device.type == "cpu":
         return fused_rows_bwd_ref(program, inputs, params, cotangents)
@@ -613,18 +664,20 @@ def fused_rows_bwd(program: ir.StackProgram,
         if gv.shape[-1] != widths[v]:
             raise ValueError(f"{program.name}: cotangent of {v!r} has width "
                              f"{gv.shape[-1]}, the value {widths[v]}")
-    dins = [torch.empty_like(a) for a in flat]
+    dins = [rows._empty(tuple(a.shape), device, a.dtype, nan_buffers,
+                        f"din:{v}") for v, a in zip(program.inputs, flat)]
     p_w = sum(param_widths.values())
     sm = torch.cuda.get_device_properties(device).multi_processor_count
     f_block = resource.feature_block(program, features, f_chunk)
     row_bytes = sum(a.element_size() for a in [*flat, *gflat]
                     if a.shape[-1] != 1)
     plan = launch_plan(n_rows, features, f_block, sm, row_bytes)
-    partial = torch.empty((plan.n_prog, max(p_w, 1)), device=device,
-                          dtype=torch.float32)
+    partial = rows._empty((plan.n_prog, max(p_w, 1)), device,
+                          torch.float32, nan_buffers, "partials")
     mod = _module(program, in_widths, param_widths, features, f_block,
                   dtypes, steps)
-    total = torch.empty((max(p_w, 1),), device=device, dtype=torch.float32)
+    total = rows._empty((max(p_w, 1),), device, torch.float32, nan_buffers,
+                        "dparams")
     if n_rows:
         with torch.cuda.device(device):
             mod.fused_rows_bwd_kernel[(plan.n_prog,)](
