@@ -185,7 +185,7 @@ Phases, one line each (plus tables):
    held through float32 runs taking each mode's decisions, each block
    alone against its float32 twin; two planted defects (MOE_CONTROLS);
    a float32 run at 4 layers; (c) ``Server.generate`` (4 x 64 + 32 new)
-   at 32 layers, MoE dropless; (d) ``Engine.run`` of phase 15's 12
+   at 8 of the 32 layers, MoE dropless; (d) ``Engine.run`` of phase 15's 12
    requests (prefix sharing on) at 4 layers, paged brainslug, paged
    barrier and dense brainslug, and at float32, 4 layers, against
    ``Server.generate``; (e) ``Trainer.run`` at 8 layers (4096 tokens,
@@ -229,8 +229,9 @@ Phases, one line each (plus tables):
    layers, 8 heads of 256 over 1, gated gelu, tied vocab 257216, 256
    patches of 1152, bf16): ``lm.prefill`` of 256 patches and 1792
    tokens within 5e-2 of barrier (a dropped-layer control flagged),
-   ``Server.generate`` teacher-forced against barrier, the paged engine
-   at 4 layers, float32 at 2 layers with identical tokens, ``Trainer.run``
+   ``Server.generate`` at 6 layers teacher-forced against barrier, the
+   paged engine at 4 layers, float32 at 2 layers with identical tokens,
+   ``Trainer.run``
    at 6 layers with the loss on the text positions (its step-1 embed
    gradient held through a float32 run);
 28. the static verifier: (a) ``python -m repro_torch.lint --device
@@ -252,10 +253,31 @@ Phases, one line each (plus tables):
    and finite, every other still NaN, results at phases 2-3 and 7-8's
    limits, and a model with a block dropped flagged by the verifier and by
    the buffers;
+29. mesh execution (Slice G1), two ranks sharing ``cuda:0`` over a gloo
+   group (NCCL refuses two ranks on one card; the collectives go through
+   the host), spawned after ``torch.cuda.empty_cache()``: (a) VGG-16 at
+   (32, 224, 224, 3) float32 under ``partition="data"``, the forward and
+   step-1 gradients against the single-device ``optimize_graph`` of the
+   whole batch at phase 9's limits, every rank's ``fwd_generated`` /
+   ``bwd_generated`` equal to the sequences and no reference dispatch;
+   (b) the traced deepseek-7b-width bf16 block under ``partition="tensor"``
+   over (1, 2) within phase 23's 2e-2 of max|y|, every registry dispatch
+   on its Hopper kernel; (c) deepseek-7b data-parallel training at full
+   width, 2 layers bf16, the global batch of 2 x 4096 tokens split over
+   the ranks, 3 steps uncompressed and 3 compressed: every uncompressed
+   step's loss and grad norm against one device's run of the ranks' two
+   halves (bit for bit expected), and its losses and step-1 grad norm
+   against one device's whole batch at phase 18's limits, the compressed
+   step 1 there too and its
+   later losses within 5% of the uncompressed ones and not equal to them,
+   both runs decreasing, each rank's peak memory, the collectives given
+   CUDA tensors and the transport.  The times of ranks that share one
+   card are no multi-card number;
 then the ``kernels`` JSON line (each CUDA kernel with its instances, the
 attention kernels' head-dim 112, 64, 80 and 256 entries, the SSD's zamba2
-shape, the multimodal paths' launches and the fused-stack kernels' write
-model checks), the card line, and the ``ok`` line last.
+shape, the multimodal paths' launches, the fused-stack kernels' write
+model checks and the per-rank launches under the mesh), the card line,
+and the ``ok`` line last.
 
 Exits non-zero, printing no result, without CUDA, outside this tree, or
 when any phase fails.
@@ -352,6 +374,36 @@ ENGINE_LAYERS = 4
 # sequence (train_4k's length), three steps.
 TRAIN_LM = dict(layers=8, layers_f32=2, seq=4096, steps=3, lr=3e-4)
 CE_SHAPE = (4096, 4096, 102400)         # (tokens, d_model, vocab)
+# Phase 29 (Slice G1): two ranks sharing the card.  29c trains deepseek-7b
+# at full width cut to 2 layers (each rank holds the whole model with
+# AdamW's moments and, compressed, the error-feedback state), the global
+# batch of 2 x 4096 tokens split over the ranks.  A compressed step's grad
+# norm reads the dequantised gradients: each element within half a
+# quantum, 1/254 of its block's largest, of the uncompressed one, which
+# bounds the norm's relative change by 1/254.  One device runs the same
+# steps twice: on the whole batch, and on the ranks' two halves in turn
+# with the bf16 gradients summed and halved as the all-reduce does.
+# Every uncompressed step's loss and grad norm is held against the
+# halves run (the same kernels on the same slices: bit for bit expected,
+# MESH_HALVES_REL allows float32 ulps), and against the whole batch at
+# phase 18's limits on every loss and the step-1 grad norm.  The halves'
+# rounding moves the later grad norms off the whole batch's: 1.0e-4 and
+# 1.15e-3 at steps 2 and 3 (this phase on one H100 80GB HBM3 at 700 W),
+# above phase 18's 1e-3, which was set at lr 3e-4 where the grad norm
+# barely moves.  The compressed run's step 1 is held against the whole
+# batch, and its later losses against the uncompressed run's at the JAX
+# package's 5% (tests/test_mesh_parity.py), differing from them at step
+# 2.  lr 1e-3 constant.  Falling losses are an extra check and hold only
+# for these 3 steps: on one device the losses of random weights on fresh
+# batches were 12.0271, 12.0238, 12.0077, then rose, 12.0551, 13.1345,
+# 12.377 (6 steps); they did not fall at phase 18's 3e-4 (12.0271,
+# 12.0287, 12.0334) nor at 3e-3 (12.0271, 12.0290, 13.2498; this phase on
+# one H100 80GB HBM3 at 700 W).
+MESH = dict(ranks=2, dp_layers=2, dp_batch=2, seq=4096, steps=3,
+            lr=1e-3, seconds=90)
+MESH_COMPRESSED_GNORM_REL = 1 / 254
+MESH_COMPRESSED_LOSS_REL = 0.05
+MESH_HALVES_REL = 1e-6
 CE_RAGGED = (1000, 4000, 50257)
 # d_model not a multiple of 8: h's rows are staged to a padded pitch
 CE_ODD_D = (1000, 4001, 102400)
@@ -467,9 +519,16 @@ HYBRID = dict(arch="zamba2-7b", engine_layers=15, train_layers=15,
 # llama4-maverick-400b-a17b runs at full width cut to one super-block: a
 # dense block, then an MoE block of 128 experts, top-1, with the shared
 # expert (18.55 B parameters, 37 GB in bf16).
+# Serving (25c) runs the first 8 of the 32 layers, and paligemma's (27c)
+# 6 of 18 (MULTIMODAL["pali_serve_layers"]): both host-bound (a granite
+# MoE layer launches some 86 kernels a step).  With all their layers this script took
+# 1204.4 s in all (1223.4 s of command) and 1267.6 s on two hosts, one
+# H100 80GB HBM3 at 700 W each, past the 1200 s limit; with these cuts
+# 1033.6 s.
 MOE = dict(arch="granite-moe-3b-a800m", engine_layers=4, train_layers=8,
            layers_resume=4, f32_layers=4, train_f32_layers=2, drop_layer=4,
-           llama4="llama4-maverick-400b-a17b", llama4_layers=2)
+           serve_layers=8, llama4="llama4-maverick-400b-a17b",
+           llama4_layers=2)
 # Routing is discrete: a near tie between two experts falls either way under
 # the modes' different roundings of the router's input, and a flipped choice
 # changes that token's output wholesale, at every later layer too.  So
@@ -522,7 +581,8 @@ XLA_F64_FLOOR = 1e-6
 MULTIMODAL = dict(hubert="hubert-xlarge", paligemma="paligemma-3b",
                   frames=2048, text=1792, hubert_train_layers=8,
                   pali_train_layers=6, pali_engine_layers=4, f32_layers=2,
-                  loss_chunk=512, drop_layer=4, grad_l2=1e-4)
+                  pali_serve_layers=6, loss_chunk=512, drop_layer=4,
+                  grad_l2=1e-4)
 
 
 class PhaseError(RuntimeError):
@@ -631,7 +691,7 @@ class Smoke:
               "phase19_train_timing", "phase20_ssd_kernel",
               "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced",
               "phase24_hybrid", "phase25_moe", "phase26_slice_f",
-              "phase27_multimodal", "phase28_verify")
+              "phase27_multimodal", "phase28_verify", "phase29_mesh")
 
     def run(self):
         t0 = time.perf_counter()
@@ -7193,6 +7253,7 @@ class Smoke:
 
     def phase25_moe(self):
         torch = self.torch
+        import dataclasses
         import gc
         from repro_torch.configs import get_config
         from repro_torch.layers import base
@@ -7219,8 +7280,12 @@ class Smoke:
         self.moe_blocks(params, cfg, tokens)
         del rec_b, rec_r
         self.moe_float32_cut(cfg)
+        n = MOE["serve_layers"]
         self.moe_launches["decode_step"] = self.moe_serving(
-            cfg, params, "25c", 2501)
+            dataclasses.replace(cfg, n_layers=n),
+            {**params, "blocks": base.tree_map(lambda a: a[:n],
+                                               params["blocks"])},
+            "25c", 2501)
         self.moe_engine(cfg, params)
         self.moe_times(cfg, params, tokens)
         del params, tokens
@@ -8173,8 +8238,8 @@ class Smoke:
 
     def paligemma(self):
         """27c: paligemma-3b at full width: lm.prefill of 256 patches and
-        1792 tokens and Server.generate at all 18 layers, the paged engine
-        at 4, float32 serving at 2, three training steps at 6."""
+        1792 tokens at all 18 layers, Server.generate at 6, the paged
+        engine at 4, float32 serving at 2, three training steps at 6."""
         torch = self.torch
         import dataclasses
         from repro_torch.configs import get_config
@@ -8246,11 +8311,15 @@ class Smoke:
         prompts = np.random.default_rng(2722).integers(
             0, cfg.vocab_size, (SERVE["batch"], SERVE["prompt_len"])
         ).astype(np.int32)
-        servers, gens, counts = self.serve_pair(cfg, params, prompts)
+        Ls = MULTIMODAL["pali_serve_layers"]
+        servers, gens, counts = self.serve_pair(
+            dataclasses.replace(cfg, n_layers=Ls),
+            {**params, "blocks": base.tree_map(lambda a: a[:Ls],
+                                               params["blocks"])}, prompts)
         steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
         self.expect_counters("27c paligemma serving", counts, {
-            "rmsnorm": steps * (2 * L + 1), "swiglu": steps * L,
-            "flash_attention": 0, "flash_decode": steps * L})
+            "rmsnorm": steps * (2 * Ls + 1), "swiglu": steps * Ls,
+            "flash_attention": 0, "flash_decode": steps * Ls})
         self.mm_launches["paligemma decode_step"] = {
             k: counts[k] // steps for k in ("rmsnorm", "swiglu",
                                             "flash_decode")}
@@ -8263,7 +8332,8 @@ class Smoke:
                              f"max|d|/max {max(errs):.3e} > {PATH_BF16_REL}")
         agree = float((gens["brainslug"] == gens["barrier"]).mean())
         print(f"[27c paligemma Server.generate] text only (the Server drops "
-              f"the vision frontend), {L} layers, {SERVE['batch']} requests, "
+              f"the vision frontend), {Ls} of the {L} layers, "
+              f"{SERVE['batch']} requests, "
               f"prompt {SERVE['prompt_len']}, {SERVE['new_tokens']} new, "
               f"greedy: token agreement {agree:.4f}; teacher-forced logits "
               f"max|d|/max worst {max(errs):.3e}, median "
@@ -8829,6 +8899,262 @@ class Smoke:
         print(f"[28c] write models on {sm} SMs against the kernels: "
               f"{time.perf_counter() - t:.1f} s")
 
+
+    # -- phase 29: mesh execution (Slice G1) ---------------------------------
+    def phase29_mesh(self):
+        """Two ranks on this card over gloo: (a) VGG-16 under ``data``, (b)
+        the deepseek-width bf16 block under ``tensor``, (c) the
+        data-parallel trainer; every rank's counters folded into the
+        kernels line.  The single-device step of 29c runs here first."""
+        torch = self.torch
+        import gc
+
+        from repro_torch.examples import mesh_checks
+        from repro_torch.launch import mesh as mesh_mod
+        t0 = time.perf_counter()
+        # the two ranks need the card's memory (26.4 GiB each at 29c's
+        # peak on one H100), and no phase after this one reads phase
+        # 12's 30-layer model (its bf16 weights)
+        self.lm_model = None
+        gc.collect()
+        ref = self.mesh_dp_reference()
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        common = dict(arch="deepseek-7b", reduced=False, mode="brainslug",
+                      batch_override=MESH["dp_batch"],
+                      seq_override=MESH["seq"], steps=MESH["steps"],
+                      config_overrides=(("n_layers", MESH["dp_layers"]),
+                                        ("dtype", "bfloat16")),
+                      device="cuda", log_every=10 ** 9,
+                      mesh_devices=MESH["ranks"])
+        checks = [
+            ("vgg", "vgg_step", dict(device="cuda", stages=VGG16_STAGES,
+                                     input_shape=VGG_INPUT,
+                                     rtol=TRAIN_RTOL)),
+            ("block", "block_forward", dict(
+                device="cuda", widths=(PREFILL[1], D_MODEL, 32, D_FF),
+                dtype="bfloat16", model_parallel=2)),
+            ("dp", "dp_train", dict(
+                runs=[dict(compress=False), dict(compress=True)],
+                common=common, lr=MESH["lr"])),
+        ]
+        t = time.perf_counter()
+        try:
+            got = mesh_mod.spawn(mesh_checks.run_checks, MESH["ranks"],
+                                 checks, device="cuda", timeout=600)
+        except (mesh_mod.RankError, TimeoutError) as e:
+            raise PhaseError(f"29: {e}") from e
+        spawn_s = time.perf_counter() - t
+        self.mesh_vgg(got["vgg"])
+        self.mesh_block(got["block"])
+        self.mesh_dp(got["dp"], ref)
+        launches = {"29a vgg_step": got["vgg"]["ranks"],
+                    "29b block_forward": got["block"]["ranks"],
+                    "29c dp_train": [
+                        {k: sum(r["ranks"][i]["launches"][k]
+                                for r in got["dp"]["runs"])
+                         for k in KERNELS}
+                        for i in range(MESH["ranks"])]}
+        for name in KERNELS:
+            per = {w: [(c["launches"] if "launches" in c else c)[name]
+                       for c in ranks] for w, ranks in launches.items()}
+            if any(any(v) for v in per.values()):
+                self.kernels.setdefault(name, {})["mesh"] = {
+                    "launches_per_rank": per}
+        total = time.perf_counter() - t0
+        print(f"[29] ranks share {torch.cuda.get_device_name(0)} "
+              f"({self.smi}): no time here is a multi-card number; "
+              f"{held:.2f} GiB held by this process at the spawn; spawn "
+              f"and legs {spawn_s:.1f} s (legs in the ranks "
+              f"{got['seconds']}); phase {total:.1f} s (aim "
+              f"<= {MESH['seconds']} s)")
+
+    def mesh_dp_reference(self):
+        """29c's single-device runs of MESH["steps"] steps from the same
+        seeded weights and batches, through ``build_trainer``: "whole",
+        the whole global batch a step; "halves", each rank's slice of it
+        in turn, the bf16 gradients summed and halved as the ranks'
+        all-reduce does (written here from ``lm.loss_fn`` and
+        ``adamw.update``, not from the data-parallel step)."""
+        torch = self.torch
+        import gc
+        from repro_torch.configs.base import RuntimeConfig
+        from repro_torch.launch import train as train_mod
+        from repro_torch.layers import base
+        from repro_torch.models import lm
+        from repro_torch.optim import adamw
+        tc = train_mod.TrainerConfig(
+            arch="deepseek-7b", reduced=False, mode="brainslug",
+            steps=MESH["steps"],
+            batch_override=MESH["dp_batch"], seq_override=MESH["seq"],
+            config_overrides=(("n_layers", MESH["dp_layers"]),
+                              ("dtype", "bfloat16")),
+            device="cuda", log_every=10 ** 9)
+        opt_cfg = adamw.AdamWConfig(lr=MESH["lr"])
+        out = {"whole": train_mod.train(tc, opt_cfg=opt_cfg)}
+        gc.collect()
+        trainer = train_mod.build_trainer(tc, opt_cfg=opt_cfg)
+        rt = RuntimeConfig(mode=tc.mode, remat=tc.remat)
+        n = MESH["ranks"]
+
+        def halves_step(params, opt_state, batch):
+            total, losses = None, []
+            for r in range(n):
+                size = next(iter(batch.values())).shape[0] // n
+                part = {k: v[r * size:(r + 1) * size]
+                        for k, v in batch.items()}
+                with torch.enable_grad():
+                    live = base.tree_map(
+                        lambda q: q.detach().requires_grad_(), params)
+                    loss, _ = lm.loss_fn(live, part, trainer.cfg, rt)
+                    flat = base.tree_leaves(live)
+                    grads = torch.autograd.grad(loss, flat,
+                                                allow_unused=True)
+                grads = [torch.zeros_like(q) if g is None else g
+                         for q, g in zip(flat, grads)]
+                total = grads if total is None else [
+                    a + b for a, b in zip(total, grads)]
+                losses.append(loss.detach().float())
+                del live, flat, grads
+            it = iter([g.div_(n) for g in total])
+            mean = base.tree_map(lambda _: next(it), params)
+            del total, it
+            params, opt_state, m = adamw.update(opt_cfg, mean, opt_state,
+                                                params)
+            zero = torch.zeros((), device=trainer.device)
+            return params, opt_state, {
+                "loss": torch.stack(losses).sum() / n,
+                "grad_norm": m["grad_norm"], "router_aux_loss": zero,
+                "drop_fraction": zero}
+
+        trainer.step_fn = halves_step
+        out["halves"] = trainer.run()
+        return out
+
+    def mesh_vgg(self, got):
+        n_seq = got["n_sequences"]
+        bad = [(r, c) for r, c in enumerate(got["ranks"])
+               if (c["fwd_generated"], c["bwd_generated"], c["fwd_reference"],
+                   c["bwd_reference"]) != (n_seq, n_seq, 0, 0)
+               or c["launches"]["fused_nhwc_bwd"] != n_seq]
+        if not (got["forward_ok"] and got["grads_ok"]) or bad \
+                or not all(a for _, _, a in got["dist"]):
+            raise PhaseError(f"29a VGG-16 under data: forward "
+                             f"{got['forward_rel']:.3e}, gradients "
+                             f"{got['grad_rel']}, sharded {got['dist']}, "
+                             f"counters {bad}")
+        worst = max(got["grad_rel"].values())
+        print(f"[29a VGG-16 {VGG_INPUT} float32, optimize_graph "
+              f"differentiable=True, partition='data' over 2 ranks] "
+              f"{got['mesh']}; loss {got['loss']} (one device "
+              f"{got['loss_one']}); forward max|d|/max|y| "
+              f"{got['forward_rel']:.3e}, step-1 gradients max|d|/max|g| "
+              f"{worst:.3e} (tol rtol {TRAIN_RTOL}, atol {TRAIN_RTOL} x "
+              f"max|g|); per rank fwd_generated = bwd_generated = "
+              f"{n_seq} sequences, 0 reference; step wall "
+              f"{got['wall_s']:.2f} s (ranks sharing one card); peak "
+              f"{[round(c['peak_gib'], 2) for c in got['ranks']]} GiB; "
+              f"collectives given CUDA tensors per rank "
+              f"{[c['collectives']['cuda_calls'] for c in got['ranks']]}")
+
+    def mesh_block(self, got):
+        want = {"attention": 1, "rmsnorm": 2, "swiglu": 1}
+        if (got["kernel_hits"] != want or got["kernel_fallbacks"]
+                or not got["registry_all_kernels"] or not got["finite"]
+                or got["rel"] > 2e-2
+                or not any(a for k, _, a in got["dist"] if k == "kernel")):
+            raise PhaseError(f"29b block under tensor: {got}")
+        print(f"[29b api.optimize(transformer_block_fn) deepseek-7b widths "
+              f"(1, {PREFILL[1]}, {D_MODEL}), 32 heads, d_ff {D_FF}, bf16, "
+              f"partition='tensor' over (1, 2)] {got['mesh']}; against the "
+              f"single-device compile max|d|/max|y| {got['rel']:.3e} (tol "
+              f"2e-2); registry {got['kernel_hits']}, all hopper; sharded "
+              f"segments {[(k, n) for k, n, a in got['dist'] if a]}; per "
+              f"rank registry {[c['registry'] for c in got['ranks']]}; "
+              f"forward wall {got['wall_s']:.3f} s (ranks sharing one card)")
+
+    def mesh_dp(self, got, ref):
+        plain, comp = got["runs"]
+        want_l = [x["loss"] for x in ref["whole"]]
+        want_g = [x["grad_norm"] for x in ref["whole"]]
+        halves_l = [x["loss"] for x in ref["halves"]]
+        halves_g = [x["grad_norm"] for x in ref["halves"]]
+        rel = lambda a, b: abs(a - b) / abs(b)
+        lines = []
+        for tag, run in (("uncompressed", plain), ("compressed", comp)):
+            h = run["history"]
+            losses = [x["loss"] for x in h]
+            gnorms = [x["grad_norm"] for x in h]
+            for r, c in enumerate(run["ranks"]):
+                la = c["launches"]
+                if la["fused_ce"] != MESH["steps"] or la["flash_attention"] \
+                        != MESH["steps"] * MESH["dp_layers"]:
+                    raise PhaseError(f"29c {tag} rank {r}: launches {la}")
+            loss_gaps = [rel(a, b) for a, b in zip(losses, want_l)]
+            gn_gaps = [rel(a, b) for a, b in zip(gnorms, want_g)]
+            if tag == "uncompressed":
+                # every step against one device's run of the same two
+                # halves; the whole batch's losses every step and grad
+                # norm at step 1 at phase 18's limits
+                half_gaps = [max(rel(a, b), rel(c, d)) for a, b, c, d in
+                             zip(losses, halves_l, gnorms, halves_g)]
+                lims = [(g, lim) for g, lim in zip(loss_gaps,
+                                                   TRAIN_BF16_LOSS_REL)] \
+                    + [(gn_gaps[0], TRAIN_BF16_GNORM_REL)] + [
+                    (g, MESH_HALVES_REL) for g in half_gaps]
+                held = (f"every step against one device's two halves: "
+                        f"loss and grad norm gaps "
+                        f"{[f'{g:.3e}' for g in half_gaps]} (tol "
+                        f"{MESH_HALVES_REL}); against one device's whole "
+                        f"batch: loss gaps {[f'{g:.3e}' for g in loss_gaps]}"
+                        f" (tol {TRAIN_BF16_LOSS_REL}), grad norm gaps "
+                        f"{[f'{g:.3e}' for g in gn_gaps]} (tol "
+                        f"{TRAIN_BF16_GNORM_REL} at step 1)")
+            else:
+                # step 1 against one device (the error state starts at
+                # zero); later steps track the uncompressed run, changed
+                up = [x["loss"] for x in plain["history"]]
+                track = [rel(a, b) for a, b in zip(losses[1:], up[1:])]
+                lims = [(loss_gaps[0], TRAIN_BF16_LOSS_REL[0]),
+                        (gn_gaps[0], MESH_COMPRESSED_GNORM_REL)] + [
+                    (g, MESH_COMPRESSED_LOSS_REL) for g in track]
+                if losses[1] == up[1]:
+                    raise PhaseError(f"29c compressed: step-2 loss "
+                                     f"{losses[1]} equals the uncompressed "
+                                     f"run's: compression changed nothing")
+                held = (f"step 1 against one device: loss gap "
+                        f"{loss_gaps[0]:.3e} (tol {TRAIN_BF16_LOSS_REL[0]}),"
+                        f" grad norm gap {gn_gaps[0]:.3e} (tol "
+                        f"{MESH_COMPRESSED_GNORM_REL:.3e}); steps 2.. "
+                        f"against uncompressed {[f'{g:.3e}' for g in track]}"
+                        f" (tol {MESH_COMPRESSED_LOSS_REL}), step 2 "
+                        f"{losses[1]} vs {up[1]}")
+            if not (all(math.isfinite(x) for x in losses + gnorms)
+                    and all(g <= lim for g, lim in lims)
+                    and all(b < a for a, b in zip(losses, losses[1:]))):
+                raise PhaseError(
+                    f"29c {tag}: losses {losses} grad norms {gnorms}; one "
+                    f"device, whole batch: losses {want_l} grad norms "
+                    f"{want_g}; two halves: losses {halves_l} grad norms "
+                    f"{halves_g}; {held}")
+            wire = ("modelled (compressed_bytes): the all-reduce still "
+                    "moves the dequantised bf16 gradients" if tag ==
+                    "compressed" else "the bf16 gradients")
+            lines.append(
+                f"{tag}: losses {losses} grad norms {gnorms}; {held}; wall "
+                f"{run['wall_s']:.1f} s; wire {run['wire_bytes']} B a rank a "
+                f"step, {wire}; peak per rank "
+                f"{[round(c['peak_gib'], 2) for c in run['ranks']]} GiB; "
+                f"collectives given CUDA tensors per rank "
+                f"{[c['collectives']['cuda_calls'] for c in run['ranks']]}")
+        print(f"[29c Trainer(data_parallel=True) deepseek-7b full width, "
+              f"{MESH['dp_layers']} layers bf16, global batch "
+              f"{MESH['dp_batch']} x {MESH['seq']} over {MESH['ranks']} "
+              f"ranks, {MESH['steps']} AdamW steps lr {MESH['lr']}] "
+              f"transport: {plain['mesh']}; one device, whole batch: "
+              f"losses {want_l} grad norms {want_g}; two halves: losses "
+              f"{halves_l} grad norms {halves_g}; " + "; ".join(lines))
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -21,7 +21,11 @@ runs through it: the stacks through the generated depth-first backward
 kernels, the kernels through their wrappers' backwards, opaque ops
 through eager autograd.
 
-The result runs on ``cuda`` unless the config asks for ``cpu``.  The
+The result runs on ``cuda`` unless the config asks for ``cpu``.  Under
+``OptimizeConfig(mesh=..., partition=...)`` every rank of the mesh calls
+``optimize`` and the result with the same global arguments; stacks and
+registry kernels run on each rank's shard and gather their outputs
+(:mod:`repro_torch.core.partition`).  The
 IR-level entry points stay in :mod:`repro_torch.core.api`; the
 :func:`optimize_graph` and :func:`optimize_stack` here are deprecated
 re-exports that warn.
@@ -93,6 +97,8 @@ class OptimizedFn:
     #: in ``report()``; and the host seconds its passes took.
     verify_findings: tuple = ()
     verify_seconds: float = 0.0
+    #: The mesh partition plan (None on one device).
+    partitions: Any = None
 
     def __call__(self, *args):
         tr = self.trace_result
@@ -146,7 +152,8 @@ class OptimizedFn:
             self.config.itemsize, kernel_dispatch=self.kernel_dispatches,
             vetoes=self.kernel_vetoes,
             autotune_decisions=self.autotune_decisions,
-            verify=self.verify_findings, verify_seconds=self.verify_seconds)
+            verify=self.verify_findings, verify_seconds=self.verify_seconds,
+            partitions=self.partitions)
 
     def explain(self) -> str:
         """Human-readable :meth:`report`."""
@@ -188,19 +195,21 @@ def optimize(fn: Callable, *example_args: Any,
         verify_mod.enforce(graph_findings, config.verify,
                            subject=tr.graph.name)
     segments = analyzer.analyze(tr.graph, layout="auto", keep=keep)
-    tuner = (autotune_mod.Autotuner.from_config(config) if config.autotune
-             else None)
-    executors, plans, dispatches, tuned, findings = core_api.compile_stacks(
-        segments, tr.shapes, config, param_shapes=tr.param_shapes,
-        dtypes={**tr.dtypes, **tr.param_dtypes}, tuner=tuner)
+    tuner = (autotune_mod.Autotuner.from_config(config)
+             if config.autotune and config.partition == "none" else None)
+    executors, plans, dispatches, tuned, findings, parts = \
+        core_api.compile_stacks(
+            segments, tr.shapes, config, param_shapes=tr.param_shapes,
+            dtypes={**tr.dtypes, **tr.param_dtypes}, tuner=tuner)
     net = OptimizedFn(trace_result=tr, segments=segments,
                       executors=executors, plans=plans, config=config,
                       device=device, kernel_dispatches=dispatches,
                       kernel_matches=matches, kernel_vetoes=vetoes,
                       autotune_decisions=tuned,
                       verify_findings=graph_findings + findings,
-                      verify_seconds=verify_mod.STATS.seconds - spent)
-    if tuner is not None:
+                      verify_seconds=verify_mod.STATS.seconds - spent,
+                      partitions=parts)
+    if tuner is not None and parts is None:
         _floor_whole_function(tuner, net, fn, example_args, config)
     return net
 

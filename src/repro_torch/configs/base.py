@@ -197,8 +197,9 @@ class RuntimeConfig:
         if self.moe_constraint != "none":
             raise NotImplementedError(
                 f"moe_constraint={self.moe_constraint!r}: the dispatch "
-                f"layouts of a mesh come with the multi-device slice of the "
-                f"port (ROADMAP.md, queue 1); on one device it is 'none'")
+                f"layouts of a mesh come with the tensor-parallel mesh item "
+                f"of the port (ROADMAP.md, queue 1, item 6b); on one device "
+                f"it is 'none'")
 
 
 def _count_params(cfg: ModelConfig, active_only: bool) -> int:

@@ -27,6 +27,16 @@ baseline (:mod:`repro_torch.core.autotune`).
 All run on ``cuda`` unless the config asks for ``cpu``
 (``OptimizeConfig(torch_device="cpu")``); asking for ``cuda`` without a GPU
 raises ``RuntimeError``.
+
+Mesh execution: ``OptimizeConfig(mesh=..., partition=...)`` with a
+:class:`repro_torch.launch.mesh.Mesh` (every rank calls ``optimize`` with
+the same global inputs) partitions each stack and registry kernel
+(:mod:`repro_torch.core.partition`), collapses each sharded stack against
+its per-shard shapes on a haircut budget
+(:func:`repro_torch.core.resource.shard_device`) and runs it inside a
+sharded call (:func:`repro_torch.core.codegen.sharded_call`).  A
+:class:`~repro_torch.core.partition.MeshAxes` skeleton drives the same
+planning and verification without ranks (the lint).
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import torch
 
 from repro_torch.core import (analyzer, autotune, codegen, collapse, ir,
                               registry, resource)
+from repro_torch.core import partition as partition_mod
 from repro_torch.core import verify as verify_mod
 
 #: Execution modes an OptimizeConfig accepts.
@@ -81,6 +92,16 @@ class OptimizeConfig:
     # with a recorded reason.  The baseline is exempt: the floor must
     # always exist.
     autotune_timeout_ms: float | None = 2000.0
+    # Mesh execution (repro_torch.core.partition): a live
+    # repro_torch.launch.mesh.Mesh (or a partition.MeshAxes skeleton for
+    # static lint) and a partition mode.  With a mesh, stacks and registry
+    # kernels run inside sharded calls with derived partition specs, and
+    # collapse sizes tiles against the per-shard shapes on a haircut
+    # budget (resource.shard_device).  'data' shards batch/rows, 'tensor'
+    # heads/features, 'both' both, 'none' ignores the mesh.  Autotuning is
+    # off under a mesh: the static planner decides.
+    mesh: object | None = None
+    partition: str = "none"
     # Static plan verification (repro_torch.core.verify): re-derive every
     # compile artifact's invariants between planning and codegen.
     # 'strict' raises VerifyError on any violation before anything
@@ -121,6 +142,14 @@ class OptimizeConfig:
         if torch.device(self.torch_device).type not in ("cuda", "cpu"):
             raise ValueError(f"torch_device must be cuda or cpu, got "
                              f"{self.torch_device!r}")
+        if self.partition not in partition_mod.PARTITIONS:
+            raise ValueError(
+                f"unknown partition {self.partition!r}; allowed: "
+                f"{partition_mod.PARTITIONS}")
+        if self.partition != "none" and self.mesh is None:
+            raise ValueError(
+                f"partition={self.partition!r} needs a mesh "
+                "(OptimizeConfig(mesh=..., partition=...))")
 
 
 def resolve_device(config: OptimizeConfig) -> torch.device:
@@ -184,6 +213,21 @@ class AutotuneCoverage:
 
 
 @dataclasses.dataclass(frozen=True)
+class DistCoverage:
+    """One mesh-partitioned segment in the ``report()`` payload: the
+    committed boundary specs and the per-shard shared-memory budget the
+    tiles were sized against."""
+
+    name: str                   # stack name / kernel op name
+    kind: str                   # 'stack' | 'kernel'
+    in_specs: tuple[tuple[str, str], ...]    # (operand, spec) as strings
+    out_specs: tuple[tuple[str, str], ...]
+    active: bool                # False: every operand ended up replicated
+    shard_budget_bytes: int     # haircut per-rank budget (0: no plan)
+    notes: tuple[str, ...] = ()  # why a split was fenced / replicated
+
+
+@dataclasses.dataclass(frozen=True)
 class CoverageReport:
     """What the optimizer captured — the ``report()``/``explain()`` payload.
 
@@ -215,6 +259,10 @@ class CoverageReport:
     #: away; and the host seconds its passes took.
     verify: tuple = ()
     verify_seconds: float = 0.0
+    #: Mesh partitioning: (("data", 2), ("model", 1))-style axis extents
+    #: (empty without a mesh) and one DistCoverage per partitioned segment.
+    mesh_axes: tuple = ()
+    dist: tuple[DistCoverage, ...] = ()
 
     @property
     def verify_errors(self) -> int:
@@ -291,6 +339,20 @@ class CoverageReport:
                 lines.append(f"    note: {ev}")
             for variant, why in a.failures:
                 lines.append(f"    candidate {variant} failed: {why}")
+        if self.mesh_axes:
+            lines.append("  mesh " + " x ".join(
+                f"{n}={e}" for n, e in self.mesh_axes))
+        for d in self.dist:
+            state = "sharded" if d.active else "replicated"
+            specs = "  ".join(f"{k}={s}" for k, s in d.in_specs)
+            budget = (f"  per-shard shared-memory budget="
+                      f"{d.shard_budget_bytes} B = "
+                      f"{d.shard_budget_bytes / 2**20:.2f} MiB"
+                      if d.shard_budget_bytes else "")
+            lines.append(f"  dist {d.kind:6s} {d.name:28s} "
+                         f"{state}  {specs}{budget}")
+            for note in d.notes:
+                lines.append(f"    note: {note}")
         for f in self.verify:
             lines.append(f"  verify [{f.severity}] {f.invariant} "
                          f"@ {f.subject}: {f.detail}")
@@ -312,14 +374,34 @@ def coverage_report(segments, plans: Mapping[int, collapse.CollapsePlan],
                     vetoes: tuple[registry.KernelVeto, ...] = (),
                     autotune_decisions: Mapping[int, autotune.Decision]
                     | None = None,
-                    verify: tuple = (), verify_seconds: float = 0.0
+                    verify: tuple = (), verify_seconds: float = 0.0,
+                    partitions: partition_mod.PartitionPlan | None = None
                     ) -> CoverageReport:
     """Per-stack coverage + planned HBM traffic (analytic bytes from shapes,
     not measured) of a rewritten network, its registry dispatches, the
     registry's vetoed matches, the committed autotune decisions (keyed
-    by segment index, -1 for the function-level floor) and the static
-    verifier's findings."""
+    by segment index, -1 for the function-level floor), the static
+    verifier's findings and the mesh partition plan (None on one
+    device)."""
     kernel_dispatch = kernel_dispatch or {}
+    mesh_axes: tuple = ()
+    dist: list[DistCoverage] = []
+    if partitions is not None and partitions.segments:
+        mesh_axes = tuple(zip(partitions.axes.names, partitions.axes.shape))
+        for idx, part in sorted(partitions.segments.items()):
+            seg = segments[idx]
+            plan = plans.get(idx) if seg.is_stack else None
+            dist.append(DistCoverage(
+                name=seg.stack.name if seg.is_stack else seg.op.name,
+                kind="stack" if seg.is_stack else "kernel",
+                in_specs=tuple((k, str(s))
+                               for k, s in part.in_specs.items()),
+                out_specs=tuple((k, str(s))
+                                for k, s in part.out_specs.items()),
+                active=part.active,
+                shard_budget_bytes=(plan.device.resource_limit
+                                    if plan is not None else 0),
+                notes=part.notes))
     tuned = tuple(
         AutotuneCoverage(
             name=d.name, kind=d.kind, requested=d.requested,
@@ -368,7 +450,8 @@ def coverage_report(segments, plans: Mapping[int, collapse.CollapsePlan],
         capture_ratio=n_captured / eligible if eligible else 1.0,
         stacks=tuple(stacks), n_synthetic=n_synthetic,
         n_kernel=len(kernels), kernels=tuple(kernels), vetoes=tuple(vetoes),
-        autotune=tuned, verify=tuple(verify), verify_seconds=verify_seconds)
+        autotune=tuned, verify=tuple(verify), verify_seconds=verify_seconds,
+        mesh_axes=mesh_axes, dist=tuple(dist))
 
 
 def run_segments(segments, executors: Mapping[int, codegen.Executor],
@@ -410,6 +493,8 @@ class OptimizedNet:
     #: seconds.
     verify_findings: tuple = ()
     verify_seconds: float = 0.0
+    #: Mesh partition plan (None for single-device compiles).
+    partitions: partition_mod.PartitionPlan | None = None
 
     def __call__(self, x: torch.Tensor,
                  params: Mapping[str, torch.Tensor]) -> torch.Tensor:
@@ -433,7 +518,8 @@ class OptimizedNet:
                                kernel_dispatch=self.kernel_dispatches,
                                autotune_decisions=self.autotune_decisions,
                                verify=self.verify_findings,
-                               verify_seconds=self.verify_seconds)
+                               verify_seconds=self.verify_seconds,
+                               partitions=self.partitions)
 
     def explain(self) -> str:
         """Human-readable :meth:`report`."""
@@ -448,7 +534,8 @@ def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
                    ) -> tuple[dict[int, codegen.Executor],
                               dict[int, collapse.CollapsePlan],
                               dict[int, registry.KernelDispatch],
-                              dict[int, autotune.Decision], tuple]:
+                              dict[int, autotune.Decision], tuple,
+                              partition_mod.PartitionPlan | None]:
     """Collapse + compile every stack segment, and compile every registry
     KERNEL segment, against ``config``.  With ``config.autotune`` (or an
     explicit ``tuner``) each segment's variant is measured and hard-floored
@@ -462,10 +549,30 @@ def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
     invariants, and under ``'strict'`` a violation raises
     :class:`~repro_torch.core.verify.VerifyError` before anything
     compiles; then codegen.  Returns (executors, plans, kernel dispatch
-    records, autotune decisions), each keyed by segment index, and the
-    verifier's findings."""
-    if tuner is None and config.autotune:
+    records, autotune decisions), each keyed by segment index, the
+    verifier's findings and the partition plan (None without a mesh).
+
+    With ``config.mesh`` and ``config.partition != 'none'`` every stack and
+    registry-kernel segment gets derived boundary specs
+    (:func:`repro_torch.core.partition.plan_segments`); active stacks
+    collapse against their per-shard input shapes on the haircut device
+    (:func:`repro_torch.core.resource.shard_device`), and codegen wraps
+    their executors in sharded calls.  Autotuning is off under a mesh."""
+    partitions: partition_mod.PartitionPlan | None = None
+    shard_dev = config.device
+    if config.mesh is not None and config.partition != "none":
+        partitions = partition_mod.plan_segments(
+            segments, shapes, param_shapes, config.partition, config.mesh,
+            sublane=config.device.sublane)
+        shard_dev = resource.shard_device(config.device,
+                                          partitions.axes.n_devices)
+        tuner = None
+    elif tuner is None and config.autotune:
         tuner = autotune.Autotuner.from_config(config)
+    # a sharded call needs ranks; a MeshAxes skeleton (the lint) drives
+    # per-shard sizing and verification only
+    exec_mesh = (config.mesh if partitions is not None
+                 and hasattr(config.mesh, "groups") else None)
     executors: dict[int, codegen.Executor] = {}
     plans: dict[int, collapse.CollapsePlan] = {}
     modes: dict[int, str] = {}
@@ -478,7 +585,16 @@ def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
             continue
         in_shapes = {v: tuple(shapes[v]) for v in seg.stack.inputs}
         modes[idx] = config.mode
-        if tuner is not None and config.mode != "barrier":
+        part = partitions.get(idx) if partitions is not None else None
+        if part is not None and part.active:
+            # per-shard sizing: collapse what one rank's sharded call runs
+            plans[idx] = collapse.collapse(
+                seg.stack, partition_mod.shard_shapes(
+                    in_shapes, part.in_specs, partitions.axes),
+                shard_dev, itemsize=config.itemsize,
+                max_steps_per_sequence=config.max_steps_per_sequence,
+                differentiable=config.differentiable)
+        elif tuner is not None and config.mode != "barrier":
             # barrier IS the floor: nothing to measure against
             decisions[idx], modes[idx], plans[idx] = autotune.tune_stack(
                 tuner, seg.stack, in_shapes, config,
@@ -495,15 +611,17 @@ def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
     if config.verify != "off":
         findings = tuple(verify_mod.verify_segments(
             segments, plans, shapes, config, dtypes=dtypes,
-            param_shapes=param_shapes))
+            param_shapes=param_shapes, partitions=partitions))
         verify_mod.enforce(findings, config.verify)
 
     # Stage 3: codegen (reached when verification passed or was waived).
     for idx, seg in enumerate(segments):
+        part = partitions.get(idx) if partitions is not None else None
         if seg.is_stack:
             executors[idx] = codegen.compile_plan(
                 plans[idx], mode=modes[idx],
-                cache_size=config.code_cache_size)
+                cache_size=config.code_cache_size, mesh=exec_mesh,
+                part=part)
         elif seg.op.kind == ir.OpKind.KERNEL:
             backend = reason = None
             if tuner is not None:
@@ -513,14 +631,21 @@ def compile_stacks(segments, shapes: Mapping[str, tuple[int, ...]],
             executors[idx], dispatches[idx] = codegen.compile_kernel_op(
                 seg.op, mode=config.mode,
                 cache_size=config.code_cache_size, backend=backend,
-                reason=reason)
-    return executors, plans, dispatches, decisions, findings
+                reason=reason, mesh=exec_mesh, part=part)
+    return executors, plans, dispatches, decisions, findings, partitions
 
 
 def optimize_graph(graph: ir.NetGraph,
                    input_shape: tuple[int, ...],
                    config: OptimizeConfig = OptimizeConfig(),
-                   layout: str = "nhwc") -> OptimizedNet:
+                   layout: str = "nhwc",
+                   param_shapes: Mapping[str, tuple[int, ...]] | None = None
+                   ) -> OptimizedNet:
+    """``graph`` compiled for inputs of ``input_shape``.  ``param_shapes``
+    (the shapes of the parameters the net will be called with) lets a mesh
+    partition the stacks that read parameters; without it such a stack is
+    replicated, as in the JAX package, whose ``optimize_graph`` takes
+    none."""
     device = resolve_device(config)
     segments = analyzer.analyze(graph, layout=layout,  # validates layout
                                 keep=frozenset({graph.output}))
@@ -537,27 +662,39 @@ def optimize_graph(graph: ir.NetGraph,
         graph_findings = tuple(verify_mod.verify_graph(graph, shapes))
         verify_mod.enforce(graph_findings, config.verify,
                            subject=graph.name)
-    executors, plans, dispatches, decisions, findings = compile_stacks(
-        segments, shapes, config)
+    executors, plans, dispatches, decisions, findings, parts = \
+        compile_stacks(segments, shapes, config, param_shapes=param_shapes)
     return OptimizedNet(graph=graph, segments=segments, executors=executors,
                         plans=plans, config=config, device=device,
                         shapes=shapes, kernel_dispatches=dispatches,
                         autotune_decisions=decisions,
                         verify_findings=graph_findings + findings,
-                        verify_seconds=verify_mod.STATS.seconds - spent)
+                        verify_seconds=verify_mod.STATS.seconds - spent,
+                        partitions=parts)
 
 
 def optimize_stack(program: ir.StackProgram,
                    input_shapes: Mapping[str, tuple[int, ...]],
-                   config: OptimizeConfig = OptimizeConfig()
+                   config: OptimizeConfig = OptimizeConfig(),
+                   param_shapes: Mapping[str, tuple[int, ...]] | None = None
                    ) -> codegen.Executor:
+    """One stack's executor.  Under a mesh the stack is partitioned
+    (``param_shapes`` gives its parameters' shapes; without them a stack
+    with parameters stays replicated), collapsed per shard and run in a
+    sharded call, as :func:`compile_stacks` does for a whole net."""
     resolve_device(config)
-    plan = collapse.collapse(
-        program, input_shapes, config.device, itemsize=config.itemsize,
-        max_steps_per_sequence=config.max_steps_per_sequence,
-        differentiable=config.differentiable)
-    return codegen.compile_plan(plan, mode=config.mode,
-                                cache_size=config.code_cache_size)
+    if config.mesh is None or config.partition == "none":
+        plan = collapse.collapse(
+            program, input_shapes, config.device, itemsize=config.itemsize,
+            max_steps_per_sequence=config.max_steps_per_sequence,
+            differentiable=config.differentiable)
+        return codegen.compile_plan(plan, mode=config.mode,
+                                    cache_size=config.code_cache_size)
+    seg = analyzer.Segment(stack=program)
+    shapes = dict(ir.infer_shapes(program, input_shapes))
+    executors, *_ = compile_stacks([seg], shapes, config,
+                                   param_shapes=param_shapes)
+    return executors[0]
 
 
 def _infer_opaque_shape(op: ir.OpNode, shapes: dict) -> None:

@@ -21,9 +21,19 @@ closures on the kernel, backend and static attributes (identical kernel
 sites share one).  The cache is LRU-bounded
 (``OptimizeConfig.code_cache_size``); ``clear_cache()`` resets the dispatch
 counters alongside.
+
+Under a mesh (``mesh`` plus an active ``part``, a
+:class:`~repro_torch.core.partition.SegmentPartition`) the executor runs
+inside a *sharded call* (:func:`sharded_call`), the SPMD form of the JAX
+package's ``shard_map`` region: every rank holds the global operands,
+slices its own shard of each by its spec, runs the plan (the fused-stack
+kernels, or the registry kernel) on it and all-gathers each output along
+its sharded dims, so the executor keeps the global dict-in/dict-out
+contract.  The mesh identity and the specs join the cache key.
 """
 from __future__ import annotations
 
+import dataclasses
 from collections import OrderedDict
 from typing import Callable, Mapping
 
@@ -33,6 +43,7 @@ from repro_torch.core import ir
 from repro_torch.core import collapse as collapse_mod
 from repro_torch.core import registry as registry_mod
 from repro_torch.core import verify as verify_mod
+from repro_torch.distributed import collectives
 from repro_torch.kernels.fused_stack import ops as fused_ops
 
 Executor = Callable[[Mapping[str, torch.Tensor], Mapping[str, torch.Tensor]],
@@ -84,18 +95,109 @@ def _cache_put(key: tuple, value) -> None:
         _CODE_CACHE.popitem(last=False)
 
 
+def _reduce_replicated(ct: torch.Tensor, axes: set, mesh) -> torch.Tensor:
+    """Sum a cotangent's per-rank partials over ``axes`` (the axes the
+    outputs shard and its operand does not)."""
+    return collectives.all_reduce_axes(ct, mesh, axes)
+
+
+class _ShardedCall(torch.autograd.Function):
+    """One sharded call: slice, run the body on this rank's shards, gather.
+
+    Backward: the body's local VJP on this rank's shard of the output
+    cotangents (the local graph is kept from the forward: unlike a
+    ``shard_map`` region, it can be differentiated in place, so nothing
+    runs twice); then each operand's cotangent is summed over the axes the
+    outputs shard and the operand does not (a replicated parameter's
+    partial products become total) and gathered along its own sharded
+    dims back to its global shape."""
+
+    @staticmethod
+    def forward(ctx, call, *arrays):
+        mesh, in_specs, out_specs = call.mesh, call.in_specs, call.out_specs
+        local = [collectives.shard(a, s, mesh)
+                 for a, s in zip(arrays, in_specs)]
+        grad = any(ctx.needs_input_grad[1:])
+        if grad:
+            local = [t.detach().requires_grad_(need and t.is_floating_point())
+                     for t, need in zip(local, ctx.needs_input_grad[1:])]
+        with torch.set_grad_enabled(grad):
+            outs = call.body(*local)
+        if grad:
+            ctx.call, ctx.local, ctx.outs = call, local, outs
+        return tuple(collectives.gather(o.detach(), s, mesh)
+                     for o, s in zip(outs, out_specs))
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        call = ctx.call
+        mesh = call.mesh
+        wants = [t for t in ctx.local if t.requires_grad]
+        pairs = [(o, collectives.shard(g, s, mesh))
+                 for o, g, s in zip(ctx.outs, gouts, call.out_specs)
+                 if g is not None and o.requires_grad]
+        cts = torch.autograd.grad([o for o, _ in pairs],
+                                  wants, [g for _, g in pairs],
+                                  allow_unused=True) if pairs else ()
+        got = dict(zip(map(id, wants), cts))
+        out_axes = set().union(*(collectives.spec_mesh_axes(s)
+                                 for s in call.out_specs))
+        result = [None]
+        for t, spec in zip(ctx.local, call.in_specs):
+            ct = got.get(id(t))
+            if ct is None:
+                result.append(None)
+                continue
+            ct = _reduce_replicated(
+                ct.contiguous(), out_axes - collectives.spec_mesh_axes(spec),
+                mesh)
+            result.append(collectives.gather(ct, spec, mesh))
+        del ctx.call, ctx.local, ctx.outs
+        return tuple(result)
+
+
+class sharded_call:
+    """``call(*arrays) -> tuple`` of ``body`` under ``mesh``: the positional
+    operands carry ``in_specs``, the outputs ``out_specs`` (see
+    :class:`_ShardedCall`).  Differentiable; ``body`` returns a tuple."""
+
+    def __init__(self, mesh, body: Callable, in_specs, out_specs):
+        self.mesh, self.body = mesh, body
+        self.in_specs, self.out_specs = tuple(in_specs), tuple(out_specs)
+
+    def __call__(self, *arrays):
+        return _ShardedCall.apply(self, *arrays)
+
+
+def _dist_key(mesh, part) -> tuple | None:
+    """Mesh identity and boundary specs: a plan wrapped for another mesh
+    (or unwrapped) must not share a closure."""
+    if mesh is None or part is None or not part.active:
+        return None
+    return (id(mesh), tuple(sorted(
+        (k, tuple(s)) for k, s in (*part.in_specs.items(),
+                                   *part.out_specs.items(),
+                                   *part.param_specs.items()))))
+
+
 def compile_plan(plan: collapse_mod.CollapsePlan, *, mode: str = "xla",
-                 cache_size: int | None = None) -> Executor:
+                 cache_size: int | None = None,
+                 mesh=None, part=None) -> Executor:
     """Compile a collapse plan into ``executor(inputs, params) -> outputs``.
     In ``xla`` mode each sequence runs compiled, one compiled callable a
     sequence signature (:func:`~repro_torch.kernels.fused_stack.ops.
-    xla_callable`), built at its first call."""
+    xla_callable`), built at its first call.
+
+    With ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) and an active
+    ``part``, the plan (collapsed against the per-shard shapes) runs inside
+    a :class:`sharded_call` with the partition's boundary specs."""
     if cache_size is not None:
         _raise_cache_limit_to(cache_size)
+    dist_key = _dist_key(mesh, part)
     key = (plan.program.signature(), mode, plan.input_shapes,
            tuple((s.tile_rows, s.tile_out_h, s.tile_out_w)
                  for s in plan.sequences),
-           plan.device.f_chunk, plan.differentiable)
+           plan.device.f_chunk, plan.differentiable, dist_key)
     cached = _cache_get(key)
     if cached is not None:
         return cached
@@ -126,8 +228,34 @@ def compile_plan(plan: collapse_mod.CollapsePlan, *, mode: str = "xla",
             env.update(out)
         return {v: env[v] for v in plan.program.outputs}
 
-    _cache_put(key, run_body)
-    return run_body
+    if dist_key is None:
+        _cache_put(key, run_body)
+        return run_body
+
+    in_names = tuple(plan.program.inputs)
+    param_names = tuple(part.param_specs)
+    out_names = tuple(plan.program.outputs)
+
+    def positional(*arrays):
+        out = run_body(dict(zip(in_names, arrays)),
+                       dict(zip(param_names, arrays[len(in_names):])))
+        return tuple(out[v] for v in out_names)
+
+    call = sharded_call(
+        mesh, positional,
+        in_specs=(tuple(part.in_specs[v] for v in in_names)
+                  + tuple(part.param_specs[p] for p in param_names)),
+        out_specs=tuple(part.out_specs[v] for v in out_names))
+
+    def executor(inputs: Mapping[str, torch.Tensor],
+                 params: Mapping[str, torch.Tensor]
+                 ) -> dict[str, torch.Tensor]:
+        outs = call(*[inputs[v] for v in in_names],
+                    *[params[p] for p in param_names])
+        return dict(zip(out_names, outs))
+
+    _cache_put(key, executor)
+    return executor
 
 
 def _unknown_kernel_error(op: ir.OpNode) -> verify_mod.VerifyError:
@@ -181,14 +309,19 @@ def kernel_inner(op: ir.OpNode, *, backend: registry_mod.KernelType,
 def compile_kernel_op(op: ir.OpNode, *, mode: str = "xla",
                       cache_size: int | None = None,
                       backend: registry_mod.KernelType | None = None,
-                      reason: str | None = None
+                      reason: str | None = None, mesh=None, part=None
                       ) -> tuple[Executor, registry_mod.KernelDispatch]:
     """Compile one registry KERNEL op; returns (executor, dispatch record).
     The backend (the hand-written kernel or its plain version) is decided
     here, once, from the traced shapes and the mode, and returned so that
     ``report()`` shows a fallback.  An explicit ``backend`` (with its
     ``reason``) overrides the static planner: the autotuner's measured
-    dispatch arrives through it."""
+    dispatch arrives through it.
+
+    With ``mesh`` and an active ``part`` the kernel closure, compiled
+    against the per-shard shapes, runs inside a :class:`sharded_call` with
+    the partition's per-slot specs; the unwrapped closure stays shared
+    with single-device compiles."""
     if op.attrs.get("kernel") not in registry_mod.REGISTRY:
         raise _unknown_kernel_error(op)
     if backend is None:
@@ -196,7 +329,31 @@ def compile_kernel_op(op: ir.OpNode, *, mode: str = "xla",
     else:
         dispatch = registry_mod.KernelDispatch(op.attrs["kernel"], backend,
                                                reason)
-    inner = kernel_inner(op, backend=dispatch.backend, cache_size=cache_size)
+    dist_key = _dist_key(mesh, part)
+    if dist_key is None:
+        inner = kernel_inner(op, backend=dispatch.backend,
+                             cache_size=cache_size)
+    else:
+        n_slots = len(op.attrs["slots"])
+        shard_op = dataclasses.replace(op, attrs={
+            **op.attrs,
+            "arg_shapes": tuple(tuple(part.shard_shapes[f"arg{i}"])
+                                for i in range(n_slots)),
+            "out_shape": tuple(part.shard_shapes[op.output])})
+        shard_inner = kernel_inner(shard_op, backend=dispatch.backend,
+                                   cache_size=cache_size)
+        key = ("kernel-sharded", dispatch.backend.value,
+               ir._freeze({k: v for k, v in shard_op.attrs.items()
+                           if k not in _KERNEL_PLUMBING_ATTRS}), dist_key)
+        call = _cache_get(key)
+        if call is None:
+            call = sharded_call(
+                mesh, lambda *arrays: (shard_inner(*arrays),),
+                in_specs=tuple(part.in_specs[f"arg{i}"]
+                               for i in range(n_slots)),
+                out_specs=(part.out_specs[op.output],))
+            _cache_put(key, call)
+        inner = lambda *arrays: call(*arrays)[0]  # noqa: E731
 
     def executor(inputs: Mapping[str, torch.Tensor],
                  params: Mapping[str, torch.Tensor]

@@ -300,6 +300,112 @@ def plan_vmem_bytes(plan, *, itemsize: int,
 
 
 # ---------------------------------------------------------------------------
+# Per-shard resource view (mesh execution).  On a mesh the paper's budget
+# argument applies per shard: each rank's sharded call sees 1/N of the rows
+# (data parallel) or features/heads (tensor parallel), and the budget
+# shrinks by a reserve for the collectives' staging.  Collapse sizes tiles
+# against the sharded shapes on that haircut device; ``shard_view`` is the
+# independent re-check the verifier's ``dist.vmem-refit`` runs on a
+# finished plan.
+# ---------------------------------------------------------------------------
+
+#: Fraction of the fast-memory budget reserved whenever a plan runs under a
+#: mesh of more than one rank.  Kept from the JAX package (where it is VMEM
+#: for the collectives' staging buffers) so ``TINY_DEVICE`` plans stay equal
+#: to its; on the H100 the collectives do not touch a kernel's shared
+#: memory (PERF.md, open questions).
+SHARD_RESERVE_FRACTION = 0.125
+
+
+def shard_device(device: DeviceSpec, n_devices: int,
+                 *, reserve_fraction: float = SHARD_RESERVE_FRACTION
+                 ) -> DeviceSpec:
+    """The per-shard sizing device: same hardware, haircut budget.  A
+    one-rank mesh sizes exactly like the single-device path."""
+    if n_devices <= 1:
+        return device
+    return dataclasses.replace(
+        device, name=f"{device.name}/shard{n_devices}",
+        budget_fraction=device.budget_fraction * (1.0 - reserve_fraction))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardView:
+    """Per-shard resource accounting of one collapse plan under a mesh.
+
+    ``seq_bytes[i]`` is sequence *i*'s working set recomputed against the
+    per-shard input shapes; ``budget`` the haircut per-rank limit; ``fits``
+    the ``dist.vmem-refit`` verdict; ``shard_shapes`` the per-shard
+    boundary shapes the bytes were derived from."""
+
+    device: DeviceSpec
+    n_devices: int
+    shard_shapes: tuple[tuple[str, tuple[int, ...]], ...]
+    seq_bytes: tuple[int, ...]
+    differentiable: bool
+
+    @property
+    def budget(self) -> int:
+        return self.device.resource_limit
+
+    @property
+    def fits(self) -> bool:
+        return all(b <= self.budget for b in self.seq_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class _ShardedPlanView:
+    """Duck plan: the original plan's program and sequences with the
+    per-shard input shapes and the haircut device, so
+    :func:`plan_vmem_bytes` re-runs unchanged on the shard view."""
+
+    _plan: object
+    device: DeviceSpec
+    input_shapes: tuple[tuple[str, tuple[int, ...]], ...]
+
+    @property
+    def program(self):
+        return self._plan.program
+
+    @property
+    def sequences(self):
+        return self._plan.sequences
+
+    def subprogram(self, i: int):
+        return self._plan.subprogram(i)
+
+
+def shard_view(plan, mesh, specs: Mapping[str, object],
+               *, itemsize: int | None = None,
+               differentiable: bool | None = None) -> ShardView:
+    """Recompute a finished plan's working set per shard.
+
+    ``mesh`` is a :class:`repro_torch.launch.mesh.Mesh` or a
+    :class:`repro_torch.core.partition.MeshAxes`; ``specs`` maps the plan's
+    input names to their partition specs (missing names are replicated).
+    The view answers: does this plan still fit one rank's haircut budget
+    once each rank sees only its shard?"""
+    from repro_torch.core import partition
+
+    axes = partition.MeshAxes.from_mesh(mesh)
+    itemsize = plan.itemsize if itemsize is None else itemsize
+    differentiable = (plan.differentiable if differentiable is None
+                      else differentiable)
+    global_shapes = {k: tuple(v) for k, v in plan.input_shapes}
+    per_shard = partition.shard_shapes(global_shapes, specs, axes)
+    view = _ShardedPlanView(
+        _plan=plan, device=shard_device(plan.device, axes.n_devices),
+        input_shapes=tuple(sorted((k, tuple(v))
+                                  for k, v in per_shard.items())))
+    seq_bytes = plan_vmem_bytes(view, itemsize=itemsize,
+                                differentiable=differentiable)
+    return ShardView(device=view.device, n_devices=axes.n_devices,
+                     shard_shapes=view.input_shapes,
+                     seq_bytes=tuple(seq_bytes),
+                     differentiable=differentiable)
+
+
+# ---------------------------------------------------------------------------
 # Schedule-level HBM-traffic model (the quantity depth-first execution
 # reduces): main-memory reads/writes implied by each schedule.
 # ---------------------------------------------------------------------------

@@ -40,12 +40,17 @@ reports each violation as a :class:`Finding`:
    differentiable net it declares its VJP.
 5. **Serving block tables** (``kv.*``): :func:`check_block_tables`, which
    the paged engine runs every tick.
+6. **Mesh partitions** (``dist.*``): :func:`check_partitions` re-derives
+   every committed partition spec's rank, mesh axes and divisibility,
+   refuses a split of a dim its region reduces over, and refits each
+   sharded stack plan's per-shard working set on the haircut device
+   (:func:`repro_torch.core.resource.shard_view`).
 
 The pass runs behind ``OptimizeConfig.verify`` (``"off" | "warn" |
 "strict"``, default ``"warn"``) between planning and codegen, and
 ``python -m repro_torch.lint`` drives it over the shipped configurations.
-The mesh family (``dist.*``: ``check_partitions``, ``check_decode_plan``)
-comes with the multi-device slice (ROADMAP.md queue 1, item 6).
+The serving partition family (``check_decode_plan``, ``dist.serve-*``)
+comes with mesh serving (ROADMAP.md queue 1, item 6c).
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import autodiff, ir, resource
+from repro_torch.core import partition as partition_mod
 from repro_torch.core import registry as registry_mod
 from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd, rows, rows_bwd
 
@@ -79,6 +85,7 @@ _IR = "src/repro_torch/core/ir.py"
 _COLLAPSE = "src/repro_torch/core/collapse.py"
 _REGISTRY = "src/repro_torch/core/registry.py"
 _ENGINE = "src/repro_torch/launch/engine.py"
+_PARTITION = "src/repro_torch/core/partition.py"
 
 #: invariant id -> (source module the artifact came from, description).
 INVARIANTS: dict[str, tuple[str, str]] = {
@@ -184,6 +191,25 @@ INVARIANTS: dict[str, tuple[str, str]] = {
         _ENGINE,
         "no block on the free list is still reachable from a slot table "
         "or the prefix cache"),
+    "dist.spec-rank": (
+        _PARTITION,
+        "every committed partition spec has rank <= its operand's rank and "
+        "every sharded dim divides its mesh-axis extent exactly"),
+    "dist.mesh-axis": (
+        _PARTITION,
+        "every mesh axis a committed partition spec names exists on the "
+        "configured mesh"),
+    "dist.vmem-refit": (
+        "src/repro_torch/core/resource.py",
+        "every mesh-partitioned stack plan's per-shard working set, "
+        "re-derived from the global shapes and committed specs "
+        "(resource.shard_view), fits the haircut per-rank budget, and the "
+        "plan was collapsed against exactly that shard view"),
+    "dist.collective-placement": (
+        _PARTITION,
+        "no committed spec shards a dim its region reduces over (norm / "
+        "softmax feature axes, attention key sequence, the vocab-CE "
+        "log-sum-exp): a split that would need an in-kernel collective"),
 }
 
 
@@ -1329,11 +1355,12 @@ def model_sm_count(config: Any) -> int:
 def verify_segments(segments: Sequence[Any], plans: Mapping[int, Any],
                     shapes: Mapping[str, tuple[int, ...]], config: Any,
                     *, dtypes: Mapping[str, Any] | None = None,
-                    param_shapes: Mapping[str, tuple[int, ...]] | None = None
-                    ) -> list[Finding]:
+                    param_shapes: Mapping[str, tuple[int, ...]] | None = None,
+                    partitions: Any = None) -> list[Finding]:
     """The between-stages pass: verify every stack segment's program, plan
-    and kernel write models, and every KERNEL segment's registry soundness.
-    Called by ``compile_stacks`` after planning and before codegen."""
+    and kernel write models, every KERNEL segment's registry soundness and,
+    under a mesh, the partition plan (:func:`check_partitions`).  Called
+    by ``compile_stacks`` after planning and before codegen."""
     fs: list[Finding] = []
     differentiable = bool(getattr(config, "differentiable", False))
     sm_count = model_sm_count(config)
@@ -1356,7 +1383,178 @@ def verify_segments(segments: Sequence[Any], plans: Mapping[int, Any],
             fs.extend(check_kernel_op(seg.op, shapes=shapes, dtypes=dtypes,
                                       param_shapes=param_shapes,
                                       differentiable=differentiable))
+    if partitions is not None:
+        fs.extend(check_partitions(segments, plans, partitions, shapes,
+                                   config))
     return fs
+
+
+# ---------------------------------------------------------------------------
+# (6) Mesh partition soundness (``dist.*``).
+# ---------------------------------------------------------------------------
+
+#: Stack op kinds that reduce over the trailing (feature) axis: a
+#: trailing-dim shard across one would need an in-kernel collective.
+_DIST_FEATURE_REDUCING = frozenset({ir.OpKind.ROW_NORM,
+                                    ir.OpKind.ROW_SOFTMAX})
+
+
+def _check_one_spec(name: str, spec: Any, shape: tuple[int, ...] | None,
+                    axes: Any, subject: str) -> list[Finding]:
+    """spec-rank and mesh-axis consistency of one operand's spec."""
+    fs: list[Finding] = []
+    entries = tuple(spec)
+    if shape is not None and len(entries) > len(shape):
+        fs.append(Finding(
+            "dist.spec-rank", "error", subject,
+            f"{name}: spec {spec} has rank {len(entries)} > operand "
+            f"rank {len(shape)} (shape {shape})"))
+        return fs
+    for dim, entry in enumerate(entries):
+        for axis in partition_mod.spec_axes(entry):
+            if axis not in axes.names:
+                fs.append(Finding(
+                    "dist.mesh-axis", "error", subject,
+                    f"{name}: spec {spec} names mesh axis {axis!r}; "
+                    f"mesh has {axes.names}"))
+                continue
+            if shape is not None and shape[dim] % axes.extent(axis):
+                fs.append(Finding(
+                    "dist.spec-rank", "error", subject,
+                    f"{name}: dim {dim} extent {shape[dim]} is not "
+                    f"divisible by mesh axis {axis!r}={axes.extent(axis)}"))
+    return fs
+
+
+def _sharded_dims(spec: Any) -> set[int]:
+    return {i for i, e in enumerate(tuple(spec)) if e is not None}
+
+
+def _kernel_fences(op: ir.OpNode) -> list[tuple[str, int, str]]:
+    """(slot, dim, why) of every KERNEL operand dim its kernel reduces
+    over."""
+    kernel = op.attrs["kernel"]
+    arg_shapes = op.attrs["arg_shapes"]
+    if kernel == "rmsnorm":
+        return [("arg0", len(arg_shapes[0]) - 1, "the rms reduction")]
+    if kernel == "vocab_ce" and len(arg_shapes) > 1:
+        # w: (D, V) feeds the log-sum-exp
+        return [("arg1", d, "the vocab log-sum-exp")
+                for d in range(len(arg_shapes[1]))]
+    if kernel == "attention":
+        return [(f"arg{i}", len(arg_shapes[i]) - 2, "the softmax over keys")
+                for i in range(min(3, len(arg_shapes)))]
+    return []
+
+
+def check_partitions(segments: Sequence[Any], plans: Mapping[int, Any],
+                     partitions: Any,
+                     shapes: Mapping[str, tuple[int, ...]],
+                     config: Any) -> list[Finding]:
+    """The ``dist.*`` family: re-derive every committed partition's
+    soundness independently of the planner that produced it.
+
+    * ``dist.spec-rank`` / ``dist.mesh-axis``: every boundary spec against
+      the operand shapes and the mesh.
+    * ``dist.collective-placement``: no spec shards a dim its region
+      reduces over.
+    * ``dist.vmem-refit``: rebuild the per-shard view from the *global*
+      shapes and committed specs (:func:`repro_torch.core.resource.
+      shard_view`) and require that the plan was collapsed against exactly
+      that view and that its working set fits the haircut budget."""
+    axes = partitions.axes
+    fs: list[Finding] = []
+    differentiable = bool(getattr(config, "differentiable", False))
+    for idx, part in sorted(partitions.segments.items()):
+        seg = segments[idx]
+        is_stack = bool(getattr(seg, "is_stack", False))
+        subject = seg.stack.name if is_stack else seg.op.name
+        # -- structural: every boundary spec, against global shapes ------
+        if is_stack:
+            known = {k: tuple(shapes[k]) for k in seg.stack.inputs
+                     if k in shapes}
+            op_shapes = dict(known)
+            op_shapes.update({v: tuple(s) for v, s in
+                              ir.infer_shapes(seg.stack, known).items()})
+        else:
+            op_shapes = {f"arg{i}": tuple(s) for i, s in
+                         enumerate(seg.op.attrs["arg_shapes"])}
+            op_shapes[seg.op.output] = tuple(seg.op.attrs["out_shape"])
+        for group in (part.in_specs, part.out_specs, part.param_specs):
+            for name, spec in group.items():
+                fs.extend(_check_one_spec(name, spec, op_shapes.get(name),
+                                          axes, subject))
+        # -- collective placement ---------------------------------------
+        if is_stack:
+            if any(op.kind in _DIST_FEATURE_REDUCING
+                   for op in seg.stack.ops):
+                for name, spec in (*part.in_specs.items(),
+                                   *part.out_specs.items()):
+                    shape = op_shapes.get(name)
+                    if shape and len(shape) - 1 in _sharded_dims(spec):
+                        fs.append(Finding(
+                            "dist.collective-placement", "error", subject,
+                            f"{name}: spec {spec} shards the trailing "
+                            "feature dim of a stack containing a "
+                            "trailing-axis reduction"))
+        else:
+            for name, dim, why in _kernel_fences(seg.op):
+                spec = part.in_specs.get(name)
+                if spec is not None and dim in _sharded_dims(spec):
+                    fs.append(Finding(
+                        "dist.collective-placement", "error", subject,
+                        f"{name}: spec {spec} shards dim {dim}, which "
+                        f"feeds {why}"))
+        # -- per-shard refit (active stacks with a plan) -----------------
+        plan = plans.get(idx) if is_stack else None
+        if plan is None or not part.active:
+            continue
+        global_in = {v: tuple(shapes[v]) for v in seg.stack.inputs
+                     if v in shapes}
+        if len(global_in) != len(seg.stack.inputs):
+            continue                     # shapes unknown: nothing to refit
+        expect = partition_mod.shard_shapes(global_in, part.in_specs, axes)
+        got = {k: tuple(v) for k, v in plan.input_shapes}
+        if expect != got:
+            fs.append(Finding(
+                "dist.vmem-refit", "error", subject,
+                f"plan was collapsed against {sorted(got.items())}, but "
+                f"the committed specs imply the shard view "
+                f"{sorted(expect.items())}"))
+            continue
+        duck = _GlobalPlanView(plan, config.device,
+                               tuple(sorted(global_in.items())))
+        sv = resource.shard_view(duck, axes, part.in_specs,
+                                 itemsize=config.itemsize,
+                                 differentiable=differentiable)
+        if not sv.fits:
+            fs.append(Finding(
+                "dist.vmem-refit", "error", subject,
+                f"per-shard working set {max(sv.seq_bytes)}B exceeds the "
+                f"haircut per-rank budget {sv.budget}B ({sv.device.name})"))
+    return fs
+
+
+@dataclasses.dataclass(frozen=True)
+class _GlobalPlanView:
+    """Duck plan handing :func:`repro_torch.core.resource.shard_view` the
+    *global* shapes and the unsharded device, so the refit is independent
+    of the per-shard sizing the collapser committed."""
+
+    _plan: Any
+    device: Any
+    input_shapes: tuple
+
+    @property
+    def program(self):
+        return self._plan.program
+
+    @property
+    def sequences(self):
+        return self._plan.sequences
+
+    def subprogram(self, i: int):
+        return self._plan.subprogram(i)
 
 
 @_timed

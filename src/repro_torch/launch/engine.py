@@ -46,8 +46,8 @@ on the next tick.
 
 Under ``mode="brainslug"`` every decode attention of every sub-step is a
 launch of the paged (or dense) flash-decode kernel; ``report()`` names the
-path the last run took.  ``Engine(mesh=...)`` belongs to the multi-device
-slice of the port and raises.
+path the last run took.  ``Engine(mesh=...)`` belongs to mesh serving
+(ROADMAP.md queue 1, item 6c) and raises.
 
 Dispatch accounting: ``STATS`` (snapshot/delta protocol) and the per-run
 :class:`~repro_torch.core.scheduler.ServeStats` in
@@ -349,8 +349,8 @@ class Engine:
                  mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "Engine(mesh=...): mesh serving comes with the multi-device "
-                "slice of the port")
+                "Engine(mesh=...): mesh serving comes with the mesh-serving "
+                "item of the port (ROADMAP.md, queue 1, item 6c)")
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only; no decode path")
         if slots < 1:
@@ -405,7 +405,7 @@ class Engine:
         attention-free model the recurrent SSM step), with
         the reason where it is not the kernel, and the engine and
         attention dispatch deltas.  ``mesh_axes`` and ``serve_partition``
-        stay empty until the multi-device slice."""
+        stay empty until mesh serving (ROADMAP.md queue 1, item 6c)."""
         attn = dict(self.last_attn_dispatch or {})
         pre = "paged_" if self.kv_layout == "paged" else ""
         name = "paged-decode" if pre else "flash-decode"

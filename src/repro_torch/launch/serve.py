@@ -104,8 +104,8 @@ class Server:
         ``kv_layout``/``kv_block_size`` override the runtime config's KV
         layout for this engine (``"paged"`` swaps the dense per-slot
         reservation for the block pool); the other knobs pass through.
-        The JAX signature's ``mesh``/``serve_partition`` come with the
-        multi-device slice."""
+        The JAX signature's ``mesh``/``serve_partition`` come with mesh
+        serving (ROADMAP.md queue 1, item 6c)."""
         rt = self.rt
         if kv_layout is not None or kv_block_size is not None:
             rt = dataclasses.replace(

@@ -2,7 +2,7 @@
 ``lm.loss_fn``, its gradients over every parameter leaf
 (``torch.autograd.grad``, the port's ``jax.value_and_grad``), and the
 AdamW update.  The abstract input specs and ``plan_cell`` stay with the
-dry-run, which comes with the multi-device slice of the port.
+dry-run (ROADMAP.md queue 1, item 6d).
 """
 from __future__ import annotations
 

@@ -1,11 +1,21 @@
-"""End-to-end training driver, ported from ``repro/launch/train.py`` for
-one device: the train step, deterministic data, atomic checkpoints with
-auto-resume, the straggler watchdog and failure injection.
+"""End-to-end training driver, ported from ``repro/launch/train.py``: the
+train step, deterministic data, atomic checkpoints with auto-resume, the
+straggler watchdog and failure injection.
 
 On the card it trains the configs at full width (depth cut with
 ``config_overrides``); ``--device cpu --reduced`` runs the reduced config
-on the kernels' plain versions.  The data-parallel and compression drivers
-and test meshes come with the multi-device slice of the port.
+on the kernels' plain versions.
+
+``TrainerConfig(data_parallel=True)`` runs the explicit data-parallel step
+(:mod:`repro_torch.distributed.data_parallel`) inside an initialised
+``torch.distributed`` group (``torchrun``, or
+:func:`repro_torch.launch.mesh.spawn`): every rank takes its contiguous
+slice of the global batch, reduces the gradients by hand (int8 with error
+feedback under ``compress``) and applies AdamW; rank 0 logs and writes the
+checkpoints, and a restore zeroes the error-feedback state.
+``mesh_devices`` names the rank count the run expects.  Without
+``data_parallel`` it asks for the JAX package's GSPMD-sharded step, which
+comes with the next multi-device item (ROADMAP.md queue 1, item 6b).
 
 Usage:
   python -m repro_torch.launch.train --arch deepseek-7b --reduced \\
@@ -16,6 +26,8 @@ Usage:
       --device cpu --steps 6
   python -m repro_torch.launch.train --arch hubert-xlarge --device cpu \\
       --steps 6
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
+      --data-parallel --mesh-devices 2 --compress --batch 4 --steps 6
 
 A frontend's batch (hubert's frames, paligemma's patches) reaches the
 device as the pipeline gives it, float32, as the JAX package's does: over
@@ -37,12 +49,16 @@ import time
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs import LM_SHAPES, get_config
 from repro_torch.configs.base import ModelConfig, RuntimeConfig, ShapeConfig
 from repro_torch.data import pipeline as data_mod
+from repro_torch.distributed import compression
+from repro_torch.distributed import data_parallel as dp_mod
 from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.layers import base
 from repro_torch.models import lm
@@ -64,11 +80,12 @@ class TrainerConfig:
     batch_override: int | None = None
     seq_override: int | None = None
     lr: float = 3e-3
-    # the JAX driver's multi-device options; they come with the
-    # multi-device slice of the port and raise until then
+    # explicit data-parallel step over the mesh's "data" axis, with a
+    # hand-written gradient reduction (repro_torch.distributed.
+    # data_parallel), inside an initialised torch.distributed group
     data_parallel: bool = False
-    compress: bool = False
-    mesh_devices: int | None = None
+    compress: bool = False             # int8 error-feedback grad payload
+    mesh_devices: int | None = None    # the rank count the run expects
     # arbitrary ModelConfig field overrides (applied after reduction)
     config_overrides: tuple = ()       # of (field, value) pairs
     device: str = "cuda"
@@ -87,6 +104,9 @@ class Trainer:
     watchdog: ft.StragglerWatchdog
     checkpointer: ckpt.AsyncCheckpointer | None
     history: list
+    #: The data-parallel run's mesh (None on one device); only its rank 0
+    #: logs.
+    mesh: Any = None
 
     def run(self, failure_hook: Callable[[int], None] | None = None
             ) -> list[dict]:
@@ -118,7 +138,8 @@ class Trainer:
                            / max(1, lm.n_moe_layers(self.cfg)),
                        "slow": bool(slow)}
                 self.history.append(rec)
-                if step % self.tc.log_every == 0:
+                if step % self.tc.log_every == 0 and (
+                        self.mesh is None or self.mesh.rank == 0):
                     moe = (f" aux={rec['router_aux_loss']:.4f} drop/layer="
                            f"{rec['drop_fraction_per_moe_layer']:.4f}"
                            if self.cfg.n_experts else "")
@@ -152,12 +173,26 @@ def build_trainer(tc: TrainerConfig, *,
     weights carried over by ``convert.lm_params_from_numpy``: ``lm.init``
     draws other numbers than ``jax.random``); ``opt_cfg`` replaces the
     optimizer config (by default: ``tc.lr`` constant for a reduced config,
-    the warmup-cosine schedule of ``default_opt_config`` otherwise)."""
-    for flag in ("data_parallel", "compress", "mesh_devices"):
-        if getattr(tc, flag):
-            raise NotImplementedError(
-                f"{flag}: the data-parallel and compression drivers and test "
-                f"meshes come with the multi-device slice of the port")
+    the warmup-cosine schedule of ``default_opt_config`` otherwise).
+
+    With ``tc.data_parallel`` every rank of the initialised group calls
+    this with the same ``tc``."""
+    if tc.mesh_devices and not tc.data_parallel:
+        raise NotImplementedError(
+            "mesh_devices without data_parallel is the JAX package's "
+            "GSPMD-sharded step; it comes with the next multi-device item "
+            "(ROADMAP.md queue 1, item 6b)")
+    if tc.compress and not tc.data_parallel:
+        raise ValueError("compress needs data_parallel: it compresses the "
+                         "data-parallel gradient reduction")
+    mesh = None
+    if tc.data_parallel:
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "data_parallel needs an initialised torch.distributed group:"
+                " run under torchrun, or start the ranks with "
+                "repro_torch.launch.mesh.spawn")
+        mesh = mesh_mod.make_test_mesh(tc.mesh_devices, device=tc.device)
     cfg = get_config(tc.arch)
     shape = LM_SHAPES[tc.shape]
     if tc.reduced:
@@ -170,7 +205,7 @@ def build_trainer(tc: TrainerConfig, *,
     if tc.seq_override:
         shape = dataclasses.replace(shape, seq_len=tc.seq_override)
 
-    dev = base.device(tc.device)
+    dev = base.device(tc.device) if mesh is None else mesh.device
     rt = RuntimeConfig(mode=tc.mode, remat=tc.remat)
     params = (lm.init(tc.seed, cfg, device=dev) if init_params is None
               else init_params(cfg, dev))
@@ -178,28 +213,66 @@ def build_trainer(tc: TrainerConfig, *,
         opt_cfg = adamw.AdamWConfig(
             lr=tc.lr if tc.reduced else steps_mod.default_opt_config().lr)
     opt_state = adamw.init(params)
-    step_fn = steps_mod.make_train_step(cfg, rt, opt_cfg)
+    if mesh is None:
+        step_fn = steps_mod.make_train_step(cfg, rt, opt_cfg)
+    else:
+        step_fn, opt_state = _dp_step(tc, cfg, rt, opt_cfg, mesh, params,
+                                      opt_state)
+    rank0 = mesh is None or mesh.rank == 0
 
     # ---- auto-resume -------------------------------------------------------
     start_step = 0
     checkpointer = None
     if tc.ckpt_dir:
         # robust resume: crash orphans are swept, a truncated latest
-        # checkpoint falls back to the previous complete one
+        # checkpoint falls back to the previous complete one.  Under a
+        # mesh rank 0 sweeps and reads first, the others after it.
+        if not rank0:
+            dist.barrier()
         restored = ckpt.restore_latest(tc.ckpt_dir,
                                        {"params": params, "opt": opt_state})
+        if mesh is not None and rank0:
+            dist.barrier()
         if restored is not None:
             tree, extra, latest = restored
             params, opt_state = tree["params"], tree["opt"]
+            if "err" in opt_state:
+                # the saved residual compensated a quantisation the saved
+                # params already absorbed: replaying it would apply that
+                # correction twice, so resume restarts the feedback loop
+                opt_state = {**opt_state, "err": compression.
+                             reset_error_state(opt_state["err"])}
             start_step = int(extra.get("next_step", latest))
-            print(f"[train] resumed from step {latest} "
-                  f"(next_step={start_step})", flush=True)
-        checkpointer = ckpt.AsyncCheckpointer(tc.ckpt_dir)
+            if rank0:
+                print(f"[train] resumed from step {latest} "
+                      f"(next_step={start_step})", flush=True)
+        if rank0:
+            checkpointer = ckpt.AsyncCheckpointer(tc.ckpt_dir)
 
     return Trainer(tc=tc, cfg=cfg, shape=shape, device=dev, step_fn=step_fn,
                    params=params, opt_state=opt_state, start_step=start_step,
                    watchdog=ft.StragglerWatchdog(),
-                   checkpointer=checkpointer, history=[])
+                   checkpointer=checkpointer, history=[], mesh=mesh)
+
+
+def _dp_step(tc: TrainerConfig, cfg: ModelConfig, rt: RuntimeConfig,
+             opt_cfg: adamw.AdamWConfig, mesh, params: Any, opt_state: Any
+             ) -> tuple[Callable, dict]:
+    """The data-parallel step in the single-device step's signature
+    ``(params, opt, batch) -> (params, opt, metrics)``: ``opt`` wraps the
+    AdamW state and, under ``compress``, the error-feedback state
+    (``{"opt": ..., "err": ...}``), so both ride the checkpoints."""
+    raw = dp_mod.make_dp_train_step(
+        lambda p, b: lm.loss_fn(p, b, cfg, rt), opt_cfg, mesh,
+        dp_mod.DPConfig(compress=tc.compress))
+    state = dp_mod.init_state(params, opt_state, compress=tc.compress)
+    wrapped = {k: v for k, v in state.items() if k != "params"}
+
+    def step(p, opt_wrap, batch):
+        state, metrics = raw({"params": p, **opt_wrap}, batch)
+        return state["params"], {k: state[k] for k in opt_wrap}, metrics
+
+    return step, wrapped
 
 
 def train(tc: TrainerConfig,
@@ -231,6 +304,14 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="explicit data-parallel step (hand-written "
+                         "gradient all-reduce); run under torchrun")
+    ap.add_argument("--compress", action="store_true",
+                    help="int8 error-feedback gradient compression "
+                         "(requires --data-parallel)")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="the rank count a --data-parallel run expects")
     ap.add_argument("--metrics-out", default="")
     args = ap.parse_args(argv)
 
@@ -239,10 +320,21 @@ def main(argv=None) -> int:
                        reduced=args.reduced, ckpt_dir=args.ckpt_dir,
                        ckpt_every=args.ckpt_every,
                        batch_override=args.batch, seq_override=args.seq,
-                       lr=args.lr, device=args.device)
+                       lr=args.lr, device=args.device,
+                       data_parallel=args.data_parallel,
+                       compress=args.compress,
+                       mesh_devices=args.mesh_devices)
+    rank0 = True
+    if tc.data_parallel and "WORLD_SIZE" in os.environ:
+        mesh_mod.init_from_env(tc.device)
+        rank0 = dist.get_rank() == 0
     t0 = time.time()
     history = train(tc)
     dt = time.time() - t0
+    if tc.data_parallel:
+        dist.destroy_process_group()
+    if not rank0:
+        return 0
     if history:
         print(f"[train] done: {len(history)} steps in {dt:.1f}s, "
               f"loss {history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}",

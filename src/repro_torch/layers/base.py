@@ -7,7 +7,7 @@ from a ``torch.Generator`` on the parameters' device, so a seed gives the
 same weights on one device type, not the JAX package's weights (carry
 those over with :func:`repro_torch.convert.lm_params_from_numpy`).
 Logical axes (the JAX package's sharding annotations) wait for the
-multi-device slice.
+tensor-parallel mesh item (ROADMAP.md queue 1, item 6b).
 
 :func:`promote` and :func:`matmul` carry jnp's type promotion over to the
 places where an activation meets a parameter: a float32 activation against

@@ -11,8 +11,12 @@ and the write model of every kernel launch the plan compiles to, on an
 H100's 132 SMs.  ``brainslug-cnn`` verifies the VGG NetGraph end to end
 (graph SSA and dead values, then each nhwc stack segment); ``paged-kv``
 self-tests the serve engine's block-table family (``kv.*``) against a
-seeded mutant.  The mesh self-tests (``dist-partition``, ``serve-dist``)
-come with the multi-device slice (ROADMAP.md queue 1, item 6).
+seeded mutant.  Every LM arch's stack programs are also partitioned under
+a production-shaped (data 4 x model 2) mesh skeleton, collapsed per shard
+and held to the ``dist.*`` family; ``dist-partition`` self-tests that
+family against seeded mutants.  ``serve-dist`` (the serving partition's
+``dist.serve-*`` family) comes with mesh serving (ROADMAP.md queue 1,
+item 6c).
 
 Exit status is 1 when any error-severity finding survives; warnings are
 reported but do not fail the run.  ``--out`` writes every finding as JSON.
@@ -20,6 +24,7 @@ reported but do not fail the run.  ``--out`` writes every finding as JSON.
 Usage:
   python -m repro_torch.lint                      # all archs on the H100
   python -m repro_torch.lint --device tiny --arch deepseek-7b
+  python -m repro_torch.lint --arch dist-partition
   python -m repro_torch.lint --out chiprun_out/verify_report.json
 """
 from __future__ import annotations
@@ -29,8 +34,9 @@ import dataclasses
 import json
 import os
 import sys
+from types import SimpleNamespace
 
-from repro_torch.core import analyzer, collapse, ir, resource
+from repro_torch.core import analyzer, collapse, ir, partition, resource
 from repro_torch.core import api as core_api
 from repro_torch.core import verify
 
@@ -40,8 +46,13 @@ _ROWS = 512
 
 _DEVICES = {"h100": resource.H100, "tiny": resource.TINY_DEVICE}
 
-#: Arch ids of the mesh self-tests, which need ``core/partition.py``.
+#: Arch ids of the mesh self-tests.
 MESH_ARCHS = ("dist-partition", "serve-dist")
+
+#: Production-shaped mesh skeleton the ``dist.*`` family is linted against:
+#: 4-way data x 2-way model, no ranks needed (the planner and the verifier
+#: reason about :class:`repro_torch.core.partition.MeshAxes` only).
+_DIST_AXES = partition.MeshAxes(("data", "model"), (4, 2))
 
 
 def lint_program(program: ir.StackProgram,
@@ -75,6 +86,40 @@ def lint_program(program: ir.StackProgram,
     return fs
 
 
+def lint_dist_program(program: ir.StackProgram,
+                      shapes: dict[str, tuple[int, ...]],
+                      device: resource.DeviceSpec, itemsize: int,
+                      axes: partition.MeshAxes = _DIST_AXES
+                      ) -> list[verify.Finding]:
+    """The ``dist.*`` family over one stack program: derive the partition
+    ``optimize`` would commit under a production-shaped mesh, collapse
+    against the implied per-shard view, and hand both to
+    :func:`repro_torch.core.verify.check_partitions`."""
+    # stack params (norm gain/bias) broadcast over rows: feature-shaped
+    feat = next(iter(shapes.values()))[-1]
+    param_shapes = {p: (feat,)
+                    for p in partition.stack_param_names(program)}
+    part = partition.plan_stack(program, shapes, param_shapes, "both", axes,
+                                sublane=device.sublane)
+    plans: dict[int, object] = {}
+    if part.active:
+        shard_in = partition.shard_shapes(shapes, part.in_specs, axes)
+        sdev = resource.shard_device(device, axes.n_devices)
+        try:
+            plans[0] = collapse.collapse(program, shard_in, sdev,
+                                         itemsize=itemsize)
+        except Exception as e:  # noqa: BLE001 (a lint must not crash)
+            return [verify.Finding(
+                "dist.vmem-refit", "error", program.name,
+                f"per-shard collapse failed: {type(e).__name__}: {e}")]
+    pp = partition.PartitionPlan(axes=axes, partition="both",
+                                 segments={0: part})
+    seg = SimpleNamespace(is_stack=True, stack=program, op=None)
+    cfg = SimpleNamespace(device=device, itemsize=itemsize,
+                          differentiable=False)
+    return verify.check_partitions([seg], plans, pp, shapes, cfg)
+
+
 def lint_lm_arch(arch: str, device: resource.DeviceSpec,
                  rows: int = _ROWS) -> list[verify.Finding]:
     """Verify the stack programs an LM arch's blocks dispatch through, at
@@ -98,6 +143,7 @@ def lint_lm_arch(arch: str, device: resource.DeviceSpec,
     fs: list[verify.Finding] = []
     for program, shapes in cases:
         fs.extend(lint_program(program, shapes, device, itemsize=2))
+        fs.extend(lint_dist_program(program, shapes, device, itemsize=2))
     return fs
 
 
@@ -169,13 +215,88 @@ def lint_paged_kv() -> list[verify.Finding]:
     return fs
 
 
+def lint_dist_selftest(device: resource.DeviceSpec) -> list[verify.Finding]:
+    """Self-test of the ``dist.*`` family against seeded mutants: the
+    planner's partition of a norm stack must verify clean, while tampered
+    copies (a trailing-dim shard across a feature reduction, an over-rank
+    spec, a spec naming a mesh axis that does not exist, and a kernel spec
+    splitting the rms reduction) must each be caught.  A checker that
+    waves a mutant through is itself the lint failure."""
+    from repro_torch.layers import stacks
+
+    P = partition.PartitionSpec
+    fs: list[verify.Finding] = []
+    axes = _DIST_AXES
+    program = stacks.norm_program("rms", 1e-6, False)
+    shapes = {"x": (512, 256)}
+    part = partition.plan_stack(
+        program, shapes,
+        {p: (256,) for p in partition.stack_param_names(program)},
+        "both", axes, sublane=device.sublane)
+    cfg = SimpleNamespace(device=device, itemsize=2, differentiable=False)
+    seg = SimpleNamespace(is_stack=True, stack=program, op=None)
+
+    def run(p):
+        pp = partition.PartitionPlan(axes=axes, partition="both",
+                                     segments={0: p})
+        return verify.check_partitions([seg], {}, pp, shapes, cfg)
+
+    if not part.active:
+        fs.append(verify.Finding(
+            "dist.spec-rank", "error", "dist-partition/selftest-clean",
+            "planner replicated a cleanly shardable norm stack: "
+            f"{part.notes}"))
+    for f in run(part):
+        fs.append(verify.Finding(
+            f.invariant, "error", "dist-partition/selftest-clean",
+            f"checker flagged a planner-derived partition: {f}"))
+    mutants = [
+        ("dist.collective-placement",
+         dataclasses.replace(part, in_specs={"x": P("data", "model")})),
+        ("dist.spec-rank",
+         dataclasses.replace(part,
+                             in_specs={"x": P("data", None, "model")})),
+        ("dist.mesh-axis",
+         dataclasses.replace(part, in_specs={"x": P("pod", None)})),
+    ]
+    for want, mutant in mutants:
+        if not any(f.invariant == want and f.severity == "error"
+                   for f in run(mutant)):
+            fs.append(verify.Finding(
+                want, "error", "dist-partition/selftest-mutant",
+                f"seeded {want} mutant was not caught"))
+    # kernel-side fence: an rmsnorm KERNEL op whose feature dim (the rms
+    # reduction) is sharded over "model" must be refused
+    op = SimpleNamespace(name="rmsnorm_site", output="out",
+                         attrs={"kernel": "rmsnorm",
+                                "arg_shapes": ((512, 256), (256,)),
+                                "out_shape": (512, 256)})
+    kseg = SimpleNamespace(is_stack=False, stack=None, op=op)
+    kpart = partition.SegmentPartition(
+        in_specs={"arg0": P("data", "model"), "arg1": P("model")},
+        out_specs={"out": P("data", "model")},
+        param_specs={}, shard_shapes={}, notes=())
+    pp = partition.PartitionPlan(axes=axes, partition="both",
+                                 segments={0: kpart})
+    got = verify.check_partitions([kseg], {}, pp, shapes, cfg)
+    if not any(f.invariant == "dist.collective-placement"
+               and f.severity == "error" for f in got):
+        fs.append(verify.Finding(
+            "dist.collective-placement", "error",
+            "dist-partition/selftest-mutant",
+            "seeded rmsnorm feature-dim shard was not caught"))
+    return fs
+
+
 def lint_arch(arch: str, device: resource.DeviceSpec,
               rows: int = _ROWS) -> list[verify.Finding]:
-    if arch in MESH_ARCHS:
+    if arch == "serve-dist":
         raise NotImplementedError(
-            f"--arch {arch}: the dist.* self-tests need core/partition.py, "
-            f"which comes with the multi-device slice of the port "
-            f"(ROADMAP.md, queue 1, item 6)")
+            "--arch serve-dist: the serving partition's dist.serve-* "
+            "self-test comes with mesh serving (ROADMAP.md, queue 1, "
+            "item 6c)")
+    if arch == "dist-partition":
+        return lint_dist_selftest(device)
     if arch == "brainslug-cnn":
         return lint_cnn(device)
     if arch == "paged-kv":
@@ -199,7 +320,8 @@ def main(argv=None) -> int:
                     help="write the findings as JSON to this path")
     args = ap.parse_args(argv)
 
-    archs = args.arch or [*ARCH_IDS, "brainslug-cnn", "paged-kv"]
+    archs = args.arch or [*ARCH_IDS, "brainslug-cnn", "paged-kv",
+                          "dist-partition"]
     device = _DEVICES[args.device]
 
     report: dict = {"device": device.name, "archs": {}}

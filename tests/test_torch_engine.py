@@ -221,7 +221,7 @@ def test_report_and_the_parts_left_to_later_slices(servers):
     eng.run([tengine.Request(request_id=0, prompt=[3], max_new_tokens=2)])
     assert eng.report()["decode_path"] == "ref-decode"
     assert "brainslug" in eng.report()["decode_fallback"]
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError, match="item 6c"):
         tengine.Engine(ts.cfg, ts.params, ts.rt, slots=2, max_len=8,
                        mesh=object())
 

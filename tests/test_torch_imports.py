@@ -81,3 +81,15 @@ def test_slice_f_modules_import_neither_jax_nor_repro():
                  "kernels.fused_stack.ops"):
         assert f"repro_torch.{name}" in result["modules"]
     assert result["bad"] == []
+
+
+def test_slice_g1_modules_import_neither_jax_nor_repro():
+    """Slice G1: the partition planner, the mesh launcher, the
+    collectives, compression and the data-parallel step, and the mesh
+    checks chip_smoke.py runs in its ranks."""
+    result = _probe()
+    for name in ("core.partition", "launch.mesh", "distributed.collectives",
+                 "distributed.compression", "distributed.data_parallel",
+                 "examples.mesh_checks", "examples.fault_tolerance"):
+        assert f"repro_torch.{name}" in result["modules"]
+    assert result["bad"] == []

@@ -1,9 +1,10 @@
 """``python -m repro_torch.lint`` on the CPU: every default arch lints clean
 on the H100 spec; on the tiny device the port's lint and the JAX
 package's ``repro.lint`` agree arch by arch on the status and the set of
-invariants (the JAX side's ``dist.*`` findings left out: that family comes
-with the multi-device slice); ``main``'s exit status and ``--out`` report;
-the mesh self-tests raise ``NotImplementedError``."""
+invariants, the ``dist.*`` family included; ``main``'s exit status and
+``--out`` report; the ``dist-partition`` self-test lints clean, and the
+serving one (``serve-dist``) raises ``NotImplementedError`` until mesh
+serving is ported."""
 from __future__ import annotations
 
 import json
@@ -19,7 +20,7 @@ from repro_torch.core import resource, verify
 
 torch.set_num_threads(1)
 
-ARCHS = [*ARCH_IDS, "brainslug-cnn", "paged-kv"]
+ARCHS = [*ARCH_IDS, "brainslug-cnn", "paged-kv", "dist-partition"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -35,8 +36,7 @@ def _status(findings):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_tiny_device_agrees_with_jax(arch):
-    want = [f for f in jlint.lint_arch(arch, jresource.TINY_DEVICE)
-            if not f.invariant.startswith("dist.")]
+    want = jlint.lint_arch(arch, jresource.TINY_DEVICE)
     got = lint.lint_arch(arch, resource.TINY_DEVICE)
     assert _status(got) == _status(want)
     assert {f.invariant for f in got} == {f.invariant for f in want}
@@ -58,7 +58,17 @@ def test_main_exit_status_and_report(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch", lint.MESH_ARCHS)
 def test_mesh_self_tests_wait_for_the_multi_device_slice(arch):
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    """``dist-partition`` is ported: clean on the H100 and, on the tiny
+    device, the same status and invariants as ``repro.lint``.  Only the
+    serving partition's self-test still waits (item 6c)."""
+    if arch == "dist-partition":
+        assert lint.lint_arch(arch, resource.H100) == []
+        assert lint.main(["--arch", arch]) == 0
+        got = lint.lint_arch(arch, resource.TINY_DEVICE)
+        want = jlint.lint_arch(arch, jresource.TINY_DEVICE)
+        assert _status(got) == _status(want) == "clean"
+        return
+    with pytest.raises(NotImplementedError, match="queue 1, item 6c"):
         lint.lint_arch(arch, resource.H100)
     with pytest.raises(NotImplementedError):
         lint.main(["--arch", arch])

@@ -75,10 +75,16 @@ class TestTrainLoop:
         assert all(np.isfinite(h["loss"]) for h in history)
 
     def test_multi_device_options_raise(self):
-        for kw in ({"data_parallel": True}, {"compress": True},
-                   {"mesh_devices": 2}):
-            with pytest.raises(NotImplementedError, match="multi-device"):
-                build_trainer(_tc(**kw))
+        """Only the GSPMD-sharded step (``mesh_devices`` without
+        ``data_parallel``) is still unported; ``compress`` alone is a
+        misuse, and ``data_parallel`` needs an initialised group (the
+        data-parallel driver itself: ``test_torch_dp_train.py``)."""
+        with pytest.raises(NotImplementedError, match="item 6b"):
+            build_trainer(_tc(mesh_devices=2))
+        with pytest.raises(ValueError, match="data_parallel"):
+            build_trainer(_tc(compress=True))
+        with pytest.raises(RuntimeError, match="torchrun"):
+            build_trainer(_tc(data_parallel=True))
 
 
 def _jax_params(seed=0):

@@ -435,9 +435,10 @@ def test_vgg_graph_matches_jax(differentiable):
 
 def test_invariant_ids_match_jax():
     """Every invariant of the JAX package's verifier has its row here, but
-    the mesh family (the multi-device slice's); the port adds
-    ``grid.coverage``."""
-    want = {k for k in jverify.INVARIANTS if not k.startswith("dist.")}
+    the serving partition family (``dist.serve-*``, mesh serving's); the
+    port adds ``grid.coverage``."""
+    want = {k for k in jverify.INVARIANTS
+            if not k.startswith("dist.serve-")}
     assert set(verify.INVARIANTS) == want | {"grid.coverage"}
     for k, (source, _) in verify.INVARIANTS.items():
         assert source.startswith("src/repro_torch/"), k
@@ -835,7 +836,7 @@ class TestPipelineGate:
     def test_warn_records_findings_and_compiles(self):
         segments, shapes = _kernel_segment_with_drift()
         with pytest.warns(UserWarning, match="repro_torch.verify"):
-            executors, _, _, _, findings = core_api.compile_stacks(
+            executors, _, _, _, findings, _ = core_api.compile_stacks(
                 segments, shapes, _cfg(verify="warn"))
         assert 0 in executors                   # compile still succeeded
         assert any(f.invariant == "kernel.aval-mismatch" for f in findings)
@@ -849,7 +850,7 @@ class TestPipelineGate:
         monkeypatch.setattr(verify, "verify_segments", boom)
         with warnings.catch_warnings():
             warnings.simplefilter("error")
-            executors, _, _, _, findings = core_api.compile_stacks(
+            executors, _, _, _, findings, _ = core_api.compile_stacks(
                 segments, shapes, _cfg(verify="off"))
         assert 0 in executors
         assert findings == ()
