@@ -62,7 +62,7 @@ Phases, one line each (plus tables):
    tick's shape;
 15. the continuous-batching engine (``Server.engine(kv_layout="paged")
    .run``) over a ragged, prefix-sharing queue of 12 requests at full
-   width cut to 4 layers (``ENGINE_LAYERS``), paged ``brainslug`` against
+   width cut to 2 layers (``ENGINE_LAYERS``), paged ``brainslug`` against
    paged ``barrier`` and dense ``brainslug`` (counters per model
    evaluation, no ``kv.*`` finding, the
    free list whole), and a float32 4-layer run with identical tokens;
@@ -119,9 +119,8 @@ Phases, one line each (plus tables):
    per mode; the gated norm's rows forward at (2048, 5120), (4096, 5120)
    and (4, 5120) bf16 timed beside its byte bound, plain version, launch
    plan, registers and spills;
-22. mamba2-2.7b training through ``Trainer.run``: full width cut to 16
-   of the 64 layers (``MAMBA_TRAIN``; every block's VJP alone still runs
-   all 64), bf16, remat "full", one 4096-token sequence, three AdamW steps (lr
+22. mamba2-2.7b training through ``Trainer.run``: full width cut to 8
+   of the 64 layers (``MAMBA_TRAIN``; every block's VJP alone too), bf16, remat "full", one 4096-token sequence, three AdamW steps (lr
    3e-4), brainslug held to barrier through a float32 run on the same
    weights (SSM_F32_FACTOR), counters per step, peak memory; kill at step
    2 and resume from the step-1
@@ -158,8 +157,8 @@ Phases, one line each (plus tables):
    every split; the SSD kernel at (1, 112, 32, 64, 64) N 64 and the gated
    norm's rows kernels (forward and backward) and rmsnorm at zamba2's
    widths; their times beside bound, plain version and SDPA; (b)
-   ``lm.prefill`` (1, 2048) at all 81 layers (5 super-blocks of 13 mamba
-   blocks and the shared attention, an 11-layer tail): counters, every
+   ``lm.prefill`` (1, 2048) at 15 of the 81 layers (a super-block of 13
+   mamba blocks and the shared attention, a 1-layer tail): counters, every
    position held to barrier through a float32 run (SSM_F32_FACTOR), each
    block alone on barrier's inputs against its float32 twin (a dropped
    shared-attention application planted in barrier's run must be
@@ -184,10 +183,10 @@ Phases, one line each (plus tables):
    barrier taking brainslug's routing decisions (MOE), every position
    held through float32 runs taking each mode's decisions, each block
    alone against its float32 twin; two planted defects (MOE_CONTROLS);
-   a float32 run at 4 layers; (c) ``Server.generate`` (4 x 64 + 32 new)
+   a float32 run at 2 layers; (c) ``Server.generate`` (4 x 64 + 32 new)
    at 8 of the 32 layers, MoE dropless; (d) ``Engine.run`` of phase 15's 12
-   requests (prefix sharing on) at 4 layers, paged brainslug, paged
-   barrier and dense brainslug, and at float32, 4 layers, against
+   requests (prefix sharing on) at 2 layers, paged brainslug, paged
+   barrier and dense brainslug, and at float32, 2 layers, against
    ``Server.generate``; (e) ``Trainer.run`` at 8 layers (4096 tokens,
    three AdamW steps per mode, the MoE aux read), the step-1 gradient
    against float32 (and twice bit for bit), float32 at 2 layers, kill at
@@ -273,6 +272,18 @@ Phases, one line each (plus tables):
    both runs decreasing, each rank's peak memory, the collectives given
    CUDA tensors and the transport.  The times of ranks that share one
    card are no multi-card number;
+30. the sharded step (Slice G2), its legs in phase 29's spawn: (a)
+   ``Trainer(mesh_devices=2)`` without ``data_parallel`` at (data 2,
+   model 1), 29c's model, weights, batches and lr: every step within
+   1e-6 of 29c's one-device halves, each rank's parameter shard and
+   AdamW moments the bytes the sharding rules give, launches as 29c's;
+   (b) ``make_sharded_train_step`` at (data 1, model 2), deepseek-7b at
+   full width, 2 layers bf16, one 4096-token sequence, 3 steps against
+   one device's at phase 18's limits, flash on 16 of the 32 heads and
+   swiglu on 5504 of the 11008 columns a rank (the launches' shapes),
+   the all-reduce bytes a step; (c) ``pipeline_apply`` over a
+   ``("stage",)`` mesh of 2, one deepseek-width block a stage, 4
+   microbatches of (1, 2048), bit for bit against the blocks in turn;
 then the ``kernels`` JSON line (each CUDA kernel with its instances, the
 attention kernels' head-dim 112, 64, 80 and 256 entries, the SSD's zamba2
 shape, the multimodal paths' launches, the fused-stack kernels' write
@@ -367,8 +378,9 @@ DENSE_PARENT_MS = {"ragged_128": 0.9608, "ragged_112": 1.2134,
 # 30 layers: the engine is host-bound (a tick's launches grow with depth),
 # and with the SSM, hybrid and MoE phases (20-25) the script has to stay
 # inside its 1200 s limit on a slow host (phase 15 took 55.3 s at 8 layers
-# on one, PR 25 run 4).
-ENGINE_LAYERS = 4
+# on one, and 31.2 s at 4 on one H100 80GB HBM3 at 700 W in a leg timing
+# of the whole script, where phase 30 needed room).
+ENGINE_LAYERS = 2
 # The LM training slice (phases 17-19): deepseek-7b at full width, depth cut
 # to fit one 80 GB card with AdamW's float32 moments, one 4096-token
 # sequence (train_4k's length), three steps.
@@ -404,6 +416,22 @@ MESH = dict(ranks=2, dp_layers=2, dp_batch=2, seq=4096, steps=3,
 MESH_COMPRESSED_GNORM_REL = 1 / 254
 MESH_COMPRESSED_LOSS_REL = 0.05
 MESH_HALVES_REL = 1e-6
+# Phase 30 (Slice G2): the sharded step, its legs in phase 29's spawn of
+# two ranks sharing the card.  30a: Trainer(mesh_devices=2) without
+# data_parallel, mesh (data 2, model 1), 29c's model, weights, batches and
+# lr: every step within MESH_HALVES_REL of 29c's one-device halves run
+# (the all-gathered bf16 weights are the weights, the reduce-scattered
+# bf16 gradients the halves' sum halved; the grad norm sums its squares
+# over shards, in another order).  30b: the sharded step at (data 1,
+# model 2), deepseek-7b at full width, 2 layers, one 4096-token sequence,
+# 3 steps at phase 18's lr and limits against one device's steps from the
+# same weights and batches: attention on 16 of the 32 heads a rank and
+# the MLP on 5504 of the 11008 columns, each layer's output
+# projections' partial sums all-reduced in bf16.  30c: pipeline_apply of
+# one deepseek-width block a stage over a ("stage",) mesh of 2, 4
+# microbatches of (1, 2048), bit for bit against the two blocks in turn.
+SHARDED = dict(layers=2, seq=4096, steps=3, lr=3e-4, model=2,
+               pipe_seq=2048, pipe_microbatches=4)
 CE_RAGGED = (1000, 4000, 50257)
 # d_model not a multiple of 8: h's rows are staged to a padded pitch
 CE_ODD_D = (1000, 4001, 102400)
@@ -451,13 +479,16 @@ SSD_RAGGED = (2, 1000)                  # (batch, sequence) through ops.ssd
 # keep all 64.
 MAMBA_ENGINE = dict(requests=8, prompt=(16, 96), stops=(8, 32), layers=8)
 MAMBA_SERVE_LAYERS = 8
-# training: every block recomputed in the backward, at 16 of the 64 layers
-# (22a, 22b, 22d; 22e still takes every block alone): the step is half
+# training: every block recomputed in the backward, at 8 of the 64 layers
+# (22a, 22b, 22d, and 22e's every block alone; its checks are block by
+# block, and the planted dropped mixer is layer 4's): the step is half
 # idle on the host, and at 64 layers the three legs took 157 s of phase
-# 22's 191 on one H100 (PERF.md section 4), room phase 26 needs.  The kill/resume leg is cut
-# to 4 layers (a 64-layer checkpoint with its AdamW moments is 27 GB,
-# written twice).
-MAMBA_TRAIN = dict(remat="full", layers=16, layers_resume=4)
+# 22's 191 on one H100 (PERF.md section 4), room phase 26 needs.  At 16
+# layers phase 22 took 64.7 s on one H100 80GB HBM3 at 700 W, and the whole
+# script 1162.5 s of its 1200 s on a slow host, so the legs run 8.  The
+# kill/resume leg is cut to 4 layers (a 64-layer checkpoint with its
+# AdamW moments is 27 GB, written twice).
+MAMBA_TRAIN = dict(remat="full", layers=8, layers_resume=4)
 # mamba2-2.7b in bf16 over 64 random layers rounds far noisier than
 # deepseek-7b: both modes' prefill logits lie 0.17 of max from the float32
 # logits of the same weights, and the two modes' teacher-forced decode
@@ -489,8 +520,16 @@ SSM_END_TO_END = ("layer 4's mixer dropped",)
 # 1.28, the bf16 SSD 5.5 / 5.0, the dropped layer over 100.
 SSM_BLOCK_FACTOR = 1.05
 # The hybrid slice (phase 24): zamba2-7b at full width (d_model 3584, 32
-# heads of 112, mamba N 64 and 112 heads of 64).  Prefill runs all 81
-# layers.  The engine and the trainer are cut
+# heads of 112, mamba N 64 and 112 heads of 64).  Prefill (24b) and its
+# times and traces (24f) run 15 of the 81 layers: one super-block (the
+# shared block, whose first application the control drops) and a
+# 1-layer tail.  At 81 layers that leg took 58.4 s of phase 24's 184.1
+# on one H100 80GB HBM3 at 700 W (a leg timing of the whole script), at
+# 29 layers 34.0 s, most of it host work that grows with depth (31 s
+# parsing its four profiler traces at 81), and the whole script took
+# 1162.5 s of its 1200 s on a slow host; every check of the leg holds at
+# any depth with both block kinds and the tail.  The engine and the
+# trainer are cut
 # to 15 layers: one super-block and a 1-layer tail, so both cache kinds,
 # the shared block and the tail are present.  At 31 layers (two
 # super-blocks) phase 24 took 371 s on one H100 and the script would have
@@ -506,16 +545,20 @@ SSM_BLOCK_FACTOR = 1.05
 # phases 22 and 25 do): at 15 it wrote two 13 GB checkpoints and took 63.9
 # s of phase 24's 188.3 on one H100; the shared block's checkpoint round
 # trip is held on the CPU (tests/test_torch_hybrid.py).
-HYBRID = dict(arch="zamba2-7b", engine_layers=15, train_layers=15,
-              serve_layers=15, resume_layers=4, remat="full")
+HYBRID = dict(arch="zamba2-7b", prefill_layers=15, engine_layers=15,
+              train_layers=15, serve_layers=15, resume_layers=4,
+              remat="full")
 # The MoE slice (phase 25): granite-moe-3b-a800m at full width (d_model
 # 1536, 24 heads of 64 over 8 KV heads, 40 experts of d_ff 512, top-8, vocab
 # 49155, bf16).  Prefill and serving run all 32 layers; the trainer is cut
-# to 8 (TRAIN_LM's precedent), the engine, the kill/resume leg and the
-# float32 runs to 4 and 2: the engine is host-bound (its three runs took 50
+# to 8 (TRAIN_LM's precedent), the kill/resume leg to 4, the engine and
+# the float32 runs to 2: the engine is host-bound (its three runs took 50
 # s at 8 layers on one H100, each MoE layer some 5 ms of host time a model
-# evaluation) and a checkpoint with AdamW's moments is 9 GB at 8 layers,
-# written twice, where the script has to stay near 1050 s.
+# evaluation; at 4 layers the engine leg with its float32 runs took 55.6
+# s and the float32 serving cut 8.4 in a leg timing of the whole script,
+# where phase 30 needed room) and a checkpoint with AdamW's moments is 9 GB at 8 layers,
+# written twice, where the script has to stay near 1050 s.  The engine's
+# and the float32 runs' checks read no layer past the second.
 # llama4-maverick-400b-a17b runs at full width cut to one super-block: a
 # dense block, then an MoE block of 128 experts, top-1, with the shared
 # expert (18.55 B parameters, 37 GB in bf16).
@@ -525,8 +568,8 @@ HYBRID = dict(arch="zamba2-7b", engine_layers=15, train_layers=15,
 # 1204.4 s in all (1223.4 s of command) and 1267.6 s on two hosts, one
 # H100 80GB HBM3 at 700 W each, past the 1200 s limit; with these cuts
 # 1033.6 s.
-MOE = dict(arch="granite-moe-3b-a800m", engine_layers=4, train_layers=8,
-           layers_resume=4, f32_layers=4, train_f32_layers=2, drop_layer=4,
+MOE = dict(arch="granite-moe-3b-a800m", engine_layers=2, train_layers=8,
+           layers_resume=4, f32_layers=2, train_f32_layers=2, drop_layer=4,
            serve_layers=8, llama4="llama4-maverick-400b-a17b",
            llama4_layers=2)
 # Routing is discrete: a near tie between two experts falls either way under
@@ -691,7 +734,8 @@ class Smoke:
               "phase19_train_timing", "phase20_ssd_kernel",
               "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced",
               "phase24_hybrid", "phase25_moe", "phase26_slice_f",
-              "phase27_multimodal", "phase28_verify", "phase29_mesh")
+              "phase27_multimodal", "phase28_verify", "phase29_mesh",
+              "phase30_sharded")
 
     def run(self):
         t0 = time.perf_counter()
@@ -4967,7 +5011,8 @@ class Smoke:
         torch.cuda.empty_cache()
 
         # 22e: every block's VJP alone, teacher-forced, against float32
-        cfg = get_config("mamba2-2.7b")
+        cfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                                  n_layers=MAMBA_TRAIN["layers"])
         params = lm.init(0, cfg, device=self.dev)
         g = torch.Generator(device=self.dev).manual_seed(2301)
         tokens = torch.randint(0, cfg.vocab_size, (1, TRAIN_LM["seq"]),
@@ -5869,7 +5914,8 @@ class Smoke:
 
     def hybrid_full_depth(self, cfg):
         """24b, 24c and their times (24f): ``lm.prefill`` at full width and
-        depth, ``Server.generate`` at HYBRID["serve_layers"]."""
+        the depth of ``cfg`` (HYBRID["prefill_layers"]),
+        ``Server.generate`` at HYBRID["serve_layers"]."""
         torch = self.torch
         import dataclasses
         from repro_torch.configs.base import RuntimeConfig
@@ -6405,7 +6451,8 @@ class Smoke:
         t = time.perf_counter()
         self.hybrid_launches = {}       # per prefill, step, evaluation
         self.hybrid_kernels(cfg)
-        self.hybrid_full_depth(cfg)
+        self.hybrid_full_depth(dataclasses.replace(
+            cfg, n_layers=HYBRID["prefill_layers"]))
         self.hybrid_float32_cut(cfg)
         self.hybrid_engine(cfg)
         self.hybrid_train(cfg)
@@ -8904,8 +8951,10 @@ class Smoke:
     def phase29_mesh(self):
         """Two ranks on this card over gloo: (a) VGG-16 under ``data``, (b)
         the deepseek-width bf16 block under ``tensor``, (c) the
-        data-parallel trainer; every rank's counters folded into the
-        kernels line.  The single-device step of 29c runs here first."""
+        data-parallel trainer, and in the same spawn phase 30's legs (read
+        by :meth:`phase30_sharded`); every rank's counters folded into the
+        kernels line.  The single-device steps of 29c and 30b run here
+        first."""
         torch = self.torch
         import gc
 
@@ -8918,6 +8967,8 @@ class Smoke:
         self.lm_model = None
         gc.collect()
         ref = self.mesh_dp_reference()
+        gc.collect()
+        self.tp_ref = mesh_checks.one_device_steps(**self.tp_kw())
         gc.collect()
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated() / 2 ** 30
@@ -8938,6 +8989,13 @@ class Smoke:
             ("dp", "dp_train", dict(
                 runs=[dict(compress=False), dict(compress=True)],
                 common=common, lr=MESH["lr"])),
+            ("gspmd", "gspmd_train", dict(runs=[{}], common=common,
+                                          lr=MESH["lr"])),
+            ("tp", "sharded_steps", dict(model_parallel=SHARDED["model"],
+                                         **self.tp_kw())),
+            ("pipe", "pipeline_block", dict(
+                device="cuda", seq=SHARDED["pipe_seq"],
+                n_microbatches=SHARDED["pipe_microbatches"])),
         ]
         t = time.perf_counter()
         try:
@@ -8949,13 +9007,17 @@ class Smoke:
         self.mesh_vgg(got["vgg"])
         self.mesh_block(got["block"])
         self.mesh_dp(got["dp"], ref)
+        self.mesh_got, self.mesh_ref = got, ref
         launches = {"29a vgg_step": got["vgg"]["ranks"],
                     "29b block_forward": got["block"]["ranks"],
                     "29c dp_train": [
                         {k: sum(r["ranks"][i]["launches"][k]
                                 for r in got["dp"]["runs"])
                          for k in KERNELS}
-                        for i in range(MESH["ranks"])]}
+                        for i in range(MESH["ranks"])],
+                    "30a gspmd_train": got["gspmd"]["runs"][0]["ranks"],
+                    "30b sharded_steps": got["tp"]["ranks"],
+                    "30c pipeline_block": got["pipe"]["ranks"]}
         for name in KERNELS:
             per = {w: [(c["launches"] if "launches" in c else c)[name]
                        for c in ranks] for w, ranks in launches.items()}
@@ -8968,7 +9030,178 @@ class Smoke:
               f"{held:.2f} GiB held by this process at the spawn; spawn "
               f"and legs {spawn_s:.1f} s (legs in the ranks "
               f"{got['seconds']}); phase {total:.1f} s (aim "
-              f"<= {MESH['seconds']} s)")
+              f"<= {MESH['seconds']} s with phase 30's legs)")
+
+    def tp_kw(self):
+        """30b's model, weights and batches (seed 0, synth_batch seed 7)
+        for ``mesh_checks.sharded_steps`` and its one-device twin."""
+        return dict(arch="deepseek-7b", device="cuda", reduced=False,
+                    overrides=(("n_layers", SHARDED["layers"]),
+                               ("dtype", "bfloat16")),
+                    steps=SHARDED["steps"], lr=SHARDED["lr"],
+                    seq=SHARDED["seq"], batch=1, mode="brainslug")
+
+    # -- phase 30: the sharded step and the pipeline (Slice G2) --------------
+    def phase30_sharded(self):
+        """30a-c, run in phase 29's spawn: the sharded Trainer at (data 2,
+        model 1) against 29c's one-device halves, the sharded step at
+        (data 1, model 2) against one device, the pipeline bit for bit."""
+        t = time.perf_counter()
+        got = self.mesh_got
+        self.sharded_trainer(got["gspmd"]["runs"][0], self.mesh_ref,
+                             got["dp"]["runs"][0])
+        self.sharded_tensor(got["tp"], self.tp_ref)
+        self.sharded_pipeline(got["pipe"])
+        print(f"[30] legs in phase 29's spawn (ranks sharing "
+              f"{self.torch.cuda.get_device_name(0)}, {self.smi}: no time "
+              f"here is a multi-card number): 30a "
+              f"{got['seconds']['gspmd']} s, 30b {got['seconds']['tp']} s, "
+              f"30c {got['seconds']['pipe']} s; checks "
+              f"{time.perf_counter() - t:.1f} s")
+
+    @staticmethod
+    def sharded_param_numel(cfg, layers, data):
+        """A dense config's parameter elements a rank holds under the
+        default rules at (data, model 1): the embedding ("vocab", None) and
+        head (None, "vocab") not split over data, every block projection
+        ("fsdp" rows or columns) split, the norms replicated."""
+        d, hd = cfg.d_model, cfg.head_dim
+        attn = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+        blocks = layers * (attn + 3 * d * cfg.d_ff)
+        return 2 * cfg.vocab_size * d + d + layers * 2 * d + blocks // data
+
+    def sharded_trainer(self, run, ref, dp_run):
+        steps = MESH["steps"]
+        h = run["history"]
+        losses = [x["loss"] for x in h]
+        gnorms = [x["grad_norm"] for x in h]
+        want_l = [x["loss"] for x in ref["halves"]]
+        want_g = [x["grad_norm"] for x in ref["halves"]]
+        rel = lambda a, b: abs(a - b) / abs(b)
+        gaps = [max(rel(a, b), rel(c, d)) for a, b, c, d in
+                zip(losses, want_l, gnorms, want_g)]
+        bitwise = losses == want_l and gnorms == want_g
+        want_la = {"fused_ce": steps, "rmsnorm": 5 * steps,
+                   "swiglu": 2 * steps, "flash_attention": 2 * steps}
+        bad = [(r, c["launches"], c["plain"]) for r, c in
+               enumerate(run["ranks"])
+               if {k: c["launches"][k] for k in want_la} != want_la
+               or c["plain"]]
+        from repro_torch import configs
+        cfg = configs.get_config("deepseek-7b")
+        numel = self.sharded_param_numel(cfg, MESH["dp_layers"],
+                                         MESH["ranks"])
+        expect = 2 * numel                  # bf16
+        shard = [c["param_bytes"] for c in run["shard"]]
+        opt = [c["opt_bytes"] for c in run["shard"]]
+        whole = dp_run["wire_bytes"]
+        if not (len(h) == steps and all(g <= MESH_HALVES_REL for g in gaps)
+                and not bad
+                and [c["param_numel"] for c in run["shard"]]
+                == [numel] * MESH["ranks"]
+                and opt == [8 * numel] * MESH["ranks"]
+                and "data=2 x model=1" in run["mesh"]):
+            raise PhaseError(
+                f"30a Trainer(mesh_devices=2): losses {losses} grad norms "
+                f"{gnorms}; 29c's halves {want_l} {want_g}; gaps {gaps} "
+                f"(tol {MESH_HALVES_REL}); launches {bad}; shard bytes "
+                f"{shard} (expected {expect}), moments {opt}; {run['mesh']}")
+        peak = [round(c["peak_gib"], 2) for c in run["ranks"]]
+        dp_peak = [round(c["peak_gib"], 2) for c in dp_run["ranks"]]
+        print(f"[30a Trainer(mesh_devices=2) without data_parallel] "
+              f"deepseek-7b full width, {MESH['dp_layers']} layers bf16, "
+              f"global batch {MESH['dp_batch']} x {MESH['seq']}, {steps} "
+              f"AdamW steps lr {MESH['lr']}: {run['mesh']}; losses {losses} "
+              f"grad norms {gnorms}; against 29c's one-device halves "
+              f"{'bit for bit' if bitwise else 'within'} (gaps "
+              f"{[f'{g:.3e}' for g in gaps]}, tol {MESH_HALVES_REL}); bf16 "
+              f"parameter shard {shard} B a rank (the rules give {expect}; "
+              f"29c holds {whole}, {shard[0] / whole:.3f} of it), AdamW "
+              f"moments {opt} B a rank; peak {peak} GiB a rank (29c "
+              f"uncompressed {dp_peak}); launches per rank over {steps} "
+              f"steps {[c['launches'] for c in run['ranks']]}, plain "
+              f"dispatches {[c['plain'] for c in run['ranks']]}; "
+              f"collectives per rank {[c['collectives']['calls'] for c in run['ranks']]}; "
+              f"wall {run['wall_s']:.1f} s (ranks sharing one card)")
+
+    def sharded_tensor(self, run, ref):
+        steps, m = SHARDED["steps"], SHARDED["model"]
+        losses, gnorms = run["losses"], run["grad_norms"]
+        rel = lambda a, b: abs(a - b) / abs(b)
+        loss_gaps = [rel(a, b) for a, b in zip(losses, ref["losses"])]
+        gn_gaps = [rel(a, b) for a, b in zip(gnorms, ref["grad_norms"])]
+        from repro_torch import configs
+        cfg = configs.get_config("deepseek-7b")
+        heads, cols = cfg.n_heads // m, cfg.d_ff // m
+        want_shapes = {"flash_attention": [(1, heads, SHARDED["seq"],
+                                            cfg.head_dim)],
+                       "swiglu": [(1, SHARDED["seq"], cols)]}
+        want_la = {"fused_ce": steps, "rmsnorm": 5 * steps,
+                   "swiglu": 2 * steps, "flash_attention": 2 * steps}
+        bad = [(r, c["launches"], c["plain"], c["shapes"]) for r, c in
+               enumerate(run["ranks"])
+               if {k: c["launches"][k] for k in want_la} != want_la
+               or c["plain"] or {k: [tuple(x) for x in v] for k, v in
+                                 c["shapes"].items()} != want_shapes]
+        ar = [[b.get("all_reduce", 0) for b in c["bytes_per_step"]]
+              for c in run["ranks"]]
+        lims = list(zip(loss_gaps, TRAIN_BF16_LOSS_REL)) + [
+            (g, TRAIN_BF16_GNORM_REL) for g in gn_gaps]
+        if not (len(losses) == steps and run["shape"] == {"data": 1,
+                                                          "model": m}
+                and all(math.isfinite(x) for x in losses + gnorms)
+                and all(g <= lim for g, lim in lims) and not bad):
+            raise PhaseError(
+                f"30b sharded step (1, {m}): losses {losses} grad norms "
+                f"{gnorms}; one device {ref}; loss gaps {loss_gaps} (tol "
+                f"{TRAIN_BF16_LOSS_REL}), grad norm gaps {gn_gaps} (tol "
+                f"{TRAIN_BF16_GNORM_REL}); ranks {bad}")
+        print(f"[30b make_sharded_train_step (data 1, model {m})] "
+              f"deepseek-7b full width, {SHARDED['layers']} layers bf16, 1 x "
+              f"{SHARDED['seq']} tokens, {steps} AdamW steps lr "
+              f"{SHARDED['lr']}: {run['mesh']}; losses {losses} grad norms "
+              f"{gnorms}; one device from the same weights and batches "
+              f"{ref['losses']} {ref['grad_norms']}; loss gaps "
+              f"{[f'{g:.3e}' for g in loss_gaps]} (tol "
+              f"{TRAIN_BF16_LOSS_REL}), grad norm gaps "
+              f"{[f'{g:.3e}' for g in gn_gaps]} (tol {TRAIN_BF16_GNORM_REL}"
+              f"); {run['kept']} leaves kept split over model; launch "
+              f"shapes per rank {run['ranks'][0]['shapes']} (flash on "
+              f"{heads} of {cfg.n_heads} heads, swiglu on {cols} of "
+              f"{cfg.d_ff} columns); "
+              f"launches per rank {[c['launches'] for c in run['ranks']]}, "
+              f"plain {[c['plain'] for c in run['ranks']]}; all-reduce "
+              f"bytes a step per rank {ar}; all bytes a step "
+              f"{run['ranks'][0]['bytes_per_step']}; bf16 parameter shard "
+              f"{[c['param_bytes'] for c in run['ranks']]} B, moments "
+              f"{[c['opt_bytes'] for c in run['ranks']]} B a rank; peak "
+              f"{[round(c['peak_gib'], 2) for c in run['ranks']]} GiB; wall "
+              f"{run['wall_s']:.1f} s (ranks sharing one card)")
+
+    def sharded_pipeline(self, got):
+        n_mb = SHARDED["pipe_microbatches"]
+        want_la = {"rmsnorm": 2 * n_mb, "flash_attention": n_mb,
+                   "swiglu": n_mb}
+        bad = [(r, c["launches"], c["plain"]) for r, c in
+               enumerate(got["ranks"])
+               if {k: c["launches"][k] for k in want_la} != want_la
+               or c["plain"]]
+        if not (got["bitwise"] and got["finite"] and got["bubble"] == 0.2
+                and len({c["y_sum"] for c in got["ranks"]}) == 1
+                and not bad):
+            raise PhaseError(f"30c pipeline: bit for bit {got['bitwise']} "
+                             f"(max|d| {got['max_abs_err']}), bubble "
+                             f"{got['bubble']}, ranks {got['ranks']}")
+        print(f"[30c pipeline_apply] one deepseek-7b block a stage (d_model "
+              f"{D_MODEL}, 32 heads, d_ff {D_FF}, bf16) over {got['mesh']}, "
+              f"{n_mb} microbatches of (1, {SHARDED['pipe_seq']}): bit for "
+              f"bit against the two blocks applied in turn on one rank; "
+              f"bubble_fraction(2, {n_mb}) = {got['bubble']}; every stage "
+              f"holds the whole output; launches per rank "
+              f"{[c['launches'] for c in got['ranks']]}, plain "
+              f"{[c['plain'] for c in got['ranks']]}; hops per rank "
+              f"{[c['collectives']['calls'] for c in got['ranks']]}; wall "
+              f"{got['wall_s']:.2f} s (ranks sharing one card)")
 
     def mesh_dp_reference(self):
         """29c's single-device runs of MESH["steps"] steps from the same

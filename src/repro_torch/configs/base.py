@@ -175,6 +175,12 @@ class RuntimeConfig:
     # the JAX package's sharding hint for the MoE dispatch tensors; 'none'
     # (the identity) is the one value on one device
     moe_constraint: str = "none"
+    # Set by the sharded train step (repro_torch.launch.steps) inside its
+    # tensor-parallel region only: the mesh axis whose ranks each hold a
+    # slice of a layer's heads or ffn columns, and over which that
+    # layer's output projection is all-reduced.  None (the default
+    # everywhere else) means no collective is issued.
+    tp_axis: str | None = None
 
     def __post_init__(self) -> None:
         if self.mode not in ("brainslug", "xla", "barrier"):
@@ -197,9 +203,10 @@ class RuntimeConfig:
         if self.moe_constraint != "none":
             raise NotImplementedError(
                 f"moe_constraint={self.moe_constraint!r}: the dispatch "
-                f"layouts of a mesh come with the tensor-parallel mesh item "
-                f"of the port (ROADMAP.md, queue 1, item 6b); on one device "
-                f"it is 'none'")
+                f"layouts of a mesh are resolved by the dry-run's plan_cell,"
+                f" which comes with the dry-run item of the port (ROADMAP.md,"
+                f" queue 1, item 6d); the sharded train step gathers the "
+                f"experts and runs 'none'")
 
 
 def _count_params(cfg: ModelConfig, active_only: bool) -> int:

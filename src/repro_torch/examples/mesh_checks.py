@@ -2,7 +2,8 @@
 a group that :func:`repro_torch.launch.mesh.spawn` (or ``torchrun``)
 started: the optimized callable under ``OptimizeConfig(mesh=...,
 partition=...)`` against the single-device compile of the whole batch on
-the same inputs, with every rank's dispatch and launch counters.
+the same inputs, and the sharded and pipelined LM paths against one
+device, with every rank's dispatch and launch counters.
 
 * :func:`loss_grads`: ``api.optimize`` of a row-chain loss (a matmul,
   an rms norm, a tanh) under a mesh; gradients against one device.
@@ -15,7 +16,18 @@ the same inputs, with every rank's dispatch and launch counters.
   sums), a defect the gradient check must catch.
 * :func:`block_fn_train`: ``api.optimize`` of ``cnn.block_fn``, a few
   SGD steps through the mesh-compiled net against one device.
-* :func:`dp_train`: the data-parallel ``Trainer``.
+* :func:`dp_train`: the data-parallel ``Trainer``; :func:`gspmd_train`
+  the sharded one (``TrainerConfig(mesh_devices=n)`` without
+  ``data_parallel``).
+* :func:`sharded_steps`: ``steps.make_sharded_train_step`` over a
+  ``("data", "model")`` mesh of any shape, from the same weights and
+  batches as :func:`one_device_steps` (its single-device twin), with a
+  checkpoint written or restored; ``planted`` drops the backward
+  all-reduce of ``copy_to_model`` (``"copy_backward"``) or counts a
+  replicated leaf once a rank in the gradient norm (``"norm_replicas"``),
+  defects the checks must flag.
+* :func:`pipeline_block`: ``pipeline_apply`` of one block a stage over a
+  ``("stage",)`` mesh against the stages applied in turn on one rank.
 
 Each returns rank 0's numbers (and, where asked, its arrays as numpy) and
 ``ranks``: every rank's counters.  Run on its own, at small sizes on
@@ -26,6 +38,7 @@ the CPU::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import sys
@@ -51,12 +64,16 @@ def counts(zero: bool = False) -> dict:
     from repro_torch.core import registry
     from repro_torch.distributed import collectives
     from repro_torch.kernels.attention import decode, flash
+    from repro_torch.kernels.attention import ops as aops
     from repro_torch.kernels.fused_stack import nhwc, nhwc_bwd, ops, rows, \
         rows_bwd
+    from repro_torch.kernels.rmsnorm import ops as rops
     from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.swiglu import ops as sops
     from repro_torch.kernels.swiglu import swiglu
     from repro_torch.kernels.vocab_ce import ce
+    from repro_torch.kernels.vocab_ce import ops as cops
     fns = {"fused_nhwc": nhwc.fused_nhwc, "fused_rows": rows.fused_rows,
            "fused_nhwc_bwd": nhwc_bwd.fused_nhwc_bwd,
            "fused_rows_bwd": rows_bwd.fused_rows_bwd,
@@ -66,14 +83,17 @@ def counts(zero: bool = False) -> dict:
            "paged_flash_decode": decode.paged_flash_decode,
            "fused_ce": ce.fused_ce_fwd,
            "ssd_intra_chunk": ssd.ssd_intra_chunk}
+    wrappers = (rops.STATS, sops.STATS, cops.STATS, aops.STATS)
     if zero:
         for fn in fns.values():
             fn.launches = 0
-        ops.STATS.reset()
-        registry.STATS.reset()
-        collectives.STATS.reset()
+        for st in (ops.STATS, registry.STATS, collectives.STATS) + wrappers:
+            st.reset()
     return {**ops.STATS.snapshot(),
             "launches": {k: fn.launches for k, fn in fns.items()},
+            # the LM kernels' wrappers that ran their plain versions
+            "plain": sum(v for st in wrappers for k, v in st.counts.items()
+                         if k.endswith(("plain", "_ref"))),
             "registry": {k: v for k, v in registry.STATS.counts.items()
                          if v},
             "collectives": collectives.STATS.snapshot()}
@@ -400,9 +420,11 @@ def stack_checks(device: str, *, rows: int = 64, features: int = 256
 # ---------------------------------------------------------------------------
 
 def dp_train(runs: list[dict], *, np_params: dict | None = None,
-             common: dict | None = None, lr: float | None = None) -> dict:
+             common: dict | None = None, lr: float | None = None,
+             data_parallel: bool = True) -> dict:
     """Run each ``TrainerConfig`` override dict of ``runs`` (over
-    ``common``) through the data-parallel ``Trainer``, from ``np_params``
+    ``common``) through the data-parallel ``Trainer`` (with
+    ``data_parallel=False``, the sharded one), from ``np_params``
     (numpy, carried over with ``convert.lm_params_from_numpy``) or the
     seeded init; ``lr`` fixes a constant learning rate (by default the
     trainer's: ``tc.lr`` for a reduced config, the warmup-cosine schedule
@@ -411,7 +433,7 @@ def dp_train(runs: list[dict], *, np_params: dict | None = None,
     run's history, the error-feedback state's largest entry just after a
     restore, per-rank counters and peak memory."""
     from repro_torch import convert
-    from repro_torch.distributed import data_parallel
+    from repro_torch.distributed import data_parallel as dp_mod
     from repro_torch.distributed import fault_tolerance as ft
     from repro_torch.launch import train as train_mod
     from repro_torch.optim import adamw
@@ -420,7 +442,7 @@ def dp_train(runs: list[dict], *, np_params: dict | None = None,
     for run in runs:
         kw = {**(common or {}), **run}
         fail_at = kw.pop("fail_at", None)
-        tc = train_mod.TrainerConfig(data_parallel=True, **kw)
+        tc = train_mod.TrainerConfig(data_parallel=data_parallel, **kw)
         init = (None if np_params is None else
                 lambda cfg, dev: convert.lm_params_from_numpy(np_params, dev))
         dev = torch.device(tc.device)
@@ -451,14 +473,353 @@ def dp_train(runs: list[dict], *, np_params: dict | None = None,
             torch.cuda.max_memory_allocated() / 2 ** 30
             if trainer.device.type == "cuda" else None)})
         rec["mesh"] = trainer.mesh.describe()
-        rec["wire_bytes"] = data_parallel.wire_bytes(trainer.params,
-                                                     compress=tc.compress)
+        if data_parallel:
+            rec["wire_bytes"] = dp_mod.wire_bytes(trainer.params,
+                                                  compress=tc.compress)
+        else:
+            rec["shard"] = _all({
+                "param_numel": sum(x.numel() for x in
+                                   base.tree_leaves(trainer.params)),
+                "param_bytes": _state_bytes(trainer.params),
+                "opt_bytes": _state_bytes({k: trainer.opt_state[k]
+                                           for k in ("mu", "nu")})})
         del trainer
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         out.append(rec)
     return {"runs": out}
+
+
+def gspmd_train(runs: list[dict], **kw) -> dict:
+    """:func:`dp_train` through the sharded ``Trainer`` (``mesh_devices``
+    without ``data_parallel``); each run also reports this rank's shard
+    bytes (parameters and AdamW moments) and element counts."""
+    return dp_train(runs, data_parallel=False, **kw)
+
+
+def _state_bytes(tree: Any) -> int:
+    return sum(t.numel() * t.element_size() for t in base.tree_leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# The sharded step, its one-device twin, and the pipeline.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _PlantedShard:
+    """A defect in the sharded step: ``"copy_backward"`` (the cotangent of
+    ``copy_to_model`` left unreduced) or ``"norm_replicas"`` (every leaf
+    counted once a rank in the gradient norm)."""
+
+    what: str | None
+
+    def __enter__(self):
+        from repro_torch.distributed import collectives
+        from repro_torch.launch import steps
+        self.saved = (collectives._copy_backward, steps._replicas)
+        if self.what == "copy_backward":
+            collectives._copy_backward = lambda g, mesh, axis: g
+        elif self.what == "norm_replicas":
+            steps._replicas = lambda spec, mesh: 1
+        elif self.what is not None:
+            raise ValueError(f"unknown planted defect {self.what!r}")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import collectives
+        from repro_torch.launch import steps
+        collectives._copy_backward, steps._replicas = self.saved
+
+
+@contextlib.contextmanager
+def shape_records():
+    """The shapes the flash attention and swiglu wrappers are called with
+    while the block runs (``{"flash_attention": [q shape, ...], "swiglu":
+    [gate shape, ...]}``): on the card, the shapes their kernels launch
+    at."""
+    from repro_torch.kernels.attention import ops as aops
+    from repro_torch.kernels.swiglu import ops as sops
+    rec: dict = {"flash_attention": [], "swiglu": []}
+    flash, glu = aops.flash_attention, sops.swiglu
+
+    def flash_rec(q, *a, **kw):
+        rec["flash_attention"].append(tuple(q.shape))
+        return flash(q, *a, **kw)
+
+    def glu_rec(gate, *a, **kw):
+        rec["swiglu"].append(tuple(gate.shape))
+        return glu(gate, *a, **kw)
+
+    aops.flash_attention, sops.swiglu = flash_rec, glu_rec
+    try:
+        yield rec
+    finally:
+        aops.flash_attention, sops.swiglu = flash, glu
+
+
+def _lm_setup(arch: str, dev: torch.device, *, reduced: bool,
+              overrides: tuple, seq: int, batch: int, np_params: Any,
+              seed: int):
+    """Config, shape and global parameters (numpy carried over, or the
+    seeded init on ``dev``)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **dict(overrides))
+    shape = ShapeConfig("t", seq, batch, "train")
+    params = (lm.init(seed, cfg, device=dev) if np_params is None
+              else convert.lm_params_from_numpy(np_params, dev))
+    return cfg, shape, params
+
+
+def mask_unevenly(batch: dict) -> dict:
+    """``batch`` (numpy) with every label of its first row but the first 4
+    masked (-1): the batch's halves then hold different label counts."""
+    labels = batch["labels"].copy()
+    labels[0, 4:] = -1
+    return {**batch, "labels": labels}
+
+
+def _batch(cfg, shape, step: int, seed: int, dev: torch.device,
+           uneven: bool = False) -> dict:
+    from repro_torch.data import pipeline as data_mod
+    b = data_mod.synth_batch(cfg, shape, step, seed)
+    if uneven:
+        b = mask_unevenly(b)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def one_device_steps(arch: str, *, device: str, steps: int = 3,
+                     lr: float = 1e-3, seq: int = 32, batch: int = 4,
+                     reduced: bool = True, overrides: tuple = (),
+                     mode: str = "brainslug", np_params: Any = None,
+                     seed: int = 0, data_seed: int = 7,
+                     uneven: bool = False) -> dict:
+    """``steps`` single-device AdamW steps (``steps.make_train_step``) of
+    :func:`sharded_steps`' weights and batches: losses and grad norms."""
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.optim import adamw
+    dev = base.device(device)
+    cfg, shape, params = _lm_setup(arch, dev, reduced=reduced,
+                                   overrides=overrides, seq=seq, batch=batch,
+                                   np_params=np_params, seed=seed)
+    step = steps_mod.make_train_step(cfg, RuntimeConfig(mode=mode),
+                                     adamw.AdamWConfig(lr=lr))
+    opt = adamw.init(params)
+    losses, norms = [], []
+    for i in range(steps):
+        params, opt, m = step(params, opt, _batch(cfg, shape, i, data_seed,
+                                                  dev, uneven))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms}
+
+
+def sharded_steps(arch: str, *, device: str, model_parallel: int = 1,
+                  steps: int = 3, start: int = 0, lr: float = 1e-3,
+                  seq: int = 32, batch: int = 4, reduced: bool = True,
+                  overrides: tuple = (), mode: str = "brainslug",
+                  np_params: Any = None, seed: int = 0, data_seed: int = 7,
+                  planted: str | None = None, save_at: int | None = None,
+                  ckpt_dir: str | None = None, uneven: bool = False,
+                  first_grads: bool = False) -> dict:
+    """Steps ``start .. start + steps - 1`` of the sharded step over a
+    ``make_test_mesh(model_parallel=...)`` mesh of the whole group, from
+    :func:`one_device_steps`' weights and batches (``start > 0`` restores
+    the global state ``ckpt_dir`` holds at step ``start`` and slices this
+    rank's shards; ``save_at`` gathers the state after that many steps
+    and rank 0 writes it to ``ckpt_dir``; ``uneven`` masks the batches
+    with :func:`mask_unevenly`).  Returns the losses and grad norms, the
+    mesh, how many leaves keep a ``"model"`` split, and every rank's
+    counters, shard element counts and bytes, collective bytes a step and
+    peak memory; with ``first_grads``, also (rank 0's) the global
+    gradient of the first step's batch at the starting weights (``steps.
+    make_sharded_grad_fn``, gathered; numpy leaves by ``/``-joined
+    path)."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    mesh = mesh_mod.make_test_mesh(model_parallel=model_parallel,
+                                   device=device)
+    dev = mesh.device
+    cfg, shape, params = _lm_setup(arch, dev, reduced=reduced,
+                                   overrides=overrides, seq=seq, batch=batch,
+                                   np_params=np_params, seed=seed)
+    pspecs = shd.repair_specs(params, shd.param_specs(
+        lm.param_axes(cfg), shd.ShardingRules(), mesh), mesh)
+    specs = {"params": pspecs, "opt": shd.opt_state_specs(pspecs, mesh)}
+    global_numel = sum(t.numel() for t in base.tree_leaves(params))
+    if start:
+        tree, _ = ckpt.restore(ckpt_dir, start, {
+            "params": params, "opt": adamw.init(params)})
+        params, opt = (steps_mod.shard_tree(tree["params"], pspecs, mesh),
+                       steps_mod.shard_tree(tree["opt"], specs["opt"], mesh))
+        del tree
+    else:
+        params = steps_mod.shard_tree(params, pspecs, mesh)
+        opt = adamw.init(params)
+    gc.collect()
+    step = steps_mod.make_sharded_train_step(
+        cfg, RuntimeConfig(mode=mode), adamw.AdamWConfig(lr=lr), mesh,
+        pspecs)
+    kept = sum(base.tree_leaves(lm.tp_kept(cfg, pspecs,
+                                                  mesh.extent("model"))))
+    grads0 = None
+    if first_grads:
+        g, _ = steps_mod.make_sharded_grad_fn(
+            cfg, RuntimeConfig(mode=mode), mesh, pspecs)(
+            params, _batch(cfg, shape, start, data_seed, dev, uneven))
+        g = steps_mod.gather_tree(g, pspecs, mesh)
+        if g is not None:                       # rank 0
+            grads0 = {"/".join(k): _np(v) for k, v in _paths(g)}
+        del g
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, norms, per_step = [], [], []
+    counts(zero=True)
+    t = time.perf_counter()
+    with _PlantedShard(planted), shape_records() as shapes:
+        for i in range(start, start + steps):
+            before = dict(collectives.STATS.bytes)
+            params, opt, m = step(params, opt, _batch(
+                cfg, shape, i, data_seed, dev, uneven))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            per_step.append({k: v - before.get(k, 0) for k, v in
+                             collectives.STATS.bytes.items()})
+            if save_at is not None and i + 1 == save_at:
+                tree = steps_mod.gather_tree({"params": params, "opt": opt},
+                                             specs, mesh)
+                if tree is not None:
+                    ckpt.save(ckpt_dir, save_at, tree)
+                del tree
+                dist.barrier()
+    _sync(dev)
+    wall = time.perf_counter() - t
+    mine = {**counts(), "bytes_per_step": per_step,
+            "shapes": {k: sorted(set(v)) for k, v in shapes.items()},
+            "param_numel": sum(x.numel() for x in base.tree_leaves(params)),
+            "param_bytes": _state_bytes(params),
+            "opt_bytes": _state_bytes({k: opt[k] for k in ("mu", "nu")}),
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else None)}
+    return {"losses": losses, "grad_norms": norms, "mesh": mesh.describe(),
+            "shape": dict(zip(mesh.axis_names, mesh.shape)), "kept": kept,
+            "global_numel": global_numel, "wall_s": wall,
+            "first_grads": grads0, "ranks": _all(mine)}
+
+
+def _paths(tree: Any, prefix: tuple = ()) -> list:
+    """``(path, leaf)`` of every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _paths(tree[k],
+                                                          prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def pipeline_block(device: str, *, arch: str = "deepseek-7b",
+                   reduced: bool = False, seq: int = 2048,
+                   n_microbatches: int = 4, dtype: str = "bfloat16",
+                   seed: int = 30) -> dict:
+    """``pipeline_apply`` over a ``("stage",)`` mesh of the whole group,
+    one of ``arch``'s dense blocks a stage (``lm``'s block: rmsnorm, flash
+    attention and the swiglu MLP in ``brainslug`` mode), on
+    ``n_microbatches`` microbatches of (1, ``seq``, ``d_model``): the
+    result against the stages' blocks applied in turn on rank 0 to the
+    same microbatches, and every rank's counters."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.distributed import pipeline_parallel as pp
+    from repro_torch.models import lm
+    n = dist.get_world_size()
+    mesh = mesh_mod.make_mesh((n,), ("stage",), device)
+    dev = mesh.device
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    # the vocab is never read: a small one keeps the init cheap
+    cfg = dataclasses.replace(cfg, n_layers=n, vocab_size=256, dtype=dtype)
+    rt = RuntimeConfig(mode="brainslug")
+    # every rank draws the whole stack from one seed, then keeps its slice
+    stack = lm.init(seed, cfg, device=dev)["blocks"]["sub0"]
+    stage = mesh.coords["stage"]
+    mine = base.tree_map(lambda a: a[stage:stage + 1].clone(), stack)
+    if mesh.rank != 0:
+        del stack
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((n_microbatches, seq, cfg.d_model), generator=gen,
+                    device=dev).to(getattr(torch, dtype))
+
+    def block_fn(p, h):
+        resid, pending, _ = lm._apply_sub("attn_dense", p, h,
+                                          torch.zeros_like(h), cfg, rt)
+        return resid + pending
+
+    counts(zero=True)
+    t = time.perf_counter()
+    with torch.no_grad():
+        y = pp.pipeline_apply(block_fn, mine, x, mesh=mesh, axis="stage",
+                              n_microbatches=n_microbatches)
+    _sync(dev)
+    wall = time.perf_counter() - t
+    mesh_counts = counts()
+    out = {"mesh": mesh.describe(), "wall_s": wall,
+           "bubble": pp.bubble_fraction(n, n_microbatches),
+           "finite": bool(torch.isfinite(y).all())}
+    if mesh.rank == 0:
+        with torch.no_grad():
+            want = []
+            for mb in x.split(1):
+                h = mb
+                for s_ in range(n):
+                    h = block_fn(base.tree_map(lambda a: a[s_], stack), h)
+                want.append(h)
+            want = torch.cat(want)
+        out.update(bitwise=bool(torch.equal(y, want)),
+                   max_abs_err=float((y.float() - want.float()).abs().max()))
+        del stack
+    out["ranks"] = _all({**mesh_counts, "y_sum": float(y.float().sum())})
+    return out
+
+
+def pipeline_tanh(device: str, x: np.ndarray, w: np.ndarray, *,
+                  n_microbatches: int = 4, cot: np.ndarray | None = None
+                  ) -> dict:
+    """``pipeline_apply`` of ``tanh(x @ w[stage])`` over a ``("stage",)``
+    mesh of the whole group (``w``: one (D, D) matrix a stage, each rank
+    handed only its own), as ``tests/test_multidevice.py``'s pipeline
+    case: the output (numpy) and every rank's counters.  With ``cot``, the
+    gradients of ``sum(y * cot)`` too: ``x``'s and every stage's ``w``'s
+    (``grad_w``, one a rank)."""
+    from repro_torch.distributed import pipeline_parallel as pp
+    n = dist.get_world_size()
+    mesh = mesh_mod.make_mesh((n,), ("stage",), device)
+    stage = mesh.coords["stage"]
+    grad = cot is not None
+    params = {"w": torch.tensor(w[stage:stage + 1], device=mesh.device,
+                                requires_grad=grad)}
+    xt = torch.tensor(x, device=mesh.device, requires_grad=grad)
+    counts(zero=True)
+    y = pp.pipeline_apply(lambda p, h: torch.tanh(h @ p["w"]), params, xt,
+                          mesh=mesh, n_microbatches=n_microbatches)
+    out = {"y": _np(y.detach()), "mesh": mesh.describe()}
+    if grad:
+        torch.sum(y * torch.tensor(cot, device=mesh.device)).backward()
+        out.update(grad_x=_np(xt.grad),
+                   grad_w=_all(_np(params["w"].grad[0])))
+    out["ranks"] = _all(counts())
+    return out
 
 
 def run_checks(checks: list[tuple[str, str, dict]]) -> dict:

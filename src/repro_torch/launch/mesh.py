@@ -181,6 +181,13 @@ class Mesh:
         except ValueError:
             return 1
 
+    def rank_at(self, coords: dict[str, int]) -> int:
+        """The global rank at ``coords`` (row-major over the axes)."""
+        r = 0
+        for name, extent in zip(self.axis_names, self.shape):
+            r = r * extent + coords[name]
+        return r
+
     def describe(self) -> str:
         dims = " x ".join(f"{n}={e}" for n, e in zip(self.axis_names,
                                                       self.shape))

@@ -14,8 +14,20 @@ slice of the global batch, reduces the gradients by hand (int8 with error
 feedback under ``compress``) and applies AdamW; rank 0 logs and writes the
 checkpoints, and a restore zeroes the error-feedback state.
 ``mesh_devices`` names the rank count the run expects.  Without
-``data_parallel`` it asks for the JAX package's GSPMD-sharded step, which
-comes with the next multi-device item (ROADMAP.md queue 1, item 6b).
+``data_parallel`` it runs the port of the JAX package's GSPMD-sharded
+step (:func:`repro_torch.launch.steps.make_sharded_train_step`) over a
+``(mesh_devices, 1)`` ``("data", "model")`` mesh: every rank keeps only
+its shards of the parameters and AdamW's moments under
+``repair_specs(param_specs(lm.param_axes(cfg), ShardingRules(), mesh))``.
+Each layer's parameters are gathered just before the layer runs and its
+gradients reduced to the shards as the backward makes them, so a rank
+holds one layer's whole parameters at a time besides its shards; the
+parameters are initialised (or restored) whole on every rank before
+they are sliced, which bounds the model size by one rank's memory at
+start-up.  Checkpoints hold global tensors in the one-device format
+(gathered a leaf at a time to rank 0's host memory, which writes them;
+on restore every rank reads and slices its shard), so a checkpoint
+written on one mesh restores on another or on one device.
 
 Usage:
   python -m repro_torch.launch.train --arch deepseek-7b --reduced \\
@@ -28,6 +40,8 @@ Usage:
       --steps 6
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
       --data-parallel --mesh-devices 2 --compress --batch 4 --steps 6
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
+      --mesh-devices 2 --batch 4 --steps 6
 
 A frontend's batch (hubert's frames, paligemma's patches) reaches the
 device as the pipeline gives it, float32, as the JAX package's does: over
@@ -58,6 +72,7 @@ from repro_torch.data import pipeline as data_mod
 from repro_torch.distributed import compression
 from repro_torch.distributed import data_parallel as dp_mod
 from repro_torch.distributed import fault_tolerance as ft
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.layers import base
@@ -104,9 +119,22 @@ class Trainer:
     watchdog: ft.StragglerWatchdog
     checkpointer: ckpt.AsyncCheckpointer | None
     history: list
-    #: The data-parallel run's mesh (None on one device); only its rank 0
-    #: logs.
+    #: The mesh of a data-parallel or sharded run (None on one device);
+    #: only its rank 0 logs and writes checkpoints.
     mesh: Any = None
+    #: The sharded run's gather of its state to global tensors for a
+    #: checkpoint (collective: every rank calls it; rank 0 gets them in
+    #: host memory, the others None); None where the state is whole.
+    to_global: Callable[[Any], Any] | None = None
+
+    def _checkpoint(self, step: int, extra: dict) -> None:
+        """Submit the state to rank 0's checkpointer (every rank takes
+        part in a sharded run's gather)."""
+        tree = {"params": self.params, "opt": self.opt_state}
+        if self.to_global is not None:
+            tree = self.to_global(tree)
+        if self.checkpointer is not None:
+            self.checkpointer.submit(step, tree, extra=extra)
 
     def run(self, failure_hook: Callable[[int], None] | None = None
             ) -> list[dict]:
@@ -145,19 +173,16 @@ class Trainer:
                            if self.cfg.n_experts else "")
                     print(f"[train] step={step} loss={loss:.4f} "
                           f"gnorm={rec['grad_norm']:.3f}{moe}", flush=True)
-                if (self.checkpointer is not None and step > 0
+                if (self.tc.ckpt_dir and step > 0
                         and step % self.tc.ckpt_every == 0):
-                    self.checkpointer.submit(
-                        step, {"params": self.params,
-                               "opt": self.opt_state},
-                        extra={"next_step": step + 1, "loss": loss})
+                    self._checkpoint(step, {"next_step": step + 1,
+                                            "loss": loss})
+            if self.tc.ckpt_dir:
+                self._checkpoint(self.tc.steps, {
+                    "next_step": self.tc.steps,
+                    "loss": self.history[-1]["loss"]
+                    if self.history else float("nan")})
             if self.checkpointer is not None:
-                self.checkpointer.submit(
-                    self.tc.steps,
-                    {"params": self.params, "opt": self.opt_state},
-                    extra={"next_step": self.tc.steps,
-                           "loss": self.history[-1]["loss"]
-                           if self.history else float("nan")})
                 self.checkpointer.wait()
         finally:
             pipe.close()
@@ -175,24 +200,23 @@ def build_trainer(tc: TrainerConfig, *,
     optimizer config (by default: ``tc.lr`` constant for a reduced config,
     the warmup-cosine schedule of ``default_opt_config`` otherwise).
 
-    With ``tc.data_parallel`` every rank of the initialised group calls
-    this with the same ``tc``."""
-    if tc.mesh_devices and not tc.data_parallel:
-        raise NotImplementedError(
-            "mesh_devices without data_parallel is the JAX package's "
-            "GSPMD-sharded step; it comes with the next multi-device item "
-            "(ROADMAP.md queue 1, item 6b)")
+    With ``tc.data_parallel`` or ``tc.mesh_devices`` every rank of the
+    initialised group calls this with the same ``tc``, and each rank's
+    ``init_params`` gives the same global parameters."""
     if tc.compress and not tc.data_parallel:
         raise ValueError("compress needs data_parallel: it compresses the "
                          "data-parallel gradient reduction")
     mesh = None
-    if tc.data_parallel:
+    if tc.data_parallel or tc.mesh_devices:
         if not dist.is_initialized():
+            what = ("data_parallel" if tc.data_parallel
+                    else "mesh_devices (the sharded step)")
             raise RuntimeError(
-                "data_parallel needs an initialised torch.distributed group:"
-                " run under torchrun, or start the ranks with "
-                "repro_torch.launch.mesh.spawn")
+                f"{what} needs an initialised torch.distributed group: run "
+                f"under torchrun, or start the ranks with "
+                f"repro_torch.launch.mesh.spawn")
         mesh = mesh_mod.make_test_mesh(tc.mesh_devices, device=tc.device)
+    sharded = mesh is not None and not tc.data_parallel
     cfg = get_config(tc.arch)
     shape = LM_SHAPES[tc.shape]
     if tc.reduced:
@@ -212,12 +236,24 @@ def build_trainer(tc: TrainerConfig, *,
     if opt_cfg is None:
         opt_cfg = adamw.AdamWConfig(
             lr=tc.lr if tc.reduced else steps_mod.default_opt_config().lr)
-    opt_state = adamw.init(params)
+    to_global = None
     if mesh is None:
+        opt_state = adamw.init(params)
         step_fn = steps_mod.make_train_step(cfg, rt, opt_cfg)
-    else:
+    elif tc.data_parallel:
         step_fn, opt_state = _dp_step(tc, cfg, rt, opt_cfg, mesh, params,
-                                      opt_state)
+                                      adamw.init(params))
+    else:
+        pspecs = shd.repair_specs(params, shd.param_specs(
+            lm.param_axes(cfg), shd.ShardingRules(), mesh), mesh)
+        specs = {"params": pspecs, "opt": shd.opt_state_specs(pspecs, mesh)}
+        # built on the shards below, unless a checkpoint restores it whole
+        opt_state = None
+        step_fn = steps_mod.make_sharded_train_step(cfg, rt, opt_cfg, mesh,
+                                                    pspecs)
+
+        def to_global(tree):
+            return steps_mod.gather_tree(tree, specs, mesh)
     rank0 = mesh is None or mesh.rank == 0
 
     # ---- auto-resume -------------------------------------------------------
@@ -226,11 +262,13 @@ def build_trainer(tc: TrainerConfig, *,
     if tc.ckpt_dir:
         # robust resume: crash orphans are swept, a truncated latest
         # checkpoint falls back to the previous complete one.  Under a
-        # mesh rank 0 sweeps and reads first, the others after it.
+        # mesh rank 0 sweeps and reads first, the others after it.  A
+        # sharded run restores the global tensors, then slices its shards.
         if not rank0:
             dist.barrier()
-        restored = ckpt.restore_latest(tc.ckpt_dir,
-                                       {"params": params, "opt": opt_state})
+        restored = ckpt.restore_latest(tc.ckpt_dir, {
+            "params": params,
+            "opt": adamw.init(params) if opt_state is None else opt_state})
         if mesh is not None and rank0:
             dist.barrier()
         if restored is not None:
@@ -248,11 +286,16 @@ def build_trainer(tc: TrainerConfig, *,
                       f"(next_step={start_step})", flush=True)
         if rank0:
             checkpointer = ckpt.AsyncCheckpointer(tc.ckpt_dir)
+    if sharded:
+        params = steps_mod.shard_tree(params, specs["params"], mesh)
+        opt_state = (adamw.init(params) if opt_state is None else
+                     steps_mod.shard_tree(opt_state, specs["opt"], mesh))
 
     return Trainer(tc=tc, cfg=cfg, shape=shape, device=dev, step_fn=step_fn,
                    params=params, opt_state=opt_state, start_step=start_step,
                    watchdog=ft.StragglerWatchdog(),
-                   checkpointer=checkpointer, history=[], mesh=mesh)
+                   checkpointer=checkpointer, history=[], mesh=mesh,
+                   to_global=to_global)
 
 
 def _dp_step(tc: TrainerConfig, cfg: ModelConfig, rt: RuntimeConfig,
@@ -311,7 +354,10 @@ def main(argv=None) -> int:
                     help="int8 error-feedback gradient compression "
                          "(requires --data-parallel)")
     ap.add_argument("--mesh-devices", type=int, default=None,
-                    help="the rank count a --data-parallel run expects")
+                    help="the rank count the run expects: with "
+                         "--data-parallel the data-parallel step, without "
+                         "it the sharded (GSPMD) step over a (n, 1) "
+                         "data x model mesh; run under torchrun")
     ap.add_argument("--metrics-out", default="")
     args = ap.parse_args(argv)
 
@@ -325,13 +371,14 @@ def main(argv=None) -> int:
                        compress=args.compress,
                        mesh_devices=args.mesh_devices)
     rank0 = True
-    if tc.data_parallel and "WORLD_SIZE" in os.environ:
+    distributed = tc.data_parallel or bool(tc.mesh_devices)
+    if distributed and "WORLD_SIZE" in os.environ:
         mesh_mod.init_from_env(tc.device)
         rank0 = dist.get_rank() == 0
     t0 = time.time()
     history = train(tc)
     dt = time.time() - t0
-    if tc.data_parallel:
+    if distributed and dist.is_initialized():
         dist.destroy_process_group()
     if not rank0:
         return 0

@@ -29,6 +29,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
+from repro_torch.distributed import collectives
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.attention import ref as attn_ref
 from repro_torch.layers import base
@@ -55,6 +56,17 @@ def init(g: torch.Generator, cfg: ModelConfig, n_layers: int,
         p["bq"] = torch.zeros((L, h * hd), **zeros)
         p["bk"] = torch.zeros((L, kv * hd), **zeros)
         p["bv"] = torch.zeros((L, kv * hd), **zeros)
+    return p
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of one layer's :func:`init` leaves (the JAX package's
+    ``boxed`` annotations): the projections' ``d_model`` rows over
+    ``fsdp``, their head columns over ``heads`` / ``kv_heads``."""
+    p = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"),
+         "wv": ("fsdp", "kv_heads"), "wo": ("heads", "fsdp")}
+    if cfg.qkv_bias:
+        p.update(bq=("heads",), bk=("kv_heads",), bv=("kv_heads",))
     return p
 
 
@@ -153,9 +165,15 @@ def _project(params: dict, x: torch.Tensor, cfg: ModelConfig
 def apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
           rt: RuntimeConfig, *, positions: torch.Tensor | None = None
           ) -> torch.Tensor:
-    """Full-sequence attention (prefill)."""
+    """Full-sequence attention (prefill).  Under ``rt.tp_axis`` the
+    parameters hold this rank's contiguous slice of the heads and ``cfg``
+    its head counts (:func:`repro_torch.models.lm.tp_local_config`): the
+    input enters through ``copy_to_model`` and the out-projection's
+    partial sums leave through ``reduce_from_model``."""
     b, s, _ = x.shape
     causal = not cfg.is_encoder
+    if rt.tp_axis is not None:
+        x = collectives.copy_to_model(x, rt.tp_axis)
     q, k, v = _project(params, x, cfg)
     if positions is None:
         positions = torch.arange(s, device=x.device)
@@ -175,7 +193,10 @@ def apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         o = _chunked_attention(q, k, v, causal)
 
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return base.matmul(o, params["wo"])
+    out = base.matmul(o, params["wo"])
+    if rt.tp_axis is not None:
+        out = collectives.reduce_from_model(out, rt.tp_axis)
+    return out
 
 
 @dataclasses.dataclass

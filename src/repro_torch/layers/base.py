@@ -6,8 +6,24 @@ package's scales (``repro/layers/base.py:boxed``).
 from a ``torch.Generator`` on the parameters' device, so a seed gives the
 same weights on one device type, not the JAX package's weights (carry
 those over with :func:`repro_torch.convert.lm_params_from_numpy`).
-Logical axes (the JAX package's sharding annotations) wait for the
-tensor-parallel mesh item (ROADMAP.md queue 1, item 6b).
+
+Logical axes, the JAX package's sharding annotations: each layer module
+declares, beside its ``init``, a ``param_axes`` tree of the same
+structure whose leaves are the logical axis names of the matching
+parameter's dims (the JAX ``Box.axes`` of that leaf); the values and the
+axes travel as two trees, as the JAX ``split`` returns them, so no wrapper
+stays in the parameter tree.  :func:`stack_axes` prefixes ``"layers"`` to
+every leaf of a per-layer axes tree (``stack_layer_trees``'s counterpart),
+and :func:`check_axes` holds an axes tree against a value tree (``Box``'s
+rank check).  ``repro_torch.distributed.sharding`` maps the names onto a
+mesh's axes:
+
+    "fsdp"     dim sharded over the data axis (ZeRO-3 style)
+    "heads", "kv_heads", "ffn", "vocab"
+               dims sharded over the model (tensor-parallel) axis
+    "experts"  dim sharded over the data axis (expert parallelism)
+    "layers"   the stacked layer axis, replicated
+    None       replicated
 
 :func:`promote` and :func:`matmul` carry jnp's type promotion over to the
 places where an activation meets a parameter: a float32 activation against
@@ -92,6 +108,44 @@ def stack_layer_trees(trees: list[Tree]) -> Tree:
     if isinstance(first, dict):
         return {k: stack_layer_trees([t[k] for t in trees]) for k in first}
     return torch.stack(trees)
+
+
+def is_axes(x: Any) -> bool:
+    """Whether ``x`` is one leaf's logical axes (a tuple of names and
+    Nones), as ``jax.tree_util`` walks an axes tree."""
+    return isinstance(x, tuple) and all(isinstance(a, (str, type(None)))
+                                        for a in x)
+
+
+def axes_map(fn: Callable[[tuple], Any], tree: Tree) -> Tree:
+    """``fn`` over every axes leaf of a nested dict (sorted keys)."""
+    if isinstance(tree, dict):
+        return {k: axes_map(fn, tree[k]) for k in sorted(tree)}
+    if not is_axes(tree):
+        raise TypeError(f"not an axes leaf: {tree!r}")
+    return fn(tree)
+
+
+def stack_axes(tree: Tree) -> Tree:
+    """A per-layer axes tree with the leading ``"layers"`` axis of its
+    layer-stacked values."""
+    return axes_map(lambda a: ("layers",) + a, tree)
+
+
+def check_axes(values: Tree, axes: Tree, path: str = "") -> None:
+    """Raise unless ``axes`` has ``values``' structure and every leaf one
+    name per dim of its value."""
+    if isinstance(values, dict) or isinstance(axes, dict):
+        if not (isinstance(values, dict) and isinstance(axes, dict)
+                and set(values) == set(axes)):
+            raise ValueError(f"{path or '/'}: the values and the axes "
+                             f"differ in structure")
+        for k in values:
+            check_axes(values[k], axes[k], f"{path}/{k}")
+        return
+    if not is_axes(axes) or len(axes) != values.dim():
+        raise ValueError(f"{path}: axes {axes} rank != value rank "
+                         f"{tuple(values.shape)}")
 
 
 def cast_tree(tree: Tree, dtype: torch.dtype) -> Tree:

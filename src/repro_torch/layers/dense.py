@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
+from repro_torch.distributed import collectives
 from repro_torch.layers import base, stacks
 
 GATED_ACTS = ("silu", "gelu")
@@ -39,16 +40,45 @@ def init(g: torch.Generator, cfg: ModelConfig, n_layers: int,
     }
 
 
+def param_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of one layer's :func:`init` leaves (the JAX package's
+    ``boxed`` annotations): ``d_model`` over ``fsdp``, ``d_ff`` over
+    ``ffn``; the plain MLP's output bias replicated."""
+    if is_gated(cfg):
+        return {"wg": ("fsdp", "ffn"), "wu": ("fsdp", "ffn"),
+                "wd": ("ffn", "fsdp")}
+    return {"wu": ("fsdp", "ffn"), "bu": ("ffn",), "wd": ("ffn", "fsdp"),
+            "bd": (None,)}
+
+
 def apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
           rt: RuntimeConfig) -> torch.Tensor:
+    """The MLP.  Under ``rt.tp_axis`` the parameters hold this rank's slice
+    of the ``d_ff`` columns (``wd`` its rows): the input enters through
+    ``copy_to_model``, the down-projection's partial sums leave through
+    ``reduce_from_model``, and the replicated bias ``bd`` is added once,
+    after the reduction."""
+    tp = rt.tp_axis
+    if tp is not None:
+        x = collectives.copy_to_model(x, tp)
     if "wg" in params:
         gate = base.matmul(x, params["wg"])
         up = base.matmul(x, params["wu"])
         h = stacks.glu(gate, up, act=cfg.act, mode=rt.mode)
-        return base.matmul(h, params["wd"])
+        out = base.matmul(h, params["wd"])
+        return out if tp is None else collectives.reduce_from_model(out, tp)
     h = base.matmul(x, params["wu"]) + params["bu"]
     h = stacks.activation(h, act=cfg.act, mode=rt.mode)
-    return base.matmul(h, params["wd"]) + params["bd"]
+    out = base.matmul(h, params["wd"])
+    if tp is not None:
+        out = collectives.reduce_from_model(out, tp)
+    return out + params["bd"]
+
+
+def norm_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of a norm's leaves: replicated."""
+    return ({"scale": (None,), "bias": (None,)} if cfg.norm == "layer"
+            else {"scale": (None,)})
 
 
 def norm_init(cfg: ModelConfig, n_layers: int | None, dtype: torch.dtype,

@@ -55,6 +55,18 @@ def init(g: torch.Generator, cfg: ModelConfig, n_layers: int,
     }
 
 
+def param_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of one layer's :func:`init` leaves (the JAX package's
+    ``boxed`` annotations): ``d_inner`` over ``ffn``, the SSM heads over
+    ``heads``, ``d_model`` over ``fsdp``."""
+    return {"wz": ("fsdp", "ffn"), "wx": ("fsdp", "ffn"),
+            "wB": ("fsdp", None), "wC": ("fsdp", None),
+            "wdt": ("fsdp", "heads"), "dt_bias": ("heads",),
+            "conv_x": (None, "ffn"), "conv_B": (None, None),
+            "conv_C": (None, None), "A_log": ("heads",), "D": ("heads",),
+            "norm_scale": ("ffn",), "wo": ("ffn", "fsdp")}
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)``, with no threshold (unlike
     ``F.softplus``)."""

@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
+from repro_torch.distributed import collectives
 from repro_torch.layers import base, dense, stacks
 
 
@@ -54,6 +55,17 @@ def init(g: torch.Generator, cfg: ModelConfig, n_layers: int,
     }
     if cfg.shared_expert_ff:
         p["shared"] = dense.init(g, cfg, L, dtype, d_ff=cfg.shared_expert_ff)
+    return p
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of one layer's :func:`init` leaves (the JAX package's
+    ``boxed`` annotations): the experts over ``experts``, their hidden dim
+    over ``ffn``; the shared expert a dense block's."""
+    p = {"router": ("fsdp", None), "wg": ("experts", None, "ffn"),
+         "wu": ("experts", None, "ffn"), "wd": ("experts", "ffn", None)}
+    if cfg.shared_expert_ff:
+        p["shared"] = dense.param_axes(cfg)
     return p
 
 
@@ -80,6 +92,11 @@ def apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     that drops them (decode) passes ``with_aux=False`` and gets ``{}``, so
     an eager step launches nothing for them."""
     b, s, _ = x.shape
+    if rt.moe_dispatch == "global" and collectives.region_batch_axes():
+        # one sort over a shard's tokens would set the capacity, and so
+        # the dropped tokens, per shard: not the global program's
+        raise ValueError("moe_dispatch='global' under a batch split over "
+                         "ranks (the sharded step): use 'grouped'")
     n_groups = b if rt.moe_dispatch == "grouped" and s > 1 else 1
     return _apply_dispatch(params, x, cfg, rt, dropless=dropless,
                            n_groups=n_groups, with_aux=with_aux)
@@ -229,7 +246,17 @@ def _apply_dispatch(params: dict, x: torch.Tensor, cfg: ModelConfig,
     me = probs.mean(dim=(0, 1))
     kept = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
         0, expert_idx.reshape(-1), keep.reshape(-1).float())
-    ce_frac = kept / torch.clamp_min(keep.sum().float(), 1.0)
+    n_kept = keep.sum().float()
+    drop = 1.0 - keep.float().mean()
+    if collectives.region_batch_axes():
+        # the batch is split over ranks (the sharded step): the statistics
+        # of the global batch, as the JAX package's GSPMD step has them
+        # (the shards hold equal token counts)
+        me = collectives.batch_mean(me)
+        kept = collectives.batch_sum(kept)
+        n_kept = collectives.batch_sum(n_kept)
+        drop = collectives.batch_mean(drop)
+    ce_frac = kept / torch.clamp_min(n_kept, 1.0)
     aux = {"router_aux_loss": e * torch.sum(me * ce_frac),
-           "drop_fraction": 1.0 - keep.float().mean()}
+           "drop_fraction": drop}
     return y, aux

@@ -38,6 +38,14 @@ prefill, decode and the training loss.
   the rest (selective checkpointing), as JAX's
   ``dots_with_no_batch_dims_saveable`` policy does.
 
+* Logical axes (:func:`param_axes`, ``init(..., with_axes=True)``): the
+  JAX package's sharding annotations of every leaf, for
+  :mod:`repro_torch.distributed.sharding`.  Inside the sharded train
+  step's tensor-parallel region (``rt.tp_axis``) an attention layer whose
+  projections hold a slice of the heads runs :func:`tp_local_config`'s
+  head counts, and an MLP holding a slice of its ``d_ff`` columns runs on
+  them; every other layer computes whole.
+
 Plain twins for the traced frontend (:func:`repro_torch.api.optimize`):
 :func:`transformer_block_fn` and :func:`ce_loss_fn`, ordinary tensor code
 whose traced graph the kernel registry rewrites onto the dedicated kernels.
@@ -54,13 +62,14 @@ unless the caller asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
+from repro_torch.distributed import collectives
 from repro_torch.kernels.vocab_ce import ops as ce_ops
 from repro_torch.layers import attention, base, dense, mamba2, moe, stacks
 
@@ -111,10 +120,18 @@ def n_moe_layers(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def init(seed: int, cfg: ModelConfig, *,
-         device: str | torch.device = "cuda") -> dict:
+         device: str | torch.device = "cuda", with_axes: bool = False
+         ) -> dict | tuple[dict, dict]:
     """Random parameters from ``seed`` with the JAX package's tree, shapes
     and scales (not its values: carry those over with
-    :func:`repro_torch.convert.lm_params_from_numpy`)."""
+    :func:`repro_torch.convert.lm_params_from_numpy`).  ``with_axes``
+    returns ``(params, param_axes(cfg))``, the pair the JAX ``lm.init``
+    returns."""
+    if with_axes:
+        params = init(seed, cfg, device=device)
+        axes = param_axes(cfg)
+        base.check_axes(params, axes)
+        return params, axes
     plan = layer_plan(cfg)
     dev = base.device(device)
     dtype = DTYPES[cfg.dtype]
@@ -162,6 +179,45 @@ def _init_sub(g: torch.Generator, kind: str, cfg: ModelConfig, n: int,
     return sub
 
 
+def _sub_axes(kind: str, cfg: ModelConfig) -> dict:
+    """The logical axes of one layer of a block of ``kind``."""
+    sub = {"norm1": dense.norm_axes(cfg)}
+    if kind == "mamba":
+        sub["mixer"] = mamba2.param_axes(cfg)
+        return sub
+    sub.update(attn=attention.param_axes(cfg), norm2=dense.norm_axes(cfg))
+    if kind == "attn_moe":
+        sub["moe"] = moe.param_axes(cfg)
+    else:
+        sub["mlp"] = dense.param_axes(cfg)
+    return sub
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of :func:`init`'s tree, leaf for leaf the JAX
+    ``lm.init(key, cfg)[1]``: the embedding ``("vocab", None)``, the head
+    ``(None, "vocab")``, the frontend projection replicated, layer-stacked
+    blocks and tail under a leading ``"layers"``, the hybrid's shared
+    attention without one."""
+    plan = layer_plan(cfg)
+    tree: dict[str, Any] = {"embed": ("vocab", None)}
+    if not cfg.tie_embeddings:
+        tree["out_head"] = (None, "vocab")
+    if cfg.frontend:
+        tree["frontend_proj"] = (None, None)
+    tree["final_norm"] = dense.norm_axes(cfg)
+    blocks = {f"sub{j}": base.stack_axes(_sub_axes(kind, cfg))
+              for j, kind in enumerate(plan.superblock)
+              if kind != "shared_attn" and plan.n_super}
+    if blocks:
+        tree["blocks"] = blocks
+    if plan.uses_shared_attn:
+        tree["shared_attn"] = _sub_axes("shared_attn", cfg)
+    if plan.tail:
+        tree["tail"] = {"sub0": base.stack_axes(_sub_axes("mamba", cfg))}
+    return tree
+
+
 def _layer(tree: Any, i: int) -> Any:
     return base.tree_map(lambda a: a[i], tree)
 
@@ -194,14 +250,53 @@ def _apply_sub(kind: str, p: dict | None, resid: torch.Tensor,
     h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
                                 p["norm1"].get("bias"), **norm_kw)
     if kind == "mamba":
-        return resid, mamba2.apply(p["mixer"], h1, cfg, rt), None
-    attn_out = attention.apply(p["attn"], h1, cfg, rt)
+        return resid, mamba2.apply(p["mixer"], h1, cfg, _whole(rt)), None
+    attn_cfg, attn_rt = _tp_attention(p["attn"], cfg, rt)
+    attn_out = attention.apply(p["attn"], h1, attn_cfg, attn_rt)
     h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
                                 p["norm2"].get("bias"), **norm_kw)
     if "moe" in p:
-        out, aux = moe.apply(p["moe"], h2, cfg, rt)
+        out, aux = moe.apply(p["moe"], h2, cfg, _whole(rt))
         return resid, out, aux
-    return resid, dense.apply(p["mlp"], h2, cfg, rt), None
+    return resid, dense.apply(p["mlp"], h2, cfg, _tp_mlp(p["mlp"], cfg,
+                                                         rt)), None
+
+
+def _whole(rt: RuntimeConfig) -> RuntimeConfig:
+    """``rt`` for a layer that computes whole in every model rank."""
+    return rt if rt.tp_axis is None else dataclasses.replace(rt,
+                                                             tp_axis=None)
+
+
+def _tp_attention(p: dict, cfg: ModelConfig, rt: RuntimeConfig
+                  ) -> tuple[ModelConfig, RuntimeConfig]:
+    """The config and runtime one attention layer runs under: inside a
+    tensor-parallel region (``rt.tp_axis``) a layer whose ``wq`` holds a
+    slice of the heads runs :func:`tp_local_config`'s head counts and
+    keeps ``tp_axis``; a whole ``wq`` computes whole."""
+    if rt.tp_axis is None:
+        return cfg, rt
+    m = cfg.n_heads * cfg.head_dim // p["wq"].shape[-1]
+    if m == 1:
+        return cfg, _whole(rt)
+    local = tp_local_config(cfg, m)
+    # a contiguous slice of wq's columns holds whole query-head groups, and
+    # wk / wv's slice their KV heads
+    if p["wk"].shape[-1] != local.n_kv_heads * local.head_dim \
+            or p["wq"].shape[-1] != local.n_heads * local.head_dim:
+        raise ValueError(f"{cfg.name}: tensor-parallel slices wq "
+                         f"{tuple(p['wq'].shape)}, wk {tuple(p['wk'].shape)}"
+                         f" do not hold {local.n_heads} query and "
+                         f"{local.n_kv_heads} KV heads")
+    return local, rt
+
+
+def _tp_mlp(p: dict, cfg: ModelConfig, rt: RuntimeConfig) -> RuntimeConfig:
+    """The runtime an MLP runs under: ``tp_axis`` kept where its ``wu``
+    holds a slice of the ``d_ff`` columns."""
+    if rt.tp_axis is None or p["wu"].shape[-1] == cfg.d_ff:
+        return _whole(rt)
+    return rt
 
 
 #: The unbatched products ``remat="dots"`` keeps: what ``x @ w`` and
@@ -288,9 +383,22 @@ def _superblocks(params: dict, plan: LayerPlan) -> list[list]:
             for i in range(plan.n_super)]
 
 
-def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
+def _held(path: tuple, tree: Any) -> Any:
+    return tree
+
+
+def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig,
+           fetch: Callable[[tuple, Any], Any] = _held
            ) -> tuple[torch.Tensor, dict]:
-    """Backbone only: returns (final-normed hidden states, aux)."""
+    """Backbone only: returns (final-normed hidden states, aux).
+
+    ``fetch(path, tree)`` turns the parameters of one layer, as
+    ``params`` holds them under ``path`` (``("blocks", "sub<j>")`` and
+    ``("tail", "sub0")`` one layer of the stack at a time,
+    ``("shared_attn",)`` at each of its uses), into those the layer
+    computes with, inside the layer's (rematerialised) body: the sharded
+    step's gather of a rank's shards (``launch.steps``).  By default the
+    parameters are used as held."""
     plan = layer_plan(cfg)
     x = embed_inputs(params, batch, cfg)
     resid, pending = x, torch.zeros_like(x)
@@ -298,6 +406,10 @@ def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def superblock(blk, shared, resid, pending, aux_loss, drop):
+        if shared is not None:
+            shared = fetch(("shared_attn",), shared)
+        blk = [None if p is None else fetch(("blocks", f"sub{j}"), p)
+               for j, p in enumerate(blk)]
         for kind, p in zip(plan.superblock, blk):
             resid, pending, aux = _apply_sub(kind, p, resid, pending, cfg,
                                              rt, shared)
@@ -307,7 +419,8 @@ def hidden(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
         return resid, pending, aux_loss, drop
 
     def tail_layer(p, resid, pending):
-        return _apply_sub("mamba", p, resid, pending, cfg, rt)[:2]
+        return _apply_sub("mamba", fetch(("tail", "sub0"), p), resid,
+                          pending, cfg, rt)[:2]
 
     body = _remat(superblock, rt)
     aux_loss = drop = zero
@@ -371,12 +484,29 @@ def _nll_from_hidden(params: dict, h: torch.Tensor, labels: torch.Tensor,
     return total / torch.clamp_min(count, 1.0)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
+def _global_mean(nll: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Inside a sharded region whose batch is split over ranks
+    (:func:`repro_torch.distributed.collectives.region`): the shard's
+    masked mean ``nll`` rescaled by its share of the global label count,
+    so that the mean over the batch axes (the sharded step's reduction of
+    losses and gradients) is the global masked mean, as the JAX package's
+    GSPMD step computes it.  With equal counts the factor is exactly 1."""
+    if not collectives.region_batch_axes():
+        return nll
+    count = torch.sum(labels >= 0).float()
+    share = count * collectives.region_batch_shards() / torch.clamp_min(
+        collectives.batch_sum(count), 1.0)
+    return nll * share
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig,
+            fetch: Callable[[tuple, Any], Any] = _held
             ) -> tuple[torch.Tensor, dict]:
     """Next-token (or frame-label) cross entropy; labels < 0 are masked;
     a vision model's loss reads the text positions only.  Returns
-    ``(loss, {"loss", "nll", "router_aux_loss", "drop_fraction"})``."""
-    h, aux = hidden(params, batch, cfg, rt)
+    ``(loss, {"loss", "nll", "router_aux_loss", "drop_fraction"})``;
+    ``fetch`` as :func:`hidden` takes it."""
+    h, aux = hidden(params, batch, cfg, rt, fetch)
     labels = batch["labels"]
     if cfg.frontend == "vision_patches":
         h = h[:, -labels.shape[1]:]             # text positions only
@@ -386,6 +516,7 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, rt: RuntimeConfig
                                labels.reshape(-1))
     else:
         nll = _nll_from_hidden(params, h, labels, cfg, rt.fused_loss_chunk)
+    nll = _global_mean(nll, labels)
     loss = nll + cfg.router_aux_weight * aux["router_aux_loss"]
     return loss, {"loss": loss, "nll": nll, **aux}
 
@@ -497,6 +628,103 @@ def _layer_cache(c: Any, i: int) -> Any:
         return attention.PagedKVCache(k_pool=c.k_pool[i], v_pool=c.v_pool[i],
                                       length=c.length[i])
     return attention.KVCache(k=c.k[i], v=c.v[i], length=c.length[i])
+
+
+def tp_local_config(cfg: ModelConfig, model_extent: int) -> ModelConfig:
+    """The config a tensor-parallel rank's attention runs against.
+
+    Inside the region every rank holds ``n_heads / m`` query heads and
+    ``n_kv_heads / m`` KV heads, and the attention projections reshape by
+    ``cfg.n_heads``, so the body runs a localised config.  ``d_head`` is
+    pinned to the global head size first: for configs that derive it as
+    ``d_model // n_heads``, halving ``n_heads`` must not change the
+    per-head width."""
+    if model_extent <= 1:
+        return cfg
+    if cfg.n_heads % model_extent or cfg.n_kv_heads % model_extent:
+        raise ValueError(
+            f"{cfg.name}: heads ({cfg.n_heads}, kv {cfg.n_kv_heads}) not "
+            f"divisible by model={model_extent}")
+    return dataclasses.replace(
+        cfg, d_head=cfg.head_dim,
+        n_heads=cfg.n_heads // model_extent,
+        n_kv_heads=cfg.n_kv_heads // model_extent)
+
+
+#: The leaves tensor parallelism splits over "model", by subtree, as
+#: (column leaves, row leaves): a column leaf splits its last dim, a row
+#: leaf the dim before.  Attention's q/k/v projections (and their biases)
+#: split their output columns per head group and wo its input rows, closed
+#: by one all-reduce after the out-projection (see layers.attention); the
+#: MLP's up / gate projections (and the plain MLP's bias ``bu``) split
+#: their ``d_ff`` columns and ``wd`` its rows (``bd`` replicated, added
+#: once after the reduction; see layers.dense).  The JAX package's
+#: ``tp_param_specs`` splits attention only.
+_TP_COL_LEAVES = frozenset({"wq", "wk", "wv", "bq", "bk", "bv"})
+_TP_ROW_LEAVES = frozenset({"wo"})
+TP_LEAVES = {"attn": (_TP_COL_LEAVES, _TP_ROW_LEAVES),
+             "mlp": (frozenset({"wg", "wu", "bu"}), frozenset({"wd"}))}
+
+
+def tp_kept(cfg: ModelConfig, pspecs: Any, model_extent: int) -> Any:
+    """Per leaf of ``pspecs`` (repaired specs of the parameters): whether
+    the sharded step keeps its ``"model"`` split for compute, the layer
+    then running on its slice under ``RuntimeConfig.tp_axis``.  An
+    ``attn`` subtree keeps it where :func:`tp_local_config` accepts the
+    head counts and every :data:`TP_LEAVES` leaf's spec still splits its
+    dim over ``"model"``; an ``mlp`` subtree (not an MoE's shared expert)
+    where every such spec splits ``d_ff``.  Every other leaf is gathered
+    whole, and its layer computes whole."""
+    m = model_extent
+    # with both head counts divisible, a contiguous column slice holds
+    # g/m whole query-head groups and their KV heads (_tp_attention
+    # checks the slices it is handed)
+    heads_ok = (m > 1 and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0)
+
+    def split(name: str, spec: Any, kind: str) -> bool:
+        cols, rows = TP_LEAVES[kind]
+        dim = -1 if name in cols else (-2 if name in rows else None)
+        return dim is not None and len(spec) >= -dim and spec[dim] == "model"
+
+    def walk(node: Any) -> Any:
+        if not isinstance(node, dict):
+            return False
+        out = {}
+        for k, v in node.items():
+            if k in TP_LEAVES and isinstance(v, dict):
+                cols, rows = TP_LEAVES[k]
+                want = [n for n in v if n in cols or n in rows]
+                ok = (heads_ok if k == "attn" else m > 1) and all(
+                    split(n, v[n], k) for n in want)
+                out[k] = {n: ok and n in want for n in v}
+            else:
+                out[k] = walk(v)
+        return out
+
+    return walk(pspecs)
+
+
+def tp_param_specs(params: Any, model_extent: int) -> Any:
+    """PartitionSpec tree (congruent with ``params``) for attention-only
+    tensor parallelism: projection leaves under an ``"attn"`` subtree
+    shard over "model"; everything else (norms, MLP / MoE, mamba mixers,
+    embeddings, the vocab head) replicates (the mamba gated norm reduces
+    over the full d_inner, so its state must stay whole per shard)."""
+    from repro_torch.core.partition import PartitionSpec as P
+
+    def walk(node: Any, in_attn: bool, name: str) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v, in_attn or k == "attn", k)
+                    for k, v in node.items()}
+        parts: list = [None] * len(node.shape)
+        if in_attn and model_extent > 1:
+            if name in _TP_COL_LEAVES:
+                parts[-1] = "model"
+            elif name in _TP_ROW_LEAVES:
+                parts[-2] = "model"
+        return P(*parts)
+
+    return walk(params, False, "")
 
 
 def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,

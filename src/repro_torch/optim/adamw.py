@@ -42,9 +42,14 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for x in base.tree_leaves(tree)))
 
 
-def update(cfg: AdamWConfig, grads: Any, state: dict, params: Any
+def update(cfg: AdamWConfig, grads: Any, state: dict, params: Any, *,
+           grad_norm: torch.Tensor | None = None
            ) -> tuple[Any, dict, dict]:
     """Returns ``(params, state, metrics)``.
+
+    ``grad_norm`` is the global gradient norm where the caller computed it
+    (the sharded step: over the unique shards of every rank); by default
+    :func:`global_norm` of ``grads``.
 
     The parameters and the moments are updated in place (``copy_`` under
     ``torch.no_grad()``), so no second copy of the model is made; the
@@ -53,7 +58,7 @@ def update(cfg: AdamWConfig, grads: Any, state: dict, params: Any
     its dtype.  The update runs under the profiler range
     ``adamw.update``."""
     with torch.no_grad(), torch.profiler.record_function("adamw.update"):
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
         clip = torch.clamp_max(cfg.grad_clip_norm
                                / torch.clamp_min(gnorm, 1e-9), 1.0)
         count = state["count"] + 1

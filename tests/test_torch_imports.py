@@ -93,3 +93,14 @@ def test_slice_g1_modules_import_neither_jax_nor_repro():
                  "examples.mesh_checks", "examples.fault_tolerance"):
         assert f"repro_torch.{name}" in result["modules"]
     assert result["bad"] == []
+
+
+def test_slice_g2_modules_import_neither_jax_nor_repro():
+    """Slice G2: the sharding rules, the pipeline schedule, and the
+    sharded step's modules."""
+    result = _probe()
+    for name in ("distributed.sharding", "distributed.pipeline_parallel",
+                 "launch.steps", "launch.train", "models.lm",
+                 "layers.base"):
+        assert f"repro_torch.{name}" in result["modules"]
+    assert result["bad"] == []

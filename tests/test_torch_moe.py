@@ -304,12 +304,12 @@ def test_capacity_at_prefill_and_dropless_at_decode():
 
 def test_moe_constraint_other_than_none_raises():
     """``moe_constraint`` is the identity on one device; the mesh layouts
-    raise and name their item of the roadmap, an unknown dispatch
-    raises."""
+    (resolved by the dry-run's ``plan_cell``) raise and name their item of
+    the roadmap, an unknown dispatch raises."""
     assert TRuntime().moe_constraint == JRuntime().moe_constraint == "none"
     assert TRuntime().moe_dispatch == JRuntime().moe_dispatch == "grouped"
     for value in ("tokens", "experts", "auto"):
-        with pytest.raises(NotImplementedError, match="item 6b"):
+        with pytest.raises(NotImplementedError, match="item 6d"):
             TRuntime(moe_constraint=value)
     with pytest.raises(ValueError, match="moe_dispatch"):
         TRuntime(moe_dispatch="sorted")

@@ -75,11 +75,11 @@ class TestTrainLoop:
         assert all(np.isfinite(h["loss"]) for h in history)
 
     def test_multi_device_options_raise(self):
-        """Only the GSPMD-sharded step (``mesh_devices`` without
-        ``data_parallel``) is still unported; ``compress`` alone is a
-        misuse, and ``data_parallel`` needs an initialised group (the
-        data-parallel driver itself: ``test_torch_dp_train.py``)."""
-        with pytest.raises(NotImplementedError, match="item 6b"):
+        """The GSPMD-sharded step (``mesh_devices`` without
+        ``data_parallel``) and ``data_parallel`` need an initialised group
+        (the trainers themselves: ``test_torch_sharded_train.py`` and
+        ``test_torch_dp_train.py``); ``compress`` alone is a misuse."""
+        with pytest.raises(RuntimeError, match="torchrun"):
             build_trainer(_tc(mesh_devices=2))
         with pytest.raises(ValueError, match="data_parallel"):
             build_trainer(_tc(compress=True))
