@@ -284,6 +284,22 @@ Phases, one line each (plus tables):
    the all-reduce bytes a step; (c) ``pipeline_apply`` over a
    ``("stage",)`` mesh of 2, one deepseek-width block a stage, 4
    microbatches of (1, 2048), bit for bit against the blocks in turn;
+31. mesh serving (Slice G3), its legs in phase 29's spawn:
+   ``Server.engine(mesh=...)`` on qwen2.5-32b at full width (40 heads over
+   8 of 128, qkv bias, d_ff 27648, vocab 152064), 2 of its 64 layers,
+   float32, 10 requests (a 64-token prefix shared by half, tails of 1-64
+   tokens, 2-16 new tokens), 8 slots, max_len 256, prefill chunk 8,
+   greedy, each leg against the single-device engine on the same
+   requests in the same rank, tokens identical and last-position logits
+   within 1e-5 x max|logit| every tick: (a) dense at (data 2, model 1),
+   the slots split (whether bit for bit printed, with which products
+   over 4 rows part from the same rows of the product over 8); (b) dense
+   at (1, 2), 20 of the 40 heads over 4 of the 8 KV heads a rank; (c) paged,
+   block 16, prefix sharing on, at (1, 2); every rank's
+   plan, cache bytes, decode / rmsnorm / swiglu launches (no plain or
+   reference decode), collectives and ms a tick; each decode kernel at
+   its rank-local shapes against its plain version, and the paged plan
+   fencing ``data`` with a pool note on a (2, 2) skeleton;
 then the ``kernels`` JSON line (each CUDA kernel with its instances, the
 attention kernels' head-dim 112, 64, 80 and 256 entries, the SSD's zamba2
 shape, the multimodal paths' launches, the fused-stack kernels' write
@@ -432,6 +448,25 @@ MESH_HALVES_REL = 1e-6
 # microbatches of (1, 2048), bit for bit against the two blocks in turn.
 SHARDED = dict(layers=2, seq=4096, steps=3, lr=3e-4, model=2,
                pipe_seq=2048, pipe_microbatches=4)
+# Phase 31 (Slice G3): mesh serving, its legs in phase 29's spawn of two
+# ranks sharing the card.  qwen2.5-32b at full width cut to 2 of its 64
+# layers, float32 (the JAX package's mesh-serving model), seed 31; 10
+# requests of tests/test_serve_mesh.py's recipe scaled (a 64-token prefix
+# on every odd request, tails of 1-64 tokens, 2-16 new tokens); 8 slots,
+# max_len 256, prefill chunk 8, paged blocks of 16, greedy.  31a (data 2,
+# model 1) has no collective in the step, but its products run over 4
+# rows where one device's run over 8, and cuBLAS may pick another float32
+# kernel for another row count (phase 31 shows which products part).
+# 31b and 31c (data 1, model 2) add two partial sums of wo where one
+# device adds once.  Every leg: logits within tp_rel x max|logit| at every
+# tick (a flipped token passes only where the reference's top-2 gap is
+# under the same bound), bit for bit or not printed.
+SERVE_LEGS = (("a", "serve_data", "dense (data 2, model 1)"),
+              ("b", "serve_tensor", "dense (data 1, model 2)"),
+              ("c", "serve_paged", "paged (data 1, model 2)"))
+SERVE_MESH = dict(arch="qwen2.5-32b", layers=2, requests=10, prefix=64,
+                  tail=64, new=16, slots=8, max_len=256, chunk=8, block=16,
+                  seed=31, tp_rel=1e-5)
 CE_RAGGED = (1000, 4000, 50257)
 # d_model not a multiple of 8: h's rows are staged to a padded pitch
 CE_ODD_D = (1000, 4001, 102400)
@@ -735,7 +770,7 @@ class Smoke:
               "phase21_ssm_serving", "phase22_ssm_train", "phase23_traced",
               "phase24_hybrid", "phase25_moe", "phase26_slice_f",
               "phase27_multimodal", "phase28_verify", "phase29_mesh",
-              "phase30_sharded")
+              "phase30_sharded", "phase31_serving")
 
     def run(self):
         t0 = time.perf_counter()
@@ -8996,6 +9031,7 @@ class Smoke:
             ("pipe", "pipeline_block", dict(
                 device="cuda", seq=SHARDED["pipe_seq"],
                 n_microbatches=SHARDED["pipe_microbatches"])),
+            *self.serve_mesh_checks(),
         ]
         t = time.perf_counter()
         try:
@@ -9017,7 +9053,9 @@ class Smoke:
                         for i in range(MESH["ranks"])],
                     "30a gspmd_train": got["gspmd"]["runs"][0]["ranks"],
                     "30b sharded_steps": got["tp"]["ranks"],
-                    "30c pipeline_block": got["pipe"]["ranks"]}
+                    "30c pipeline_block": got["pipe"]["ranks"],
+                    **{f"31{leg} serve_engine {label}": got[key]["ranks"]
+                       for leg, key, label in SERVE_LEGS}}
         for name in KERNELS:
             per = {w: [(c["launches"] if "launches" in c else c)[name]
                        for c in ranks] for w, ranks in launches.items()}
@@ -9031,6 +9069,29 @@ class Smoke:
               f"and legs {spawn_s:.1f} s (legs in the ranks "
               f"{got['seconds']}); phase {total:.1f} s (aim "
               f"<= {MESH['seconds']} s with phase 30's legs)")
+
+    def serve_mesh_checks(self):
+        """Phase 31's legs for phase 29's spawn: ``mesh_checks.
+        serve_engine`` at (data 2, model 1) dense, (1, 2) dense and (1, 2)
+        paged."""
+        from repro_torch.configs import get_config
+        from repro_torch.examples import mesh_checks
+        sm = SERVE_MESH
+        queue = mesh_checks.serve_queue(
+            get_config(sm["arch"]).vocab_size, n=sm["requests"],
+            prefix_len=sm["prefix"], max_tail=sm["tail"], max_new=sm["new"],
+            seed=sm["seed"])
+        common = dict(device="cuda", requests=queue, arch=sm["arch"],
+                      reduced=False, overrides=(("n_layers", sm["layers"]),
+                                                ("dtype", "float32")),
+                      seed=sm["seed"], mode="brainslug", slots=sm["slots"],
+                      max_len=sm["max_len"], prefill_chunk=sm["chunk"],
+                      kv_block_size=sm["block"])
+        return [(key, "serve_engine",
+                 dict(common, model_parallel=m, kv_layout=layout))
+                for key, m, layout in (("serve_data", 1, "dense"),
+                                       ("serve_tensor", 2, "dense"),
+                                       ("serve_paged", 2, "paged"))]
 
     def tp_kw(self):
         """30b's model, weights and batches (seed 0, synth_batch seed 7)
@@ -9058,6 +9119,178 @@ class Smoke:
               f"{got['seconds']['gspmd']} s, 30b {got['seconds']['tp']} s, "
               f"30c {got['seconds']['pipe']} s; checks "
               f"{time.perf_counter() - t:.1f} s")
+
+    # -- phase 31: mesh serving (Slice G3) -----------------------------------
+    def phase31_serving(self):
+        """31a-c, run in phase 29's spawn: ``Server.engine(mesh=...)`` at
+        (data 2, model 1) and (1, 2) dense and (1, 2) paged against the
+        single-device engine in each rank; then each decode kernel at the
+        ranks' shapes against its plain version, and the paged plan on a
+        (2, 2) skeleton."""
+        t = time.perf_counter()
+        got = self.mesh_got
+        for leg, key, label in SERVE_LEGS:
+            self.serve_leg(leg, label, got[key])
+        self.serve_kernels()
+        print(f"[31] legs in phase 29's spawn (ranks sharing "
+              f"{self.torch.cuda.get_device_name(0)}, {self.smi}: no time "
+              f"here is a multi-card number): "
+              + ", ".join(f"31{leg} {got['seconds'][key]} s"
+                          for leg, key, _ in SERVE_LEGS)
+              + f"; checks {time.perf_counter() - t:.1f} s")
+
+    def serve_leg(self, leg, label, run):
+        """One leg's checks and lines: the plan's splits, tokens and
+        per-tick logits against the single-device engine, each rank's
+        cache share, launches and collectives."""
+        from repro_torch import configs
+        sm = SERVE_MESH
+        cfg = configs.get_config(sm["arch"])
+        d = 2 if leg == "a" else 1
+        m = 1 if leg == "a" else 2
+        paged = leg == "c"
+        plan = run["report"]["serve_partition"]
+        problems = []
+        if (plan.get("data"), plan.get("model")) != (d > 1, m > 1):
+            problems.append(f"plan {plan}")
+        if run["statuses"] != ["ok"] * sm["requests"]:
+            problems.append(f"statuses {run['statuses']}")
+        # the dense cache: k and v over data x model, lengths over data
+        L, hd, B, S = sm["layers"], cfg.head_dim, sm["slots"], sm["max_len"]
+        kv = 2 * L * B * cfg.n_kv_heads * S * hd * 4
+        lines = []
+        dec = "paged_flash_decode" if paged else "flash_decode"
+        for r, c in enumerate(run["ranks"]):
+            e = c["evaluations"]
+            want = {dec: L * e, "rmsnorm": (2 * L + 1) * e, "swiglu": L * e}
+            got_la = {k: c["launches"][k] for k in want}
+            attn = c["attn_dispatch"]
+            fallbacks = {k: v for k, v in attn.items()
+                         if k.endswith(("plain", "_ref")) and v}
+            g = c["gaps"]
+            flips_ok = all(gap < sm["tp_rel"] for *_, gap in g["flips"])
+            if got_la != want or c["plain"] or fallbacks:
+                problems.append(f"rank {r} launches {got_la} (want {want}),"
+                                f" plain {c['plain']}, {fallbacks}")
+            if not (g["rel"] <= sm["tp_rel"] and (
+                    c["tokens_equal"] and not g["flips"] or flips_ok)):
+                problems.append(f"rank {r} logits {g}")
+            if not paged and c["cache_bytes"] != (kv // (d * m)
+                                                  + L * B * 4 // d):
+                problems.append(f"rank {r} cache {c['cache_bytes']} B")
+            if c["local_heads"] != (cfg.n_heads // m, cfg.n_kv_heads // m):
+                problems.append(f"rank {r} heads {c['local_heads']}")
+            coll = c["collectives"]
+            lines.append(
+                f"rank {r}: {c['local_slots']} slots, {c['local_heads'][0]}"
+                f" heads over {c['local_heads'][1]}; cache "
+                f"{c['cache_bytes']} B (one device {c['ref_cache_bytes']}"
+                f" B); {e} model evaluations (one device "
+                f"{c['ref_evaluations']}), launches {got_la}, plain "
+                f"{c['plain']}, decode_plain {attn.get(('paged_' if paged else '') + 'decode_plain', 0)}"
+                f" decode_ref {attn.get(('paged_' if paged else '') + 'decode_ref', 0)}; "
+                f"collectives {coll['calls']} bytes {coll['bytes']}; "
+                f"logits {'bit for bit' if g['bitwise'] else 'max|d|/max|ref| ' + format(g['rel'], '.3e')}"
+                f" over {g['compared']} of {g['ticks']} ticks, flips "
+                f"{g['flips']}; {c['tick_ms']:.1f} ms a tick (one device "
+                f"{c['ref_tick_ms']:.1f} ms)")
+        if problems:
+            raise PhaseError(f"31{leg} {label}: " + "; ".join(problems))
+        kv_note = ("" if paged else
+                   f"; dense cache a rank = k, v / (data x model) + lengths"
+                   f" / data = {kv // (d * m) + L * B * 4 // d} B of "
+                   f"{kv + L * B * 4} B")
+        print(f"[31{leg} Server.engine(mesh=...) {label}] {sm['arch']} full "
+              f"width, {sm['layers']} layers float32, {sm['requests']} "
+              f"requests, {sm['slots']} slots, max_len {sm['max_len']}, "
+              f"chunk {sm['chunk']}{', paged block ' + str(sm['block']) + ', prefix sharing on' if paged else ''}"
+              f": {run['mesh']}; serve_partition {plan}; tokens "
+              f"{'identical to' if run['tokens'] == run['ref_tokens'] else 'differ from'}"
+              f" the single-device engine's{kv_note}; " + "; ".join(lines)
+              + " (ranks sharing one card)")
+
+    def serve_kernels(self):
+        """Each decode kernel once at the ranks' shapes of phase 31 against
+        its plain version (float32 caches, as the engine's): dense at 31a's
+        (4 slots, 40 heads over 8) and 31b's (8, 20 over 4), paged at
+        31c's (20 over 4, blocks of 16); with the launch plans; and the
+        paged cache's plan on a (data 2, model 2) skeleton: data fenced
+        with a pool note, model kept."""
+        torch = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core import partition
+        from repro_torch.kernels.attention import decode
+        from repro_torch.models import lm
+        sm = SERVE_MESH
+        f32, s_max = torch.float32, sm["max_len"]
+        lines = []
+        for b, h, g in ((4, 40, 8), (8, 20, 4)):
+            lens = torch.tensor([0, 1, 17, 64, 129, 200, 255, 256][:b],
+                                dtype=torch.int32, device=self.dev)
+            q = self.randn((b, h, 1, 128), 3101)
+            k = self.randn((b, g, s_max, 128), 3102)
+            v = self.randn((b, g, s_max, 128), 3103)
+            got = decode.flash_decode(q, k, v, lens, max_keys=s_max)
+            err = self.lm_check("flash_decode", f"31 ({b}, {h} over {g})",
+                                got, decode.flash_decode_plain(q, k, v, lens))
+            lines.append(f"flash_decode ({b}, {h} over {g}, {s_max}, 128) "
+                         f"max|d| {err:.2e}, plan "
+                         f"{decode.dense_plan(q, k, max_keys=s_max)}")
+        q, kp, vp, table, lens = self.paged_operands(
+            f32, f32, 20, 4, 3110, lengths=[0, 1, 17, 64, 129, 200, 255, 256],
+            bs=sm["block"], max_len=s_max)
+        got = decode.paged_flash_decode(q, kp, vp, table, lens)
+        err = self.lm_check("paged_flash_decode", "31 (8, 20 over 4)", got,
+                            decode.paged_flash_decode_plain(q, kp, vp, table,
+                                                            lens))
+        lines.append(f"paged_flash_decode (8, 20 over 4, pool "
+                     f"{tuple(kp.shape)}) max|d| {err:.2e}, plan "
+                     f"{decode.paged_plan(q, kp, table)}")
+        # 31a's rows against one device's: the decode kernel's slots are
+        # independent of the batch; a float32 product over a rank's 4
+        # rows against the first 4 rows of one over all 8, at the
+        # model's weight shapes, is where cuBLAS may pick another kernel
+        cfg = get_config(sm["arch"])
+        rows = {}
+        for b, h, g in ((8, 40, 8),):
+            q = self.randn((b, h, 1, 128), 3121)
+            k = self.randn((b, g, s_max, 128), 3122)
+            v = self.randn((b, g, s_max, 128), 3123)
+            lens = torch.tensor([1, 17, 64, 129, 200, 255, 256, 3],
+                                dtype=torch.int32, device=self.dev)
+            half = decode.flash_decode(q[:4], k[:4], v[:4], lens[:4],
+                                       max_keys=s_max)
+            whole = decode.flash_decode(q, k, v, lens, max_keys=s_max)
+            rows["flash_decode"] = bool(torch.equal(half, whole[:4]))
+        d, hd = cfg.d_model, cfg.head_dim
+        for name, (k_, n_) in {
+                "wq": (d, cfg.n_heads * hd), "wk": (d, cfg.n_kv_heads * hd),
+                "wo": (cfg.n_heads * hd, d), "wg": (d, cfg.d_ff),
+                "wd": (cfg.d_ff, d), "head": (d, cfg.vocab_size)}.items():
+            x = self.randn((sm["slots"], k_), 3130)
+            w = self.randn((k_, n_), 3131, scale=k_ ** -0.5)
+            rows[name] = bool(torch.equal(x[:4] @ w, (x @ w)[:4]))
+            del x, w
+        if not rows["flash_decode"]:
+            raise PhaseError(f"31 flash_decode over 4 slots differs from "
+                             f"the first 4 of 8: {rows}")
+        lines.append(f"rows 0-3 of 8 equal bit for bit to the same rows "
+                     f"computed alone: {rows}")
+        shapes = lm.init_decode_cache(
+            dataclasses.replace(cfg, n_layers=sm["layers"]), sm["slots"],
+            s_max, dtype=f32, kv_layout="paged",
+            kv_num_blocks=sm["slots"] * s_max // sm["block"],
+            kv_block_size=sm["block"], device="meta")
+        plan = partition.plan_decode_cache(
+            shapes, "auto", partition.MeshAxes(("data", "model"), (2, 2)),
+            slots=sm["slots"], head_extents=(cfg.n_heads, cfg.n_kv_heads))
+        if plan.use_data or not plan.use_model or not any(
+                "pool" in n for n in plan.notes):
+            raise PhaseError(f"31 paged plan at (2, 2): {plan}")
+        print(f"[31 decode kernels at the ranks' shapes, float32] "
+              + "; ".join(lines) + f"; the paged cache planned at (data 2, "
+              f"model 2): data {plan.use_data}, model {plan.use_model}, "
+              f"notes {list(plan.notes)}")
 
     @staticmethod
     def sharded_param_numel(cfg, layers, data):

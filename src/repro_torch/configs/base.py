@@ -161,6 +161,12 @@ class RuntimeConfig:
     #            continuous-batching engine allocates blocks on demand
     kv_layout: str = "dense"           # 'dense' | 'paged'
     kv_block_size: int = 16            # tokens per KV block (paged layout)
+    # Which mesh axes the engine's decode-cache plan may use under
+    # Server.engine(mesh=...): 'auto' takes every sound split (dense slots
+    # over "data", attention heads over "model"; the paged pool never
+    # splits over "data"), or restrict with 'none' | 'data' | 'tensor' |
+    # 'both' (repro_torch.core.partition.plan_decode_cache)
+    serve_partition: str = "auto"
     ssd_chunk: int = 64                # SSD (mamba2) chunk length
     decode_block_k: int = 512
     attn_block_q: int = 128
@@ -175,11 +181,12 @@ class RuntimeConfig:
     # the JAX package's sharding hint for the MoE dispatch tensors; 'none'
     # (the identity) is the one value on one device
     moe_constraint: str = "none"
-    # Set by the sharded train step (repro_torch.launch.steps) inside its
-    # tensor-parallel region only: the mesh axis whose ranks each hold a
-    # slice of a layer's heads or ffn columns, and over which that
-    # layer's output projection is all-reduced.  None (the default
-    # everywhere else) means no collective is issued.
+    # Set by the sharded train step (repro_torch.launch.steps) and the
+    # mesh engine (repro_torch.launch.engine) inside their tensor-parallel
+    # regions only: the mesh axis whose ranks each hold a slice of a
+    # layer's heads or ffn columns, and over which that layer's output
+    # projection is all-reduced.  None (the default everywhere else)
+    # means no collective is issued.
     tp_axis: str | None = None
 
     def __post_init__(self) -> None:

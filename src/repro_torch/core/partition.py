@@ -24,6 +24,11 @@ A dim is sharded only when
 
 Anything that fails these tests is replicated, never mis-sharded.
 
+The serving engine's decode cache has a planner of its own,
+:func:`plan_decode_cache`: slots over ``"data"`` (dense layout only),
+KV heads over ``"model"``, from the ``CACHE_AXES`` the cache dataclasses
+declare.
+
 The planner and the ``dist.*`` verifier reason about :class:`MeshAxes`, the
 (axis name, extent) skeleton of a mesh, so ``repro_torch.lint`` checks
 every shipped arch against a production-shaped mesh in one process; only
@@ -430,6 +435,198 @@ def plan_segments(segments, shapes: Mapping[str, tuple[int, ...]],
             plans[idx] = plan_kernel(seg.op, partition, axes,
                                      sublane=sublane)
     return PartitionPlan(axes=axes, partition=partition, segments=plans)
+
+
+# ---------------------------------------------------------------------------
+# Serving decode-cache planning (the mesh engine's step).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DecodeLeaf:
+    """One cache leaf's partition decision.
+
+    ``path`` is the "/"-joined path in the cache tree; ``kind`` is
+    ``"slot"`` (per-slot state: dense KV columns, lengths, the mamba conv
+    window and SSM state), ``"pool"`` (a block pool every slot shares) or
+    ``"opaque"`` (a leaf with no ``CACHE_AXES`` declaration, always
+    replicated); ``slot_dim`` / ``model_dim`` are the resolved
+    non-negative dims (None where the leaf does not carry that extent).
+    """
+
+    path: str
+    kind: str
+    shape: tuple[int, ...]
+    spec: Any
+    slot_dim: int | None = None
+    model_dim: int | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeCachePlan:
+    """Partition of the engine's decode cache and step operands.
+
+    Built by :func:`plan_decode_cache` from the ``CACHE_AXES``
+    declarations of the cache dataclasses (``layers.attention.KVCache`` /
+    ``PagedKVCache``, ``layers.mamba2.MambaCache``): per field, the
+    *negative* dim that carries the slot extent and the one that carries
+    the KV-head extent, so one declaration covers a layer's node and the
+    engine's (L, ...)-stacked leaves.
+
+    ``use_data``: slots split over ``"data"``.  Sound only for the dense
+    layout: the paged pools have no slot dim (every slot writes into one
+    shared pool), so ranks that split the slots while each holds a pool
+    would let the pools diverge after the first write (the
+    ``dist.serve-pool-write`` invariant).
+
+    ``use_model``: KV-head dims split over ``"model"`` (attention tensor
+    parallelism; each rank runs ``lm.tp_local_config``'s head counts and
+    the out-projection's partial sums are all-reduced over the axis).
+    """
+
+    axes: MeshAxes
+    partition: str
+    slots: int
+    use_data: bool
+    use_model: bool
+    leaves: tuple[DecodeLeaf, ...]
+    notes: tuple[str, ...] = ()
+
+    @property
+    def active(self) -> bool:
+        return self.use_data or self.use_model
+
+    def spec_tree(self, cache: Any) -> Any:
+        """A tree of :class:`PartitionSpec` congruent with ``cache``,
+        rebuilt from the per-leaf plan: a declared cache dataclass comes
+        back as its class with a spec in each field."""
+        specs = {leaf.path: leaf.spec for leaf in self.leaves}
+
+        def build(node, path):
+            decl = getattr(type(node), "CACHE_AXES", None)
+            if decl is not None:
+                return type(node)(**{
+                    f: specs["/".join((*path, f))] for f in decl})
+            if isinstance(node, Mapping):
+                return {k: build(node[k], (*path, str(k))) for k in node}
+            if hasattr(node, "shape"):
+                return specs.get("/".join(path),
+                                 replicated(len(node.shape)))
+            raise TypeError(
+                f"unrecognized cache node at {'/'.join(path) or '<root>'}: "
+                f"{type(node).__name__}")
+
+        return build(cache, ())
+
+    def operand_spec(self, rank: int, *,
+                     slot_dim: int | None = 0) -> PartitionSpec:
+        """Spec of one step operand: ``slot_dim`` (its per-slot batch dim)
+        splits over "data" exactly when the cache slots do; ``None``
+        means the operand has no slot dim and is replicated."""
+        parts: list = [None] * rank
+        if self.use_data and slot_dim is not None and rank:
+            parts[slot_dim] = DATA_AXIS
+        return PartitionSpec(*parts)
+
+
+def _resolve_dim(decl_dim: int | None, rank: int) -> int | None:
+    if decl_dim is None:
+        return None
+    dim = decl_dim + rank if decl_dim < 0 else decl_dim
+    return dim if 0 <= dim < rank else None
+
+
+def plan_decode_cache(cache: Any, partition: str, axes: Any, *,
+                      slots: int,
+                      head_extents: tuple[int, ...] = ()) -> DecodeCachePlan:
+    """The serving partition of a decode cache tree.
+
+    ``partition`` is one of :data:`PARTITIONS` or ``"auto"`` (every split
+    that is sound); ``head_extents`` are extents that must divide the
+    "model" axis for the head split to engage (the engine passes
+    ``(cfg.n_heads, cfg.n_kv_heads)``: the rank-local config divides
+    both).  Only ``.shape`` and the node types are read, so a cache built
+    on the ``meta`` device will do.  A split that fails a soundness test
+    is left out with a note, never applied wrongly.
+    """
+    axes = MeshAxes.from_mesh(axes)
+    if partition not in (*PARTITIONS, "auto"):
+        raise ValueError(f"unknown serve partition {partition!r}; allowed: "
+                         f"{(*PARTITIONS, 'auto')}")
+    eff = "both" if partition == "auto" else partition
+    n_data = data_extent(axes, eff)
+    n_model = model_extent(axes, eff)
+    notes: list[str] = []
+    # (path, kind, shape, slot_dim, model_dim)
+    raw: list[tuple[str, str, tuple[int, ...], int | None, int | None]] = []
+
+    def walk(node, path):
+        decl = getattr(type(node), "CACHE_AXES", None)
+        if decl is not None:
+            for field, d in decl.items():
+                shape = tuple(getattr(node, field).shape)
+                raw.append(("/".join((*path, field)),
+                            "pool" if d.get("pool") else "slot", shape,
+                            _resolve_dim(d.get("slot"), len(shape)),
+                            _resolve_dim(d.get("model"), len(shape))))
+            return
+        if isinstance(node, Mapping):
+            for k in node:
+                walk(node[k], (*path, str(k)))
+            return
+        if hasattr(node, "shape"):
+            raw.append(("/".join(path), "opaque", tuple(node.shape), None,
+                        None))
+            return
+        raise TypeError(
+            f"unrecognized cache node at {'/'.join(path) or '<root>'}: "
+            f"{type(node).__name__}")
+
+    walk(cache, ())
+    kinds = {kind for _, kind, *_ in raw}
+
+    use_data = n_data > 1
+    if use_data and "pool" in kinds:
+        use_data = False
+        notes.append("slot split fenced: physical pool leaves are shared "
+                     "across slots (per-shard scatter writes into a "
+                     "replicated pool would diverge)")
+    if use_data and "opaque" in kinds:
+        use_data = False
+        notes.append("slot split fenced: cache holds leaves with no "
+                     "CACHE_AXES declaration")
+    if use_data and slots % n_data:
+        use_data = False
+        notes.append(f"slot split fenced: {slots} slots not divisible by "
+                     f"data={n_data}")
+    if use_data and any(slot_dim is not None and shape[slot_dim] % n_data
+                        for _, _, shape, slot_dim, _ in raw):
+        use_data = False
+        notes.append(f"slot split fenced: a slot dim does not divide "
+                     f"data={n_data}")
+    use_model = n_model > 1
+    if use_model and any(e % n_model for e in head_extents):
+        use_model = False
+        notes.append(f"head split fenced: head extents {head_extents} not "
+                     f"divisible by model={n_model}")
+    if use_model and any(model_dim is not None and shape[model_dim] % n_model
+                         for _, _, shape, _, model_dim in raw):
+        use_model = False
+        notes.append(f"head split fenced: a KV-head dim does not divide "
+                     f"model={n_model}")
+
+    leaves = []
+    for path, kind, shape, slot_dim, model_dim in raw:
+        parts: list = [None] * len(shape)
+        if use_data and slot_dim is not None:
+            parts[slot_dim] = DATA_AXIS
+        if use_model and model_dim is not None:
+            parts[model_dim] = MODEL_AXIS
+        leaves.append(DecodeLeaf(path=path, kind=kind, shape=shape,
+                                 spec=PartitionSpec(*parts),
+                                 slot_dim=slot_dim, model_dim=model_dim))
+    return DecodeCachePlan(axes=axes, partition=eff, slots=slots,
+                           use_data=use_data, use_model=use_model,
+                           leaves=tuple(leaves), notes=tuple(notes))
 
 
 def batch_leaf_spec(shape: tuple[int, ...], partition: str,

@@ -45,12 +45,13 @@ reports each violation as a :class:`Finding`:
    refuses a split of a dim its region reduces over, and refits each
    sharded stack plan's per-shard working set on the haircut device
    (:func:`repro_torch.core.resource.shard_view`).
+7. **Serving decode-cache partitions** (``dist.serve-*``):
+   :func:`check_decode_plan`, which ``Engine(mesh=...)`` runs on its
+   :func:`repro_torch.core.partition.plan_decode_cache` plan.
 
 The pass runs behind ``OptimizeConfig.verify`` (``"off" | "warn" |
 "strict"``, default ``"warn"``) between planning and codegen, and
 ``python -m repro_torch.lint`` drives it over the shipped configurations.
-The serving partition family (``check_decode_plan``, ``dist.serve-*``)
-comes with mesh serving (ROADMAP.md queue 1, item 6c).
 """
 from __future__ import annotations
 
@@ -210,6 +211,17 @@ INVARIANTS: dict[str, tuple[str, str]] = {
         "no committed spec shards a dim its region reduces over (norm / "
         "softmax feature axes, attention key sequence, the vocab-CE "
         "log-sum-exp): a split that would need an in-kernel collective"),
+    "dist.serve-slot-axis": (
+        _PARTITION,
+        "every slot-bearing decode-cache leaf shards its slot dim over the "
+        "same mesh axes as every other (and as the step operands): a slot "
+        "split applied to only part of the per-slot state desynchronizes "
+        "the shards"),
+    "dist.serve-pool-write": (
+        _PARTITION,
+        "no physical-pool decode-cache leaf shards over the batch/data "
+        "axis: the pool is shared by every slot, so per-shard writes into "
+        "slot-partitioned replicas would diverge"),
 }
 
 
@@ -1673,4 +1685,60 @@ def check_block_tables(state: BlockTableState) -> list[Finding]:
                 "kv.freed-reachable", "error", f"block[{b}]",
                 f"freed block still reachable from {derived[b]} "
                 f"table/cache reference(s)"))
+    return fs
+
+
+# ---------------------------------------------------------------------------
+# (7) Serving decode-cache partition soundness (``dist.serve-*``).
+# ---------------------------------------------------------------------------
+
+def check_decode_plan(plan: Any) -> list[Finding]:
+    """Re-derive the soundness of a serving
+    :class:`~repro_torch.core.partition.DecodeCachePlan` apart from the
+    planner that committed it.
+
+    * ``dist.spec-rank`` / ``dist.mesh-axis``: every leaf's spec against
+      its recorded shape and the mesh (the checks of the training-side
+      partitions).
+    * ``dist.serve-pool-write``: a pool leaf never shards over the data
+      axis; every slot writes into the pool, so slot-partitioned ranks
+      each holding a pool would diverge after the first tick.
+    * ``dist.serve-slot-axis``: every slot-bearing leaf shards its slot
+      dim over the same axes; splitting part of the per-slot state while
+      replicating the rest desynchronizes the ranks.
+    """
+    data = partition_mod.DATA_AXIS
+    fs: list[Finding] = []
+    slot_axes: dict[str, tuple] = {}
+    for leaf in plan.leaves:
+        fs.extend(_check_one_spec(leaf.path, leaf.spec, leaf.shape,
+                                  plan.axes, "decode-cache"))
+        entries = tuple(leaf.spec)
+
+        def axes_at(dim: int | None) -> tuple:
+            if dim is None or dim >= len(entries):
+                return ()
+            return partition_mod.spec_axes(entries[dim])
+
+        if leaf.kind == "pool" and any(
+                data in axes_at(i) for i in range(len(entries))):
+            fs.append(Finding(
+                "dist.serve-pool-write", "error", leaf.path,
+                f"spec {leaf.spec} shards a shared physical pool over the "
+                f"batch axis {data!r}; per-shard scatter writes would "
+                f"diverge between the pool replicas"))
+        if leaf.slot_dim is not None:
+            slot_axes[leaf.path] = axes_at(leaf.slot_dim)
+    if slot_axes:
+        counts: dict[tuple, int] = {}
+        for got in slot_axes.values():
+            counts[got] = counts.get(got, 0) + 1
+        majority = max(counts, key=lambda k: counts[k])
+        for path, got in sorted(slot_axes.items()):
+            if got != majority:
+                fs.append(Finding(
+                    "dist.serve-slot-axis", "error", path,
+                    f"slot dim shards over {got or '(replicated)'} while "
+                    f"the rest of the per-slot state uses "
+                    f"{majority or '(replicated)'}"))
     return fs

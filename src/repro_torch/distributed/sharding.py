@@ -154,9 +154,10 @@ def cache_spec(cache: Any, mesh: Any) -> Any:
     declaration: the slot dim over the data axes, a declared KV-head dim
     over "model" when divisible, and pool leaves never over the batch axes
     (shared physical blocks: per-shard writes into slot-partitioned
-    replicas would diverge).  The port's caches declare none yet (ROADMAP
-    queue 1, item 6c), so they take the shape heuristics, as plain trees
-    do:
+    replicas would diverge): the port's ``KVCache``, ``PagedKVCache``
+    and ``MambaCache`` declare theirs, the protocol
+    :func:`repro_torch.core.partition.plan_decode_cache` reads.  Plain
+    trees take the shape heuristics:
 
       KV k/v   : (layers, B, G, S, hd)  -> (None, data, None, model, None)
       KV length: (layers, B)            -> (None, data)

@@ -28,6 +28,12 @@ device, with every rank's dispatch and launch counters.
   defects the checks must flag.
 * :func:`pipeline_block`: ``pipeline_apply`` of one block a stage over a
   ``("stage",)`` mesh against the stages applied in turn on one rank.
+* :func:`serve_engine`: ``Server.engine(mesh=...)`` (slots over
+  ``"data"``, attention heads over ``"model"``) on a queue of
+  :func:`serve_queue`, against the single-device engine on the same
+  requests in the same rank: tokens, and the last-position logits of
+  every tick; ``planted="no_wo_reduce"`` leaves out the all-reduce after
+  the attention out-projection, a defect the parity must catch.
 
 Each returns rank 0's numbers (and, where asked, its arrays as numpy) and
 ``ranks``: every rank's counters.  Run on its own, at small sizes on
@@ -819,6 +825,203 @@ def pipeline_tanh(device: str, x: np.ndarray, w: np.ndarray, *,
         out.update(grad_x=_np(xt.grad),
                    grad_w=_all(_np(params["w"].grad[0])))
     out["ranks"] = _all(counts())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Mesh serving.
+# ---------------------------------------------------------------------------
+
+def serve_queue(vocab: int, *, n: int = 10, prefix_len: int = 6,
+                max_tail: int = 6, max_new: int = 6, seed: int = 0
+                ) -> list[dict]:
+    """``tests/test_serve_mesh.py``'s queue as ``Request`` keyword dicts:
+    a shared ``prefix_len``-token prefix on every odd request, tails of 1
+    to ``max_tail`` tokens, 2 to ``max_new`` new tokens each (the defaults
+    draw the JAX test's requests)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab, (prefix_len,)).astype(np.int32)
+    out = []
+    for i in range(n):
+        tail = rng.integers(0, vocab, (int(rng.integers(1, max_tail + 1)),)
+                            ).astype(np.int32)
+        prompt = np.concatenate([prefix, tail]) if i % 2 else tail
+        out.append(dict(request_id=i, prompt=prompt.tolist(),
+                        max_new_tokens=int(rng.integers(2, max_new + 1))))
+    return out
+
+
+def _record_ticks(eng) -> list:
+    """Every tick's ``(counts, logits)`` of ``eng``'s rows, as it runs."""
+    ticks: list = []
+    inner = eng._mixed_logits
+
+    def rec(cache, tables, tokens, counts, max_keys):
+        logits, cache = inner(cache, tables, tokens, counts, max_keys)
+        ticks.append((counts.copy(), logits.clone()))
+        return logits, cache
+
+    eng._mixed_logits = rec
+    return ticks
+
+
+def _evaluations(ticks: list) -> int:
+    """Model evaluations of the recorded ticks: each tick runs the largest
+    count of the rank's slots."""
+    return sum(int(c.max(initial=0)) for c, _ in ticks)
+
+
+def tick_gaps(ticks: list, ref_ticks: list, lo: int, n: int) -> dict:
+    """A rank's ticks (its ``n`` slots from ``lo``) against the
+    single-device engine's: whether every live row's logits are equal bit
+    for bit, max|d| / max|ref| over the ticks up to the first flipped
+    argmax (``compared`` of them), and each flip as (tick, slot, the
+    reference's top-2 gap / max|ref|)."""
+    rel, bitwise, flips, compared = 0.0, True, [], 0
+    if len(ticks) != len(ref_ticks):
+        return {"ticks": len(ticks), "ref_ticks": len(ref_ticks),
+                "bitwise": False, "rel": float("inf"), "flips": []}
+    for t, ((c, got), (rc, want)) in enumerate(zip(ticks, ref_ticks)):
+        rc, want = rc[lo:lo + n], want[lo:lo + n]
+        if not np.array_equal(c, rc):
+            return {"ticks": len(ticks), "ref_ticks": len(ref_ticks),
+                    "bitwise": False, "rel": float("inf"), "flips": [],
+                    "counts_differ_at": t}
+        compared += not flips
+        live = torch.from_numpy(c > 0).to(got.device)
+        if not bool(live.any()):
+            continue
+        g, w = got[live], want[live]
+        bitwise = bitwise and bool(torch.equal(g, w))
+        scale = max(float(w.abs().max()), 1e-30)
+        if not flips:
+            rel = max(rel, float((g - w).abs().max()) / scale)
+        for i in (g.argmax(-1) != w.argmax(-1)).nonzero().flatten().tolist():
+            top = w[i].topk(2).values
+            flips.append((t, lo + int(np.flatnonzero(c > 0)[i]),
+                          float(top[0] - top[1]) / scale))
+    return {"ticks": len(ticks), "compared": compared, "bitwise": bitwise,
+            "rel": rel, "flips": flips}
+
+
+@dataclasses.dataclass
+class _PlantedServe:
+    """A defect in the mesh engine's decode: ``"no_wo_reduce"`` (each
+    model rank keeps its partial out-projection, no all-reduce)."""
+
+    what: str | None
+
+    def __enter__(self):
+        from repro_torch.layers import attention
+        self.saved = attention._out_projection
+        if self.what == "no_wo_reduce":
+            attention._out_projection = (
+                lambda o, params, rt: base.matmul(o, params["wo"]))
+        elif self.what is not None:
+            raise ValueError(f"unknown planted defect {self.what!r}")
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import attention
+        attention._out_projection = self.saved
+
+
+def serve_engine(device: str, requests: list[dict], *,
+                 arch: str = "qwen2.5-32b", reduced: bool = True,
+                 overrides: tuple = (), np_params: Any = None, seed: int = 0,
+                 mode: str = "xla", slots: int = 8, max_len: int = 20,
+                 prefill_chunk: int = 4, kv_layout: str = "dense",
+                 kv_block_size: int = 4, model_parallel: int = 1,
+                 planted: str | None = None, stream: bool = False) -> dict:
+    """``Server.engine(mesh=...)`` over a ``make_test_mesh(model_parallel=
+    ...)`` mesh of the whole group on ``requests`` (``Request`` keyword
+    dicts), after the single-device engine on the same requests in this
+    rank, both ``verify_mode="strict"`` and each warmed up on the first
+    request first.  Parameters: the JAX package's (``np_params``, numpy by
+    path) or the seeded init.  With
+    ``stream`` the mesh run streams through ``Request.on_token`` and
+    ``Engine.stream`` too, each held against the completions.
+
+    Returns rank 0's tokens and report, and every rank's: report, the
+    cache bytes it holds, its counters (launches, plain dispatches,
+    collectives), :func:`tick_gaps` against the reference, and ms a tick
+    of both engines (ranks sharing a card: no multi-card number)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Request
+    from repro_torch.launch.serve import ServeConfig, Server
+    from repro_torch.models import lm
+    mesh = mesh_mod.make_test_mesh(model_parallel=model_parallel,
+                                   device=device)
+    dev = mesh.device
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **dict(overrides))
+    params = (lm.init(seed, cfg, device=dev) if np_params is None
+              else convert.lm_params_from_numpy(np_params, dev))
+    server = Server(ServeConfig(arch=arch, reduced=reduced, mode=mode,
+                                batch=slots, max_len=max_len,
+                                torch_device=dev.type),
+                    params=params, cfg=cfg)
+    kw = dict(slots=slots, prefill_chunk=prefill_chunk, kv_layout=kv_layout,
+              kv_block_size=kv_block_size, verify_mode="strict")
+    reqs = [Request(**r) for r in requests]
+
+    def tick_ms(eng) -> float:
+        st = eng.last_stats
+        return st.wall_s * 1e3 / max(st.step_dispatches, 1)
+
+    ref = server.engine(**kw)
+    ref.run(reqs[:1])                   # warm-up: the kernels' first calls
+    ref_ticks = _record_ticks(ref)
+    ref_tokens = [c.tokens.tolist() for c in ref.run(reqs)]
+    mine = {"ref_tick_ms": tick_ms(ref),
+            "ref_cache_bytes": ref.last_cache_bytes,
+            "ref_evaluations": _evaluations(ref_ticks)}
+    del ref
+    eng = server.engine(mesh=mesh, **kw)
+    eng.run(reqs[:1])                   # warm-up at the rank's shapes
+    ticks = _record_ticks(eng)
+    events: dict = {}
+    plain_reqs = reqs
+    if stream:
+        reqs = [dataclasses.replace(r, on_token=lambda ev: events.setdefault(
+            ev.request_id, []).append(ev)) for r in reqs]
+    counts(zero=True)
+    with _PlantedServe(planted):
+        comps = eng.run(reqs)
+        _sync(dev)
+        mine.update(counts())
+        gaps = tick_gaps(ticks, ref_ticks, eng._slot_lo, eng.local_slots)
+        if stream:
+            streamed = list(eng.stream(plain_reqs))
+    tokens = [c.tokens.tolist() for c in comps]
+    out: dict = {"mesh": mesh.describe(), "tokens": tokens,
+                 "ref_tokens": ref_tokens, "report": eng.report(),
+                 "statuses": [c.status for c in comps]}
+    if stream:
+        # every request's callback events are its tokens then its
+        # completion; the generator yields the same tokens in commit order
+        per = [[e.token for e in events[c.request_id][:-1]] == c.tokens
+               .tolist() and events[c.request_id][-1].completion is c
+               for c in comps]
+        gen = {}
+        for ev in streamed:
+            if not ev.done:
+                gen.setdefault(ev.request_id, []).append(ev.token)
+        out["stream_ok"] = all(per) and all(
+            gen.get(c.request_id, []) == c.tokens.tolist() for c in comps)
+    mine.update(report=eng.report(), cache_bytes=eng.last_cache_bytes,
+                evaluations=_evaluations(ticks),
+                local_slots=eng.local_slots,
+                local_heads=(eng.local_cfg.n_heads,
+                             eng.local_cfg.n_kv_heads),
+                tick_ms=tick_ms(eng), tokens_equal=tokens == ref_tokens,
+                gaps=gaps, attn_dispatch=dict(eng.last_attn_dispatch or {}))
+    del ticks, ref_ticks
+    out["ranks"] = _all(mine)
     return out
 
 

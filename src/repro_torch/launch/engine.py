@@ -46,8 +46,37 @@ on the next tick.
 
 Under ``mode="brainslug"`` every decode attention of every sub-step is a
 launch of the paged (or dense) flash-decode kernel; ``report()`` names the
-path the last run took.  ``Engine(mesh=...)`` belongs to mesh serving
-(ROADMAP.md queue 1, item 6c) and raises.
+path the last run took.
+
+**Mesh serving.**  ``Engine(..., mesh=...)`` runs the mixed step in every
+rank of a :class:`~repro_torch.launch.mesh.Mesh`, the twin of the JAX
+engine's ``shard_map`` region, planned by
+:func:`repro_torch.core.partition.plan_decode_cache` (``rt.serve_partition``
+restricts the axes it may use) and checked by the ``dist.serve-*``
+invariants under ``verify_mode``:
+
+* dense-layout slots split over ``"data"``: a rank holds ``slots / data``
+  slots of the cache and runs the step on its rows of the tick's
+  operands, with no collective inside the step (the single-device
+  step's arithmetic on fewer rows; a float32 product over fewer rows may
+  round apart from the same rows of a larger one); the sampled tokens
+  are all-gathered over ``"data"`` after it;
+* attention heads split over ``"model"``: a rank holds
+  :func:`repro_torch.models.lm.tp_shard_params`'s slice (``n_heads / m``
+  query and ``n_kv_heads / m`` KV heads; the MLP, norms, embedding and
+  head whole) and ``n_kv_heads / m`` heads of the cache or the pools, and
+  the out-projection's partial sums are all-reduced over ``"model"``
+  (``layers.attention``);
+* the paged pools never split over ``"data"``: every slot writes into
+  them.
+
+Every rank runs the whole host scheduler (admission, the block allocator,
+the prefix cache, the ``kv.*`` check) on the same requests and commits
+the same gathered tokens, so every rank takes the same decisions and the
+ranks of a ``"model"`` group run the same number of model evaluations a
+tick (the window is the largest count of their shared slots).  Sampling
+keys on the request, not the rank.  Where a request has a deadline, every
+rank reads rank 0's clock.  Callbacks fire in every rank's process.
 
 Dispatch accounting: ``STATS`` (snapshot/delta protocol) and the per-run
 :class:`~repro_torch.core.scheduler.ServeStats` in
@@ -55,6 +84,7 @@ Dispatch accounting: ``STATS`` (snapshot/delta protocol) and the per-run
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import heapq
@@ -63,12 +93,17 @@ from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, RuntimeConfig
+from repro_torch.core import partition as partition_mod
 from repro_torch.core import verify
 from repro_torch.core.scheduler import ServeStats
+from repro_torch.distributed import collectives
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.fused_stack.ops import DispatchStats
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.layers import base
 from repro_torch.models import lm
 
 STATS = DispatchStats(keys=(
@@ -340,17 +375,20 @@ class Engine:
     prefixes onto shared immutable blocks.  ``verify_mode`` runs the
     ``kv.*`` block-table invariants
     (:func:`repro_torch.core.verify.check_block_tables`) every tick:
-    ``"warn"`` (default) warns, ``"strict"`` raises, ``"off"`` skips."""
+    ``"warn"`` (default) warns, ``"strict"`` raises, ``"off"`` skips.
+
+    ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`; every rank builds
+    its engine and runs the same requests) runs the mixed step on this
+    rank's slots and heads (module docstring): the plan is
+    :attr:`decode_plan`, checked by the ``dist.serve-*`` invariants under
+    ``verify_mode``; the engine keeps only this rank's parameter slice,
+    on the mesh's device, and :meth:`report` records the placement."""
 
     def __init__(self, cfg: ModelConfig, params: dict, rt: RuntimeConfig, *,
                  slots: int, max_len: int, prefill_chunk: int = 8,
                  seed: int = 0, kv_num_blocks: int | None = None,
                  prefix_sharing: bool = True, verify_mode: str = "warn",
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...): mesh serving comes with the mesh-serving "
-                "item of the port (ROADMAP.md, queue 1, item 6c)")
         if not cfg.supports_decode:
             raise ValueError(f"{cfg.name} is encoder-only; no decode path")
         if slots < 1:
@@ -390,7 +428,15 @@ class Engine:
                                and self.kv_layout == "paged"
                                and cfg.family not in ("ssm", "hybrid"))
         self.verify_mode = verify_mode
-        self.mesh = None
+        self.mesh = mesh
+        self.decode_plan: partition_mod.DecodeCachePlan | None = None
+        # this rank's share: slots [lo, lo + local_slots) and the heads of
+        # local_cfg; the step runs under step_rt
+        self.local_slots, self._slot_lo = slots, 0
+        self.local_cfg, self.step_rt = cfg, rt
+        if mesh is not None:
+            self._plan_mesh(mesh)
+        self.last_cache_bytes = 0
         self.last_stats: ServeStats | None = None
         self.last_dispatch: dict[str, int] | None = None
         self.last_allocator: BlockAllocator | None = None
@@ -399,13 +445,43 @@ class Engine:
         self.last_attn_dispatch: dict[str, int] | None = None
         self._n_runs = 0
 
+    def _plan_mesh(self, mesh) -> None:
+        """Plan the decode-cache partition on the cache's shapes, verify
+        it, and keep this rank's slots, head counts and parameter slice
+        (the twin of the JAX engine's ``_build_sharded_step``)."""
+        cfg = self.cfg
+        axes = partition_mod.MeshAxes.from_mesh(mesh)
+        shapes = self._cache_on(cfg, self.slots, "meta")
+        plan = partition_mod.plan_decode_cache(
+            shapes, self.rt.serve_partition, axes, slots=self.slots,
+            head_extents=(cfg.n_heads, cfg.n_kv_heads))
+        if self.verify_mode != "off":
+            verify.enforce(verify.check_decode_plan(plan), self.verify_mode,
+                           subject="serve decode plan")
+        self.decode_plan = plan
+        if plan.use_data:
+            d = axes.extent(partition_mod.DATA_AXIS)
+            self.local_slots = self.slots // d
+            self._slot_lo = (mesh.coords[partition_mod.DATA_AXIS]
+                             * self.local_slots)
+        params = self.params
+        if plan.use_model:
+            m = axes.extent(partition_mod.MODEL_AXIS)
+            self.local_cfg = lm.tp_local_config(cfg, m)
+            self.step_rt = dataclasses.replace(
+                self.rt, tp_axis=partition_mod.MODEL_AXIS)
+            params = lm.tp_shard_params(params, m,
+                                        mesh.coords[partition_mod.MODEL_AXIS])
+        self.device = mesh.device
+        self.params = base.tree_map(lambda t: t.to(mesh.device), params)
+
     def report(self) -> dict:
         """Dispatch summary of the last run: which decode path ran (the
         CUDA kernel, its plain version on the CPU, the reference, or for an
         attention-free model the recurrent SSM step), with
-        the reason where it is not the kernel, and the engine and
-        attention dispatch deltas.  ``mesh_axes`` and ``serve_partition``
-        stay empty until mesh serving (ROADMAP.md queue 1, item 6c)."""
+        the reason where it is not the kernel, the mesh placement the plan
+        committed (``{}`` without a mesh), and this rank's engine and
+        attention dispatch deltas."""
         attn = dict(self.last_attn_dispatch or {})
         pre = "paged_" if self.kv_layout == "paged" else ""
         name = "paged-decode" if pre else "flash-decode"
@@ -426,13 +502,18 @@ class Engine:
             path = f"cuda-{name}" if self.device.type == "cuda" \
                 else f"plain-{name}"
             fallback = "no run yet: inferred from mode and device"
+        plan = self.decode_plan
         return {
             "mode": self.rt.mode,
             "kv_layout": self.kv_layout,
             "decode_path": path,
             "decode_fallback": fallback,
-            "mesh_axes": {},
-            "serve_partition": {},
+            "mesh_axes": mesh_mod.axis_extents(self.mesh),
+            "serve_partition": ({"partition": plan.partition,
+                                 "data": plan.use_data,
+                                 "model": plan.use_model,
+                                 "notes": list(plan.notes)}
+                                if plan is not None else {}),
             "dispatch": dict(self.last_dispatch or {}),
             "attn_dispatch": attn,
         }
@@ -486,22 +567,42 @@ class Engine:
         arrays on the next tick)."""
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
-    @torch.inference_mode()
-    def _new_cache(self) -> dict:
+    def _cache_on(self, cfg: ModelConfig, slots: int, device) -> dict:
         # float32 pools and caches, as the JAX engine builds them
         if self.kv_layout == "paged":
             return lm.init_decode_cache(
-                self.cfg, self.slots, self.max_len, dtype=torch.float32,
+                cfg, slots, self.max_len, dtype=torch.float32,
                 kv_layout="paged", kv_num_blocks=self.kv_num_blocks,
-                kv_block_size=self.block_size, device=self.device)
-        return lm.init_decode_cache(self.cfg, self.slots, self.max_len,
-                                    dtype=torch.float32, device=self.device)
+                kv_block_size=self.block_size, device=device)
+        return lm.init_decode_cache(cfg, slots, self.max_len,
+                                    dtype=torch.float32, device=device)
+
+    @torch.inference_mode()
+    def _new_cache(self) -> dict:
+        """This rank's cache: its slots and its KV heads (all of both
+        without a mesh)."""
+        cache = self._cache_on(self.local_cfg, self.local_slots, self.device)
+        self.last_cache_bytes = sum(
+            getattr(c, f.name).nbytes for group in cache.values()
+            for c in group.values() for f in dataclasses.fields(c))
+        return cache
+
+    def _rank0_elapsed(self, elapsed: float) -> float:
+        """Rank 0's ``elapsed``, in every rank."""
+        on = self.device if self.mesh.backend == "nccl" else "cpu"
+        t = torch.tensor([elapsed], dtype=torch.float64, device=on)
+        dist.broadcast(t, src=0)
+        return float(t[0])
+
+    def _mine(self, a):
+        """This rank's rows of a per-slot host array (or list)."""
+        return a[self._slot_lo:self._slot_lo + self.local_slots]
 
     @torch.inference_mode()
     def _reset(self, cache: dict, mask: list[bool],
                lengths: list[int] | None) -> dict:
-        m = self._to_device(mask, torch.bool)
-        ln = None if lengths is None else self._to_device(lengths,
+        m = self._to_device(self._mine(mask), torch.bool)
+        ln = None if lengths is None else self._to_device(self._mine(lengths),
                                                           torch.int32)
         return lm.reset_slots(cache, m, ln)
 
@@ -519,8 +620,36 @@ class Engine:
         slot samples from its last consumed position.  ``max(counts)``
         model evaluations: in decode-only steady state one, not C.
         ``max_keys``: the longest KV length a live slot reaches in this
-        step (it picks the dense decode kernel's plan)."""
-        window = int(counts.max())
+        step (it picks the dense decode kernel's plan).  Under a mesh the
+        rank steps its own slots and the tokens are gathered over
+        ``"data"``."""
+        tokens, counts, rids, tidx, temps = (
+            self._mine(a) for a in (tokens, counts, rids, tidx, temps))
+        if tables is not None:
+            tables = self._mine(tables)
+        with (collectives.region(self.mesh) if self.mesh is not None
+              else contextlib.nullcontext()):
+            logits_last, cache = self._mixed_logits(cache, tables, tokens,
+                                                    counts, max_keys)
+        nxt = torch.argmax(logits_last, dim=-1)
+        for b in np.flatnonzero(temps > 0.0):
+            g = torch.Generator(device=self.device).manual_seed(
+                lane_seed(run_seed, int(rids[b]), int(tidx[b])))
+            probs = torch.softmax(logits_last[b] / max(float(temps[b]), 1e-6),
+                                  dim=-1)
+            nxt[b] = torch.multinomial(probs, 1, generator=g)[0]
+        if self.local_slots < self.slots:
+            nxt = collectives.all_gather(nxt, self.mesh,
+                                         partition_mod.DATA_AXIS)
+        return nxt.cpu().numpy().astype(np.int32), cache
+
+    def _mixed_logits(self, cache: dict, tables: np.ndarray | None,
+                      tokens: np.ndarray, counts: np.ndarray,
+                      max_keys: int | None) -> tuple[torch.Tensor, dict]:
+        """The step's model evaluations over this rank's slots: each
+        slot's float32 logits at its last consumed position (zeros for an
+        idle slot) and the cache."""
+        window = int(counts.max(initial=0))
         tok = self._to_device(tokens, torch.int64)
         act = self._to_device(np.arange(window)[:, None] < counts[None, :],
                               torch.bool)                     # (window, B)
@@ -531,19 +660,12 @@ class Engine:
         for t in range(window):
             logits, cache = lm.decode_step(self.params, cache,
                                            tok[:, t:t + 1], self.cfg,
-                                           self.rt, act[t],
+                                           self.step_rt, act[t],
                                            block_tables=tbl,
                                            max_keys=max_keys)
             logits_last = torch.where(act[t][:, None],
                                       logits[:, 0].float(), logits_last)
-        nxt = torch.argmax(logits_last, dim=-1)
-        for b in np.flatnonzero(temps > 0.0):
-            g = torch.Generator(device=self.device).manual_seed(
-                lane_seed(run_seed, int(rids[b]), int(tidx[b])))
-            probs = torch.softmax(logits_last[b] / max(float(temps[b]), 1e-6),
-                                  dim=-1)
-            nxt[b] = torch.multinomial(probs, 1, generator=g)[0]
-        return nxt.cpu().numpy().astype(np.int32), cache
+        return logits_last, cache
 
     # -- main loop ----------------------------------------------------------
 
@@ -637,6 +759,10 @@ class Engine:
         n_ttft_pending = 0      # first-token commits awaiting that read
         cache = self._new_cache()
         t0 = time.perf_counter()
+        # a deadline decided on one rank's clock alone could admit a
+        # request on one rank and time it out on another
+        agree_clock = self.mesh is not None and any(
+            r.deadline_ms is not None for r in requests)
 
         def complete(s_idx: int, req: Request, prompt, gen) -> None:
             nonlocal n_latency_pending
@@ -809,6 +935,8 @@ class Engine:
             # one clock read per tick: every deadline check of this tick
             # and every latency stamped since the last tick sees it
             now = time.perf_counter()
+            if agree_clock:
+                now = t0 + self._rank0_elapsed(now - t0)
             if n_latency_pending:
                 latencies.extend([(now - t0) * 1e3] * n_latency_pending)
                 n_latency_pending = 0

@@ -95,7 +95,8 @@ class Server:
                kv_block_size: int | None = None,
                kv_num_blocks: int | None = None,
                prefix_sharing: bool = True,
-               verify_mode: str = "warn") -> engine_mod.Engine:
+               verify_mode: str = "warn", mesh=None,
+               serve_partition: str | None = None) -> engine_mod.Engine:
         """A continuous-batching :class:`~repro_torch.launch.engine.Engine`
         over this server's parameters and config, on its device
         (``slots`` defaults to the static batch width; the cache budget is
@@ -103,23 +104,31 @@ class Server:
 
         ``kv_layout``/``kv_block_size`` override the runtime config's KV
         layout for this engine (``"paged"`` swaps the dense per-slot
-        reservation for the block pool); the other knobs pass through.
-        The JAX signature's ``mesh``/``serve_partition`` come with mesh
-        serving (ROADMAP.md queue 1, item 6c)."""
+        reservation for the block pool).  ``mesh`` (a
+        :class:`~repro_torch.launch.mesh.Mesh`; every rank calls this)
+        runs the engine's mixed step on this rank's slots and heads, on
+        the mesh's device; ``serve_partition`` restricts which mesh axes
+        the decode-cache plan may use (``'auto'`` | ``'none'`` |
+        ``'data'`` | ``'tensor'`` | ``'both'``).  The other knobs pass
+        through."""
         rt = self.rt
-        if kv_layout is not None or kv_block_size is not None:
+        if (kv_layout is not None or kv_block_size is not None
+                or serve_partition is not None):
             rt = dataclasses.replace(
                 rt,
                 kv_layout=rt.kv_layout if kv_layout is None else kv_layout,
                 kv_block_size=(rt.kv_block_size if kv_block_size is None
-                               else kv_block_size))
+                               else kv_block_size),
+                serve_partition=(rt.serve_partition
+                                 if serve_partition is None
+                                 else serve_partition))
         return engine_mod.Engine(
             self.cfg, self.params, rt,
             slots=self.sc.batch if slots is None else slots,
             max_len=self.sc.max_len, prefill_chunk=prefill_chunk,
             seed=self.sc.seed if seed is None else seed,
             kv_num_blocks=kv_num_blocks, prefix_sharing=prefix_sharing,
-            verify_mode=verify_mode)
+            verify_mode=verify_mode, mesh=mesh)
 
     def _decode(self, cache: dict, tokens_t: torch.Tensor, n_keys: int
                 ) -> tuple[torch.Tensor, dict]:

@@ -193,10 +193,7 @@ def apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         o = _chunked_attention(q, k, v, causal)
 
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
-    out = base.matmul(o, params["wo"])
-    if rt.tp_axis is not None:
-        out = collectives.reduce_from_model(out, rt.tp_axis)
-    return out
+    return _out_projection(o, params, rt)
 
 
 @dataclasses.dataclass
@@ -204,6 +201,17 @@ class KVCache:
     k: torch.Tensor          # (B, G, S_max, hd)
     v: torch.Tensor
     length: torch.Tensor     # (B,) int32
+
+    #: The decode-cache sharding declaration that
+    #: :func:`repro_torch.core.partition.plan_decode_cache` and
+    #: :func:`repro_torch.distributed.sharding.cache_spec` read: per field,
+    #: the *negative* dim that carries the batch-slot extent ("slot") and
+    #: the one that carries the KV-head extent ("model").  Negative, so
+    #: one declaration holds for a layer's node and for the engine's
+    #: (L, ...)-stacked leaves.
+    CACHE_AXES = {"k": {"slot": -4, "model": -3},
+                  "v": {"slot": -4, "model": -3},
+                  "length": {"slot": -1}}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -232,6 +240,15 @@ class PagedKVCache:
     k_pool: torch.Tensor     # (N, G, block_size, hd) physical blocks
     v_pool: torch.Tensor
     length: torch.Tensor     # (B,) int32 logical positions per slot
+
+    #: As :attr:`KVCache.CACHE_AXES`, but the pools have no slot dim:
+    #: every slot writes into one shared pool.  ``pool: True`` tells the
+    #: planner the leaf never shards over the batch axis (ranks that split
+    #: the slots while each holds a whole pool would let the pools
+    #: diverge after the first write).
+    CACHE_AXES = {"k_pool": {"model": -3, "pool": True},
+                  "v_pool": {"model": -3, "pool": True},
+                  "length": {"slot": -1}}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
@@ -302,7 +319,18 @@ def _decode_paged(params: dict, x_t: torch.Tensor, cache: PagedKVCache,
             attn_ref.gather_paged(cache.v_pool, table).to(q.dtype),
             causal=False, lengths=lengths)
     o = o.transpose(1, 2).reshape(b, 1, h * hd)
-    return base.matmul(o, params["wo"]), cache
+    return _out_projection(o, params, rt), cache
+
+
+def _out_projection(o: torch.Tensor, params: dict, rt: RuntimeConfig
+                    ) -> torch.Tensor:
+    """``o @ wo``; under ``rt.tp_axis`` the heads are split over the
+    model ranks, each rank's product is a partial sum over its rows of
+    ``wo``, and the sum over the ranks is the output."""
+    out = base.matmul(o, params["wo"])
+    if rt.tp_axis is not None:
+        out = collectives.reduce_from_model(out, rt.tp_axis)
+    return out
 
 
 def decode(params: dict, x_t: torch.Tensor,
@@ -318,7 +346,10 @@ def decode(params: dict, x_t: torch.Tensor,
     takes the block-mapped path and requires ``block_table`` (B, MB).
     ``max_keys``: a host bound on every slot's length after this step,
     where the caller knows one; it picks the dense kernel's plan, never
-    the result.  ``cache`` is updated in place and returned."""
+    the result.  Under ``rt.tp_axis`` (the mesh engine's head split) the
+    parameters and the cache hold this rank's heads and the
+    out-projection's partial sums are all-reduced.  ``cache`` is updated
+    in place and returned."""
     if isinstance(cache, PagedKVCache):
         if block_table is None:
             raise ValueError(
@@ -362,4 +393,4 @@ def decode(params: dict, x_t: torch.Tensor,
         o = attn_ref.decode_ref(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
                                 lengths)
     o = o.transpose(1, 2).reshape(b, 1, h * hd)
-    return base.matmul(o, params["wo"]), cache
+    return _out_projection(o, params, rt), cache

@@ -148,6 +148,12 @@ class MambaCache:
     conv: torch.Tensor      # (..., B, cw-1, di + 2n): rolling pre-conv inputs
     state: torch.Tensor     # (..., B, H, N, P) float32 SSM state
 
+    #: The decode-cache sharding declaration (see ``attention.KVCache``):
+    #: recurrent state is per slot, so only the slot dim shards.  No
+    #: "model" entry: the mixer's gated norm reduces over the whole
+    #: d_inner, so a head split would put a collective inside the norm.
+    CACHE_AXES = {"conv": {"slot": -3}, "state": {"slot": -4}}
+
 
 def init_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
                *, n_layers: int, dev: torch.device) -> MambaCache:

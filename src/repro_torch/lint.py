@@ -14,9 +14,8 @@ self-tests the serve engine's block-table family (``kv.*``) against a
 seeded mutant.  Every LM arch's stack programs are also partitioned under
 a production-shaped (data 4 x model 2) mesh skeleton, collapsed per shard
 and held to the ``dist.*`` family; ``dist-partition`` self-tests that
-family against seeded mutants.  ``serve-dist`` (the serving partition's
-``dist.serve-*`` family) comes with mesh serving (ROADMAP.md queue 1,
-item 6c).
+family against seeded mutants; ``serve-dist`` self-tests the serving
+decode-cache partition's ``dist.serve-*`` family the same way.
 
 Exit status is 1 when any error-severity finding survives; warnings are
 reported but do not fail the run.  ``--out`` writes every finding as JSON.
@@ -24,7 +23,7 @@ reported but do not fail the run.  ``--out`` writes every finding as JSON.
 Usage:
   python -m repro_torch.lint                      # all archs on the H100
   python -m repro_torch.lint --device tiny --arch deepseek-7b
-  python -m repro_torch.lint --arch dist-partition
+  python -m repro_torch.lint --arch dist-partition --arch serve-dist
   python -m repro_torch.lint --out chiprun_out/verify_report.json
 """
 from __future__ import annotations
@@ -288,13 +287,82 @@ def lint_dist_selftest(device: resource.DeviceSpec) -> list[verify.Finding]:
     return fs
 
 
+def lint_serve_dist() -> list[verify.Finding]:
+    """Self-test of the ``dist.serve-*`` family (the mesh engine's
+    decode-cache partition): the planner's plan for a dense qwen2.5-32b
+    cache under the production-shaped mesh must engage both splits and
+    verify clean, while seeded mutants (a pool leaf sharded over the
+    batch axis, an over-rank spec, a spec naming a mesh axis that does not
+    exist, and one slot leaf left replicated while the rest shard) must
+    each be caught, and strict mode must raise.  A checker that waves a
+    mutant through is itself the lint failure."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    P = partition.PartitionSpec
+    fs: list[verify.Finding] = []
+    axes = _DIST_AXES
+    cfg = get_config("qwen2.5-32b").reduced()
+    slots = 8
+    # shapes only: the lint never materialises the cache
+    shapes = lm.init_decode_cache(cfg, slots, 64, dtype=torch.float32,
+                                  device="meta")
+    plan = partition.plan_decode_cache(
+        shapes, "auto", axes, slots=slots,
+        head_extents=(cfg.n_heads, cfg.n_kv_heads))
+    if not (plan.use_data and plan.use_model):
+        fs.append(verify.Finding(
+            "dist.serve-slot-axis", "error", "serve-dist/selftest-clean",
+            f"planner fenced a cleanly shardable dense cache: {plan.notes}"))
+    for f in verify.check_decode_plan(plan):
+        fs.append(verify.Finding(
+            f.invariant, "error", "serve-dist/selftest-clean",
+            f"checker flagged a planner-derived decode plan: {f}"))
+
+    def mutate(field: str, **changes) -> partition.DecodeCachePlan:
+        # every leaf whose path ends in `field` (the "k" of each layer)
+        leaves = tuple(
+            dataclasses.replace(leaf, **changes)
+            if leaf.path.rsplit("/", 1)[-1] == field else leaf
+            for leaf in plan.leaves)
+        return dataclasses.replace(plan, leaves=leaves)
+
+    k_leaf = next(leaf for leaf in plan.leaves
+                  if leaf.path.rsplit("/", 1)[-1] == "k")
+    rank = len(k_leaf.shape)
+    mutants = [
+        # the KV columns declared a shared pool while still slot-sharded
+        ("dist.serve-pool-write", mutate("k", kind="pool")),
+        ("dist.spec-rank", mutate("k", spec=P(*([None] * (rank + 1))))),
+        ("dist.mesh-axis", mutate("k", spec=P("pod"))),
+        # lengths replicated while the KV slot dims shard over "data"
+        ("dist.serve-slot-axis", mutate("length", spec=P(None))),
+    ]
+    for want, mutant in mutants:
+        got = verify.check_decode_plan(mutant)
+        if not any(f.invariant == want and f.severity == "error"
+                   for f in got):
+            fs.append(verify.Finding(
+                want, "error", "serve-dist/selftest-mutant",
+                f"seeded {want} mutant was not caught"))
+            continue
+        try:
+            verify.enforce(got, "strict", subject="serve-dist selftest")
+        except verify.VerifyError:
+            pass
+        else:
+            fs.append(verify.Finding(
+                want, "error", "serve-dist/selftest-mutant",
+                f"strict mode did not raise on the seeded {want} mutant"))
+    return fs
+
+
 def lint_arch(arch: str, device: resource.DeviceSpec,
               rows: int = _ROWS) -> list[verify.Finding]:
     if arch == "serve-dist":
-        raise NotImplementedError(
-            "--arch serve-dist: the serving partition's dist.serve-* "
-            "self-test comes with mesh serving (ROADMAP.md, queue 1, "
-            "item 6c)")
+        return lint_serve_dist()
     if arch == "dist-partition":
         return lint_dist_selftest(device)
     if arch == "brainslug-cnn":
@@ -321,7 +389,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     archs = args.arch or [*ARCH_IDS, "brainslug-cnn", "paged-kv",
-                          "dist-partition"]
+                          *MESH_ARCHS]
     device = _DEVICES[args.device]
 
     report: dict = {"device": device.name, "archs": {}}
@@ -329,8 +397,6 @@ def main(argv=None) -> int:
     for arch in archs:
         try:
             findings = lint_arch(arch, device, args.rows)
-        except NotImplementedError:
-            raise
         except Exception as e:  # noqa: BLE001 (record and continue)
             findings = [verify.Finding(
                 "graph.shape-mismatch", "error", arch,

@@ -40,11 +40,13 @@ prefill, decode and the training loss.
 
 * Logical axes (:func:`param_axes`, ``init(..., with_axes=True)``): the
   JAX package's sharding annotations of every leaf, for
-  :mod:`repro_torch.distributed.sharding`.  Inside the sharded train
-  step's tensor-parallel region (``rt.tp_axis``) an attention layer whose
-  projections hold a slice of the heads runs :func:`tp_local_config`'s
-  head counts, and an MLP holding a slice of its ``d_ff`` columns runs on
-  them; every other layer computes whole.
+  :mod:`repro_torch.distributed.sharding`.  Inside a tensor-parallel
+  region (``rt.tp_axis``: the sharded train step's, and the mesh engine's
+  ``decode_step``) an attention layer whose projections hold a slice of
+  the heads runs :func:`tp_local_config`'s head counts, and an MLP
+  holding a slice of its ``d_ff`` columns runs on them; every other layer
+  computes whole.  The engine's slice is :func:`tp_shard_params`'s
+  (attention only, as the JAX package's serving splits).
 
 Plain twins for the traced frontend (:func:`repro_torch.api.optimize`):
 :func:`transformer_block_fn` and :func:`ce_loss_fn`, ordinary tensor code
@@ -552,7 +554,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                          f"allowed: 'dense' | 'paged'")
     if kv_layout == "paged" and kv_num_blocks < 1:
         raise ValueError("paged kv_layout requires kv_num_blocks >= 1")
-    dev = base.device(device)
+    # "meta": shapes only, as the JAX package's eval_shape of this function
+    dev = (torch.device("meta") if str(device) == "meta"
+           else base.device(device))
 
     def sub_cache(kind: str, n: int):
         if kind == "mamba":
@@ -727,6 +731,26 @@ def tp_param_specs(params: Any, model_extent: int) -> Any:
     return walk(params, False, "")
 
 
+def tp_shard_params(params: dict, model_extent: int, index: int) -> dict:
+    """Model rank ``index``'s slice of the whole ``params`` under
+    :func:`tp_param_specs`: each leaf split over "model" narrowed to the
+    rank's contiguous block of that dim (a copy), every other leaf the
+    whole tensor itself (no copy)."""
+    if not 0 <= index < model_extent:
+        raise ValueError(f"model rank {index} outside 0..{model_extent - 1}")
+
+    def walk(node: Any, spec: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if "model" not in spec:
+            return node
+        dim = spec.index("model")
+        size = node.shape[dim] // model_extent
+        return node.narrow(dim, index * size, size).contiguous()
+
+    return walk(params, tp_param_specs(params, model_extent))
+
+
 def decode_step(params: dict, cache: dict, tokens_t: torch.Tensor,
                 cfg: ModelConfig, rt: RuntimeConfig,
                 active: torch.Tensor | None = None,
@@ -783,20 +807,22 @@ def _decode_sub(kind: str, p: dict | None, layer_cache: Any,
     h1, resid = stacks.add_norm(pending, resid, p["norm1"]["scale"],
                                 p["norm1"].get("bias"), **norm_kw)
     if kind == "mamba":
-        out, _ = mamba2.decode(p["mixer"], h1, layer_cache, cfg, rt,
+        out, _ = mamba2.decode(p["mixer"], h1, layer_cache, cfg, _whole(rt),
                                active=active)
         return resid, out
-    attn_out, _ = attention.decode(p["attn"], h1, layer_cache, cfg, rt,
-                                   active=active, block_table=block_tables,
+    attn_cfg, attn_rt = _tp_attention(p["attn"], cfg, rt)
+    attn_out, _ = attention.decode(p["attn"], h1, layer_cache, attn_cfg,
+                                   attn_rt, active=active,
+                                   block_table=block_tables,
                                    max_keys=max_keys)
     h2, resid = stacks.add_norm(attn_out, resid, p["norm2"]["scale"],
                                 p["norm2"].get("bias"), **norm_kw)
     if "moe" in p:
         # serving is dropless: dropping a live request's token to a
         # capacity limit is a training-only trade-off
-        return resid, moe.apply(p["moe"], h2, cfg, rt, dropless=True,
+        return resid, moe.apply(p["moe"], h2, cfg, _whole(rt), dropless=True,
                                 with_aux=False)[0]
-    return resid, dense.apply(p["mlp"], h2, cfg, rt)
+    return resid, dense.apply(p["mlp"], h2, cfg, _tp_mlp(p["mlp"], cfg, rt))
 
 
 # ---------------------------------------------------------------------------

@@ -221,9 +221,30 @@ def test_report_and_the_parts_left_to_later_slices(servers):
     eng.run([tengine.Request(request_id=0, prompt=[3], max_new_tokens=2)])
     assert eng.report()["decode_path"] == "ref-decode"
     assert "brainslug" in eng.report()["decode_fallback"]
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        tengine.Engine(ts.cfg, ts.params, ts.rt, slots=2, max_len=8,
-                       mesh=object())
+    # Engine(mesh=...) on a mesh of one rank, (data 1, model 1): no split
+    # engages, and tokens, plan and report are the JAX mesh engine's on a
+    # one-device mesh (tests/test_torch_serve_mesh.py holds the splits)
+    from jax.sharding import Mesh as JMesh
+
+    from repro_torch.launch import mesh as tmesh
+    js, tx = servers["xla"]
+    jmesh = JMesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                  ("data", "model"))
+    one = tmesh.Mesh(axis_names=("data", "model"), shape=(1, 1),
+                     device=torch.device("cpu"), backend="gloo",
+                     reason="one rank", groups={},
+                     coords={"data": 0, "model": 0})
+    reqs = _shared_prefix_queue(tx.cfg.vocab_size, n=5, seed=2)
+    je = js.engine(slots=2, prefill_chunk=3, mesh=jmesh)
+    te = tx.engine(slots=2, prefill_chunk=3, mesh=one)
+    for a, b in zip(je.run([jengine.Request(**r) for r in reqs]),
+                    te.run([tengine.Request(**r) for r in reqs])):
+        np.testing.assert_array_equal(b.tokens, a.tokens)
+    jrep, trep = je.report(), te.report()
+    assert trep["mesh_axes"] == jrep["mesh_axes"] == {"data": 1, "model": 1}
+    assert trep["serve_partition"] == jrep["serve_partition"] == {
+        "partition": "both", "data": False, "model": False, "notes": []}
+    assert te.local_slots == 2 and te.local_cfg == tx.cfg
 
 
 def test_engine_validation_matches_jax(servers):

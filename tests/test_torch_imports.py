@@ -45,7 +45,7 @@ def test_port_modules_import_neither_jax_nor_repro():
                  "kernels.attention.ops", "layers.base", "layers.dense",
                  "layers.attention", "models.lm", "core.scheduler",
                  "launch.serve", "core.verify", "launch.engine",
-                 "examples.serve_batch", "lint"):
+                 "examples.serve_batch", "examples.serve_stream", "lint"):
         assert f"repro_torch.{name}" in result["modules"]
     assert result["bad"] == []
 

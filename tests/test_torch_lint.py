@@ -58,17 +58,13 @@ def test_main_exit_status_and_report(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch", lint.MESH_ARCHS)
 def test_mesh_self_tests_wait_for_the_multi_device_slice(arch):
-    """``dist-partition`` is ported: clean on the H100 and, on the tiny
-    device, the same status and invariants as ``repro.lint``.  Only the
-    serving partition's self-test still waits (item 6c)."""
-    if arch == "dist-partition":
-        assert lint.lint_arch(arch, resource.H100) == []
-        assert lint.main(["--arch", arch]) == 0
-        got = lint.lint_arch(arch, resource.TINY_DEVICE)
-        want = jlint.lint_arch(arch, jresource.TINY_DEVICE)
-        assert _status(got) == _status(want) == "clean"
-        return
-    with pytest.raises(NotImplementedError, match="queue 1, item 6c"):
-        lint.lint_arch(arch, resource.H100)
-    with pytest.raises(NotImplementedError):
-        lint.main(["--arch", arch])
+    """Both mesh self-tests are ported (``dist-partition``, and
+    ``serve-dist``, the serving decode-cache partition's): clean on the
+    H100 and, on the tiny device, the same status and findings as
+    ``repro.lint``."""
+    assert lint.lint_arch(arch, resource.H100) == []
+    assert lint.main(["--arch", arch]) == 0
+    got = lint.lint_arch(arch, resource.TINY_DEVICE)
+    want = jlint.lint_arch(arch, jresource.TINY_DEVICE)
+    assert _status(got) == _status(want) == "clean"
+    assert got == want == []

@@ -2,10 +2,12 @@
 against the JAX package's, on the CPU, with the JAX weights carried across
 by ``convert.lm_params_from_numpy``.
 
-At ``deepseek-7b`` and ``qwen2.5-14b`` ``reduced()`` (float32; the latter
-has GQA and qkv bias), in all three modes, ``lm.forward``, ``lm.prefill``
+At ``deepseek-7b``, ``qwen2.5-14b``, ``minitron-8b`` and ``qwen2.5-32b``
+``reduced()`` (float32; the qwens have GQA and qkv bias, minitron a plain
+squared-relu MLP), in all three modes, ``lm.forward``, ``lm.prefill``
 and five ``lm.decode_step`` calls agree with the JAX package within 2e-4 of
-max|logit| (float32 products summed in another order, through 4 layers).
+max|logit| (float32 products summed in another order, through 4 layers),
+and ``lm.loss_fn`` within 2e-4 of the loss.
 JAX runs its Pallas kernels in interpret mode; the port runs the kernels'
 plain versions.  JAX results are computed once per module."""
 from __future__ import annotations
@@ -30,7 +32,7 @@ from repro_torch.layers import attention as tattn
 from repro_torch.layers import base as tbase
 from repro_torch.models import lm as tlm
 
-ARCHS = ("deepseek-7b", "qwen2.5-14b")
+ARCHS = ("deepseek-7b", "qwen2.5-14b", "minitron-8b", "qwen2.5-32b")
 MODES = ("brainslug", "xla", "barrier")
 REL = 2e-4
 B, S, STEPS = 2, 12, 5
@@ -59,6 +61,9 @@ def models():
         tokens = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
         steps = rng.integers(0, jcfg.vocab_size, (STEPS, B, 1)).astype(
             np.int32)
+        labels = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
+        labels[0, -3:] = -1                         # masked positions
+        labelled = {"tokens": tokens, "labels": labels}
         res = {}
         for mode in MODES:
             rt = JRuntime(mode=mode, interpret=True)
@@ -73,7 +78,11 @@ def models():
             for t in steps:
                 lo, cache = dec(jparams, cache, jnp.asarray(t))
                 dlogits.append(np.asarray(lo))
+            loss = jax.jit(lambda p, b, rt=rt, c=jcfg: jlm.loss_fn(
+                p, b, c, rt)[0])
             res[mode] = dict(
+                loss=float(loss(jparams, {k: jnp.asarray(v) for k, v in
+                                          labelled.items()})),
                 forward=np.asarray(fwd(jparams, jnp.asarray(tokens))),
                 prefill=np.asarray(pre(jparams, jnp.asarray(tokens))),
                 decode=dlogits,
@@ -81,7 +90,8 @@ def models():
         out[arch] = dict(tcfg=tcfg, jcfg=jcfg, np_params=np_params,
                          tparams=convert.lm_params_from_numpy(np_params,
                                                               "cpu"),
-                         tokens=tokens, steps=steps, res=res)
+                         tokens=tokens, steps=steps, labelled=labelled,
+                         res=res)
     return out
 
 
@@ -96,6 +106,18 @@ def test_forward_and_prefill_match_jax(models, arch, mode):
     assert float(aux["router_aux_loss"]) == 0.0
     _assert_logits(tlm.prefill(m["tparams"], batch, m["tcfg"], rt),
                    m["res"][mode]["prefill"], f"{arch} {mode} prefill")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("mode", MODES)
+def test_loss_matches_jax(models, arch, mode):
+    """``lm.loss_fn`` (the fused CE kernel's plain version in
+    ``brainslug``) on labels with masked positions."""
+    m = models[arch]
+    batch = {k: torch.from_numpy(v).long() for k, v in m["labelled"].items()}
+    loss, _ = tlm.loss_fn(m["tparams"], batch, m["tcfg"], TRuntime(mode=mode))
+    np.testing.assert_allclose(float(loss), m["res"][mode]["loss"],
+                               rtol=REL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

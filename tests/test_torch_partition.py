@@ -321,13 +321,15 @@ def test_kernel_fence_and_vmem_refit_are_caught():
 
 
 def test_dist_invariants_are_listed():
-    """The four training-side dist.* rows, each naming a port file; the
-    serving rows wait with mesh serving."""
+    """The four training-side dist.* rows and the two serving rows (mesh
+    serving's), each naming a port file, as the JAX package lists them."""
     for code in ("dist.spec-rank", "dist.mesh-axis", "dist.vmem-refit",
-                 "dist.collective-placement"):
+                 "dist.collective-placement", "dist.serve-slot-axis",
+                 "dist.serve-pool-write"):
         assert code in jverify.INVARIANTS
         assert tverify.INVARIANTS[code][0].startswith("src/repro_torch/")
-    assert not [c for c in tverify.INVARIANTS if c.startswith("dist.serve")]
+    assert sorted(c for c in tverify.INVARIANTS if c.startswith("dist.")) \
+        == sorted(c for c in jverify.INVARIANTS if c.startswith("dist."))
 
 
 class TestOptimizeConfigValidation:

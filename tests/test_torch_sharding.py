@@ -163,17 +163,38 @@ def test_cache_spec_matches_jax(case):
 
 
 def test_cache_spec_walks_the_ports_cache_dataclasses():
-    """The port's caches declare no ``CACHE_AXES`` (ROADMAP 6c): their
-    fields take the shape heuristics."""
+    """The port's caches declare ``CACHE_AXES`` as the JAX package's do:
+    ``cache_spec`` takes their declared path, field for field equal to
+    JAX's on the same decode caches (dense and paged qwen2.5-32b, whose 8
+    KV heads divide a model axis of 8 and not one of 16, and mamba2's
+    conv window and SSM state)."""
     import torch
 
-    from repro_torch.layers import attention
-    cache = attention.KVCache(k=torch.empty((2, 4, 8, 2048, 16)),
-                              v=torch.empty((2, 4, 8, 2048, 16)),
-                              length=torch.empty((2, 4)))
-    got = shd.cache_spec({"blocks": {"sub0": cache}}, MESH)["blocks"]["sub0"]
-    assert isinstance(got, attention.KVCache)
-    assert got.k == P(None, "data", None, "model", None)
+    from repro_torch.layers import attention, mamba2
+    mesh8 = _FakeMesh({"data": 4, "model": 8})
+    cases = [("qwen2.5-32b", {}), ("mamba2-2.7b", {}),
+             ("qwen2.5-32b", dict(kv_layout="paged", kv_num_blocks=16,
+                                  kv_block_size=16))]
+    for arch, kw in cases:
+        tcfg = tconfigs.get_config(arch)
+        jcfg = jconfigs.get_config(arch)
+        cache = lm.init_decode_cache(tcfg, 8, 64, dtype=torch.float32,
+                                     device="meta", **kw)
+        jcache = jax.eval_shape(lambda: jlm.init_decode_cache(
+            jcfg, 8, 64, dtype=jnp.float32, **kw))
+        for mesh in (MESH, mesh8):
+            got = shd.cache_spec(cache, mesh)["blocks"]["sub0"]
+            want = jshd.cache_spec(jcache, mesh)["blocks"]["sub0"]
+            assert type(got).__name__ == type(want).__name__
+            assert isinstance(got, (attention.KVCache,
+                                    attention.PagedKVCache,
+                                    mamba2.MambaCache))
+            for f in type(got).CACHE_AXES:
+                assert _same(getattr(got, f), getattr(want, f)), (arch, f)
+    got = shd.cache_spec(lm.init_decode_cache(
+        tconfigs.get_config("qwen2.5-32b"), 8, 64, device="meta"),
+        mesh8)["blocks"]["sub0"]
+    assert got.k == P(None, "data", "model", None, None)
     assert got.length == P(None, "data")
 
 

@@ -434,12 +434,13 @@ def test_vgg_graph_matches_jax(differentiable):
 
 
 def test_invariant_ids_match_jax():
-    """Every invariant of the JAX package's verifier has its row here, but
-    the serving partition family (``dist.serve-*``, mesh serving's); the
-    port adds ``grid.coverage``."""
-    want = {k for k in jverify.INVARIANTS
-            if not k.startswith("dist.serve-")}
-    assert set(verify.INVARIANTS) == want | {"grid.coverage"}
+    """Every invariant of the JAX package's verifier has its row here, the
+    serving partition family (``dist.serve-*``) included; the port adds
+    ``grid.coverage``."""
+    assert set(verify.INVARIANTS) == set(jverify.INVARIANTS) | {
+        "grid.coverage"}
+    assert {k for k in verify.INVARIANTS if k.startswith("dist.serve-")} \
+        == {"dist.serve-slot-axis", "dist.serve-pool-write"}
     for k, (source, _) in verify.INVARIANTS.items():
         assert source.startswith("src/repro_torch/"), k
 
